@@ -1,0 +1,419 @@
+"""Scene builder: the input-script surface as a Python API (PyTorch).
+
+Port of the part of ``sph_bvf_tpu/api/scene.py`` that the lid-driven
+cavity uses: block regions with union/subtract/complement, lattice
+filling, groups, per-atom setters, pair/integrator/fix selection and
+``build``.  Scene state is host-side numpy; ``build(device=...)`` bins
+everything into the cell-slot ``State`` on that device and assembles the
+static ``ModelSpec``.
+
+Lattice filling follows create_atoms (create_atoms.cpp:362-364): sites at
+``(i + origin) * a`` per axis, kept when inside both the target region and
+the simulation box; region containment is inclusive like Region::match.
+
+Not ported yet: sphere/circle/cylinder/cone/plane/prism regions,
+``delete_atoms``, ``set_type``, ``group_type``, SSA configs and load
+balancing (``balance``/``fix_balance``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sph_bvf_tpu_torch.core.integrate import IntegratorConfig
+from sph_bvf_tpu_torch.core.state import (
+    GROUP_ALL,
+    Geometry,
+    Params,
+    scatter_by_tag,
+    state_from_particles,
+)
+from sph_bvf_tpu_torch.core.stepper import ModelSpec
+from sph_bvf_tpu_torch.ops.eos import tait_b
+from sph_bvf_tpu_torch.ops.pair import PairConfig
+
+
+# ---------------------------------------------------------------------------
+# Regions (region_block.cpp, region_union.cpp ...)
+# ---------------------------------------------------------------------------
+
+
+class Region:
+    def contains(self, x: np.ndarray) -> np.ndarray:  # [n, 3] -> [n] bool
+        raise NotImplementedError
+
+    # set algebra, like region union/intersect/subtract
+    def __or__(self, other):
+        return _Combine(np.logical_or, self, other)
+
+    def __and__(self, other):
+        return _Combine(np.logical_and, self, other)
+
+    def __sub__(self, other):
+        return _Combine(lambda a, b: a & ~b, self, other)
+
+    def __invert__(self):
+        return _Not(self)
+
+    @staticmethod
+    def block(xlo=-np.inf, xhi=np.inf, ylo=-np.inf, yhi=np.inf,
+              zlo=-np.inf, zhi=np.inf):
+        return _Block((xlo, ylo, zlo), (xhi, yhi, zhi))
+
+
+@dataclasses.dataclass
+class _Block(Region):
+    lo: Tuple[float, float, float]
+    hi: Tuple[float, float, float]
+
+    def contains(self, x):
+        lo = np.asarray(self.lo)
+        hi = np.asarray(self.hi)
+        return np.all((x >= lo) & (x <= hi), axis=-1)
+
+
+@dataclasses.dataclass
+class _Combine(Region):
+    op: object
+    a: Region
+    b: Region
+
+    def contains(self, x):
+        return self.op(self.a.contains(x), self.b.contains(x))
+
+
+@dataclasses.dataclass
+class _Not(Region):
+    a: Region
+
+    def contains(self, x):
+        return ~self.a.contains(x)
+
+
+# ---------------------------------------------------------------------------
+# Scene
+# ---------------------------------------------------------------------------
+
+
+class Scene:
+    def __init__(
+        self,
+        dim: int = 2,
+        n_sdpd: int = 0,
+        n_ssa: int = 0,
+        n_rxn: int = 0,
+        boundary: Tuple[str, str, str] = ("f", "f", "p"),
+        dtype=torch.float32,
+        seed: int = 0,
+    ):
+        self.dim = dim
+        self.n_sdpd = n_sdpd
+        self.n_ssa = n_ssa
+        self.n_rxn = n_rxn
+        self.periodic = tuple(b == "p" for b in boundary)
+        self.dtype = dtype
+        self.seed = seed
+
+        self.box_lo = None
+        self.box_hi = None
+        self.ntypes = 0
+        self._lattice = None  # (spacing, origin)
+        self._x: List[np.ndarray] = []
+        self._type: List[int] = []
+        self._groups: Dict[str, int] = {"all": GROUP_ALL}
+        self._next_groupbit = 2
+        self._groupmask: List[int] = []
+        self._masses: Dict[int, float] = {}
+        self._per_atom: Dict[str, np.ndarray] = {}
+        self._pair_variant = None
+        self._pair_kwargs = {}
+        self._coeff = {}
+        self._integ: Optional[IntegratorConfig] = None
+        self._fixes: List[object] = []
+        self._dt = None
+        self.rebin_every = 10
+        self.cap: Optional[int] = None
+        self.margin_frac = 0.25
+        # lattice-aligned cell sizing (see Geometry.build quantum)
+        self.align_cells = True
+        # round the x cell count to a multiple (for even sharding)
+        self.ncx_multiple_of = 1
+
+    # -- domain -------------------------------------------------------------
+    def create_box(self, ntypes: int, region: _Block):
+        self.ntypes = ntypes
+        self.box_lo = tuple(region.lo)
+        self.box_hi = tuple(region.hi)
+        return self
+
+    def lattice(self, style: str, spacing: float, origin=(0.5, 0.5, 0.0)):
+        if style not in ("sq", "sc"):
+            raise ValueError("square/simple-cubic lattices supported")
+        self._lattice = (float(spacing), tuple(origin))
+        return self
+
+    def _lattice_sites(self) -> np.ndarray:
+        a, origin = self._lattice
+        lo, hi = np.asarray(self.box_lo), np.asarray(self.box_hi)
+        axes = []
+        for ax in range(3):
+            if ax >= self.dim:
+                axes.append(np.array([0.0]))
+                continue
+            i0 = int(np.floor((lo[ax]) / a - origin[ax])) - 1
+            i1 = int(np.ceil((hi[ax]) / a - origin[ax])) + 1
+            coords = (np.arange(i0, i1 + 1) + origin[ax]) * a
+            coords = coords[(coords >= lo[ax]) & (coords <= hi[ax])]
+            axes.append(coords)
+        g = np.meshgrid(*axes, indexing="ij")
+        return np.stack([c.ravel() for c in g], axis=-1)
+
+    # -- atoms --------------------------------------------------------------
+    def _current_x(self) -> np.ndarray:
+        if not self._x:
+            return np.zeros((0, 3))
+        return np.asarray(self._x)
+
+    def create_atoms(self, ptype: int, region: Region):
+        sites = self._lattice_sites()
+        keep = region.contains(sites)
+        for p in sites[keep]:
+            self._x.append(p)
+            self._type.append(ptype - 1)  # 1-indexed like LAMMPS
+            self._groupmask.append(GROUP_ALL)
+        return self
+
+    # -- groups -------------------------------------------------------------
+    def _groupbit(self, name: str) -> int:
+        if name not in self._groups:
+            self._groups[name] = self._next_groupbit
+            self._next_groupbit <<= 1
+        return self._groups[name]
+
+    def group_region(self, name: str, region: Region):
+        bit = self._groupbit(name)
+        x = self._current_x()
+        sel = region.contains(x)
+        for i in np.nonzero(sel)[0]:
+            self._groupmask[i] |= bit
+        return self
+
+    def group_expr(self, name: str, members: np.ndarray):
+        """Assign a group from a boolean per-atom mask (group subtract etc.)."""
+        bit = self._groupbit(name)
+        for i in np.nonzero(members)[0]:
+            self._groupmask[i] |= bit
+        return self
+
+    def in_group(self, name: str) -> np.ndarray:
+        bit = self._groups[name]
+        return (np.asarray(self._groupmask) & bit) != 0
+
+    def groupbit(self, name: str) -> int:
+        return self._groups[name]
+
+    # -- per-atom setters (set.cpp:547-613 ssa keywords) ---------------------
+    def _ensure(self, key, default, shape=()):
+        n = len(self._x)
+        if key not in self._per_atom or self._per_atom[key].shape[0] != n:
+            old = self._per_atom.get(key)
+            arr = np.full((n,) + shape, default, dtype=float)
+            if old is not None:
+                arr[: old.shape[0]] = old
+            self._per_atom[key] = arr
+        return self._per_atom[key]
+
+    def set(self, group: str, *, rho=None, e=None, C=None, Cd=None,
+            solid_tag=None, fixed=None):
+        sel = self.in_group(group)
+        if rho is not None:
+            self._ensure("rho", 1.0)[sel] = rho
+        if e is not None:
+            self._ensure("e", 0.0)[sel] = e
+        if C is not None:
+            k, val = C
+            self._ensure("C", 0.0, (self.n_sdpd,))[sel, k] = val
+        if Cd is not None:
+            k, val = Cd
+            self._ensure("Cd", 0.0, (self.n_ssa,))[sel, k] = val
+        if solid_tag is not None:
+            self._ensure("solid_tag", 0.0)[sel] = solid_tag
+        if fixed is not None:
+            self._ensure("fixed_tag", 0.0)[sel] = 1.0 if fixed else 0.0
+        return self
+
+    def velocity(self, group: str, vx=0.0, vy=0.0, vz=0.0):
+        sel = self.in_group(group)
+        v = self._ensure("v", 0.0, (3,))
+        v[sel] = (vx, vy, vz)
+        return self
+
+    def mass(self, ptype: int, m: float):
+        self._masses[ptype - 1] = m
+        return self
+
+    # -- physics ------------------------------------------------------------
+    def pair_style(self, variant: str, **kwargs):
+        self._pair_variant = variant
+        self._pair_kwargs = kwargs
+        return self
+
+    def pair_coeff(self, i: int, j: int, rho0, c0, eta, h, cutc, G0,
+                   kappa=(), kappa_ssa=()):
+        """pair_coeff i j rho0 c0 eta h cutc G0 kappa... kappaSSA...
+        (pair_ssa_tsdpd_bvf_transport_velocity.cpp:967-1026)."""
+        self._coeff[(i - 1, j - 1)] = dict(
+            rho0=rho0, c0=c0, eta=eta, h=h, cutc=cutc, G0=G0,
+            kappa=tuple(kappa), kappa_ssa=tuple(kappa_ssa),
+        )
+        return self
+
+    def integrator(self, variant: str, **kwargs):
+        self._integ = getattr(IntegratorConfig, variant)(**kwargs)
+        return self
+
+    def fix(self, obj):
+        self._fixes.append(obj)
+        return self
+
+    def timestep(self, dt: float):
+        self._dt = dt
+        return self
+
+    # -- build --------------------------------------------------------------
+    def _build_params(self) -> dict:
+        """The Params tables as f32 numpy arrays (host side); ``build``
+        makes the tensors once, on the target device."""
+        T = self.ntypes
+        f = np.float32
+        mass = np.zeros(T, f)
+        for t, m in self._masses.items():
+            mass[t] = m
+        rho0 = np.ones(T, f)
+        c0 = np.ones(T, f)
+        G0 = np.zeros(T, f)
+        cut = np.zeros((T, T), f)
+        cutc = np.zeros((T, T), f)
+        visc = np.zeros((T, T), f)
+        kappa = np.zeros((T, T, self.n_sdpd), f)
+        kappa_ssa = np.zeros((T, T, self.n_ssa), f)
+        for (i, j), c in self._coeff.items():
+            rho0[i] = c["rho0"]
+            c0[i] = c["c0"]
+            G0[i] = c["G0"]
+            for a, b in ((i, j), (j, i)):
+                cut[a, b] = c["h"]
+                cutc[a, b] = c["cutc"]
+                visc[a, b] = c["eta"]
+                if self.n_sdpd:
+                    kappa[a, b] = c["kappa"]
+                if self.n_ssa:
+                    kappa_ssa[a, b] = c["kappa_ssa"]
+        return dict(mass=mass, rho0=rho0, c0=c0, B=tait_b(c0, rho0), G0=G0,
+                    cut=cut, cutc=cutc, visc=visc, kappa=kappa,
+                    kappa_ssa=kappa_ssa)
+
+    def build(self, device="cpu"):
+        """-> (state, params, spec), the state and params on ``device``."""
+        if self._dt is None:
+            raise ValueError("call timestep(dt) before build()")
+        pnp = self._build_params()
+        params = Params(**{k: torch.as_tensor(v, device=device)
+                           for k, v in pnp.items()})
+        cutoff = float(np.max(pnp["cut"]))
+        x = self._current_x()
+        n = x.shape[0]
+
+        # choose cell capacity from the densest initial cell, with slack
+        margin = self.margin_frac * cutoff
+        quantum = (
+            self._lattice[0]
+            if (self.align_cells and self._lattice is not None)
+            else 0.0
+        )
+        geom_probe = Geometry.build(
+            self.dim, self.box_lo, self.box_hi, cutoff,
+            cap=1, periodic=self.periodic, margin=margin,
+            multiple_of=(self.ncx_multiple_of, 1, 1), quantum=quantum,
+        )
+        cell_sz = np.asarray(geom_probe.cell_size)
+        lo = np.asarray(self.box_lo)
+        idx = np.floor((x - lo) / cell_sz).astype(int)
+        nc = np.asarray(geom_probe.ncells)
+        idx = np.clip(idx, 0, nc - 1)
+        flat = (idx[:, 0] * nc[1] + idx[:, 1]) * nc[2] + idx[:, 2]
+        dens = np.bincount(flat).max() if n else 1
+        cap = self.cap or int(np.ceil(dens * 1.3)) + 2
+        geom = dataclasses.replace(geom_probe, cap=cap)
+
+        state = state_from_particles(
+            geom, x, np.asarray(self._type), n_sdpd=self.n_sdpd,
+            n_ssa=self.n_ssa, dtype=self.dtype, seed=self.seed, device=device,
+        )
+        if int(state.overflow):
+            raise RuntimeError("initial binning overflow; raise Scene.cap")
+
+        # scatter per-atom fields through the tag permutation
+        pa = self._per_atom
+        host = dict(groupmask=np.asarray(self._groupmask, np.int32))
+        for name in ("rho", "e", "C", "Cd", "solid_tag", "fixed_tag", "v"):
+            if name in pa:
+                host[name] = pa[name]
+        state = scatter_by_tag(state, **host)
+        if "rho" in pa:
+            rho = torch.where(state.valid, state.rho, 1.0)
+            state = dataclasses.replace(state, rho=rho, rhoI=rho)
+
+        sol = np.asarray(pa.get("solid_tag", np.zeros(1))) != 0
+        fx = np.asarray(pa.get("fixed_tag", np.zeros(1))) != 0
+        if fx.shape != sol.shape:
+            fx = np.zeros(sol.shape, bool)
+        solids = bool(np.any(sol))
+        # force on a FIXED solid is never integrated: if every solid is
+        # fixed the solid force branch is statically dead
+        free_solids = bool(np.any(sol & ~fx))
+        elastic = bool(np.any(pnp["G0"] > 0))
+        integ = self._integ or getattr(IntegratorConfig, self._pair_variant)()
+        pair_kwargs = dict(self._pair_kwargs)
+        # sweep 3 (vws/aws) is consumed only by the plain-bvf-family and
+        # zhang integrators' moving-wall reflections
+        pair_kwargs.setdefault(
+            "weighted_solid",
+            integ.variant in ("bvf", "artificial_stress", "zhang"),
+        )
+        pair_kwargs.setdefault("free_solids_present", free_solids)
+        # Shepard-filter accumulators only for integrators that filter; the
+        # stepper gates them per step (run_chunk's phase)
+        pair_kwargs.setdefault("density_filter_accs", integ.reads_rhoaux())
+        # coefficient tables whose entries are all equal (a derived table is
+        # uniform iff its source pair_coeff array is)
+        ptp0 = lambda a: float(np.ptp(a)) == 0.0
+        uniform = []
+        for names, arr in (
+            (("h", "inv_h", "inv_wdelta"), pnp["cut"]),
+            (("eta",), pnp["visc"]),
+            (("hc", "inv_hc"), pnp["cutc"]),
+            (("m_harm",), pnp["mass"]),
+            (("geff",), pnp["G0"]),
+        ):
+            if ptp0(arr):
+                uniform.extend(names)
+        pair_kwargs.setdefault("uniform_tables", tuple(sorted(uniform)))
+        pair_cfg = getattr(PairConfig, self._pair_variant)(
+            dim=self.dim,
+            solids_present=solids,
+            elastic_present=elastic,
+            **pair_kwargs,
+        )
+        spec = ModelSpec(
+            geom=geom,
+            pair=pair_cfg,
+            integ=integ,
+            fixes=tuple(self._fixes),
+            rebin_every=self.rebin_every,
+        )
+        return state, params, spec

@@ -1,0 +1,46 @@
+"""Cell-grid geometry helpers shared with the JAX package's halo module.
+
+Only the geometry half of ``sph_bvf_tpu/core/halo.py`` is ported.  The CUDA
+kernels index neighbour cells directly with bounds masks on each axis, so
+the padded halo buffers the TPU kernels stream through (``assemble_padded``,
+``add_ghosts``) have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+
+def ghost_axes(geom) -> Tuple[int, ...]:
+    """Inner axes (y=1, z=2) that need ghost columns: periodic, multi-cell."""
+    return tuple(
+        ax for ax in (1, 2) if geom.periodic[ax] and geom.ncells[ax] > 1
+    )
+
+
+def ghosted_ncells(geom) -> Tuple[int, int, int]:
+    ga = ghost_axes(geom)
+    nx, ny, nz = geom.ncells
+    return (nx, ny + 2 * (1 in ga), nz + 2 * (2 in ga))
+
+
+def ghosted_strides(geom) -> Tuple[int, int, int]:
+    nx, ny, nz = ghosted_ncells(geom)
+    return (ny * nz, nz, 1)
+
+
+def wrap_x(geom) -> bool:
+    """Leading-axis wrap needed: periodic x with more than one cell."""
+    return bool(geom.periodic[0]) and geom.ncells[0] > 1
+
+
+def periodic_multicell(geom) -> bool:
+    """Any periodic axis with more than one cell (an x wrap or ghost
+    columns): the grids the port's kernels do not serve yet."""
+    return wrap_x(geom) or bool(ghost_axes(geom))
+
+
+def max_flat_offset(geom) -> int:
+    """Largest |flat offset| of any stencil step, on the ghosted grid."""
+    st = ghosted_strides(geom)
+    return sum(s for s, n in zip(st, geom.ncells) if n > 1)

@@ -1,0 +1,176 @@
+"""The time-stepping loop (PyTorch).
+
+Port of ``sph_bvf_tpu/core/stepper.py``.  The stage order of one step is
+Verlet::run's (verlet.cpp:240-353):
+
+    step++ ; initial_integrate ; post_integrate fixes ; compute_forces ;
+    post_force fixes ; final_integrate ; end_of_step fixes
+
+and a chunk is a rebin followed by ``rebin_every`` steps.  JAX scans a
+chunk inside one compiled program; here a chunk is a Python loop of eager
+steps.  The density-filter cadence segmentation is kept exactly: steps off
+the cadence run with ``density_filter_accs=False`` (the pass-A kernel's
+variant without the Shepard accumulators).
+
+Not ported yet (raise when set): multi-device meshes, in-run load
+balancing and SSA species.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from sph_bvf_tpu_torch.core import fixes as fixes_mod
+from sph_bvf_tpu_torch.core.integrate import (
+    IntegratorConfig,
+    final_integrate,
+    initial_integrate,
+    setup_pre_force,
+)
+from sph_bvf_tpu_torch.core.state import (
+    Geometry,
+    Params,
+    State,
+    rebin,
+    rebin_droppable,
+)
+from sph_bvf_tpu_torch.ops.pair import PairConfig, compute_forces
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Static description of a simulation (the JAX package's fields)."""
+
+    geom: Geometry
+    pair: PairConfig
+    integ: IntegratorConfig
+    fixes: Tuple[Any, ...] = ()
+    ssa: Optional[Any] = None
+    rebin_every: int = 10
+    mesh: Optional[Any] = None
+    mesh_axis: str = "x"
+    balance: Optional[Any] = None
+
+
+def _check_ported(spec: ModelSpec):
+    for what, present in (("SSA species (spec.ssa)", spec.ssa),
+                          ("multi-device runs (spec.mesh)", spec.mesh),
+                          ("in-run load balancing (spec.balance)", spec.balance)):
+        if present is not None:
+            raise NotImplementedError(f"{what} is ported in a later PR")
+
+
+def step(state: State, params: Params, spec: ModelSpec) -> State:
+    """One full Verlet step."""
+    state = dataclasses.replace(state, step=state.step + 1)
+    state = initial_integrate(state, params, spec.integ)
+    state = fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.POST_INTEGRATE)
+    state = compute_forces(state, params, spec.geom, spec.pair)
+    state = fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.POST_FORCE)
+    state = final_integrate(state, params, spec.integ)
+    state = fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.END_OF_STEP)
+    return state
+
+
+def _rebin_drop(spec: ModelSpec) -> tuple:
+    return rebin_droppable(bool(getattr(spec.integ, "xsph_factor", 0.0)))
+
+
+def setup(state: State, params: Params, spec: ModelSpec, dt: float) -> State:
+    """Verlet::setup: bin, vest=v, initial force eval, post_force fixes."""
+    _check_ported(spec)
+    state = dataclasses.replace(
+        state, dt=torch.tensor(dt, dtype=state.x.dtype, device=state.x.device))
+    state = rebin(state, spec.geom, drop=_rebin_drop(spec))
+    state = setup_pre_force(state)
+    state = compute_forces(state, params, spec.geom, spec.pair)
+    return fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.POST_FORCE)
+
+
+def run_chunk(state: State, params: Params, spec: ModelSpec, n: int,
+              phase: Optional[int] = None) -> State:
+    """rebin + n steps.  ``phase``: the chunk's absolute starting step
+    modulo ``integ.freq_filter``; when given (and the integrator consumes
+    the Shepard filter) only the steps on the filter cadence accumulate
+    rhoAux1/rhoAux2.  ``None`` accumulates every step."""
+    _check_ported(spec)
+    state = rebin(state, spec.geom, drop=_rebin_drop(spec))
+    return scan_steps(state, params, spec, n, phase)
+
+
+def scan_steps(state: State, params: Params, spec: ModelSpec, n: int,
+               phase: Optional[int]) -> State:
+    """n steps, segmented at the density-filter cadence when ``phase`` is
+    given (see run_chunk)."""
+    freq = getattr(spec.integ, "freq_filter", 0)
+    gate = (
+        phase is not None
+        and spec.pair.density_filter_accs
+        and spec.integ.reads_rhoaux()
+    )
+    if not gate:
+        for _ in range(n):
+            state = step(state, params, spec)
+        return state
+
+    spec_ng = dataclasses.replace(
+        spec, pair=dataclasses.replace(spec.pair, density_filter_accs=False)
+    )
+    for j in range(1, n + 1):
+        on_cadence = (phase + j) % freq == 0
+        state = step(state, params, spec if on_cadence else spec_ng)
+    return state
+
+
+def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
+             callback=None, callback_every: Optional[int] = None):
+    """Host driver: run nsteps in chunks of ``rebin_every``, invoking
+    ``callback(state)`` every ``callback_every`` steps (default: one chunk).
+
+    Overflow and drift counters are read back every 10 chunks and at the
+    end; a nonzero count raises.
+    """
+    _check_ported(spec)
+    chunk = spec.rebin_every
+    cb_every = callback_every or chunk
+    if cb_every % chunk:
+        raise ValueError("callback_every must be a multiple of rebin_every")
+
+    def check(state):
+        overflow = int(state.overflow)
+        if overflow:
+            raise RuntimeError(
+                f"{overflow} particles exceeded cell capacity (lost atoms)"
+            )
+        drift = int(state.drift_violation)
+        if drift:
+            raise RuntimeError(
+                f"{drift} particles drifted past the cell margin between "
+                f"rebins — pair coverage may have been violated; lower "
+                f"rebin_every or raise Scene.margin_frac"
+            )
+
+    # absolute step offset (nonzero on a resume): the filter phase follows
+    # state.step, not the local step count
+    step0 = int(state.step)
+    done = 0
+    while done < nsteps:
+        n = min(chunk, nsteps - done)
+        freq = getattr(spec.integ, "freq_filter", 0)
+        phase = (
+            (step0 + done) % freq
+            if spec.integ.reads_rhoaux() and spec.pair.density_filter_accs
+            else None
+        )
+        state = run_chunk(state, params, spec, n, phase=phase)
+        done += n
+        if callback is not None and (done % cb_every == 0 or done >= nsteps):
+            callback(state)
+        # the counter readback costs a host round trip; amortize over chunks
+        # but always check at the end so nothing slips through
+        if done % (10 * chunk) == 0 or done >= nsteps:
+            check(state)
+    return state

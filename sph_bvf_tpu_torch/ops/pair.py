@@ -1,0 +1,430 @@
+"""SPH-BVF pair physics, plain PyTorch path (port of ``sph_bvf_tpu/ops/pair.py``).
+
+Full-neighbour (newton-off) reductions over the cell-slot layout: every
+particle sums its pair terms over the candidates of its 3^dim stencil cells,
+so no scatter-adds are needed.  Pair blocks are ``[ci, cj, NC]`` with
+components leading; reductions run over the cj axis.
+
+``compute_forces`` sends pass A through ``ops/pair_cuda.pass_a_2d``: the
+hand-written kernel on a CUDA tensor, the stencil loop below
+(``_pass_a_plain``) on a CPU tensor.  The loop is also the reference the
+kernel is checked against on the card.
+
+Ported: the branches the flagship lid-driven cavity runs — the
+transport-velocity pair style with the Sun-2018 pressure switch, BVF walls
+of fixed solids, the diagonal artificial stress of non-elastic solids, with
+and without the Shepard-filter accumulators.  Every other branch raises
+``NotImplementedError`` (see ``_unported``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from sph_bvf_tpu_torch.core.state import Geometry, Params, State, shift_cells
+from sph_bvf_tpu_torch.ops.eos import tait_pressure
+from sph_bvf_tpu_torch.ops.kernels import ipow, lucy_w, lucy_w_ih, lucy_wfd_ih
+
+TRANSPORT_VELOCITY = "transport_velocity"
+MECHANICS = "mechanics"
+FSI = "fsi"
+
+
+@dataclasses.dataclass(frozen=True)
+class PairConfig:
+    """Static physics-variant switches — every field of the JAX package's
+    ``PairConfig``, so a configuration copies across unchanged (see the JAX
+    module for the reference citation of each)."""
+
+    variant: str = TRANSPORT_VELOCITY
+    dim: int = 2
+    thermal: bool = False
+    pressure_switch: bool = True
+    xsph: bool = False
+    art_stress_coef: float = 0.35
+    art_stress_abs_p: bool = False
+    wdelta_ratio: float = 2.6
+    ampl_damp: float = 0.0
+    g0_chem_coupling: bool = False
+    species_advection: bool = True
+    store_pnew: bool = False
+    weighted_solid_skip_fixed: bool = False
+    weighted_solid: bool = True
+    # accepted and ignored: the port has no Pallas kernels to select
+    use_pallas: bool = True
+    solids_present: bool = True
+    elastic_present: bool = True
+    free_solids_present: bool = True
+    rng_seed: int = 0
+    ssa_poisson_terms: int = 6
+    ssa_kernel_split: bool = False
+    preshift_window: bool = False
+    # accumulate the Shepard-filter inputs rhoAux1/rhoAux2 this step?
+    # The stepper turns this off on the steps between filter events.
+    density_filter_accs: bool = True
+    # coefficient tables whose [T, T] entries are all equal (bit-exact
+    # scalar in place of the per-pair gather)
+    uniform_tables: tuple = ()
+
+    @staticmethod
+    def transport_velocity(dim=2, **kw):
+        return PairConfig(variant=TRANSPORT_VELOCITY, dim=dim, **kw)
+
+    @staticmethod
+    def mechanics(dim=2, **kw):
+        return PairConfig(
+            variant=MECHANICS, dim=dim, pressure_switch=False, xsph=True,
+            art_stress_abs_p=True, wdelta_ratio=3.0, species_advection=False,
+            store_pnew=True, weighted_solid_skip_fixed=True, **kw,
+        )
+
+    @staticmethod
+    def fsi(dim=2, **kw):
+        return PairConfig(
+            variant=FSI, dim=dim, pressure_switch=False, xsph=True,
+            art_stress_coef=0.1, wdelta_ratio=3.0, ampl_damp=0.1,
+            g0_chem_coupling=True, species_advection=False, store_pnew=True,
+            weighted_solid_skip_fixed=True, **kw,
+        )
+
+
+def _unported(params: Params, cfg: PairConfig) -> list:
+    """The pair branches this configuration needs that the port lacks."""
+    return [what for what, needed in (
+        ("thermal noise (thermal)", cfg.thermal),
+        ("the symmetric pressure force (pressure_switch=False)",
+         not cfg.pressure_switch),
+        ("XSPH (xsph)", cfg.xsph),
+        ("density diffusion (ampl_damp)", cfg.ampl_damp != 0.0),
+        ("elastic solids (elastic_present)", cfg.elastic_present),
+        ("free solids (free_solids_present)",
+         cfg.solids_present and cfg.free_solids_present),
+        ("weighted-solid pass B (weighted_solid)",
+         cfg.solids_present and cfg.weighted_solid),
+        ("pressure storage (store_pnew)", cfg.store_pnew),
+        ("continuum species (n_sdpd > 0)", params.n_sdpd > 0),
+        ("SSA species (n_ssa > 0)", params.n_ssa > 0),
+    ) if needed]
+
+
+def check_ported(params: Params, cfg: PairConfig):
+    missing = _unported(params, cfg)
+    if missing:
+        raise NotImplementedError(
+            "pair physics not ported yet (ported in a later PR): "
+            + ", ".join(missing)
+        )
+
+
+# ---------------------------------------------------------------------------
+# per-particle precomputation
+# ---------------------------------------------------------------------------
+
+
+def _per_particle(state: State, params: Params, cfg: PairConfig):
+    """Fields every pair term needs, computed once per particle [*, cap, NC]."""
+    if cfg.elastic_present:
+        raise NotImplementedError(
+            "the artificial-stress tensor of elastic solids is ported in a "
+            "later PR")
+    t = state.ptype
+    m = params.mass[t]
+    B = params.B[t]
+    rho0 = params.rho0[t]
+    P = tait_pressure(state.rho, rho0, B)
+    inv_rho = 1.0 / state.rho
+    m_rho = m * inv_rho
+    V2 = m_rho * m_rho
+    P_rho2 = P * inv_rho * inv_rho  # pressure force term, hoisted per particle
+    solid = state.solid_tag == 1
+    # Monaghan artificial stress: with S == 0 the tensor is diagonal,
+    # total = -p delta, tensile iff p < 0 — one scalar row
+    p_for_as = torch.abs(P) if cfg.art_stress_abs_p else P
+    inv_rho2 = inv_rho * inv_rho
+    total = -p_for_as
+    ASd = torch.where(solid & (total > 0.0),
+                      -cfg.art_stress_coef * total * inv_rho2,
+                      torch.zeros((), dtype=total.dtype, device=total.device))
+    return dict(
+        valid=state.valid, x=state.x, v=state.v, vest=state.vest,
+        rho=state.rho, rhoI=state.rhoI, ptype=t, solid=solid, fluid=~solid,
+        m=m, B=B, P=P, P_rho2=P_rho2, inv_rho=inv_rho, m_rho=m_rho, V2=V2,
+        ASd=ASd,
+    )
+
+
+def _bc(a, side):
+    """Broadcast a per-particle field [*, cap, NC] to pair shape.
+
+    side "i": [*, ci, 1, NC];  side "j": [*, 1, cj, NC].
+    """
+    return a[..., :, None, :] if side == "i" else a[..., None, :, :]
+
+
+def _dot3(a, b):
+    """Dot over the leading component axis: [3, ...] x [3, ...] -> [...]."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _pair_delta(xi, xj, pbc):
+    """x_i - x_j with minimum-image correction on periodic axes
+    (``pbc``: static tuple of (axis, extent))."""
+    dx = xi - xj
+    if not pbc:
+        return dx
+    comps = [dx[0], dx[1], dx[2]]
+    for ax, ext in pbc:
+        comps[ax] = comps[ax] - ext * torch.round(comps[ax] / ext)
+    return torch.stack(comps, dim=0)
+
+
+def _xdot_tensor(dx, T):
+    """out[m] = sum_k dx[k] T[k, m] — unrolled over the tiny component dims."""
+    return torch.stack(
+        [sum(dx[k] * T[k, m] for k in range(3)) for m in range(3)], dim=0
+    )
+
+
+def _pbc(geom: Geometry):
+    return tuple(
+        (ax, geom.hi[ax] - geom.lo[ax])
+        for ax in range(3)
+        if geom.periodic[ax] and geom.ncells[ax] > 1
+    )
+
+
+def coeff_tables(params: Params, cfg: PairConfig):
+    """[T, T] tables of every per-type-pair quantity the pair pass needs
+    (divisions and kernel normalizations hoisted out of the pair loop)."""
+    safe = lambda x: torch.where(x > 0, x, 1.0)
+    h = params.cut
+    out = dict(
+        h=h,
+        eta=params.visc,
+        hc=params.cutc,
+        inv_h=1.0 / safe(h),
+        inv_hc=1.0 / safe(params.cutc),
+        m_harm=params.mass[:, None] * params.mass[None, :]
+        / safe(params.mass[:, None] + params.mass[None, :]),
+    )
+    if cfg.solids_present:
+        # keep 1/wdelta (not its 4th power): (wf * inv_wdelta)**4 stays O(1)
+        wdelta = lucy_w(h / cfg.wdelta_ratio, safe(h), cfg.dim)
+        out["inv_wdelta"] = 1.0 / safe(wdelta)
+    if cfg.elastic_present and not cfg.g0_chem_coupling:
+        out["geff"] = (
+            2.0 * params.G0[:, None] * params.G0[None, :]
+            / (params.G0[:, None] + params.G0[None, :] + 1e-12)
+        )
+    return out
+
+
+def used_table_names(params: Params, cfg: PairConfig, ssa: bool = True) -> tuple:
+    """The coeff_tables entries `_pass_a_offset` reads under this config."""
+    names = ["h", "inv_h", "eta"]
+    if params.n_sdpd > 0 or (params.n_ssa > 0 and ssa):
+        names += ["hc", "inv_hc", "m_harm"]
+    if cfg.solids_present:
+        names.append("inv_wdelta")
+    if cfg.elastic_present and not cfg.g0_chem_coupling:
+        names.append("geff")
+    return tuple(names)
+
+
+def lookup_pair_coeffs(ti, tj, params: Params, cfg: PairConfig):
+    """Gather the per-type-pair tables for pair-shaped type indices.
+
+    Uniform tables (cfg.uniform_tables) come back as 0-dim tensors —
+    bit-exact with the gather, since every entry equals table[0, 0]."""
+    tp = (ti * params.ntypes + tj).long()
+    tabs = coeff_tables(params, cfg)
+    return {
+        k: tabs[k].reshape(-1)[0]
+        if k in cfg.uniform_tables
+        else tabs[k].reshape(-1)[tp]
+        for k in used_table_names(params, cfg)
+    }
+
+
+# ---------------------------------------------------------------------------
+# pass A: fused sweeps 1 + 2
+# ---------------------------------------------------------------------------
+
+
+def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
+                   acc, pbc=()):
+    """Accumulate all sweep-1/2 terms for one stencil offset into ``acc``.
+
+    The ported branches of the JAX function of the same name, term for term
+    and in the same order (reference citations there)."""
+    fdt = I["x"].dtype
+    dim = cfg.dim
+    RED = -2  # the cj axis of a scalar pair block
+
+    inv_h = coeffs["inv_h"]
+    dx = _pair_delta(I["x"], J["x"], pbc)  # [3, ci, cj, NC]
+    rsq = _dot3(dx, dx)
+    r = torch.sqrt(rsq)
+
+    mask = (I["valid"] & J["valid"] & notself).to(fdt)
+    wfd = lucy_wfd_ih(r, inv_h, dim) * mask
+    wf = lucy_w_ih(r, inv_h, dim) * mask
+    wfBvf = wf
+
+    mi, mj = I["m"], J["m"]
+    rhoi, rhoj = I["rho"], J["rho"]
+    Vi2, Vj2 = I["V2"], J["V2"]
+    solid_i, solid_j = I["solid"], J["solid"]
+
+    # ---- sweep 1 ----------------------------------------------------------
+    acc["num_den"] += torch.sum(Vj2 * wfBvf, dim=RED)
+    if cfg.density_filter_accs:
+        acc["rhoAux1"] += torch.sum(J["rhoI"] * wfBvf, dim=RED)
+        acc["rhoAux2"] += torch.sum(wfBvf, dim=RED)
+    # background-pressure velocity correction, Adami 2013
+    ddv_coef = 10.0 * 7.0 * I["B"] * (Vi2 + Vj2) * wfd
+    acc["ddv"] += torch.sum(ddv_coef[None] * dx, dim=RED)
+
+    # ---- sweep 2 ----------------------------------------------------------
+    velvec = I["vest"] - J["vest"]  # momentum-velocity difference
+    delVdotDelR = _dot3(dx, velvec)
+
+    # transport tensor force
+    b_i_dot_dx = _dot3(I["v"] - I["vest"], dx)
+    b_j_dot_dx = _dot3(J["v"] - J["vest"], dx)
+    tdotx = 0.5 * (
+        (rhoi * b_i_dot_dx)[None] * I["vest"]
+        + (rhoj * b_j_dot_dx)[None] * J["vest"]
+    )
+    ftransport = ((Vi2 + Vj2) * wfd)[None] * tdotx
+
+    # inter-particle viscosity, Adami 2013
+    fvisc = (Vi2 + Vj2) * coeffs["eta"] * wfd
+
+    # pressure force, Zhang 2017 + Sun 2018 switch
+    fi_term = I["P_rho2"]
+    fj_term = J["P_rho2"]
+    pij = fj_term + fi_term
+    sgn = torch.where((pij >= 0.0) | (solid_i & solid_j), 1.0, -1.0)
+    fpair = mi * mj * (fj_term + sgn * fi_term) * wfd
+
+    # artificial-stress force, diagonal tensor: x.(AS_i+AS_j) = (as_i+as_j) dx
+    if cfg.solids_present:
+        as_coef = mi * mj * wfd * ipow(wf * coeffs["inv_wdelta"], 4)
+        f_art = (as_coef * (I["ASd"] + J["ASd"]))[None] * dx
+    else:
+        f_art = 0.0
+
+    # fluid-branch force; every solid is fixed, so its force is discarded
+    f_fluid = (-fpair)[None] * dx + fvisc[None] * velvec + ftransport + f_art
+    acc["f"] += torch.sum(f_fluid, dim=RED)
+
+    # density evolution, "new density formulation"
+    dvt = I["v"] - J["v"]  # transport-velocity difference
+    delVtdotDelR = _dot3(dx, dvt)
+    corr_i = rhoi * _dot3(I["vest"] - I["v"], dx)
+    corr_j = rhoj * _dot3(J["vest"] - J["v"], dx)
+    m_rho_j = J["m_rho"]
+    drho = rhoi * delVtdotDelR * wfd * m_rho_j
+    drho = drho - m_rho_j * (corr_i + corr_j) * wfd
+    acc["drho"] += torch.sum(drho, dim=RED)
+
+    # energy accumulation
+    acc["de"] += torch.sum(
+        -0.5 * (fpair * delVdotDelR + fvisc * _dot3(velvec, velvec)), dim=RED
+    )
+
+    # BVF volume fraction and wall normal
+    if cfg.solids_present:
+        fs = (I["fluid"] & solid_j).to(fdt)
+        acc["phi"] += torch.sum(fs * Vj2 * wfBvf, dim=RED)
+        acc["nw"] += torch.sum((fs * wfd * Vj2)[None] * dx, dim=RED)
+    return acc
+
+
+def _pass_a_j_fields(cfg: PairConfig):
+    """The per-particle fields the ported pass-A branches read j-side."""
+    fields = "valid x v vest rho rhoI ptype solid m P_rho2 m_rho V2".split()
+    if cfg.solids_present:
+        fields.append("ASd")
+    return fields
+
+
+PASS_A_ACCS = ("num_den", "rhoAux1", "rhoAux2", "ddv", "f", "drho", "de",
+               "phi", "nw")
+_VECTOR_ACCS = ("ddv", "f", "nw")
+
+
+def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig):
+    """Pass A as a loop over the stencil offsets: the plain version of the
+    K1 kernel.  Returns every ``PASS_A_ACCS`` entry ([cap, NC] scalars,
+    [3, cap, NC] vectors); accumulators the configuration skips stay 0."""
+    cap, NC = pf["rho"].shape
+    fdt, dev = pf["x"].dtype, pf["x"].device
+    I = {k: _bc(v, "i") for k, v in pf.items()}
+    # self-pair exclusion for the zero offset ([cap, cap, 1])
+    not_diag = ~torch.eye(cap, dtype=torch.bool, device=dev)[:, :, None]
+    pbc = _pbc(geom)
+    acc = {
+        name: torch.zeros(((3,) if name in _VECTOR_ACCS else ()) + (cap, NC),
+                          dtype=fdt, device=dev)
+        for name in PASS_A_ACCS
+    }
+    ja_fields = _pass_a_j_fields(cfg)
+    for off in geom.stencil_offsets():
+        J = {k: _bc(shift_cells(pf[k], off, geom), "j") for k in ja_fields}
+        notself = not_diag if off == (0, 0, 0) else True
+        coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
+        acc = _pass_a_offset(I, J, coeffs, params, cfg, notself, acc, pbc=pbc)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+
+def compute_forces(
+    state: State, params: Params, geom: Geometry, cfg: PairConfig,
+    mesh=None, mesh_axis: str = "x",
+) -> State:
+    """Full force evaluation; returns the state with all accumulators replaced
+    (force_clear + Pair::compute).
+
+    Pass A goes through ``pair_cuda.pass_a_2d``: the K1 kernel on a CUDA
+    tensor, ``_pass_a_plain`` on a CPU tensor.
+    """
+    if mesh is not None:
+        raise NotImplementedError("multi-device pair passes are ported in a later PR")
+    check_ported(params, cfg)
+    from sph_bvf_tpu_torch.ops.pair_cuda import pass_a_2d
+
+    NC, cap = geom.ncells_total, geom.cap
+    fdt, dev = state.x.dtype, state.x.device
+    pf = _per_particle(state, params, cfg)
+    acc = pass_a_2d(pf, params, geom, cfg)
+
+    def zeros(*lead, dtype=fdt):
+        return torch.zeros(lead + (cap, NC), dtype=dtype, device=dev)
+
+    one = torch.ones((), dtype=fdt, device=dev)
+    return dataclasses.replace(
+        state,
+        f=acc["f"],
+        drho=acc["drho"],
+        de=acc["de"],
+        Q=zeros(params.n_sdpd),
+        Qd=zeros(params.n_ssa, dtype=torch.int32),
+        ddv=acc["ddv"],
+        ddx=zeros(3),
+        dS=zeros(3, 3),
+        phi=acc["phi"],
+        num_den=torch.where(state.valid, acc["num_den"], one),
+        nw=acc["nw"],
+        vws=zeros(3),
+        aws=zeros(3),
+        rhoAux1=acc["rhoAux1"],
+        rhoAux2=torch.where(state.valid, acc["rhoAux2"], one),
+    )
