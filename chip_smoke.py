@@ -1,30 +1,44 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card, check it, time it.
+"""Drive the PyTorch port's main paths on one CUDA card, check them, time them.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card and
 the CUDA toolkit (``nvcc``):
 
     python3 chip_smoke.py
 
-Phases, one line each:
+Two paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move) and
+the FSI beam in a periodic-x channel (K2 pass A, K6 rebin move).  Phases,
+one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
-2. build   — compile the hand-written kernels from ``sph_bvf_tpu_torch/csrc``;
+2. build   — compile the four hand-written kernels from
+             ``sph_bvf_tpu_torch/csrc``, one nvcc per source, all at once;
 3. K1      — the pass-A kernel against the plain stencil loop on the N=200
-             lid-driven cavity after setup and 100 steps, both filter
-             variants: max|diff| <= 5e-6 * max|plain| per field;
+             cavity after setup and 100 steps, both filter variants:
+             max|diff| <= 5e-6 * max|plain| for every field;
 4. K5      — the rebin-move kernel against the plain walk and the sort
              rebin on that state 10 steps later: every leaf bitwise equal;
-5. main    — lid_cavity.build(N=200) -> setup -> simulate(1000) on the card
-             with the launch counters reset first: no overflow or drift,
-             particles conserved, max|v| <= 1.1, fluid rho within 5% of 1
-             and its mean within 0.2%,
-             K1 launched once per step plus setup, K5 once per chunk plus
-             setup; and the N=50 cavity stepped 20 times on the card agrees
-             with the same run through the plain path on the CPU;
-6. speed   — particle-steps/s at N=200 and N=1000 (1.01M particles), and
-             the time per call of each kernel beside its plain version
-             (CUDA events after a warm-up).
+5. K2      — the rowloop pass-A kernel against the plain loop on
+             fsi.build(nx=60, tdamp_solid=100) after setup and 300 steps
+             (the beam released at step 100), both filter variants, on that
+             state and with the beam's S seeded from numpy (seed 0):
+             max|diff| <= 5e-6 * max|plain| for every field, with the
+             artificial-stress tensor AS and the stress rate dS nonzero;
+6. K6      — the gated rebin-move kernel against the plain walk and the
+             sort rebin on that state 50 steps after its rebin: bitwise;
+7. main    — each path through its entry points with the launch counters
+             reset first: lid_cavity.build(N=200) -> setup -> simulate(1000)
+             (K1 once per step plus setup, K5 once per chunk plus setup) and
+             fsi.build(nx=60, tdamp_solid=500) -> setup -> simulate(1000)
+             (K2 and K6 likewise, no K1 or K5); no overflow or drift,
+             particles conserved, fields finite, velocities and densities
+             inside bounds set from the JAX package's own runs; and the N=50
+             cavity and the nx=24 FSI stepped 20 times on the card agree
+             with the same runs through the plain path on the CPU;
+8. speed   — particle-steps/s of the cavity at N=200 and N=1000 and of FSI
+             at nx=60 and nx=240, and per call each kernel beside its plain
+             version and each rebin beside the sort rebin (CUDA events
+             after a warm-up).
 
 Every number is printed beside the card's name and power limit.  The
 second-to-last line is ``{"kernels": [...]}``, the last
@@ -35,11 +49,38 @@ directory without the package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
 import sys
 import time
+
+KERNELS = ("pass_a_2d", "pass_a_2d_rowloop", "rebin_move_2d",
+           "rebin_move_2d_gated")
+CAVITY_N = (200, 1000)  # parity/main/speed size, large speed size
+FSI_NX = (60, 240)  # the reference's size, large speed size (~225k particles)
+SMALL = {"cavity": 50, "fsi": 24}  # card vs CPU plain path
+MAIN_STEPS = 1000
+PARITY_STEPS = {"cavity": 100, "fsi": 300}
+FSI_RELEASE = {"parity": 100, "main": 500}  # tdamp_solid: the beam's release
+# The JAX package's own run of the FSI main path (nx=60, tdamp_solid=500,
+# f32, jnp path, on the CPU) at step 1000, and the band [lo, hi] x that
+# value the card's run must land in.  Fluid next to the beam takes the
+# beam's density through the Shepard filter, hence max|rho/1000-1| ~ 6.5.
+FSI_JAX_STEP1000 = {
+    "max|v|": (0.09333625435829163, 0.8, 1.25),
+    "fluid max|rho/1000-1|": (6.510681629180908, 0.95, 1.05),
+    "fluid mean rho": (1219.5228271484375, 0.99, 1.01),
+    "beam max|v|": (0.025616399943828583, 0.5, 2.0),
+    "beam max|S|": (2985.49462890625, 0.5, 2.0),
+}
+SPEED_STEPS = {200: (200, 20), 1000: (50, 5), 60: (200, 10), 240: (50, 2)}
+# FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
+# smaller and the start-up pressure waves (|v| up to ~0.4) drift particles
+# past the budget within 100 steps, so the run rebins every 20
+FSI_REBIN = {60: 100, 240: 20}
+TOL = 5e-6  # kernel vs plain, relative to the field's max
 
 
 def _nvidia_smi(query: str) -> str:
@@ -50,8 +91,8 @@ def _nvidia_smi(query: str) -> str:
 
 
 def _packed(S, rebin_cuda, state, geom, drop):
-    """The f32 and i32 packs the rebin hands K5 (dropped leaves left out),
-    and the f32 row of x."""
+    """The f32 and i32 packs the rebin hands its kernel (dropped leaves
+    left out), and the f32 row of x."""
     fields = {k: v for k, v in S.particle_fields(state).items()
               if k not in drop}
     PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap,
@@ -59,7 +100,54 @@ def _packed(S, rebin_cuda, state, geom, drop):
     return PF, PI, rebin_cuda._x_row(fmeta)
 
 
+def _pass_a_parity(torch, pair, kernel, state, params, geom, cfg0, names, tag):
+    """Kernel vs plain pass A on one state, both filter variants: every
+    field of ``names`` within TOL of its max.  Returns ({field: rel err},
+    max abs err, the plain outputs of the filter variant)."""
+    errs, worst, refs = {}, 0.0, None
+    for filt in (True, False):
+        cfg = dataclasses.replace(cfg0, density_filter_accs=filt)
+        pf = pair._per_particle(state, params, cfg)
+        ref = pair._pass_a_plain(pf, params, geom, cfg)
+        got = kernel(pf, params, geom, cfg)
+        torch.cuda.synchronize()
+        for name in names + (("rhoAux1", "rhoAux2") if filt else ()):
+            err = float((got[name] - ref[name]).abs().max())
+            scale = max(float(ref[name].abs().max()), 1e-30)
+            errs[f"{name}{'' if filt else '/nf'}"] = err / scale
+            worst = max(worst, err)
+            if not err <= TOL * scale:
+                raise AssertionError(
+                    f"{tag} {name} (filter={filt}): max|diff| {err!r} > "
+                    f"{TOL} * max|ref| {scale!r}")
+        if not filt and float(got["rhoAux1"].abs().max()) != 0.0:
+            raise AssertionError(f"{tag} without the filter rows wrote rhoAux1")
+        if refs is None:
+            refs = ref
+    return errs, worst, refs
+
+
+def _move_parity(torch, S, rebin_cuda, kernel, state, geom, drop, tag):
+    """Kernel vs plain walk vs sort rebin: every leaf bitwise.  Returns a
+    description of the packs and the rebinned state, and the kernel's
+    max|diff| from the plain walk (0 when bitwise)."""
+    PF, PI, xr = _packed(S, rebin_cuda, state, geom, drop)
+    kf, ki = kernel(PF, PI, geom, xr)
+    wf, wi = rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr)
+    if not (torch.equal(kf, wf) and torch.equal(ki, wi)):
+        raise AssertionError(f"{tag} rows differ from the plain walk")
+    by_kernel = S.rebin(state, geom, drop=drop, use_kernel=True)
+    by_sort = S.rebin(state, geom, drop=drop, use_kernel=False)
+    for f in dataclasses.fields(by_sort):
+        if not torch.equal(getattr(by_sort, f.name), getattr(by_kernel, f.name)):
+            raise AssertionError(f"{tag} rebin != sort rebin on leaf {f.name}")
+    return (f"{PF.shape[0]} f32 + {PI.shape[0]} i32 rows, "
+            f"{int(by_kernel.n_valid)} particles, overflow "
+            f"{int(by_kernel.overflow)}"), float((kf - wf).abs().max())
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -71,10 +159,14 @@ def main() -> int:
     from sph_bvf_tpu_torch.core import rebin_cuda
     from sph_bvf_tpu_torch.core import state as S
     from sph_bvf_tpu_torch.core.stepper import _rebin_drop, setup, simulate
-    from sph_bvf_tpu_torch.models import lid_cavity
+    from sph_bvf_tpu_torch.models import fsi, lid_cavity
     from sph_bvf_tpu_torch.ops import pair, pair_cuda
 
     dev = torch.device("cuda")
+    counters = {"pass_a_2d": pair_cuda.pass_a_2d,
+                "pass_a_2d_rowloop": pair_cuda.pass_a_2d_rowloop,
+                "rebin_move_2d": rebin_cuda.rebin_move_2d,
+                "rebin_move_2d_gated": rebin_cuda.rebin_move_2d_gated}
 
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -85,10 +177,11 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    for name in ("pass_a_2d", "rebin_move_2d"):
-        _build.load(name)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        for fut in [pool.submit(_build.load, name) for name in KERNELS]:
+            fut.result()
     build_s = time.perf_counter() - t0
-    print(f"[build] {build_s!r} s for pass_a_2d + rebin_move_2d "
+    print(f"[build] {build_s!r} s for {' + '.join(KERNELS)} "
           f"({_build.nvcc_version()}); compile s {_build.build_seconds}")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
@@ -96,113 +189,176 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     # -- 3. K1 parity -------------------------------------------------------
-    state, params, spec, _ = lid_cavity.build(N=200, device=dev)
-    state = simulate(setup(state, params, spec, dt=1e-4), params, spec, 100)
+    state, params, spec, _ = lid_cavity.build(N=CAVITY_N[0], device=dev)
+    state = simulate(setup(state, params, spec, dt=1e-4), params, spec,
+                     PARITY_STEPS["cavity"])
     geom = spec.geom
-    k1_err, k1_abs = {}, 0.0
-    for filt in (True, False):
-        cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
-        pf = pair._per_particle(state, params, cfg)
-        ref = pair._pass_a_plain(pf, params, geom, cfg)
-        got = pair_cuda.pass_a_2d(pf, params, geom, cfg)
-        torch.cuda.synchronize()
-        names = ("f", "drho", "num_den", "phi", "nw", "ddv", "de") + (
-            ("rhoAux1", "rhoAux2") if filt else ())
-        for name in names:
-            err = float((got[name] - ref[name]).abs().max())
-            scale = max(float(ref[name].abs().max()), 1e-30)
-            k1_err[f"{name}{'' if filt else '/nf'}"] = err / scale
-            k1_abs = max(k1_abs, err)
-            if name != "de" and not err <= 5e-6 * scale:
-                raise AssertionError(
-                    f"K1 {name} (filter={filt}): max|diff| {err!r} > "
-                    f"5e-6 * max|ref| {scale!r}")
-        if not filt and float(got["rhoAux1"].abs().max()) != 0.0:
-            raise AssertionError("K1 without the filter rows wrote rhoAux1")
-    print(f"[K1] pass A kernel == plain (N=200, step {int(state.step)}), "
-          f"max|diff|/max|ref| per field: "
+    k1_err, k1_abs, _ = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_2d, state, params, geom, spec.pair,
+        ("f", "drho", "num_den", "phi", "nw", "ddv", "de"), "K1")
+    print(f"[K1] pass A kernel == plain (N={CAVITY_N[0]}, step "
+          f"{int(state.step)}), max|diff|/max|ref| per field: "
           + ", ".join(f"{k} {v:.3g}" for k, v in k1_err.items()))
 
     # -- 4. K5 parity -------------------------------------------------------
     state = simulate(state, params, spec, 10)  # drifted since its last rebin
-    drop = _rebin_drop(spec)
-    PF, PI, xr = _packed(S, rebin_cuda, state, geom, drop)
-    kf, ki = rebin_cuda.rebin_move_2d(PF, PI, geom, xr)
-    wf, wi = rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr)
-    if not (torch.equal(kf, wf) and torch.equal(ki, wi)):
-        raise AssertionError("K5 rows differ from the plain walk")
-    by_kernel = S.rebin(state, geom, drop=drop, use_kernel=True)
-    by_sort = S.rebin(state, geom, drop=drop, use_kernel=False)
-    for f in dataclasses.fields(by_sort):
-        if not torch.equal(getattr(by_sort, f.name), getattr(by_kernel, f.name)):
-            raise AssertionError(f"K5 rebin != sort rebin on leaf {f.name}")
-    k5_abs = float((kf - wf).abs().max())
+    what, k5_abs = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_2d,
+                                state, geom, _rebin_drop(spec), "K5")
     print(f"[K5] rebin move kernel == plain walk == sort rebin, bitwise "
-          f"(N=200, {PF.shape[0]} f32 + {PI.shape[0]} i32 rows, "
-          f"{int(by_kernel.n_valid)} particles, overflow "
-          f"{int(by_kernel.overflow)})")
-    del state, PF, PI, kf, ki, wf, wi, by_kernel, by_sort, ref, got, pf
+          f"(N={CAVITY_N[0]}, {what})")
+    del state
 
-    # -- 5. main path -------------------------------------------------------
-    nsteps = 1000
-    pair_cuda.pass_a_2d.launches = 0
-    rebin_cuda.rebin_move_2d.launches = 0
-    t0 = time.perf_counter()
-    state, params, spec, _ = lid_cavity.build(N=200, device=dev)
-    n0 = int(state.n_valid)
-    state = setup(state, params, spec, dt=1e-4)
-    state = simulate(state, params, spec, nsteps)
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    launches = {"pass_a_2d": pair_cuda.pass_a_2d.launches,
-                "rebin_move_2d": rebin_cuda.rebin_move_2d.launches}
-    want = {"pass_a_2d": nsteps + 1,
-            "rebin_move_2d": nsteps // spec.rebin_every + 1}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
-    valid = state.valid
-    fluid = valid & (state.solid_tag == 0)
-    vmax = float(torch.sqrt((state.v * state.v).sum(0))[valid].max())
+    # -- 5. K2 parity -------------------------------------------------------
+    state, params, spec, _ = fsi.build(nx=FSI_NX[0],
+                                       tdamp_solid=FSI_RELEASE["parity"],
+                                       device=dev)
+    state = simulate(setup(state, params, spec, dt=1e-8), params, spec,
+                     PARITY_STEPS["fsi"])
+    geom = spec.geom
+    k2_names = ("f", "drho", "de", "num_den", "ddv", "ddx", "dS", "phi", "nw")
+    k2_err, k2_abs, ref = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_2d_rowloop, state, params, geom,
+        spec.pair, k2_names, "K2")
+    ds_run = float(ref["dS"].abs().max())
+    # the beam's S seeded so that AS is tensile on some particles
+    beam = state.valid & (state.solid_tag == 1) & (state.fixed_tag == 0)
+    rng = np.random.default_rng(0)
+    seed = rng.normal(0.0, 1e3, tuple(state.S.shape))
+    seed = torch.as_tensor(seed + np.swapaxes(seed, 0, 1), dtype=state.S.dtype,
+                           device=dev)
+    seeded = dataclasses.replace(state, S=torch.where(beam, seed, state.S))
+    as_max = float(pair._per_particle(seeded, params, spec.pair)["AS"].abs().max())
+    err_s, abs_s, ref_s = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_2d_rowloop, seeded, params, geom,
+        spec.pair, k2_names, "K2 (seeded S)")
+    k2_abs = max(k2_abs, abs_s)
+    ds_seeded = float(ref_s["dS"].abs().max())
+    if not (as_max > 0 and ds_run > 0 and ds_seeded > 0):
+        raise AssertionError(f"K2 parity is vacuous: max|AS| {as_max!r}, "
+                             f"max|dS| {ds_run!r} / {ds_seeded!r}")
+    print(f"[K2] rowloop pass A kernel == plain (fsi nx={FSI_NX[0]}, cap "
+          f"{geom.cap}, {geom.ncells_total} cells, step {int(state.step)}, "
+          f"beam released at {FSI_RELEASE['parity']}), max|diff|/max|ref| per "
+          f"field: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in k2_err.items())
+          + "; beam S seeded (max|AS| " + f"{as_max:.3g}, max|dS| run "
+          + f"{ds_run:.3g} / seeded {ds_seeded:.3g}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err_s.items()))
+    del seeded, ref, ref_s, seed
+
+    # -- 6. K6 parity -------------------------------------------------------
+    state = simulate(state, params, spec, 50)  # drifted since its last rebin
+    what, k6_abs = _move_parity(torch, S, rebin_cuda,
+                                rebin_cuda.rebin_move_2d_gated, state, geom,
+                                _rebin_drop(spec), "K6")
+    print(f"[K6] gated rebin move kernel == plain walk == sort rebin, bitwise "
+          f"(fsi nx={FSI_NX[0]}, periodic x, cap {geom.cap}, {what})")
+    del state
+
+    # -- 7. main paths ------------------------------------------------------
+    def run_main(build, dt, want_kernels):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, params, spec, _ = build()
+        n0 = int(state.n_valid)
+        state = simulate(setup(state, params, spec, dt=dt), params, spec,
+                         MAIN_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want[want_kernels[0]] = MAIN_STEPS + 1  # every step plus setup
+        want[want_kernels[1]] = -(-MAIN_STEPS // spec.rebin_every) + 1  # chunks
+        if launches != want:
+            raise AssertionError(f"launch counts {launches}, expected {want}")
+        valid = state.valid
+        checks = {
+            "finite": all(bool(torch.isfinite(getattr(state, n)).all())
+                          for n in ("x", "v", "vest", "rho", "f", "S", "dS")),
+            "overflow 0": int(state.overflow) == 0,
+            "drift_violation 0": int(state.drift_violation) == 0,
+            "particles conserved": int(state.n_valid) == n0,
+            "step": int(state.step) == MAIN_STEPS,
+        }
+        vmax = float(torch.sqrt((state.v * state.v).sum(0))[valid].max())
+        return state, spec, n0, secs, launches, vmax, checks
+
+    def require(checks, tag, detail):
+        if not all(checks.values()):
+            raise AssertionError(f"{tag} invariants failed: {checks}; {detail}")
+
+    # the cavity
+    state, spec, n0, secs, cav_launches, vmax, checks = run_main(
+        lambda: lid_cavity.build(N=CAVITY_N[0], device=dev), 1e-4,
+        ("pass_a_2d", "rebin_move_2d"))
+    fluid = state.valid & (state.solid_tag == 0)
     rho_dev = float((state.rho[fluid] - 1.0).abs().max())
     rho_mean = float(state.rho[fluid].mean())
-    finite = all(bool(torch.isfinite(getattr(state, n)).all())
-                 for n in ("x", "v", "vest", "rho", "f"))
-    checks = {
-        "finite": finite,
-        "overflow 0": int(state.overflow) == 0,
-        "drift_violation 0": int(state.drift_violation) == 0,
-        "particles conserved": int(state.n_valid) == n0,
-        "max|v| <= 1.1": vmax <= 1.1,
-        # the JAX package's own N=200 run reaches max|rho-1| 0.021 by step
-        # 400 and 0.023 by step 700 (lid-corner pressure), so the bound on
-        # the extreme is 0.05; the mean must stay within 0.2% of 1
-        "fluid max|rho-1| <= 0.05": rho_dev <= 0.05,
-        "fluid |mean rho-1| <= 0.002": abs(rho_mean - 1.0) <= 0.002,
-        "step": int(state.step) == nsteps,
-    }
-    if not all(checks.values()):
-        raise AssertionError(
-            f"main-path invariants failed: {checks}; max|v| {vmax!r}, fluid "
-            f"max|rho-1| {rho_dev!r}, mean rho {rho_mean!r}")
-    print(f"[main] N=200 build+setup+simulate({nsteps}) in {main_s!r} s: "
-          f"{n0} particles, max|v| {vmax!r}, fluid max|rho-1| {rho_dev!r}, "
-          f"fluid mean rho {rho_mean!r}, launches {launches}")
+    # the JAX package's own N=200 run reaches max|rho-1| 0.021 by step 400
+    # and 0.023 by step 700 (lid-corner pressure), so the bound on the
+    # extreme is 0.05; the mean must stay within 0.2% of 1
+    checks.update({"max|v| <= 1.1": vmax <= 1.1,
+                   "fluid max|rho-1| <= 0.05": rho_dev <= 0.05,
+                   "fluid |mean rho-1| <= 0.002": abs(rho_mean - 1.0) <= 0.002})
+    detail = (f"max|v| {vmax!r}, fluid max|rho-1| {rho_dev!r}, fluid mean "
+              f"rho {rho_mean!r}")
+    require(checks, "cavity main path", detail)
+    print(f"[main] cavity N={CAVITY_N[0]} build+setup+simulate({MAIN_STEPS}) "
+          f"in {secs!r} s: {n0} particles, {detail}, launches {cav_launches}")
 
-    # small-input reference: the card's kernel path vs the CPU plain path
-    runs = {}
-    for where in ("cpu", dev):
-        s, p, sp, _ = lid_cavity.build(N=50, device=where)
-        s = simulate(setup(s, p, sp, dt=1e-4), p, sp, 20)
-        runs[str(where)] = S.gather_particles(s, sp.geom, ("x", "v", "rho"))
-    a, b = runs["cpu"], runs[str(dev)]
-    small = {k: float(abs(a[k] - b[k]).max()) for k in ("x", "v", "rho")}
-    if not ((a["tag"] == b["tag"]).all() and small["x"] <= 1e-5
-            and small["v"] <= 1e-3 and small["rho"] <= 1e-4):
-        raise AssertionError(f"N=50 card run != CPU plain run: {small}")
-    print(f"[main] N=50, 20 steps: card kernels vs CPU plain path, max|diff| "
-          f"{small} (bounds x 1e-5, v 1e-3, rho 1e-4; tags equal)")
+    # the FSI beam, released half way
+    state, spec, n0, secs, fsi_launches, vmax, checks = run_main(
+        lambda: fsi.build(nx=FSI_NX[0], tdamp_solid=FSI_RELEASE["main"],
+                          device=dev), 1e-8,
+        ("pass_a_2d_rowloop", "rebin_move_2d_gated"))
+    valid = state.valid
+    solid = state.solid_tag == 1
+    fluid = valid & ~solid
+    beam = valid & solid & (state.fixed_tag == 0)
+    got = {"max|v|": vmax,
+           "fluid max|rho/1000-1|": float((state.rho[fluid] / 1000.0 - 1.0)
+                                          .abs().max()),
+           "fluid mean rho": float(state.rho[fluid].mean()),
+           "beam max|v|": float(torch.sqrt((state.v * state.v).sum(0))[beam].max()),
+           "beam max|S|": float(state.S.abs().amax(dim=(0, 1))[beam].max())}
+    for name, (ref, lo, hi) in FSI_JAX_STEP1000.items():
+        checks[f"{name} in [{lo}, {hi}] x JAX's {ref}"] = lo * ref <= got[name] <= hi * ref
+    detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
+    require(checks, "FSI main path", detail)
+    print(f"[main] fsi nx={FSI_NX[0]} build+setup+simulate({MAIN_STEPS}) in "
+          f"{secs!r} s: {n0} particles, {detail}, launches {fsi_launches}")
+    del state
 
-    # -- 6. speed -----------------------------------------------------------
+    # small-input references: the card's kernel paths vs the CPU plain paths
+    # bounds relative to each field's max|value| on the CPU: x 1e-5, v 1e-3,
+    # rho 1e-4, S 1e-3 (the cavity's lid speed and density are 1)
+    bounds = {"x": 1e-5, "v": 1e-3, "rho": 1e-4, "S": 1e-3}
+
+    def card_vs_cpu(label, build, dt, fields):
+        runs = {}
+        for where in ("cpu", dev):
+            s, p, sp, _ = build(where)
+            s = simulate(setup(s, p, sp, dt=dt), p, sp, 20)
+            runs[str(where)] = S.gather_particles(s, sp.geom, fields)
+        a, b = runs["cpu"], runs[str(dev)]
+        rel = {k: float(abs(a[k] - b[k]).max()) / max(float(abs(a[k]).max()), 1e-30)
+               for k in fields}
+        if not ((a["tag"] == b["tag"]).all()
+                and all(rel[k] <= bounds[k] for k in fields)):
+            raise AssertionError(f"{label} card run != CPU plain run: {rel}")
+        print(f"[main] {label}, 20 steps: card kernels vs CPU plain path, "
+              f"max|diff|/max|cpu| {rel} (bounds {bounds}; tags equal)")
+
+    card_vs_cpu(f"cavity N={SMALL['cavity']}",
+                lambda d: lid_cavity.build(N=SMALL["cavity"], device=d), 1e-4,
+                ("x", "v", "rho"))
+    card_vs_cpu(f"fsi nx={SMALL['fsi']} (beam released at step 5)",
+                lambda d: fsi.build(nx=SMALL["fsi"], rebin_every=10,
+                                    tdamp_solid=5, device=d),
+                1e-8, ("x", "v", "rho", "S"))
+
+    # -- 8. speed -----------------------------------------------------------
     def per_call_ms(fn, iters):
         for _ in range(2):
             fn()
@@ -216,10 +372,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / iters
 
-    def speed(N, state, params, spec, steps, iters):
+    def speed(label, size, state, params, spec, pass_a, move):
+        steps, iters = SPEED_STEPS[size]
         geom = spec.geom
         n = int(state.n_valid)
-        state = simulate(state, params, spec, spec.rebin_every)  # warm-up
+        # warm-up, then chunks of up to rebin_every steps, each after a rebin
+        state = simulate(state, params, spec, spec.rebin_every)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = simulate(state, params, spec, steps)
@@ -230,41 +388,69 @@ def main() -> int:
         drop = _rebin_drop(spec)
         PF, PI, xr = _packed(S, rebin_cuda, state, geom, drop)
         t = {
-            "k1": per_call_ms(lambda: pair_cuda.pass_a_2d(pf, params, geom, cfg), iters),
-            "k1_plain": per_call_ms(lambda: pair._pass_a_plain(pf, params, geom, cfg), iters),
-            "k5": per_call_ms(lambda: rebin_cuda.rebin_move_2d(PF, PI, geom, xr), iters),
-            "k5_plain": per_call_ms(lambda: rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr), iters),
-            "rebin_k5": per_call_ms(lambda: S.rebin(state, geom, drop=drop, use_kernel=True), iters),
-            "rebin_sort": per_call_ms(lambda: S.rebin(state, geom, drop=drop, use_kernel=False), iters),
+            "pass_a": per_call_ms(lambda: pass_a(pf, params, geom, cfg), iters),
+            "pass_a_plain": per_call_ms(
+                lambda: pair._pass_a_plain(pf, params, geom, cfg), iters),
+            "move": per_call_ms(lambda: move(PF, PI, geom, xr), iters),
+            "move_plain": per_call_ms(
+                lambda: rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr), iters),
+            "rebin_kernel": per_call_ms(
+                lambda: S.rebin(state, geom, drop=drop, use_kernel=True), iters),
+            "rebin_sort": per_call_ms(
+                lambda: S.rebin(state, geom, drop=drop, use_kernel=False), iters),
         }
         rate = n * steps / dt
-        print(f"[speed] N={N}: {n} particles, {steps} steps in {dt!r} s = "
-              f"{rate!r} particle-steps/s; per call ms: K1 {t['k1']!r} vs "
-              f"plain pass A {t['k1_plain']!r}; K5 {t['k5']!r} vs plain walk "
-              f"{t['k5_plain']!r}; rebin with K5 {t['rebin_k5']!r} vs sort "
-              f"rebin {t['rebin_sort']!r} [{card}]")
+        print(f"[speed] {label}: {n} particles, cap {geom.cap}, "
+              f"{geom.ncells_total} cells, {steps} steps (rebin every "
+              f"{min(steps, spec.rebin_every)}) in {dt!r} s = {rate!r} "
+              f"particle-steps/s; per call ms: "
+              f"{pass_a.__name__} {t['pass_a']!r} vs plain pass A "
+              f"{t['pass_a_plain']!r}; {move.__name__} {t['move']!r} vs plain "
+              f"walk {t['move_plain']!r}; rebin with the kernel "
+              f"{t['rebin_kernel']!r} vs sort rebin {t['rebin_sort']!r} [{card}]")
         return t
 
-    t200 = speed(200, state, params, spec, 200, 20)
-    del state
-    # dt: lid_cavity.build's default for N > 200, 5e-3 / N
-    state, params, spec, _ = lid_cavity.build(N=1000, dt=5e-6, device=dev)
-    state = setup(state, params, spec, dt=5e-6)
-    speed(1000, state, params, spec, 50, 5)
+    t_cav = {}
+    for N, dt in zip(CAVITY_N, (1e-4, 5e-6)):  # lid_cavity's dt rule past 200
+        state, params, spec, _ = lid_cavity.build(N=N, dt=dt, device=dev)
+        state = setup(state, params, spec, dt=dt)
+        t_cav[N] = speed(f"cavity N={N}", N, state, params, spec,
+                         pair_cuda.pass_a_2d, rebin_cuda.rebin_move_2d)
+        del state
+    t_fsi = {}
+    for nx in FSI_NX:
+        state, params, spec, _ = fsi.build(nx=nx, rebin_every=FSI_REBIN[nx],
+                                           device=dev)
+        state = setup(state, params, spec, dt=1e-8)
+        t_fsi[nx] = speed(f"fsi nx={nx}", nx, state, params, spec,
+                          pair_cuda.pass_a_2d_rowloop,
+                          rebin_cuda.rebin_move_2d_gated)
+        del state
     print(f"[speed] {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}"
           f" (clocks.sm, power.draw, power.limit, temperature after the runs)")
 
+    small_cav, small_fsi = t_cav[CAVITY_N[0]], t_fsi[FSI_NX[0]]
     kernels = [
         {"name": "pass_a_2d", "route": "cuda",
          "source": "sph_bvf_tpu_torch/csrc/pass_a_2d.cu",
          "replaces": "sph_bvf_tpu/ops/pair_pallas.py:308",
-         "launches": launches["pass_a_2d"], "max_abs_err": k1_abs,
-         "ms": t200["k1"], "plain_ms": t200["k1_plain"]},
+         "launches": cav_launches["pass_a_2d"], "max_abs_err": k1_abs,
+         "ms": small_cav["pass_a"], "plain_ms": small_cav["pass_a_plain"]},
+        {"name": "pass_a_2d_rowloop", "route": "cuda",
+         "source": "sph_bvf_tpu_torch/csrc/pass_a_2d_rowloop.cu",
+         "replaces": "sph_bvf_tpu/ops/pair_pallas.py:527",
+         "launches": fsi_launches["pass_a_2d_rowloop"], "max_abs_err": k2_abs,
+         "ms": small_fsi["pass_a"], "plain_ms": small_fsi["pass_a_plain"]},
         {"name": "rebin_move_2d", "route": "cuda",
          "source": "sph_bvf_tpu_torch/csrc/rebin_move_2d.cu",
          "replaces": "sph_bvf_tpu/core/rebin_pallas.py:202",
-         "launches": launches["rebin_move_2d"], "max_abs_err": k5_abs,
-         "ms": t200["k5"], "plain_ms": t200["k5_plain"]},
+         "launches": cav_launches["rebin_move_2d"], "max_abs_err": k5_abs,
+         "ms": small_cav["move"], "plain_ms": small_cav["move_plain"]},
+        {"name": "rebin_move_2d_gated", "route": "cuda",
+         "source": "sph_bvf_tpu_torch/csrc/rebin_move_2d_gated.cu",
+         "replaces": "sph_bvf_tpu/core/rebin_pallas.py:346",
+         "launches": fsi_launches["rebin_move_2d_gated"], "max_abs_err": k6_abs,
+         "ms": small_fsi["move"], "plain_ms": small_fsi["move_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

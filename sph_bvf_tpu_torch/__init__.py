@@ -9,8 +9,9 @@ the tests hold the two against each other on identical inputs
 (``bridge.py`` carries state across as numpy arrays).
 
 This package imports ``torch`` and never ``jax``.  Branches that the ported
-slice (the 2D lid-driven cavity, ``models/lid_cavity.py``) does not run
-raise ``NotImplementedError``; they never fall back to other code.
+slices (the 2D lid-driven cavity, ``models/lid_cavity.py``, and the FSI
+beam in a periodic channel, ``models/fsi.py``) do not run raise
+``NotImplementedError``; they never fall back to other code.
 
 Kernels (``csrc/*.cu``) are compiled by ``_build.py`` with ``nvcc`` at first
 use.  Each kernel wrapper launches its kernel on a CUDA tensor and runs the

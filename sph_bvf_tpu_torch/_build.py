@@ -22,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sph_bvf_tpu_torch"
 # -Xptxas=-v: ptxas reports each kernel's registers, shared memory and spills
@@ -89,6 +91,13 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     _loaded[name] = lib
     return lib
+
+
+def current_stream(device) -> int:
+    """The handle of PyTorch's current stream on ``device``: kernels launch
+    on it, in order with the PyTorch ops around them."""
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
 
 
 def check(lib: ctypes.CDLL, code: int, what: str):

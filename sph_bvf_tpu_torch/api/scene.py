@@ -1,11 +1,12 @@
 """Scene builder: the input-script surface as a Python API (PyTorch).
 
 Port of the part of ``sph_bvf_tpu/api/scene.py`` that the lid-driven
-cavity uses: block regions with union/subtract/complement, lattice
-filling, groups, per-atom setters, pair/integrator/fix selection and
-``build``.  Scene state is host-side numpy; ``build(device=...)`` bins
-everything into the cell-slot ``State`` on that device and assembles the
-static ``ModelSpec``.
+cavity and the FSI beam use: block regions with union/subtract/complement,
+lattice filling (the lattice may change between ``create_atoms`` calls),
+groups, per-atom setters, pair/integrator/fix selection and ``build``.
+Scene state is host-side numpy; ``build(device=...)`` bins everything into
+the cell-slot ``State`` on that device and assembles the static
+``ModelSpec``.
 
 Lattice filling follows create_atoms (create_atoms.cpp:362-364): sites at
 ``(i + origin) * a`` per axis, kept when inside both the target region and

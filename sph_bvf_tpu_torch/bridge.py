@@ -26,7 +26,7 @@ from sph_bvf_tpu_torch.core.stepper import ModelSpec
 from sph_bvf_tpu_torch.ops.pair import PairConfig
 
 # the fixes the port has, by class name
-_FIXES = {"SetForce": fixes_mod.SetForce}
+_FIXES = {"SetForce": fixes_mod.SetForce, "Buffer": fixes_mod.Buffer}
 
 
 def to_numpy(obj) -> dict:

@@ -36,7 +36,7 @@ def wrap_x(geom) -> bool:
 
 def periodic_multicell(geom) -> bool:
     """Any periodic axis with more than one cell (an x wrap or ghost
-    columns): the grids the port's kernels do not serve yet."""
+    columns): the grids K1 and K5 do not serve."""
     return wrap_x(geom) or bool(ghost_axes(geom))
 
 

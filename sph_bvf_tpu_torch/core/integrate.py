@@ -2,7 +2,9 @@
 
 Port of ``sph_bvf_tpu/core/integrate.py`` for the transport-velocity
 variant (fix ssa_tsdpd/bvf/transportVelocity), the one the lid-driven
-cavity runs.  Every fluid/solid x free/fixed branch is a ``torch.where``
+cavity runs, and the mechanics variant (fix ssa_tsdpd/bvf/mechanics: XSPH
+smoothing, the fluid-force ramp and the solid release gate), the one the
+FSI beam runs.  Every fluid/solid x free/fixed branch is a ``torch.where``
 over the whole state; the reference citations are on the JAX module's
 lines.  ``IntegratorConfig`` keeps every variant's fields and factories so
 a configuration copies across unchanged; the other variants' step
@@ -91,7 +93,7 @@ class IntegratorConfig:
 
 
 def _check_ported(cfg: IntegratorConfig):
-    if cfg.variant != TRANSPORT_VELOCITY:
+    if cfg.variant not in (TRANSPORT_VELOCITY, MECHANICS):
         raise NotImplementedError(
             f"the {cfg.variant!r} integrator is ported in a later PR")
 
@@ -103,12 +105,14 @@ def _masks(state: State):
 
 
 def _damps(state: State, cfg: IntegratorConfig, dtype):
-    """Fluid ramp; the solid release gate is 1 outside mechanics/fsi."""
+    """Fluid ramp + solid release gate (mechanics: 0 while
+    ``tnow < tdamp_solid``, fix...mechanics.cpp:152; 1 for the other
+    ported variants)."""
     one = torch.ones((), dtype=dtype, device=state.x.device)
-    if cfg.tdamp > 0:
-        damp = torch.clamp_max(state.step.to(dtype) / cfg.tdamp, 1.0)
-    else:
-        damp = one
+    tnow = state.step.to(dtype)
+    damp = torch.clamp_max(tnow / cfg.tdamp, 1.0) if cfg.tdamp > 0 else one
+    if cfg.variant == MECHANICS:
+        return damp, torch.where(tnow < cfg.tdamp_solid, 0.0, one)
     return damp, one
 
 
@@ -239,9 +243,14 @@ def final_integrate(state: State, params: Params, cfg: IntegratorConfig) -> Stat
     else:
         on_filter = torch.zeros((), dtype=torch.bool, device=state.x.device)
     aux = state.rhoAux1 / torch.clamp_min(state.rhoAux2, 1e-30)
-    rho_free_f = torch.where(on_filter, aux + dtf * state.drho,
-                             state.rhoI + dtf * state.drho)
-    rho_free_s = rho_free_f
+    if cfg.variant == TRANSPORT_VELOCITY:
+        rho_free_f = torch.where(on_filter, aux + dtf * state.drho,
+                                 state.rhoI + dtf * state.drho)
+        rho_free_s = rho_free_f
+    else:  # mechanics (fix...mechanics.cpp:391-448)
+        rho_free_f = torch.where(on_filter, aux + dtf * state.drho,
+                                 state.rhoI + dtv * state.drho)
+        rho_free_s = state.rhoI + dtv * state.drho
     rho_fixed_f = torch.where(on_filter, aux + dtv * state.drho,
                               state.rhoI + dtv * state.drho)
     rho_fixed_s = torch.where(on_filter, aux, state.rhoI)

@@ -1,17 +1,21 @@
-"""K5: the 2D locality rebin move (``csrc/rebin_move_2d.cu``) and its wrapper.
+"""The 2D locality rebin moves and their wrappers: K5
+(``csrc/rebin_move_2d.cu``) and K6 (``csrc/rebin_move_2d_gated.cu``).
 
-Port of ``sph_bvf_tpu/core/rebin_pallas.py`` for the static (cap <= 16)
-2D branch.  Between rebins a particle moves at most one cell (the drift
-contract ``core/state.rebin`` checks), so the particles that belong in cell
-c are the matching candidates among the slots of its 3x3 stencil cells.
-Walking them slot-major, then by ascending flat offset, visits them in the
-sort rebin's stable (cell, old flat slot) order, so on a grid without
-periodic multi-cell axes the slot assignment is bit-identical to the sort.
+Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the static branch
+(cap <= 16, no periodic axis), K6 for the gated branch (16 < cap <= 64,
+walls or a periodic x axis, uniform columns).  Between rebins a particle
+moves at most one cell (the drift contract ``core/state.rebin`` checks), so
+the particles that belong in cell c are the matching candidates among the
+slots of its 3x3 stencil cells.  Walking them slot-major, then by the
+source cell's flat index after the periodic wrap, visits them in the sort
+rebin's stable (cell, old flat slot) order, so the slot assignment is
+bit-identical to the sort.
 
 ``move`` packs the per-particle fields into one f32 and one i32 matrix,
-launches the kernel on a CUDA tensor or runs ``rebin_move_2d_plain`` (the
-same ordered walk in vectorized PyTorch) on a CPU tensor, and unpacks.  A
-CUDA call the kernel cannot serve raises; it never falls back.
+launches the kernel the grid routes to on a CUDA tensor or runs
+``rebin_move_2d_plain`` (the same ordered walk in vectorized PyTorch) on a
+CPU tensor, and unpacks.  A CUDA call no kernel serves raises; it never
+falls back.
 """
 
 from __future__ import annotations
@@ -23,23 +27,33 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import periodic_multicell
+from sph_bvf_tpu_torch.core.halo import ghost_axes, wrap_x
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of
 
-MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu
+MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
+GATED_MAX_CAP = 64  # kMaxCap in csrc/rebin_move_2d_gated.cu (K6)
+
+
+def move_route(geom: Geometry):
+    """The kernel wrapper that serves this grid's rebin move, or None.
+
+    Both kernels need a 2D grid with uniform columns and no periodic y.
+    K5 takes cap <= 16 without a periodic axis; K6 takes 16 < cap <= 64,
+    with walls or a periodic x axis of at least 3 cells (with 2, the same
+    source cell would sit in a target's window twice)."""
+    if (geom.dim != 2 or geom.ncells[2] != 1 or geom.x_edges is not None
+            or ghost_axes(geom)):
+        return None
+    if geom.cap <= MAX_CAP:
+        return None if wrap_x(geom) else rebin_move_2d
+    if geom.cap <= GATED_MAX_CAP and (not wrap_x(geom) or geom.ncells[0] >= 3):
+        return rebin_move_2d_gated
+    return None
 
 
 def move_supported(geom: Geometry) -> bool:
-    """Grids the locality walk serves: 2D, cap <= 16, uniform columns and
-    no periodic axis with more than one cell (the walk bounds-checks its
-    neighbours instead of wrapping them)."""
-    return (
-        geom.dim == 2
-        and geom.ncells[2] == 1
-        and geom.cap <= MAX_CAP
-        and geom.x_edges is None
-        and not periodic_multicell(geom)
-    )
+    """Does a locality-walk kernel serve this grid (see ``move_route``)?"""
+    return move_route(geom) is not None
 
 
 def _pack_fields(fields: Dict[str, torch.Tensor], cap: int, NC: int):
@@ -86,39 +100,46 @@ def _x_row(fmeta) -> int:
     raise KeyError("x")
 
 
-def _walk_offsets(geom: Geometry):
-    """The stencil offsets in ascending flat-offset order (the candidate
-    order inside one source slot)."""
-    sx, sy, sz = geom.strides
-    return sorted(geom.stencil_offsets(),
-                  key=lambda o: o[0] * sx + o[1] * sy + o[2] * sz)
+def _walk_sources(geom: Geometry, device):
+    """The candidate source cells of every target cell, [9, NC] each: the
+    source cell's flat index (0 where off the grid) and whether it is on
+    the grid, ordered per target by ascending flat index after the
+    periodic-x wrap (off-grid candidates last)."""
+    nx, ny, _ = geom.ncells
+    NC = geom.ncells_total
+    c = torch.arange(NC, dtype=torch.int64, device=device)
+    cx, cy = c // ny, c % ny
+    srcs, ons = [], []
+    for ox, oy, _ in geom.stencil_offsets():
+        sx, sy = cx + ox, cy + oy
+        if wrap_x(geom):
+            sx = sx % nx
+        srcs.append(sx * ny + sy)
+        ons.append((sx >= 0) & (sx < nx) & (sy >= 0) & (sy < ny))
+    on_grid = torch.stack(ons)
+    key, order = torch.sort(torch.where(on_grid, torch.stack(srcs), NC),
+                            dim=0, stable=True)
+    on_grid = torch.gather(on_grid, 0, order)
+    return torch.where(on_grid, key, 0), on_grid
 
 
 def rebin_move_2d_plain(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
                         xr: int):
-    """The K5 walk in vectorized PyTorch: the kernel's plain version.
+    """The K5/K6 walk in vectorized PyTorch: the kernels' plain version.
 
     For every target cell the candidates are taken slot-major, then by
-    ascending flat offset; a candidate matches when it is valid, its
-    stencil cell lies on the grid and ``cell_index_of`` of its position is
-    the target.  The first ``cap`` matches fill output slots 0.. in order.
+    ascending source-cell flat index after the periodic wrap; a candidate
+    matches when it is valid, its source cell lies on the grid and
+    ``cell_index_of`` of its position is the target.  The first ``cap``
+    matches fill output slots 0.. in order.
     """
     _, cap, NC = PF.shape
-    nx, ny, _ = geom.ncells
     dev = PF.device
     c = torch.arange(NC, dtype=torch.int64, device=dev)
-    cx, cy = c // ny, c % ny
-    offs = _walk_offsets(geom)
-    # source cell and on-grid mask per (offset, target cell): [9, NC]
-    src_cell = torch.stack([(cx + ox) * ny + (cy + oy) for ox, oy, _ in offs])
-    on_grid = torch.stack([
-        (cx + ox >= 0) & (cx + ox < nx) & (cy + oy >= 0) & (cy + oy < ny)
-        for ox, oy, _ in offs
-    ])
-    src_cell = torch.where(on_grid, src_cell, 0)
+    src_cell, on_grid = _walk_sources(geom, dev)
     # flat source slot of every candidate, slot-major: [cap, 9, NC]
     slots = torch.arange(cap, dtype=torch.int64, device=dev)[:, None, None]
-    k = (slots * NC + src_cell[None]).reshape(cap * len(offs), NC)
+    k = (slots * NC + src_cell[None]).reshape(cap * src_cell.shape[0], NC)
     valid = PI[0].reshape(-1) != 0
     newcell = cell_index_of(PF[xr: xr + 3].reshape(3, -1), geom).to(torch.int64)
     match = (on_grid.repeat(cap, 1) & valid[k] & (newcell[k] == c[None]))
@@ -139,27 +160,42 @@ def rebin_move_2d_plain(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     return outf.reshape(PF.shape), outi.reshape(PI.shape)
 
 
+def _check_packs(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry, wrapper):
+    if move_route(geom) is not wrapper:
+        raise NotImplementedError(
+            f"rebin move kernel {wrapper.__name__} for this grid (dim={geom.dim}, "
+            f"cap={geom.cap}, periodic={geom.periodic}, ncells={geom.ncells}, "
+            f"x_edges={geom.x_edges is not None}) is ported in a later PR")
+    if PF.dtype != torch.float32 or PI.dtype != torch.int32:
+        raise TypeError(f"rebin move kernel takes f32/i32 packs, got "
+                        f"{PF.dtype}/{PI.dtype}")
+    _, cap, NC = PF.shape
+    if (cap, NC) != (geom.cap, geom.ncells_total) or PI.shape[1:] != PF.shape[1:]:
+        raise ValueError(f"packs {tuple(PF.shape)}/{tuple(PI.shape)} do not "
+                         f"match the geometry [{geom.cap}, {geom.ncells_total}]")
+    if not (PF.is_contiguous() and PI.is_contiguous()) or PI.device != PF.device:
+        raise ValueError("rebin move kernel packs must be contiguous on one device")
+    if cap * NC >= 2**31:
+        raise ValueError(f"{cap * NC} slots overflow the kernels' 32-bit index")
+
+
+def _bin_constants(geom: Geometry):
+    """f32 lo and 1/cell_size of x and y, exactly the constants
+    ``cell_index_of`` rounds to."""
+    lo = [float(np.float32(v)) for v in geom.lo[:2]]
+    inv = [float(np.float32(1.0 / cs)) for cs in geom.cell_size[:2]]
+    return lo + inv
+
+
 def rebin_move_2d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
                   xr: int):
     """K5 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
     walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
         return rebin_move_2d_plain(PF, PI, geom, xr)
-    if not move_supported(geom):
-        raise NotImplementedError(
-            f"rebin move kernel for this grid (dim={geom.dim}, cap={geom.cap}, "
-            f"periodic={geom.periodic}, x_edges={geom.x_edges is not None}) "
-            "is ported in a later PR")
-    if PF.dtype != torch.float32 or PI.dtype != torch.int32:
-        raise TypeError(f"rebin move kernel takes f32/i32 packs, got "
-                        f"{PF.dtype}/{PI.dtype}")
+    _check_packs(PF, PI, geom, rebin_move_2d)
     ff, cap, NC = PF.shape
     fi = PI.shape[0]
-    if (cap, NC) != (geom.cap, geom.ncells_total) or PI.shape[1:] != PF.shape[1:]:
-        raise ValueError(f"packs {tuple(PF.shape)}/{tuple(PI.shape)} do not "
-                         f"match the geometry [{geom.cap}, {geom.ncells_total}]")
-    if not (PF.is_contiguous() and PI.is_contiguous()) or PI.device != PF.device:
-        raise ValueError("rebin move kernel packs must be contiguous on one device")
     outf = torch.empty_like(PF)
     outi = torch.empty_like(PI)
 
@@ -168,20 +204,44 @@ def rebin_move_2d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    # f32 lo and 1/cell_size, exactly the constants cell_index_of rounds to
-    lo = [float(np.float32(v)) for v in geom.lo[:2]]
-    inv = [float(np.float32(1.0 / cs)) for cs in geom.cell_size[:2]]
-    with torch.cuda.device(PF.device):
-        stream = torch.cuda.current_stream().cuda_stream
     code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
               ff, fi, cap, geom.ncells[0], geom.ncells[1], xr,
-              lo[0], lo[1], inv[0], inv[1], stream)
+              *_bin_constants(geom), _build.current_stream(PF.device))
     _build.check(lib, code, "rebin_move_2d")
     rebin_move_2d.launches += 1
     return outf, outi
 
 
-rebin_move_2d.launches = 0  # kernel launches in this process
+rebin_move_2d.launches = 0  # K5 launches in this process
+
+
+def rebin_move_2d_gated(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
+                        xr: int):
+    """K6 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
+    walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
+    if not PF.is_cuda:
+        return rebin_move_2d_plain(PF, PI, geom, xr)
+    _check_packs(PF, PI, geom, rebin_move_2d_gated)
+    ff, cap, NC = PF.shape
+    fi = PI.shape[0]
+    outf = torch.empty_like(PF)
+    outi = torch.empty_like(PI)
+
+    lib = _build.load("rebin_move_2d_gated")
+    fn = lib.rebin_move_2d_gated
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
+              ff, fi, cap, geom.ncells[0], geom.ncells[1], xr,
+              *_bin_constants(geom), int(wrap_x(geom)),
+              _build.current_stream(PF.device))
+    _build.check(lib, code, "rebin_move_2d_gated")
+    rebin_move_2d_gated.launches += 1
+    return outf, outi
+
+
+rebin_move_2d_gated.launches = 0  # K6 launches in this process
 
 
 def move(fields: Dict[str, torch.Tensor], geom: Geometry) -> Dict[str, torch.Tensor]:
@@ -193,5 +253,5 @@ def move(fields: Dict[str, torch.Tensor], geom: Geometry) -> Dict[str, torch.Ten
     """
     NC, cap = geom.ncells_total, geom.cap
     PF, PI, fmeta, imeta = _pack_fields(fields, cap, NC)
-    outf, outi = rebin_move_2d(PF, PI, geom, _x_row(fmeta))
+    outf, outi = move_route(geom)(PF, PI, geom, _x_row(fmeta))
     return _unpack_fields(outf, outi, fmeta, imeta, fields, cap, NC)

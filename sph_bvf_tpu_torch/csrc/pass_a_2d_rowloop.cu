@@ -1,0 +1,341 @@
+// K2 — 2D pass A of the SPH-BVF pair physics for crowded and mixed-lattice
+// grids, one thread per (slot i, cell c).
+//
+// Replaces sph_bvf_tpu/ops/pair_pallas.py `_call_padded`, rowloop branch (the
+// TPU kernel that carries the FSI beam: occupancy-gated i/j tiles, an
+// elastic-gated dS pass and a window-gated pass for the elastic forces).  For
+// every valid slot i it sums ops/pair.py `_pass_a_offset` over the valid j of
+// the 3x3 stencil cells, j != i: the transport-velocity (pressure switch) or
+// mechanics (symmetric pressure) force, XSPH, BVF walls, free solids with the
+// Pereira artificial viscosity, elastic solids (the 9-component artificial
+// stress, the deviatoric solid force and the Jaumann rate dS), a periodic x
+// axis, with (FILTER) or without the Shepard-filter accumulators.  The plain
+// PyTorch version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
+//
+// What bounds it on an H100: FSI cells hold cap = 47 slots but ~9-16
+// particles, so a walk over every slot of the 3x3 window would spend two
+// thirds of its time on empty slots, and the elastic terms (dS alone is ~110
+// flops per pair, f_art and f_dev ~40 more) are needed by a few percent of
+// the particles.  The bound is the issue rate of the useful pairs.  Design:
+// every rebin leaves each cell's valid slots compacted at 0..occ-1 and
+// validity does not change until the next rebin, so the TPU kernel's
+// occupancy gates become exact loop bounds here — a thread whose slot is
+// empty writes zeros and stops, and the j loop over a neighbour cell stops at
+// its first empty slot.  The elastic gates become per-thread branches that
+// are exact too: dS only for a solid i with G0 > 0 or S != 0 (it is exactly
+// 0 otherwise: geff carries G0_i, the rotation terms carry S_i), f_art only
+// when a side is solid and AS_i + AS_j != 0 (AS is 0 on fluids), f_dev only
+// in the solid branch.  Accumulators stay in registers, neighbouring threads
+// take neighbouring cells of one slot row so every load of the [F, cap, NC]
+// pack is coalesced, and a candidate outside the kernel support skips all
+// arithmetic (every term carries W or dW/dr, exactly 0 there).  Periodic x
+// wraps the neighbour column and takes the minimum image
+// dx - L * rint(dx / L) with round-to-nearest-even and unfused arithmetic,
+// as torch.round does.
+//
+// Layouts (kept in step with sph_bvf_tpu_torch/ops/pair_cuda.py):
+//   pf  f32 [F, cap, NC]: K2_PF_ROWS, then AS(9), S(9) (ELASTIC) or ASd,
+//       then rhoI (FILTER)
+//   tab f32 [7, T*T]: inv_h, eta, inv_wdelta, W' factor, W factor, h, geff
+//   out f32 [A, cap, NC]: K2_ACC_ROWS, then dS(9) (ELASTIC), then rhoAux1,
+//       rhoAux2 (FILTER)
+// Flat cell c = cx * ny + cy; the grid has one cell along z, and y is not
+// periodic.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int R_VALID = 0, R_PTYPE = 1, R_SOLID = 2, R_X = 3, R_V = 6,
+              R_VEST = 9, R_RHO = 12, R_M = 13, R_B = 14, R_PRHO2 = 15,
+              R_MRHO = 16, R_V2 = 17, R_C0 = 18, R_INVRHO = 19, R_G0 = 20,
+              R_STRESS = 21;
+constexpr int O_NUMDEN = 0, O_DDV = 1, O_F = 4, O_DRHO = 7, O_DE = 8,
+              O_PHI = 9, O_NW = 10, O_DDX = 13, O_DS = 16;
+constexpr int T_INVH = 0, T_ETA = 1, T_INVWD = 2, T_CWFD = 3, T_CWF = 4,
+              T_H = 5, T_GEFF = 6;
+constexpr int F_PSWITCH = 1, F_XSPH = 2, F_FREE = 4, F_WRAPX = 8;
+constexpr int kThreads = 128;
+// the diagonal factor (1 - 1/3) of the deviatoric strain, rounded to f32
+// before the multiply as the plain path does
+constexpr float kTwoThirds = (float)(1.0 - 1.0 / 3.0);
+
+template <bool FILTER, bool ELASTIC>
+__global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
+    const float* __restrict__ pf, const float* __restrict__ tab,
+    float* __restrict__ out, int ntypes, int cap, int nx, int ny, int flags,
+    float lx) {
+  constexpr int R_S = R_STRESS + 9;                      // ELASTIC only
+  constexpr int R_RHOI = R_STRESS + (ELASTIC ? 18 : 1);  // FILTER only
+  constexpr int O_AUX = O_DS + (ELASTIC ? 9 : 0);        // FILTER only
+  constexpr int A = O_AUX + (FILTER ? 2 : 0);
+  const int nc = nx * ny;
+  const int m = cap * nc;  // slots per field row
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= m) return;
+  const int c = s % nc;
+  const int cx = c / ny, cy = c - cx * ny;
+  const int tt = ntypes * ntypes;
+  const bool pswitch = flags & F_PSWITCH, xsph = flags & F_XSPH,
+             free_solids = flags & F_FREE, wrapx = flags & F_WRAPX;
+  auto ld = [&](int row, int slot) { return __ldg(pf + (long long)row * m + slot); };
+  auto tb = [&](int row, int tp) { return __ldg(tab + row * tt + tp); };
+
+  float acc[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) acc[a] = 0.f;
+
+  // slots at or above the cell's occupancy are invalid: nothing to sum
+  if (ld(R_VALID, s) != 0.f) {
+    const int ti = (int)ld(R_PTYPE, s);
+    const bool solid_i = ld(R_SOLID, s) != 0.f;
+    const bool solid_branch = free_solids && solid_i;
+    float xi[3], vi[3], ei[3], bi[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      xi[a] = ld(R_X + a, s);
+      vi[a] = ld(R_V + a, s);
+      ei[a] = ld(R_VEST + a, s);
+      bi[a] = vi[a] - ei[a];  // v - vest of i
+    }
+    const float rhoi = ld(R_RHO, s), mi = ld(R_M, s), Bi = ld(R_B, s);
+    const float Pi = ld(R_PRHO2, s), Vi2 = ld(R_V2, s), c0i = ld(R_C0, s);
+    const float inv_rhoi = ld(R_INVRHO, s);
+    const float inv_i2 = inv_rhoi * inv_rhoi;
+
+    // i-side stress: the artificial-stress tensor, the deviatoric tensor
+    float ASi[ELASTIC ? 9 : 1], Si[ELASTIC ? 9 : 1];
+    bool as_i = false, elastic_i = false;
+    if constexpr (ELASTIC) {
+      bool s_nz = false;
+#pragma unroll
+      for (int q = 0; q < 9; ++q) {
+        ASi[q] = ld(R_STRESS + q, s);
+        Si[q] = ld(R_S + q, s);
+        as_i |= ASi[q] != 0.f;
+        s_nz |= Si[q] != 0.f;
+      }
+      // dS is exactly 0 unless i is a solid with G0 > 0 or S != 0
+      elastic_i = solid_i && (ld(R_G0, s) > 0.f || s_nz);
+    } else {
+      ASi[0] = ld(R_STRESS, s);
+    }
+
+    for (int ox = -1; ox <= 1; ++ox) {
+      int cxj = cx + ox;
+      if (wrapx) {
+        cxj = cxj < 0 ? cxj + nx : (cxj >= nx ? cxj - nx : cxj);
+      } else if (cxj < 0 || cxj >= nx) {
+        continue;
+      }
+      for (int oy = -1; oy <= 1; ++oy) {
+        const int cyj = cy + oy;
+        if (cyj < 0 || cyj >= ny) continue;
+        const int cj = cxj * ny + cyj;
+        for (int j = 0; j < cap; ++j) {
+          const int k = j * nc + cj;
+          // compacted slots: the first empty one ends the cell
+          if (ld(R_VALID, k) == 0.f) break;
+          if (k == s) continue;  // the self pair (zero offset, j == i)
+          float dx[3];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) dx[a] = xi[a] - ld(R_X + a, k);
+          if (wrapx)  // minimum image, unfused like the plain path
+            dx[0] = __fsub_rn(dx[0], __fmul_rn(lx, rintf(__fdiv_rn(dx[0], lx))));
+          const float rsq = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
+          const float r = sqrtf(rsq);
+          const int tp = ti * ntypes + (int)ld(R_PTYPE, k);
+          const float q = r * tb(T_INVH, tp);
+          const float t = fmaxf(1.f - q, 0.f);
+          if (t == 0.f) continue;  // outside the support: every term is 0
+          const float wfd = tb(T_CWFD, tp) * t * t;
+          const float wf = tb(T_CWF, tp) * t * t * t * (1.f + 3.f * q);
+
+          const float mj = ld(R_M, k), rhoj = ld(R_RHO, k), Vj2 = ld(R_V2, k);
+          const bool solid_j = ld(R_SOLID, k) != 0.f;
+          float vj[3], ej[3], vv[3];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            vj[a] = ld(R_V + a, k);
+            ej[a] = ld(R_VEST + a, k);
+            vv[a] = ei[a] - ej[a];  // momentum-velocity difference
+          }
+
+          // ---- sweep 1
+          acc[O_NUMDEN] += Vj2 * wf;
+          if constexpr (FILTER) {
+            acc[O_AUX] += ld(R_RHOI, k) * wf;
+            acc[O_AUX + 1] += wf;
+          }
+          const float vsum = Vi2 + Vj2;
+          const float ddv_coef = 70.f * Bi * vsum * wfd;
+#pragma unroll
+          for (int a = 0; a < 3; ++a) acc[O_DDV + a] += ddv_coef * dx[a];
+          if (xsph) {
+            const float xw = Vj2 * wf;
+#pragma unroll
+            for (int a = 0; a < 3; ++a) acc[O_DDX + a] += xw * (ej[a] - ei[a]);
+          }
+
+          // ---- sweep 2
+          const float delVdotDelR = dx[0] * vv[0] + dx[1] * vv[1] + dx[2] * vv[2];
+          const float ti_s = rhoi * (bi[0] * dx[0] + bi[1] * dx[1] + bi[2] * dx[2]);
+          const float tj_s = rhoj * ((vj[0] - ej[0]) * dx[0] + (vj[1] - ej[1]) * dx[1] +
+                                     (vj[2] - ej[2]) * dx[2]);
+          const float fvisc = vsum * tb(T_ETA, tp) * wfd;
+          const float Pj = ld(R_PRHO2, k);
+          float fpair;
+          if (pswitch) {
+            const float sgn = (Pj + Pi >= 0.f || (solid_i && solid_j)) ? 1.f : -1.f;
+            fpair = mi * mj * (Pj + sgn * Pi) * wfd;
+          } else {
+            fpair = mi * mj * (Pj + Pi) * wfd;
+          }
+
+          // artificial-stress force: mi mj wfd (wf/wdelta)^4 dx.(AS_i + AS_j)
+          float fart[3] = {0.f, 0.f, 0.f};
+          const float w = wf * tb(T_INVWD, tp);
+          const float w2 = w * w;
+          const float as_coef = mi * mj * wfd * (w2 * w2);
+          if constexpr (ELASTIC) {
+            if (solid_i || solid_j) {  // AS is 0 on fluids
+              float ASs[9];
+              bool nz = as_i;
+#pragma unroll
+              for (int e = 0; e < 9; ++e) {
+                const float asj = ld(R_STRESS + e, k);
+                nz |= asj != 0.f;
+                ASs[e] = ASi[e] + asj;
+              }
+              if (nz) {
+#pragma unroll
+                for (int a = 0; a < 3; ++a)
+                  fart[a] = as_coef * (dx[0] * ASs[a] + dx[1] * ASs[3 + a] +
+                                       dx[2] * ASs[6 + a]);
+              }
+            }
+          } else {
+            const float asum = as_coef * (ASi[0] + ld(R_STRESS, k));
+#pragma unroll
+            for (int a = 0; a < 3; ++a) fart[a] = asum * dx[a];
+          }
+
+          if (solid_branch) {
+            // solid-branch force: pressure, Pereira viscosity, deviatoric
+            float fdev[3] = {0.f, 0.f, 0.f};
+            if constexpr (ELASTIC) {
+              const float inv_rhoj = ld(R_INVRHO, k);
+              const float inv_j2 = inv_rhoj * inv_rhoj;
+              const float mmw = mi * mj * wfd;
+              float Ss[9];
+#pragma unroll
+              for (int e = 0; e < 9; ++e)
+                Ss[e] = Si[e] * inv_i2 + ld(R_S + e, k) * inv_j2;
+#pragma unroll
+              for (int a = 0; a < 3; ++a)
+                fdev[a] = mmw * (dx[0] * Ss[a] + dx[1] * Ss[3 + a] + dx[2] * Ss[6 + a]);
+            }
+            float fviscs = 0.f;
+            if (delVdotDelR < 0.f) {
+              const float h = tb(T_H, tp);
+              const float mu = h * delVdotDelR / (rsq + 0.01f * h * h);
+              fviscs = mi * mj * wfd * (-(c0i + ld(R_C0, k)) * mu + 2.f * mu * mu) /
+                       (rhoi + rhoj);
+            }
+            const float fdx = -fpair - fviscs;
+#pragma unroll
+            for (int a = 0; a < 3; ++a) acc[O_F + a] += fdx * dx[a] + fdev[a] + fart[a];
+          } else {
+            const float vw = vsum * wfd;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+              acc[O_F + a] += -fpair * dx[a] + fvisc * vv[a] +
+                              vw * (0.5f * (ti_s * ei[a] + tj_s * ej[a])) + fart[a];
+          }
+
+          // Jaumann deviatoric stress rate (solid i with G0 > 0 or S != 0)
+          if constexpr (ELASTIC) {
+            if (elastic_i) {
+              const float pref = 0.5f * ld(R_MRHO, k) * wfd;
+              const float two_geff = 2.f * tb(T_GEFF, tp);
+              float dv[3], strain[9], rot[9];
+#pragma unroll
+              for (int a = 0; a < 3; ++a) dv[a] = ej[a] - ei[a];
+#pragma unroll
+              for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b) {
+                  const float ab = dv[a] * dx[b], ba = dv[b] * dx[a];
+                  strain[3 * a + b] = pref * (ab + ba);
+                  rot[3 * a + b] = pref * (ab - ba);
+                }
+#pragma unroll
+              for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b) {
+                  const float el = a == b ? two_geff * strain[3 * a + b] * kTwoThirds
+                                          : two_geff * strain[3 * a + b];
+                  float sdr = 0.f, rds = 0.f;
+#pragma unroll
+                  for (int e = 0; e < 3; ++e) {
+                    sdr += Si[3 * a + e] * rot[3 * b + e];
+                    rds += rot[3 * a + e] * Si[3 * e + b];
+                  }
+                  acc[O_DS + 3 * a + b] += el + sdr + rds;
+                }
+            }
+          }
+
+          // density evolution: corr = rho (vest - v).dx = -ti_s / -tj_s
+          const float mrhoj = ld(R_MRHO, k);
+          const float delVt = dx[0] * (vi[0] - vj[0]) + dx[1] * (vi[1] - vj[1]) +
+                              dx[2] * (vi[2] - vj[2]);
+          acc[O_DRHO] += rhoi * delVt * wfd * mrhoj + mrhoj * (ti_s + tj_s) * wfd;
+
+          acc[O_DE] += -0.5f * (fpair * delVdotDelR +
+                                fvisc * (vv[0] * vv[0] + vv[1] * vv[1] + vv[2] * vv[2]));
+
+          // BVF volume fraction and wall normal: fluid i, solid j
+          if (!solid_i && solid_j) {
+            acc[O_PHI] += Vj2 * wf;
+            const float nwc = wfd * Vj2;
+#pragma unroll
+            for (int a = 0; a < 3; ++a) acc[O_NW + a] += nwc * dx[a];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) out[(long long)a * m + s] = acc[a];
+}
+
+template <bool FILTER, bool ELASTIC>
+int launch(const float* pf, const float* tab, float* out, int ntypes, int cap,
+           int nx, int ny, int flags, float lx, cudaStream_t stream) {
+  const int m = cap * nx * ny;
+  const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
+  pass_a_2d_rowloop_kernel<FILTER, ELASTIC><<<blocks, kThreads, 0, stream>>>(
+      pf, tab, out, ntypes, cap, nx, ny, flags, lx);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int pass_a_2d_rowloop(const float* pf, const float* tab, float* out,
+                                 int ntypes, int cap, int nx, int ny, int filter,
+                                 int elastic, int flags, float lx,
+                                 cudaStream_t stream) {
+  if ((long long)cap * nx * ny == 0) return 0;
+  if (filter && elastic)
+    return launch<true, true>(pf, tab, out, ntypes, cap, nx, ny, flags, lx, stream);
+  if (filter)
+    return launch<true, false>(pf, tab, out, ntypes, cap, nx, ny, flags, lx, stream);
+  if (elastic)
+    return launch<false, true>(pf, tab, out, ntypes, cap, nx, ny, flags, lx, stream);
+  return launch<false, false>(pf, tab, out, ntypes, cap, nx, ny, flags, lx, stream);
+}
+
+extern "C" const char* sph_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

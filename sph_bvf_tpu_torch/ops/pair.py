@@ -10,11 +10,14 @@ hand-written kernel on a CUDA tensor, the stencil loop below
 (``_pass_a_plain``) on a CPU tensor.  The loop is also the reference the
 kernel is checked against on the card.
 
-Ported: the branches the flagship lid-driven cavity runs — the
-transport-velocity pair style with the Sun-2018 pressure switch, BVF walls
-of fixed solids, the diagonal artificial stress of non-elastic solids, with
-and without the Shepard-filter accumulators.  Every other branch raises
-``NotImplementedError`` (see ``_unported``).
+Ported: the transport-velocity pair style with the Sun-2018 pressure
+switch (the flagship lid-driven cavity) and the mechanics pair style (the
+FSI beam): the symmetric pressure force, XSPH, BVF walls of fixed solids,
+free solids with the Pereira artificial viscosity, elastic solids (the
+9-component artificial stress, the deviatoric solid force and the Jaumann
+stress rate), periodic axes, with and without the Shepard-filter
+accumulators.  Every other branch raises ``NotImplementedError`` (see
+``_unported``).
 """
 
 from __future__ import annotations
@@ -94,16 +97,11 @@ def _unported(params: Params, cfg: PairConfig) -> list:
     """The pair branches this configuration needs that the port lacks."""
     return [what for what, needed in (
         ("thermal noise (thermal)", cfg.thermal),
-        ("the symmetric pressure force (pressure_switch=False)",
-         not cfg.pressure_switch),
-        ("XSPH (xsph)", cfg.xsph),
         ("density diffusion (ampl_damp)", cfg.ampl_damp != 0.0),
-        ("elastic solids (elastic_present)", cfg.elastic_present),
-        ("free solids (free_solids_present)",
-         cfg.solids_present and cfg.free_solids_present),
+        ("species-softened shear modulus (g0_chem_coupling)",
+         cfg.g0_chem_coupling),
         ("weighted-solid pass B (weighted_solid)",
          cfg.solids_present and cfg.weighted_solid),
-        ("pressure storage (store_pnew)", cfg.store_pnew),
         ("continuum species (n_sdpd > 0)", params.n_sdpd > 0),
         ("SSA species (n_ssa > 0)", params.n_ssa > 0),
     ) if needed]
@@ -125,10 +123,6 @@ def check_ported(params: Params, cfg: PairConfig):
 
 def _per_particle(state: State, params: Params, cfg: PairConfig):
     """Fields every pair term needs, computed once per particle [*, cap, NC]."""
-    if cfg.elastic_present:
-        raise NotImplementedError(
-            "the artificial-stress tensor of elastic solids is ported in a "
-            "later PR")
     t = state.ptype
     m = params.mass[t]
     B = params.B[t]
@@ -139,19 +133,29 @@ def _per_particle(state: State, params: Params, cfg: PairConfig):
     V2 = m_rho * m_rho
     P_rho2 = P * inv_rho * inv_rho  # pressure force term, hoisted per particle
     solid = state.solid_tag == 1
-    # Monaghan artificial stress: with S == 0 the tensor is diagonal,
-    # total = -p delta, tensile iff p < 0 — one scalar row
+    zero = torch.zeros((), dtype=P.dtype, device=P.device)
+    # Monaghan artificial stress (tensile components of S - p delta only)
     p_for_as = torch.abs(P) if cfg.art_stress_abs_p else P
     inv_rho2 = inv_rho * inv_rho
-    total = -p_for_as
-    ASd = torch.where(solid & (total > 0.0),
-                      -cfg.art_stress_coef * total * inv_rho2,
-                      torch.zeros((), dtype=total.dtype, device=total.device))
+
+    def tensile(total):
+        return torch.where(solid & (total > 0.0),
+                           -cfg.art_stress_coef * total * inv_rho2, zero)
+
+    if cfg.elastic_present:
+        stress = dict(AS=torch.stack([
+            torch.stack([tensile(state.S[a, b] - (p_for_as if a == b else 0.0))
+                         for b in range(3)])
+            for a in range(3)]))
+    else:
+        # with S == 0 the tensor is diagonal, total = -p delta, tensile iff
+        # p < 0 — one scalar row
+        stress = dict(ASd=tensile(-p_for_as))
     return dict(
         valid=state.valid, x=state.x, v=state.v, vest=state.vest,
-        rho=state.rho, rhoI=state.rhoI, ptype=t, solid=solid, fluid=~solid,
-        m=m, B=B, P=P, P_rho2=P_rho2, inv_rho=inv_rho, m_rho=m_rho, V2=V2,
-        ASd=ASd,
+        rho=state.rho, rhoI=state.rhoI, S=state.S, ptype=t, solid=solid,
+        fluid=~solid, m=m, B=B, c0=params.c0[t], G0=params.G0[t], P=P,
+        P_rho2=P_rho2, inv_rho=inv_rho, m_rho=m_rho, V2=V2, **stress,
     )
 
 
@@ -253,6 +257,34 @@ def lookup_pair_coeffs(ti, tj, params: Params, cfg: PairConfig):
 # ---------------------------------------------------------------------------
 
 
+def _pass_a_dS(I, J, coeffs, dx, wfd):
+    """Jaumann deviatoric stress-rate pair term (pair...mechanics.cpp:433-451)
+    for one stencil offset, reduced over cj: [3, 3, ci, NC].  Exactly zero
+    for every i that is not a solid with G0 > 0 or S != 0."""
+    dvest = J["vest"] - I["vest"]
+    # strain/rotation: 0.5 (mj/rhoj) wfd (dvest[m] dx[n] +/- dvest[n] dx[m])
+    pref = 0.5 * J["m_rho"] * wfd
+    two_geff = 2.0 * coeffs["geff"]
+    outer = [[dvest[a] * dx[b] for b in range(3)] for a in range(3)]
+    strain = [[pref * (outer[a][b] + outer[b][a]) for b in range(3)]
+              for a in range(3)]
+    rot = [[pref * (outer[a][b] - outer[b][a]) for b in range(3)]
+           for a in range(3)]
+    Si = I["S"]
+    zero = torch.zeros((), dtype=wfd.dtype, device=wfd.device)
+    rows = []
+    for mm in range(3):
+        cols = []
+        for nn in range(3):
+            el = two_geff * strain[mm][nn] * (1.0 if mm != nn else (1.0 - 1.0 / 3.0))
+            sdr = sum(Si[mm, k] * rot[nn][k] for k in range(3))
+            rds = sum(rot[mm][k] * Si[k, nn] for k in range(3))
+            cols.append(torch.sum(torch.where(I["solid"], el + sdr + rds, zero),
+                                  dim=-2))
+        rows.append(torch.stack(cols))
+    return torch.stack(rows)
+
+
 def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
                    acc, pbc=()):
     """Accumulate all sweep-1/2 terms for one stencil offset into ``acc``.
@@ -262,7 +294,9 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
     fdt = I["x"].dtype
     dim = cfg.dim
     RED = -2  # the cj axis of a scalar pair block
+    zero = torch.zeros((), dtype=fdt, device=I["x"].device)
 
+    h = coeffs["h"]
     inv_h = coeffs["inv_h"]
     dx = _pair_delta(I["x"], J["x"], pbc)  # [3, ci, cj, NC]
     rsq = _dot3(dx, dx)
@@ -286,6 +320,9 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
     # background-pressure velocity correction, Adami 2013
     ddv_coef = 10.0 * 7.0 * I["B"] * (Vi2 + Vj2) * wfd
     acc["ddv"] += torch.sum(ddv_coef[None] * dx, dim=RED)
+    if cfg.xsph:
+        dvest_ji = J["vest"] - I["vest"]
+        acc["ddx"] += torch.sum((Vj2 * wf)[None] * dvest_ji, dim=RED)
 
     # ---- sweep 2 ----------------------------------------------------------
     velvec = I["vest"] - J["vest"]  # momentum-velocity difference
@@ -303,23 +340,56 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
     # inter-particle viscosity, Adami 2013
     fvisc = (Vi2 + Vj2) * coeffs["eta"] * wfd
 
-    # pressure force, Zhang 2017 + Sun 2018 switch
+    # pressure force, Zhang 2017 (+ Sun 2018 switch in the tv variant)
     fi_term = I["P_rho2"]
     fj_term = J["P_rho2"]
     pij = fj_term + fi_term
-    sgn = torch.where((pij >= 0.0) | (solid_i & solid_j), 1.0, -1.0)
-    fpair = mi * mj * (fj_term + sgn * fi_term) * wfd
+    if cfg.pressure_switch:
+        sgn = torch.where((pij >= 0.0) | (solid_i & solid_j), 1.0, -1.0)
+        fpair = mi * mj * (fj_term + sgn * fi_term) * wfd
+    else:
+        fpair = mi * mj * pij * wfd
 
-    # artificial-stress force, diagonal tensor: x.(AS_i+AS_j) = (as_i+as_j) dx
+    # artificial-stress force: mi mj wfd (wf/wdelta)^4 dx.(AS_i + AS_j)
     if cfg.solids_present:
         as_coef = mi * mj * wfd * ipow(wf * coeffs["inv_wdelta"], 4)
-        f_art = (as_coef * (I["ASd"] + J["ASd"]))[None] * dx
+        if cfg.elastic_present:
+            f_art = as_coef[None] * _xdot_tensor(dx, I["AS"] + J["AS"])
+        else:
+            # diagonal tensor: x.(AS_i+AS_j) = (as_i+as_j) dx
+            f_art = (as_coef * (I["ASd"] + J["ASd"]))[None] * dx
     else:
         f_art = 0.0
 
-    # fluid-branch force; every solid is fixed, so its force is discarded
     f_fluid = (-fpair)[None] * dx + fvisc[None] * velvec + ftransport + f_art
-    acc["f"] += torch.sum(f_fluid, dim=RED)
+
+    if cfg.solids_present and cfg.free_solids_present:
+        # solid-branch force
+        if cfg.elastic_present:
+            inv_i = I["inv_rho"] * I["inv_rho"]
+            inv_j = J["inv_rho"] * J["inv_rho"]
+            Ssum = I["S"] * inv_i[None, None] + J["S"] * inv_j[None, None]
+            f_dev = (mi * mj * wfd)[None] * _xdot_tensor(dx, Ssum)
+        else:
+            f_dev = 0.0
+        # Pereira 2017 artificial viscosity for solids
+        mu = h * delVdotDelR / (rsq + 0.01 * h * h)
+        fviscs = torch.where(
+            delVdotDelR < 0.0,
+            mi * mj * wfd * (-(I["c0"] + J["c0"]) * mu + 2.0 * mu * mu)
+            / (rhoi + rhoj),
+            zero,
+        )
+        f_solid = (-fpair - fviscs)[None] * dx + f_dev + f_art
+        fsum = torch.where(solid_i[None], f_solid, f_fluid)
+    else:
+        # every solid is fixed, so its force is discarded
+        fsum = f_fluid
+    acc["f"] += torch.sum(fsum, dim=RED)
+
+    # Jaumann deviatoric stress rate
+    if cfg.elastic_present:
+        acc["dS"] += _pass_a_dS(I, J, coeffs, dx, wfd)
 
     # density evolution, "new density formulation"
     dvt = I["v"] - J["v"]  # transport-velocity difference
@@ -346,32 +416,34 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
 
 def _pass_a_j_fields(cfg: PairConfig):
     """The per-particle fields the ported pass-A branches read j-side."""
-    fields = "valid x v vest rho rhoI ptype solid m P_rho2 m_rho V2".split()
+    fields = "valid x v vest rho rhoI ptype solid m c0 P_rho2 inv_rho m_rho V2".split()
     if cfg.solids_present:
-        fields.append("ASd")
+        fields.append("AS" if cfg.elastic_present else "ASd")
+    if cfg.elastic_present:
+        fields.append("S")
     return fields
 
 
-PASS_A_ACCS = ("num_den", "rhoAux1", "rhoAux2", "ddv", "f", "drho", "de",
-               "phi", "nw")
-_VECTOR_ACCS = ("ddv", "f", "nw")
+PASS_A_ACCS = ("num_den", "rhoAux1", "rhoAux2", "ddv", "ddx", "f", "dS",
+               "drho", "de", "phi", "nw")
+# leading component axes of the accumulators that are not [cap, NC] scalars
+_ACC_LEAD = {"ddv": (3,), "ddx": (3,), "f": (3,), "nw": (3,), "dS": (3, 3)}
 
 
 def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig):
     """Pass A as a loop over the stencil offsets: the plain version of the
-    K1 kernel.  Returns every ``PASS_A_ACCS`` entry ([cap, NC] scalars,
-    [3, cap, NC] vectors); accumulators the configuration skips stay 0."""
+    K1 and K2 kernels.  Returns every ``PASS_A_ACCS`` entry ([cap, NC]
+    scalars, [3, cap, NC] vectors, [3, 3, cap, NC] dS); accumulators the
+    configuration skips stay 0."""
     cap, NC = pf["rho"].shape
     fdt, dev = pf["x"].dtype, pf["x"].device
     I = {k: _bc(v, "i") for k, v in pf.items()}
     # self-pair exclusion for the zero offset ([cap, cap, 1])
     not_diag = ~torch.eye(cap, dtype=torch.bool, device=dev)[:, :, None]
     pbc = _pbc(geom)
-    acc = {
-        name: torch.zeros(((3,) if name in _VECTOR_ACCS else ()) + (cap, NC),
-                          dtype=fdt, device=dev)
-        for name in PASS_A_ACCS
-    }
+    acc = {name: torch.zeros(_ACC_LEAD.get(name, ()) + (cap, NC), dtype=fdt,
+                             device=dev)
+           for name in PASS_A_ACCS}
     ja_fields = _pass_a_j_fields(cfg)
     for off in geom.stencil_offsets():
         J = {k: _bc(shift_cells(pf[k], off, geom), "j") for k in ja_fields}
@@ -393,8 +465,8 @@ def compute_forces(
     """Full force evaluation; returns the state with all accumulators replaced
     (force_clear + Pair::compute).
 
-    Pass A goes through ``pair_cuda.pass_a_2d``: the K1 kernel on a CUDA
-    tensor, ``_pass_a_plain`` on a CPU tensor.
+    Pass A goes through ``pair_cuda.pass_a_2d``: the K1 or K2 kernel on a
+    CUDA tensor, ``_pass_a_plain`` on a CPU tensor.
     """
     if mesh is not None:
         raise NotImplementedError("multi-device pair passes are ported in a later PR")
@@ -418,8 +490,8 @@ def compute_forces(
         Q=zeros(params.n_sdpd),
         Qd=zeros(params.n_ssa, dtype=torch.int32),
         ddv=acc["ddv"],
-        ddx=zeros(3),
-        dS=zeros(3, 3),
+        ddx=acc["ddx"],
+        dS=acc["dS"],
         phi=acc["phi"],
         num_den=torch.where(state.valid, acc["num_den"], one),
         nw=acc["nw"],
@@ -427,4 +499,5 @@ def compute_forces(
         aws=zeros(3),
         rhoAux1=acc["rhoAux1"],
         rhoAux2=torch.where(state.valid, acc["rhoAux2"], one),
+        Pnew=pf["P"] if cfg.store_pnew else state.Pnew,
     )

@@ -1,40 +1,81 @@
-"""K1: the 2D pass-A pair kernel (``csrc/pass_a_2d.cu``) and its wrapper.
+"""The 2D pass-A pair kernels and their wrappers.
 
-Port of ``sph_bvf_tpu/ops/pair_pallas.py`` for the flagship's grouped 2D
-kernel.  ``pass_a_2d`` launches the CUDA kernel on a CUDA tensor and runs
-the plain PyTorch loop (``ops/pair._pass_a_plain``) only on a CPU tensor.
-A CUDA call the kernel cannot serve raises; it never falls back.
+K1 (``csrc/pass_a_2d.cu``) ports the grouped kernel of
+``sph_bvf_tpu/ops/pair_pallas.py``; K2 (``csrc/pass_a_2d_rowloop.cu``)
+ports its rowloop kernel.  ``pass_a_2d`` makes JAX's shape choice
+(``pair_pallas._default_rowloop``): grids with a mixed lattice
+(``base_occ == 0``) or a crowded cell (``cap > 24``) go to K2, the rest to
+K1.  On a CUDA tensor each wrapper launches its kernel; the plain PyTorch
+loop (``ops/pair._pass_a_plain``) runs only on a CPU tensor.  A CUDA call
+the routed kernel cannot serve raises and names what is missing; it never
+falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import periodic_multicell
+from sph_bvf_tpu_torch.core.halo import ghost_axes, periodic_multicell, wrap_x
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
 from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
 
-# Packed field rows, in the order csrc/pass_a_2d.cu reads them (R_* there);
-# rhoI is staged only when the Shepard-filter accumulators are wanted.
+# K1 packed field rows, in the order csrc/pass_a_2d.cu reads them (R_*
+# there); rhoI is staged only when the Shepard-filter accumulators are
+# wanted.
 PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
            "P_rho2", "m_rho", "V2", "ASd")
-# Accumulator rows the kernel writes (O_* there).
+# K1 accumulator rows (O_* there).
 ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
             ("phi", 1), ("nw", 3))
 FILTER_ACC_ROWS = (("rhoAux1", 1), ("rhoAux2", 1))
 
+# K2 packed field rows (R_* in csrc/pass_a_2d_rowloop.cu): these, then AS
+# and S (elastic) or ASd, then rhoI (filter).
+K2_PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
+              "P_rho2", "m_rho", "V2", "c0", "inv_rho", "G0")
+# K2 accumulator rows (O_* there): these, then dS (elastic), then the
+# filter rows.
+K2_ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
+               ("phi", 1), ("nw", 3), ("ddx", 3))
+# K2 runtime switches (F_* there)
+_F_PSWITCH, _F_XSPH, _F_FREE, _F_WRAPX = 1, 2, 4, 8
 
-def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig") -> list:
-    """What keeps K1 from serving this geometry and configuration."""
-    return [what for what, bad in (
+
+def uses_rowloop(geom: Geometry) -> bool:
+    """K2 or K1: JAX's shape choice for 2D grids (mixed lattice or cap > 24
+    take the rowloop kernel)."""
+    return geom.base_occ == 0 or geom.cap > 24
+
+
+def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
+                       rowloop: bool | None = None) -> list:
+    """What keeps K2 (``rowloop``) or K1 — by default the kernel this grid
+    routes to — from serving this geometry and configuration."""
+    checks = [
         ("a 3D grid", geom.dim != 2 or geom.ncells[2] != 1),
-        ("a periodic axis", periodic_multicell(geom)),
         ("a solid-free scene (solids_present=False)", not cfg.solids_present),
-    ) if bad]
+    ]
+    if uses_rowloop(geom) if rowloop is None else rowloop:
+        checks += [
+            ("a periodic y axis", bool(ghost_axes(geom))),
+            ("a periodic x axis with fewer than 3 cells",
+             wrap_x(geom) and geom.ncells[0] < 3),
+        ]
+    else:
+        checks += [
+            ("a periodic axis", periodic_multicell(geom)),
+            ("XSPH (xsph)", cfg.xsph),
+            ("the symmetric pressure force (pressure_switch=False)",
+             not cfg.pressure_switch),
+            ("elastic solids (elastic_present)", cfg.elastic_present),
+            ("free solids (free_solids_present)", cfg.free_solids_present),
+        ]
+    return [what for what, bad in checks if bad]
 
 
 def _tables(params: Params, cfg) -> torch.Tensor:
@@ -47,53 +88,130 @@ def _tables(params: Params, cfg) -> torch.Tensor:
     return torch.stack([r.reshape(-1) for r in rows]).to(torch.float32).contiguous()
 
 
-def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
-    """Pass A accumulators (``pair.PASS_A_ACCS``) from the per-particle dict
-    ``pf`` (``pair._per_particle``): K1 on CUDA, the plain loop on CPU."""
-    if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg)
+def _k2_tables(params: Params, cfg) -> torch.Tensor:
+    """[7, T*T] f32: K1's five rows, then h (the Pereira viscosity) and the
+    harmonic shear modulus geff (0 without elastic solids)."""
+    tabs = pair.coeff_tables(params, cfg)
+    geff = tabs.get("geff", torch.zeros_like(tabs["h"]))
+    extra = torch.stack([tabs["h"].reshape(-1), geff.reshape(-1)])
+    return torch.cat([_tables(params, cfg), extra.to(torch.float32)]).contiguous()
+
+
+def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, rowloop: bool):
+    """Raise unless K2 (``rowloop``) or K1 can take these fields."""
     pair.check_ported(params, cfg)
-    missing = kernel_unsupported(geom, cfg)
+    missing = kernel_unsupported(geom, cfg, rowloop)
     if missing:
         raise NotImplementedError(
-            "pass-A kernel for " + ", ".join(missing) + " is ported in a later PR")
+            f"pass-A kernel {'K2' if rowloop else 'K1'} for "
+            + ", ".join(missing) + " is ported in a later PR")
     if pf["x"].dtype != torch.float32:
         raise TypeError(f"pass-A kernel takes float32 state, got {pf['x'].dtype}")
     cap, NC = pf["rho"].shape
     if NC != geom.ncells_total or cap != geom.cap:
         raise ValueError(f"fields are [{cap}, {NC}], geometry says "
                          f"[{geom.cap}, {geom.ncells_total}]")
+    if cap * NC >= 2**31:
+        raise ValueError(f"{cap * NC} slots overflow the kernels' 32-bit index")
+
+
+def _pack(pf: dict, names, cap: int, NC: int) -> torch.Tensor:
+    return torch.cat([pf[k].reshape(-1, cap, NC).to(torch.float32) for k in names])
+
+
+def _unpack(out: torch.Tensor, accs) -> dict:
+    result, r = {}, 0
+    for name, n in accs:
+        block = out[r:r + n]
+        result[name] = block.reshape(pair._ACC_LEAD.get(name, ()) + block.shape[1:])
+        r += n
+    return result
+
+
+def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+    """Pass A accumulators (``pair.PASS_A_ACCS``) from the per-particle dict
+    ``pf`` (``pair._per_particle``): K1, or K2 on the grids
+    ``uses_rowloop`` picks, on CUDA; the plain loop on CPU."""
+    if not pf["x"].is_cuda:
+        return pair._pass_a_plain(pf, params, geom, cfg)
+    if uses_rowloop(geom):
+        return pass_a_2d_rowloop(pf, params, geom, cfg)
+    _check_launch(pf, params, geom, cfg, rowloop=False)
+    cap, NC = pf["rho"].shape
     filt = bool(cfg.density_filter_accs)
-    names = PF_ROWS + (("rhoI",) if filt else ())
-    PF = torch.cat([pf[k].reshape(-1, cap, NC).to(torch.float32) for k in names])
+    PF = _pack(pf, PF_ROWS + (("rhoI",) if filt else ()), cap, NC)
     tab = _tables(params, cfg).to(PF.device)
     accs = ACC_ROWS + (FILTER_ACC_ROWS if filt else ())
     out = torch.empty((sum(n for _, n in accs), cap, NC), dtype=torch.float32,
                       device=PF.device)
-    for t in (PF, tab, out):
-        if not t.is_contiguous() or t.device != PF.device:
-            raise ValueError("pass-A kernel buffers must be contiguous on one device")
 
     lib = _build.load("pass_a_2d")
     fn = lib.pass_a_2d
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    with torch.cuda.device(PF.device):
-        stream = torch.cuda.current_stream().cuda_stream
     code = fn(PF.data_ptr(), tab.data_ptr(), out.data_ptr(), params.ntypes,
-              cap, geom.ncells[0], geom.ncells[1], int(filt), stream)
+              cap, geom.ncells[0], geom.ncells[1], int(filt),
+              _build.current_stream(PF.device))
     _build.check(lib, code, "pass_a_2d")
     pass_a_2d.launches += 1
 
-    result, r = {}, 0
-    for name, n in accs:
-        result[name] = out[r] if n == 1 else out[r:r + n]
-        r += n
+    result = _unpack(out, accs)
     if not filt:
         zero = torch.zeros((cap, NC), dtype=torch.float32, device=PF.device)
-        result["rhoAux1"] = zero
-        result["rhoAux2"] = zero
+        result["rhoAux1"] = result["rhoAux2"] = zero
+    result["ddx"] = torch.zeros((3, cap, NC), dtype=torch.float32, device=PF.device)
+    result["dS"] = torch.zeros((3, 3, cap, NC), dtype=torch.float32,
+                               device=PF.device)
     return result
 
 
-pass_a_2d.launches = 0  # kernel launches in this process
+pass_a_2d.launches = 0  # K1 launches in this process
+
+
+def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+    """Pass A accumulators from ``pf`` through K2 on CUDA (the plain loop on
+    CPU): tv and mechanics physics, fixed and free solids, elastic solids,
+    XSPH, periodic x."""
+    if not pf["x"].is_cuda:
+        return pair._pass_a_plain(pf, params, geom, cfg)
+    _check_launch(pf, params, geom, cfg, rowloop=True)
+    cap, NC = pf["rho"].shape
+    filt = bool(cfg.density_filter_accs)
+    elastic = bool(cfg.elastic_present)
+    stress = ("AS", "S") if elastic else ("ASd",)
+    PF = _pack(pf, K2_PF_ROWS + stress + (("rhoI",) if filt else ()), cap, NC)
+    tab = _k2_tables(params, cfg).to(PF.device)
+    accs = (K2_ACC_ROWS + ((("dS", 9),) if elastic else ())
+            + (FILTER_ACC_ROWS if filt else ()))
+    out = torch.empty((sum(n for _, n in accs), cap, NC), dtype=torch.float32,
+                      device=PF.device)
+    flags = ((_F_PSWITCH if cfg.pressure_switch else 0)
+             | (_F_XSPH if cfg.xsph else 0)
+             | (_F_FREE if cfg.free_solids_present else 0)
+             | (_F_WRAPX if wrap_x(geom) else 0))
+    # the periodic extent in f32, the constant the plain path's minimum
+    # image rounds it to
+    lx = float(np.float32(geom.hi[0] - geom.lo[0]))
+
+    lib = _build.load("pass_a_2d_rowloop")
+    fn = lib.pass_a_2d_rowloop
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    code = fn(PF.data_ptr(), tab.data_ptr(), out.data_ptr(), params.ntypes,
+              cap, geom.ncells[0], geom.ncells[1], int(filt), int(elastic),
+              flags, lx, _build.current_stream(PF.device))
+    _build.check(lib, code, "pass_a_2d_rowloop")
+    pass_a_2d_rowloop.launches += 1
+
+    result = _unpack(out, accs)
+    if not filt:
+        zero = torch.zeros((cap, NC), dtype=torch.float32, device=PF.device)
+        result["rhoAux1"] = result["rhoAux2"] = zero
+    if not elastic:
+        result["dS"] = torch.zeros((3, 3, cap, NC), dtype=torch.float32,
+                                   device=PF.device)
+    return result
+
+
+pass_a_2d_rowloop.launches = 0  # K2 launches in this process

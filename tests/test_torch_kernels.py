@@ -1,11 +1,12 @@
-"""The port's hand-written CUDA kernels (K1 pass A, K5 rebin move).
+"""The port's hand-written CUDA kernels (K1 and K2 pass A, K5 and K6
+rebin move).
 
 The kernel-vs-plain checks need a CUDA card and are marked ``gpu``: they
 skip on a machine without one (run them there with
 ``python -m pytest tests/test_torch_kernels.py -m gpu``).  The CPU checks
 hold what the wrappers promise off the card: a CPU tensor runs the plain
-version and never counts a launch, and the kernels' eligibility covers
-the flagship.
+version and never counts a launch, the kernels' eligibility covers the
+flagship and the FSI beam, and a configuration no kernel serves raises.
 """
 
 import dataclasses
@@ -17,11 +18,24 @@ import torch
 from sph_bvf_tpu_torch.core import rebin_cuda
 from sph_bvf_tpu_torch.core import state as TS
 from sph_bvf_tpu_torch.core.stepper import run_chunk, setup
-from sph_bvf_tpu_torch.models import lid_cavity
+from sph_bvf_tpu_torch.models import fsi, lid_cavity
 from sph_bvf_tpu_torch.ops import pair, pair_cuda
 
 K1_FIELDS = ("f", "drho", "num_den", "phi", "nw", "ddv", "de", "rhoAux1",
              "rhoAux2")
+K2_FIELDS = K1_FIELDS + ("ddx", "dS")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the plain paths issue
+    thousands of small ops, and with the suite's parallel workers each
+    running a full OpenMP pool the spinning pools starve one another
+    (a run of the port's tests went from ~3 to over 20 minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -74,30 +88,175 @@ def test_k5_matches_plain_walk_and_sort_on_card(cuda):
         assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
 
 
+def _fsi(device, seed_S=False):
+    """fsi.build(nx=24) after setup and one 4-step chunk; with ``seed_S``
+    the solids get a seeded symmetric deviatoric stress (numpy, seed 0),
+    large enough that the artificial-stress tensor is tensile somewhere."""
+    state, params, spec, _ = fsi.build(nx=24, rebin_every=4, device=device)
+    state = setup(state, params, spec, dt=1e-8)
+    state = run_chunk(state, params, spec, spec.rebin_every)
+    if seed_S:
+        rng = np.random.default_rng(0)
+        S = rng.normal(0.0, 50.0, tuple(state.S.shape))
+        S = torch.as_tensor(S + np.swapaxes(S, 0, 1), dtype=state.S.dtype,
+                            device=state.S.device)
+        solid = state.valid & (state.solid_tag == 1)
+        state = dataclasses.replace(state, S=torch.where(solid, S, 0.0))
+    return state, params, spec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed_S", [False, True], ids=["run", "seeded_S"])
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+def test_k2_matches_plain_on_card(cuda, filt, seed_S):
+    """K2 vs the plain stencil loop on the same CUDA tensors of the nx=24
+    FSI state: each field within 5e-6 of its max (f32 sums in another
+    order, with FMA)."""
+    state, params, spec = _fsi(cuda, seed_S)
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+    pf = pair._per_particle(state, params, cfg)
+    ref = pair._pass_a_plain(pf, params, spec.geom, cfg)
+    got = pair_cuda.pass_a_2d_rowloop(pf, params, spec.geom, cfg)
+    torch.cuda.synchronize()
+    if seed_S:  # the elastic terms are live (the frozen beam's own dS is 0)
+        assert float(pf["AS"].abs().max()) > 0
+        assert float(ref["dS"].abs().max()) > 0
+    for name in K2_FIELDS:
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+
+
+@pytest.mark.gpu
+def test_k6_matches_plain_walk_and_sort_on_card(cuda):
+    """K6 vs the plain walk and the sort rebin on the nx=24 FSI state after
+    a chunk (periodic x, cap 34): every leaf bitwise."""
+    state, params, spec = _fsi(cuda)
+    state = run_chunk(state, params, spec, 3)  # drifted since its rebin
+    geom = spec.geom
+    fields = TS.particle_fields(state)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    kf, ki = rebin_cuda.rebin_move_2d_gated(PF, PI, geom, xr)
+    pf_, pi_ = rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr)
+    assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+def test_k2_and_k6_serve_a_crowded_cavity_on_card(cuda, filt):
+    """The N=50 cavity with cap 30 routes to K2 (transport-velocity
+    pressure switch, fixed walls, no periodic axis) and K6 (walls): K2
+    within 5e-6 of the plain loop, K6 bitwise to the plain walk and the
+    sort rebin."""
+    state, params, spec, _ = lid_cavity.build(N=50, cap=30, device=cuda)
+    state = setup(state, params, spec, dt=1e-4)
+    state = run_chunk(state, params, spec, 9)
+    geom = spec.geom
+    assert pair_cuda.uses_rowloop(geom)
+    assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_2d_gated
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+    pf = pair._per_particle(state, params, cfg)
+    ref = pair._pass_a_plain(pf, params, geom, cfg)
+    got = pair_cuda.pass_a_2d(pf, params, geom, cfg)
+    torch.cuda.synchronize()
+    for name in K1_FIELDS:
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+
+
 def test_no_launch_on_cpu_tensors():
-    """On CPU tensors the wrappers run the plain versions: a setup and a
-    chunk move neither launch counter."""
-    k1, k5 = pair_cuda.pass_a_2d.launches, rebin_cuda.rebin_move_2d.launches
+    """On CPU tensors the wrappers run the plain versions: setups and
+    chunks of the cavity (K1/K5 grid) and the FSI beam (K2/K6 grid) move
+    no launch counter."""
+    counters = (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_rowloop,
+                rebin_cuda.rebin_move_2d, rebin_cuda.rebin_move_2d_gated)
+    before = [c.launches for c in counters]
     state, params, spec = _cavity(16, "cpu", steps=3)
     assert int(state.step) == 3
-    assert pair_cuda.pass_a_2d.launches == k1
-    assert rebin_cuda.rebin_move_2d.launches == k5
+    state, params, spec = _fsi("cpu")
+    assert int(state.step) == 4
+    assert [c.launches for c in counters] == before
 
 
 def test_kernels_serve_the_flagship_grid():
     """The flagship geometry and pair configuration are what K1 and K5
-    serve; a periodic or 3D grid is not (it raises on a CUDA tensor)."""
+    serve; a crowded grid (cap 17..64) moves through K6; a periodic grid
+    of cap <= 16, a cap above 64 or a 3D grid has no kernel (it raises on
+    a CUDA tensor)."""
     state, params, spec, _ = lid_cavity.build(N=50)
+    assert not pair_cuda.uses_rowloop(spec.geom)
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair) == []
-    assert rebin_cuda.move_supported(spec.geom)
+    assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_2d
     periodic = dataclasses.replace(spec.geom, periodic=(True, False, True))
     assert not rebin_cuda.move_supported(periodic)
     assert pair_cuda.kernel_unsupported(periodic, spec.pair)
-    big_cap = dataclasses.replace(spec.geom, cap=rebin_cuda.MAX_CAP + 1)
+    crowded = dataclasses.replace(spec.geom, cap=rebin_cuda.MAX_CAP + 1)
+    assert rebin_cuda.move_route(crowded) is rebin_cuda.rebin_move_2d_gated
+    big_cap = dataclasses.replace(spec.geom, cap=rebin_cuda.GATED_MAX_CAP + 1)
     assert not rebin_cuda.move_supported(big_cap)
     flat3d = dataclasses.replace(spec.geom, dim=3, ncells=(19, 19, 4))
     assert not rebin_cuda.move_supported(flat3d)
     assert pair_cuda.kernel_unsupported(flat3d, spec.pair)
+
+
+def test_unsupported_configurations_raise():
+    """The checks each wrapper runs before a launch raise
+    NotImplementedError and name what is missing: grouped-shape physics K1
+    lacks, a periodic y axis on a K2 grid, and rebin grids no kernel
+    serves."""
+    state, params, spec, _ = lid_cavity.build(N=16)
+    pf = pair._per_particle(state, params, spec.pair)
+    for bad, what in ((dict(xsph=True), "XSPH"),
+                      (dict(pressure_switch=False), "symmetric pressure"),
+                      (dict(free_solids_present=True), "free solids")):
+        cfg = dataclasses.replace(spec.pair, **bad)
+        with pytest.raises(NotImplementedError, match=what):
+            pair_cuda._check_launch(pf, params, spec.geom, cfg, rowloop=False)
+    fstate, fparams, fspec, _ = fsi.build(nx=24)
+    pf = pair._per_particle(fstate, fparams, fspec.pair)
+    pair_cuda._check_launch(pf, fparams, fspec.geom, fspec.pair, rowloop=True)
+    periodic_y = dataclasses.replace(fspec.geom, periodic=(True, True, True))
+    with pytest.raises(NotImplementedError, match="periodic y"):
+        pair_cuda._check_launch(pf, fparams, periodic_y, fspec.pair, rowloop=True)
+    with pytest.raises(NotImplementedError, match="periodic y"):
+        pair_cuda._check_launch(pf, fparams, periodic_y,
+                                dataclasses.replace(fspec.pair,
+                                                    elastic_present=False),
+                                rowloop=True)
+
+    geom = spec.geom
+    fields = TS.particle_fields(state)
+    PF, PI, _, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d)
+    periodic = dataclasses.replace(geom, periodic=(True, False, True))
+    with pytest.raises(NotImplementedError):  # K5 takes no periodic axis
+        rebin_cuda._check_packs(PF, PI, periodic, rebin_cuda.rebin_move_2d)
+    with pytest.raises(NotImplementedError):  # K6 takes cap > 16 only
+        rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d_gated)
+
+
+def test_k2_tables_match_plain_coefficients():
+    """K2 reads K1's five rows, then h and geff, flattened [T*T]."""
+    _, params, spec, _ = fsi.build(nx=24)
+    tab = pair_cuda._k2_tables(params, spec.pair)
+    tabs = pair.coeff_tables(params, spec.pair)
+    T = params.ntypes
+    assert tab.shape == (7, T * T) and tab.dtype == torch.float32
+    np.testing.assert_array_equal(tab[:5].numpy(),
+                                  pair_cuda._tables(params, spec.pair).numpy())
+    np.testing.assert_array_equal(tab[5].numpy(), tabs["h"].reshape(-1).numpy())
+    np.testing.assert_array_equal(tab[6].numpy(), tabs["geff"].reshape(-1).numpy())
+    assert float(tab[6].max()) > 0
 
 
 def test_k1_tables_match_plain_coefficients():

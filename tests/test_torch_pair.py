@@ -155,14 +155,15 @@ def test_compute_forces_matches_bruteforce(filt):
 
 
 def test_unported_branches_raise():
-    """Branches outside the ported slice raise instead of running other code."""
+    """Branches outside the ported slices raise instead of running other
+    code: thermal noise, density diffusion, the species-softened shear
+    modulus and the weighted-solid pass B."""
     s, p, jspec = _perturbed_cavity(np.float32)
     tspec = bridge.spec_to_port(jspec)
     st = bridge.state_to_port(s)
     params = bridge.params_to_port(_jax(JParams, p))
-    for bad in (dict(xsph=True), dict(thermal=True), dict(elastic_present=True),
-                dict(free_solids_present=True), dict(weighted_solid=True),
-                dict(pressure_switch=False)):
+    for bad in (dict(thermal=True), dict(ampl_damp=0.1),
+                dict(g0_chem_coupling=True), dict(weighted_solid=True)):
         cfg = dataclasses.replace(tspec.pair, **bad)
         with pytest.raises(NotImplementedError):
             tpair.compute_forces(st, params, tspec.geom, cfg)
