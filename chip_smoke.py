@@ -6,12 +6,12 @@ the CUDA toolkit (``nvcc``):
 
     python3 chip_smoke.py
 
-Two paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move) and
-the FSI beam in a periodic-x channel (K2 pass A, K6 rebin move).  Phases,
-one line each:
+Three paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move),
+the FSI beam in a periodic-x channel (K2 pass A, K6 rebin move) and the 3D
+lid-driven cavity (K3 pass A, K7 rebin move).  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
-2. build   — compile the four hand-written kernels from
+2. build   — compile the six hand-written kernels from
              ``sph_bvf_tpu_torch/csrc``, one nvcc per source, all at once;
 3. K1      — the pass-A kernel against the plain stencil loop on the N=200
              cavity after setup and 100 steps, both filter variants:
@@ -26,22 +26,41 @@ one line each:
              artificial-stress tensor AS and the stress rate dS nonzero;
 6. K6      — the gated rebin-move kernel against the plain walk and the
              sort rebin on that state 50 steps after its rebin: bitwise;
-7. main    — each path through its entry points with the launch counters
+7. K3      — the 3D pass-A kernel against the plain 27-offset loop on
+             lid_cavity3d.build(N) after setup and 100 steps, N=40 and the
+             main path's N=100, both filter variants: max|diff| <= 5e-6 *
+             max|plain| for every field;
+8. K7      — the 3D rebin-move kernel against the plain walk and the sort
+             rebin on each of those states 10 steps later: every leaf
+             bitwise;
+9. main    — each path through its entry points with the launch counters
              reset first: lid_cavity.build(N=200) -> setup -> simulate(1000)
-             (K1 once per step plus setup, K5 once per chunk plus setup) and
+             (K1 once per step plus setup, K5 once per chunk plus setup),
              fsi.build(nx=60, tdamp_solid=500) -> setup -> simulate(1000)
-             (K2 and K6 likewise, no K1 or K5); no overflow or drift,
-             particles conserved, fields finite, velocities and densities
-             inside bounds set from the JAX package's own runs; and the N=50
-             cavity and the nx=24 FSI stepped 20 times on the card agree
-             with the same runs through the plain path on the CPU;
-8. speed   — particle-steps/s of the cavity at N=200 and N=1000 and of FSI
-             at nx=60 and nx=240, and per call each kernel beside its plain
-             version and each rebin beside the sort rebin (CUDA events
-             after a warm-up).
+             (K2 and K6 likewise) and lid_cavity3d.build(N=100) -> setup ->
+             simulate(500) (1.19M particles; K3 and K7 likewise), no other
+             kernel launched; no overflow or drift, particles conserved,
+             fields finite, velocities and densities inside bounds set from
+             the JAX package's own runs (the 3D cavity's at N=20, 200 steps,
+             run on the card here too); and the N=50 cavity, the nx=24 FSI
+             and the N=8 3D cavity stepped 20 times on the card agree with
+             the same runs through the plain path on the CPU;
+10. speed  — particle-steps/s of the cavity at N=200 and N=1000, of FSI at
+             nx=60 and nx=240 and of the 3D cavity at N=40 and N=100, and per
+             call each kernel beside its plain version and each rebin beside
+             the sort rebin (CUDA events after a warm-up), with each kernel's
+             bound: the larger of its bytes over 3.35 TB/s and its f32
+             operations on this run's data over 67 TFLOP/s, where the bytes
+             are, at the run's occupancy, the valid row of every slot and
+             the other input rows of the valid slots read once, and every
+             output row of every slot written once;
+11. profile — one chunk of the 3D cavity at N=40 and N=100 under
+             torch.profiler: device ops and device time per step, the
+             busy share, and K3's and K7's device time per call; it fails
+             if the profiler records no device activity.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}``, the last
+second-to-last line is ``{"kernels": [...]}`` (six entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -56,13 +75,14 @@ import subprocess
 import sys
 import time
 
-KERNELS = ("pass_a_2d", "pass_a_2d_rowloop", "rebin_move_2d",
-           "rebin_move_2d_gated")
+KERNELS = ("pass_a_2d", "pass_a_2d_rowloop", "pass_a_3d", "rebin_move_2d",
+           "rebin_move_2d_gated", "rebin_move_3d")
 CAVITY_N = (200, 1000)  # parity/main/speed size, large speed size
 FSI_NX = (60, 240)  # the reference's size, large speed size (~225k particles)
-SMALL = {"cavity": 50, "fsi": 24}  # card vs CPU plain path
-MAIN_STEPS = 1000
-PARITY_STEPS = {"cavity": 100, "fsi": 300}
+CAVITY3D_N = (40, 100)  # parity/speed size (97k particles), main/speed size (1.19M)
+SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8}  # card vs CPU plain path
+MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500}
+PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100}
 FSI_RELEASE = {"parity": 100, "main": 500}  # tdamp_solid: the beam's release
 # The JAX package's own run of the FSI main path (nx=60, tdamp_solid=500,
 # f32, jnp path, on the CPU) at step 1000, and the band [lo, hi] x that
@@ -75,12 +95,31 @@ FSI_JAX_STEP1000 = {
     "beam max|v|": (0.025616399943828583, 0.5, 2.0),
     "beam max|S|": (2985.49462890625, 0.5, 2.0),
 }
-SPEED_STEPS = {200: (200, 20), 1000: (50, 5), 60: (200, 10), 240: (50, 2)}
+# The JAX package's own run of the 3D cavity at N=20 (f32, jnp path, on the
+# CPU) at step 200, and the band [lo, hi] x that value the card's run of the
+# same scene must land in.  The top fluid layer is z > 1 - 1/N.
+CAVITY3D_JAX_N, CAVITY3D_JAX_STEPS = 20, 200
+CAVITY3D_JAX_STEP200 = {
+    "fluid max|v|": (0.06267453730106354, 0.98, 1.02),
+    "fluid max|rho-1|": (0.0002028942108154297, 0.95, 1.05),
+    "fluid mean rho": (1.0000001192092896, 0.99999, 1.00001),
+    "top fluid mean v_x": (0.062198467552661896, 0.98, 1.02),
+}
+SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
+               "fsi": {60: (200, 10), 240: (50, 2)},
+               "cavity3d": {40: (100, 10), 100: (50, 3)}}
 # FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
 # smaller and the start-up pressure waves (|v| up to ~0.4) drift particles
 # past the budget within 100 steps, so the run rebins every 20
 FSI_REBIN = {60: 100, 240: 20}
 TOL = 5e-6  # kernel vs plain, relative to the field's max
+# the H100 SXM's published peaks: HBM bytes/s and f32 (non-tensor-core) flop/s
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# f32 operations a pass-A kernel spends on each valid candidate j of i's
+# window (the distance and the support test) and on each pair inside the
+# support (the transport-velocity pair body of csrc/pass_a_tv.cuh; K2's
+# mechanics and elastic terms cost more, so for K2 it is a floor)
+FLOPS_CANDIDATE, FLOPS_PAIR = 10, 120
 
 
 def _nvidia_smi(query: str) -> str:
@@ -133,7 +172,7 @@ def _move_parity(torch, S, rebin_cuda, kernel, state, geom, drop, tag):
     max|diff| from the plain walk (0 when bitwise)."""
     PF, PI, xr = _packed(S, rebin_cuda, state, geom, drop)
     kf, ki = kernel(PF, PI, geom, xr)
-    wf, wi = rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr)
+    wf, wi = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
     if not (torch.equal(kf, wf) and torch.equal(ki, wi)):
         raise AssertionError(f"{tag} rows differ from the plain walk")
     by_kernel = S.rebin(state, geom, drop=drop, use_kernel=True)
@@ -144,6 +183,54 @@ def _move_parity(torch, S, rebin_cuda, kernel, state, geom, drop, tag):
     return (f"{PF.shape[0]} f32 + {PI.shape[0]} i32 rows, "
             f"{int(by_kernel.n_valid)} particles, overflow "
             f"{int(by_kernel.overflow)}"), float((kf - wf).abs().max())
+
+
+def _bound(nbytes, flops):
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` and do ``flops`` f32 operations, at its published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _packed_bytes(slots, n_valid, rows_in, rows_out):
+    """The bytes a kernel on 4-byte packed rows must move at this
+    occupancy: the valid row (the first input row) of every slot and the
+    other input rows of the ``n_valid`` valid slots read once, and every
+    output row of every slot written once."""
+    return 4 * (slots + n_valid * (rows_in - 1) + slots * rows_out)
+
+
+def _pass_a_work(torch, S, pair, state, geom, h):
+    """(valid candidates, pairs inside the support h) of one pass A on this
+    state: the data-dependent work its bound counts, offset by offset."""
+    valid, x = state.valid, state.x
+    not_diag = ~torch.eye(geom.cap, dtype=torch.bool, device=x.device)[:, :, None]
+    pbc = pair._pbc(geom)
+    cand = inside = 0
+    for off in geom.stencil_offsets():
+        both = valid[:, None, :] & S.shift_cells(valid, off, geom)[None, :, :]
+        if off == (0, 0, 0):
+            both = both & not_diag
+        d = pair._pair_delta(x[:, :, None, :],
+                             S.shift_cells(x, off, geom)[:, None, :, :], pbc)
+        cand += int(both.sum())
+        inside += int((both & ((d * d).sum(0) < h * h)).sum())
+    return cand, inside
+
+
+def _pass_a_rows(pair_cuda, pf, cfg, kernel):
+    """(packed input rows, output rows) of one call of ``kernel``."""
+    if kernel == "pass_a_2d_rowloop":
+        elastic = cfg.elastic_present
+        names = pair_cuda.K2_PF_ROWS + (("AS", "S") if elastic else ("ASd",))
+        accs = pair_cuda.K2_ACC_ROWS + ((("dS", 9),) if elastic else ())
+    else:
+        names, accs = pair_cuda.PF_ROWS, pair_cuda.ACC_ROWS
+    if cfg.density_filter_accs:
+        names, accs = names + ("rhoI",), accs + pair_cuda.FILTER_ACC_ROWS
+    cap, NC = pf["rho"].shape
+    return (sum(pf[n].reshape(-1, cap, NC).shape[0] for n in names),
+            sum(n for _, n in accs))
 
 
 def main() -> int:
@@ -159,14 +246,16 @@ def main() -> int:
     from sph_bvf_tpu_torch.core import rebin_cuda
     from sph_bvf_tpu_torch.core import state as S
     from sph_bvf_tpu_torch.core.stepper import _rebin_drop, setup, simulate
-    from sph_bvf_tpu_torch.models import fsi, lid_cavity
+    from sph_bvf_tpu_torch.models import fsi, lid_cavity, lid_cavity3d
     from sph_bvf_tpu_torch.ops import pair, pair_cuda
 
     dev = torch.device("cuda")
     counters = {"pass_a_2d": pair_cuda.pass_a_2d,
                 "pass_a_2d_rowloop": pair_cuda.pass_a_2d_rowloop,
+                "pass_a_3d": pair_cuda.pass_a_3d,
                 "rebin_move_2d": rebin_cuda.rebin_move_2d,
-                "rebin_move_2d_gated": rebin_cuda.rebin_move_2d_gated}
+                "rebin_move_2d_gated": rebin_cuda.rebin_move_2d_gated,
+                "rebin_move_3d": rebin_cuda.rebin_move_3d}
 
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -255,21 +344,45 @@ def main() -> int:
           f"(fsi nx={FSI_NX[0]}, periodic x, cap {geom.cap}, {what})")
     del state
 
-    # -- 7. main paths ------------------------------------------------------
-    def run_main(build, dt, want_kernels):
+    # -- 7, 8. K3 and K7 parity at N=40 and the main path's N=100 -----------
+    # (the kernels' max|diff| reported is the last size's: the main path's)
+    for N in CAVITY3D_N:
+        state, params, spec, _ = lid_cavity3d.build(N=N, device=dev)
+        state = simulate(setup(state, params, spec, dt=1e-4), params, spec,
+                         PARITY_STEPS["cavity3d"])
+        geom = spec.geom
+        k3_err, k3_abs, _ = _pass_a_parity(
+            torch, pair, pair_cuda.pass_a_3d, state, params, geom, spec.pair,
+            ("f", "drho", "num_den", "phi", "nw", "ddv", "de"), f"K3 N={N}")
+        print(f"[K3] 3D pass A kernel == plain (lid_cavity3d N={N}, cap "
+              f"{geom.cap}, {geom.ncells_total} cells, {int(state.n_valid)} "
+              f"particles, step {int(state.step)}), max|diff| {k3_abs!r}, "
+              f"max|diff|/max|ref| per field: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in k3_err.items()))
+        state = simulate(state, params, spec, 10)  # drifted since its rebin
+        what, k7_abs = _move_parity(torch, S, rebin_cuda,
+                                    rebin_cuda.rebin_move_3d, state, geom,
+                                    _rebin_drop(spec), f"K7 N={N}")
+        print(f"[K7] 3D rebin move kernel == plain walk == sort rebin, "
+              f"bitwise (lid_cavity3d N={N}, step {int(state.step)}, {what})")
+        del state
+
+    # -- 9. main paths ------------------------------------------------------
+    def run_main(build, dt, want_kernels, steps):
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
         state, params, spec, _ = build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
         n0 = int(state.n_valid)
-        state = simulate(setup(state, params, spec, dt=dt), params, spec,
-                         MAIN_STEPS)
+        state = simulate(setup(state, params, spec, dt=dt), params, spec, steps)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {k: c.launches for k, c in counters.items()}
         want = dict.fromkeys(counters, 0)
-        want[want_kernels[0]] = MAIN_STEPS + 1  # every step plus setup
-        want[want_kernels[1]] = -(-MAIN_STEPS // spec.rebin_every) + 1  # chunks
+        want[want_kernels[0]] = steps + 1  # every step plus setup
+        want[want_kernels[1]] = -(-steps // spec.rebin_every) + 1  # chunks
         if launches != want:
             raise AssertionError(f"launch counts {launches}, expected {want}")
         valid = state.valid
@@ -279,10 +392,10 @@ def main() -> int:
             "overflow 0": int(state.overflow) == 0,
             "drift_violation 0": int(state.drift_violation) == 0,
             "particles conserved": int(state.n_valid) == n0,
-            "step": int(state.step) == MAIN_STEPS,
+            "step": int(state.step) == steps,
         }
         vmax = float(torch.sqrt((state.v * state.v).sum(0))[valid].max())
-        return state, spec, n0, secs, launches, vmax, checks
+        return state, spec, n0, (build_s, secs), launches, vmax, checks
 
     def require(checks, tag, detail):
         if not all(checks.values()):
@@ -291,7 +404,7 @@ def main() -> int:
     # the cavity
     state, spec, n0, secs, cav_launches, vmax, checks = run_main(
         lambda: lid_cavity.build(N=CAVITY_N[0], device=dev), 1e-4,
-        ("pass_a_2d", "rebin_move_2d"))
+        ("pass_a_2d", "rebin_move_2d"), MAIN_STEPS["cavity"])
     fluid = state.valid & (state.solid_tag == 0)
     rho_dev = float((state.rho[fluid] - 1.0).abs().max())
     rho_mean = float(state.rho[fluid].mean())
@@ -304,14 +417,15 @@ def main() -> int:
     detail = (f"max|v| {vmax!r}, fluid max|rho-1| {rho_dev!r}, fluid mean "
               f"rho {rho_mean!r}")
     require(checks, "cavity main path", detail)
-    print(f"[main] cavity N={CAVITY_N[0]} build+setup+simulate({MAIN_STEPS}) "
-          f"in {secs!r} s: {n0} particles, {detail}, launches {cav_launches}")
+    print(f"[main] cavity N={CAVITY_N[0]} build+setup+simulate("
+          f"{MAIN_STEPS['cavity']}) in {secs[1]!r} s (build {secs[0]!r} s): "
+          f"{n0} particles, {detail}, launches {cav_launches}")
 
     # the FSI beam, released half way
     state, spec, n0, secs, fsi_launches, vmax, checks = run_main(
         lambda: fsi.build(nx=FSI_NX[0], tdamp_solid=FSI_RELEASE["main"],
                           device=dev), 1e-8,
-        ("pass_a_2d_rowloop", "rebin_move_2d_gated"))
+        ("pass_a_2d_rowloop", "rebin_move_2d_gated"), MAIN_STEPS["fsi"])
     valid = state.valid
     solid = state.solid_tag == 1
     fluid = valid & ~solid
@@ -326,8 +440,50 @@ def main() -> int:
         checks[f"{name} in [{lo}, {hi}] x JAX's {ref}"] = lo * ref <= got[name] <= hi * ref
     detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
     require(checks, "FSI main path", detail)
-    print(f"[main] fsi nx={FSI_NX[0]} build+setup+simulate({MAIN_STEPS}) in "
-          f"{secs!r} s: {n0} particles, {detail}, launches {fsi_launches}")
+    print(f"[main] fsi nx={FSI_NX[0]} build+setup+simulate({MAIN_STEPS['fsi']}) "
+          f"in {secs[1]!r} s (build {secs[0]!r} s): {n0} particles, {detail}, "
+          f"launches {fsi_launches}")
+    del state
+
+    # the 3D cavity at 1.19M particles
+    N3 = CAVITY3D_N[1]
+    state, spec, n0, secs, c3_launches, vmax, checks = run_main(
+        lambda: lid_cavity3d.build(N=N3, device=dev), 1e-4,
+        ("pass_a_3d", "rebin_move_3d"), MAIN_STEPS["cavity3d"])
+    fluid = state.valid & (state.solid_tag == 0)
+    rho_mean = float(state.rho[fluid].mean())
+    vx_max = float(state.v[0][fluid].max())
+    checks.update({"max|v| <= 1.1": vmax <= 1.1,
+                   "fluid |mean rho-1| <= 0.002": abs(rho_mean - 1.0) <= 0.002,
+                   "fluid max v_x > 1e-3": vx_max > 1e-3})
+    detail = (f"max|v| {vmax!r}, fluid max|rho-1| "
+              f"{float((state.rho[fluid] - 1.0).abs().max())!r}, fluid mean rho "
+              f"{rho_mean!r}, fluid max v_x {vx_max!r}")
+    require(checks, "3D cavity main path", detail)
+    print(f"[main] lid_cavity3d N={N3} build+setup+simulate("
+          f"{MAIN_STEPS['cavity3d']}) in {secs[1]!r} s (build {secs[0]!r} s): "
+          f"{n0} particles, cap {spec.geom.cap}, {spec.geom.ncells_total} cells, "
+          f"{detail}, launches {c3_launches}")
+    del state
+
+    # the 3D cavity at N=20 against the JAX package's own run
+    Nj = CAVITY3D_JAX_N
+    state, params, spec, _ = lid_cavity3d.build(N=Nj, device=dev)
+    state = simulate(setup(state, params, spec, dt=1e-4), params, spec,
+                     CAVITY3D_JAX_STEPS)
+    fluid = state.valid & (state.solid_tag == 0)
+    top = fluid & (state.x[2] > 1.0 - 1.0 / Nj)
+    speed3 = torch.sqrt((state.v * state.v).sum(0))
+    got = {"fluid max|v|": float(speed3[fluid].max()),
+           "fluid max|rho-1|": float((state.rho[fluid] - 1.0).abs().max()),
+           "fluid mean rho": float(state.rho[fluid].mean()),
+           "top fluid mean v_x": float(state.v[0][top].mean())}
+    checks = {f"{name} in [{lo}, {hi}] x JAX's {ref}": lo * ref <= got[name] <= hi * ref
+              for name, (ref, lo, hi) in CAVITY3D_JAX_STEP200.items()}
+    detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
+    require(checks, f"3D cavity N={Nj} vs JAX", detail)
+    print(f"[main] lid_cavity3d N={Nj}, {CAVITY3D_JAX_STEPS} steps on the card "
+          f"vs the JAX package's own run: {detail} (bands {CAVITY3D_JAX_STEP200})")
     del state
 
     # small-input references: the card's kernel paths vs the CPU plain paths
@@ -357,8 +513,11 @@ def main() -> int:
                 lambda d: fsi.build(nx=SMALL["fsi"], rebin_every=10,
                                     tdamp_solid=5, device=d),
                 1e-8, ("x", "v", "rho", "S"))
+    card_vs_cpu(f"lid_cavity3d N={SMALL['cavity3d']}",
+                lambda d: lid_cavity3d.build(N=SMALL["cavity3d"], device=d), 1e-4,
+                ("x", "v", "rho"))
 
-    # -- 8. speed -----------------------------------------------------------
+    # -- 10. speed ----------------------------------------------------------
     def per_call_ms(fn, iters):
         for _ in range(2):
             fn()
@@ -372,8 +531,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / iters
 
-    def speed(label, size, state, params, spec, pass_a, move):
-        steps, iters = SPEED_STEPS[size]
+    def speed(label, path, size, state, params, spec, pass_a, move):
+        steps, iters = SPEED_STEPS[path][size]
         geom = spec.geom
         n = int(state.n_valid)
         # warm-up, then chunks of up to rebin_every steps, each after a rebin
@@ -393,12 +552,23 @@ def main() -> int:
                 lambda: pair._pass_a_plain(pf, params, geom, cfg), iters),
             "move": per_call_ms(lambda: move(PF, PI, geom, xr), iters),
             "move_plain": per_call_ms(
-                lambda: rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr), iters),
+                lambda: rebin_cuda.rebin_move_plain(PF, PI, geom, xr), iters),
             "rebin_kernel": per_call_ms(
                 lambda: S.rebin(state, geom, drop=drop, use_kernel=True), iters),
             "rebin_sort": per_call_ms(
                 lambda: S.rebin(state, geom, drop=drop, use_kernel=False), iters),
         }
+        # the bounds of the two timed kernel calls, from these inputs at
+        # this state's occupancy (n of the slots valid)
+        slots = geom.cap * geom.ncells_total
+        rows_in, rows_out = _pass_a_rows(pair_cuda, pf, cfg, pass_a.__name__)
+        cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
+        t["pass_a_bound"] = _bound(_packed_bytes(slots, n, rows_in, rows_out),
+                                   FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside)
+        # the move's rows in and out are the packs' (i32 row 0 is valid);
+        # its integer compares are not counted
+        move_rows = PF.shape[0] + PI.shape[0]
+        t["move_bound"] = _bound(_packed_bytes(slots, n, move_rows, move_rows), 0)
         rate = n * steps / dt
         print(f"[speed] {label}: {n} particles, cap {geom.cap}, "
               f"{geom.ncells_total} cells, {steps} steps (rebin every "
@@ -407,14 +577,18 @@ def main() -> int:
               f"{pass_a.__name__} {t['pass_a']!r} vs plain pass A "
               f"{t['pass_a_plain']!r}; {move.__name__} {t['move']!r} vs plain "
               f"walk {t['move_plain']!r}; rebin with the kernel "
-              f"{t['rebin_kernel']!r} vs sort rebin {t['rebin_sort']!r} [{card}]")
+              f"{t['rebin_kernel']!r} vs sort rebin {t['rebin_sort']!r}; bounds "
+              f"at occupancy {n / slots!r} ({n} of {slots} slots): pass A "
+              f"{t['pass_a_bound']} ({rows_in} + {rows_out} rows, {cand} "
+              f"candidates, {inside} pairs inside the support), move "
+              f"{t['move_bound']} ({move_rows} + {move_rows} rows) [{card}]")
         return t
 
     t_cav = {}
     for N, dt in zip(CAVITY_N, (1e-4, 5e-6)):  # lid_cavity's dt rule past 200
         state, params, spec, _ = lid_cavity.build(N=N, dt=dt, device=dev)
         state = setup(state, params, spec, dt=dt)
-        t_cav[N] = speed(f"cavity N={N}", N, state, params, spec,
+        t_cav[N] = speed(f"cavity N={N}", "cavity", N, state, params, spec,
                          pair_cuda.pass_a_2d, rebin_cuda.rebin_move_2d)
         del state
     t_fsi = {}
@@ -422,35 +596,83 @@ def main() -> int:
         state, params, spec, _ = fsi.build(nx=nx, rebin_every=FSI_REBIN[nx],
                                            device=dev)
         state = setup(state, params, spec, dt=1e-8)
-        t_fsi[nx] = speed(f"fsi nx={nx}", nx, state, params, spec,
+        t_fsi[nx] = speed(f"fsi nx={nx}", "fsi", nx, state, params, spec,
                           pair_cuda.pass_a_2d_rowloop,
                           rebin_cuda.rebin_move_2d_gated)
+        del state
+    t_c3 = {}
+    for N in CAVITY3D_N:
+        state, params, spec, _ = lid_cavity3d.build(N=N, device=dev)
+        state = setup(state, params, spec, dt=1e-4)
+        t_c3[N] = speed(f"lid_cavity3d N={N}", "cavity3d", N, state, params,
+                        spec, pair_cuda.pass_a_3d, rebin_cuda.rebin_move_3d)
         del state
     print(f"[speed] {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}"
           f" (clocks.sm, power.draw, power.limit, temperature after the runs)")
 
-    small_cav, small_fsi = t_cav[CAVITY_N[0]], t_fsi[FSI_NX[0]]
+    # -- 11. profile: where one chunk of the 3D cavity spends device time ---
+    from torch.profiler import ProfilerActivity, profile
+
+    for N in CAVITY3D_N:
+        state, params, spec, _ = lid_cavity3d.build(N=N, device=dev)
+        state = simulate(setup(state, params, spec, dt=1e-4), params, spec,
+                         spec.rebin_every)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = simulate(state, params, spec, spec.rebin_every)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+
+        def us(name=""):
+            return sum(e.self_device_time_total for e in on_card if name in e.key)
+
+        def count(name=""):
+            return sum(e.count for e in on_card if name in e.key)
+
+        steps = spec.rebin_every
+        if not on_card or count("pass_a_3d_kernel") == 0:
+            raise AssertionError(f"[profile] lid_cavity3d N={N}: torch.profiler "
+                                 f"recorded no K3 activity on the card")
+        print(f"[profile] lid_cavity3d N={N}, one chunk of {steps} steps under "
+              f"torch.profiler: {count() / steps!r} device ops per step, device "
+              f"time {us() / steps / 1e3!r} ms per step (busy share "
+              f"{us() / wall_us!r} of the profiled chunk's wall time); K3 "
+              f"{us('pass_a_3d_kernel') / max(count('pass_a_3d_kernel'), 1) / 1e3!r}"
+              f" ms per call x {count('pass_a_3d_kernel')}, K7 "
+              f"{us('rebin_move_3d_kernel') / max(count('rebin_move_3d_kernel'), 1) / 1e3!r}"
+              f" ms per call x {count('rebin_move_3d_kernel')} [{card}]")
+        del state, prof
+
+    # each kernel at its main path's size: the cavity N=200, FSI nx=60, the
+    # 3D cavity N=100
+    rows = (
+        ("pass_a_2d", "csrc/pass_a_2d.cu", "ops/pair_pallas.py:308",
+         cav_launches, k1_abs, t_cav[CAVITY_N[0]], "pass_a"),
+        ("pass_a_2d_rowloop", "csrc/pass_a_2d_rowloop.cu",
+         "ops/pair_pallas.py:527", fsi_launches, k2_abs, t_fsi[FSI_NX[0]],
+         "pass_a"),
+        ("pass_a_3d", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106",
+         c3_launches, k3_abs, t_c3[CAVITY3D_N[1]], "pass_a"),
+        ("rebin_move_2d", "csrc/rebin_move_2d.cu", "core/rebin_pallas.py:202",
+         cav_launches, k5_abs, t_cav[CAVITY_N[0]], "move"),
+        ("rebin_move_2d_gated", "csrc/rebin_move_2d_gated.cu",
+         "core/rebin_pallas.py:346", fsi_launches, k6_abs, t_fsi[FSI_NX[0]],
+         "move"),
+        ("rebin_move_3d", "csrc/rebin_move_3d.cu", "core/rebin_pallas.py:441",
+         c3_launches, k7_abs, t_c3[CAVITY3D_N[1]], "move"),
+    )
+    # no single PyTorch call computes pass A or the locality move
     kernels = [
-        {"name": "pass_a_2d", "route": "cuda",
-         "source": "sph_bvf_tpu_torch/csrc/pass_a_2d.cu",
-         "replaces": "sph_bvf_tpu/ops/pair_pallas.py:308",
-         "launches": cav_launches["pass_a_2d"], "max_abs_err": k1_abs,
-         "ms": small_cav["pass_a"], "plain_ms": small_cav["pass_a_plain"]},
-        {"name": "pass_a_2d_rowloop", "route": "cuda",
-         "source": "sph_bvf_tpu_torch/csrc/pass_a_2d_rowloop.cu",
-         "replaces": "sph_bvf_tpu/ops/pair_pallas.py:527",
-         "launches": fsi_launches["pass_a_2d_rowloop"], "max_abs_err": k2_abs,
-         "ms": small_fsi["pass_a"], "plain_ms": small_fsi["pass_a_plain"]},
-        {"name": "rebin_move_2d", "route": "cuda",
-         "source": "sph_bvf_tpu_torch/csrc/rebin_move_2d.cu",
-         "replaces": "sph_bvf_tpu/core/rebin_pallas.py:202",
-         "launches": cav_launches["rebin_move_2d"], "max_abs_err": k5_abs,
-         "ms": small_cav["move"], "plain_ms": small_cav["move_plain"]},
-        {"name": "rebin_move_2d_gated", "route": "cuda",
-         "source": "sph_bvf_tpu_torch/csrc/rebin_move_2d_gated.cu",
-         "replaces": "sph_bvf_tpu/core/rebin_pallas.py:346",
-         "launches": fsi_launches["rebin_move_2d_gated"], "max_abs_err": k6_abs,
-         "ms": small_fsi["move"], "plain_ms": small_fsi["move_plain"]},
+        {"name": name, "route": "cuda", "source": f"sph_bvf_tpu_torch/{src}",
+         "replaces": f"sph_bvf_tpu/{tpu}", "launches": launches[name],
+         "max_abs_err": err, "ms": t[op], "plain_ms": t[f"{op}_plain"],
+         "bound_ms": t[f"{op}_bound"][0], "bound_by": t[f"{op}_bound"][1],
+         "library_ms": None}
+        for name, src, tpu, launches, err, t, op in rows
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

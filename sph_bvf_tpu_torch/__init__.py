@@ -9,9 +9,11 @@ the tests hold the two against each other on identical inputs
 (``bridge.py`` carries state across as numpy arrays).
 
 This package imports ``torch`` and never ``jax``.  Branches that the ported
-slices (the 2D lid-driven cavity, ``models/lid_cavity.py``, and the FSI
-beam in a periodic channel, ``models/fsi.py``) do not run raise
-``NotImplementedError``; they never fall back to other code.
+slices (the 2D lid-driven cavity, ``models/lid_cavity.py``, the FSI beam in
+a periodic channel, ``models/fsi.py``, and the 3D lid-driven cavity,
+``models/lid_cavity3d.py``) do not run raise ``NotImplementedError``; they
+never fall back to other code.  Entry points build on the card (``cuda``)
+unless the caller names another device.
 
 Kernels (``csrc/*.cu``) are compiled by ``_build.py`` with ``nvcc`` at first
 use.  Each kernel wrapper launches its kernel on a CUDA tensor and runs the

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/sph_bvf_tpu_torch/`` at the repository root, named by a hash of the
-source and the flags so a changed source never loads a stale library.  The
-library is loaded with ``ctypes``: no PyTorch headers are compiled, which
-keeps a cold build to seconds.
+source, the shared ``csrc/*.cuh`` headers and the flags so a changed source
+never loads a stale library.  The library is loaded with ``ctypes``: no
+PyTorch headers are compiled, which keeps a cold build to seconds.
 
 Nothing is built at import time.  A missing ``nvcc`` or a failed build
 raises: a CUDA tensor never falls back to another path.
@@ -61,8 +61,9 @@ def load(name: str) -> ctypes.CDLL:
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     if not lib_path.exists():

@@ -1,12 +1,14 @@
 """Scene builder: the input-script surface as a Python API (PyTorch).
 
-Port of the part of ``sph_bvf_tpu/api/scene.py`` that the lid-driven
-cavity and the FSI beam use: block regions with union/subtract/complement,
-lattice filling (the lattice may change between ``create_atoms`` calls),
-groups, per-atom setters, pair/integrator/fix selection and ``build``.
-Scene state is host-side numpy; ``build(device=...)`` bins everything into
-the cell-slot ``State`` on that device and assembles the static
-``ModelSpec``.
+Port of the part of ``sph_bvf_tpu/api/scene.py`` that the 2D and 3D
+lid-driven cavities and the FSI beam use: block regions with
+union/subtract/complement, square and simple-cubic lattice filling (the
+lattice may change between ``create_atoms`` calls), groups, per-atom
+setters, pair/integrator/fix selection and ``build``.  Scene state is
+host-side numpy arrays in creation (tag) order, filled and grouped by
+whole-array numpy operations (no per-site Python loop);
+``build(device=...)`` bins everything into the cell-slot ``State`` on that
+device (the card by default) and assembles the static ``ModelSpec``.
 
 Lattice filling follows create_atoms (create_atoms.cpp:362-364): sites at
 ``(i + origin) * a`` per axis, kept when inside both the target region and
@@ -30,6 +32,7 @@ from sph_bvf_tpu_torch.core.state import (
     GROUP_ALL,
     Geometry,
     Params,
+    resolve_device,
     scatter_by_tag,
     state_from_particles,
 )
@@ -123,11 +126,12 @@ class Scene:
         self.box_hi = None
         self.ntypes = 0
         self._lattice = None  # (spacing, origin)
-        self._x: List[np.ndarray] = []
-        self._type: List[int] = []
+        # per-atom host arrays in creation order (the tag order)
+        self._x = np.zeros((0, 3))
+        self._type = np.zeros(0, np.int64)
         self._groups: Dict[str, int] = {"all": GROUP_ALL}
         self._next_groupbit = 2
-        self._groupmask: List[int] = []
+        self._groupmask = np.zeros(0, np.int64)
         self._masses: Dict[int, float] = {}
         self._per_atom: Dict[str, np.ndarray] = {}
         self._pair_variant = None
@@ -174,18 +178,14 @@ class Scene:
         return np.stack([c.ravel() for c in g], axis=-1)
 
     # -- atoms --------------------------------------------------------------
-    def _current_x(self) -> np.ndarray:
-        if not self._x:
-            return np.zeros((0, 3))
-        return np.asarray(self._x)
-
     def create_atoms(self, ptype: int, region: Region):
         sites = self._lattice_sites()
-        keep = region.contains(sites)
-        for p in sites[keep]:
-            self._x.append(p)
-            self._type.append(ptype - 1)  # 1-indexed like LAMMPS
-            self._groupmask.append(GROUP_ALL)
+        new = sites[region.contains(sites)]
+        self._x = np.concatenate([self._x, new])
+        # 1-indexed like LAMMPS
+        self._type = np.concatenate([self._type, np.full(len(new), ptype - 1)])
+        self._groupmask = np.concatenate(
+            [self._groupmask, np.full(len(new), GROUP_ALL)])
         return self
 
     # -- groups -------------------------------------------------------------
@@ -196,23 +196,17 @@ class Scene:
         return self._groups[name]
 
     def group_region(self, name: str, region: Region):
-        bit = self._groupbit(name)
-        x = self._current_x()
-        sel = region.contains(x)
-        for i in np.nonzero(sel)[0]:
-            self._groupmask[i] |= bit
-        return self
+        return self.group_expr(name, region.contains(self._x))
 
     def group_expr(self, name: str, members: np.ndarray):
         """Assign a group from a boolean per-atom mask (group subtract etc.)."""
         bit = self._groupbit(name)
-        for i in np.nonzero(members)[0]:
-            self._groupmask[i] |= bit
+        self._groupmask[np.asarray(members, bool)] |= bit
         return self
 
     def in_group(self, name: str) -> np.ndarray:
         bit = self._groups[name]
-        return (np.asarray(self._groupmask) & bit) != 0
+        return (self._groupmask & bit) != 0
 
     def groupbit(self, name: str) -> int:
         return self._groups[name]
@@ -318,15 +312,17 @@ class Scene:
                     cut=cut, cutc=cutc, visc=visc, kappa=kappa,
                     kappa_ssa=kappa_ssa)
 
-    def build(self, device="cpu"):
-        """-> (state, params, spec), the state and params on ``device``."""
+    def build(self, device=None):
+        """-> (state, params, spec), the state and params on ``device``
+        (default: the card)."""
         if self._dt is None:
             raise ValueError("call timestep(dt) before build()")
+        device = resolve_device(device)
         pnp = self._build_params()
         params = Params(**{k: torch.as_tensor(v, device=device)
                            for k, v in pnp.items()})
         cutoff = float(np.max(pnp["cut"]))
-        x = self._current_x()
+        x = self._x
         n = x.shape[0]
 
         # choose cell capacity from the densest initial cell, with slack

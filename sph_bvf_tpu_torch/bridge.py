@@ -21,7 +21,7 @@ import torch
 
 from sph_bvf_tpu_torch.core import fixes as fixes_mod
 from sph_bvf_tpu_torch.core.integrate import IntegratorConfig
-from sph_bvf_tpu_torch.core.state import Geometry, Params, State
+from sph_bvf_tpu_torch.core.state import Geometry, Params, State, resolve_device
 from sph_bvf_tpu_torch.core.stepper import ModelSpec
 from sph_bvf_tpu_torch.ops.pair import PairConfig
 
@@ -43,8 +43,10 @@ def to_numpy(obj) -> dict:
     return out
 
 
-def state_to_port(arrays: Mapping[str, np.ndarray], device="cpu") -> State:
-    """A port State from the JAX State's fields as numpy arrays."""
+def state_to_port(arrays: Mapping[str, np.ndarray], device=None) -> State:
+    """A port State on ``device`` (default: the card) from the JAX State's
+    fields as numpy arrays."""
+    device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(State):
         a = np.asarray(arrays[f.name])
@@ -61,8 +63,10 @@ def state_from_port(state: State) -> dict:
     return out
 
 
-def params_to_port(params, device="cpu") -> Params:
-    """A port Params from a JAX Params (or any object with its fields)."""
+def params_to_port(params, device=None) -> Params:
+    """A port Params on ``device`` (default: the card) from a JAX Params (or
+    any object with its fields)."""
+    device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(Params):
         a = getattr(params, f.name)

@@ -36,8 +36,14 @@ def wrap_x(geom) -> bool:
 
 def periodic_multicell(geom) -> bool:
     """Any periodic axis with more than one cell (an x wrap or ghost
-    columns): the grids K1 and K5 do not serve."""
+    columns): the grids K1, K3, K5 and K7 do not serve."""
     return wrap_x(geom) or bool(ghost_axes(geom))
+
+
+def grid_3d(geom) -> bool:
+    """A grid the 3D kernels (K3, K7) take: 27-cell stencils, or any grid
+    with more than one cell along z."""
+    return geom.dim != 2 or geom.ncells[2] != 1
 
 
 def max_flat_offset(geom) -> int:

@@ -1,19 +1,21 @@
-"""The 2D locality rebin moves and their wrappers: K5
-(``csrc/rebin_move_2d.cu``) and K6 (``csrc/rebin_move_2d_gated.cu``).
+"""The locality rebin moves and their wrappers: K5
+(``csrc/rebin_move_2d.cu``), K6 (``csrc/rebin_move_2d_gated.cu``) and K7
+(``csrc/rebin_move_3d.cu``).
 
-Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the static branch
-(cap <= 16, no periodic axis), K6 for the gated branch (16 < cap <= 64,
-walls or a periodic x axis, uniform columns).  Between rebins a particle
-moves at most one cell (the drift contract ``core/state.rebin`` checks), so
-the particles that belong in cell c are the matching candidates among the
-slots of its 3x3 stencil cells.  Walking them slot-major, then by the
-source cell's flat index after the periodic wrap, visits them in the sort
-rebin's stable (cell, old flat slot) order, so the slot assignment is
+Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the 2D static branch
+(cap <= 16, no periodic axis), K6 for the 2D gated branch (16 < cap <= 64,
+walls or a periodic x axis, uniform columns), K7 for the 3D tiled kernel
+(cap <= 64, walls on every axis, uniform columns).  Between rebins a
+particle moves at most one cell (the drift contract ``core/state.rebin``
+checks), so the particles that belong in cell c are the matching candidates
+among the slots of its 3^dim stencil cells.  Walking them slot-major, then
+by the source cell's flat index after the periodic wrap, visits them in the
+sort rebin's stable (cell, old flat slot) order, so the slot assignment is
 bit-identical to the sort.
 
 ``move`` packs the per-particle fields into one f32 and one i32 matrix,
 launches the kernel the grid routes to on a CUDA tensor or runs
-``rebin_move_2d_plain`` (the same ordered walk in vectorized PyTorch) on a
+``rebin_move_plain`` (the same ordered walk in vectorized PyTorch) on a
 CPU tensor, and unpacks.  A CUDA call no kernel serves raises; it never
 falls back.
 """
@@ -27,22 +29,29 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import ghost_axes, wrap_x
+from sph_bvf_tpu_torch.core.halo import (ghost_axes, grid_3d,
+                                         periodic_multicell, wrap_x)
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of
 
 MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
 GATED_MAX_CAP = 64  # kMaxCap in csrc/rebin_move_2d_gated.cu (K6)
+MAX_CAP_3D = 64  # kMaxCap in csrc/rebin_move_3d.cu (K7)
 
 
 def move_route(geom: Geometry):
     """The kernel wrapper that serves this grid's rebin move, or None.
 
-    Both kernels need a 2D grid with uniform columns and no periodic y.
-    K5 takes cap <= 16 without a periodic axis; K6 takes 16 < cap <= 64,
-    with walls or a periodic x axis of at least 3 cells (with 2, the same
-    source cell would sit in a target's window twice)."""
-    if (geom.dim != 2 or geom.ncells[2] != 1 or geom.x_edges is not None
-            or ghost_axes(geom)):
+    Every kernel needs uniform columns.  A 3D grid goes to K7 when no axis
+    is periodic and cap <= 64.  On a 2D grid (no periodic y) K5 takes
+    cap <= 16 without a periodic axis; K6 takes 16 < cap <= 64, with walls
+    or a periodic x axis of at least 3 cells (with 2, the same source cell
+    would sit in a target's window twice)."""
+    if geom.x_edges is not None:
+        return None
+    if grid_3d(geom):
+        ok = geom.cap <= MAX_CAP_3D and not periodic_multicell(geom)
+        return rebin_move_3d if ok else None
+    if ghost_axes(geom):
         return None
     if geom.cap <= MAX_CAP:
         return None if wrap_x(geom) else rebin_move_2d
@@ -101,21 +110,22 @@ def _x_row(fmeta) -> int:
 
 
 def _walk_sources(geom: Geometry, device):
-    """The candidate source cells of every target cell, [9, NC] each: the
-    source cell's flat index (0 where off the grid) and whether it is on
-    the grid, ordered per target by ascending flat index after the
+    """The candidate source cells of every target cell, [3^dim, NC] each:
+    the source cell's flat index (0 where off the grid) and whether it is
+    on the grid, ordered per target by ascending flat index after the
     periodic-x wrap (off-grid candidates last)."""
-    nx, ny, _ = geom.ncells
+    nx, ny, nz = geom.ncells
     NC = geom.ncells_total
     c = torch.arange(NC, dtype=torch.int64, device=device)
-    cx, cy = c // ny, c % ny
+    cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
     srcs, ons = [], []
-    for ox, oy, _ in geom.stencil_offsets():
-        sx, sy = cx + ox, cy + oy
+    for ox, oy, oz in geom.stencil_offsets():
+        sx, sy, sz = cx + ox, cy + oy, cz + oz
         if wrap_x(geom):
             sx = sx % nx
-        srcs.append(sx * ny + sy)
-        ons.append((sx >= 0) & (sx < nx) & (sy >= 0) & (sy < ny))
+        srcs.append((sx * ny + sy) * nz + sz)
+        ons.append((sx >= 0) & (sx < nx) & (sy >= 0) & (sy < ny)
+                   & (sz >= 0) & (sz < nz))
     on_grid = torch.stack(ons)
     key, order = torch.sort(torch.where(on_grid, torch.stack(srcs), NC),
                             dim=0, stable=True)
@@ -123,9 +133,9 @@ def _walk_sources(geom: Geometry, device):
     return torch.where(on_grid, key, 0), on_grid
 
 
-def rebin_move_2d_plain(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
-                        xr: int):
-    """The K5/K6 walk in vectorized PyTorch: the kernels' plain version.
+def rebin_move_plain(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
+                     xr: int):
+    """The K5/K6/K7 walk in vectorized PyTorch: the kernels' plain version.
 
     For every target cell the candidates are taken slot-major, then by
     ascending source-cell flat index after the periodic wrap; a candidate
@@ -137,7 +147,7 @@ def rebin_move_2d_plain(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     dev = PF.device
     c = torch.arange(NC, dtype=torch.int64, device=dev)
     src_cell, on_grid = _walk_sources(geom, dev)
-    # flat source slot of every candidate, slot-major: [cap, 9, NC]
+    # flat source slot of every candidate, slot-major: [cap, 3^dim, NC]
     slots = torch.arange(cap, dtype=torch.int64, device=dev)[:, None, None]
     k = (slots * NC + src_cell[None]).reshape(cap * src_cell.shape[0], NC)
     valid = PI[0].reshape(-1) != 0
@@ -179,12 +189,38 @@ def _check_packs(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry, wrapper):
         raise ValueError(f"{cap * NC} slots overflow the kernels' 32-bit index")
 
 
-def _bin_constants(geom: Geometry):
-    """f32 lo and 1/cell_size of x and y, exactly the constants
-    ``cell_index_of`` rounds to."""
-    lo = [float(np.float32(v)) for v in geom.lo[:2]]
-    inv = [float(np.float32(1.0 / cs)) for cs in geom.cell_size[:2]]
+def _bin_constants(geom: Geometry, naxes: int):
+    """f32 lo and 1/cell_size of the first ``naxes`` axes (all lo, then all
+    inverses), exactly the constants ``cell_index_of`` rounds to."""
+    lo = [float(np.float32(v)) for v in geom.lo[:naxes]]
+    inv = [float(np.float32(1.0 / cs)) for cs in geom.cell_size[:naxes]]
     return lo + inv
+
+
+def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
+            xr: int, naxes: int, extra=()):
+    """Launch ``wrapper``'s kernel (``csrc/<its name>.cu``) on the packs.
+
+    Every move kernel's C entry point takes the four packs, their row
+    counts and cap, the cell counts of the first ``naxes`` axes, the x row,
+    those axes' f32 binning constants, then the ints ``extra`` and the
+    stream.  Returns (outF, outI) of the input shapes."""
+    _check_packs(PF, PI, geom, wrapper)
+    outf, outi = torch.empty_like(PF), torch.empty_like(PI)
+    name = wrapper.__name__
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + naxes)
+                   + [ctypes.c_float] * (2 * naxes)
+                   + [ctypes.c_int] * len(extra) + [ctypes.c_void_p])
+    code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
+              PF.shape[0], PI.shape[0], geom.cap, *geom.ncells[:naxes], xr,
+              *_bin_constants(geom, naxes), *extra,
+              _build.current_stream(PF.device))
+    _build.check(lib, code, name)
+    wrapper.launches += 1
+    return outf, outi
 
 
 def rebin_move_2d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
@@ -192,24 +228,8 @@ def rebin_move_2d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     """K5 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
     walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
-        return rebin_move_2d_plain(PF, PI, geom, xr)
-    _check_packs(PF, PI, geom, rebin_move_2d)
-    ff, cap, NC = PF.shape
-    fi = PI.shape[0]
-    outf = torch.empty_like(PF)
-    outi = torch.empty_like(PI)
-
-    lib = _build.load("rebin_move_2d")
-    fn = lib.rebin_move_2d
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
-              ff, fi, cap, geom.ncells[0], geom.ncells[1], xr,
-              *_bin_constants(geom), _build.current_stream(PF.device))
-    _build.check(lib, code, "rebin_move_2d")
-    rebin_move_2d.launches += 1
-    return outf, outi
+        return rebin_move_plain(PF, PI, geom, xr)
+    return _launch(rebin_move_2d, PF, PI, geom, xr, 2)
 
 
 rebin_move_2d.launches = 0  # K5 launches in this process
@@ -220,28 +240,24 @@ def rebin_move_2d_gated(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     """K6 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
     walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
-        return rebin_move_2d_plain(PF, PI, geom, xr)
-    _check_packs(PF, PI, geom, rebin_move_2d_gated)
-    ff, cap, NC = PF.shape
-    fi = PI.shape[0]
-    outf = torch.empty_like(PF)
-    outi = torch.empty_like(PI)
-
-    lib = _build.load("rebin_move_2d_gated")
-    fn = lib.rebin_move_2d_gated
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
-              ff, fi, cap, geom.ncells[0], geom.ncells[1], xr,
-              *_bin_constants(geom), int(wrap_x(geom)),
-              _build.current_stream(PF.device))
-    _build.check(lib, code, "rebin_move_2d_gated")
-    rebin_move_2d_gated.launches += 1
-    return outf, outi
+        return rebin_move_plain(PF, PI, geom, xr)
+    return _launch(rebin_move_2d_gated, PF, PI, geom, xr, 2,
+                   (int(wrap_x(geom)),))
 
 
 rebin_move_2d_gated.launches = 0  # K6 launches in this process
+
+
+def rebin_move_3d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
+                  xr: int):
+    """K7 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
+    walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
+    if not PF.is_cuda:
+        return rebin_move_plain(PF, PI, geom, xr)
+    return _launch(rebin_move_3d, PF, PI, geom, xr, 3)
+
+
+rebin_move_3d.launches = 0  # K7 launches in this process
 
 
 def move(fields: Dict[str, torch.Tensor], geom: Geometry) -> Dict[str, torch.Tensor]:

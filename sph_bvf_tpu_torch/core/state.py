@@ -233,7 +233,9 @@ class State:
 
     @staticmethod
     def zeros(geom: Geometry, n_sdpd: int = 0, n_ssa: int = 0,
-              dtype=torch.float32, seed: int = 0, device="cpu"):
+              dtype=torch.float32, seed: int = 0, device=None):
+        """An empty state on ``device`` (default: the card)."""
+        device = resolve_device(device)
         NC, cap = geom.ncells_total, geom.cap
         i32 = torch.int32
 
@@ -511,6 +513,13 @@ def _neutralize_invalid(state: State) -> State:
 # ---------------------------------------------------------------------------
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds on: the card (``cuda``) unless the
+    caller names another.  Without a card, the first tensor made on it
+    raises torch's own CUDA error; nothing falls back to the CPU."""
+    return torch.device("cuda" if device is None else device)
+
+
 def _to_internal(host: np.ndarray) -> np.ndarray:
     """Host [n, comps...] (component-trailing) -> internal [comps..., n]."""
     if host.ndim == 1:
@@ -530,9 +539,11 @@ def state_from_particles(
     n_ssa: int = 0,
     dtype=torch.float32,
     seed: int = 0,
-    device="cpu",
+    device=None,
 ) -> State:
-    """Build a binned State on ``device`` from flat host arrays."""
+    """Build a binned State on ``device`` (default: the card) from flat host
+    arrays."""
+    device = resolve_device(device)
     n = x.shape[0]
     if x.shape[1] == 2:
         x = np.concatenate([x, np.zeros((n, 1))], axis=1)

@@ -1,0 +1,107 @@
+// K3 — 3D pass A of the SPH-BVF pair physics, one thread per (slot i, cell c).
+//
+// Replaces sph_bvf_tpu/ops/pair_pallas.py `_call_tiled3d` (the TPU kernel that
+// carries the 3D lid-driven cavity: a (x-plane, yz-block) grid over halo
+// planes, with i/j tiles gated by block and neighbourhood occupancy).  For
+// every valid slot i it sums ops/pair.py `_pass_a_offset` over the valid j of
+// the 27 stencil cells, j != i, for the configuration K1 serves: the
+// transport-velocity pressure switch, fixed BVF wall solids, the diagonal
+// artificial stress of non-elastic solids, no periodic axis, with (FILTER) or
+// without the Shepard-filter accumulators rhoAux1/rhoAux2.  The plain PyTorch
+// version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
+//
+// What bounds it on an H100: at the 1.19M-particle cavity (N=100: cap 38,
+// 27 particles per cell, 46,656 cells) each valid i walks 27 cells x ~27
+// occupied slots = ~729 candidates, of which ~65 lie inside the support
+// (h = 2.5 lattice spacings) and cost ~130 flops each.  The state is read
+// from HBM about once per call (neighbouring threads' 27-cell windows
+// overlap, so the repeated loads hit L1/L2), so the bound is the issue rate
+// of the candidate checks, not HBM bandwidth.  Design: the TPU kernel's
+// structure (VMEM windows over halo planes, occupancy scalars) has no
+// counterpart here.  Every rebin leaves each cell's valid slots compacted at
+// 0..occ-1 and validity does not change until the next rebin, so a thread on
+// an empty slot writes zeros and stops and the j loop over a neighbour cell
+// stops at its first empty slot — the occupancy gates as exact loop bounds.
+// Neighbouring threads take neighbouring cells of one slot row, so every
+// load of the [F, cap, NC] pack is coalesced; walls are bounds checks on
+// each axis (no halo buffer); accumulators stay in registers.  The f32 sums
+// run in another order than the plain path's per-offset sums.
+//
+// The pair term, the packed rows and the accumulator rows are shared with
+// K1 (csrc/pass_a_tv.cuh).  Flat cell c = (cx * ny + cy) * nz + cz
+// (Geometry.strides, z minor); no axis is periodic.
+
+#include <cuda_runtime.h>
+
+#include "pass_a_tv.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <bool FILTER>
+__global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
+    const float* __restrict__ pf, const float* __restrict__ tab,
+    float* __restrict__ out, int ntypes, int cap, int nx, int ny, int nz) {
+  constexpr int A = tv::kAccs<FILTER>;
+  const int nc = nx * ny * nz;
+  const long long m = (long long)cap * nc;  // slots per field row
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= m) return;
+  const int c = (int)(s % nc);
+  const int cz = c % nz, cxy = c / nz;
+  const int cy = cxy % ny, cx = cxy / ny;
+  const int tt = ntypes * ntypes;
+
+  float acc[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) acc[a] = 0.f;
+
+  // slots at or above the cell's occupancy are invalid: nothing to sum
+  if (tv::ld(pf, m, tv::R_VALID, s) != 0.f) {
+    const tv::ISide I = tv::load_i(pf, m, s, ntypes);
+    for (int ox = -1; ox <= 1; ++ox) {
+      const int sx = cx + ox;
+      if (sx < 0 || sx >= nx) continue;
+      for (int oy = -1; oy <= 1; ++oy) {
+        const int sy = cy + oy;
+        if (sy < 0 || sy >= ny) continue;
+        for (int oz = -1; oz <= 1; ++oz) {
+          const int sz = cz + oz;
+          if (sz < 0 || sz >= nz) continue;
+          const int cj = (sx * ny + sy) * nz + sz;
+          for (int j = 0; j < cap; ++j) {
+            const long long k = (long long)j * nc + cj;
+            // compacted slots: the first empty one ends the cell
+            if (tv::ld(pf, m, tv::R_VALID, k) == 0.f) break;
+            if (k == s) continue;  // the self pair (zero offset, j == i)
+            tv::add_pair<FILTER>(pf, m, k, tab, tt, I, acc);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < A; ++a) out[(long long)a * m + s] = acc[a];
+}
+
+}  // namespace
+
+extern "C" int pass_a_3d(const float* pf, const float* tab, float* out,
+                         int ntypes, int cap, int nx, int ny, int nz,
+                         int filter, cudaStream_t stream) {
+  const long long m = (long long)cap * nx * ny * nz;
+  if (m == 0) return 0;
+  const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
+  if (filter)
+    pass_a_3d_kernel<true><<<blocks, kThreads, 0, stream>>>(pf, tab, out, ntypes,
+                                                             cap, nx, ny, nz);
+  else
+    pass_a_3d_kernel<false><<<blocks, kThreads, 0, stream>>>(pf, tab, out, ntypes,
+                                                              cap, nx, ny, nz);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* sph_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,134 @@
+// K7 — 3D locality rebin move (cap <= 64, walls on every axis), one thread per
+// target cell, walking source slots only up to the window's occupancy.
+//
+// Replaces sph_bvf_tpu/core/rebin_pallas.py `_move_call_tiled3d` (the TPU
+// kernel on the (x-plane, yz-block) grid with 27 staged offsets and
+// window-occupancy trip counts) for grids with no periodic axis and uniform
+// columns.  Between rebins a particle moves at most one cell (the drift
+// contract that rebin's drift check enforces), so the particles that belong in
+// cell c are the matching candidates among the slots of its 27 stencil cells.
+// The thread walks them slot-major, then by ascending source flat index — the
+// order of the TPU kernel's offsets sorted by flat offset and of the sort
+// rebin's stable (cell, old flat slot) key, so the slot assignment is
+// bit-identical to sph_bvf_tpu_torch/core/state.py `rebin` with
+// use_kernel=False — recomputes each candidate's cell from its f32 position
+// exactly as `cell_index_of` does (round-to-nearest subtract and multiply,
+// never fused, with the same f32 lo and 1/cell_size, clamped to the wall
+// axes), and keeps the first cap matches.  A match of rank >= cap, or a
+// particle that moved beyond one ring, is dropped; the caller counts the loss
+// as overflow.  The plain PyTorch version is
+// sph_bvf_tpu_torch/core/rebin_cuda.py `rebin_move_plain`.
+//
+// What bounds it on an H100: the bytes of the packs (about 40 f32 and 6 i32
+// rows of cap * NC slots, read once and written once), 0.6 GB at the 1.19M
+// particle cavity.  The candidate checks are the other cost: the cavity's
+// cells hold 27 of 38 slots, so a full walk is 27 x 38 = 1,026 checks per
+// cell of which 27 x 27 are occupied.  Design: every rebin compacts each
+// cell's valid slots to 0..occ-1, so the window's occupancy is the first slot
+// at which all 27 source cells are empty — the walk stops there, exactly (the
+// GPU form of the TPU kernel's trip count, with no prepass).  Phase 1 records
+// the source slot of each output slot in a cap-long list; phase 2 copies row by
+// row, output slot by output slot, so neighbouring threads write neighbouring
+// addresses.
+//
+// Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
+// x at f32 rows xr, xr+1, xr+2; outputs of the same shapes.  Flat cell
+// c = (cx * ny + cy) * nz + cz; no axis is periodic.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxCap = 64;
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ int bin(float x, float lo, float inv, int n) {
+  if (n == 1) return 0;
+  const int b = (int)floorf(__fmul_rn(__fsub_rn(x, lo), inv));
+  return min(max(b, 0), n - 1);
+}
+
+__global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
+    const float* __restrict__ pf, const int* __restrict__ pi,
+    float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
+    int nx, int ny, int nz, int xr, float lo0, float lo1, float lo2,
+    float inv0, float inv1, float inv2) {
+  const int nc = nx * ny * nz;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= nc) return;
+  const long long m = (long long)cap * nc;
+  const int cz = c % nz, cxy = c / nz;
+  const int cy = cxy % ny, cx = cxy / ny;
+  const float* px = pf + (long long)xr * m;
+  const float* py = px + m;
+  const float* pz = py + m;
+
+  // the window's source cells: x-major, z-minor loops give ascending flat
+  // indices on a grid without a wrap
+  int src[27];
+  int ns = 0;
+  for (int ox = -1; ox <= 1; ++ox) {
+    const int sx = cx + ox;
+    if (sx < 0 || sx >= nx) continue;
+    for (int oy = -1; oy <= 1; ++oy) {
+      const int sy = cy + oy;
+      if (sy < 0 || sy >= ny) continue;
+      for (int oz = -1; oz <= 1; ++oz) {
+        const int sz = cz + oz;
+        if (sz < 0 || sz >= nz) continue;
+        src[ns++] = (sx * ny + sy) * nz + sz;
+      }
+    }
+  }
+
+  int list[kMaxCap];
+  int n = 0;
+  for (int s = 0; s < cap; ++s) {
+    bool occupied = false;
+    for (int q = 0; q < ns; ++q) {
+      const int k = s * nc + src[q];
+      if (__ldg(pi + k) == 0) continue;  // row 0: valid
+      occupied = true;
+      const int bx = bin(__ldg(px + k), lo0, inv0, nx);
+      const int by = bin(__ldg(py + k), lo1, inv1, ny);
+      const int bz = bin(__ldg(pz + k), lo2, inv2, nz);
+      if ((bx * ny + by) * nz + bz != c) continue;
+      if (n < cap) list[n] = k;
+      ++n;
+    }
+    // compacted slots: an all-empty slot row ends every source cell
+    if (!occupied) break;
+  }
+  const int kept = n < cap ? n : cap;
+  for (int r = 0; r < ff; ++r) {
+    const float* in = pf + (long long)r * m;
+    float* o = outf + (long long)r * m + c;
+    for (int s = 0; s < cap; ++s) o[(long long)s * nc] = s < kept ? __ldg(in + list[s]) : 0.f;
+  }
+  for (int r = 0; r < fi; ++r) {
+    const int* in = pi + (long long)r * m;
+    int* o = outi + (long long)r * m + c;
+    for (int s = 0; s < cap; ++s) o[(long long)s * nc] = s < kept ? __ldg(in + list[s]) : 0;
+  }
+}
+
+}  // namespace
+
+extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
+                             int* outi, int ff, int fi, int cap, int nx, int ny,
+                             int nz, int xr, float lo0, float lo1, float lo2,
+                             float inv0, float inv1, float inv2,
+                             cudaStream_t stream) {
+  if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
+  const int nc = nx * ny * nz;
+  if (nc == 0) return 0;
+  const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
+  rebin_move_3d_kernel<<<blocks, kThreads, 0, stream>>>(
+      pf, pi, outf, outi, ff, fi, cap, nx, ny, nz, xr, lo0, lo1, lo2, inv0,
+      inv1, inv2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* sph_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

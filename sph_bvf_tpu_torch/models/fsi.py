@@ -21,8 +21,9 @@ from sph_bvf_tpu_torch.core.fixes import Buffer
 
 def build(nx: int = 60, dt: float = 1e-8, vo: float = 0.0333, nu: float = 1e-3,
           E: float = 2e5, Pratio: float = 0.33, rebin_every: int = 100,
-          tdamp_solid: float = 1e6, ncx_multiple_of: int = 1, device="cpu"):
-    """Returns (state, params, spec, scene), the state and params on ``device``."""
+          tdamp_solid: float = 1e6, ncx_multiple_of: int = 1, device=None):
+    """Returns (state, params, spec, scene), the state and params on ``device``
+    (default: the card)."""
     Lx, Ly = 300e-6, 100e-6
     Lbz = -50e-6  # buffer-zone extent (inlet sponge)
     n_wall = 3

@@ -15,8 +15,9 @@ from sph_bvf_tpu_torch.core.fixes import SetForce
 
 def build(N: int = 50, Re: float = 100.0, U0: float = 1.0, dt: float | None = None,
           c0: float = 10.0, n_wall_layers: int = 3, rebin_every: int = 10,
-          ncx_multiple_of: int = 1, cap: int | None = None, device="cpu"):
-    """Returns (state, params, spec, scene), the state and params on ``device``.
+          ncx_multiple_of: int = 1, cap: int | None = None, device=None):
+    """Returns (state, params, spec, scene), the state and params on ``device``
+    (default: the card).
 
     ``cap`` overrides the slot capacity (default: density-derived, 14 at
     this lattice)."""

@@ -5,10 +5,11 @@ particle sums its pair terms over the candidates of its 3^dim stencil cells,
 so no scatter-adds are needed.  Pair blocks are ``[ci, cj, NC]`` with
 components leading; reductions run over the cj axis.
 
-``compute_forces`` sends pass A through ``ops/pair_cuda.pass_a_2d``: the
-hand-written kernel on a CUDA tensor, the stencil loop below
-(``_pass_a_plain``) on a CPU tensor.  The loop is also the reference the
-kernel is checked against on the card.
+``compute_forces`` sends pass A through ``ops/pair_cuda.pass_a``: the
+hand-written kernel the grid routes to (K1 or K2 in 2D, K3 in 3D) on a CUDA
+tensor, the stencil loop below (``_pass_a_plain``, over 3^dim offsets) on a
+CPU tensor.  The loop is also the reference the kernels are checked against
+on the card.
 
 Ported: the transport-velocity pair style with the Sun-2018 pressure
 switch (the flagship lid-driven cavity) and the mechanics pair style (the
@@ -432,7 +433,7 @@ _ACC_LEAD = {"ddv": (3,), "ddx": (3,), "f": (3,), "nw": (3,), "dS": (3, 3)}
 
 def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig):
     """Pass A as a loop over the stencil offsets: the plain version of the
-    K1 and K2 kernels.  Returns every ``PASS_A_ACCS`` entry ([cap, NC]
+    K1, K2 and K3 kernels.  Returns every ``PASS_A_ACCS`` entry ([cap, NC]
     scalars, [3, cap, NC] vectors, [3, 3, cap, NC] dS); accumulators the
     configuration skips stay 0."""
     cap, NC = pf["rho"].shape
@@ -465,18 +466,18 @@ def compute_forces(
     """Full force evaluation; returns the state with all accumulators replaced
     (force_clear + Pair::compute).
 
-    Pass A goes through ``pair_cuda.pass_a_2d``: the K1 or K2 kernel on a
+    Pass A goes through ``pair_cuda.pass_a``: the K1, K2 or K3 kernel on a
     CUDA tensor, ``_pass_a_plain`` on a CPU tensor.
     """
     if mesh is not None:
         raise NotImplementedError("multi-device pair passes are ported in a later PR")
     check_ported(params, cfg)
-    from sph_bvf_tpu_torch.ops.pair_cuda import pass_a_2d
+    from sph_bvf_tpu_torch.ops.pair_cuda import pass_a
 
     NC, cap = geom.ncells_total, geom.cap
     fdt, dev = state.x.dtype, state.x.device
     pf = _per_particle(state, params, cfg)
-    acc = pass_a_2d(pf, params, geom, cfg)
+    acc = pass_a(pf, params, geom, cfg)
 
     def zeros(*lead, dtype=fdt):
         return torch.zeros(lead + (cap, NC), dtype=dtype, device=dev)

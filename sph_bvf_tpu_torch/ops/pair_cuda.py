@@ -1,14 +1,15 @@
-"""The 2D pass-A pair kernels and their wrappers.
+"""The pass-A pair kernels, their wrappers and the route between them.
 
 K1 (``csrc/pass_a_2d.cu``) ports the grouped kernel of
-``sph_bvf_tpu/ops/pair_pallas.py``; K2 (``csrc/pass_a_2d_rowloop.cu``)
-ports its rowloop kernel.  ``pass_a_2d`` makes JAX's shape choice
-(``pair_pallas._default_rowloop``): grids with a mixed lattice
-(``base_occ == 0``) or a crowded cell (``cap > 24``) go to K2, the rest to
-K1.  On a CUDA tensor each wrapper launches its kernel; the plain PyTorch
-loop (``ops/pair._pass_a_plain``) runs only on a CPU tensor.  A CUDA call
-the routed kernel cannot serve raises and names what is missing; it never
-falls back.
+``sph_bvf_tpu/ops/pair_pallas.py``, K2 (``csrc/pass_a_2d_rowloop.cu``) its
+rowloop kernel and K3 (``csrc/pass_a_3d.cu``) its tiled 3D kernel.
+``pass_a`` makes JAX's shape choice (``pair_pallas._pass_a_tiled3d`` for
+every 3D grid, ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3;
+2D grids with a mixed lattice (``base_occ == 0``) or a crowded cell
+(``cap > 24``) go to K2, the rest to K1.  On a CUDA tensor each wrapper
+launches its kernel; the plain PyTorch loop (``ops/pair._pass_a_plain``)
+runs only on a CPU tensor.  A CUDA call the routed kernel cannot serve
+raises and names what is missing; it never falls back.
 """
 
 from __future__ import annotations
@@ -19,17 +20,18 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import ghost_axes, periodic_multicell, wrap_x
+from sph_bvf_tpu_torch.core.halo import (ghost_axes, grid_3d,
+                                         periodic_multicell, wrap_x)
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
 from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
 
-# K1 packed field rows, in the order csrc/pass_a_2d.cu reads them (R_*
-# there); rhoI is staged only when the Shepard-filter accumulators are
+# K1 and K3 packed field rows, in the order csrc/pass_a_tv.cuh reads them
+# (R_* there); rhoI is staged only when the Shepard-filter accumulators are
 # wanted.
 PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
            "P_rho2", "m_rho", "V2", "ASd")
-# K1 accumulator rows (O_* there).
+# K1 and K3 accumulator rows (O_* there).
 ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
             ("phi", 1), ("nw", 3))
 FILTER_ACC_ROWS = (("rhoAux1", 1), ("rhoAux2", 1))
@@ -52,15 +54,25 @@ def uses_rowloop(geom: Geometry) -> bool:
     return geom.base_occ == 0 or geom.cap > 24
 
 
+def route(geom: Geometry):
+    """The wrapper this grid's pass A goes to: ``pass_a_3d`` (K3) for a 3D
+    grid, else ``pass_a_2d_rowloop`` (K2) or ``pass_a_2d`` (K1)."""
+    if grid_3d(geom):
+        return pass_a_3d
+    return pass_a_2d_rowloop if uses_rowloop(geom) else pass_a_2d
+
+
 def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
-                       rowloop: bool | None = None) -> list:
-    """What keeps K2 (``rowloop``) or K1 — by default the kernel this grid
-    routes to — from serving this geometry and configuration."""
+                       kernel=None) -> list:
+    """What keeps the wrapper ``kernel`` (by default the one this grid
+    routes to) from serving this geometry and configuration."""
+    kernel = kernel or route(geom)
+    is3d = kernel is pass_a_3d
     checks = [
-        ("a 3D grid", geom.dim != 2 or geom.ncells[2] != 1),
+        ("a 2D grid" if is3d else "a 3D grid", grid_3d(geom) != is3d),
         ("a solid-free scene (solids_present=False)", not cfg.solids_present),
     ]
-    if uses_rowloop(geom) if rowloop is None else rowloop:
+    if kernel is pass_a_2d_rowloop:
         checks += [
             ("a periodic y axis", bool(ghost_axes(geom))),
             ("a periodic x axis with fewer than 3 cells",
@@ -97,14 +109,14 @@ def _k2_tables(params: Params, cfg) -> torch.Tensor:
     return torch.cat([_tables(params, cfg), extra.to(torch.float32)]).contiguous()
 
 
-def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, rowloop: bool):
-    """Raise unless K2 (``rowloop``) or K1 can take these fields."""
+def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, kernel):
+    """Raise unless the wrapper ``kernel`` can take these fields."""
     pair.check_ported(params, cfg)
-    missing = kernel_unsupported(geom, cfg, rowloop)
+    missing = kernel_unsupported(geom, cfg, kernel)
     if missing:
         raise NotImplementedError(
-            f"pass-A kernel {'K2' if rowloop else 'K1'} for "
-            + ", ".join(missing) + " is ported in a later PR")
+            f"pass-A kernel {kernel.__name__} for " + ", ".join(missing)
+            + " is ported in a later PR")
     if pf["x"].dtype != torch.float32:
         raise TypeError(f"pass-A kernel takes float32 state, got {pf['x'].dtype}")
     cap, NC = pf["rho"].shape
@@ -128,15 +140,20 @@ def _unpack(out: torch.Tensor, accs) -> dict:
     return result
 
 
-def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+def pass_a(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     """Pass A accumulators (``pair.PASS_A_ACCS``) from the per-particle dict
-    ``pf`` (``pair._per_particle``): K1, or K2 on the grids
-    ``uses_rowloop`` picks, on CUDA; the plain loop on CPU."""
-    if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg)
-    if uses_rowloop(geom):
-        return pass_a_2d_rowloop(pf, params, geom, cfg)
-    _check_launch(pf, params, geom, cfg, rowloop=False)
+    ``pf`` (``pair._per_particle``) through the wrapper ``route`` picks: its
+    kernel on CUDA, the plain loop on CPU."""
+    return route(geom)(pf, params, geom, cfg)
+
+
+def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
+               cfg) -> dict:
+    """Launch ``wrapper``'s kernel, K1 or K3 (``csrc/<its name>.cu``, the
+    transport-velocity pair of ``csrc/pass_a_tv.cuh``), over the grid
+    ``dims`` and unpack its rows."""
+    _check_launch(pf, params, geom, cfg, wrapper)
+    name = wrapper.__name__
     cap, NC = pf["rho"].shape
     filt = bool(cfg.density_filter_accs)
     PF = _pack(pf, PF_ROWS + (("rhoI",) if filt else ()), cap, NC)
@@ -145,15 +162,14 @@ def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     out = torch.empty((sum(n for _, n in accs), cap, NC), dtype=torch.float32,
                       device=PF.device)
 
-    lib = _build.load("pass_a_2d")
-    fn = lib.pass_a_2d
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + len(dims))
+                   + [ctypes.c_void_p])
     code = fn(PF.data_ptr(), tab.data_ptr(), out.data_ptr(), params.ntypes,
-              cap, geom.ncells[0], geom.ncells[1], int(filt),
-              _build.current_stream(PF.device))
-    _build.check(lib, code, "pass_a_2d")
-    pass_a_2d.launches += 1
+              cap, *dims, int(filt), _build.current_stream(PF.device))
+    _build.check(lib, code, name)
 
     result = _unpack(out, accs)
     if not filt:
@@ -165,7 +181,30 @@ def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     return result
 
 
+def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+    """Pass A accumulators from ``pf`` through K1 on CUDA (the plain loop on
+    CPU): the transport-velocity pair with fixed walls on a 2D grid."""
+    if not pf["x"].is_cuda:
+        return pair._pass_a_plain(pf, params, geom, cfg)
+    result = _tv_launch(pass_a_2d, geom.ncells[:2], pf, params, geom, cfg)
+    pass_a_2d.launches += 1
+    return result
+
+
 pass_a_2d.launches = 0  # K1 launches in this process
+
+
+def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+    """Pass A accumulators from ``pf`` through K3 on CUDA (the plain loop on
+    CPU): the transport-velocity pair with fixed walls on a 3D grid."""
+    if not pf["x"].is_cuda:
+        return pair._pass_a_plain(pf, params, geom, cfg)
+    result = _tv_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg)
+    pass_a_3d.launches += 1
+    return result
+
+
+pass_a_3d.launches = 0  # K3 launches in this process
 
 
 def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
@@ -174,7 +213,7 @@ def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     XSPH, periodic x."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg)
-    _check_launch(pf, params, geom, cfg, rowloop=True)
+    _check_launch(pf, params, geom, cfg, pass_a_2d_rowloop)
     cap, NC = pf["rho"].shape
     filt = bool(cfg.density_filter_accs)
     elastic = bool(cfg.elastic_present)

@@ -96,7 +96,7 @@ def test_scene_build_matches_jax():
     """Port-built nx=24 FSI == JAX-built: geometry, configs, the Buffer
     fixes, params and every state leaf bitwise."""
     js, jp, jspec, _ = jfsi.build(nx=24)
-    ts, tp, tspec, _ = tfsi.build(nx=24)
+    ts, tp, tspec, _ = tfsi.build(nx=24, device="cpu")
     assert dataclasses.asdict(tspec.geom) == dataclasses.asdict(jspec.geom)
     assert tspec.geom.cap == 34 and tspec.geom.base_occ == 0
     assert tspec.geom.ncells == (22, 9, 1)
@@ -138,7 +138,8 @@ def test_compute_forces_matches_jax(dt, filt):
 
     tspec = bridge.spec_to_port(jspec)
     got = bridge.state_from_port(tpair.compute_forces(
-        bridge.state_to_port(s), bridge.params_to_port(jparams), tspec.geom,
+        bridge.state_to_port(s, device="cpu"),
+        bridge.params_to_port(jparams, device="cpu"), tspec.geom,
         bridge._plain(tpair.PairConfig, cfg)))
     for name in PASS_A_FIELDS + ("Q", "Qd", "vws", "aws"):
         a, b = ref[name], got[name]
@@ -176,7 +177,8 @@ def test_compute_forces_matches_bruteforce():
     visc = np.array([[0.1, 0.12], [0.12, 0.15]])
 
     geom = TS.Geometry.build(dim=2, lo=(0, 0, 0), hi=(1, 1, 0.1), cutoff=h, cap=32)
-    st = TS.state_from_particles(geom, x, ptype, dtype=torch.float64)
+    st = TS.state_from_particles(geom, x, ptype, dtype=torch.float64,
+                                 device="cpu")
     st = TS.scatter_by_tag(st, v=v, vest=vest, rho=rho, rhoI=rhoI, S=S,
                            solid_tag=solid.astype(np.int32),
                            fixed_tag=fixed.astype(np.int32))
@@ -216,8 +218,8 @@ def test_mechanics_integrate_and_buffer_match_jax(offset):
     jcfg = dataclasses.replace(jspec.pair, use_pallas=False)
     js = jpair.compute_forces(_jax(JS.State, s), jparams, jspec.geom, jcfg)
     js = dataclasses.replace(js, step=jnp.asarray(tdamp_solid + offset, jnp.int32))
-    ts = bridge.state_to_port(bridge.to_numpy(js))
-    tparams = bridge.params_to_port(jparams)
+    ts = bridge.state_to_port(bridge.to_numpy(js), device="cpu")
+    tparams = bridge.params_to_port(jparams, device="cpu")
     tspec = bridge.spec_to_port(jspec)
 
     stages = (
@@ -268,8 +270,9 @@ def test_buffer_matches_jax(field, direction):
     for step, live in ((3, False), (4, True)):
         s["step"] = np.asarray(step, np.int32)
         ref = bridge.to_numpy(jfix.apply(_jax(JS.State, s), jparams))
-        got = bridge.state_from_port(tfix.apply(bridge.state_to_port(s),
-                                                bridge.params_to_port(jparams)))
+        got = bridge.state_from_port(tfix.apply(
+            bridge.state_to_port(s, device="cpu"),
+            bridge.params_to_port(jparams, device="cpu")))
         np.testing.assert_allclose(got[leaf], ref[leaf], rtol=1e-12, atol=0,
                                    err_msg=leaf)
         assert (not np.array_equal(ref[leaf], s[leaf])) == live
@@ -315,7 +318,7 @@ def test_plain_walk_matches_jax_sort(grid):
             else rebin_cuda.rebin_move_2d)
     assert rebin_cuda.move_route(tg) is want
     ref = bridge.to_numpy(JS.rebin(_jax(JS.State, s), g, use_pallas=False))
-    got = bridge.state_from_port(TS.rebin(bridge.state_to_port(s), tg,
+    got = bridge.state_from_port(TS.rebin(bridge.state_to_port(s, device="cpu"), tg,
                                           use_kernel=True))
     for name in ref:
         if name != "key":
@@ -331,7 +334,7 @@ def _compacted(valid: torch.Tensor) -> bool:
 def test_slots_stay_compacted_across_rebins():
     """The invariant K2's and K6's loop bounds rest on: after the build and
     after every rebin of a run, each cell's valid slots are 0..occ-1."""
-    state, params, spec, _ = tfsi.build(nx=24, rebin_every=2)
+    state, params, spec, _ = tfsi.build(nx=24, rebin_every=2, device="cpu")
     assert _compacted(state.valid)
     state = tstepper.setup(state, params, spec, dt=1e-8)
     for _ in range(3):
@@ -339,7 +342,8 @@ def test_slots_stay_compacted_across_rebins():
         assert _compacted(state.valid)
     # also after the seeded one-ring drift of the walk test
     s, g = _drifted_fsi()
-    moved = TS.rebin(bridge.state_to_port(s), TS.Geometry(**dataclasses.asdict(g)))
+    moved = TS.rebin(bridge.state_to_port(s, device="cpu"),
+                     TS.Geometry(**dataclasses.asdict(g)))
     assert _compacted(moved.valid) and int(moved.overflow) == 0
 
 
@@ -352,7 +356,8 @@ def test_steps_f64_match_jax():
     sa = _cast(bridge.to_numpy(js), np.float64)
     pa = _cast(bridge.to_numpy(jp), np.float64)
     js, jp = _jax(type(js), sa), _jax(type(jp), pa)
-    ts, tp = bridge.state_to_port(sa), bridge.params_to_port(jp)
+    ts = bridge.state_to_port(sa, device="cpu")
+    tp = bridge.params_to_port(jp, device="cpu")
     tspec = bridge.spec_to_port(jspec)
     assert ts.x.dtype == torch.float64 and tp.mass.dtype == torch.float64
 
@@ -374,7 +379,7 @@ def test_steps_f64_match_jax():
 def test_fsi_routes_to_k2_and_k6():
     """The FSI grid takes K2 (mixed lattice, cap > 24) and K6 (cap > 16,
     periodic x); every physics switch FSI needs is one K2 serves."""
-    _, _, spec, _ = tfsi.build(nx=24)
+    _, _, spec, _ = tfsi.build(nx=24, device="cpu")
     assert pair_cuda.uses_rowloop(spec.geom)
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair) == []
     assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_2d_gated

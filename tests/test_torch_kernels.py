@@ -1,12 +1,13 @@
-"""The port's hand-written CUDA kernels (K1 and K2 pass A, K5 and K6
-rebin move).
+"""The port's hand-written CUDA kernels (K1, K2 and K3 pass A, K5, K6 and
+K7 rebin move).
 
 The kernel-vs-plain checks need a CUDA card and are marked ``gpu``: they
 skip on a machine without one (run them there with
 ``python -m pytest tests/test_torch_kernels.py -m gpu``).  The CPU checks
 hold what the wrappers promise off the card: a CPU tensor runs the plain
 version and never counts a launch, the kernels' eligibility covers the
-flagship and the FSI beam, and a configuration no kernel serves raises.
+flagship, the FSI beam and the 3D cavity, and a configuration no kernel
+serves raises.
 """
 
 import dataclasses
@@ -18,7 +19,7 @@ import torch
 from sph_bvf_tpu_torch.core import rebin_cuda
 from sph_bvf_tpu_torch.core import state as TS
 from sph_bvf_tpu_torch.core.stepper import run_chunk, setup
-from sph_bvf_tpu_torch.models import fsi, lid_cavity
+from sph_bvf_tpu_torch.models import fsi, lid_cavity, lid_cavity3d
 from sph_bvf_tpu_torch.ops import pair, pair_cuda
 
 K1_FIELDS = ("f", "drho", "num_den", "phi", "nw", "ddv", "de", "rhoAux1",
@@ -80,7 +81,7 @@ def test_k5_matches_plain_walk_and_sort_on_card(cuda):
     PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
     xr = rebin_cuda._x_row(fmeta)
     kf, ki = rebin_cuda.rebin_move_2d(PF, PI, geom, xr)
-    pf_, pi_ = rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr)
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
     assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
     ref = TS.rebin(state, geom, use_kernel=False)
     got = TS.rebin(state, geom, use_kernel=True)
@@ -138,7 +139,54 @@ def test_k6_matches_plain_walk_and_sort_on_card(cuda):
     PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
     xr = rebin_cuda._x_row(fmeta)
     kf, ki = rebin_cuda.rebin_move_2d_gated(PF, PI, geom, xr)
-    pf_, pi_ = rebin_cuda.rebin_move_2d_plain(PF, PI, geom, xr)
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
+    assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+
+
+def _cavity3d(N, device, steps=0):
+    state, params, spec, _ = lid_cavity3d.build(N=N, device=device)
+    state = setup(state, params, spec, dt=1e-4)
+    if steps:
+        state = run_chunk(state, params, spec, steps)
+    return state, params, spec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+def test_k3_matches_plain_on_card(cuda, filt):
+    """K3 vs the plain 27-offset loop on the same CUDA tensors of the N=20
+    3D cavity (9^3 cells, cap 38): each field within 5e-6 of its max (f32
+    sums in another order, with FMA); the filter-free variant writes no
+    rhoAux1."""
+    state, params, spec = _cavity3d(20, cuda, steps=9)
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+    pf = pair._per_particle(state, params, cfg)
+    ref = pair._pass_a_plain(pf, params, spec.geom, cfg)
+    got = pair_cuda.pass_a_3d(pf, params, spec.geom, cfg)
+    torch.cuda.synchronize()
+    for name in K1_FIELDS if filt else K1_FIELDS[:-2]:
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+    if not filt:
+        assert float(got["rhoAux1"].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_k7_matches_plain_walk_and_sort_on_card(cuda):
+    """K7 vs the plain 3D walk and the sort rebin on the N=20 3D cavity 9
+    steps after a rebin: every leaf bitwise."""
+    state, params, spec = _cavity3d(20, cuda, steps=9)
+    geom = spec.geom
+    fields = TS.particle_fields(state)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    kf, ki = rebin_cuda.rebin_move_3d(PF, PI, geom, xr)
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
     assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
     ref = TS.rebin(state, geom, use_kernel=False)
     got = TS.rebin(state, geom, use_kernel=True)
@@ -162,7 +210,7 @@ def test_k2_and_k6_serve_a_crowded_cavity_on_card(cuda, filt):
     cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
     pf = pair._per_particle(state, params, cfg)
     ref = pair._pass_a_plain(pf, params, geom, cfg)
-    got = pair_cuda.pass_a_2d(pf, params, geom, cfg)
+    got = pair_cuda.pass_a(pf, params, geom, cfg)
     torch.cuda.synchronize()
     for name in K1_FIELDS:
         scale = max(float(ref[name].abs().max()), 1e-30)
@@ -176,24 +224,28 @@ def test_k2_and_k6_serve_a_crowded_cavity_on_card(cuda, filt):
 
 def test_no_launch_on_cpu_tensors():
     """On CPU tensors the wrappers run the plain versions: setups and
-    chunks of the cavity (K1/K5 grid) and the FSI beam (K2/K6 grid) move
-    no launch counter."""
+    chunks of the cavity (K1/K5 grid), the FSI beam (K2/K6 grid) and the
+    3D cavity (K3/K7 grid) move no launch counter."""
     counters = (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_rowloop,
-                rebin_cuda.rebin_move_2d, rebin_cuda.rebin_move_2d_gated)
+                pair_cuda.pass_a_3d, rebin_cuda.rebin_move_2d,
+                rebin_cuda.rebin_move_2d_gated, rebin_cuda.rebin_move_3d)
     before = [c.launches for c in counters]
     state, params, spec = _cavity(16, "cpu", steps=3)
     assert int(state.step) == 3
     state, params, spec = _fsi("cpu")
     assert int(state.step) == 4
+    state, params, spec = _cavity3d(6, "cpu", steps=1)
+    assert int(state.step) == 1
     assert [c.launches for c in counters] == before
 
 
 def test_kernels_serve_the_flagship_grid():
     """The flagship geometry and pair configuration are what K1 and K5
-    serve; a crowded grid (cap 17..64) moves through K6; a periodic grid
-    of cap <= 16, a cap above 64 or a 3D grid has no kernel (it raises on
-    a CUDA tensor)."""
-    state, params, spec, _ = lid_cavity.build(N=50)
+    serve; a crowded grid (cap 17..64) moves through K6; a grid with more
+    than one cell along z takes K3 and K7; a periodic grid of cap <= 16, a
+    cap above 64 or a periodic 3D grid has no kernel (it raises on a CUDA
+    tensor)."""
+    state, params, spec, _ = lid_cavity.build(N=50, device="cpu")
     assert not pair_cuda.uses_rowloop(spec.geom)
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair) == []
     assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_2d
@@ -204,9 +256,15 @@ def test_kernels_serve_the_flagship_grid():
     assert rebin_cuda.move_route(crowded) is rebin_cuda.rebin_move_2d_gated
     big_cap = dataclasses.replace(spec.geom, cap=rebin_cuda.GATED_MAX_CAP + 1)
     assert not rebin_cuda.move_supported(big_cap)
-    flat3d = dataclasses.replace(spec.geom, dim=3, ncells=(19, 19, 4))
-    assert not rebin_cuda.move_supported(flat3d)
-    assert pair_cuda.kernel_unsupported(flat3d, spec.pair)
+    flat3d = dataclasses.replace(spec.geom, dim=3, ncells=(19, 19, 4),
+                                 periodic=(False, False, False))
+    cfg3d = dataclasses.replace(spec.pair, dim=3)
+    assert rebin_cuda.move_route(flat3d) is rebin_cuda.rebin_move_3d
+    assert pair_cuda.route(flat3d) is pair_cuda.pass_a_3d
+    assert pair_cuda.kernel_unsupported(flat3d, cfg3d) == []
+    periodic3d = dataclasses.replace(flat3d, periodic=(False, False, True))
+    assert not rebin_cuda.move_supported(periodic3d)
+    assert pair_cuda.kernel_unsupported(periodic3d, cfg3d) == ["a periodic axis"]
 
 
 def test_unsupported_configurations_raise():
@@ -214,25 +272,28 @@ def test_unsupported_configurations_raise():
     NotImplementedError and name what is missing: grouped-shape physics K1
     lacks, a periodic y axis on a K2 grid, and rebin grids no kernel
     serves."""
-    state, params, spec, _ = lid_cavity.build(N=16)
+    state, params, spec, _ = lid_cavity.build(N=16, device="cpu")
     pf = pair._per_particle(state, params, spec.pair)
     for bad, what in ((dict(xsph=True), "XSPH"),
                       (dict(pressure_switch=False), "symmetric pressure"),
                       (dict(free_solids_present=True), "free solids")):
         cfg = dataclasses.replace(spec.pair, **bad)
         with pytest.raises(NotImplementedError, match=what):
-            pair_cuda._check_launch(pf, params, spec.geom, cfg, rowloop=False)
-    fstate, fparams, fspec, _ = fsi.build(nx=24)
+            pair_cuda._check_launch(pf, params, spec.geom, cfg,
+                                    pair_cuda.pass_a_2d)
+    fstate, fparams, fspec, _ = fsi.build(nx=24, device="cpu")
     pf = pair._per_particle(fstate, fparams, fspec.pair)
-    pair_cuda._check_launch(pf, fparams, fspec.geom, fspec.pair, rowloop=True)
+    pair_cuda._check_launch(pf, fparams, fspec.geom, fspec.pair,
+                            pair_cuda.pass_a_2d_rowloop)
     periodic_y = dataclasses.replace(fspec.geom, periodic=(True, True, True))
     with pytest.raises(NotImplementedError, match="periodic y"):
-        pair_cuda._check_launch(pf, fparams, periodic_y, fspec.pair, rowloop=True)
+        pair_cuda._check_launch(pf, fparams, periodic_y, fspec.pair,
+                                pair_cuda.pass_a_2d_rowloop)
     with pytest.raises(NotImplementedError, match="periodic y"):
         pair_cuda._check_launch(pf, fparams, periodic_y,
                                 dataclasses.replace(fspec.pair,
                                                     elastic_present=False),
-                                rowloop=True)
+                                pair_cuda.pass_a_2d_rowloop)
 
     geom = spec.geom
     fields = TS.particle_fields(state)
@@ -247,7 +308,7 @@ def test_unsupported_configurations_raise():
 
 def test_k2_tables_match_plain_coefficients():
     """K2 reads K1's five rows, then h and geff, flattened [T*T]."""
-    _, params, spec, _ = fsi.build(nx=24)
+    _, params, spec, _ = fsi.build(nx=24, device="cpu")
     tab = pair_cuda._k2_tables(params, spec.pair)
     tabs = pair.coeff_tables(params, spec.pair)
     T = params.ntypes
@@ -264,7 +325,7 @@ def test_k1_tables_match_plain_coefficients():
     1/h, eta, 1/wdelta and the two Lucy factors, flattened [T*T]."""
     from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
 
-    _, params, spec, _ = lid_cavity.build(N=50)
+    _, params, spec, _ = lid_cavity.build(N=50, device="cpu")
     tab = pair_cuda._tables(params, spec.pair)
     tabs = pair.coeff_tables(params, spec.pair)
     T = params.ntypes
@@ -276,3 +337,56 @@ def test_k1_tables_match_plain_coefficients():
                                   tabs["inv_wdelta"].reshape(-1).numpy())
     np.testing.assert_array_equal(tab[3].numpy(), lucy_wfd_coef(ih, 2).numpy())
     np.testing.assert_array_equal(tab[4].numpy(), lucy_w_coef(ih, 2).numpy())
+
+
+def test_3d_cavity_routes_to_k3_and_k7():
+    """The 3D cavity's grid and pair configuration are what K3 and K7
+    serve; ``pass_a`` and ``move_route`` send it there."""
+    _, _, spec, _ = lid_cavity3d.build(N=6, device="cpu")
+    geom = spec.geom
+    assert pair_cuda.route(geom) is pair_cuda.pass_a_3d
+    assert pair_cuda.kernel_unsupported(geom, spec.pair) == []
+    assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_3d
+
+
+def test_3d_kernels_refuse_what_they_do_not_serve():
+    """K3 names the physics and grids it lacks (mechanics, XSPH, free or
+    elastic solids, a periodic axis, a 2D grid), K1 refuses a 3D grid, and
+    K7 refuses a periodic axis, x_edges and cap > 64: each raises
+    NotImplementedError before a launch."""
+    state, params, spec, _ = lid_cavity3d.build(N=6, device="cpu")
+    geom = spec.geom
+    pf = pair._per_particle(state, params, spec.pair)
+    pair_cuda._check_launch(pf, params, geom, spec.pair, pair_cuda.pass_a_3d)
+    for bad, what in ((dict(xsph=True), "XSPH"),
+                      (dict(pressure_switch=False), "symmetric pressure"),
+                      (dict(elastic_present=True), "elastic solids"),
+                      (dict(free_solids_present=True), "free solids")):
+        cfg = dataclasses.replace(spec.pair, **bad)
+        with pytest.raises(NotImplementedError, match=what):
+            pair_cuda._check_launch(pf, params, geom, cfg, pair_cuda.pass_a_3d)
+    for ax in range(3):
+        periodic = tuple(a == ax for a in range(3))
+        pgeom = dataclasses.replace(geom, periodic=periodic)
+        with pytest.raises(NotImplementedError, match="periodic axis"):
+            pair_cuda._check_launch(pf, params, pgeom, spec.pair,
+                                    pair_cuda.pass_a_3d)
+        assert rebin_cuda.move_route(pgeom) is None
+    with pytest.raises(NotImplementedError, match="a 3D grid"):
+        pair_cuda._check_launch(pf, params, geom, spec.pair,
+                                pair_cuda.pass_a_2d)
+    _, _, spec2d, _ = lid_cavity.build(N=16, device="cpu")
+    assert pair_cuda.kernel_unsupported(spec2d.geom, spec2d.pair,
+                                         pair_cuda.pass_a_3d) == [
+        "a 2D grid"]
+
+    fields = TS.particle_fields(state)
+    PF, PI, _, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_3d)
+    for bad in (dict(x_edges=(0.0, 1.0)), dict(cap=rebin_cuda.MAX_CAP_3D + 1),
+                dict(periodic=(True, False, False))):
+        with pytest.raises(NotImplementedError):
+            rebin_cuda._check_packs(PF, PI, dataclasses.replace(geom, **bad),
+                                    rebin_cuda.rebin_move_3d)
+    with pytest.raises(NotImplementedError):  # K6 takes 2D grids only
+        rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d_gated)

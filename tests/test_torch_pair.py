@@ -68,7 +68,8 @@ def test_compute_forces_matches_jax(dt, filt):
 
     tspec = bridge.spec_to_port(jspec)
     tcfg = bridge._plain(tpair.PairConfig, cfg)
-    got = tpair.compute_forces(bridge.state_to_port(s), bridge.params_to_port(jparams),
+    got = tpair.compute_forces(bridge.state_to_port(s, device="cpu"),
+                               bridge.params_to_port(jparams, device="cpu"),
                                tspec.geom, tcfg)
     got = bridge.state_from_port(got)
     for name in FIELDS + ("Q", "Qd", "ddx", "dS", "vws", "aws"):
@@ -116,7 +117,7 @@ def test_compute_forces_matches_bruteforce(filt):
     geom = TS.Geometry.build(dim=2, lo=(0, 0, 0), hi=(1, 1, 0.1),
                              cutoff=sysd["h"], cap=32)
     st = TS.state_from_particles(geom, sysd["x"], sysd["ptype"],
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     st = TS.scatter_by_tag(
         st, v=sysd["v"], vest=sysd["vest"], rho=sysd["rho"], rhoI=sysd["rhoI"],
         solid_tag=sysd["solid"].astype(np.int32),
@@ -160,8 +161,8 @@ def test_unported_branches_raise():
     modulus and the weighted-solid pass B."""
     s, p, jspec = _perturbed_cavity(np.float32)
     tspec = bridge.spec_to_port(jspec)
-    st = bridge.state_to_port(s)
-    params = bridge.params_to_port(_jax(JParams, p))
+    st = bridge.state_to_port(s, device="cpu")
+    params = bridge.params_to_port(_jax(JParams, p), device="cpu")
     for bad in (dict(thermal=True), dict(ampl_damp=0.1),
                 dict(g0_chem_coupling=True), dict(weighted_solid=True)):
         cfg = dataclasses.replace(tspec.pair, **bad)

@@ -2,7 +2,7 @@
 
 The sort rebin is the executable spec of the rebin-move kernel (K5): its
 slot assignment must equal the JAX package's bit for bit, and the plain
-K5 walk (``core/rebin_cuda.rebin_move_2d_plain``, what ``rebin`` runs on a
+K5 walk (``core/rebin_cuda.rebin_move_plain``, what ``rebin`` runs on a
 CPU tensor) must equal the sort whenever the drift contract holds.
 """
 
@@ -48,7 +48,7 @@ def test_sort_rebin_matches_jax(dt):
     x = rng.uniform(0.0, 1.0, size=(n, 2))
     ptype = rng.integers(0, 2, size=n)
     js = JS.state_from_particles(jg, x, ptype, dtype=jdt)
-    ts = TS.state_from_particles(tg, x, ptype, dtype=tdt)
+    ts = TS.state_from_particles(tg, x, ptype, dtype=tdt, device="cpu")
     _assert_same(js, ts)
     assert int(ts.overflow) == 0
 
@@ -70,7 +70,7 @@ def test_sort_rebin_matches_jax(dt):
 def _drifted_n200(seed, scale):
     """The N=200 flagship grid with every valid particle moved by seeded
     noise of ``scale`` drift budgets, and a recognizable v pattern."""
-    state, params, spec, _ = tlid.build(N=200)
+    state, params, spec, _ = tlid.build(N=200, device="cpu")
     geom = spec.geom
     assert geom.ncells_total == 4761 and geom.cap == 14
     rng = np.random.default_rng(seed)
@@ -105,7 +105,7 @@ def test_overflow_count_matches():
     jg, tg = _geom_pair(dim=2, lo=(0, 0, 0), hi=(1, 1, 0.1), cutoff=0.5, cap=2)
     x = np.full((5, 2), 0.1)  # 5 particles in one cell, cap 2
     js = JS.state_from_particles(jg, x, np.zeros(5, int))
-    ts = TS.state_from_particles(tg, x, np.zeros(5, int))
+    ts = TS.state_from_particles(tg, x, np.zeros(5, int), device="cpu")
     assert int(js.overflow) == int(ts.overflow) == 3
     _assert_same(js, ts)
 

@@ -38,7 +38,7 @@ def test_scene_build_matches_jax():
     """Port-built N=50 cavity == JAX-built: geometry, configs, params and
     every state leaf (counts, cap, tags, positions, slots) bitwise."""
     js, jp, jspec, _ = jlid.build(N=50)
-    ts, tp, tspec, _ = tlid.build(N=50)
+    ts, tp, tspec, _ = tlid.build(N=50, device="cpu")
     assert dataclasses.asdict(tspec.geom) == dataclasses.asdict(jspec.geom)
     assert tspec.geom.cap == 14 and tspec.geom.base_occ == 9
     assert dataclasses.asdict(tspec.pair) == dataclasses.asdict(jspec.pair)
@@ -69,7 +69,7 @@ def test_bridge_round_trips_the_spec_and_state():
                    SetForce=jfixes.SetForce)
     assert bridge.spec_from_port(bridge.spec_to_port(jspec), classes) == jspec
     a = bridge.to_numpy(js)
-    b = bridge.state_from_port(bridge.state_to_port(a))
+    b = bridge.state_from_port(bridge.state_to_port(a, device="cpu"))
     for name in a:
         assert a[name].dtype == b[name].dtype, name
         np.testing.assert_array_equal(a[name], b[name], err_msg=name)
@@ -83,8 +83,8 @@ def test_200_steps_f64_match_jax():
     pa = _to_f64_numpy(bridge.to_numpy(jp))
     js = _jax_tree(type(js), sa)
     jp = _jax_tree(type(jp), pa)
-    ts = bridge.state_to_port(sa)
-    tp = bridge.params_to_port(jp)
+    ts = bridge.state_to_port(sa, device="cpu")
+    tp = bridge.params_to_port(jp, device="cpu")
     tspec = bridge.spec_to_port(jspec)
     assert ts.x.dtype == torch.float64 and tp.mass.dtype == torch.float64
 
@@ -106,7 +106,7 @@ def test_density_filter_cadence_gating_exact():
     """run_chunk's phase segmentation skips only dead work: on chunks with
     and without a filter event every physics field is bitwise equal to
     the ungated run, and the gated run really skipped rhoAux."""
-    state, params, spec, _ = tlid.build(N=16)
+    state, params, spec, _ = tlid.build(N=16, device="cpu")
     a = tstepper.setup(state, params, spec, dt=1e-4)
     b = a
     done = 0
@@ -136,7 +136,7 @@ def test_port_never_imports_jax():
         "sys.modules['jax'] = None\n"
         "from sph_bvf_tpu_torch.models import lid_cavity\n"
         "from sph_bvf_tpu_torch.core.stepper import setup, simulate\n"
-        "s, p, spec, _ = lid_cavity.build(N=16)\n"
+        "s, p, spec, _ = lid_cavity.build(N=16, device='cpu')\n"
         "s = simulate(setup(s, p, spec, dt=1e-4), p, spec, spec.rebin_every)\n"
         "assert int(s.step) == spec.rebin_every\n"
         "assert not any(m == 'sph_bvf_tpu' or m.startswith('sph_bvf_tpu.')\n"
