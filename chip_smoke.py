@@ -6,9 +6,11 @@ the CUDA toolkit (``nvcc``):
 
     python3 chip_smoke.py
 
-Three paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move),
-the FSI beam in a periodic-x channel (K2 pass A, K6 rebin move) and the 3D
-lid-driven cavity (K3 pass A, K7 rebin move).  Phases, one line each:
+Four paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move),
+the FSI beam in a periodic-x channel (K2 pass A, K6 rebin move), the 3D
+lid-driven cavity (K3 pass A, K7 rebin move) and in-run load balancing on
+the drifting blob (solid-free K2, K6 with non-uniform x columns); K5 and
+K7 with x columns are checked on the cavities.  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — compile the six hand-written kernels from
@@ -18,6 +20,13 @@ lid-driven cavity (K3 pass A, K7 rebin move).  Phases, one line each:
              max|diff| <= 5e-6 * max|plain| for every field;
 4. K5      — the rebin-move kernel against the plain walk and the sort
              rebin on that state 10 steps later: every leaf bitwise equal;
+   K5 edges — that state sort-rebinned into x columns of alternating
+             widths 7/8 and 9/8 of a cell (``tests/test_halo_kernels.py``'s
+             construction), run 10 steps through ``simulate`` (rebinning
+             every 2 steps through K5 with x_edges), then K5 against the
+             plain walk and the sort rebin, bitwise, on that state and on
+             a seeded drift of it with a tenth snapped onto column edges
+             (timed on both; the run's state gives the kernel's ms);
 5. K2      — the rowloop pass-A kernel against the plain loop on
              fsi.build(nx=60, tdamp_solid=100) after setup and 300 steps
              (the beam released at step 100), both filter variants, on that
@@ -32,7 +41,15 @@ lid-driven cavity (K3 pass A, K7 rebin move).  Phases, one line each:
              max|plain| for every field;
 8. K7      — the 3D rebin-move kernel against the plain walk and the sort
              rebin on each of those states 10 steps later: every leaf
-             bitwise;
+             bitwise; K7 edges: as K5 edges, on the N=100 state;
+   K2 solid-free — the load-balance path's pass A: K2 against the plain
+             loop on the balanced s=20 drifting blob (840,000 particles,
+             x_edges, periodic x, no solids) after setup and 100 steps of
+             ``simulate`` with its re-cuts, both filter variants, 5e-6 *
+             max|plain| per field (phi, nw and dS exactly 0);
+   K6 edges — K6 with x_edges against the plain walk and the sort rebin on
+             that state a chunk later and on a seeded drift of it that
+             puts particles across the periodic seam: bitwise;
 9. main    — each path through its entry points with the launch counters
              reset first: lid_cavity.build(N=200) -> setup -> simulate(1000)
              (K1 once per step plus setup, K5 once per chunk plus setup),
@@ -42,25 +59,43 @@ lid-driven cavity (K3 pass A, K7 rebin move).  Phases, one line each:
              kernel launched; no overflow or drift, particles conserved,
              fields finite, velocities and densities inside bounds set from
              the JAX package's own runs (the 3D cavity's at N=20, 200 steps,
-             run on the card here too); and the N=50 cavity, the nx=24 FSI
-             and the N=8 3D cavity stepped 20 times on the card agree with
-             the same runs through the plain path on the CPU;
-10. speed  — particle-steps/s of the cavity at N=200 and N=1000, of FSI at
-             nx=60 and nx=240 and of the 3D cavity at N=40 and N=100, and per
-             call each kernel beside its plain version and each rebin beside
-             the sort rebin (CUDA events after a warm-up), with each kernel's
+             run on the card here too); main balance:
+             Scene.balance(8).fix_balance(8).build() of the s=20 blob ->
+             setup -> simulate(1000, balance_log=log) (K2 once per step plus
+             setup, K6 once per chunk plus setup, nothing else), overflow
+             and drift 0, 840,000 particles kept, at least two accepted
+             re-cuts with distinct edges, each improving the metric that
+             fired it, the final slab imbalance under 1.5, and x, v and rho
+             tag by tag within BLOB_TOL of the uniform-grid run of the same
+             blob; and the N=50 cavity, the nx=24 FSI, the N=8 3D cavity
+             (20 steps) and the s=1 balanced blob (110 steps, its re-cut at
+             step 100 included) on the card agree with the same runs
+             through the plain path on the CPU;
+10. speed  — particle-steps/s from the set-up state of the cavity at N=200
+             and N=1000, of FSI at nx=60 and nx=240, of the 3D cavity at N=40
+             and N=100 and of the balanced and the uniform blob at s=10 and
+             s=20 (its 1000-step main path, twice), each chunk timed on the
+             host clock and by CUDA events, the blob's chunks split into
+             those with a re-cut, with a balance check and without; per
+             call each kernel beside its plain version, each rebin beside
+             the sort rebin (and its host time), and the balanced blob's
+             re-cut (host time of ``rebalance``, its sort rebin) (CUDA
+             events after a warm-up), with each kernel's
              bound: the larger of its bytes over 3.35 TB/s and its f32
              operations on this run's data over 67 TFLOP/s, where the bytes
              are, at the run's occupancy, the valid row of every slot and
              the other input rows of the valid slots read once, and every
              output row of every slot written once;
-11. profile — one chunk of the 3D cavity at N=40 and N=100 under
-             torch.profiler: device ops and device time per step, the
-             busy share, and K3's and K7's device time per call; it fails
-             if the profiler records no device activity.
+11. profile — one chunk of the 3D cavity at N=40 and N=100 and two of
+             the s=20 blob, balanced and uniform, under torch.profiler:
+             device ops and device time per step, the busy share, and the
+             pass-A and move kernels' device time per call; it fails if
+             the profiler records no pass-A activity on the card.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (six entries), the last
+second-to-last line is ``{"kernels": [...]}`` (ten entries: the six
+kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants as
+their own entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -80,9 +115,23 @@ KERNELS = ("pass_a_2d", "pass_a_2d_rowloop", "pass_a_3d", "rebin_move_2d",
 CAVITY_N = (200, 1000)  # parity/main/speed size, large speed size
 FSI_NX = (60, 240)  # the reference's size, large speed size (~225k particles)
 CAVITY3D_N = (40, 100)  # parity/speed size (97k particles), main/speed size (1.19M)
-SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8}  # card vs CPU plain path
-MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500}
-PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100}
+BLOB_S = (10, 20)  # drifting blob scales: speed size (210k), main size (840k)
+BLOB_N = {1: 2115, 10: 210_000, 20: 840_000}  # its particle counts
+SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8, "blob": 1}  # card vs CPU
+SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110}
+MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000}
+PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100}
+# the x_edges checks of K5 and K7: steps through simulate on the edged
+# grid and its rebin period (the 7/8-wide columns leave a drift budget of
+# 1/16 of a lattice spacing, which the lid-driven fluid crosses in ~3 steps)
+EDGE_STEPS, EDGE_REBIN = 10, 2
+# the balanced blob's run against the uniform-grid run after MAIN_STEPS:
+# the largest |difference| allowed per field, tag by tag, with x compared
+# by minimum image along the periodic axis.  0 in f32: the blob's density
+# stays exactly 1 and eta is 0, so every pair term is exactly 0 whatever
+# the order of its sum, and both runs advance x by v * dt alike; any
+# difference is a particle lost, doubled or mislabelled by a re-cut
+BLOB_TOL = {"x": 0.0, "v": 0.0, "rho": 0.0}
 FSI_RELEASE = {"parity": 100, "main": 500}  # tdamp_solid: the beam's release
 # The JAX package's own run of the FSI main path (nx=60, tdamp_solid=500,
 # f32, jnp path, on the CPU) at step 1000, and the band [lo, hi] x that
@@ -107,7 +156,11 @@ CAVITY3D_JAX_STEP200 = {
 }
 SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
                "fsi": {60: (200, 10), 240: (50, 2)},
-               "cavity3d": {40: (100, 10), 100: (50, 3)}}
+               "cavity3d": {40: (100, 10), 100: (50, 3)},
+               "blob": {10: (1000, 5), 20: (1000, 3)}}
+# timed runs of simulate per size, each from the same set-up state (the
+# blob's: its 1000-step main path without the build, twice)
+SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2}
 # FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
 # smaller and the start-up pressure waves (|v| up to ~0.4) drift particles
 # past the budget within 100 steps, so the run rebins every 20
@@ -185,6 +238,138 @@ def _move_parity(torch, S, rebin_cuda, kernel, state, geom, drop, tag):
             f"{int(by_kernel.overflow)}"), float((kf - wf).abs().max())
 
 
+def _synthetic_edges(geom, pattern=(7, 9)):
+    """``geom`` with x columns of alternating widths 7/8 and 9/8 of a cell
+    on the cell/8 quantum (``tests/test_halo_kernels.py``'s construction),
+    its drift budget narrowed to the narrowest column as ``Scene.balance``
+    sets it."""
+    import numpy as np
+
+    nx = geom.ncells[0]
+    q = geom.cell_size[0] / 8.0
+    widths = [pattern[i % len(pattern)] for i in range(nx)]
+    if nx % len(pattern):  # keep total coverage exact
+        widths[-1] = 8 * nx - sum(widths[:-1])
+    bins = np.concatenate([[0], np.cumsum(widths)])
+    wmin = float(min(widths) * q)
+    budget = min([(wmin - geom.cutoff) / 2.0]
+                 + [(geom.cell_size[ax] - geom.cutoff) / 2.0
+                    for ax in range(1, geom.dim)])
+    return dataclasses.replace(
+        geom, x_edges=tuple(float(geom.lo[0] + b * q) for b in bins),
+        x_quantum=float(q), base_occ=0,
+        cell_size=(wmin,) + tuple(geom.cell_size[1:]),
+        drift_budget=max(float(budget), 0.0))
+
+
+def _seeded_drift(torch, state, geom, seed):
+    """``state`` with every valid particle moved by a seeded step of up to
+    0.9 of the narrowest cell per axis (within one ring of the cell its
+    slot belongs to), a seeded tenth snapped onto an edge of that cell's x
+    column; positions beyond a periodic axis's ends stay unwrapped, as
+    between two rebins."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = state.x.cpu().numpy()
+    valid = state.valid.cpu().numpy()
+    d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
+    d[geom.dim:] = 0.0
+    x = x + np.where(valid, d, 0.0)
+    col = np.broadcast_to(np.arange(geom.ncells_total), valid.shape) // int(
+        np.prod(geom.ncells[1:]))
+    snap = valid & (rng.uniform(size=valid.shape) < 0.1)
+    side = rng.integers(0, 2, valid.shape)
+    x[0] = np.where(snap, np.asarray(geom.x_edges)[col + side], x[0])
+    return dataclasses.replace(
+        state, x=torch.as_tensor(x.astype(np.float32), device=state.x.device))
+
+
+def _current_geom(geom, log):
+    """The geometry a ``simulate`` run with ``balance_log=log`` ended on:
+    its last accepted re-cut's, else the one it started from."""
+    cuts = [c["geom"] for c in log if c["geom"] is not None]
+    return cuts[-1] if cuts else geom
+
+
+def _per_call_ms(torch, fn, iters):
+    """Mean ms per call of ``fn`` over ``iters`` calls after two warm-up
+    calls, by CUDA events."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def _host_ms(torch, fn, iters):
+    """Mean ms of the host clock to issue one call of ``fn``, the card idle
+    before each call and its work not waited for."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * total / iters
+
+
+def _clone(torch, state):
+    """A copy of ``state`` that shares no storage with it."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+def _timed_chunks(torch, simulate, state, params, spec, steps):
+    """``simulate(steps)`` timed chunk by chunk: the callback reads the
+    host clock and records a CUDA event after every chunk.  Returns (state,
+    balance log, seconds, [(first step, host ms, device-timeline ms)] per
+    chunk); a chunk's time includes the balance check or re-cut before it."""
+    marks, log = [], []
+
+    def mark(_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((time.perf_counter(), ev))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mark(None)
+    state = simulate(state, params, spec, steps, callback=mark,
+                     balance_log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    chunks = [(i * spec.rebin_every, 1e3 * (b[0] - a[0]), a[1].elapsed_time(b[1]))
+              for i, (a, b) in enumerate(zip(marks, marks[1:]))]
+    return state, log, secs, chunks
+
+
+def _chunk_split(chunks, log, every):
+    """Median (host ms, device-timeline ms) and count of the chunks without
+    a balance check ("plain"), of those after a check that kept the
+    geometry ("check") and of those after an accepted re-cut ("recut")."""
+    import numpy as np
+
+    cut = {c["step"] for c in log if c["geom"] is not None}
+    kinds = {"plain": [], "check": [], "recut": []}
+    for step, host, device in chunks:
+        kind = ("plain" if not every or step == 0 or step % every
+                else "recut" if step in cut else "check")
+        kinds[kind].append((host, device))
+    return {k: (tuple(float(m) for m in np.median(v, axis=0)), len(v))
+            for k, v in kinds.items() if v}
+
+
 def _bound(nbytes, flops):
     """(ms, what bounds it): the least time the card could take to move
     ``nbytes`` and do ``flops`` f32 operations, at its published peaks."""
@@ -198,6 +383,24 @@ def _packed_bytes(slots, n_valid, rows_in, rows_out):
     other input rows of the ``n_valid`` valid slots read once, and every
     output row of every slot written once."""
     return 4 * (slots + n_valid * (rows_in - 1) + slots * rows_out)
+
+
+def _move_timing(torch, S, rebin_cuda, kernel, state, geom, drop, iters):
+    """Per-call ms of the move ``kernel`` and of the plain walk on this
+    state's packs, and the move's bound at the state's occupancy (its
+    rows in and out are the packs'; its integer compares are not
+    counted)."""
+    PF, PI, xr = _packed(S, rebin_cuda, state, geom, drop)
+    slots = geom.cap * geom.ncells_total
+    rows = PF.shape[0] + PI.shape[0]
+    return {
+        "move": _per_call_ms(torch, lambda: kernel(PF, PI, geom, xr), iters),
+        "move_plain": _per_call_ms(
+            torch, lambda: rebin_cuda.rebin_move_plain(PF, PI, geom, xr), iters),
+        "move_bound": _bound(_packed_bytes(slots, int(state.n_valid), rows,
+                                           rows), 0),
+        "move_rows": rows,
+    }
 
 
 def _pass_a_work(torch, S, pair, state, geom, h):
@@ -246,8 +449,9 @@ def main() -> int:
     from sph_bvf_tpu_torch.core import rebin_cuda
     from sph_bvf_tpu_torch.core import state as S
     from sph_bvf_tpu_torch.core.stepper import _rebin_drop, setup, simulate
-    from sph_bvf_tpu_torch.models import fsi, lid_cavity, lid_cavity3d
+    from sph_bvf_tpu_torch.models import drift_blob, fsi, lid_cavity, lid_cavity3d
     from sph_bvf_tpu_torch.ops import pair, pair_cuda
+    from sph_bvf_tpu_torch.parallel.balance import rebalance, report
 
     dev = torch.device("cuda")
     counters = {"pass_a_2d": pair_cuda.pass_a_2d,
@@ -295,6 +499,54 @@ def main() -> int:
                                 state, geom, _rebin_drop(spec), "K5")
     print(f"[K5] rebin move kernel == plain walk == sort rebin, bitwise "
           f"(N={CAVITY_N[0]}, {what})")
+
+    def edged_check(tag, kernel, state, params, spec, want_pass_a):
+        """The x_edges variant of ``kernel`` on ``state`` re-cut into
+        synthetic columns: a short ``simulate`` on the edged grid (its
+        launches counted), then kernel == plain walk == sort rebin on the
+        run's state and on a seeded drift of it.  Returns (launches,
+        max|diff|, per-call timing)."""
+        geom = _synthetic_edges(spec.geom)
+        drop = _rebin_drop(spec)
+        state = S.rebin(state, geom, drop=drop, use_kernel=False,
+                        drift_check=False)
+        if int(state.overflow) or rebin_cuda.move_route(geom) is not kernel:
+            raise AssertionError(f"{tag}: the edged grid overflows or does "
+                                 f"not route to {kernel.__name__}")
+        spec = dataclasses.replace(spec, geom=geom, rebin_every=EDGE_REBIN)
+        for c in counters.values():
+            c.launches = 0
+        state = simulate(state, params, spec, EDGE_STEPS)
+        launches = {k: c.launches for k, c in counters.items()}
+        want = dict.fromkeys(counters, 0)
+        want[kernel.__name__] = EDGE_STEPS // EDGE_REBIN
+        want[want_pass_a] = EDGE_STEPS
+        if launches != want:
+            raise AssertionError(f"{tag} run: launch counts {launches}, "
+                                 f"expected {want}")
+        what, err = _move_parity(torch, S, rebin_cuda, kernel, state, geom,
+                                 drop, tag)
+        drifted = _seeded_drift(torch, state, geom, seed=1)
+        what_d, err_d = _move_parity(torch, S, rebin_cuda, kernel, drifted,
+                                     geom, drop, f"{tag} (seeded drift)")
+        # timed on the run's state, as the uniform kernels are; the seeded
+        # drift (which overflows) only beside it
+        t = _move_timing(torch, S, rebin_cuda, kernel, state, geom, drop, 10)
+        t_d = _move_timing(torch, S, rebin_cuda, kernel, drifted, geom, drop, 10)
+        print(f"[{tag}] x_edges rebin move kernel == plain walk == sort rebin, "
+              f"bitwise ({geom.ncells[0]} x columns of widths 7/8 and 9/8 of "
+              f"a cell, drift budget {geom.drift_budget!r}; after "
+              f"simulate({EDGE_STEPS}) rebinning every {EDGE_REBIN}: {what}, "
+              f"launches {launches[kernel.__name__]}; after a seeded drift: "
+              f"{what_d}); per call ms on the run's state {t['move']!r} vs "
+              f"plain walk {t['move_plain']!r}, bound {t['move_bound']}; on "
+              f"the seeded drift {t_d['move']!r} vs plain walk "
+              f"{t_d['move_plain']!r} [{card}]")
+        return launches[kernel.__name__], max(err, err_d), t
+
+    k5e_launches, k5e_abs, t_k5e = edged_check(
+        "K5 edges", rebin_cuda.rebin_move_2d, state, params, spec,
+        "pass_a_2d_rowloop")
     del state
 
     # -- 5. K2 parity -------------------------------------------------------
@@ -365,10 +617,82 @@ def main() -> int:
                                     _rebin_drop(spec), f"K7 N={N}")
         print(f"[K7] 3D rebin move kernel == plain walk == sort rebin, "
               f"bitwise (lid_cavity3d N={N}, step {int(state.step)}, {what})")
+        if N == CAVITY3D_N[1]:
+            k7e_launches, k7e_abs, t_k7e = edged_check(
+                "K7 edges", rebin_cuda.rebin_move_3d, state, params, spec,
+                "pass_a_3d")
         del state
 
+    # -- K2 solid-free and K6 edges: the load-balance path's kernels --------
+    sb = BLOB_S[1]
+    state, params, spec, _ = drift_blob.build(sb, balance=True, inrun=True,
+                                              device=dev)
+    log = []
+    state = simulate(setup(state, params, spec, dt=drift_blob.timestep(sb)),
+                     params, spec, PARITY_STEPS["blob"], balance_log=log)
+    geom = _current_geom(spec.geom, log)
+    k2sf_err, k2sf_abs, _ = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_2d_rowloop, state, params, geom,
+        spec.pair, ("f", "drho", "de", "num_den", "ddv", "ddx", "phi", "nw",
+                    "dS"), "K2 solid-free")
+    # the run's pair terms vanish (rho 1, eta 0): a seeded density and
+    # velocity (numpy, seed 0) make the force and drho terms live
+    rng = np.random.default_rng(0)
+    live = dataclasses.replace(
+        state,
+        rho=state.rho * torch.as_tensor(
+            1.0 + 0.01 * rng.standard_normal(tuple(state.rho.shape)),
+            dtype=state.rho.dtype, device=dev),
+        v=state.v + torch.as_tensor(
+            0.01 * rng.standard_normal(tuple(state.v.shape)),
+            dtype=state.v.dtype, device=dev))
+    err_l, abs_l, ref_l = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_2d_rowloop, live, params, geom,
+        spec.pair, ("f", "drho", "de", "num_den", "ddv", "ddx", "phi", "nw",
+                    "dS"), "K2 solid-free (seeded rho, v)")
+    k2sf_abs = max(k2sf_abs, abs_l)
+    live_max = {k: float(ref_l[k].abs().max()) for k in ("f", "drho", "ddv")}
+    if not all(live_max.values()):
+        raise AssertionError(f"K2 solid-free parity is vacuous: {live_max}")
+    print(f"[K2 solid-free] rowloop pass A kernel == plain (drifting blob "
+          f"s={sb}, {int(state.n_valid)} particles, x_edges, periodic x, no "
+          f"solids, cap {geom.cap}, {geom.ncells_total} cells, step "
+          f"{int(state.step)}, re-cuts so far at steps "
+          f"{[c['step'] for c in log if c['geom'] is not None]}), "
+          f"max|diff|/max|ref| per field: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in k2sf_err.items())
+          + f"; rho and v seeded (max|f| {live_max['f']:.3g}, max|drho| "
+          f"{live_max['drho']:.3g}, max|ddv| {live_max['ddv']:.3g}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err_l.items())
+          + f"; max|diff| {k2sf_abs!r}")
+    del live, ref_l
+    # a chunk later on the geometry the run ended on, without re-cuts
+    spec = dataclasses.replace(spec, geom=geom, balance=None)
+    state = simulate(state, params, spec, spec.rebin_every)
+    drop = _rebin_drop(spec)
+    what, k6e_abs = _move_parity(torch, S, rebin_cuda,
+                                 rebin_cuda.rebin_move_2d_gated, state, geom,
+                                 drop, "K6 edges")
+    seam = _seeded_drift(torch, state, geom, seed=0)
+    x0 = seam.x[0][seam.valid]
+    across = int(((x0 < geom.lo[0]) | (x0 >= geom.hi[0])).sum())
+    if across == 0:
+        raise AssertionError("K6 edges: the seeded drift put no particle "
+                             "across the periodic seam")
+    what_s, err_s = _move_parity(torch, S, rebin_cuda,
+                                 rebin_cuda.rebin_move_2d_gated, seam, geom,
+                                 drop, "K6 edges (seeded drift)")
+    k6e_abs = max(k6e_abs, err_s)
+    print(f"[K6 edges] x_edges gated rebin move kernel == plain walk == sort "
+          f"rebin, bitwise (drifting blob s={sb}, {geom.ncells[0]} x columns "
+          f"of widths {float(min(np.diff(geom.x_edges)))!r}..."
+          f"{float(max(np.diff(geom.x_edges)))!r}, periodic x, cap {geom.cap}, step "
+          f"{int(state.step)}: {what}; after a seeded drift with {across} "
+          f"particles across the seam: {what_s})")
+    del state, seam
+
     # -- 9. main paths ------------------------------------------------------
-    def run_main(build, dt, want_kernels, steps):
+    def run_main(build, dt, want_kernels, steps, **sim_kw):
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
@@ -376,7 +700,8 @@ def main() -> int:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         n0 = int(state.n_valid)
-        state = simulate(setup(state, params, spec, dt=dt), params, spec, steps)
+        state = simulate(setup(state, params, spec, dt=dt), params, spec, steps,
+                         **sim_kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {k: c.launches for k, c in counters.items()}
@@ -486,102 +811,201 @@ def main() -> int:
           f"vs the JAX package's own run: {detail} (bands {CAVITY3D_JAX_STEP200})")
     del state
 
+    # in-run load balancing: the s=20 drifting blob, balanced at build and
+    # re-cut in the run, then the same blob on the uniform grid
+    sb, steps = BLOB_S[1], MAIN_STEPS["blob"]
+    blob_dt = drift_blob.timestep(sb)
+    blob_kernels = ("pass_a_2d_rowloop", "rebin_move_2d_gated")
+    log = []
+    state, spec, n0, secs, blob_launches, vmax, checks = run_main(
+        lambda: drift_blob.build(sb, balance=True, inrun=True, device=dev),
+        blob_dt, blob_kernels, steps, balance_log=log)
+    cap, fix = spec.geom.cap, spec.balance
+    cuts = [c for c in log if c["geom"] is not None]
+    rep = report(state, _current_geom(spec.geom, log), fix.n_shards)
+
+    def improved(c):
+        """The re-cut fired a trigger and improved the metric that fired."""
+        by_imb = c["imbalance"] > fix.threshold and c["new_imbalance"] < c["imbalance"]
+        by_occ = (c["max_occ"] >= fix.occ_frac * cap
+                  and c["new_max_occ"] < c["max_occ"])
+        return (by_imb or by_occ) and c["new_imbalance"] < 1.5 \
+            and c["new_max_occ"] <= cap
+
+    checks.update({
+        f"{BLOB_N[sb]} particles": n0 == BLOB_N[sb],
+        "x_edges from the build": spec.geom.x_edges is not None,
+        ">= 2 accepted re-cuts": len(cuts) >= 2,
+        "distinct edge sets": len({c["geom"].x_edges for c in cuts}) == len(cuts),
+        "each re-cut improved its firing metric": all(map(improved, cuts)),
+        "final slab imbalance < 1.5": rep["imbalance"] < 1.5,
+        "max|v| within 1e-3 of the drift speed 2.0": abs(vmax - 2.0) <= 1e-3,
+    })
+    detail = (f"max|v| {vmax!r}, re-cuts "
+              + "; ".join(f"step {c['step']}: imbalance {c['imbalance']} -> "
+                          f"{c['new_imbalance']}, max_occ {c['max_occ']} -> "
+                          f"{c['new_max_occ']}" for c in cuts)
+              + f", refusals {[(c['step'], c['reason']) for c in log if c['geom'] is None]}"
+              f", final slab counts {rep['counts']} (imbalance {rep['imbalance']})")
+    require(checks, "load-balance main path", detail)
+    print(f"[main balance] drifting blob s={sb} Scene.balance+fix_balance -> "
+          f"build+setup+simulate({steps}, balance_log) in {secs[1]!r} s (build "
+          f"{secs[0]!r} s): {n0} particles, grid {spec.geom.ncells[:2]} cap "
+          f"{cap} -> {_current_geom(spec.geom, log).ncells[:2]}, {detail}, "
+          f"launches {blob_launches}")
+    balanced = S.gather_particles(state, spec.geom, ("x", "v", "rho"))
+    del state
+
+    state, spec_u, n0u, secs_u, uni_launches, vmax_u, checks = run_main(
+        lambda: drift_blob.build(sb, device=dev), blob_dt, blob_kernels, steps)
+    checks[f"{BLOB_N[sb]} particles"] = n0u == BLOB_N[sb]
+    require(checks, "uniform blob run", f"max|v| {vmax_u!r}")
+    uniform = S.gather_particles(state, spec_u.geom, ("x", "v", "rho"))
+    del state
+    diff = {k: balanced[k] - uniform[k] for k in BLOB_TOL}
+    span = spec_u.geom.hi[0] - spec_u.geom.lo[0]
+    diff["x"][:, 0] -= span * np.round(diff["x"][:, 0] / span)
+    err = {k: float(np.abs(d).max()) for k, d in diff.items()}
+    if not ((balanced["tag"] == uniform["tag"]).all()
+            and all(err[k] <= BLOB_TOL[k] for k in BLOB_TOL)):
+        raise AssertionError(f"balanced blob != uniform blob: {err} "
+                             f"(bounds {BLOB_TOL})")
+    print(f"[main balance] uniform blob s={sb} (grid {spec_u.geom.ncells[:2]}, "
+          f"cap {spec_u.geom.cap}) build+setup+simulate({steps}) in "
+          f"{secs_u[1]!r} s, launches {uni_launches}; balanced vs uniform "
+          f"tag by tag: max|diff| {err} (bounds {BLOB_TOL}; tags equal) [{card}]")
+    del balanced, uniform, diff
+
     # small-input references: the card's kernel paths vs the CPU plain paths
     # bounds relative to each field's max|value| on the CPU: x 1e-5, v 1e-3,
     # rho 1e-4, S 1e-3 (the cavity's lid speed and density are 1)
     bounds = {"x": 1e-5, "v": 1e-3, "rho": 1e-4, "S": 1e-3}
 
-    def card_vs_cpu(label, build, dt, fields):
-        runs = {}
+    def card_vs_cpu(label, path, build, dt, fields):
+        runs, logs = {}, {}
+        steps = SMALL_STEPS[path]
         for where in ("cpu", dev):
             s, p, sp, _ = build(where)
-            s = simulate(setup(s, p, sp, dt=dt), p, sp, 20)
+            log = logs[str(where)] = []
+            s = simulate(setup(s, p, sp, dt=dt), p, sp, steps, balance_log=log)
             runs[str(where)] = S.gather_particles(s, sp.geom, fields)
         a, b = runs["cpu"], runs[str(dev)]
         rel = {k: float(abs(a[k] - b[k]).max()) / max(float(abs(a[k]).max()), 1e-30)
                for k in fields}
+        recuts = {w: [(c["step"], c["geom"] and c["geom"].x_edges) for c in lg]
+                  for w, lg in logs.items()}
         if not ((a["tag"] == b["tag"]).all()
-                and all(rel[k] <= bounds[k] for k in fields)):
-            raise AssertionError(f"{label} card run != CPU plain run: {rel}")
-        print(f"[main] {label}, 20 steps: card kernels vs CPU plain path, "
-              f"max|diff|/max|cpu| {rel} (bounds {bounds}; tags equal)")
+                and all(rel[k] <= bounds[k] for k in fields)
+                and recuts["cpu"] == recuts[str(dev)]):
+            raise AssertionError(f"{label} card run != CPU plain run: {rel}, "
+                                 f"re-cut steps {recuts}")
+        print(f"[main] {label}, {steps} steps: card kernels vs CPU plain path, "
+              f"max|diff|/max|cpu| {rel} (bounds {bounds}; tags equal; re-cuts "
+              f"at steps {[c[0] for c in recuts['cpu'] if c[1]]} on both, "
+              f"same edges)")
 
-    card_vs_cpu(f"cavity N={SMALL['cavity']}",
+    card_vs_cpu(f"cavity N={SMALL['cavity']}", "cavity",
                 lambda d: lid_cavity.build(N=SMALL["cavity"], device=d), 1e-4,
                 ("x", "v", "rho"))
-    card_vs_cpu(f"fsi nx={SMALL['fsi']} (beam released at step 5)",
+    card_vs_cpu(f"fsi nx={SMALL['fsi']} (beam released at step 5)", "fsi",
                 lambda d: fsi.build(nx=SMALL["fsi"], rebin_every=10,
                                     tdamp_solid=5, device=d),
                 1e-8, ("x", "v", "rho", "S"))
-    card_vs_cpu(f"lid_cavity3d N={SMALL['cavity3d']}",
+    card_vs_cpu(f"lid_cavity3d N={SMALL['cavity3d']}", "cavity3d",
                 lambda d: lid_cavity3d.build(N=SMALL["cavity3d"], device=d), 1e-4,
                 ("x", "v", "rho"))
+    card_vs_cpu(f"balanced drifting blob s={SMALL['blob']} with fix_balance",
+                "blob", lambda d: drift_blob.build(SMALL["blob"], balance=True,
+                                                   inrun=True, device=d),
+                drift_blob.timestep(SMALL["blob"]), ("x", "v", "rho"))
 
     # -- 10. speed ----------------------------------------------------------
-    def per_call_ms(fn, iters):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / iters
-
     def speed(label, path, size, state, params, spec, pass_a, move):
+        """Steady-state particle-steps/s of ``simulate`` (with its re-cuts
+        when ``spec.balance`` is set), then per call, on the geometry the run
+        ended on: pass A and the move beside their plain versions, the rebin
+        with the kernel beside the sort rebin, the bounds, and with
+        ``spec.balance`` the re-cut: the host time of a ``rebalance`` forced
+        to cut and the sort rebin into its geometry."""
         steps, iters = SPEED_STEPS[path][size]
-        geom = spec.geom
         n = int(state.n_valid)
-        # warm-up, then chunks of up to rebin_every steps, each after a rebin
-        state = simulate(state, params, spec, spec.rebin_every)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = simulate(state, params, spec, steps)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        every = spec.balance.every if spec.balance is not None else None
+        # a warm-up chunk on a copy (shorter than a balance period: no
+        # re-cut), then the timed runs, each from a copy of the set-up state
+        simulate(_clone(torch, state), params, spec, spec.rebin_every)
+        runs = [_timed_chunks(torch, simulate, _clone(torch, state), params,
+                              spec, steps)
+                for _ in range(SPEED_REPEATS[path])]
+        state, log = runs[-1][:2]
+        geom = _current_geom(spec.geom, log)
         cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
         pf = pair._per_particle(state, params, cfg)
         drop = _rebin_drop(spec)
-        PF, PI, xr = _packed(S, rebin_cuda, state, geom, drop)
-        t = {
-            "pass_a": per_call_ms(lambda: pass_a(pf, params, geom, cfg), iters),
-            "pass_a_plain": per_call_ms(
-                lambda: pair._pass_a_plain(pf, params, geom, cfg), iters),
-            "move": per_call_ms(lambda: move(PF, PI, geom, xr), iters),
-            "move_plain": per_call_ms(
-                lambda: rebin_cuda.rebin_move_plain(PF, PI, geom, xr), iters),
-            "rebin_kernel": per_call_ms(
-                lambda: S.rebin(state, geom, drop=drop, use_kernel=True), iters),
-            "rebin_sort": per_call_ms(
-                lambda: S.rebin(state, geom, drop=drop, use_kernel=False), iters),
-        }
-        # the bounds of the two timed kernel calls, from these inputs at
-        # this state's occupancy (n of the slots valid)
+        t = _move_timing(torch, S, rebin_cuda, move, state, geom, drop, iters)
+        t.update({
+            "pass_a": _per_call_ms(
+                torch, lambda: pass_a(pf, params, geom, cfg), iters),
+            "pass_a_plain": _per_call_ms(
+                torch, lambda: pair._pass_a_plain(pf, params, geom, cfg), iters),
+            "rebin_kernel": _per_call_ms(
+                torch, lambda: S.rebin(state, geom, drop=drop, use_kernel=True),
+                iters),
+            "rebin_sort": _per_call_ms(
+                torch, lambda: S.rebin(state, geom, drop=drop, use_kernel=False),
+                iters),
+            "rebin_host": _host_ms(
+                torch, lambda: S.rebin(state, geom, drop=drop, use_kernel=True),
+                iters),
+        })
+        # pass A's bound from these inputs at this state's occupancy (n of
+        # the slots valid)
         slots = geom.cap * geom.ncells_total
         rows_in, rows_out = _pass_a_rows(pair_cuda, pf, cfg, pass_a.__name__)
         cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
         t["pass_a_bound"] = _bound(_packed_bytes(slots, n, rows_in, rows_out),
                                    FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside)
-        # the move's rows in and out are the packs' (i32 row 0 is valid);
-        # its integer compares are not counted
-        move_rows = PF.shape[0] + PI.shape[0]
-        t["move_bound"] = _bound(_packed_bytes(slots, n, move_rows, move_rows), 0)
-        rate = n * steps / dt
+        t["rates"] = [n * steps / secs for _, _, secs, _ in runs]
+        t["rate"] = sum(t["rates"]) / len(t["rates"])
+        t["chunks"] = [_chunk_split(ch, lg, every) for _, lg, _, ch in runs]
+        t["chunk"] = spec.rebin_every
+        recut = ""
+        if spec.balance is not None:
+            force = dataclasses.replace(spec.balance, threshold=0.0, min_gain=0.0)
+            host_s = []
+            for _ in range(iters):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                new_geom, info = rebalance(state, geom, force)
+                host_s.append(time.perf_counter() - t1)
+            if new_geom is None:
+                raise AssertionError(f"{label}: a forced re-cut was refused: {info}")
+            t["recut_host_ms"] = 1e3 * sum(host_s) / len(host_s)
+            t["recut_rebin_ms"] = _per_call_ms(
+                torch, lambda: S.rebin(state, new_geom, drop=drop,
+                                       use_kernel=False, drift_check=False),
+                iters)
+            recut = (f"; re-cuts in the timed run at steps "
+                     f"{[c['step'] for c in log if c['geom'] is not None]}; a "
+                     f"forced re-cut: rebalance {t['recut_host_ms']!r} ms on the "
+                     f"host clock (readback, host cut), its sort rebin "
+                     f"{t['recut_rebin_ms']!r} ms")
         print(f"[speed] {label}: {n} particles, cap {geom.cap}, "
               f"{geom.ncells_total} cells, {steps} steps (rebin every "
-              f"{min(steps, spec.rebin_every)}) in {dt!r} s = {rate!r} "
-              f"particle-steps/s; per call ms: "
+              f"{min(steps, spec.rebin_every)}) from the set-up state, "
+              f"{len(runs)} run(s) in {[secs for _, _, secs, _ in runs]!r} s = "
+              f"{t['rates']!r} particle-steps/s; per chunk, median (host ms, "
+              f"device-timeline ms) and count: {t['chunks']}; per call ms: "
               f"{pass_a.__name__} {t['pass_a']!r} vs plain pass A "
-              f"{t['pass_a_plain']!r}; {move.__name__} {t['move']!r} vs plain "
+              f"{t['pass_a_plain']!r}; {move.__name__}"
+              f"{' (x_edges)' if geom.x_edges else ''} {t['move']!r} vs plain "
               f"walk {t['move_plain']!r}; rebin with the kernel "
-              f"{t['rebin_kernel']!r} vs sort rebin {t['rebin_sort']!r}; bounds "
-              f"at occupancy {n / slots!r} ({n} of {slots} slots): pass A "
-              f"{t['pass_a_bound']} ({rows_in} + {rows_out} rows, {cand} "
+              f"{t['rebin_kernel']!r} ({t['rebin_host']!r} on the host clock) "
+              f"vs sort rebin {t['rebin_sort']!r}{recut}; "
+              f"bounds at occupancy {n / slots!r} ({n} of {slots} slots): pass "
+              f"A {t['pass_a_bound']} ({rows_in} + {rows_out} rows, {cand} "
               f"candidates, {inside} pairs inside the support), move "
-              f"{t['move_bound']} ({move_rows} + {move_rows} rows) [{card}]")
+              f"{t['move_bound']} ({t['move_rows']} + {t['move_rows']} rows) "
+              f"[{card}]")
         return t
 
     t_cav = {}
@@ -607,21 +1031,70 @@ def main() -> int:
         t_c3[N] = speed(f"lid_cavity3d N={N}", "cavity3d", N, state, params,
                         spec, pair_cuda.pass_a_3d, rebin_cuda.rebin_move_3d)
         del state
+    t_blob = {}
+    for sb in BLOB_S:
+        for bal in (True, False):
+            state, params, spec, _ = drift_blob.build(sb, balance=bal,
+                                                      inrun=bal, device=dev)
+            state = setup(state, params, spec, dt=drift_blob.timestep(sb))
+            t_blob[sb, bal] = speed(
+                f"drifting blob s={sb} "
+                + ("balanced, with fix_balance" if bal else "uniform"), "blob",
+                sb, state, params, spec, pair_cuda.pass_a_2d_rowloop,
+                rebin_cuda.rebin_move_2d_gated)
+            del state
+    for sb in BLOB_S:
+        b, u = t_blob[sb, True], t_blob[sb, False]
+
+        def per_chunk(t, kind, i):
+            """Mean over the runs of the median ``kind`` chunk's host (i=0)
+            or device-timeline (i=1) ms."""
+            v = [c[kind][0][i] for c in t["chunks"] if kind in c]
+            return sum(v) / len(v) if v else float("nan")
+
+        chunk = b["chunk"]
+        print(f"[speed] drifting blob s={sb}: balanced / uniform particle-steps/s "
+              f"per run {[x / y for x, y in zip(b['rates'], u['rates'])]!r}; "
+              f"host ms per step the balanced run adds outside its balance "
+              f"checks {(per_chunk(b, 'plain', 0) - per_chunk(u, 'plain', 0)) / chunk!r}"
+              f" (device timeline "
+              f"{(per_chunk(b, 'plain', 1) - per_chunk(u, 'plain', 1)) / chunk!r}); "
+              f"a re-cut in the run adds {per_chunk(b, 'recut', 0) - per_chunk(b, 'plain', 0)!r}"
+              f" host ms to its chunk, a check that keeps the geometry "
+              f"{per_chunk(b, 'check', 0) - per_chunk(b, 'plain', 0)!r}; rebin "
+              f"with K6 on the host clock {b['rebin_host']!r} (x_edges) / "
+              f"{u['rebin_host']!r} ms; K2 {b['pass_a']!r} / {u['pass_a']!r} "
+              f"ms, K6 with x_edges {b['move']!r} ms vs uniform K6 "
+              f"{u['move']!r} ms vs plain walk {b['move_plain']!r} ms [{card}]")
     print(f"[speed] {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}"
           f" (clocks.sm, power.draw, power.limit, temperature after the runs)")
 
-    # -- 11. profile: where one chunk of the 3D cavity spends device time ---
+    # -- 11. profile: where one chunk spends device time -------------------
     from torch.profiler import ProfilerActivity, profile
 
-    for N in CAVITY3D_N:
-        state, params, spec, _ = lid_cavity3d.build(N=N, device=dev)
-        state = simulate(setup(state, params, spec, dt=1e-4), params, spec,
-                         spec.rebin_every)  # warm-up
+    sb = BLOB_S[1]
+    targets = [(f"lid_cavity3d N={N}",
+                lambda N=N: lid_cavity3d.build(N=N, device=dev), 1e-4,
+                (("K3", "pass_a_3d_kernel"), ("K7", "rebin_move_3d_kernel")))
+               for N in CAVITY3D_N]
+    # the blob, balanced and uniform, over two chunks without a re-cut (a
+    # chunk of 5 steps is too short to show the pass-A mix)
+    targets += [(
+        f"drifting blob s={sb} {'balanced' if bal else 'uniform'}",
+        lambda bal=bal: drift_blob.build(sb, balance=bal, device=dev),
+        drift_blob.timestep(sb),
+        (("K2 solid-free", "pass_a_2d_rowloop_kernel"),
+         ("K6", "rebin_move_2d_gated_kernel"))) for bal in (True, False)]
+    for label, build, dt, kernels in targets:
+        state, params, spec, _ = build()
+        steps = max(spec.rebin_every, 10)
+        state = simulate(setup(state, params, spec, dt=dt), params, spec,
+                         steps)  # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state = simulate(state, params, spec, spec.rebin_every)
+            state = simulate(state, params, spec, steps)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         on_card = [e for e in prof.key_averages()
@@ -633,42 +1106,52 @@ def main() -> int:
         def count(name=""):
             return sum(e.count for e in on_card if name in e.key)
 
-        steps = spec.rebin_every
-        if not on_card or count("pass_a_3d_kernel") == 0:
-            raise AssertionError(f"[profile] lid_cavity3d N={N}: torch.profiler "
-                                 f"recorded no K3 activity on the card")
-        print(f"[profile] lid_cavity3d N={N}, one chunk of {steps} steps under "
-              f"torch.profiler: {count() / steps!r} device ops per step, device "
-              f"time {us() / steps / 1e3!r} ms per step (busy share "
-              f"{us() / wall_us!r} of the profiled chunk's wall time); K3 "
-              f"{us('pass_a_3d_kernel') / max(count('pass_a_3d_kernel'), 1) / 1e3!r}"
-              f" ms per call x {count('pass_a_3d_kernel')}, K7 "
-              f"{us('rebin_move_3d_kernel') / max(count('rebin_move_3d_kernel'), 1) / 1e3!r}"
-              f" ms per call x {count('rebin_move_3d_kernel')} [{card}]")
+        if not on_card or count(kernels[0][1]) == 0:
+            raise AssertionError(f"[profile] {label}: torch.profiler recorded "
+                                 f"no {kernels[0][0]} activity on the card")
+        print(f"[profile] {label}, {steps} steps under torch.profiler: "
+              f"{count() / steps!r} device ops per step, device time "
+              f"{us() / steps / 1e3!r} ms per step (busy share "
+              f"{us() / wall_us!r} of the profiled steps' wall time); "
+              + ", ".join(f"{k} {us(n) / max(count(n), 1) / 1e3!r} ms per call "
+                          f"x {count(n)}" for k, n in kernels)
+              + f" [{card}]")
         del state, prof
 
     # each kernel at its main path's size: the cavity N=200, FSI nx=60, the
-    # 3D cavity N=100
+    # 3D cavity N=100, the s=20 balanced blob; the x_edges variants of K5 and
+    # K7 at the cavities' sizes, their launches from the short edged runs
+    blob_t = t_blob[BLOB_S[1], True]
     rows = (
         ("pass_a_2d", "csrc/pass_a_2d.cu", "ops/pair_pallas.py:308",
-         cav_launches, k1_abs, t_cav[CAVITY_N[0]], "pass_a"),
+         cav_launches["pass_a_2d"], k1_abs, t_cav[CAVITY_N[0]], "pass_a"),
         ("pass_a_2d_rowloop", "csrc/pass_a_2d_rowloop.cu",
-         "ops/pair_pallas.py:527", fsi_launches, k2_abs, t_fsi[FSI_NX[0]],
-         "pass_a"),
+         "ops/pair_pallas.py:527", fsi_launches["pass_a_2d_rowloop"], k2_abs,
+         t_fsi[FSI_NX[0]], "pass_a"),
         ("pass_a_3d", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106",
-         c3_launches, k3_abs, t_c3[CAVITY3D_N[1]], "pass_a"),
+         c3_launches["pass_a_3d"], k3_abs, t_c3[CAVITY3D_N[1]], "pass_a"),
         ("rebin_move_2d", "csrc/rebin_move_2d.cu", "core/rebin_pallas.py:202",
-         cav_launches, k5_abs, t_cav[CAVITY_N[0]], "move"),
+         cav_launches["rebin_move_2d"], k5_abs, t_cav[CAVITY_N[0]], "move"),
         ("rebin_move_2d_gated", "csrc/rebin_move_2d_gated.cu",
-         "core/rebin_pallas.py:346", fsi_launches, k6_abs, t_fsi[FSI_NX[0]],
-         "move"),
+         "core/rebin_pallas.py:346", fsi_launches["rebin_move_2d_gated"],
+         k6_abs, t_fsi[FSI_NX[0]], "move"),
         ("rebin_move_3d", "csrc/rebin_move_3d.cu", "core/rebin_pallas.py:441",
-         c3_launches, k7_abs, t_c3[CAVITY3D_N[1]], "move"),
+         c3_launches["rebin_move_3d"], k7_abs, t_c3[CAVITY3D_N[1]], "move"),
+        ("pass_a_2d_rowloop (solid-free)", "csrc/pass_a_2d_rowloop.cu",
+         "ops/pair_pallas.py:527", blob_launches["pass_a_2d_rowloop"],
+         k2sf_abs, blob_t, "pass_a"),
+        ("rebin_move_2d (x_edges)", "csrc/rebin_move_2d.cu",
+         "core/rebin_pallas.py:328", k5e_launches, k5e_abs, t_k5e, "move"),
+        ("rebin_move_2d_gated (x_edges)", "csrc/rebin_move_2d_gated.cu",
+         "core/rebin_pallas.py:328", blob_launches["rebin_move_2d_gated"],
+         k6e_abs, blob_t, "move"),
+        ("rebin_move_3d (x_edges)", "csrc/rebin_move_3d.cu",
+         "core/rebin_pallas.py:595", k7e_launches, k7e_abs, t_k7e, "move"),
     )
     # no single PyTorch call computes pass A or the locality move
     kernels = [
         {"name": name, "route": "cuda", "source": f"sph_bvf_tpu_torch/{src}",
-         "replaces": f"sph_bvf_tpu/{tpu}", "launches": launches[name],
+         "replaces": f"sph_bvf_tpu/{tpu}", "launches": launches,
          "max_abs_err": err, "ms": t[op], "plain_ms": t[f"{op}_plain"],
          "bound_ms": t[f"{op}_bound"][0], "bound_by": t[f"{op}_bound"][1],
          "library_ms": None}

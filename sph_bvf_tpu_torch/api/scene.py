@@ -14,14 +14,17 @@ Lattice filling follows create_atoms (create_atoms.cpp:362-364): sites at
 ``(i + origin) * a`` per axis, kept when inside both the target region and
 the simulation box; region containment is inclusive like Region::match.
 
+Load balancing: ``balance`` cuts non-uniform x columns at build,
+``fix_balance`` attaches the in-run re-cut (``parallel/balance.py``).
+
 Not ported yet: sphere/circle/cylinder/cone/plane/prism regions,
-``delete_atoms``, ``set_type``, ``group_type``, SSA configs and load
-balancing (``balance``/``fix_balance``).
+``delete_atoms``, ``set_type``, ``group_type`` and SSA configs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -147,6 +150,44 @@ class Scene:
         self.align_cells = True
         # round the x cell count to a multiple (for even sharding)
         self.ncx_multiple_of = 1
+        # load balancing (parallel/balance.py): balance() sets the build-time
+        # cut, fix_balance() the in-run re-cut
+        self.balance_shards = 0
+        self.balance_threshold = 2.0
+        self._balance_fix = None
+
+    def balance(self, n_shards: int, threshold: float = 2.0):
+        """Non-uniform x columns for an ``n_shards``-slab run (the
+        balance.cpp:1354 analog): when the uniform-width slab imbalance
+        (max/mean particle count) exceeds ``threshold`` at build, the x
+        edges are recut so each slab holds a near-equal particle share,
+        every column staying wider than the cutoff.  Implies
+        ``ncx_multiple_of=n_shards``."""
+        self.balance_shards = int(n_shards)
+        self.balance_threshold = float(threshold)
+        self.ncx_multiple_of = max(self.ncx_multiple_of, int(n_shards))
+        # set by _maybe_balance: True when non-uniform edges were applied,
+        # False when requested but not applied (a warning says why), None
+        # until build()
+        self.balance_applied = None
+        return self
+
+    def fix_balance(self, n_shards: int, every: int = 1000,
+                    threshold: float = 1.5, min_budget: float = 0.0,
+                    occ_frac: float = 0.85):
+        """In-run rebalancing (the ``fix balance`` command): ``simulate``
+        re-cuts the x edges at a chunk boundary every ``every`` steps when a
+        trigger fires (``parallel/balance.BalanceFix``).  Composes with
+        ``balance``; implies ``ncx_multiple_of=n_shards``."""
+        from sph_bvf_tpu_torch.parallel.balance import BalanceFix
+
+        self._balance_fix = BalanceFix(
+            n_shards=int(n_shards), every=int(every),
+            threshold=float(threshold), min_budget=float(min_budget),
+            occ_frac=float(occ_frac),
+        )
+        self.ncx_multiple_of = max(self.ncx_multiple_of, int(n_shards))
+        return self
 
     # -- domain -------------------------------------------------------------
     def create_box(self, ntypes: int, region: _Block):
@@ -312,6 +353,94 @@ class Scene:
                     cut=cut, cutc=cutc, visc=visc, kappa=kappa,
                     kappa_ssa=kappa_ssa)
 
+    def _maybe_balance(self, geom, x, lo, idx, cutoff):
+        """Swap in non-uniform x-column edges when the uniform-width slab
+        imbalance for a ``balance_shards``-way run exceeds the threshold
+        (see ``balance``).  Returns the (possibly rebuilt) geometry and the
+        per-particle cell coordinates under it; host numpy, the JAX
+        package's search step for step."""
+        from sph_bvf_tpu_torch.parallel.balance import balanced_x_edges
+
+        ns = self.balance_shards
+        nx = geom.ncells[0]
+        if nx % ns or nx < ns:
+            return geom, idx
+
+        def slab_imbalance(col_of_particle, ncols):
+            s = np.bincount(col_of_particle // (ncols // ns), minlength=ns)
+            return s.max() / max(s.mean(), 1.0)
+
+        f = slab_imbalance(idx[:, 0], nx)
+        if f <= self.balance_threshold:
+            return geom, idx
+        # fine quantum: the lattice spacing when cells are lattice-aligned
+        # (edges stay lattice multiples), else a 1/8-cell subdivision
+        if self.align_cells and self._lattice is not None \
+                and not self.periodic[0]:
+            q = float(self._lattice[0])
+        else:
+            q = geom.cell_size[0] / 8.0
+        n_fine = int(round(nx * geom.cell_size[0] / q))
+        # minimum column width: strictly above the cutoff (a zero margin
+        # would disable the drift check)
+        k_min = max(int(np.ceil(cutoff / q)), 1)
+        while k_min * q - cutoff < 1e-6 * q:
+            k_min += 1
+        # column-count search: lattice-aligned columns may all sit at the
+        # minimum width already, so equal-count edges need fewer, wider
+        # columns; descend nx in multiples of ns, keep the best imbalance,
+        # stop once balanced or after three tries that do not help
+        x0 = x[:, 0]
+        best = (f, None, nx)
+        tried_worse = 0
+        for nxb in range(nx, ns - 1, -ns):
+            if nxb * k_min > n_fine:
+                continue
+            edges_f = balanced_x_edges(x0, lo[0], q, n_fine, nxb, k_min)
+            e = np.asarray([lo[0] + b * q for b in edges_f])
+            col = np.clip(np.searchsorted(e, x0, side="right") - 1, 0, nxb - 1)
+            fb = slab_imbalance(col, nxb)
+            if fb < best[0] - 1e-9:
+                best = (fb, e, nxb)
+                tried_worse = 0
+            else:
+                tried_worse += 1
+            if best[0] <= 1.05 or tried_worse >= 3:
+                break
+        fb, e, nxb = best
+        if e is None:
+            warnings.warn(
+                f"Scene.balance({ns}): uniform-slab imbalance {f:.2f}x "
+                f"exceeds the {self.balance_threshold:.2f}x threshold but "
+                "the column-width search found no improving edge set "
+                "(every candidate column would violate the cutoff-width "
+                "minimum); running with the uniform grid.",
+                stacklevel=3,
+            )
+            self.balance_applied = False
+            return geom, idx
+        self.balance_applied = True
+        widths = np.diff(e)
+        budget = min(
+            [(float(widths.min()) - cutoff) / 2.0]
+            + [(geom.cell_size[ax] - cutoff) / 2.0 for ax in range(1, self.dim)]
+        )
+        geom = dataclasses.replace(
+            geom,
+            ncells=(nxb,) + tuple(geom.ncells[1:]),
+            x_edges=tuple(float(v) for v in e),
+            x_quantum=q,
+            # cell_size[0] records the minimum width
+            cell_size=(float(widths.min()),) + tuple(geom.cell_size[1:]),
+            drift_budget=max(float(budget), 0.0),
+            # variable widths break the uniform-lattice occupancy behind
+            # K1's i-row gate: pass A goes to K2
+            base_occ=0,
+        )
+        idx = idx.copy()
+        idx[:, 0] = np.clip(np.searchsorted(e, x0, side="right") - 1, 0, nxb - 1)
+        return geom, idx
+
     def build(self, device=None):
         """-> (state, params, spec), the state and params on ``device``
         (default: the card)."""
@@ -342,6 +471,8 @@ class Scene:
         idx = np.floor((x - lo) / cell_sz).astype(int)
         nc = np.asarray(geom_probe.ncells)
         idx = np.clip(idx, 0, nc - 1)
+        if self.balance_shards > 1 and n:
+            geom_probe, idx = self._maybe_balance(geom_probe, x, lo, idx, cutoff)
         flat = (idx[:, 0] * nc[1] + idx[:, 1]) * nc[2] + idx[:, 2]
         dens = np.bincount(flat).max() if n else 1
         cap = self.cap or int(np.ceil(dens * 1.3)) + 2
@@ -412,5 +543,6 @@ class Scene:
             integ=integ,
             fixes=tuple(self._fixes),
             rebin_every=self.rebin_every,
+            balance=self._balance_fix,
         )
         return state, params, spec

@@ -24,6 +24,7 @@ from sph_bvf_tpu_torch.core.integrate import IntegratorConfig
 from sph_bvf_tpu_torch.core.state import Geometry, Params, State, resolve_device
 from sph_bvf_tpu_torch.core.stepper import ModelSpec
 from sph_bvf_tpu_torch.ops.pair import PairConfig
+from sph_bvf_tpu_torch.parallel.balance import BalanceFix
 
 # the fixes the port has, by class name
 _FIXES = {"SetForce": fixes_mod.SetForce, "Buffer": fixes_mod.Buffer}
@@ -81,8 +82,9 @@ def _plain(cls, obj):
 
 
 def spec_to_port(spec) -> ModelSpec:
-    """A port ModelSpec from a JAX ModelSpec.  Raises for a fix, a mesh,
-    SSA or load balancing that the port does not have yet."""
+    """A port ModelSpec from a JAX ModelSpec, its geometry's ``x_edges`` and
+    its ``BalanceFix`` included.  Raises for a fix, a mesh or SSA that the
+    port does not have yet."""
     fixes = []
     for fx in spec.fixes:
         cls = _FIXES.get(type(fx).__name__)
@@ -90,7 +92,7 @@ def spec_to_port(spec) -> ModelSpec:
             raise NotImplementedError(
                 f"fix {type(fx).__name__} is ported in a later PR")
         fixes.append(_plain(cls, fx))
-    for what in ("ssa", "mesh", "balance"):
+    for what in ("ssa", "mesh"):
         if getattr(spec, what) is not None:
             raise NotImplementedError(f"spec.{what} is ported in a later PR")
     return ModelSpec(
@@ -99,17 +101,20 @@ def spec_to_port(spec) -> ModelSpec:
         integ=_plain(IntegratorConfig, spec.integ),
         fixes=tuple(fixes),
         rebin_every=spec.rebin_every,
+        balance=None if spec.balance is None else _plain(BalanceFix, spec.balance),
     )
 
 
 def spec_from_port(spec: ModelSpec, classes: Mapping[str, type]):
     """A JAX ModelSpec from a port one; ``classes`` maps the names
-    ModelSpec, Geometry, PairConfig, IntegratorConfig and each fix's class
-    name to the JAX package's classes."""
+    ModelSpec, Geometry, PairConfig, IntegratorConfig, BalanceFix (when the
+    spec has one) and each fix's class name to the JAX package's classes."""
     return classes["ModelSpec"](
         geom=_plain(classes["Geometry"], spec.geom),
         pair=_plain(classes["PairConfig"], spec.pair),
         integ=_plain(classes["IntegratorConfig"], spec.integ),
         fixes=tuple(_plain(classes[type(fx).__name__], fx) for fx in spec.fixes),
         rebin_every=spec.rebin_every,
+        balance=(None if spec.balance is None
+                 else _plain(classes["BalanceFix"], spec.balance)),
     )

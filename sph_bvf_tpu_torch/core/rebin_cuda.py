@@ -4,8 +4,9 @@
 
 Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the 2D static branch
 (cap <= 16, no periodic axis), K6 for the 2D gated branch (16 < cap <= 64,
-walls or a periodic x axis, uniform columns), K7 for the 3D tiled kernel
-(cap <= 64, walls on every axis, uniform columns).  Between rebins a
+walls or a periodic x axis), K7 for the 3D tiled kernel (cap <= 64, walls
+on every axis); each with uniform or non-uniform x columns
+(``Geometry.x_edges``, the load-balance lever).  Between rebins a
 particle moves at most one cell (the drift contract ``core/state.rebin``
 checks), so the particles that belong in cell c are the matching candidates
 among the slots of its 3^dim stencil cells.  Walking them slot-major, then
@@ -31,7 +32,7 @@ import torch
 from sph_bvf_tpu_torch import _build
 from sph_bvf_tpu_torch.core.halo import (ghost_axes, grid_3d,
                                          periodic_multicell, wrap_x)
-from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of
+from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
 MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
 GATED_MAX_CAP = 64  # kMaxCap in csrc/rebin_move_2d_gated.cu (K6)
@@ -41,13 +42,11 @@ MAX_CAP_3D = 64  # kMaxCap in csrc/rebin_move_3d.cu (K7)
 def move_route(geom: Geometry):
     """The kernel wrapper that serves this grid's rebin move, or None.
 
-    Every kernel needs uniform columns.  A 3D grid goes to K7 when no axis
-    is periodic and cap <= 64.  On a 2D grid (no periodic y) K5 takes
-    cap <= 16 without a periodic axis; K6 takes 16 < cap <= 64, with walls
-    or a periodic x axis of at least 3 cells (with 2, the same source cell
-    would sit in a target's window twice)."""
-    if geom.x_edges is not None:
-        return None
+    A 3D grid goes to K7 when no axis is periodic and cap <= 64.  On a 2D
+    grid (no periodic y) K5 takes cap <= 16 without a periodic axis; K6
+    takes 16 < cap <= 64, with walls or a periodic x axis of at least 3
+    cells (with 2, the same source cell would sit in a target's window
+    twice).  Non-uniform x columns (``x_edges``) route by the same rules."""
     if grid_3d(geom):
         ok = geom.cap <= MAX_CAP_3D and not periodic_multicell(geom)
         return rebin_move_3d if ok else None
@@ -197,26 +196,42 @@ def _bin_constants(geom: Geometry, naxes: int):
     return lo + inv
 
 
+def _column_bounds(geom: Geometry, device):
+    """(xb, f32 1/x_quantum, n_fine): the x-edges arguments of every move
+    kernel.  ``xb`` is the i32 [nx+1] tensor of each column's fine-bin
+    bounds, None (a null pointer: uniform columns) without edges or with
+    one column, where ``cell_index_of`` ignores the edges."""
+    if geom.x_edges is None or geom.ncells[0] == 1:
+        return None, 0.0, 0
+    cols = x_columns(geom, device, torch.float32)
+    return (cols.bounds, float(np.float32(1.0 / geom.x_quantum)),
+            cols.table.shape[0])
+
+
 def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
             xr: int, naxes: int, extra=()):
     """Launch ``wrapper``'s kernel (``csrc/<its name>.cu``) on the packs.
 
     Every move kernel's C entry point takes the four packs, their row
     counts and cap, the cell counts of the first ``naxes`` axes, the x row,
-    those axes' f32 binning constants, then the ints ``extra`` and the
-    stream.  Returns (outF, outI) of the input shapes."""
+    those axes' f32 binning constants, then ``extra`` (``(ctypes type,
+    value)`` pairs), the x columns' fine-bin bounds (``_column_bounds``)
+    and the stream.  Returns (outF, outI) of the input shapes."""
     _check_packs(PF, PI, geom, wrapper)
     outf, outi = torch.empty_like(PF), torch.empty_like(PI)
+    xb, inv_q, n_fine = _column_bounds(geom, PF.device)
     name = wrapper.__name__
     lib = _build.load(name)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + naxes)
-                   + [ctypes.c_float] * (2 * naxes)
-                   + [ctypes.c_int] * len(extra) + [ctypes.c_void_p])
+                   + [ctypes.c_float] * (2 * naxes) + [t for t, _ in extra]
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
     code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
               PF.shape[0], PI.shape[0], geom.cap, *geom.ncells[:naxes], xr,
-              *_bin_constants(geom, naxes), *extra,
+              *_bin_constants(geom, naxes), *(v for _, v in extra),
+              None if xb is None else xb.data_ptr(), inv_q, n_fine,
               _build.current_stream(PF.device))
     _build.check(lib, code, name)
     wrapper.launches += 1
@@ -241,8 +256,11 @@ def rebin_move_2d_gated(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
         return rebin_move_plain(PF, PI, geom, xr)
+    # the periodic span the x-edges binning wraps by, in f32 (0 unused)
+    span = geom.x_edges[-1] - geom.x_edges[0] if geom.x_edges else 0.0
     return _launch(rebin_move_2d_gated, PF, PI, geom, xr, 2,
-                   (int(wrap_x(geom)),))
+                   ((ctypes.c_int, int(wrap_x(geom))),
+                    (ctypes.c_float, float(np.float32(span)))))
 
 
 rebin_move_2d_gated.launches = 0  # K6 launches in this process

@@ -14,14 +14,17 @@ JAX package's field names and dtypes; ``Geometry`` is the same numpy-only
 frozen dataclass.
 
 The sort rebin below is the executable spec of the rebin move: on CUDA it
-runs only for the initial binning at build, and every later rebin of a
-supported grid goes through the move kernel (``core/rebin_cuda.py``).
+runs only for the initial binning at build and for the cross-geometry
+rebin of an in-run re-cut (``stepper.simulate`` with ``spec.balance``);
+every other rebin of a supported grid goes through the move kernel
+(``core/rebin_cuda.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +50,10 @@ class Geometry:
     drift_budget: float = 0.0
     # Initial per-cell particle count under lattice-aligned sizing (k^dim).
     base_occ: int = 0
-    # Non-uniform x-column edges (load balancing); not ported yet.
+    # Non-uniform x-column edges (load balancing, parallel/balance.py): the
+    # ncells[0]+1 cell edges along x, each an integer multiple of x_quantum
+    # above lo[0]; None means uniform columns of cell_size[0], which then
+    # records the minimum width.
     x_edges: Tuple[float, ...] | None = None
     x_quantum: float = 0.0
     # The kernel cutoff the grid was sized for.
@@ -299,22 +305,67 @@ def _mod(a, n):
     return torch.where((r != 0) & ((r < 0) != (n < 0)), r + n, r)
 
 
+class XColumns(NamedTuple):
+    """A geometry's non-uniform x columns as tensors on one device."""
+
+    bounds: torch.Tensor  # i32 [nx+1]: each column's first fine bin, then n_fine
+    table: torch.Tensor  # i32 [n_fine]: fine bin -> x column
+    edges: torch.Tensor  # [nx+1] x_edges in the state's dtype
+    span: torch.Tensor  # 0-dim x_edges[-1] - x_edges[0], the periodic wrap
+
+
+@functools.lru_cache(maxsize=16)
+def x_columns(geom: Geometry, device, dtype: torch.dtype) -> XColumns:
+    """``geom.x_edges`` as the tensors the binning, the drift count and the
+    move kernels read, made on ``device`` once per geometry: the host
+    copies happen at a build or a re-cut, not at every rebin.  Every
+    caller gets the same tensors, so none may write to them.
+
+    The edges are integer multiples of ``x_quantum`` above the first, so a
+    column is a run of fine bins: binning is one uniform floor at quantum
+    resolution plus a gather of ``table``."""
+    e = np.asarray(geom.x_edges, np.float64)
+    bins = np.round((e - e[0]) / geom.x_quantum).astype(np.int64)
+    table = np.repeat(np.arange(len(bins) - 1, dtype=np.int32), np.diff(bins))
+    return XColumns(
+        bounds=torch.as_tensor(bins.astype(np.int32), device=device),
+        table=torch.as_tensor(table, device=device),
+        edges=torch.as_tensor(e, dtype=dtype, device=device),
+        span=torch.tensor(geom.x_edges[-1] - geom.x_edges[0], dtype=dtype,
+                          device=device))
+
+
+def _x_column_of(x0, geom: Geometry):
+    """Non-uniform x binning: positions -> column index via the fine table.
+
+    A periodic x axis first wraps by the edges' own span
+    ``x_edges[-1] - x_edges[0]`` (not ``wrap_pbc``'s ``hi - lo``), and
+    ``1 / x_quantum`` is a Python constant rounded to the tensor's dtype, as
+    in the JAX package."""
+    cols = x_columns(geom, x0.device, x0.dtype)
+    n_fine = cols.table.shape[0]
+    lo = geom.lo[0]
+    if geom.periodic[0]:
+        x0 = _mod(x0 - lo, cols.span) + lo
+    f = torch.floor((x0 - lo) * (1.0 / geom.x_quantum)).to(torch.int32)
+    return cols.table[torch.clamp(f, 0, n_fine - 1).long()]
+
+
 def cell_index_of(x, geom: Geometry):
     """Map positions [3, ...] -> flat cell index [...] (i32). Clamps open boundaries.
 
     ``(x - lo) * inv`` with Python-float ``lo`` and ``inv``: PyTorch, like
     JAX, rounds both scalars to the tensor's dtype first, which the move
-    kernel reproduces bit for bit.
+    kernels reproduce bit for bit.  Non-uniform x columns bin through
+    ``_x_column_of``.
     """
-    if geom.x_edges is not None:
-        raise NotImplementedError(
-            "non-uniform x columns (Geometry.x_edges) are ported in a later PR"
-        )
     out = None
     for ax in range(3):
         n = geom.ncells[ax]
         if n == 1:
             c = torch.zeros(x.shape[1:], dtype=torch.int32, device=x.device)
+        elif ax == 0 and geom.x_edges is not None:
+            c = _x_column_of(x[0], geom)
         else:
             inv = 1.0 / geom.cell_size[ax]
             c = torch.floor((x[ax] - geom.lo[ax]) * inv).to(torch.int32)
@@ -379,8 +430,12 @@ def _drift_count(fields, geom: Geometry):
     excess = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
     for ax in range(geom.dim):
         coord = (cell_ids // geom.strides[ax]) % geom.ncells[ax]
-        ax_lo = geom.lo[ax] + coord.to(x.dtype) * geom.cell_size[ax]
-        ax_hi = ax_lo + geom.cell_size[ax]
+        if ax == 0 and geom.x_edges is not None:
+            e = x_columns(geom, x.device, x.dtype).edges
+            ax_lo, ax_hi = e[:-1][coord.long()], e[1:][coord.long()]
+        else:
+            ax_lo = geom.lo[ax] + coord.to(x.dtype) * geom.cell_size[ax]
+            ax_hi = ax_lo + geom.cell_size[ax]
         below = ax_lo[None, :] - x[ax]
         above = x[ax] - ax_hi[None, :]
         excess = torch.maximum(excess, torch.maximum(below, above))
@@ -389,7 +444,7 @@ def _drift_count(fields, geom: Geometry):
 
 
 def rebin(state: State, geom: Geometry, drop: tuple = (),
-          use_kernel: bool = True) -> State:
+          use_kernel: bool = True, drift_check: bool = True) -> State:
     """Re-scatter every particle into the cell slot owned by its position.
 
     Deterministic: rows are ordered by (cell, current flat slot).  Particles
@@ -401,6 +456,11 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
     particle stayed within one cell ring.  ``False`` runs the global sort,
     which also places particles from arbitrary slots: the initial binning.
 
+    ``drift_check=False``: a cross-geometry rebin (an in-run re-cut of the
+    x columns).  The slots still hold the old geometry's cells, so neither
+    the drift count nor the locality walk applies: the count is skipped and
+    the global sort runs.
+
     ``drop``: leaf names (see ``rebin_droppable``) to zero instead of move.
     """
     NC, cap = geom.ncells_total, geom.cap
@@ -410,12 +470,12 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
     zeroed = {n: torch.zeros_like(fields.pop(n)) for n in drop}
 
     drift_violation = state.drift_violation
-    if geom.drift_budget > 0:
+    if geom.drift_budget > 0 and drift_check:
         drift_violation = drift_violation + _drift_count(fields, geom)
 
     fields["x"] = wrap_pbc(fields["x"], geom)
 
-    if use_kernel:
+    if use_kernel and drift_check:
         from sph_bvf_tpu_torch.core.rebin_cuda import move, move_supported
 
         if move_supported(geom):

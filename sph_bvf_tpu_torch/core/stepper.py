@@ -12,8 +12,11 @@ steps.  The density-filter cadence segmentation is kept exactly: steps off
 the cadence run with ``density_filter_accs=False`` (the pass-A kernel's
 variant without the Shepard accumulators).
 
-Not ported yet (raise when set): multi-device meshes, in-run load
-balancing and SSA species.
+``simulate`` carries in-run load balancing (``spec.balance``): at a chunk
+boundary every ``balance.every`` steps it may re-cut the x columns and
+rebin the state into the new geometry with the sort rebin.
+
+Not ported yet (raise when set): multi-device meshes and SSA species.
 """
 
 from __future__ import annotations
@@ -57,8 +60,7 @@ class ModelSpec:
 
 def _check_ported(spec: ModelSpec):
     for what, present in (("SSA species (spec.ssa)", spec.ssa),
-                          ("multi-device runs (spec.mesh)", spec.mesh),
-                          ("in-run load balancing (spec.balance)", spec.balance)):
+                          ("multi-device runs (spec.mesh)", spec.mesh)):
         if present is not None:
             raise NotImplementedError(f"{what} is ported in a later PR")
 
@@ -126,12 +128,23 @@ def scan_steps(state: State, params: Params, spec: ModelSpec, n: int,
 
 
 def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
-             callback=None, callback_every: Optional[int] = None):
+             callback=None, callback_every: Optional[int] = None,
+             balance_log: Optional[list] = None):
     """Host driver: run nsteps in chunks of ``rebin_every``, invoking
     ``callback(state)`` every ``callback_every`` steps (default: one chunk).
 
     Overflow and drift counters are read back every 10 chunks and at the
     end; a nonzero count raises.
+
+    With ``spec.balance`` set (``parallel/balance.BalanceFix``), every
+    ``balance.every`` steps a chunk boundary asks ``rebalance`` for new x
+    edges; an accepted re-cut rebins the state into the new geometry with
+    the sort rebin (the slots still hold the old cells, so the locality
+    walk cannot) and replaces ``spec.geom`` for the rest of the run, unless
+    that rebin loses particles, in which case the old geometry stays.
+    ``balance_log`` gets a dict per accepted re-cut (``step``, ``geom`` and
+    the before/after metrics) and per refusal that gives a ``reason``
+    (``geom`` None).
     """
     _check_ported(spec)
     chunk = spec.rebin_every
@@ -153,11 +166,35 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
                 f"rebin_every or raise Scene.margin_frac"
             )
 
+    bal = spec.balance
+    next_bal = bal.every if bal is not None else None
+
     # absolute step offset (nonzero on a resume): the filter phase follows
     # state.step, not the local step count
     step0 = int(state.step)
     done = 0
     while done < nsteps:
+        if bal is not None and done >= next_bal:
+            next_bal += bal.every
+            from sph_bvf_tpu_torch.parallel.balance import rebalance
+
+            new_geom, info = rebalance(state, spec.geom, bal)
+            if new_geom is not None:
+                trial = rebin(state, new_geom, drop=_rebin_drop(spec),
+                              use_kernel=False, drift_check=False)
+                if int(trial.overflow) == int(state.overflow):
+                    state = trial
+                    spec = dataclasses.replace(spec, geom=new_geom)
+                    if balance_log is not None:
+                        balance_log.append(dict(step=done, geom=new_geom, **info))
+                else:
+                    print(
+                        f"[balance] step {done}: re-cut rejected — new "
+                        f"binning overflows cap={new_geom.cap} "
+                        f"(imbalance {info.get('imbalance')})"
+                    )
+            elif balance_log is not None and "reason" in info:
+                balance_log.append(dict(step=done, geom=None, **info))
         n = min(chunk, nsteps - done)
         freq = getattr(spec.integ, "freq_filter", 0)
         phase = (

@@ -8,8 +8,9 @@
 // the 3x3 stencil cells, j != i: the transport-velocity (pressure switch) or
 // mechanics (symmetric pressure) force, XSPH, BVF walls, free solids with the
 // Pereira artificial viscosity, elastic solids (the 9-component artificial
-// stress, the deviatoric solid force and the Jaumann rate dS), a periodic x
-// axis, with (FILTER) or without the Shepard-filter accumulators.  The plain
+// stress, the deviatoric solid force and the Jaumann rate dS), solid-free
+// scenes (F_NOSOLIDS: the load-balance blob), a periodic x axis, with
+// (FILTER) or without the Shepard-filter accumulators.  The plain
 // PyTorch version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
 //
 // What bounds it on an H100: FSI cells hold cap = 47 slots but ~9-16
@@ -54,7 +55,11 @@ constexpr int O_NUMDEN = 0, O_DDV = 1, O_F = 4, O_DRHO = 7, O_DE = 8,
               O_PHI = 9, O_NW = 10, O_DDX = 13, O_DS = 16;
 constexpr int T_INVH = 0, T_ETA = 1, T_INVWD = 2, T_CWFD = 3, T_CWF = 4,
               T_H = 5, T_GEFF = 6;
-constexpr int F_PSWITCH = 1, F_XSPH = 2, F_FREE = 4, F_WRAPX = 8;
+// F_NOSOLIDS: a solid-free scene (PairConfig.solids_present False) — the
+// plain path has no artificial-stress force and no BVF phi/nw there, and
+// its tables no inv_wdelta, so the kernel skips both and leaves phi/nw 0
+constexpr int F_PSWITCH = 1, F_XSPH = 2, F_FREE = 4, F_WRAPX = 8,
+              F_NOSOLIDS = 16;
 constexpr int kThreads = 128;
 // the diagonal factor (1 - 1/3) of the deviatoric strain, rounded to f32
 // before the multiply as the plain path does
@@ -77,7 +82,8 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
   const int cx = c / ny, cy = c - cx * ny;
   const int tt = ntypes * ntypes;
   const bool pswitch = flags & F_PSWITCH, xsph = flags & F_XSPH,
-             free_solids = flags & F_FREE, wrapx = flags & F_WRAPX;
+             free_solids = flags & F_FREE, wrapx = flags & F_WRAPX,
+             solids = !(flags & F_NOSOLIDS);
   auto ld = [&](int row, int slot) { return __ldg(pf + (long long)row * m + slot); };
   auto tb = [&](int row, int tp) { return __ldg(tab + row * tt + tp); };
 
@@ -193,31 +199,34 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
           }
 
           // artificial-stress force: mi mj wfd (wf/wdelta)^4 dx.(AS_i + AS_j)
+          // (a solid-free scene has no such term)
           float fart[3] = {0.f, 0.f, 0.f};
-          const float w = wf * tb(T_INVWD, tp);
-          const float w2 = w * w;
-          const float as_coef = mi * mj * wfd * (w2 * w2);
-          if constexpr (ELASTIC) {
-            if (solid_i || solid_j) {  // AS is 0 on fluids
-              float ASs[9];
-              bool nz = as_i;
+          if (solids) {
+            const float w = wf * tb(T_INVWD, tp);
+            const float w2 = w * w;
+            const float as_coef = mi * mj * wfd * (w2 * w2);
+            if constexpr (ELASTIC) {
+              if (solid_i || solid_j) {  // AS is 0 on fluids
+                float ASs[9];
+                bool nz = as_i;
 #pragma unroll
-              for (int e = 0; e < 9; ++e) {
-                const float asj = ld(R_STRESS + e, k);
-                nz |= asj != 0.f;
-                ASs[e] = ASi[e] + asj;
-              }
-              if (nz) {
+                for (int e = 0; e < 9; ++e) {
+                  const float asj = ld(R_STRESS + e, k);
+                  nz |= asj != 0.f;
+                  ASs[e] = ASi[e] + asj;
+                }
+                if (nz) {
 #pragma unroll
-                for (int a = 0; a < 3; ++a)
-                  fart[a] = as_coef * (dx[0] * ASs[a] + dx[1] * ASs[3 + a] +
-                                       dx[2] * ASs[6 + a]);
+                  for (int a = 0; a < 3; ++a)
+                    fart[a] = as_coef * (dx[0] * ASs[a] + dx[1] * ASs[3 + a] +
+                                         dx[2] * ASs[6 + a]);
+                }
               }
+            } else {
+              const float asum = as_coef * (ASi[0] + ld(R_STRESS, k));
+#pragma unroll
+              for (int a = 0; a < 3; ++a) fart[a] = asum * dx[a];
             }
-          } else {
-            const float asum = as_coef * (ASi[0] + ld(R_STRESS, k));
-#pragma unroll
-            for (int a = 0; a < 3; ++a) fart[a] = asum * dx[a];
           }
 
           if (solid_branch) {
@@ -295,8 +304,9 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
           acc[O_DE] += -0.5f * (fpair * delVdotDelR +
                                 fvisc * (vv[0] * vv[0] + vv[1] * vv[1] + vv[2] * vv[2]));
 
-          // BVF volume fraction and wall normal: fluid i, solid j
-          if (!solid_i && solid_j) {
+          // BVF volume fraction and wall normal: fluid i, solid j (0 in a
+          // solid-free scene)
+          if (solids && !solid_i && solid_j) {
             acc[O_PHI] += Vj2 * wf;
             const float nwc = wfd * Vj2;
 #pragma unroll

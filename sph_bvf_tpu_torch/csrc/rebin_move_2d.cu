@@ -14,7 +14,7 @@
 // the first cap matches.  A match of rank >= cap, or a particle that moved
 // beyond one ring, is dropped; the caller counts the loss as overflow.  The
 // plain PyTorch version is sph_bvf_tpu_torch/core/rebin_cuda.py
-// `rebin_move_2d_plain`.
+// `rebin_move_plain`.
 //
 // What bounds it on an H100: HBM traffic — each packed row is read about
 // once (the 3x3 windows of neighbouring threads overlap in L1/L2) and
@@ -23,6 +23,14 @@
 // walks the candidates and records the source slot of each output slot in a
 // cap-long list; phase 2 copies row by row, output slot by output slot, so
 // neighbouring threads write neighbouring addresses.
+//
+// Non-uniform x columns (Geometry.x_edges, load balancing; replaces the same
+// TPU kernel's `edges` variant, rebin_pallas.py:176-199, 328-333): xb holds
+// each column's fine-bin bounds, i32 [nx+1] = round((edge - edge0) /
+// x_quantum).  A candidate lies in column cx when its fine bin
+// clamp(floor((x - lo0) * inv_q), 0, n_fine - 1) lies in [xb[cx], xb[cx+1]):
+// the columns partition the fine grid, so this is `cell_index_of`'s table
+// gather bit for bit.  xb == nullptr means uniform columns.
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
 // x at f32 rows xr, xr+1; outputs of the same shapes.  Flat cell
@@ -40,15 +48,28 @@ __device__ __forceinline__ int bin(float x, float lo, float inv, int n) {
   return min(max(b, 0), n - 1);
 }
 
+// x column membership: the fine bin against [xb0, xb1) with edges, else the
+// uniform bin against cx
+__device__ __forceinline__ bool in_column(float x, int cx, int nx, float lo0,
+                                          float inv0, const int* xb, int xb0,
+                                          int xb1, float inv_q, int n_fine) {
+  if (nx == 1) return true;
+  if (xb == nullptr) return bin(x, lo0, inv0, nx) == cx;
+  const int f = bin(x, lo0, inv_q, n_fine);
+  return f >= xb0 && f < xb1;
+}
+
 __global__ void __launch_bounds__(kThreads) rebin_move_2d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
-    int nx, int ny, int xr, float lo0, float lo1, float inv0, float inv1) {
+    int nx, int ny, int xr, float lo0, float lo1, float inv0, float inv1,
+    const int* __restrict__ xb, float inv_q, int n_fine) {
   const int nc = nx * ny;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
   const long long m = (long long)cap * nc;
   const int cx = c / ny, cy = c - cx * ny;
+  const int xb0 = xb ? __ldg(xb + cx) : 0, xb1 = xb ? __ldg(xb + cx + 1) : 0;
   const float* px = pf + (long long)xr * m;
   const float* py = px + m;
 
@@ -63,9 +84,10 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_kernel(
         if (cys < 0 || cys >= ny) continue;
         const long long k = (long long)s * nc + cxs * ny + cys;
         if (__ldg(pi + k) == 0) continue;  // row 0: valid
-        const int bx = nx > 1 ? bin(__ldg(px + k), lo0, inv0, nx) : 0;
         const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny) : 0;
-        if (bx * ny + by != c) continue;
+        if (by != cy || !in_column(__ldg(px + k), cx, nx, lo0, inv0, xb, xb0,
+                                   xb1, inv_q, n_fine))
+          continue;
         if (n < cap) src[n] = k;
         ++n;
       }
@@ -89,13 +111,15 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_kernel(
 extern "C" int rebin_move_2d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int xr, float lo0, float lo1, float inv0,
-                             float inv1, cudaStream_t stream) {
+                             float inv1, const int* xb, float inv_q,
+                             int n_fine, cudaStream_t stream) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
   const int nc = nx * ny;
   if (nc == 0) return 0;
   const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
   rebin_move_2d_kernel<<<blocks, kThreads, 0, stream>>>(
-      pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1);
+      pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1, xb,
+      inv_q, n_fine);
   return (int)cudaGetLastError();
 }
 

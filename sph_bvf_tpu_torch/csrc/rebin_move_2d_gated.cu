@@ -17,7 +17,7 @@
 // first cap matches.  A match of rank >= cap, or a particle that moved beyond
 // one ring, is dropped; the caller counts the loss as overflow.  The plain
 // PyTorch version is sph_bvf_tpu_torch/core/rebin_cuda.py
-// `rebin_move_2d_plain`.
+// `rebin_move_plain`.
 //
 // What bounds it on an H100: at cap 47 a full walk is 9 x 47 = 423 candidate
 // checks per cell, of which only the ~9 x 9-16 occupied ones can match.
@@ -27,6 +27,19 @@
 // `occw` trip count, with no prepass).  Phase 1 records the source slot of
 // each output slot in a cap-long list; phase 2 copies row by row, output
 // slot by output slot, so neighbouring threads write neighbouring addresses.
+//
+// Non-uniform x columns (Geometry.x_edges, load balancing; replaces the same
+// TPU kernel's `edges` variant, rebin_pallas.py:176-199, 328-333 — the main
+// path of the load-balance slice): xb holds each column's fine-bin bounds,
+// i32 [nx+1] = round((edge - edge0) / x_quantum).  A candidate lies in column
+// cx when its fine bin clamp(floor((x - lo0) * inv_q), 0, n_fine - 1) lies in
+// [xb[cx], xb[cx+1]): the columns partition the fine grid, so this is
+// `cell_index_of`'s table gather bit for bit.  On a periodic x axis
+// `cell_index_of` first wraps the (already wrap_pbc'd) position once more by
+// the edges' own span xspan = edge[nx] - edge0 (lo0 + floored mod), which the
+// kernel repeats with the same f32 rounding.  The candidate order is the
+// order after the wrap, as with uniform columns.  xb == nullptr means uniform
+// columns.
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
 // x at f32 rows xr, xr+1; outputs of the same shapes.  Flat cell
@@ -47,16 +60,36 @@ __device__ __forceinline__ int bin(float x, float lo, float inv, int n,
   return min(max(b, 0), n - 1);
 }
 
+// x column membership: with edges, the fine bin of the position (wrapped by
+// the edges' span on a periodic axis) against [xb0, xb1); else the uniform
+// bin against cx
+__device__ __forceinline__ bool in_column(float x, int cx, int nx, float lo0,
+                                          float inv0, bool wrapx, float xspan,
+                                          const int* xb, int xb0, int xb1,
+                                          float inv_q, int n_fine) {
+  if (nx == 1) return true;
+  if (xb == nullptr) return bin(x, lo0, inv0, nx, wrapx) == cx;
+  if (wrapx) {  // lo0 + _mod(x - lo0, xspan): fmod, then shift the sign
+    float r = fmodf(__fsub_rn(x, lo0), xspan);
+    if (r != 0.f && ((r < 0.f) != (xspan < 0.f))) r = __fadd_rn(r, xspan);
+    x = __fadd_rn(r, lo0);
+  }
+  const int f = bin(x, lo0, inv_q, n_fine, false);
+  return f >= xb0 && f < xb1;
+}
+
 __global__ void __launch_bounds__(kThreads) rebin_move_2d_gated_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
     int nx, int ny, int xr, float lo0, float lo1, float inv0, float inv1,
-    int wrapx) {
+    int wrapx, float xspan, const int* __restrict__ xb, float inv_q,
+    int n_fine) {
   const int nc = nx * ny;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
   const int m = cap * nc;
   const int cx = c / ny, cy = c - cx * ny;
+  const int xb0 = xb ? __ldg(xb + cx) : 0, xb1 = xb ? __ldg(xb + cx + 1) : 0;
   const float* px = pf + (long long)xr * m;
   const float* py = px + m;
 
@@ -88,9 +121,10 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_gated_kernel(
       const int k = s * nc + src[q];
       if (__ldg(pi + k) == 0) continue;  // row 0: valid
       occupied = true;
-      const int bx = nx > 1 ? bin(__ldg(px + k), lo0, inv0, nx, wrapx) : 0;
       const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, false) : 0;
-      if (bx * ny + by != c) continue;
+      if (by != cy || !in_column(__ldg(px + k), cx, nx, lo0, inv0, wrapx, xspan,
+                                 xb, xb0, xb1, inv_q, n_fine))
+        continue;
       if (n < cap) list[n] = k;
       ++n;
     }
@@ -116,14 +150,16 @@ extern "C" int rebin_move_2d_gated(const float* pf, const int* pi, float* outf,
                                    int* outi, int ff, int fi, int cap, int nx,
                                    int ny, int xr, float lo0, float lo1,
                                    float inv0, float inv1, int wrapx,
-                                   cudaStream_t stream) {
+                                   float xspan, const int* xb, float inv_q,
+                                   int n_fine, cudaStream_t stream) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
   if (wrapx && nx < 3) return (int)cudaErrorInvalidValue;
   const int nc = nx * ny;
   if (nc == 0) return 0;
   const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
   rebin_move_2d_gated_kernel<<<blocks, kThreads, 0, stream>>>(
-      pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1, wrapx);
+      pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1, wrapx,
+      xspan, xb, inv_q, n_fine);
   return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,15 @@
 // row, output slot by output slot, so neighbouring threads write neighbouring
 // addresses.
 //
+// Non-uniform x columns (Geometry.x_edges, load balancing; replaces the TPU
+// kernel's `edges` variant, rebin_pallas.py:487-492, 595-600, 641, whose
+// per-plane column bounds are scalars): xb holds each x plane's fine-bin
+// bounds, i32 [nx+1] = round((edge - edge0) / x_quantum).  A candidate lies
+// in plane cx when its fine bin clamp(floor((x - lo0) * inv_q), 0,
+// n_fine - 1) lies in [xb[cx], xb[cx+1]): the planes partition the fine grid,
+// so this is `cell_index_of`'s table gather bit for bit.  xb == nullptr means
+// uniform planes.
+//
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
 // x at f32 rows xr, xr+1, xr+2; outputs of the same shapes.  Flat cell
 // c = (cx * ny + cy) * nz + cz; no axis is periodic.
@@ -48,17 +57,30 @@ __device__ __forceinline__ int bin(float x, float lo, float inv, int n) {
   return min(max(b, 0), n - 1);
 }
 
+// x plane membership: the fine bin against [xb0, xb1) with edges, else the
+// uniform bin against cx
+__device__ __forceinline__ bool in_column(float x, int cx, int nx, float lo0,
+                                          float inv0, const int* xb, int xb0,
+                                          int xb1, float inv_q, int n_fine) {
+  if (nx == 1) return true;
+  if (xb == nullptr) return bin(x, lo0, inv0, nx) == cx;
+  const int f = bin(x, lo0, inv_q, n_fine);
+  return f >= xb0 && f < xb1;
+}
+
 __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
     int nx, int ny, int nz, int xr, float lo0, float lo1, float lo2,
-    float inv0, float inv1, float inv2) {
+    float inv0, float inv1, float inv2, const int* __restrict__ xb,
+    float inv_q, int n_fine) {
   const int nc = nx * ny * nz;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
   const long long m = (long long)cap * nc;
   const int cz = c % nz, cxy = c / nz;
   const int cy = cxy % ny, cx = cxy / ny;
+  const int xb0 = xb ? __ldg(xb + cx) : 0, xb1 = xb ? __ldg(xb + cx + 1) : 0;
   const float* px = pf + (long long)xr * m;
   const float* py = px + m;
   const float* pz = py + m;
@@ -89,10 +111,12 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
       const int k = s * nc + src[q];
       if (__ldg(pi + k) == 0) continue;  // row 0: valid
       occupied = true;
-      const int bx = bin(__ldg(px + k), lo0, inv0, nx);
       const int by = bin(__ldg(py + k), lo1, inv1, ny);
       const int bz = bin(__ldg(pz + k), lo2, inv2, nz);
-      if ((bx * ny + by) * nz + bz != c) continue;
+      if (by != cy || bz != cz ||
+          !in_column(__ldg(px + k), cx, nx, lo0, inv0, xb, xb0, xb1, inv_q,
+                     n_fine))
+        continue;
       if (n < cap) list[n] = k;
       ++n;
     }
@@ -118,6 +142,7 @@ extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int nz, int xr, float lo0, float lo1, float lo2,
                              float inv0, float inv1, float inv2,
+                             const int* xb, float inv_q, int n_fine,
                              cudaStream_t stream) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
   const int nc = nx * ny * nz;
@@ -125,7 +150,7 @@ extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
   const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
   rebin_move_3d_kernel<<<blocks, kThreads, 0, stream>>>(
       pf, pi, outf, outi, ff, fi, cap, nx, ny, nz, xr, lo0, lo1, lo2, inv0,
-      inv1, inv2);
+      inv1, inv2, xb, inv_q, n_fine);
   return (int)cudaGetLastError();
 }
 

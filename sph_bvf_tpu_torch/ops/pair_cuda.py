@@ -44,8 +44,9 @@ K2_PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
 # filter rows.
 K2_ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
                ("phi", 1), ("nw", 3), ("ddx", 3))
-# K2 runtime switches (F_* there)
-_F_PSWITCH, _F_XSPH, _F_FREE, _F_WRAPX = 1, 2, 4, 8
+# K2 runtime switches (F_* there); _F_NOSOLIDS: a solid-free scene (no
+# artificial-stress force, no BVF phi/nw)
+_F_PSWITCH, _F_XSPH, _F_FREE, _F_WRAPX, _F_NOSOLIDS = 1, 2, 4, 8, 16
 
 
 def uses_rowloop(geom: Geometry) -> bool:
@@ -70,7 +71,6 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
     is3d = kernel is pass_a_3d
     checks = [
         ("a 2D grid" if is3d else "a 3D grid", grid_3d(geom) != is3d),
-        ("a solid-free scene (solids_present=False)", not cfg.solids_present),
     ]
     if kernel is pass_a_2d_rowloop:
         checks += [
@@ -80,6 +80,7 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
         ]
     else:
         checks += [
+            ("a solid-free scene (solids_present=False)", not cfg.solids_present),
             ("a periodic axis", periodic_multicell(geom)),
             ("XSPH (xsph)", cfg.xsph),
             ("the symmetric pressure force (pressure_switch=False)",
@@ -92,10 +93,11 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
 
 def _tables(params: Params, cfg) -> torch.Tensor:
     """[5, T*T] f32: inv_h, eta, inv_wdelta and the two r-independent Lucy
-    factors per type pair — the coefficients the plain path computes."""
+    factors per type pair — the coefficients the plain path computes
+    (inv_wdelta 0 in a solid-free scene, which never reads it)."""
     tabs = pair.coeff_tables(params, cfg)
     ih = tabs["inv_h"]
-    rows = [ih, tabs["eta"], tabs["inv_wdelta"],
+    rows = [ih, tabs["eta"], tabs.get("inv_wdelta", torch.zeros_like(ih)),
             lucy_wfd_coef(ih, cfg.dim), lucy_w_coef(ih, cfg.dim)]
     return torch.stack([r.reshape(-1) for r in rows]).to(torch.float32).contiguous()
 
@@ -210,7 +212,7 @@ pass_a_3d.launches = 0  # K3 launches in this process
 def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     """Pass A accumulators from ``pf`` through K2 on CUDA (the plain loop on
     CPU): tv and mechanics physics, fixed and free solids, elastic solids,
-    XSPH, periodic x."""
+    solid-free scenes, XSPH, periodic x."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg)
     _check_launch(pf, params, geom, cfg, pass_a_2d_rowloop)
@@ -227,7 +229,8 @@ def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     flags = ((_F_PSWITCH if cfg.pressure_switch else 0)
              | (_F_XSPH if cfg.xsph else 0)
              | (_F_FREE if cfg.free_solids_present else 0)
-             | (_F_WRAPX if wrap_x(geom) else 0))
+             | (_F_WRAPX if wrap_x(geom) else 0)
+             | (0 if cfg.solids_present else _F_NOSOLIDS))
     # the periodic extent in f32, the constant the plain path's minimum
     # image rounds it to
     lx = float(np.float32(geom.hi[0] - geom.lo[0]))

@@ -1,0 +1,49 @@
+"""Non-uniform x columns for the port's tests, without load balancing.
+
+``with_synthetic_edges`` is ``tests/test_halo_kernels.py``'s construction:
+x columns of alternating widths 7 and 9 on the cell/8 quantum.
+``seeded_drift`` moves a state's particles as far as a rebin period may,
+with some of them exactly on a column edge.  Torch and numpy only (the
+kernel tests import this on a machine without JAX).
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sph_bvf_tpu_torch.core import state as TS
+
+
+def with_synthetic_edges(geom, pattern=(7, 9)):
+    """``geom`` with x columns of alternating widths 7 and 9 on the cell/8
+    quantum."""
+    nx = geom.ncells[0]
+    q = geom.cell_size[0] / 8.0
+    widths = [pattern[i % len(pattern)] for i in range(nx)]
+    if nx % len(pattern):  # keep total coverage exact
+        widths[-1] = 8 * nx - sum(widths[:-1])
+    bins = np.concatenate([[0], np.cumsum(widths)])
+    return dataclasses.replace(
+        geom, x_edges=tuple(float(geom.lo[0] + b * q) for b in bins),
+        x_quantum=float(q), base_occ=0,
+        cell_size=(float(min(widths) * q),) + tuple(geom.cell_size[1:]))
+
+
+def seeded_drift(state, geom, seed=11):
+    """``state`` (binned in ``geom``) with every valid particle moved by a
+    seeded step of up to 0.9 of the narrowest cell per axis (within one
+    ring), a seeded tenth snapped onto an edge of its x column."""
+    rng = np.random.default_rng(seed)
+    x = state.x.cpu().numpy()
+    valid = state.valid.cpu().numpy()
+    d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
+    d[geom.dim:] = 0.0
+    x = x + np.where(valid, d, 0.0)
+    col = (TS.cell_index_of(state.x, geom).cpu().numpy()
+           // int(np.prod(geom.ncells[1:])))
+    snap = valid & (rng.uniform(size=valid.shape) < 0.1)
+    side = rng.integers(0, 2, valid.shape)
+    x[0] = np.where(snap, np.asarray(geom.x_edges)[col + side], x[0])
+    x = torch.as_tensor(x.astype(np.float32), device=state.x.device)
+    return dataclasses.replace(state, x=x)

@@ -1,13 +1,14 @@
 """The port's hand-written CUDA kernels (K1, K2 and K3 pass A, K5, K6 and
-K7 rebin move).
+K7 rebin move), with K2's solid-free variant and the non-uniform x-column
+(``x_edges``) variants of K5, K6 and K7.
 
 The kernel-vs-plain checks need a CUDA card and are marked ``gpu``: they
 skip on a machine without one (run them there with
 ``python -m pytest tests/test_torch_kernels.py -m gpu``).  The CPU checks
 hold what the wrappers promise off the card: a CPU tensor runs the plain
 version and never counts a launch, the kernels' eligibility covers the
-flagship, the FSI beam and the 3D cavity, and a configuration no kernel
-serves raises.
+flagship, the FSI beam, the 3D cavity and the load-balanced drifting blob,
+and a configuration no kernel serves raises.
 """
 
 import dataclasses
@@ -19,8 +20,9 @@ import torch
 from sph_bvf_tpu_torch.core import rebin_cuda
 from sph_bvf_tpu_torch.core import state as TS
 from sph_bvf_tpu_torch.core.stepper import run_chunk, setup
-from sph_bvf_tpu_torch.models import fsi, lid_cavity, lid_cavity3d
+from sph_bvf_tpu_torch.models import drift_blob, fsi, lid_cavity, lid_cavity3d
 from sph_bvf_tpu_torch.ops import pair, pair_cuda
+from synthetic_edges import seeded_drift, with_synthetic_edges
 
 K1_FIELDS = ("f", "drho", "num_den", "phi", "nw", "ddv", "de", "rhoAux1",
              "rhoAux2")
@@ -224,8 +226,9 @@ def test_k2_and_k6_serve_a_crowded_cavity_on_card(cuda, filt):
 
 def test_no_launch_on_cpu_tensors():
     """On CPU tensors the wrappers run the plain versions: setups and
-    chunks of the cavity (K1/K5 grid), the FSI beam (K2/K6 grid) and the
-    3D cavity (K3/K7 grid) move no launch counter."""
+    chunks of the cavity (K1/K5 grid), the FSI beam (K2/K6 grid), the 3D
+    cavity (K3/K7 grid) and the balanced drifting blob (solid-free K2, K6
+    with x_edges) move no launch counter."""
     counters = (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_rowloop,
                 pair_cuda.pass_a_3d, rebin_cuda.rebin_move_2d,
                 rebin_cuda.rebin_move_2d_gated, rebin_cuda.rebin_move_3d)
@@ -236,6 +239,8 @@ def test_no_launch_on_cpu_tensors():
     assert int(state.step) == 4
     state, params, spec = _cavity3d(6, "cpu", steps=1)
     assert int(state.step) == 1
+    state, params, spec = _blob("cpu", steps=5)
+    assert int(state.step) == 5 and spec.geom.x_edges is not None
     assert [c.launches for c in counters] == before
 
 
@@ -352,8 +357,8 @@ def test_3d_cavity_routes_to_k3_and_k7():
 def test_3d_kernels_refuse_what_they_do_not_serve():
     """K3 names the physics and grids it lacks (mechanics, XSPH, free or
     elastic solids, a periodic axis, a 2D grid), K1 refuses a 3D grid, and
-    K7 refuses a periodic axis, x_edges and cap > 64: each raises
-    NotImplementedError before a launch."""
+    K7 refuses a periodic axis (with or without x_edges) and cap > 64:
+    each raises NotImplementedError before a launch."""
     state, params, spec, _ = lid_cavity3d.build(N=6, device="cpu")
     geom = spec.geom
     pf = pair._per_particle(state, params, spec.pair)
@@ -383,10 +388,161 @@ def test_3d_kernels_refuse_what_they_do_not_serve():
     fields = TS.particle_fields(state)
     PF, PI, _, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
     rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_3d)
-    for bad in (dict(x_edges=(0.0, 1.0)), dict(cap=rebin_cuda.MAX_CAP_3D + 1),
+    edged = with_synthetic_edges(geom)
+    rebin_cuda._check_packs(PF, PI, edged, rebin_cuda.rebin_move_3d)
+    for bad in (dict(x_edges=edged.x_edges, x_quantum=edged.x_quantum,
+                     periodic=(True, False, False)),
+                dict(cap=rebin_cuda.MAX_CAP_3D + 1),
                 dict(periodic=(True, False, False))):
         with pytest.raises(NotImplementedError):
             rebin_cuda._check_packs(PF, PI, dataclasses.replace(geom, **bad),
                                     rebin_cuda.rebin_move_3d)
     with pytest.raises(NotImplementedError):  # K6 takes 2D grids only
         rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d_gated)
+
+
+def _blob(device, steps=0):
+    """The load-balanced drifting blob at s=1 (2,115 particles, x_edges,
+    periodic x, no solids) after setup and ``steps`` steps."""
+    state, params, spec, _ = drift_blob.build(1, balance=True, device=device)
+    state = setup(state, params, spec, dt=drift_blob.timestep(1))
+    if steps:
+        state = run_chunk(state, params, spec, steps)
+    return state, params, spec
+
+
+def _edged_drifted(state, geom):
+    """``state`` sort-rebinned into ``geom`` with synthetic x edges, then
+    drifted (``synthetic_edges.seeded_drift``): (state, edged geometry)."""
+    g = with_synthetic_edges(geom)
+    state = TS.rebin(state, g, use_kernel=False, drift_check=False)
+    assert int(state.overflow) == 0
+    return seeded_drift(state, g), g
+
+
+EDGED = {"k5_cavity": (lambda d: _cavity(30, d, steps=9), rebin_cuda.rebin_move_2d),
+         "k6_fsi": (lambda d: _fsi(d), rebin_cuda.rebin_move_2d_gated),
+         "k7_cavity3d": (lambda d: _cavity3d(8, d, steps=9),
+                         rebin_cuda.rebin_move_3d)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(EDGED))
+def test_x_edges_moves_match_plain_walk_and_sort_on_card(cuda, case):
+    """K5 (2D cavity, walls, cap <= 16), K6 (FSI beam, periodic x, positions
+    across the seam) and K7 (3D cavity) with synthetic x edges after a
+    seeded drift: the kernel == the plain walk == the sort rebin, every
+    leaf bitwise."""
+    make, kernel = EDGED[case]
+    state, params, spec = make(cuda)
+    state, geom = _edged_drifted(state, spec.geom)
+    assert rebin_cuda.move_route(geom) is kernel
+    fields = TS.particle_fields(state)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    before = kernel.launches
+    kf, ki = kernel(PF, PI, geom, xr)
+    assert kernel.launches == before + 1
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
+    assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [False, True], ids=["run", "seeded_rho_v"])
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+def test_k2_solid_free_matches_plain_on_card(cuda, filt, live):
+    """Solid-free K2 vs the plain loop on the balanced drifting blob (s=1,
+    x_edges, periodic x), as run and with a seeded density and velocity
+    that make its force and drho terms live: each field within 5e-6 of
+    its max; phi, nw and dS, which a solid-free scene never accumulates,
+    exactly 0."""
+    state, params, spec = _blob(cuda, steps=5)
+    assert not spec.pair.solids_present
+    if live:
+        rng = np.random.default_rng(0)
+        rho = 1.0 + 0.01 * rng.standard_normal(tuple(state.rho.shape))
+        dv = 0.01 * rng.standard_normal(tuple(state.v.shape))
+        state = dataclasses.replace(
+            state, rho=state.rho * torch.as_tensor(rho, dtype=state.rho.dtype,
+                                                   device=cuda),
+            v=state.v + torch.as_tensor(dv, dtype=state.v.dtype, device=cuda))
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+    pf = pair._per_particle(state, params, cfg)
+    ref = pair._pass_a_plain(pf, params, spec.geom, cfg)
+    got = pair_cuda.pass_a_2d_rowloop(pf, params, spec.geom, cfg)
+    torch.cuda.synchronize()
+    for name in (n for n in K2_FIELDS if filt or not n.startswith("rhoAux")):
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+    for name in ("phi", "nw", "dS"):
+        assert float(got[name].abs().max()) == 0.0, name
+    if live:
+        for name in ("f", "drho", "ddv"):
+            assert float(ref[name].abs().max()) > 0, name
+
+
+def test_balanced_and_edged_grids_route_to_kernels():
+    """The balanced drifting blob (x_edges, periodic x, cap 18, no solids)
+    goes to solid-free K2 and K6; synthetic x edges keep the cavity on K5,
+    the FSI beam on K6 and the 3D cavity on K7; the kernels get each
+    column's fine-bin bounds round((e - e0) / q), the f32 1/q and the
+    fine-bin count."""
+    state, params, spec, _ = drift_blob.build(1, balance=True, device="cpu")
+    geom = spec.geom
+    assert geom.x_edges is not None and geom.cap == 18 and geom.base_occ == 0
+    assert not spec.pair.solids_present
+    assert pair_cuda.route(geom) is pair_cuda.pass_a_2d_rowloop
+    assert pair_cuda.kernel_unsupported(geom, spec.pair) == []
+    pf = pair._per_particle(state, params, spec.pair)
+    pair_cuda._check_launch(pf, params, geom, spec.pair,
+                            pair_cuda.pass_a_2d_rowloop)
+    assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_2d_gated
+    xb, inv_q, n_fine = rebin_cuda._column_bounds(geom, "cpu")
+    e = np.asarray(geom.x_edges)
+    np.testing.assert_array_equal(
+        xb.numpy(), np.round((e - e[0]) / geom.x_quantum).astype(np.int32))
+    assert xb.dtype == torch.int32 and n_fine == int(xb[-1])
+    assert inv_q == float(np.float32(1.0 / geom.x_quantum))
+    uniform = dataclasses.replace(geom, x_edges=None)
+    assert rebin_cuda._column_bounds(uniform, "cpu") == (None, 0.0, 0)
+    for build, kernel in (
+            (lambda: lid_cavity.build(N=16, device="cpu"), rebin_cuda.rebin_move_2d),
+            (lambda: fsi.build(nx=24, device="cpu"), rebin_cuda.rebin_move_2d_gated),
+            (lambda: lid_cavity3d.build(N=6, device="cpu"), rebin_cuda.rebin_move_3d)):
+        g = with_synthetic_edges(build()[2].geom)
+        assert rebin_cuda.move_route(g) is kernel
+        assert rebin_cuda._column_bounds(g, "cpu")[2] == 8 * g.ncells[0]
+
+
+def test_what_x_edges_and_solid_free_still_lack():
+    """What the new variants do not cover raises before a launch: K5 with a
+    periodic x axis (with or without x_edges), K1 on a solid-free scene and
+    K7 with a periodic axis on an x_edges grid."""
+    state, params, spec, _ = lid_cavity.build(N=16, device="cpu")
+    geom = with_synthetic_edges(spec.geom)
+    fields = TS.particle_fields(state)
+    PF, PI, _, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d)
+    for g in (geom, spec.geom):
+        periodic = dataclasses.replace(g, periodic=(True, False, True))
+        assert rebin_cuda.move_route(periodic) is None
+        with pytest.raises(NotImplementedError, match="later PR"):
+            rebin_cuda._check_packs(PF, PI, periodic, rebin_cuda.rebin_move_2d)
+    free = dataclasses.replace(spec.pair, solids_present=False)
+    assert pair_cuda.kernel_unsupported(spec.geom, free) == [
+        "a solid-free scene (solids_present=False)"]
+    pf = pair._per_particle(state, params, free)
+    with pytest.raises(NotImplementedError, match="solid-free"):
+        pair_cuda._check_launch(pf, params, spec.geom, free, pair_cuda.pass_a_2d)
+    assert pair_cuda.kernel_unsupported(spec.geom, free,
+                                        pair_cuda.pass_a_2d_rowloop) == []
+    _, _, spec3, _ = lid_cavity3d.build(N=6, device="cpu")
+    g3 = with_synthetic_edges(spec3.geom)
+    for ax in range(3):
+        pg = dataclasses.replace(g3, periodic=tuple(a == ax for a in range(3)))
+        assert rebin_cuda.move_route(pg) is None
