@@ -6,11 +6,13 @@ the CUDA toolkit (``nvcc``):
 
     python3 chip_smoke.py
 
-Four paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move),
+Five paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move),
 the FSI beam in a periodic-x channel (K2 pass A, K6 rebin move), the 3D
-lid-driven cavity (K3 pass A, K7 rebin move) and in-run load balancing on
-the drifting blob (solid-free K2, K6 with non-uniform x columns); K5 and
-K7 with x columns are checked on the cavities.  Phases, one line each:
+lid-driven cavity (K3 pass A, K7 rebin move), in-run load balancing on
+the drifting blob (solid-free K2, K6 with non-uniform x columns) and
+natural convection around a hot cylinder (K1 with the species rows, K5
+moving the C rows); K5 and K7 with x columns are checked on the cavities,
+K3 and K7 with species on the 3D cavity.  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — compile the six hand-written kernels from
@@ -27,6 +29,15 @@ K7 with x columns are checked on the cavities.  Phases, one line each:
              plain walk and the sort rebin, bitwise, on that state and on
              a seeded drift of it with a tenth snapped onto column edges
              (timed on both; the run's state gives the kernel's ms);
+   K1 species — K1 with the species rows (C in, the flux Q out) against the
+             plain loop on natural_convection.build(N=200) after setup and
+             after 200 steps, both filter variants, every field and Q within
+             5e-6 * max|plain|: as run (Ns=1), with further species seeded
+             from numpy (Ns=2 and the kernels' limit Ns=4, a distinct kappa
+             per type pair) and with the species support cutc = 1.2 h and
+             0.8 h; Q nonzero for every species in each case; then K5
+             moving the C rows against the plain walk and the sort rebin,
+             bitwise, 10 steps later (Ns=1 as run and Ns=2 seeded);
 5. K2      — the rowloop pass-A kernel against the plain loop on
              fsi.build(nx=60, tdamp_solid=100) after setup and 300 steps
              (the beam released at step 100), both filter variants, on that
@@ -42,6 +53,11 @@ K7 with x columns are checked on the cavities.  Phases, one line each:
 8. K7      — the 3D rebin-move kernel against the plain walk and the sort
              rebin on each of those states 10 steps later: every leaf
              bitwise; K7 edges: as K5 edges, on the N=100 state;
+   K3 species — K3 with the species rows against the plain loop on the
+             N=40 state with C seeded from numpy (Ns=1, and Ns=2 with
+             cutc = 1.2 h), Q included and nonzero; then 10 steps of
+             ``simulate`` with those species and K7 moving the C rows
+             against the plain walk and the sort rebin, bitwise;
    K2 solid-free — the load-balance path's pass A: K2 against the plain
              loop on the balanced s=20 drifting blob (840,000 particles,
              x_edges, periodic x, no solids) after setup and 100 steps of
@@ -59,7 +75,13 @@ K7 with x columns are checked on the cavities.  Phases, one line each:
              kernel launched; no overflow or drift, particles conserved,
              fields finite, velocities and densities inside bounds set from
              the JAX package's own runs (the 3D cavity's at N=20, 200 steps,
-             run on the card here too); main balance:
+             run on the card here too); main convection:
+             natural_convection.build(N=200) -> setup -> simulate(1000) (K1
+             1001 launches, K5 21, nothing else), 42,436 particles kept,
+             0 <= C <= C0, walls and cylinder one half step from their
+             Dirichlet values (C == max(value + Q dt/2, 0) to the bit),
+             qdot > 0, and max|v|, qdot and the fluid's mean C inside bands
+             around the JAX package's own N=200 run; main balance:
              Scene.balance(8).fix_balance(8).build() of the s=20 blob ->
              setup -> simulate(1000, balance_log=log) (K2 once per step plus
              setup, K6 once per chunk plus setup, nothing else), overflow
@@ -69,11 +91,14 @@ K7 with x columns are checked on the cavities.  Phases, one line each:
              tag by tag within BLOB_TOL of the uniform-grid run of the same
              blob; and the N=50 cavity, the nx=24 FSI, the N=8 3D cavity
              (20 steps) and the s=1 balanced blob (110 steps, its re-cut at
-             step 100 included) on the card agree with the same runs
-             through the plain path on the CPU;
+             step 100 included) and the N=40 convection (x, v, rho and C) on
+             the card agree with the same runs through the plain path on
+             the CPU;
 10. speed  — particle-steps/s from the set-up state of the cavity at N=200
-             and N=1000, of FSI at nx=60 and nx=240, of the 3D cavity at N=40
-             and N=100 and of the balanced and the uniform blob at s=10 and
+             and N=1000, of natural convection at N=200 and N=1000 (1,012,036
+             particles, dt 2e-5; K1 with its species rows beside K1 on the
+             same state without them), of FSI at nx=60 and nx=240, of the 3D
+             cavity at N=40 and N=100 and of the balanced and the uniform blob at s=10 and
              s=20 (its 1000-step main path, twice), each chunk timed on the
              host clock and by CUDA events, the blob's chunks split into
              those with a re-cut, with a balance check and without; per
@@ -86,16 +111,19 @@ K7 with x columns are checked on the cavities.  Phases, one line each:
              are, at the run's occupancy, the valid row of every slot and
              the other input rows of the valid slots read once, and every
              output row of every slot written once;
-11. profile — one chunk of the 3D cavity at N=40 and N=100 and two of
-             the s=20 blob, balanced and uniform, under torch.profiler:
+11. profile — one chunk of the 3D cavity at N=40 and N=100, one of the
+             cavity and one of the convection at N=200 and N=1000 (the same
+             grids: K1 without and with its species rows) and two of the
+             s=20 blob,
+             balanced and uniform, under torch.profiler:
              device ops and device time per step, the busy share, and the
              pass-A and move kernels' device time per call; it fails if
              the profiler records no pass-A activity on the card.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (ten entries: the six
-kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants as
-their own entries), the last
+second-to-last line is ``{"kernels": [...]}`` (twelve entries: the six
+kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants and
+K1 and K3 with species as their own entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -117,10 +145,26 @@ FSI_NX = (60, 240)  # the reference's size, large speed size (~225k particles)
 CAVITY3D_N = (40, 100)  # parity/speed size (97k particles), main/speed size (1.19M)
 BLOB_S = (10, 20)  # drifting blob scales: speed size (210k), main size (840k)
 BLOB_N = {1: 2115, 10: 210_000, 20: 840_000}  # its particle counts
-SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8, "blob": 1}  # card vs CPU
-SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110}
-MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000}
-PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100}
+# natural convection: the reference's size (42,436 particles), large speed
+# size (1,012,036).  dt: the reference's 1e-4 at N=200; at N=1000 that value
+# scaled with the spacing, 2e-5, under the limits of h = 2.5e-3 there:
+# viscous 0.125 h^2/eta = 9.3e-5, thermal 0.125 h^2/kappa = 6.5e-5, acoustic
+# 0.25 h/c0 = 1.25e-4
+CONV_N = (200, 1000)
+CONV_DT = {200: 1e-4, 1000: 2e-5}
+CONV_PARTICLES = 42_436
+SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8, "blob": 1,
+         "convection": 40}  # card vs CPU
+SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110,
+               "convection": 20}
+MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000,
+              "convection": 1000}
+PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100,
+                "convection": 200}
+# the species counts K1 is held to on the convection state beyond the run's
+# own Ns=1 (2, and the kernels' limit), and the species supports cutc / h
+SPECIES_NS = (2, 4)
+SPECIES_CUTC = (1.2, 0.8)
 # the x_edges checks of K5 and K7: steps through simulate on the edged
 # grid and its rebin period (the 7/8-wide columns leave a drift budget of
 # 1/16 of a lattice spacing, which the lid-driven fluid crosses in ~3 steps)
@@ -154,13 +198,27 @@ CAVITY3D_JAX_STEP200 = {
     "fluid mean rho": (1.0000001192092896, 0.99999, 1.00001),
     "top fluid mean v_x": (0.062198467552661896, 0.98, 1.02),
 }
+# The JAX package's own run of the convection main path (N=200, Ra=1e4, dt
+# 1e-4, f32, jnp path, on the CPU: natural_convection.build -> setup ->
+# simulate(1000), then max|v| over the valid particles, tools/nusselt.py's
+# qdot of the cylinder and the mean of C over the fluid) at step 1000, and
+# the band [lo, hi] x that value the card's run must land in.  max|v| is
+# the start-up rearrangement of the lattice around the cylinder, one
+# particle's value, hence its wider band.
+CONV_JAX_STEP1000 = {
+    "max|v|": (0.019408298656344414, 0.98, 1.02),
+    "qdot": (0.14982187747955322, 0.98, 1.02),
+    "fluid mean C": (0.02610955916120595, 0.98, 1.02),
+}
 SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
+               "convection": {200: (200, 20), 1000: (50, 5)},
                "fsi": {60: (200, 10), 240: (50, 2)},
                "cavity3d": {40: (100, 10), 100: (50, 3)},
                "blob": {10: (1000, 5), 20: (1000, 3)}}
 # timed runs of simulate per size, each from the same set-up state (the
 # blob's: its 1000-step main path without the build, twice)
-SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2}
+SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2,
+                 "convection": 1}
 # FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
 # smaller and the start-up pressure waves (|v| up to ~0.4) drift particles
 # past the budget within 100 steps, so the run rebins every 20
@@ -173,6 +231,9 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # support (the transport-velocity pair body of csrc/pass_a_tv.cuh; K2's
 # mechanics and elastic terms cost more, so for K2 it is a floor)
 FLOPS_CANDIDATE, FLOPS_PAIR = 10, 120
+# and on each pair inside the species support cutc: the flux's common factor
+# and advection correction, then each species' term
+FLOPS_SPECIES_PAIR, FLOPS_PER_SPECIES = 30, 9
 
 
 def _nvidia_smi(query: str) -> str:
@@ -217,6 +278,47 @@ def _pass_a_parity(torch, pair, kernel, state, params, geom, cfg0, names, tag):
         if refs is None:
             refs = ref
     return errs, worst, refs
+
+
+def _seed_species(torch, state, params, ns, seed, cutc_scale=1.0):
+    """(state, params) with ``ns`` continuum species: the species the state
+    has are kept, the others' C drawn uniformly from [0, 1) on the valid
+    slots, kappa [T, T, ns] symmetric with a distinct value per type pair
+    and species (0.006..0.018, the convection's 0.012 in the middle), the
+    species support cutc = ``cutc_scale`` x h; all from numpy's ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dev, fdt = state.x.device, state.x.dtype
+    T, have = params.ntypes, min(params.n_sdpd, ns)
+    C = torch.as_tensor(rng.uniform(0.0, 1.0, (ns,) + tuple(state.valid.shape)),
+                        dtype=fdt, device=dev) * state.valid
+    C[:have] = state.C[:have]
+    kappa = rng.uniform(0.5, 1.5, (T, T, ns))
+    kappa = 0.012 * 0.5 * (kappa + kappa.transpose(1, 0, 2))
+    return (dataclasses.replace(state, C=C, Q=torch.zeros_like(C)),
+            dataclasses.replace(
+                params, cutc=cutc_scale * params.cut,
+                kappa=torch.as_tensor(kappa, dtype=fdt, device=dev)))
+
+
+def _species_parity(torch, pair, kernel, cases, geom, cfg, tag):
+    """Kernel vs plain pass A with species on each of ``cases`` (label,
+    state, params): every field and Q within TOL, both filter variants, and
+    every species' Q nonzero.  Returns ({label: Q's rel err with / without
+    the filter rows}, max abs err)."""
+    names = ("f", "drho", "num_den", "phi", "nw", "ddv", "de", "Q")
+    errs, worst = {}, 0.0
+    for label, state, params in cases:
+        err, err_abs, ref = _pass_a_parity(torch, pair, kernel, state, params,
+                                           geom, cfg, names, f"{tag} {label}")
+        q_least = float(ref["Q"].abs().amax(dim=(1, 2)).min())
+        if not q_least > 0.0:
+            raise AssertionError(f"{tag} {label} is vacuous: a species' "
+                                 f"max|Q| is {q_least!r}")
+        errs[label] = (err["Q"], err["Q/nf"], max(err.values()))
+        worst = max(worst, err_abs)
+    return errs, worst
 
 
 def _move_parity(torch, S, rebin_cuda, kernel, state, geom, drop, tag):
@@ -432,8 +534,9 @@ def _pass_a_rows(pair_cuda, pf, cfg, kernel):
     if cfg.density_filter_accs:
         names, accs = names + ("rhoI",), accs + pair_cuda.FILTER_ACC_ROWS
     cap, NC = pf["rho"].shape
-    return (sum(pf[n].reshape(-1, cap, NC).shape[0] for n in names),
-            sum(n for _, n in accs))
+    ns = pf["C"].shape[0]  # K1 and K3: the C rows in, the Q rows out
+    return (sum(pf[n].reshape(-1, cap, NC).shape[0] for n in names) + ns,
+            sum(n for _, n in accs) + ns)
 
 
 def main() -> int:
@@ -449,10 +552,12 @@ def main() -> int:
     from sph_bvf_tpu_torch.core import rebin_cuda
     from sph_bvf_tpu_torch.core import state as S
     from sph_bvf_tpu_torch.core.stepper import _rebin_drop, setup, simulate
-    from sph_bvf_tpu_torch.models import drift_blob, fsi, lid_cavity, lid_cavity3d
+    from sph_bvf_tpu_torch.models import (drift_blob, fsi, lid_cavity,
+                                          lid_cavity3d, natural_convection)
     from sph_bvf_tpu_torch.ops import pair, pair_cuda
     from sph_bvf_tpu_torch.parallel.balance import rebalance, report
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     counters = {"pass_a_2d": pair_cuda.pass_a_2d,
                 "pass_a_2d_rowloop": pair_cuda.pass_a_2d_rowloop,
@@ -460,6 +565,35 @@ def main() -> int:
                 "rebin_move_2d": rebin_cuda.rebin_move_2d,
                 "rebin_move_2d_gated": rebin_cuda.rebin_move_2d_gated,
                 "rebin_move_3d": rebin_cuda.rebin_move_3d}
+
+    def pass_a_timing(pass_a, state, params, geom, cfg, iters):
+        """Per-call ms of the wrapper ``pass_a`` and of the plain loop on
+        this state, and pass A's bound from these inputs at the state's
+        occupancy: the packed rows in and out, the valid candidates, the
+        pairs inside the support h and, with species, those inside cutc."""
+        pf = pair._per_particle(state, params, cfg)
+        n, slots = int(state.n_valid), geom.cap * geom.ncells_total
+        rows_in, rows_out = _pass_a_rows(pair_cuda, pf, cfg, pass_a.__name__)
+        cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
+        flops = FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside
+        ns = params.n_sdpd
+        inside_c = 0
+        if ns:
+            _, inside_c = _pass_a_work(torch, S, pair, state, geom,
+                                       float(params.cutc.max()))
+            flops += (FLOPS_SPECIES_PAIR + FLOPS_PER_SPECIES * ns) * inside_c
+        return {
+            "pass_a": _per_call_ms(
+                torch, lambda: pass_a(pf, params, geom, cfg), iters),
+            "pass_a_plain": _per_call_ms(
+                torch, lambda: pair._pass_a_plain(pf, params, geom, cfg), iters),
+            "pass_a_bound": _bound(_packed_bytes(slots, n, rows_in, rows_out),
+                                   flops),
+            "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
+                            f"{inside} pairs inside the support"
+                            + (f", {inside_c} inside cutc with {ns} species"
+                               if ns else "")),
+        }
 
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -480,6 +614,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # K1 and K3: every (filter, species count) instantiation, as the
+    # runtime reports it (registers, local-memory bytes: the spills)
+    for wrapper in (pair_cuda.pass_a_2d, pair_cuda.pass_a_3d):
+        attrs = {f"{'filter' if filt else 'nofilter'}/Ns={ns}":
+                 pair_cuda.kernel_attributes(wrapper, filt, ns)
+                 for ns in range(pair_cuda.MAX_SPECIES + 1)
+                 for filt in (True, False)}
+        print(f"[build] {wrapper.__name__} instantiations (registers per "
+              f"thread, local bytes per thread): {attrs}")
 
     # -- 3. K1 parity -------------------------------------------------------
     state, params, spec, _ = lid_cavity.build(N=CAVITY_N[0], device=dev)
@@ -549,6 +692,45 @@ def main() -> int:
         "pass_a_2d_rowloop")
     del state
 
+    # -- K1 with the species rows, K5 moving them ---------------------------
+    state, params, spec, _ = natural_convection.build(N=CONV_N[0], device=dev)
+    state = setup(state, params, spec, dt=CONV_DT[CONV_N[0]])
+    geom = spec.geom
+    k1s_err, k1s_abs = {}, 0.0
+    for when in (0, PARITY_STEPS["convection"]):
+        state = simulate(state, params, spec, when - int(state.step))
+        cases = [("Ns=1 as run", state, params)]
+        cases += [(f"Ns={ns} seeded",
+                   *_seed_species(torch, state, params, ns, seed=ns))
+                  for ns in SPECIES_NS]
+        cases += [(f"Ns=2 cutc={c}h",
+                   *_seed_species(torch, state, params, 2, seed=2, cutc_scale=c))
+                  for c in SPECIES_CUTC]
+        err, err_abs = _species_parity(torch, pair, pair_cuda.pass_a_2d, cases,
+                                       geom, spec.pair, f"K1 species step {when}")
+        k1s_err[when], k1s_abs = err, max(k1s_abs, err_abs)
+    print(f"[K1 species] pass A kernel with C rows == plain, every field and "
+          f"Q (natural convection N={CONV_N[0]}, {int(state.n_valid)} "
+          f"particles, cap {geom.cap}, {geom.ncells_total} cells, both filter "
+          f"variants); per case (Q's max|diff|/max|ref| with / without the "
+          f"filter rows, the worst field's): "
+          + "; ".join(f"step {when}: " + ", ".join(
+              f"{k} {v[0]:.3g} / {v[1]:.3g} ({v[2]:.3g})" for k, v in err.items())
+              for when, err in k1s_err.items())
+          + f"; max|diff| {k1s_abs!r}")
+    del cases
+    # drifted since its last rebin: the run's own species, then two
+    state = simulate(state, params, spec, 10)
+    what, k5s_abs = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_2d,
+                                 state, geom, _rebin_drop(spec), "K5 species")
+    s2, p2 = _seed_species(torch, state, params, 2, seed=2)
+    what2, err2 = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_2d,
+                               s2, geom, _rebin_drop(spec), "K5 species Ns=2")
+    print(f"[K5 species] rebin move kernel with C rows == plain walk == sort "
+          f"rebin, bitwise (natural convection N={CONV_N[0]}, step "
+          f"{int(state.step)}: Ns=1 {what}; Ns=2 seeded {what2})")
+    del state, s2, p2
+
     # -- 5. K2 parity -------------------------------------------------------
     state, params, spec, _ = fsi.build(nx=FSI_NX[0],
                                        tdamp_solid=FSI_RELEASE["parity"],
@@ -617,6 +799,47 @@ def main() -> int:
                                     _rebin_drop(spec), f"K7 N={N}")
         print(f"[K7] 3D rebin move kernel == plain walk == sort rebin, "
               f"bitwise (lid_cavity3d N={N}, step {int(state.step)}, {what})")
+        if N == CAVITY3D_N[0]:
+            cases = [("Ns=1 seeded",
+                      *_seed_species(torch, state, params, 1, seed=1)),
+                     (f"Ns=2 seeded cutc={SPECIES_CUTC[0]}h",
+                      *_seed_species(torch, state, params, 2, seed=2,
+                                     cutc_scale=SPECIES_CUTC[0]))]
+            k3s_err, k3s_abs = _species_parity(
+                torch, pair, pair_cuda.pass_a_3d, cases, geom, spec.pair,
+                f"K3 species N={N}")
+            print(f"[K3 species] 3D pass A kernel with C rows == plain, every "
+                  f"field and Q (lid_cavity3d N={N}, step {int(state.step)}, "
+                  f"C seeded, both filter variants); per case (Q's "
+                  f"max|diff|/max|ref| with / without the filter rows, the "
+                  f"worst field's): "
+                  + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g} ({v[2]:.3g})"
+                              for k, v in k3s_err.items())
+                  + f"; max|diff| {k3s_abs!r}")
+            # 10 steps with each case's species (K3 every step, K7 at the
+            # chunk's start), then K7 moving the C rows
+            k7s_what, t_k3s = [], None
+            for label, s3, p3 in cases:
+                for c in counters.values():
+                    c.launches = 0
+                s3 = simulate(s3, p3, spec, 10)
+                k3s_launches = pair_cuda.pass_a_3d.launches
+                what, _ = _move_parity(
+                    torch, S, rebin_cuda, rebin_cuda.rebin_move_3d, s3, geom,
+                    _rebin_drop(spec), f"K7 species {label}")
+                k7s_what.append(f"{label}: {what}")
+                # K3 with species is timed on the first case: one species
+                t_k3s = t_k3s or pass_a_timing(
+                    pair_cuda.pass_a_3d, s3, p3, geom,
+                    dataclasses.replace(spec.pair, density_filter_accs=False), 10)
+            print(f"[K7 species] 3D rebin move kernel with C rows == plain walk "
+                  f"== sort rebin, bitwise (lid_cavity3d N={N}, 10 steps of "
+                  f"simulate with each case's species, K3 launched "
+                  f"{k3s_launches} times in each: " + "; ".join(k7s_what)
+                  + f"); K3 with Ns=1 per call ms {t_k3s['pass_a']!r} vs plain "
+                  f"pass A {t_k3s['pass_a_plain']!r}, bound "
+                  f"{t_k3s['pass_a_bound']} [{card}]")
+            del cases, s3, p3
         if N == CAVITY3D_N[1]:
             k7e_launches, k7e_abs, t_k7e = edged_check(
                 "K7 edges", rebin_cuda.rebin_move_3d, state, params, spec,
@@ -696,7 +919,8 @@ def main() -> int:
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
-        state, params, spec, _ = build()
+        run_main.built = build()
+        state, params, spec, _ = run_main.built
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         n0 = int(state.n_valid)
@@ -745,6 +969,47 @@ def main() -> int:
     print(f"[main] cavity N={CAVITY_N[0]} build+setup+simulate("
           f"{MAIN_STEPS['cavity']}) in {secs[1]!r} s (build {secs[0]!r} s): "
           f"{n0} particles, {detail}, launches {cav_launches}")
+
+    # natural convection around the hot cylinder, at the reference's size
+    state, spec, n0, secs, conv_launches, vmax, checks = run_main(
+        lambda: natural_convection.build(N=CONV_N[0], device=dev),
+        CONV_DT[CONV_N[0]], ("pass_a_2d", "rebin_move_2d"),
+        MAIN_STEPS["convection"])
+    params, scene = run_main.built[1], run_main.built[3]
+    C, C0 = state.C[0], 1.0
+    fluid = state.valid & (state.solid_tag == 0)
+    in_group = lambda name: state.valid & (
+        (state.groupmask & scene.groupbit(name)) != 0)
+    # the Dirichlet forcing clamps C after the first half step; the second
+    # half step then adds Q dt/2, so at a step's end a clamped particle
+    # holds exactly max(value + Q dt/2, 0)
+    held = lambda name, value: bool((C[in_group(name)] == torch.clamp_min(
+        value + state.Q[0] * (0.5 * state.dt), 0.0)[in_group(name)]).all())
+    got = {"max|v|": vmax,
+           "qdot": natural_convection.qdot(state, params,
+                                           scene.groupbit("sphere")),
+           "fluid mean C": float(C[fluid].double().mean())}
+    checks.update({
+        f"{CONV_PARTICLES} particles": n0 == CONV_PARTICLES,
+        "C and Q finite": bool(torch.isfinite(state.C).all()
+                               and torch.isfinite(state.Q).all()),
+        "0 <= C <= C0": bool(((C >= 0.0) & (C <= C0))[state.valid].all()),
+        "walls held at C = 0": held("walls", 0.0),
+        "cylinder held at C = C0": held("sphere", C0),
+        "qdot > 0": got["qdot"] > 0.0,
+    })
+    for name, (ref, lo, hi) in CONV_JAX_STEP1000.items():
+        checks[f"{name} in [{lo}, {hi}] x JAX's {ref}"] = lo * ref <= got[name] <= hi * ref
+    detail = (", ".join(f"{k} {v!r}" for k, v in got.items())
+              + f", fluid max C {float(C[fluid].max())!r}, fluid max|rho-1| "
+              f"{float((state.rho[fluid] - 1.0).abs().max())!r}")
+    require(checks, "convection main path", detail)
+    print(f"[main convection] natural_convection N={CONV_N[0]} build+setup+"
+          f"simulate({MAIN_STEPS['convection']}) in {secs[1]!r} s (build "
+          f"{secs[0]!r} s): {n0} particles, cap {spec.geom.cap}, "
+          f"{spec.geom.ncells_total} cells, {detail} (bands "
+          f"{CONV_JAX_STEP1000}), launches {conv_launches} [{card}]")
+    del state, C
 
     # the FSI beam, released half way
     state, spec, n0, secs, fsi_launches, vmax, checks = run_main(
@@ -879,7 +1144,8 @@ def main() -> int:
     # small-input references: the card's kernel paths vs the CPU plain paths
     # bounds relative to each field's max|value| on the CPU: x 1e-5, v 1e-3,
     # rho 1e-4, S 1e-3 (the cavity's lid speed and density are 1)
-    bounds = {"x": 1e-5, "v": 1e-3, "rho": 1e-4, "S": 1e-3}
+    # the convection's C: 1e-4 (its Dirichlet value on the cylinder is 1)
+    bounds = {"x": 1e-5, "v": 1e-3, "rho": 1e-4, "S": 1e-3, "C": 1e-4}
 
     def card_vs_cpu(label, path, build, dt, fields):
         runs, logs = {}, {}
@@ -919,6 +1185,11 @@ def main() -> int:
                                                    inrun=True, device=d),
                 drift_blob.timestep(SMALL["blob"]), ("x", "v", "rho"))
 
+    card_vs_cpu(f"natural convection N={SMALL['convection']}", "convection",
+                lambda d: natural_convection.build(N=SMALL["convection"],
+                                                   device=d),
+                1e-4, ("x", "v", "rho", "C"))
+
     # -- 10. speed ----------------------------------------------------------
     def speed(label, path, size, state, params, spec, pass_a, move):
         """Steady-state particle-steps/s of ``simulate`` (with its re-cuts
@@ -939,14 +1210,10 @@ def main() -> int:
         state, log = runs[-1][:2]
         geom = _current_geom(spec.geom, log)
         cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
-        pf = pair._per_particle(state, params, cfg)
         drop = _rebin_drop(spec)
         t = _move_timing(torch, S, rebin_cuda, move, state, geom, drop, iters)
+        t.update(pass_a_timing(pass_a, state, params, geom, cfg, iters))
         t.update({
-            "pass_a": _per_call_ms(
-                torch, lambda: pass_a(pf, params, geom, cfg), iters),
-            "pass_a_plain": _per_call_ms(
-                torch, lambda: pair._pass_a_plain(pf, params, geom, cfg), iters),
             "rebin_kernel": _per_call_ms(
                 torch, lambda: S.rebin(state, geom, drop=drop, use_kernel=True),
                 iters),
@@ -957,13 +1224,17 @@ def main() -> int:
                 torch, lambda: S.rebin(state, geom, drop=drop, use_kernel=True),
                 iters),
         })
-        # pass A's bound from these inputs at this state's occupancy (n of
-        # the slots valid)
         slots = geom.cap * geom.ncells_total
-        rows_in, rows_out = _pass_a_rows(pair_cuda, pf, cfg, pass_a.__name__)
-        cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
-        t["pass_a_bound"] = _bound(_packed_bytes(slots, n, rows_in, rows_out),
-                                   FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside)
+        species = ""
+        if params.n_sdpd:
+            # the same kernel on the same state without its species rows
+            bare_s = dataclasses.replace(state, C=state.C[:0], Q=state.Q[:0])
+            bare_p = dataclasses.replace(params, kappa=params.kappa[..., :0])
+            pf0 = pair._per_particle(bare_s, bare_p, cfg)
+            t["pass_a_no_species"] = _per_call_ms(
+                torch, lambda: pass_a(pf0, bare_p, geom, cfg), iters)
+            species = (f" with its {params.n_sdpd} species row(s), "
+                       f"{t['pass_a_no_species']!r} without them,")
         t["rates"] = [n * steps / secs for _, _, secs, _ in runs]
         t["rate"] = sum(t["rates"]) / len(t["rates"])
         t["chunks"] = [_chunk_split(ch, lg, every) for _, lg, _, ch in runs]
@@ -995,15 +1266,14 @@ def main() -> int:
               f"{len(runs)} run(s) in {[secs for _, _, secs, _ in runs]!r} s = "
               f"{t['rates']!r} particle-steps/s; per chunk, median (host ms, "
               f"device-timeline ms) and count: {t['chunks']}; per call ms: "
-              f"{pass_a.__name__} {t['pass_a']!r} vs plain pass A "
+              f"{pass_a.__name__} {t['pass_a']!r}{species} vs plain pass A "
               f"{t['pass_a_plain']!r}; {move.__name__}"
               f"{' (x_edges)' if geom.x_edges else ''} {t['move']!r} vs plain "
               f"walk {t['move_plain']!r}; rebin with the kernel "
               f"{t['rebin_kernel']!r} ({t['rebin_host']!r} on the host clock) "
               f"vs sort rebin {t['rebin_sort']!r}{recut}; "
               f"bounds at occupancy {n / slots!r} ({n} of {slots} slots): pass "
-              f"A {t['pass_a_bound']} ({rows_in} + {rows_out} rows, {cand} "
-              f"candidates, {inside} pairs inside the support), move "
+              f"A {t['pass_a_bound']} ({t['pass_a_work']}), move "
               f"{t['move_bound']} ({t['move_rows']} + {t['move_rows']} rows) "
               f"[{card}]")
         return t
@@ -1014,6 +1284,15 @@ def main() -> int:
         state = setup(state, params, spec, dt=dt)
         t_cav[N] = speed(f"cavity N={N}", "cavity", N, state, params, spec,
                          pair_cuda.pass_a_2d, rebin_cuda.rebin_move_2d)
+        del state
+    t_conv = {}
+    for N in CONV_N:
+        state, params, spec, _ = natural_convection.build(N=N, dt=CONV_DT[N],
+                                                          device=dev)
+        state = setup(state, params, spec, dt=CONV_DT[N])
+        t_conv[N] = speed(f"natural convection N={N} (dt {CONV_DT[N]})",
+                          "convection", N, state, params, spec,
+                          pair_cuda.pass_a_2d, rebin_cuda.rebin_move_2d)
         del state
     t_fsi = {}
     for nx in FSI_NX:
@@ -1077,6 +1356,18 @@ def main() -> int:
                 lambda N=N: lid_cavity3d.build(N=N, device=dev), 1e-4,
                 (("K3", "pass_a_3d_kernel"), ("K7", "rebin_move_3d_kernel")))
                for N in CAVITY3D_N]
+    # the cavity beside the convection on the same grids: K1 without and
+    # with its species rows, and the ops the three fixes and the species
+    # half-steps add to a step
+    targets += [(f"cavity N={N}",
+                 lambda N=N, dt=dt: lid_cavity.build(N=N, dt=dt, device=dev), dt,
+                 (("K1", "pass_a_2d_kernel"), ("K5", "rebin_move_2d_kernel")))
+                for N, dt in zip(CAVITY_N, (1e-4, 5e-6))]
+    targets += [(f"natural convection N={N}",
+                 lambda N=N: natural_convection.build(N=N, dt=CONV_DT[N],
+                                                      device=dev), CONV_DT[N],
+                 (("K1 species", "pass_a_2d_kernel"),
+                  ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
     # the blob, balanced and uniform, over two chunks without a re-cut (a
     # chunk of 5 steps is too short to show the pass-A mix)
     targets += [(
@@ -1147,6 +1438,13 @@ def main() -> int:
          k6e_abs, blob_t, "move"),
         ("rebin_move_3d (x_edges)", "csrc/rebin_move_3d.cu",
          "core/rebin_pallas.py:595", k7e_launches, k7e_abs, t_k7e, "move"),
+        # with the species rows: K1 at the convection's N=200 (its main
+        # path's launches), K3 at the 3D cavity's N=40 with one seeded
+        # species (its launches from the 10-step seeded run)
+        ("pass_a_2d (species)", "csrc/pass_a_2d.cu", "ops/pair_pallas.py:308",
+         conv_launches["pass_a_2d"], k1s_abs, t_conv[CONV_N[0]], "pass_a"),
+        ("pass_a_3d (species)", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106",
+         k3s_launches, k3s_abs, t_k3s, "pass_a"),
     )
     # no single PyTorch call computes pass A or the locality move
     kernels = [
@@ -1157,6 +1455,8 @@ def main() -> int:
          "library_ms": None}
         for name, src, tpu, launches, err, t, op in rows
     ]
+    print(f"[time] {time.perf_counter() - t_start!r} s from the first build "
+          f"to here [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

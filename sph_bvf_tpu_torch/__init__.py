@@ -10,9 +10,11 @@ the tests hold the two against each other on identical inputs
 
 This package imports ``torch`` and never ``jax``.  Branches that the ported
 slices (the 2D lid-driven cavity, ``models/lid_cavity.py``, the FSI beam in
-a periodic channel, ``models/fsi.py``, and the 3D lid-driven cavity,
-``models/lid_cavity3d.py``) do not run raise ``NotImplementedError``; they
-never fall back to other code.  Entry points build on the card (``cuda``)
+a periodic channel, ``models/fsi.py``, the 3D lid-driven cavity,
+``models/lid_cavity3d.py``, the load-balanced drifting blob,
+``models/drift_blob.py``, and natural convection with its continuum
+species, ``models/natural_convection.py``) do not run raise
+``NotImplementedError``; they never fall back to other code.  Entry points build on the card (``cuda``)
 unless the caller names another device.
 
 Kernels (``csrc/*.cu``) are compiled by ``_build.py`` with ``nvcc`` at first

@@ -1,10 +1,10 @@
 """Scene builder: the input-script surface as a Python API (PyTorch).
 
-Port of the part of ``sph_bvf_tpu/api/scene.py`` that the 2D and 3D
-lid-driven cavities and the FSI beam use: block regions with
-union/subtract/complement, square and simple-cubic lattice filling (the
-lattice may change between ``create_atoms`` calls), groups, per-atom
-setters, pair/integrator/fix selection and ``build``.  Scene state is
+Port of ``sph_bvf_tpu/api/scene.py``: every region (block, sphere, circle,
+cylinder, cone, plane, prism) with union/intersect/subtract/complement,
+square and simple-cubic lattice filling (the lattice may change between
+``create_atoms`` calls), ``delete_atoms``, groups by region, type or mask,
+per-atom setters, pair/integrator/fix selection and ``build``.  Scene state is
 host-side numpy arrays in creation (tag) order, filled and grouped by
 whole-array numpy operations (no per-site Python loop);
 ``build(device=...)`` bins everything into the cell-slot ``State`` on that
@@ -17,8 +17,7 @@ the simulation box; region containment is inclusive like Region::match.
 Load balancing: ``balance`` cuts non-uniform x columns at build,
 ``fix_balance`` attaches the in-run re-cut (``parallel/balance.py``).
 
-Not ported yet: sphere/circle/cylinder/cone/plane/prism regions,
-``delete_atoms``, ``set_type``, ``group_type`` and SSA configs.
+Not ported yet: SSA configs (``Scene.ssa``).
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from sph_bvf_tpu_torch.core import fixes as fixes_mod
 from sph_bvf_tpu_torch.core.integrate import IntegratorConfig
 from sph_bvf_tpu_torch.core.state import (
     GROUP_ALL,
@@ -45,7 +45,7 @@ from sph_bvf_tpu_torch.ops.pair import PairConfig
 
 
 # ---------------------------------------------------------------------------
-# Regions (region_block.cpp, region_union.cpp ...)
+# Regions (region_block.cpp, region_sphere.cpp, region_union.cpp ...)
 # ---------------------------------------------------------------------------
 
 
@@ -71,6 +71,58 @@ class Region:
               zlo=-np.inf, zhi=np.inf):
         return _Block((xlo, ylo, zlo), (xhi, yhi, zhi))
 
+    @staticmethod
+    def sphere(cx, cy, cz, r):
+        return _Sphere((cx, cy, cz), r)
+
+    @staticmethod
+    def circle(cx, cy, r):
+        """2D disk (z ignored)."""
+        return _Circle((cx, cy), r)
+
+    @staticmethod
+    def cylinder(axis, c1, c2, r, lo, hi):
+        """region_cylinder.cpp: axis in 'xyz'; (c1, c2) are the center
+        coordinates in the two remaining dims (x: y,z; y: x,z; z: x,y)."""
+        return _Cylinder(axis, c1, c2, r, lo, hi)
+
+    @staticmethod
+    def cone(axis, c1, c2, radlo, radhi, lo, hi):
+        """region_cone.cpp: radius varies linearly radlo@lo -> radhi@hi."""
+        return _Cone(axis, c1, c2, radlo, radhi, lo, hi)
+
+    @staticmethod
+    def plane(px, py, pz, nx, ny, nz):
+        """region_plane.cpp: inside = the half-space the normal points into."""
+        return _Plane((px, py, pz), (nx, ny, nz))
+
+    @staticmethod
+    def prism(xlo, xhi, ylo, yhi, zlo, zhi, xy, xz, yz):
+        """region_prism.cpp: parallelepiped with tilt factors xy/xz/yz."""
+        return _Prism((xlo, ylo, zlo), (xhi, yhi, zhi), (xy, xz, yz))
+
+    @staticmethod
+    def union(*regions):
+        """region_union.cpp: point is inside any sub-region."""
+        out = regions[0]
+        for r in regions[1:]:
+            out = out | r
+        return out
+
+    @staticmethod
+    def intersect(*regions):
+        """region_intersect.cpp: point is inside every sub-region."""
+        out = regions[0]
+        for r in regions[1:]:
+            out = out & r
+        return out
+
+
+_AXIS = {"x": 0, "y": 1, "z": 2}
+# the two "other" dims for a cylinder/cone axis, in LAMMPS's c1/c2 order
+# (region_cylinder.cpp: x -> (y, z), y -> (x, z), z -> (x, y))
+_OTHER = {0: (1, 2), 1: (0, 2), 2: (0, 1)}
+
 
 @dataclasses.dataclass
 class _Block(Region):
@@ -81,6 +133,112 @@ class _Block(Region):
         lo = np.asarray(self.lo)
         hi = np.asarray(self.hi)
         return np.all((x >= lo) & (x <= hi), axis=-1)
+
+
+@dataclasses.dataclass
+class _Sphere(Region):
+    c: Tuple[float, float, float]
+    r: float
+
+    def contains(self, x):
+        d = x - np.asarray(self.c)
+        return np.sum(d * d, axis=-1) <= self.r * self.r
+
+
+@dataclasses.dataclass
+class _Circle(Region):
+    c: Tuple[float, float]
+    r: float
+
+    def contains(self, x):
+        d = x[..., :2] - np.asarray(self.c)
+        return np.sum(d * d, axis=-1) <= self.r * self.r
+
+
+def _in_axial(x, axis, c1, c2, r, lo, hi):
+    """Within radius ``r`` (scalar or per point) of the axis line through
+    (c1, c2) and between ``lo`` and ``hi`` along it."""
+    a = _AXIS[axis]
+    o1, o2 = _OTHER[a]
+    d1 = x[..., o1] - c1
+    d2 = x[..., o2] - c2
+    return (d1 * d1 + d2 * d2 <= r * r) & (x[..., a] >= lo) & (x[..., a] <= hi)
+
+
+@dataclasses.dataclass
+class _Cylinder(Region):
+    axis: str
+    c1: float
+    c2: float
+    r: float
+    lo: float
+    hi: float
+
+    def contains(self, x):
+        return _in_axial(x, self.axis, self.c1, self.c2, self.r, self.lo, self.hi)
+
+
+@dataclasses.dataclass
+class _Cone(Region):
+    axis: str
+    c1: float
+    c2: float
+    radlo: float
+    radhi: float
+    lo: float
+    hi: float
+
+    def __post_init__(self):
+        # region_cone.cpp rejects a degenerate axis extent; without this the
+        # interpolation below divides by zero and the region is silently empty
+        if not self.hi > self.lo:
+            raise ValueError(
+                f"cone axis extent must satisfy hi > lo (got {self.lo}, {self.hi})"
+            )
+
+    def contains(self, x):
+        t = (x[..., _AXIS[self.axis]] - self.lo) / (self.hi - self.lo)
+        r = self.radlo + t * (self.radhi - self.radlo)
+        return _in_axial(x, self.axis, self.c1, self.c2, r, self.lo, self.hi)
+
+
+@dataclasses.dataclass
+class _Plane(Region):
+    p: Tuple[float, float, float]
+    n: Tuple[float, float, float]
+
+    def __post_init__(self):
+        if not np.linalg.norm(np.asarray(self.n, dtype=float)) > 0.0:
+            raise ValueError("plane normal must be nonzero (region_plane.cpp)")
+
+    def contains(self, x):
+        n = np.asarray(self.n, dtype=float)
+        n = n / np.linalg.norm(n)
+        return np.sum((x - np.asarray(self.p)) * n, axis=-1) >= 0.0
+
+
+@dataclasses.dataclass
+class _Prism(Region):
+    lo: Tuple[float, float, float]
+    hi: Tuple[float, float, float]
+    tilt: Tuple[float, float, float]  # xy, xz, yz
+
+    def contains(self, x):
+        # fractional coordinates of the upper-triangular edge vectors
+        # (region_prism.cpp), solved back to front
+        (xlo, ylo, zlo), (xhi, yhi, zhi) = self.lo, self.hi
+        xy, xz, yz = self.tilt
+        eps = 1e-12
+        if zhi == zlo:  # degenerate z extent (2D scene): only z == zlo inside
+            sz = np.where(np.abs(x[..., 2] - zlo) <= eps, 0.0, 2.0)
+        else:
+            sz = (x[..., 2] - zlo) / (zhi - zlo)
+        sy = (x[..., 1] - ylo - sz * yz) / (yhi - ylo)
+        sx = (x[..., 0] - xlo - sy * xy - sz * xz) / (xhi - xlo)
+        ok = np.ones(x.shape[:-1], bool)
+        for s in (sx, sy, sz):
+            ok &= (s >= -eps) & (s <= 1.0 + eps)
+        return ok
 
 
 @dataclasses.dataclass
@@ -229,6 +387,21 @@ class Scene:
             [self._groupmask, np.full(len(new), GROUP_ALL)])
         return self
 
+    def delete_atoms(self, region: Region):
+        keep = ~region.contains(self._x)
+        for key, arr in list(self._per_atom.items()):
+            if arr.shape[0] == keep.shape[0]:
+                self._per_atom[key] = arr[keep]
+        self._x = self._x[keep]
+        self._type = self._type[keep]
+        self._groupmask = self._groupmask[keep]
+        return self
+
+    def set_type(self, group: str, ptype: int):
+        """set group G type T (set.cpp type keyword)."""
+        self._type[self.in_group(group)] = ptype - 1
+        return self
+
     # -- groups -------------------------------------------------------------
     def _groupbit(self, name: str) -> int:
         if name not in self._groups:
@@ -238,6 +411,9 @@ class Scene:
 
     def group_region(self, name: str, region: Region):
         return self.group_expr(name, region.contains(self._x))
+
+    def group_type(self, name: str, ptype: int):
+        return self.group_expr(name, self._type == ptype - 1)
 
     def group_expr(self, name: str, members: np.ndarray):
         """Assign a group from a boolean per-atom mask (group subtract etc.)."""
@@ -537,6 +713,14 @@ class Scene:
             elastic_present=elastic,
             **pair_kwargs,
         )
+        # fix ssa_tsdpd/buoyancy rejects a body force along a periodic
+        # dimension (fix_ssa_tsdpd_buoyancy.cpp:63-68)
+        for fobj in self._fixes:
+            if isinstance(fobj, fixes_mod.Buoyancy) and self.periodic[fobj.dim]:
+                raise ValueError(
+                    f"buoyancy along periodic dimension {fobj.dim} "
+                    "(fix_ssa_tsdpd_buoyancy.cpp:63-68)"
+                )
         spec = ModelSpec(
             geom=geom,
             pair=pair_cfg,

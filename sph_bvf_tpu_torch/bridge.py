@@ -27,7 +27,9 @@ from sph_bvf_tpu_torch.ops.pair import PairConfig
 from sph_bvf_tpu_torch.parallel.balance import BalanceFix
 
 # the fixes the port has, by class name
-_FIXES = {"SetForce": fixes_mod.SetForce, "Buffer": fixes_mod.Buffer}
+_FIXES = {name: getattr(fixes_mod, name)
+          for name in ("SetForce", "Buffer", "Forcing", "Buoyancy",
+                       "ChemRxnMassAction", "DtAdaptive")}
 
 
 def to_numpy(obj) -> dict:

@@ -7,7 +7,8 @@
 // the 27 stencil cells, j != i, for the configuration K1 serves: the
 // transport-velocity pressure switch, fixed BVF wall solids, the diagonal
 // artificial stress of non-elastic solids, no periodic axis, with (FILTER) or
-// without the Shepard-filter accumulators rhoAux1/rhoAux2.  The plain PyTorch
+// without the Shepard-filter accumulators rhoAux1/rhoAux2, and with NS
+// continuum species (the C rows in, the flux Q out).  The plain PyTorch
 // version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
 //
 // What bounds it on an H100: at the 1.19M-particle cavity (N=100: cap 38,
@@ -39,11 +40,12 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool FILTER>
+template <bool FILTER, int NS>
 __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
     const float* __restrict__ pf, const float* __restrict__ tab,
-    float* __restrict__ out, int ntypes, int cap, int nx, int ny, int nz) {
-  constexpr int A = tv::kAccs<FILTER>;
+    const float* __restrict__ stab, float* __restrict__ out, int ntypes,
+    int advect, int cap, int nx, int ny, int nz) {
+  constexpr int A = tv::kAccs<FILTER, NS>;
   const int nc = nx * ny * nz;
   const long long m = (long long)cap * nc;  // slots per field row
   const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -59,7 +61,7 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
 
   // slots at or above the cell's occupancy are invalid: nothing to sum
   if (tv::ld(pf, m, tv::R_VALID, s) != 0.f) {
-    const tv::ISide I = tv::load_i(pf, m, s, ntypes);
+    const tv::ISide<NS> I = tv::load_i<FILTER, NS>(pf, m, s, ntypes);
     for (int ox = -1; ox <= 1; ++ox) {
       const int sx = cx + ox;
       if (sx < 0 || sx >= nx) continue;
@@ -75,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
             // compacted slots: the first empty one ends the cell
             if (tv::ld(pf, m, tv::R_VALID, k) == 0.f) break;
             if (k == s) continue;  // the self pair (zero offset, j == i)
-            tv::add_pair<FILTER>(pf, m, k, tab, tt, I, acc);
+            tv::add_pair<FILTER, NS>(pf, m, k, tab, stab, advect, tt, I, acc);
           }
         }
       }
@@ -87,19 +89,48 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
 
 }  // namespace
 
-extern "C" int pass_a_3d(const float* pf, const float* tab, float* out,
-                         int ntypes, int cap, int nx, int ny, int nz,
-                         int filter, cudaStream_t stream) {
+// filter: with the Shepard-filter rows; ns: the species count (stab is read
+// only when ns > 0); advect: PairConfig.species_advection
+extern "C" int pass_a_3d(const float* pf, const float* tab, const float* stab,
+                        float* out, int ntypes, int ns, int advect, int cap,
+                        int nx, int ny, int nz, int filter, cudaStream_t stream) {
   const long long m = (long long)cap * nx * ny * nz;
   if (m == 0) return 0;
   const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
-  if (filter)
-    pass_a_3d_kernel<true><<<blocks, kThreads, 0, stream>>>(pf, tab, out, ntypes,
-                                                             cap, nx, ny, nz);
-  else
-    pass_a_3d_kernel<false><<<blocks, kThreads, 0, stream>>>(pf, tab, out, ntypes,
-                                                              cap, nx, ny, nz);
+  switch (tv::variant_key(filter != 0, ns)) {
+#define X(F, N)                                                            \
+  case tv::variant_key(F, N):                                              \
+    pass_a_3d_kernel<F, N><<<blocks, kThreads, 0, stream>>>(               \
+        pf, tab, stab, out, ntypes, advect, cap, nx, ny, nz);                  \
+    break;
+    TV_FOR_EACH_VARIANT(X)
+#undef X
+    default:
+      return (int)cudaErrorInvalidValue;  // ns beyond tv::kMaxSpecies
+  }
   return (int)cudaGetLastError();
+}
+
+// registers per thread and local-memory (spill) bytes per thread of the
+// (filter, ns) instantiation, as the runtime reports them
+extern "C" int pass_a_3d_attributes(int filter, int ns, int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (tv::variant_key(filter != 0, ns)) {
+#define X(F, N)                                                      \
+  case tv::variant_key(F, N):                                        \
+    err = cudaFuncGetAttributes(&attr, pass_a_3d_kernel<F, N>);      \
+    break;
+    TV_FOR_EACH_VARIANT(X)
+#undef X
+    default:
+      break;
+  }
+  if (err == cudaSuccess) {
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+  }
+  return (int)err;
 }
 
 extern "C" const char* sph_cuda_error_string(int code) {

@@ -5,14 +5,29 @@
 // It is ops/pair.py `_pass_a_offset` for one pair under the configuration
 // both kernels serve: the transport-velocity pressure switch, fixed BVF wall
 // solids, the diagonal artificial stress of non-elastic solids, with (FILTER)
-// or without the Shepard-filter accumulators rhoAux1/rhoAux2.  A candidate
-// outside the kernel support skips all arithmetic, which changes no sum
-// because every term carries a factor W or dW/dr that is exactly zero there.
+// or without the Shepard-filter accumulators rhoAux1/rhoAux2, and with NS
+// continuum species (the tSDPD flux Q of the concentrations C).  A candidate
+// outside the kernel support h skips the mechanics arithmetic, which changes
+// no sum because every term carries a factor W or dW/dr that is exactly zero
+// there.  The species flux has its own support cutc (a separate per-pair
+// table, larger or smaller than h): it is tested and summed on its own,
+// before the test against h.
+//
+// NS is a template parameter, instantiated for 0..kMaxSpecies: the Q sums
+// stay in registers beside the others (a runtime species count would index
+// the accumulator array dynamically and push it to local memory), and the
+// NS = 0 instantiation carries no species code at all.  Beyond kMaxSpecies
+// the C entry points return cudaErrorInvalidValue and the Python wrapper
+// raises before launching.
 //
 // Layouts (kept in step with sph_bvf_tpu_torch/ops/pair_cuda.py):
-//   pf  f32 [F, cap, NC], F = 20 (FILTER) or 19: rows PF_ROWS
-//   tab f32 [5, T*T]: inv_h, eta, inv_wdelta, W' factor, W factor per type pair
-//   acc f32 [A], A = 15 (FILTER) or 13: rows ACC_ROWS
+//   pf   f32 [F, cap, NC], F = 19 + FILTER + NS: rows PF_ROWS, rhoI (FILTER),
+//        then C
+//   tab  f32 [5, T*T]: inv_h, eta, inv_wdelta, W' factor, W factor per type pair
+//   stab f32 [4 + NS, T*T] (NS > 0): 1/cutc, the W' factor of cutc, twice the
+//        harmonic mass, 0.01 cutc^2, then kappa of each species per type pair
+//   acc  f32 [A], A = 13 + 2 FILTER + NS: rows ACC_ROWS, the filter rows
+//        (FILTER), then Q
 
 #pragma once
 
@@ -27,8 +42,22 @@ constexpr int O_NUMDEN = 0, O_DDV = 1, O_F = 4, O_DRHO = 7, O_DE = 8,
               O_PHI = 9, O_NW = 10, O_RHOAUX1 = 13, O_RHOAUX2 = 14;
 constexpr int T_INVH = 0, T_ETA = 1, T_INVWD = 2, T_CWFD = 3, T_CWF = 4;
 
+constexpr int S_INVHC = 0, S_CWFD = 1, S_M2 = 2, S_HC2 = 3, S_KAPPA = 4;
+constexpr int kMaxSpecies = 4;
+
+// accumulator rows, and the first C row of pf and Q row of acc
+template <bool FILTER, int NS>
+constexpr int kAccs = (FILTER ? 15 : 13) + NS;
 template <bool FILTER>
-constexpr int kAccs = FILTER ? 15 : 13;
+constexpr int kRowC = FILTER ? 20 : 19;
+template <bool FILTER>
+constexpr int kRowQ = FILTER ? 15 : 13;
+
+// every (FILTER, NS) instantiation, for the C entry points' dispatch
+#define TV_FOR_EACH_VARIANT(X)                                              \
+  X(false, 0) X(true, 0) X(false, 1) X(true, 1) X(false, 2) X(true, 2)      \
+  X(false, 3) X(true, 3) X(false, 4) X(true, 4)
+constexpr int variant_key(bool filter, int ns) { return 2 * ns + (filter ? 1 : 0); }
 
 // one field of one slot; m is the slot count of a field row (cap * NC)
 __device__ __forceinline__ float ld(const float* __restrict__ pf, long long m,
@@ -37,16 +66,20 @@ __device__ __forceinline__ float ld(const float* __restrict__ pf, long long m,
 }
 
 // the i-side values every pair of a thread reads
+template <int NS>
 struct ISide {
   int tp0;  // ti * ntypes: the row of i's type in the [T, T] tables
   bool solid;
   float x[3], v[3], e[3], b[3];  // b = v - vest
   float rho, m, B, P, V2, AS;
+  float inv_rho, C[NS > 0 ? NS : 1];  // species only (NS > 0)
 };
 
-__device__ __forceinline__ ISide load_i(const float* __restrict__ pf,
-                                        long long m, long long s, int ntypes) {
-  ISide I;
+template <bool FILTER, int NS>
+__device__ __forceinline__ ISide<NS> load_i(const float* __restrict__ pf,
+                                            long long m, long long s,
+                                            int ntypes) {
+  ISide<NS> I;
   I.tp0 = (int)ld(pf, m, R_PTYPE, s) * ntypes;
   I.solid = ld(pf, m, R_SOLID, s) != 0.f;
 #pragma unroll
@@ -62,24 +95,63 @@ __device__ __forceinline__ ISide load_i(const float* __restrict__ pf,
   I.P = ld(pf, m, R_PRHO2, s);
   I.V2 = ld(pf, m, R_V2, s);
   I.AS = ld(pf, m, R_ASD, s);
+  if constexpr (NS > 0) {
+    // 1/rho is not a packed row: IEEE division rounds it exactly as the plain
+    // path's per-particle reciprocal
+    I.inv_rho = 1.f / I.rho;
+#pragma unroll
+    for (int c = 0; c < NS; ++c) I.C[c] = ld(pf, m, kRowC<FILTER> + c, s);
+  }
   return I;
 }
 
 // add the pair (i, j = slot k) to acc; the caller has checked that j is valid
-// and not i
-template <bool FILTER>
+// and not i.  advect: the transport-velocity advection correction of the
+// species flux (PairConfig.species_advection).
+template <bool FILTER, int NS>
 __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
                                          long long m, long long k,
-                                         const float* __restrict__ tab, int tt,
-                                         const ISide& I, float* acc) {
+                                         const float* __restrict__ tab,
+                                         const float* __restrict__ stab,
+                                         int advect, int tt,
+                                         const ISide<NS>& I, float* acc) {
   const float dx0 = I.x[0] - ld(pf, m, R_X, k), dx1 = I.x[1] - ld(pf, m, R_X + 1, k),
               dx2 = I.x[2] - ld(pf, m, R_X + 2, k);
   const float rsq = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
   const float r = sqrtf(rsq);
   const int tp = I.tp0 + (int)ld(pf, m, R_PTYPE, k);
+
+  // ---- species flux, inside its own support cutc
+  if constexpr (NS > 0) {
+    const float qc = r * __ldg(stab + S_INVHC * tt + tp);
+    const float tc = fmaxf(1.f - qc, 0.f);
+    if (tc != 0.f) {
+      const float wfd_c = __ldg(stab + S_CWFD * tt + tp) * tc * tc;
+      const float base = __ldg(stab + S_M2 * tt + tp) *
+                         (I.inv_rho + 1.f / ld(pf, m, R_RHO, k)) * rsq * wfd_c /
+                         (rsq + __ldg(stab + S_HC2 * tt + tp));
+      // (vest - v).dx of i and of j; I.b is v - vest, hence the sign
+      float corr_i = 0.f, corr_j = 0.f, mw = 0.f;
+      if (advect) {
+        corr_i = -(I.b[0] * dx0 + I.b[1] * dx1 + I.b[2] * dx2);
+        corr_j = (ld(pf, m, R_VEST, k) - ld(pf, m, R_V, k)) * dx0 +
+                 (ld(pf, m, R_VEST + 1, k) - ld(pf, m, R_V + 1, k)) * dx1 +
+                 (ld(pf, m, R_VEST + 2, k) - ld(pf, m, R_V + 2, k)) * dx2;
+        mw = ld(pf, m, R_MRHO, k) * wfd_c;
+      }
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        const float Cj = ld(pf, m, kRowC<FILTER> + c, k);
+        acc[kRowQ<FILTER> + c] +=
+            __ldg(stab + (S_KAPPA + c) * tt + tp) * (I.C[c] - Cj) * base -
+            mw * (I.C[c] * corr_i + Cj * corr_j);
+      }
+    }
+  }
+
   const float q = r * __ldg(tab + T_INVH * tt + tp);
   const float t = fmaxf(1.f - q, 0.f);
-  if (t == 0.f) return;  // outside the support: every term is 0
+  if (t == 0.f) return;  // outside the support h: every remaining term is 0
   const float wfd = __ldg(tab + T_CWFD * tt + tp) * t * t;
   const float wf = __ldg(tab + T_CWF * tt + tp) * t * t * t * (1.f + 3.f * q);
 

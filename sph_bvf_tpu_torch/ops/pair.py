@@ -17,7 +17,9 @@ FSI beam): the symmetric pressure force, XSPH, BVF walls of fixed solids,
 free solids with the Pereira artificial viscosity, elastic solids (the
 9-component artificial stress, the deviatoric solid force and the Jaumann
 stress rate), periodic axes, with and without the Shepard-filter
-accumulators.  Every other branch raises ``NotImplementedError`` (see
+accumulators, and continuum species transport (the tSDPD flux ``Q`` of
+``C``, with its own support ``cutc`` and the transport-velocity advection
+correction).  Every other branch raises ``NotImplementedError`` (see
 ``_unported``).
 """
 
@@ -103,7 +105,6 @@ def _unported(params: Params, cfg: PairConfig) -> list:
          cfg.g0_chem_coupling),
         ("weighted-solid pass B (weighted_solid)",
          cfg.solids_present and cfg.weighted_solid),
-        ("continuum species (n_sdpd > 0)", params.n_sdpd > 0),
         ("SSA species (n_ssa > 0)", params.n_ssa > 0),
     ) if needed]
 
@@ -154,7 +155,8 @@ def _per_particle(state: State, params: Params, cfg: PairConfig):
         stress = dict(ASd=tensile(-p_for_as))
     return dict(
         valid=state.valid, x=state.x, v=state.v, vest=state.vest,
-        rho=state.rho, rhoI=state.rhoI, S=state.S, ptype=t, solid=solid,
+        rho=state.rho, rhoI=state.rhoI, C=state.C, S=state.S, ptype=t,
+        solid=solid,
         fluid=~solid, m=m, B=B, c0=params.c0[t], G0=params.G0[t], P=P,
         P_rho2=P_rho2, inv_rho=inv_rho, m_rho=m_rho, V2=V2, **stress,
     )
@@ -245,12 +247,16 @@ def lookup_pair_coeffs(ti, tj, params: Params, cfg: PairConfig):
     bit-exact with the gather, since every entry equals table[0, 0]."""
     tp = (ti * params.ntypes + tj).long()
     tabs = coeff_tables(params, cfg)
-    return {
+    out = {
         k: tabs[k].reshape(-1)[0]
         if k in cfg.uniform_tables
         else tabs[k].reshape(-1)[tp]
         for k in used_table_names(params, cfg)
     }
+    if params.n_sdpd > 0:
+        # [Ns, ci, cj, NC]: the species diffusivity of each pair's types
+        out["kap"] = params.kappa.movedim(-1, 0).reshape(params.n_sdpd, -1)[:, tp]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -412,40 +418,71 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
         fs = (I["fluid"] & solid_j).to(fdt)
         acc["phi"] += torch.sum(fs * Vj2 * wfBvf, dim=RED)
         acc["nw"] += torch.sum((fs * wfd * Vj2)[None] * dx, dim=RED)
+
+    # species transport, Tartakovsky 2007; its own support cutc
+    if params.n_sdpd > 0:
+        hc = coeffs["hc"]
+        wfd_c = lucy_wfd_ih(r, coeffs["inv_hc"], dim) * mask
+        dQc_base = (
+            2.0
+            * coeffs["m_harm"]
+            * (I["inv_rho"] + J["inv_rho"])
+            * rsq
+            * wfd_c
+            / (rsq + 0.01 * hc * hc)
+        )
+        dQ = coeffs["kap"] * (I["C"] - J["C"]) * dQc_base[None]
+        if cfg.species_advection:
+            # advection correction (transport velocity only):
+            # -(mj/rhoj) (C_i (vest_i-v_i).dx + C_j (vest_j-v_j).dx) wfd_c
+            corr_ip = _dot3(I["vest"] - I["v"], dx)
+            corr_jp = _dot3(J["vest"] - J["v"], dx)
+            dQ = dQ - (J["m_rho"] * wfd_c)[None] * (
+                I["C"] * corr_ip[None] + J["C"] * corr_jp[None]
+            )
+        acc["Q"] += torch.sum(dQ, dim=RED)
     return acc
 
 
-def _pass_a_j_fields(cfg: PairConfig):
+def _pass_a_j_fields(params: Params, cfg: PairConfig):
     """The per-particle fields the ported pass-A branches read j-side."""
     fields = "valid x v vest rho rhoI ptype solid m c0 P_rho2 inv_rho m_rho V2".split()
     if cfg.solids_present:
         fields.append("AS" if cfg.elastic_present else "ASd")
     if cfg.elastic_present:
         fields.append("S")
+    if params.n_sdpd > 0:
+        fields.append("C")
     return fields
 
 
 PASS_A_ACCS = ("num_den", "rhoAux1", "rhoAux2", "ddv", "ddx", "f", "dS",
-               "drho", "de", "phi", "nw")
+               "drho", "de", "phi", "nw", "Q")
 # leading component axes of the accumulators that are not [cap, NC] scalars
+# (Q's is the species count, ``acc_lead``)
 _ACC_LEAD = {"ddv": (3,), "ddx": (3,), "f": (3,), "nw": (3,), "dS": (3, 3)}
+
+
+def acc_lead(name: str, params: Params) -> tuple:
+    """Leading axes of the pass-A accumulator ``name`` before [cap, NC]."""
+    return (params.n_sdpd,) if name == "Q" else _ACC_LEAD.get(name, ())
 
 
 def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig):
     """Pass A as a loop over the stencil offsets: the plain version of the
     K1, K2 and K3 kernels.  Returns every ``PASS_A_ACCS`` entry ([cap, NC]
-    scalars, [3, cap, NC] vectors, [3, 3, cap, NC] dS); accumulators the
-    configuration skips stay 0."""
+    scalars, [3, cap, NC] vectors, [3, 3, cap, NC] dS, [Ns, cap, NC] Q);
+    accumulators the configuration skips stay 0."""
     cap, NC = pf["rho"].shape
     fdt, dev = pf["x"].dtype, pf["x"].device
     I = {k: _bc(v, "i") for k, v in pf.items()}
     # self-pair exclusion for the zero offset ([cap, cap, 1])
     not_diag = ~torch.eye(cap, dtype=torch.bool, device=dev)[:, :, None]
     pbc = _pbc(geom)
-    acc = {name: torch.zeros(_ACC_LEAD.get(name, ()) + (cap, NC), dtype=fdt,
+    acc = {name: torch.zeros(acc_lead(name, params) + (cap, NC), dtype=fdt,
                              device=dev)
            for name in PASS_A_ACCS}
-    ja_fields = _pass_a_j_fields(cfg)
+    ja_fields = _pass_a_j_fields(params, cfg)
     for off in geom.stencil_offsets():
         J = {k: _bc(shift_cells(pf[k], off, geom), "j") for k in ja_fields}
         notself = not_diag if off == (0, 0, 0) else True
@@ -488,7 +525,7 @@ def compute_forces(
         f=acc["f"],
         drho=acc["drho"],
         de=acc["de"],
-        Q=zeros(params.n_sdpd),
+        Q=acc["Q"],
         Qd=zeros(params.n_ssa, dtype=torch.int32),
         ddv=acc["ddv"],
         ddx=acc["ddx"],

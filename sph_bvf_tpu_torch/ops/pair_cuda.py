@@ -6,7 +6,9 @@ rowloop kernel and K3 (``csrc/pass_a_3d.cu``) its tiled 3D kernel.
 ``pass_a`` makes JAX's shape choice (``pair_pallas._pass_a_tiled3d`` for
 every 3D grid, ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3;
 2D grids with a mixed lattice (``base_occ == 0``) or a crowded cell
-(``cap > 24``) go to K2, the rest to K1.  On a CUDA tensor each wrapper
+(``cap > 24``) go to K2, the rest to K1.  K1 and K3 also carry the
+continuum species (the C rows in, a species table, the flux Q out) for up
+to ``MAX_SPECIES`` of them; K2 does not yet.  On a CUDA tensor each wrapper
 launches its kernel; the plain PyTorch loop (``ops/pair._pass_a_plain``)
 runs only on a CPU tensor.  A CUDA call the routed kernel cannot serve
 raises and names what is missing; it never falls back.
@@ -28,13 +30,16 @@ from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
 
 # K1 and K3 packed field rows, in the order csrc/pass_a_tv.cuh reads them
 # (R_* there); rhoI is staged only when the Shepard-filter accumulators are
-# wanted.
+# wanted, and the Ns rows of C follow it.
 PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
            "P_rho2", "m_rho", "V2", "ASd")
 # K1 and K3 accumulator rows (O_* there).
 ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
             ("phi", 1), ("nw", 3))
 FILTER_ACC_ROWS = (("rhoAux1", 1), ("rhoAux2", 1))
+# the most continuum species K1 and K3 are instantiated for (kMaxSpecies in
+# csrc/pass_a_tv.cuh); their Q rows follow the filter rows
+MAX_SPECIES = 4
 
 # K2 packed field rows (R_* in csrc/pass_a_2d_rowloop.cu): these, then AS
 # and S (elastic) or ASd, then rhoI (filter).
@@ -64,9 +69,10 @@ def route(geom: Geometry):
 
 
 def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
-                       kernel=None) -> list:
+                       kernel=None, n_sdpd: int = 0) -> list:
     """What keeps the wrapper ``kernel`` (by default the one this grid
-    routes to) from serving this geometry and configuration."""
+    routes to) from serving this geometry, configuration and count of
+    continuum species."""
     kernel = kernel or route(geom)
     is3d = kernel is pass_a_3d
     checks = [
@@ -77,6 +83,7 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
             ("a periodic y axis", bool(ghost_axes(geom))),
             ("a periodic x axis with fewer than 3 cells",
              wrap_x(geom) and geom.ncells[0] < 3),
+            ("continuum species (n_sdpd > 0)", n_sdpd > 0),
         ]
     else:
         checks += [
@@ -87,18 +94,33 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
              not cfg.pressure_switch),
             ("elastic solids (elastic_present)", cfg.elastic_present),
             ("free solids (free_solids_present)", cfg.free_solids_present),
+            (f"more than {MAX_SPECIES} continuum species (n_sdpd = {n_sdpd})",
+             n_sdpd > MAX_SPECIES),
         ]
     return [what for what, bad in checks if bad]
 
 
-def _tables(params: Params, cfg) -> torch.Tensor:
+def _tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
     """[5, T*T] f32: inv_h, eta, inv_wdelta and the two r-independent Lucy
     factors per type pair — the coefficients the plain path computes
-    (inv_wdelta 0 in a solid-free scene, which never reads it)."""
-    tabs = pair.coeff_tables(params, cfg)
+    (inv_wdelta 0 in a solid-free scene, which never reads it), from
+    ``tabs`` (``pair.coeff_tables``, made here unless the caller has it)."""
+    tabs = tabs or pair.coeff_tables(params, cfg)
     ih = tabs["inv_h"]
     rows = [ih, tabs["eta"], tabs.get("inv_wdelta", torch.zeros_like(ih)),
             lucy_wfd_coef(ih, cfg.dim), lucy_w_coef(ih, cfg.dim)]
+    return torch.stack([r.reshape(-1) for r in rows]).to(torch.float32).contiguous()
+
+
+def _species_tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
+    """[4 + Ns, T*T] f32, the species rows of K1 and K3 (S_* in
+    csrc/pass_a_tv.cuh): 1/cutc, the r-independent Lucy W' factor of cutc,
+    twice the harmonic mass, 0.01 cutc^2, then kappa of each species."""
+    tabs = tabs or pair.coeff_tables(params, cfg)
+    ihc, hc = tabs["inv_hc"], tabs["hc"]
+    rows = [ihc, lucy_wfd_coef(ihc, cfg.dim), 2.0 * tabs["m_harm"],
+            0.01 * hc * hc]
+    rows += list(params.kappa.movedim(-1, 0))
     return torch.stack([r.reshape(-1) for r in rows]).to(torch.float32).contiguous()
 
 
@@ -114,7 +136,7 @@ def _k2_tables(params: Params, cfg) -> torch.Tensor:
 def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, kernel):
     """Raise unless the wrapper ``kernel`` can take these fields."""
     pair.check_ported(params, cfg)
-    missing = kernel_unsupported(geom, cfg, kernel)
+    missing = kernel_unsupported(geom, cfg, kernel, params.n_sdpd)
     if missing:
         raise NotImplementedError(
             f"pass-A kernel {kernel.__name__} for " + ", ".join(missing)
@@ -134,10 +156,12 @@ def _pack(pf: dict, names, cap: int, NC: int) -> torch.Tensor:
 
 
 def _unpack(out: torch.Tensor, accs) -> dict:
+    """The accumulator rows of ``out`` by name; Q keeps its [Ns] axis."""
     result, r = {}, 0
     for name, n in accs:
         block = out[r:r + n]
-        result[name] = block.reshape(pair._ACC_LEAD.get(name, ()) + block.shape[1:])
+        lead = (n,) if name == "Q" else pair._ACC_LEAD.get(name, ())
+        result[name] = block.reshape(lead + block.shape[1:])
         r += n
     return result
 
@@ -153,27 +177,38 @@ def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
                cfg) -> dict:
     """Launch ``wrapper``'s kernel, K1 or K3 (``csrc/<its name>.cu``, the
     transport-velocity pair of ``csrc/pass_a_tv.cuh``), over the grid
-    ``dims`` and unpack its rows."""
+    ``dims`` and unpack its rows.  With continuum species the C rows and the
+    species tables go in and the Q rows come out."""
     _check_launch(pf, params, geom, cfg, wrapper)
     name = wrapper.__name__
     cap, NC = pf["rho"].shape
     filt = bool(cfg.density_filter_accs)
-    PF = _pack(pf, PF_ROWS + (("rhoI",) if filt else ()), cap, NC)
-    tab = _tables(params, cfg).to(PF.device)
-    accs = ACC_ROWS + (FILTER_ACC_ROWS if filt else ())
+    ns = params.n_sdpd
+    PF = _pack(pf, PF_ROWS + (("rhoI",) if filt else ())
+               + (("C",) if ns else ()), cap, NC)
+    tabs = pair.coeff_tables(params, cfg)
+    tab = _tables(params, cfg, tabs).to(PF.device)
+    stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
+    accs = (ACC_ROWS + (FILTER_ACC_ROWS if filt else ())
+            + ((("Q", ns),) if ns else ()))
     out = torch.empty((sum(n for _, n in accs), cap, NC), dtype=torch.float32,
                       device=PF.device)
 
     lib = _build.load(name)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + len(dims))
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (5 + len(dims))
                    + [ctypes.c_void_p])
-    code = fn(PF.data_ptr(), tab.data_ptr(), out.data_ptr(), params.ntypes,
-              cap, *dims, int(filt), _build.current_stream(PF.device))
+    code = fn(PF.data_ptr(), tab.data_ptr(),
+              None if stab is None else stab.data_ptr(), out.data_ptr(),
+              params.ntypes, ns, int(bool(cfg.species_advection)), cap, *dims,
+              int(filt), _build.current_stream(PF.device))
     _build.check(lib, code, name)
 
     result = _unpack(out, accs)
+    if not ns:
+        result["Q"] = torch.zeros((0, cap, NC), dtype=torch.float32,
+                                  device=PF.device)
     if not filt:
         zero = torch.zeros((cap, NC), dtype=torch.float32, device=PF.device)
         result["rhoAux1"] = result["rhoAux2"] = zero
@@ -183,9 +218,26 @@ def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
     return result
 
 
+def kernel_attributes(wrapper, filt: bool, ns: int) -> tuple:
+    """(registers per thread, local-memory bytes per thread: its spills) of
+    the instantiation of K1 or K3 (``wrapper``: ``pass_a_2d`` or
+    ``pass_a_3d``) for ``filt`` and ``ns`` species, from
+    ``cudaFuncGetAttributes``."""
+    name = wrapper.__name__
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_attributes")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, fn(int(filt), ns, ctypes.byref(regs), ctypes.byref(local)),
+                 f"{name}_attributes")
+    return regs.value, local.value
+
+
 def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     """Pass A accumulators from ``pf`` through K1 on CUDA (the plain loop on
-    CPU): the transport-velocity pair with fixed walls on a 2D grid."""
+    CPU): the transport-velocity pair with fixed walls on a 2D grid, with up
+    to ``MAX_SPECIES`` continuum species."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg)
     result = _tv_launch(pass_a_2d, geom.ncells[:2], pf, params, geom, cfg)
@@ -198,7 +250,8 @@ pass_a_2d.launches = 0  # K1 launches in this process
 
 def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     """Pass A accumulators from ``pf`` through K3 on CUDA (the plain loop on
-    CPU): the transport-velocity pair with fixed walls on a 3D grid."""
+    CPU): the transport-velocity pair with fixed walls on a 3D grid, with up
+    to ``MAX_SPECIES`` continuum species."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg)
     result = _tv_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg)
@@ -253,6 +306,9 @@ def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     if not elastic:
         result["dS"] = torch.zeros((3, 3, cap, NC), dtype=torch.float32,
                                    device=PF.device)
+    # K2 carries no species rows (_check_launch refuses n_sdpd > 0)
+    result["Q"] = torch.zeros((0, cap, NC), dtype=torch.float32,
+                              device=PF.device)
     return result
 
 

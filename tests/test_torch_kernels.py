@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (K1, K2 and K3 pass A, K5, K6 and
-K7 rebin move), with K2's solid-free variant and the non-uniform x-column
-(``x_edges``) variants of K5, K6 and K7.
+K7 rebin move), with K2's solid-free variant, the non-uniform x-column
+(``x_edges``) variants of K5, K6 and K7, and K1 and K3 with the species
+rows (C in, the flux Q out).
 
 The kernel-vs-plain checks need a CUDA card and are marked ``gpu``: they
 skip on a machine without one (run them there with
@@ -20,7 +21,8 @@ import torch
 from sph_bvf_tpu_torch.core import rebin_cuda
 from sph_bvf_tpu_torch.core import state as TS
 from sph_bvf_tpu_torch.core.stepper import run_chunk, setup
-from sph_bvf_tpu_torch.models import drift_blob, fsi, lid_cavity, lid_cavity3d
+from sph_bvf_tpu_torch.models import (drift_blob, fsi, lid_cavity,
+                                      lid_cavity3d, natural_convection)
 from sph_bvf_tpu_torch.ops import pair, pair_cuda
 from synthetic_edges import seeded_drift, with_synthetic_edges
 
@@ -188,6 +190,108 @@ def test_k7_matches_plain_walk_and_sort_on_card(cuda):
     PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
     xr = rebin_cuda._x_row(fmeta)
     kf, ki = rebin_cuda.rebin_move_3d(PF, PI, geom, xr)
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
+    assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+
+
+def _with_species(state, params, ns, cutc_scale, seed=0):
+    """(state, params) with ``ns`` continuum species: the state's own kept,
+    the others' C uniform in [0, 1) on the valid slots, a distinct symmetric
+    kappa per type pair and species, ``cutc = cutc_scale * h`` (numpy,
+    ``seed``)."""
+    rng = np.random.default_rng(seed)
+    dev, fdt = state.x.device, state.x.dtype
+    T, have = params.ntypes, min(params.n_sdpd, ns)
+    C = torch.as_tensor(rng.uniform(0, 1, (ns,) + tuple(state.valid.shape)),
+                        dtype=fdt, device=dev) * state.valid
+    C[:have] = state.C[:have]
+    kappa = rng.uniform(0.5, 1.5, (T, T, ns))
+    kappa = 0.012 * 0.5 * (kappa + kappa.transpose(1, 0, 2))
+    return (dataclasses.replace(state, C=C, Q=torch.zeros_like(C)),
+            dataclasses.replace(params, cutc=cutc_scale * params.cut,
+                                kappa=torch.as_tensor(kappa, dtype=fdt,
+                                                      device=dev)))
+
+
+def _species_parity(kernel, state, params, spec):
+    """``kernel`` vs the plain loop, both filter variants: every field and Q
+    within 5e-6 of its max, every species' Q nonzero."""
+    for filt in (True, False):
+        cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+        pf = pair._per_particle(state, params, cfg)
+        ref = pair._pass_a_plain(pf, params, spec.geom, cfg)
+        got = kernel(pf, params, spec.geom, cfg)
+        torch.cuda.synchronize()
+        assert got["Q"].shape == ref["Q"].shape
+        assert float(ref["Q"].abs().amax(dim=(1, 2)).min()) > 0
+        for name in (K1_FIELDS if filt else K1_FIELDS[:-2]) + ("Q",):
+            scale = max(float(ref[name].abs().max()), 1e-30)
+            err = float((got[name] - ref[name]).abs().max())
+            assert err <= 5e-6 * scale, (name, filt, err / scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cutc_scale", [1.0, 1.2, 0.8])
+@pytest.mark.parametrize("ns", [1, 2, 3, 4])
+def test_k1_with_species_matches_plain_on_card(cuda, ns, cutc_scale):
+    """K1 with the species rows vs the plain loop on the N=40 natural
+    convection 20 steps in (heat around the cylinder), for every species
+    count it is instantiated for and with the species support at, above
+    and below the kernel support."""
+    state, params, spec, _ = natural_convection.build(N=40, device=cuda)
+    state = run_chunk(setup(state, params, spec, dt=1e-4), params, spec, 20)
+    state, params = _with_species(state, params, ns, cutc_scale)
+    _species_parity(pair_cuda.pass_a_2d, state, params, spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns,cutc_scale", [(1, 1.0), (2, 1.2), (4, 0.8)])
+def test_k3_with_species_matches_plain_on_card(cuda, ns, cutc_scale):
+    """K3 with the species rows vs the plain 27-offset loop on the N=20 3D
+    cavity with C seeded."""
+    state, params, spec = _cavity3d(20, cuda, steps=9)
+    state, params = _with_species(state, params, ns, cutc_scale)
+    _species_parity(pair_cuda.pass_a_3d, state, params, spec)
+
+
+@pytest.mark.gpu
+def test_species_beyond_the_limit_raise_on_card(cuda):
+    """One species more than K1 is instantiated for raises before the
+    launch; nothing falls back to the plain loop."""
+    state, params, spec, _ = natural_convection.build(N=20, device=cuda)
+    state = setup(state, params, spec, dt=1e-4)
+    state, params = _with_species(state, params, pair_cuda.MAX_SPECIES + 1, 1.0)
+    pf = pair._per_particle(state, params, spec.pair)
+    before = pair_cuda.pass_a_2d.launches
+    with pytest.raises(NotImplementedError, match="continuum species"):
+        pair_cuda.pass_a_2d(pf, params, spec.geom, spec.pair)
+    assert pair_cuda.pass_a_2d.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+def test_moves_carry_species_rows_on_card(cuda, dim):
+    """K5 (the N=40 convection) and K7 (the N=20 3D cavity) moving two
+    species' C and Q rows after a chunk with them: bitwise to the plain
+    walk and the sort rebin."""
+    if dim == 2:
+        state, params, spec, _ = natural_convection.build(N=40, device=cuda)
+        state, kernel = setup(state, params, spec, dt=1e-4), rebin_cuda.rebin_move_2d
+    else:
+        state, params, spec = _cavity3d(20, cuda)
+        kernel = rebin_cuda.rebin_move_3d
+    state, params = _with_species(state, params, 2, 1.0)
+    state = run_chunk(state, params, spec, 9)
+    assert float(state.Q.abs().amax(dim=(1, 2)).min()) > 0
+    geom = spec.geom
+    fields = TS.particle_fields(state)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    kf, ki = kernel(PF, PI, geom, xr)
     pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
     assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
     ref = TS.rebin(state, geom, use_kernel=False)
