@@ -6,13 +6,15 @@ the CUDA toolkit (``nvcc``):
 
     python3 chip_smoke.py
 
-Five paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move),
+Six paths: the flagship lid-driven cavity (K1 pass A, K5 rebin move),
 the FSI beam in a periodic-x channel (K2 pass A, K6 rebin move), the 3D
 lid-driven cavity (K3 pass A, K7 rebin move), in-run load balancing on
-the drifting blob (solid-free K2, K6 with non-uniform x columns) and
-natural convection around a hot cylinder (K1 with the species rows, K5
-moving the C rows); K5 and K7 with x columns are checked on the cavities,
-K3 and K7 with species on the 3D cavity.  Phases, one line each:
+the drifting blob (solid-free K2, K6 with non-uniform x columns), natural
+convection around a hot cylinder (K1 with the species rows, K5 moving the
+C rows) and cell polarization in a doubly periodic box (K2 with the fsi
+pair style, the species rows and a periodic y axis, K6 with a periodic y
+axis); K5 and K7 with x columns are checked on the cavities, K3 and K7
+with species on the 3D cavity.  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — compile the six hand-written kernels from
@@ -66,6 +68,20 @@ K3 and K7 with species on the 3D cavity.  Phases, one line each:
    K6 edges — K6 with x_edges against the plain walk and the sort rebin on
              that state a chunk later and on a seeded drift of it that
              puts particles across the periodic seam: bitwise;
+   K2 polarization — K2 against the plain loop on
+             cell_polarization.build(nx=100) (10,292 particles, 26 x 26
+             doubly periodic cells, an elastic free wall, one species, the
+             fsi pair style) after setup and after 200 steps, both filter
+             variants, every field, dS and Q within 5e-6 * max|plain|: as
+             run, and with the wall's S, the velocities, the densities and
+             C (between 0 and 1 on the wall) seeded from numpy: one and two
+             species, cutc = 1.2 h and 0.8 h, the advection correction on
+             and off, ``ampl_damp`` 0.1 and 0, the modulus coupling on and
+             off, and C up to 1.5 (a softened modulus below zero); AS, dS
+             and every species' Q nonzero in each case;
+   K6 periodic y — K6 against the plain walk and the sort rebin on that
+             state and on a seeded drift of it across all four faces and
+             corners of the box, the C, Q and S rows riding along: bitwise;
 9. main    — each path through its entry points with the launch counters
              reset first: lid_cavity.build(N=200) -> setup -> simulate(1000)
              (K1 once per step plus setup, K5 once per chunk plus setup),
@@ -89,16 +105,25 @@ K3 and K7 with species on the 3D cavity.  Phases, one line each:
              re-cuts with distinct edges, each improving the metric that
              fired it, the final slab imbalance under 1.5, and x, v and rho
              tag by tag within BLOB_TOL of the uniform-grid run of the same
-             blob; and the N=50 cavity, the nx=24 FSI, the N=8 3D cavity
+             blob; main polarization: cell_polarization.build(nx=100) ->
+             setup -> simulate(1000) at dt 1e-10 (K2 1001 launches, K6 11,
+             nothing else), 10,292 particles kept, 0 <= C <= 1, the lower
+             wall one half step from its Dirichlet value (C == max(1 + Q
+             dt/2, 0) to the bit), species in the neighbours, the wall
+             moving (released at step 2), and max|v|, the wall's max|v| and
+             mean C and max|S| inside bands around the JAX package's own
+             nx=100 run; and the N=50 cavity, the nx=24 FSI, the N=8 3D cavity
              (20 steps) and the s=1 balanced blob (110 steps, its re-cut at
-             step 100 included) and the N=40 convection (x, v, rho and C) on
-             the card agree with the same runs through the plain path on
+             step 100 included), the N=40 convection (x, v, rho and C) and
+             the nx=40 polarization (x, v, rho, C and S) on the card agree with the same runs through the plain path on
              the CPU;
 10. speed  — particle-steps/s from the set-up state of the cavity at N=200
              and N=1000, of natural convection at N=200 and N=1000 (1,012,036
              particles, dt 2e-5; K1 with its species rows beside K1 on the
              same state without them), of FSI at nx=60 and nx=240, of the 3D
-             cavity at N=40 and N=100 and of the balanced and the uniform blob at s=10 and
+             cavity at N=40 and N=100, of cell polarization at nx=100 and
+             nx=1000 (1,030,980 particles, dt 1e-11) and of the balanced and
+             the uniform blob at s=10 and
              s=20 (its 1000-step main path, twice), each chunk timed on the
              host clock and by CUDA events, the blob's chunks split into
              those with a re-cut, with a balance check and without; per
@@ -113,17 +138,18 @@ K3 and K7 with species on the 3D cavity.  Phases, one line each:
              output row of every slot written once;
 11. profile — one chunk of the 3D cavity at N=40 and N=100, one of the
              cavity and one of the convection at N=200 and N=1000 (the same
-             grids: K1 without and with its species rows) and two of the
-             s=20 blob,
+             grids: K1 without and with its species rows), one of cell
+             polarization at nx=100 and nx=1000 and two of the s=20 blob,
              balanced and uniform, under torch.profiler:
              device ops and device time per step, the busy share, and the
              pass-A and move kernels' device time per call; it fails if
              the profiler records no pass-A activity on the card.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (twelve entries: the six
-kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants and
-K1 and K3 with species as their own entries), the last
+second-to-last line is ``{"kernels": [...]}`` (fourteen entries: the six
+kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants, K1
+and K3 with species, and K2 and K6 on the polarization path as their own
+entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -153,14 +179,34 @@ BLOB_N = {1: 2115, 10: 210_000, 20: 840_000}  # its particle counts
 CONV_N = (200, 1000)
 CONV_DT = {200: 1e-4, 1000: 2e-5}
 CONV_PARTICLES = 42_436
+# cell polarization: the reference's size (10,292 particles), large speed
+# size (1,030,980).  dt: the reference's 1e-10 at nx=100; at nx=1000 that
+# value scaled with the spacing, 1e-11, under the limits of h = 1.5e-7
+# there: acoustic 0.25 h/c0 = 9.3e-10 (the wall's c0 = 40.3), viscous
+# 0.125 h^2 rho/eta = 2.8e-9
+POLAR_NX = (100, 1000)
+POLAR_DT = {100: 1e-10, 1000: 1e-11}
+POLAR_PARTICLES = 10_292
 SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8, "blob": 1,
-         "convection": 40}  # card vs CPU
+         "convection": 40, "polarization": 40}  # card vs CPU
 SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110,
-               "convection": 20}
+               "convection": 20, "polarization": 20}
 MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000,
-              "convection": 1000}
+              "convection": 1000, "polarization": 1000}
 PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100,
-                "convection": 200}
+                "convection": 200, "polarization": 200}
+# K2 on the seeded polarization state: (label, ampl_damp, g0_chem_coupling,
+# species_advection, species, cutc / h, C's upper bound on the wall)
+POLAR_CASES = (
+    ("Ns=1 as the model", 0.1, True, False, 1, 1.0, 1.0),
+    ("Ns=2", 0.1, True, False, 2, 1.0, 1.0),
+    ("Ns=2 cutc=1.2h", 0.1, True, False, 2, 1.2, 1.0),
+    ("Ns=2 cutc=0.8h advection", 0.1, True, True, 2, 0.8, 1.0),
+    ("Ns=1 advection", 0.1, True, True, 1, 1.0, 1.0),
+    ("Ns=1 ampl_damp=0", 0.0, True, False, 1, 1.0, 1.0),
+    ("Ns=1 no coupling", 0.1, False, False, 1, 1.0, 1.0),
+    ("Ns=1 C up to 1.5", 0.1, True, False, 1, 1.0, 1.5),
+)
 # the species counts K1 is held to on the convection state beyond the run's
 # own Ns=1 (2, and the kernels' limit), and the species supports cutc / h
 SPECIES_NS = (2, 4)
@@ -210,15 +256,27 @@ CONV_JAX_STEP1000 = {
     "qdot": (0.14982187747955322, 0.98, 1.02),
     "fluid mean C": (0.02610955916120595, 0.98, 1.02),
 }
+# The JAX package's own run of the polarization main path (nx=100, dt 1e-10,
+# f32, jnp path, on the CPU: cell_polarization.build -> setup ->
+# simulate(1000), then max|v| over the valid particles, max|v| and the mean
+# of C over the wall's particles and max|S|) at step 1000, and the band [lo,
+# hi] x that value the card's run must land in.
+POLAR_JAX_STEP1000 = {
+    "max|v|": (3.888657331466675, 0.98, 1.02),
+    "wall max|v|": (1.1732581853866577, 0.98, 1.02),
+    "wall mean C": (0.12097806947825782, 0.98, 1.02),
+    "max|S|": (47733.171875, 0.98, 1.02),
+}
 SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
                "convection": {200: (200, 20), 1000: (50, 5)},
                "fsi": {60: (200, 10), 240: (50, 2)},
+               "polarization": {100: (200, 10), 1000: (50, 3)},
                "cavity3d": {40: (100, 10), 100: (50, 3)},
                "blob": {10: (1000, 5), 20: (1000, 3)}}
 # timed runs of simulate per size, each from the same set-up state (the
 # blob's: its 1000-step main path without the build, twice)
 SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2,
-                 "convection": 1}
+                 "convection": 1, "polarization": 1}
 # FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
 # smaller and the start-up pressure waves (|v| up to ~0.4) drift particles
 # past the budget within 100 steps, so the run rebins every 20
@@ -300,6 +358,72 @@ def _seed_species(torch, state, params, ns, seed, cutc_scale=1.0):
             dataclasses.replace(
                 params, cutc=cutc_scale * params.cut,
                 kappa=torch.as_tensor(kappa, dtype=fdt, device=dev)))
+
+
+def _seed_polar(torch, state, params, ns, seed, cutc_scale=1.0, c_hi=1.0):
+    """(state, params) of a polarization state with every pair term live: a
+    seeded symmetric S on the wall (the artificial-stress tensor tensile
+    somewhere), seeded noise on v, vest and rho, ``ns`` species with C
+    uniform in [0, ``c_hi``) on the wall and a tenth of that elsewhere,
+    kappa [T, T, ns] symmetric with a distinct value per type pair and
+    species (0.5e-5..1.5e-5, the wall's 1e-5 in the middle) and the species
+    support cutc = ``cutc_scale`` x h; all from numpy's ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dev, fdt = state.x.device, state.x.dtype
+    t = lambda a: torch.as_tensor(a, dtype=fdt, device=dev)
+    shape = tuple(state.valid.shape)
+    valid = state.valid
+    wall = valid & (state.solid_tag == 1)
+    S = rng.normal(0.0, 2e3, (3, 3) + shape)
+    v = state.v + t(rng.normal(0, 0.5, (3,) + shape)) * valid
+    vest = v + t(rng.normal(0, 0.1, (3,) + shape)) * valid
+    v[2] = 0.0
+    vest[2] = 0.0
+    C = t(rng.uniform(0.0, c_hi, (ns,) + shape))
+    C = torch.where(wall, C, 0.1 * C) * valid
+    T = params.ntypes
+    kappa = rng.uniform(0.5, 1.5, (T, T, ns))
+    kappa = 1e-5 * 0.5 * (kappa + kappa.transpose(1, 0, 2))
+    one = torch.ones((), dtype=fdt, device=dev)
+    return (dataclasses.replace(
+                state, S=torch.where(wall, t(S + np.swapaxes(S, 0, 1)), 0.0 * one),
+                v=v, vest=vest, C=C, Q=torch.zeros_like(C),
+                rho=torch.where(valid, state.rho * t(rng.uniform(0.99, 1.01, shape)),
+                                one)),
+            dataclasses.replace(params, cutc=cutc_scale * params.cut,
+                                kappa=t(kappa)))
+
+
+def _corner_drift(torch, state, geom, seed):
+    """``state`` with every valid particle moved by a seeded step of up to
+    0.9 cells per axis (within one ring of the cell its slot belongs to),
+    outward along both axes in the four corner cells, so that particles
+    cross every face and every corner of a doubly periodic box; positions
+    beyond the box stay unwrapped, as between two rebins.  Returns the state
+    and the count of particles beyond each corner."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = state.x.cpu().numpy()
+    valid = state.valid.cpu().numpy()
+    d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
+    nx, ny = geom.ncells[:2]
+    c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
+    cx, cy = c // ny, c % ny
+    corner = ((cx == 0) | (cx == nx - 1)) & ((cy == 0) | (cy == ny - 1))
+    d[0] = np.where(corner, np.where(cx == 0, -1.0, 1.0) * np.abs(d[0]), d[0])
+    d[1] = np.where(corner, np.where(cy == 0, -1.0, 1.0) * np.abs(d[1]), d[1])
+    d[2] = 0.0
+    x = (x + np.where(valid, d, 0.0)).astype(np.float32)
+    out = {"x-": x[0] < geom.lo[0], "x+": x[0] >= geom.hi[0],
+           "y-": x[1] < geom.lo[1], "y+": x[1] >= geom.hi[1]}
+    across = {a + b: int((valid & out[a] & out[b]).sum())
+              for a in ("x-", "x+") for b in ("y-", "y+")}
+    across.update({a: int((valid & m).sum()) for a, m in out.items()})
+    return dataclasses.replace(
+        state, x=torch.as_tensor(x, device=state.x.device)), across
 
 
 def _species_parity(torch, pair, kernel, cases, geom, cfg, tag):
@@ -534,7 +658,7 @@ def _pass_a_rows(pair_cuda, pf, cfg, kernel):
     if cfg.density_filter_accs:
         names, accs = names + ("rhoI",), accs + pair_cuda.FILTER_ACC_ROWS
     cap, NC = pf["rho"].shape
-    ns = pf["C"].shape[0]  # K1 and K3: the C rows in, the Q rows out
+    ns = pf["C"].shape[0]  # the C rows in, the Q rows out
     return (sum(pf[n].reshape(-1, cap, NC).shape[0] for n in names) + ns,
             sum(n for _, n in accs) + ns)
 
@@ -552,8 +676,9 @@ def main() -> int:
     from sph_bvf_tpu_torch.core import rebin_cuda
     from sph_bvf_tpu_torch.core import state as S
     from sph_bvf_tpu_torch.core.stepper import _rebin_drop, setup, simulate
-    from sph_bvf_tpu_torch.models import (drift_blob, fsi, lid_cavity,
-                                          lid_cavity3d, natural_convection)
+    from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
+                                          lid_cavity, lid_cavity3d,
+                                          natural_convection)
     from sph_bvf_tpu_torch.ops import pair, pair_cuda
     from sph_bvf_tpu_torch.parallel.balance import rebalance, report
 
@@ -623,6 +748,14 @@ def main() -> int:
                  for filt in (True, False)}
         print(f"[build] {wrapper.__name__} instantiations (registers per "
               f"thread, local bytes per thread): {attrs}")
+    # K2: every (filter, elastic, species count) instantiation
+    attrs = {f"{'filter' if filt else 'nofilter'}/"
+             f"{'elastic' if el else 'plain'}/Ns={ns}":
+             pair_cuda.kernel_attributes(pair_cuda.pass_a_2d_rowloop, filt, ns, el)
+             for ns in range(pair_cuda.MAX_SPECIES + 1)
+             for el in (True, False) for filt in (True, False)}
+    print(f"[build] pass_a_2d_rowloop instantiations (registers per thread, "
+          f"local bytes per thread): {attrs}")
 
     # -- 3. K1 parity -------------------------------------------------------
     state, params, spec, _ = lid_cavity.build(N=CAVITY_N[0], device=dev)
@@ -914,6 +1047,68 @@ def main() -> int:
           f"particles across the seam: {what_s})")
     del state, seam
 
+    # -- K2 and K6 on the polarization path: fsi pair style, species, both
+    # axes periodic -----------------------------------------------------------
+    nxp = POLAR_NX[0]
+    state, params, spec, _ = cell_polarization.build(nx=nxp, device=dev)
+    state = setup(state, params, spec, dt=POLAR_DT[nxp])
+    geom = spec.geom
+    k2p_names = k2_names + ("Q",)
+    k2p_err, k2p_abs = {}, 0.0
+    for when in (0, PARITY_STEPS["polarization"]):
+        state = simulate(state, params, spec, when - int(state.step))
+        cases = [(label, *_seed_polar(torch, state, params, ns, seed=i,
+                                      cutc_scale=cutc, c_hi=c_hi),
+                  dataclasses.replace(spec.pair, ampl_damp=ampl,
+                                      g0_chem_coupling=coupling,
+                                      species_advection=advect))
+                 for i, (label, ampl, coupling, advect, ns, cutc, c_hi)
+                 in enumerate(POLAR_CASES)]
+        if when:  # the run's own S, C and velocities
+            cases.insert(0, ("as run", state, params, spec.pair))
+        k2p_err[when] = {}
+        for label, s_, p_, cfg in cases:
+            tag = f"K2 polarization step {when} {label}"
+            err, err_abs, ref = _pass_a_parity(
+                torch, pair, pair_cuda.pass_a_2d_rowloop, s_, p_, geom, cfg,
+                k2p_names, tag)
+            live = {"AS": float(pair._per_particle(s_, p_, cfg)["AS"].abs().max()),
+                    "dS": float(ref["dS"].abs().max()),
+                    "Q": float(ref["Q"].abs().amax(dim=(1, 2)).min())}
+            if not all(v > 0 for v in live.values()):
+                raise AssertionError(f"{tag} is vacuous: max|.| {live}")
+            k2p_err[when][label] = (err["Q"], err["dS"], max(err.values()))
+            k2p_abs = max(k2p_abs, err_abs)
+    print(f"[K2 polarization] rowloop pass A kernel == plain, every field, dS "
+          f"and Q (cell_polarization nx={nxp}, {int(state.n_valid)} particles, "
+          f"cap {geom.cap}, {geom.ncells[:2]} cells, periodic {geom.periodic}, "
+          f"both filter variants); per case (max|diff|/max|ref| of Q, of dS, of "
+          f"the worst field): "
+          + "; ".join(f"step {when}: " + ", ".join(
+              f"{k} {v[0]:.3g} / {v[1]:.3g} ({v[2]:.3g})" for k, v in err.items())
+              for when, err in k2p_err.items())
+          + f"; max|diff| {k2p_abs!r}")
+    del cases, ref
+    drop = _rebin_drop(spec)
+    state = simulate(state, params, spec, 50)  # since its last rebin
+    what, k6p_abs = _move_parity(torch, S, rebin_cuda,
+                                 rebin_cuda.rebin_move_2d_gated, state, geom,
+                                 drop, "K6 periodic y")
+    moved, across = _corner_drift(torch, state, geom, seed=0)
+    if not all(across.values()):
+        raise AssertionError(f"K6 periodic y: the seeded drift left a face or "
+                             f"a corner uncrossed: {across}")
+    what_d, err_d = _move_parity(torch, S, rebin_cuda,
+                                 rebin_cuda.rebin_move_2d_gated, moved, geom,
+                                 drop, "K6 periodic y (seeded drift)")
+    k6p_abs = max(k6p_abs, err_d)
+    print(f"[K6 periodic y] gated rebin move kernel == plain walk == sort "
+          f"rebin, bitwise (cell_polarization nx={nxp}, {geom.ncells[:2]} cells, "
+          f"periodic {geom.periodic}, cap {geom.cap}, step {int(state.step)}: "
+          f"{what}; after a seeded drift with particles beyond the faces and "
+          f"corners {across}: {what_d})")
+    del state, moved
+
     # -- 9. main paths ------------------------------------------------------
     def run_main(build, dt, want_kernels, steps, **sim_kw):
         for c in counters.values():
@@ -1009,6 +1204,50 @@ def main() -> int:
           f"{secs[0]!r} s): {n0} particles, cap {spec.geom.cap}, "
           f"{spec.geom.ncells_total} cells, {detail} (bands "
           f"{CONV_JAX_STEP1000}), launches {conv_launches} [{card}]")
+    del state, C
+
+    # cell polarization at the reference's size
+    state, spec, n0, secs, polar_launches, vmax, checks = run_main(
+        lambda: cell_polarization.build(nx=POLAR_NX[0], device=dev),
+        POLAR_DT[POLAR_NX[0]], ("pass_a_2d_rowloop", "rebin_move_2d_gated"),
+        MAIN_STEPS["polarization"])
+    scene = run_main.built[3]
+    C = state.C[0]
+    wall = state.valid & (state.solid_tag == 1)
+    lower = state.valid & (
+        (state.groupmask & scene.groupbit("lowerhalfcircle")) != 0)
+    speed_p = torch.sqrt((state.v * state.v).sum(0))
+    got = {"max|v|": vmax,
+           "wall max|v|": float(speed_p[wall].max()),
+           "wall mean C": float(C[wall].double().mean()),
+           "max|S|": float(state.S.abs().max())}
+    checks.update({
+        f"{POLAR_PARTICLES} particles": n0 == POLAR_PARTICLES,
+        "C and Q finite": bool(torch.isfinite(state.C).all()
+                               and torch.isfinite(state.Q).all()),
+        "0 <= C <= 1": bool(((C >= 0.0) & (C <= 1.0))[state.valid].all()),
+        # the forcing clamps C after the first half step; the second half
+        # step then adds Q dt/2
+        "lower wall held at C = 1": int(lower.sum()) > 0 and bool(
+            (C[lower] == torch.clamp_min(
+                1.0 + state.Q[0] * (0.5 * state.dt), 0.0)[lower]).all()),
+        "species in the neighbours": float(C[state.valid & ~lower].max()) > 0.0,
+        "the wall moves (released at step 2)": got["wall max|v|"] > 0.0,
+    })
+    for name, (ref, lo, hi) in POLAR_JAX_STEP1000.items():
+        checks[f"{name} in [{lo}, {hi}] x JAX's {ref}"] = lo * ref <= got[name] <= hi * ref
+    detail = (", ".join(f"{k} {v!r}" for k, v in got.items())
+              + f", max C off the lower wall "
+              f"{float(C[state.valid & ~lower].max())!r}, lower wall C "
+              f"{float(C[lower].min())!r}..{float(C[lower].max())!r}")
+    require(checks, "polarization main path", detail)
+    print(f"[main polarization] cell_polarization nx={POLAR_NX[0]} build+setup+"
+          f"simulate({MAIN_STEPS['polarization']}) at dt "
+          f"{POLAR_DT[POLAR_NX[0]]} in {secs[1]!r} s (build {secs[0]!r} s): {n0} "
+          f"particles, cap {spec.geom.cap}, {spec.geom.ncells[:2]} cells, "
+          f"periodic {spec.geom.periodic}, {int(wall.sum())} wall particles "
+          f"({int(lower.sum())} clamped), {detail} (bands "
+          f"{POLAR_JAX_STEP1000}), launches {polar_launches} [{card}]")
     del state, C
 
     # the FSI beam, released half way
@@ -1189,6 +1428,10 @@ def main() -> int:
                 lambda d: natural_convection.build(N=SMALL["convection"],
                                                    device=d),
                 1e-4, ("x", "v", "rho", "C"))
+    card_vs_cpu(f"cell polarization nx={SMALL['polarization']}", "polarization",
+                lambda d: cell_polarization.build(nx=SMALL["polarization"],
+                                                  rebin_every=5, device=d),
+                1e-10, ("x", "v", "rho", "C", "S"))
 
     # -- 10. speed ----------------------------------------------------------
     def speed(label, path, size, state, params, spec, pass_a, move):
@@ -1303,6 +1546,19 @@ def main() -> int:
                           pair_cuda.pass_a_2d_rowloop,
                           rebin_cuda.rebin_move_2d_gated)
         del state
+    t_polar = {}
+    for nx in POLAR_NX:
+        state, params, spec, _ = cell_polarization.build(nx=nx, dt=POLAR_DT[nx],
+                                                         device=dev)
+        state = setup(state, params, spec, dt=POLAR_DT[nx])
+        h, c0 = params.max_cut, float(params.c0.max())
+        nu = float((params.visc / params.rho0[:, None]).max())
+        t_polar[nx] = speed(
+            f"cell polarization nx={nx} (dt {POLAR_DT[nx]}; limits: acoustic "
+            f"0.25 h/c0 {0.25 * h / c0!r}, viscous 0.125 h^2 rho/eta "
+            f"{0.125 * h * h / nu!r})", "polarization", nx, state, params, spec,
+            pair_cuda.pass_a_2d_rowloop, rebin_cuda.rebin_move_2d_gated)
+        del state
     t_c3 = {}
     for N in CAVITY3D_N:
         state, params, spec, _ = lid_cavity3d.build(N=N, device=dev)
@@ -1368,6 +1624,15 @@ def main() -> int:
                                                       device=dev), CONV_DT[N],
                  (("K1 species", "pass_a_2d_kernel"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
+    # cell polarization, rebinning every 20 steps so that a profiled chunk
+    # stays short
+    targets += [(f"cell polarization nx={nx}",
+                 lambda nx=nx: cell_polarization.build(
+                     nx=nx, dt=POLAR_DT[nx], rebin_every=20, device=dev),
+                 POLAR_DT[nx],
+                 (("K2 species/fsi", "pass_a_2d_rowloop_kernel"),
+                  ("K6 periodic y", "rebin_move_2d_gated_kernel")))
+                for nx in POLAR_NX]
     # the blob, balanced and uniform, over two chunks without a re-cut (a
     # chunk of 5 steps is too short to show the pass-A mix)
     targets += [(
@@ -1410,7 +1675,8 @@ def main() -> int:
         del state, prof
 
     # each kernel at its main path's size: the cavity N=200, FSI nx=60, the
-    # 3D cavity N=100, the s=20 balanced blob; the x_edges variants of K5 and
+    # 3D cavity N=100, the s=20 balanced blob, the convection N=200, the
+    # polarization nx=100; the x_edges variants of K5 and
     # K7 at the cavities' sizes, their launches from the short edged runs
     blob_t = t_blob[BLOB_S[1], True]
     rows = (
@@ -1445,6 +1711,15 @@ def main() -> int:
          conv_launches["pass_a_2d"], k1s_abs, t_conv[CONV_N[0]], "pass_a"),
         ("pass_a_3d (species)", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106",
          k3s_launches, k3s_abs, t_k3s, "pass_a"),
+        # the polarization path at nx=100: K2 with the fsi pair style, one
+        # species and both axes periodic, K6 with a periodic y axis
+        ("pass_a_2d_rowloop (species/fsi, periodic y)",
+         "csrc/pass_a_2d_rowloop.cu", "ops/pair_pallas.py:527",
+         polar_launches["pass_a_2d_rowloop"], k2p_abs, t_polar[POLAR_NX[0]],
+         "pass_a"),
+        ("rebin_move_2d_gated (periodic y)", "csrc/rebin_move_2d_gated.cu",
+         "core/rebin_pallas.py:346", polar_launches["rebin_move_2d_gated"],
+         k6p_abs, t_polar[POLAR_NX[0]], "move"),
     )
     # no single PyTorch call computes pass A or the locality move
     kernels = [

@@ -377,6 +377,10 @@ class Scene:
         return np.stack([c.ravel() for c in g], axis=-1)
 
     # -- atoms --------------------------------------------------------------
+    def _current_x(self) -> np.ndarray:
+        """Positions of the atoms made so far, [n, 3] in creation order."""
+        return self._x
+
     def create_atoms(self, ptype: int, region: Region):
         sites = self._lattice_sites()
         new = sites[region.contains(sites)]

@@ -34,6 +34,12 @@ def wrap_x(geom) -> bool:
     return bool(geom.periodic[0]) and geom.ncells[0] > 1
 
 
+def wrap_y(geom) -> bool:
+    """y wrap needed (the JAX package's ghost columns on y): periodic y with
+    more than one cell."""
+    return 1 in ghost_axes(geom)
+
+
 def periodic_multicell(geom) -> bool:
     """Any periodic axis with more than one cell (an x wrap or ghost
     columns): the grids K1, K3, K5 and K7 do not serve."""

@@ -4,8 +4,8 @@
 
 Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the 2D static branch
 (cap <= 16, no periodic axis), K6 for the 2D gated branch (16 < cap <= 64,
-walls or a periodic x axis), K7 for the 3D tiled kernel (cap <= 64, walls
-on every axis); each with uniform or non-uniform x columns
+walls or periodic axes, x and y alike), K7 for the 3D tiled kernel (cap <=
+64, walls on every axis); each with uniform or non-uniform x columns
 (``Geometry.x_edges``, the load-balance lever).  Between rebins a
 particle moves at most one cell (the drift contract ``core/state.rebin``
 checks), so the particles that belong in cell c are the matching candidates
@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import (ghost_axes, grid_3d,
-                                         periodic_multicell, wrap_x)
+from sph_bvf_tpu_torch.core.halo import (grid_3d, periodic_multicell, wrap_x,
+                                         wrap_y)
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
 MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
@@ -43,18 +43,17 @@ def move_route(geom: Geometry):
     """The kernel wrapper that serves this grid's rebin move, or None.
 
     A 3D grid goes to K7 when no axis is periodic and cap <= 64.  On a 2D
-    grid (no periodic y) K5 takes cap <= 16 without a periodic axis; K6
-    takes 16 < cap <= 64, with walls or a periodic x axis of at least 3
-    cells (with 2, the same source cell would sit in a target's window
+    grid K5 takes cap <= 16 without a periodic axis; K6 takes 16 < cap <=
+    64, with walls or periodic axes (x, y or both) of at least 3 cells
+    each (with 2, the same source cell would sit in a target's window
     twice).  Non-uniform x columns (``x_edges``) route by the same rules."""
     if grid_3d(geom):
         ok = geom.cap <= MAX_CAP_3D and not periodic_multicell(geom)
         return rebin_move_3d if ok else None
-    if ghost_axes(geom):
-        return None
     if geom.cap <= MAX_CAP:
-        return None if wrap_x(geom) else rebin_move_2d
-    if geom.cap <= GATED_MAX_CAP and (not wrap_x(geom) or geom.ncells[0] >= 3):
+        return None if periodic_multicell(geom) else rebin_move_2d
+    two_cells = any(geom.periodic[ax] and geom.ncells[ax] == 2 for ax in (0, 1))
+    if geom.cap <= GATED_MAX_CAP and not two_cells:
         return rebin_move_2d_gated
     return None
 
@@ -112,7 +111,7 @@ def _walk_sources(geom: Geometry, device):
     """The candidate source cells of every target cell, [3^dim, NC] each:
     the source cell's flat index (0 where off the grid) and whether it is
     on the grid, ordered per target by ascending flat index after the
-    periodic-x wrap (off-grid candidates last)."""
+    periodic wraps of x and y (off-grid candidates last)."""
     nx, ny, nz = geom.ncells
     NC = geom.ncells_total
     c = torch.arange(NC, dtype=torch.int64, device=device)
@@ -122,6 +121,8 @@ def _walk_sources(geom: Geometry, device):
         sx, sy, sz = cx + ox, cy + oy, cz + oz
         if wrap_x(geom):
             sx = sx % nx
+        if wrap_y(geom):
+            sy = sy % ny
         srcs.append((sx * ny + sy) * nz + sz)
         ons.append((sx >= 0) & (sx < nx) & (sy >= 0) & (sy < ny)
                    & (sz >= 0) & (sz < nz))
@@ -260,6 +261,7 @@ def rebin_move_2d_gated(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     span = geom.x_edges[-1] - geom.x_edges[0] if geom.x_edges else 0.0
     return _launch(rebin_move_2d_gated, PF, PI, geom, xr, 2,
                    ((ctypes.c_int, int(wrap_x(geom))),
+                    (ctypes.c_int, int(wrap_y(geom))),
                     (ctypes.c_float, float(np.float32(span)))))
 
 

@@ -9,9 +9,15 @@
 // mechanics (symmetric pressure) force, XSPH, BVF walls, free solids with the
 // Pereira artificial viscosity, elastic solids (the 9-component artificial
 // stress, the deviatoric solid force and the Jaumann rate dS), solid-free
-// scenes (F_NOSOLIDS: the load-balance blob), a periodic x axis, with
-// (FILTER) or without the Shepard-filter accumulators.  The plain
-// PyTorch version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
+// scenes (F_NOSOLIDS: the load-balance blob), periodic x and y axes, with
+// (FILTER) or without the Shepard-filter accumulators; and the fsi pair
+// style of cell polarization: the density-diffusion term of drho (ampl), the
+// shear modulus softened per particle (F_G0PAIR: geff of a pair from the
+// packed G0 row of i and j, not from the type table) and NS continuum
+// species (the tSDPD flux Q of the C rows, csrc/pass_a_tv.cuh
+// `add_species_flux`, inside its own support cutc and so before the test
+// against h).  The plain PyTorch version is sph_bvf_tpu_torch/ops/pair.py
+// `_pass_a_plain`.
 //
 // What bounds it on an H100: FSI cells hold cap = 47 slots but ~9-16
 // particles, so a walk over every slot of the 3x3 window would spend two
@@ -29,21 +35,25 @@
 // in the solid branch.  Accumulators stay in registers, neighbouring threads
 // take neighbouring cells of one slot row so every load of the [F, cap, NC]
 // pack is coalesced, and a candidate outside the kernel support skips all
-// arithmetic (every term carries W or dW/dr, exactly 0 there).  Periodic x
-// wraps the neighbour column and takes the minimum image
-// dx - L * rint(dx / L) with round-to-nearest-even and unfused arithmetic,
-// as torch.round does.
+// arithmetic (every term carries W or dW/dr, exactly 0 there).  A periodic
+// axis (x, y or both; the TPU kernel builds ghost columns for y,
+// pair_pallas.py:359-365) wraps the neighbour cell by index and takes the
+// minimum image dx - L * rint(dx / L) with round-to-nearest-even and unfused
+// arithmetic, as torch.round does.  NS is a template parameter (0..4, as in
+// K1 and K3): the Q sums stay in registers and the NS = 0 code has no species.
 //
 // Layouts (kept in step with sph_bvf_tpu_torch/ops/pair_cuda.py):
-//   pf  f32 [F, cap, NC]: K2_PF_ROWS, then AS(9), S(9) (ELASTIC) or ASd,
-//       then rhoI (FILTER)
-//   tab f32 [7, T*T]: inv_h, eta, inv_wdelta, W' factor, W factor, h, geff
-//   out f32 [A, cap, NC]: K2_ACC_ROWS, then dS(9) (ELASTIC), then rhoAux1,
-//       rhoAux2 (FILTER)
-// Flat cell c = cx * ny + cy; the grid has one cell along z, and y is not
-// periodic.
+//   pf   f32 [F, cap, NC]: K2_PF_ROWS, then AS(9), S(9) (ELASTIC) or ASd,
+//        then rhoI (FILTER), then C (NS)
+//   tab  f32 [7, T*T]: inv_h, eta, inv_wdelta, W' factor, W factor, h, geff
+//   stab f32 [4 + NS, T*T] (NS > 0): the species table of csrc/pass_a_tv.cuh
+//   out  f32 [A, cap, NC]: K2_ACC_ROWS, then dS(9) (ELASTIC), then rhoAux1,
+//        rhoAux2 (FILTER), then Q (NS)
+// Flat cell c = cx * ny + cy; the grid has one cell along z.
 
 #include <cuda_runtime.h>
+
+#include "pass_a_tv.cuh"
 
 namespace {
 
@@ -59,21 +69,30 @@ constexpr int T_INVH = 0, T_ETA = 1, T_INVWD = 2, T_CWFD = 3, T_CWF = 4,
 // plain path has no artificial-stress force and no BVF phi/nw there, and
 // its tables no inv_wdelta, so the kernel skips both and leaves phi/nw 0
 constexpr int F_PSWITCH = 1, F_XSPH = 2, F_FREE = 4, F_WRAPX = 8,
-              F_NOSOLIDS = 16;
+              F_NOSOLIDS = 16, F_WRAPY = 32, F_G0PAIR = 64;
+// the rows add_species_flux reads by tv's names
+static_assert(R_V == tv::R_V && R_VEST == tv::R_VEST && R_RHO == tv::R_RHO &&
+                  R_MRHO == tv::R_MRHO,
+              "K2's packed rows must match csrc/pass_a_tv.cuh");
 constexpr int kThreads = 128;
 // the diagonal factor (1 - 1/3) of the deviatoric strain, rounded to f32
 // before the multiply as the plain path does
 constexpr float kTwoThirds = (float)(1.0 - 1.0 / 3.0);
 
-template <bool FILTER, bool ELASTIC>
+// ampl: PairConfig.ampl_damp, the density-diffusion amplitude (0: no such
+// term); advect: PairConfig.species_advection; lx, ly: the periodic extents
+template <bool FILTER, bool ELASTIC, int NS>
 __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
     const float* __restrict__ pf, const float* __restrict__ tab,
-    float* __restrict__ out, int ntypes, int cap, int nx, int ny, int flags,
-    float lx) {
+    const float* __restrict__ stab, float* __restrict__ out, int ntypes,
+    int cap, int nx, int ny, int flags, int advect, float lx, float ly,
+    float ampl) {
   constexpr int R_S = R_STRESS + 9;                      // ELASTIC only
   constexpr int R_RHOI = R_STRESS + (ELASTIC ? 18 : 1);  // FILTER only
+  constexpr int R_C = R_RHOI + (FILTER ? 1 : 0);         // NS > 0 only
   constexpr int O_AUX = O_DS + (ELASTIC ? 9 : 0);        // FILTER only
-  constexpr int A = O_AUX + (FILTER ? 2 : 0);
+  constexpr int O_Q = O_AUX + (FILTER ? 2 : 0);          // NS > 0 only
+  constexpr int A = O_Q + NS;
   const int nc = nx * ny;
   const int m = cap * nc;  // slots per field row
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
@@ -83,6 +102,7 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
   const int tt = ntypes * ntypes;
   const bool pswitch = flags & F_PSWITCH, xsph = flags & F_XSPH,
              free_solids = flags & F_FREE, wrapx = flags & F_WRAPX,
+             wrapy = flags & F_WRAPY, g0pair = flags & F_G0PAIR,
              solids = !(flags & F_NOSOLIDS);
   auto ld = [&](int row, int slot) { return __ldg(pf + (long long)row * m + slot); };
   auto tb = [&](int row, int tp) { return __ldg(tab + row * tt + tp); };
@@ -108,9 +128,15 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
     const float Pi = ld(R_PRHO2, s), Vi2 = ld(R_V2, s), c0i = ld(R_C0, s);
     const float inv_rhoi = ld(R_INVRHO, s);
     const float inv_i2 = inv_rhoi * inv_rhoi;
+    float Ci[NS > 0 ? NS : 1];
+    if constexpr (NS > 0) {
+#pragma unroll
+      for (int c = 0; c < NS; ++c) Ci[c] = ld(R_C + c, s);
+    }
 
     // i-side stress: the artificial-stress tensor, the deviatoric tensor
     float ASi[ELASTIC ? 9 : 1], Si[ELASTIC ? 9 : 1];
+    float G0i = 0.f;
     bool as_i = false, elastic_i = false;
     if constexpr (ELASTIC) {
       bool s_nz = false;
@@ -121,8 +147,13 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
         as_i |= ASi[q] != 0.f;
         s_nz |= Si[q] != 0.f;
       }
-      // dS is exactly 0 unless i is a solid with G0 > 0 or S != 0
-      elastic_i = solid_i && (ld(R_G0, s) > 0.f || s_nz);
+      // dS is exactly 0 unless i is a solid with G0 != 0 or S != 0.  With
+      // F_G0PAIR the row holds G0 (1 - 0.99 C): positive while C < 1/0.99,
+      // exactly 0 at a type without shear modulus, and negative beyond
+      // (an unphysical concentration; the plain path then sums a negative
+      // geff, and so does this kernel: the gate is != 0, not > 0)
+      G0i = ld(R_G0, s);
+      elastic_i = solid_i && (G0i != 0.f || s_nz);
     } else {
       ASi[0] = ld(R_STRESS, s);
     }
@@ -135,8 +166,12 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
         continue;
       }
       for (int oy = -1; oy <= 1; ++oy) {
-        const int cyj = cy + oy;
-        if (cyj < 0 || cyj >= ny) continue;
+        int cyj = cy + oy;
+        if (wrapy) {
+          cyj = cyj < 0 ? cyj + ny : (cyj >= ny ? cyj - ny : cyj);
+        } else if (cyj < 0 || cyj >= ny) {
+          continue;
+        }
         const int cj = cxj * ny + cyj;
         for (int j = 0; j < cap; ++j) {
           const int k = j * nc + cj;
@@ -148,9 +183,16 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
           for (int a = 0; a < 3; ++a) dx[a] = xi[a] - ld(R_X + a, k);
           if (wrapx)  // minimum image, unfused like the plain path
             dx[0] = __fsub_rn(dx[0], __fmul_rn(lx, rintf(__fdiv_rn(dx[0], lx))));
+          if (wrapy)
+            dx[1] = __fsub_rn(dx[1], __fmul_rn(ly, rintf(__fdiv_rn(dx[1], ly))));
           const float rsq = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
           const float r = sqrtf(rsq);
           const int tp = ti * ntypes + (int)ld(R_PTYPE, k);
+          // the species flux has its own support: before the test against h
+          if constexpr (NS > 0)
+            tv::add_species_flux<NS>(pf, m, k, stab, advect, tt, tp, R_C, dx[0],
+                                     dx[1], dx[2], rsq, r, inv_rhoi, Ci, bi,
+                                     acc + O_Q);
           const float q = r * tb(T_INVH, tp);
           const float t = fmaxf(1.f - q, 0.f);
           if (t == 0.f) continue;  // outside the support: every term is 0
@@ -266,7 +308,13 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
           if constexpr (ELASTIC) {
             if (elastic_i) {
               const float pref = 0.5f * ld(R_MRHO, k) * wfd;
-              const float two_geff = 2.f * tb(T_GEFF, tp);
+              float two_geff;
+              if (g0pair) {  // harmonic mean of the softened moduli of i, j
+                const float G0j = ld(R_G0, k);
+                two_geff = 2.f * (2.f * G0i * G0j / (G0i + G0j + 1e-12f));
+              } else {
+                two_geff = 2.f * tb(T_GEFF, tp);
+              }
               float dv[3], strain[9], rot[9];
 #pragma unroll
               for (int a = 0; a < 3; ++a) dv[a] = ej[a] - ei[a];
@@ -300,6 +348,11 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
           const float delVt = dx[0] * (vi[0] - vj[0]) + dx[1] * (vi[1] - vj[1]) +
                               dx[2] * (vi[2] - vj[2]);
           acc[O_DRHO] += rhoi * delVt * wfd * mrhoj + mrhoj * (ti_s + tj_s) * wfd;
+          if (ampl != 0.f) {  // density diffusion of the fsi pair style
+            const float h = tb(T_H, tp);
+            acc[O_DRHO] -= ampl * h * c0i * 2.f * (rhoj - rhoi) *
+                           (rsq / (rsq + 0.01f * h * h)) * wfd * mrhoj;
+          }
 
           acc[O_DE] += -0.5f * (fpair * delVdotDelR +
                                 fvisc * (vv[0] * vv[0] + vv[1] * vv[1] + vv[2] * vv[2]));
@@ -320,30 +373,64 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
   for (int a = 0; a < A; ++a) out[(long long)a * m + s] = acc[a];
 }
 
-template <bool FILTER, bool ELASTIC>
-int launch(const float* pf, const float* tab, float* out, int ntypes, int cap,
-           int nx, int ny, int flags, float lx, cudaStream_t stream) {
-  const int m = cap * nx * ny;
-  const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
-  pass_a_2d_rowloop_kernel<FILTER, ELASTIC><<<blocks, kThreads, 0, stream>>>(
-      pf, tab, out, ntypes, cap, nx, ny, flags, lx);
-  return (int)cudaGetLastError();
+// every (FILTER, ELASTIC, NS) instantiation, for the C entry points' dispatch
+#define K2_FOR_EACH_NS(X, F, E) X(F, E, 0) X(F, E, 1) X(F, E, 2) X(F, E, 3) X(F, E, 4)
+#define K2_FOR_EACH_VARIANT(X)                                  \
+  K2_FOR_EACH_NS(X, false, false) K2_FOR_EACH_NS(X, false, true) \
+  K2_FOR_EACH_NS(X, true, false) K2_FOR_EACH_NS(X, true, true)
+static_assert(tv::kMaxSpecies == 4, "K2_FOR_EACH_NS lists NS = 0..4");
+constexpr int variant_key(bool filter, bool elastic, int ns) {
+  return 4 * ns + (filter ? 2 : 0) + (elastic ? 1 : 0);
 }
 
 }  // namespace
 
-extern "C" int pass_a_2d_rowloop(const float* pf, const float* tab, float* out,
-                                 int ntypes, int cap, int nx, int ny, int filter,
-                                 int elastic, int flags, float lx,
-                                 cudaStream_t stream) {
-  if ((long long)cap * nx * ny == 0) return 0;
-  if (filter && elastic)
-    return launch<true, true>(pf, tab, out, ntypes, cap, nx, ny, flags, lx, stream);
-  if (filter)
-    return launch<true, false>(pf, tab, out, ntypes, cap, nx, ny, flags, lx, stream);
-  if (elastic)
-    return launch<false, true>(pf, tab, out, ntypes, cap, nx, ny, flags, lx, stream);
-  return launch<false, false>(pf, tab, out, ntypes, cap, nx, ny, flags, lx, stream);
+// filter, elastic: the template switches; ns: the species count (stab is read
+// only when ns > 0); flags: F_*; advect, lx, ly, ampl: see the kernel
+extern "C" int pass_a_2d_rowloop(const float* pf, const float* tab,
+                                 const float* stab, float* out, int ntypes,
+                                 int ns, int advect, int cap, int nx, int ny,
+                                 int filter, int elastic, int flags, float lx,
+                                 float ly, float ampl, cudaStream_t stream) {
+  const long long m = (long long)cap * nx * ny;
+  if (m == 0) return 0;
+  const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
+  switch (variant_key(filter != 0, elastic != 0, ns)) {
+#define X(F, E, N)                                                         \
+  case variant_key(F, E, N):                                               \
+    pass_a_2d_rowloop_kernel<F, E, N><<<blocks, kThreads, 0, stream>>>(    \
+        pf, tab, stab, out, ntypes, cap, nx, ny, flags, advect, lx, ly,    \
+        ampl);                                                             \
+    break;
+    K2_FOR_EACH_VARIANT(X)
+#undef X
+    default:
+      return (int)cudaErrorInvalidValue;  // ns beyond tv::kMaxSpecies
+  }
+  return (int)cudaGetLastError();
+}
+
+// registers per thread and local-memory (spill) bytes per thread of the
+// (filter, elastic, ns) instantiation, as the runtime reports them
+extern "C" int pass_a_2d_rowloop_attributes(int filter, int elastic, int ns,
+                                            int* regs, int* local_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (variant_key(filter != 0, elastic != 0, ns)) {
+#define X(F, E, N)                                                          \
+  case variant_key(F, E, N):                                                \
+    err = cudaFuncGetAttributes(&attr, pass_a_2d_rowloop_kernel<F, E, N>);  \
+    break;
+    K2_FOR_EACH_VARIANT(X)
+#undef X
+    default:
+      break;
+  }
+  if (err == cudaSuccess) {
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+  }
+  return (int)err;
 }
 
 extern "C" const char* sph_cuda_error_string(int code) {

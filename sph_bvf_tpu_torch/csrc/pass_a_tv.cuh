@@ -1,6 +1,8 @@
 // The transport-velocity pass-A pair term shared by K1 (csrc/pass_a_2d.cu) and
 // K3 (csrc/pass_a_3d.cu): the packed-row layout, the i-side values a thread
-// loads once, and the accumulation of one (i, j) pair.
+// loads once, and the accumulation of one (i, j) pair.  Its species flux
+// (`add_species_flux`, the species table and kMaxSpecies) also serves K2
+// (csrc/pass_a_2d_rowloop.cu).
 //
 // It is ops/pair.py `_pass_a_offset` for one pair under the configuration
 // both kernels serve: the transport-velocity pressure switch, fixed BVF wall
@@ -105,6 +107,43 @@ __device__ __forceinline__ ISide<NS> load_i(const float* __restrict__ pf,
   return I;
 }
 
+// The tSDPD flux of NS species for the pair (i, j = slot k), summed into q[0..NS)
+// when r lies inside the pair's species support cutc:
+//   kappa (C_i - C_j) 2 m_harm (1/rho_i + 1/rho_j) rsq W'_c / (rsq + 0.01 cutc^2)
+//   - advect (m_j/rho_j) W'_c (C_i (vest_i - v_i).dx + C_j (vest_j - v_j).dx).
+// K2 (csrc/pass_a_2d_rowloop.cu) shares it: its rows R_V, R_VEST, R_RHO and
+// R_MRHO are the ones above.  row_c is the first C row of pf, dx the pair
+// separation (after any minimum image), Ci the C of i and bi its v - vest.
+template <int NS>
+__device__ __forceinline__ void add_species_flux(
+    const float* __restrict__ pf, long long m, long long k,
+    const float* __restrict__ stab, int advect, int tt, int tp, int row_c,
+    float dx0, float dx1, float dx2, float rsq, float r, float inv_rho_i,
+    const float* Ci, const float* bi, float* q) {
+  const float qc = r * __ldg(stab + S_INVHC * tt + tp);
+  const float tc = fmaxf(1.f - qc, 0.f);
+  if (tc == 0.f) return;
+  const float wfd_c = __ldg(stab + S_CWFD * tt + tp) * tc * tc;
+  const float base = __ldg(stab + S_M2 * tt + tp) *
+                     (inv_rho_i + 1.f / ld(pf, m, R_RHO, k)) * rsq * wfd_c /
+                     (rsq + __ldg(stab + S_HC2 * tt + tp));
+  // (vest - v).dx of i and of j; bi is v - vest, hence the sign
+  float corr_i = 0.f, corr_j = 0.f, mw = 0.f;
+  if (advect) {
+    corr_i = -(bi[0] * dx0 + bi[1] * dx1 + bi[2] * dx2);
+    corr_j = (ld(pf, m, R_VEST, k) - ld(pf, m, R_V, k)) * dx0 +
+             (ld(pf, m, R_VEST + 1, k) - ld(pf, m, R_V + 1, k)) * dx1 +
+             (ld(pf, m, R_VEST + 2, k) - ld(pf, m, R_V + 2, k)) * dx2;
+    mw = ld(pf, m, R_MRHO, k) * wfd_c;
+  }
+#pragma unroll
+  for (int c = 0; c < NS; ++c) {
+    const float Cj = ld(pf, m, row_c + c, k);
+    q[c] += __ldg(stab + (S_KAPPA + c) * tt + tp) * (Ci[c] - Cj) * base -
+            mw * (Ci[c] * corr_i + Cj * corr_j);
+  }
+}
+
 // add the pair (i, j = slot k) to acc; the caller has checked that j is valid
 // and not i.  advect: the transport-velocity advection correction of the
 // species flux (PairConfig.species_advection).
@@ -122,32 +161,9 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
   const int tp = I.tp0 + (int)ld(pf, m, R_PTYPE, k);
 
   // ---- species flux, inside its own support cutc
-  if constexpr (NS > 0) {
-    const float qc = r * __ldg(stab + S_INVHC * tt + tp);
-    const float tc = fmaxf(1.f - qc, 0.f);
-    if (tc != 0.f) {
-      const float wfd_c = __ldg(stab + S_CWFD * tt + tp) * tc * tc;
-      const float base = __ldg(stab + S_M2 * tt + tp) *
-                         (I.inv_rho + 1.f / ld(pf, m, R_RHO, k)) * rsq * wfd_c /
-                         (rsq + __ldg(stab + S_HC2 * tt + tp));
-      // (vest - v).dx of i and of j; I.b is v - vest, hence the sign
-      float corr_i = 0.f, corr_j = 0.f, mw = 0.f;
-      if (advect) {
-        corr_i = -(I.b[0] * dx0 + I.b[1] * dx1 + I.b[2] * dx2);
-        corr_j = (ld(pf, m, R_VEST, k) - ld(pf, m, R_V, k)) * dx0 +
-                 (ld(pf, m, R_VEST + 1, k) - ld(pf, m, R_V + 1, k)) * dx1 +
-                 (ld(pf, m, R_VEST + 2, k) - ld(pf, m, R_V + 2, k)) * dx2;
-        mw = ld(pf, m, R_MRHO, k) * wfd_c;
-      }
-#pragma unroll
-      for (int c = 0; c < NS; ++c) {
-        const float Cj = ld(pf, m, kRowC<FILTER> + c, k);
-        acc[kRowQ<FILTER> + c] +=
-            __ldg(stab + (S_KAPPA + c) * tt + tp) * (I.C[c] - Cj) * base -
-            mw * (I.C[c] * corr_i + Cj * corr_j);
-      }
-    }
-  }
+  if constexpr (NS > 0)
+    add_species_flux<NS>(pf, m, k, stab, advect, tt, tp, kRowC<FILTER>, dx0, dx1,
+                         dx2, rsq, r, I.inv_rho, I.C, I.b, acc + kRowQ<FILTER>);
 
   const float q = r * __ldg(tab + T_INVH * tt + tp);
   const float t = fmaxf(1.f - q, 0.f);

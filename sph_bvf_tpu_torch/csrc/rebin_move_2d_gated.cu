@@ -7,13 +7,15 @@
 // cell (the drift contract that rebin's drift check enforces), so the
 // particles that belong in cell c are the matching candidates among the slots
 // of its 3x3 stencil cells.  The thread walks them slot-major, then by the
-// source cell's flat index after the periodic-x wrap — the order of the sort
-// rebin's stable (cell, old flat slot) key, so the slot assignment is
+// source cell's flat index after the periodic wraps of x and y — the order of
+// the sort rebin's stable (cell, old flat slot) key, so the slot assignment is
 // bit-identical to sph_bvf_tpu_torch/core/state.py `rebin` with
-// use_kernel=False on wall and periodic-x grids alike — recomputes each
-// candidate's cell from its f32 position exactly as `cell_index_of` does
-// (round-to-nearest subtract and multiply, never fused, with the same f32 lo
-// and 1/cell_size; a floored modulo on the periodic axis), and keeps the
+// use_kernel=False on wall, periodic-x and doubly periodic grids alike —
+// recomputes each candidate's cell from its f32 position exactly as
+// `cell_index_of` does (round-to-nearest subtract and multiply, never fused,
+// with the same f32 lo and 1/cell_size; a floored modulo on a periodic axis;
+// the TPU kernel builds ghost columns for a periodic y, rebin_pallas.py:239-253,
+// 305-321, where this one wraps the source row by index), and keeps the
 // first cap matches.  A match of rank >= cap, or a particle that moved beyond
 // one ring, is dropped; the caller counts the loss as overflow.  The plain
 // PyTorch version is sph_bvf_tpu_torch/core/rebin_cuda.py
@@ -43,8 +45,8 @@
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
 // x at f32 rows xr, xr+1; outputs of the same shapes.  Flat cell
-// c = cx * ny + cy; the grid has one cell along z, x may be periodic (with
-// at least 3 cells), y is not.
+// c = cx * ny + cy; the grid has one cell along z; x and y may each be
+// periodic (with at least 3 cells, so no source cell sits in a window twice).
 
 #include <cuda_runtime.h>
 
@@ -82,7 +84,7 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_gated_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
     int nx, int ny, int xr, float lo0, float lo1, float inv0, float inv1,
-    int wrapx, float xspan, const int* __restrict__ xb, float inv_q,
+    int wrapx, int wrapy, float xspan, const int* __restrict__ xb, float inv_q,
     int n_fine) {
   const int nc = nx * ny;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -93,7 +95,7 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_gated_kernel(
   const float* px = pf + (long long)xr * m;
   const float* py = px + m;
 
-  // the window's source cells, in ascending flat index after the wrap
+  // the window's source cells, in ascending flat index after both wraps
   int src[9];
   int ns = 0;
   for (int ox = -1; ox <= 1; ++ox) {
@@ -104,8 +106,12 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_gated_kernel(
       continue;
     }
     for (int oy = -1; oy <= 1; ++oy) {
-      const int cys = cy + oy;
-      if (cys < 0 || cys >= ny) continue;
+      int cys = cy + oy;
+      if (wrapy) {
+        cys = cys < 0 ? cys + ny : (cys >= ny ? cys - ny : cys);
+      } else if (cys < 0 || cys >= ny) {
+        continue;
+      }
       int v = cxs * ny + cys;
       int q = ns++;
       for (; q > 0 && src[q - 1] > v; --q) src[q] = src[q - 1];
@@ -121,7 +127,7 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_gated_kernel(
       const int k = s * nc + src[q];
       if (__ldg(pi + k) == 0) continue;  // row 0: valid
       occupied = true;
-      const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, false) : 0;
+      const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, wrapy) : 0;
       if (by != cy || !in_column(__ldg(px + k), cx, nx, lo0, inv0, wrapx, xspan,
                                  xb, xb0, xb1, inv_q, n_fine))
         continue;
@@ -150,16 +156,17 @@ extern "C" int rebin_move_2d_gated(const float* pf, const int* pi, float* outf,
                                    int* outi, int ff, int fi, int cap, int nx,
                                    int ny, int xr, float lo0, float lo1,
                                    float inv0, float inv1, int wrapx,
-                                   float xspan, const int* xb, float inv_q,
-                                   int n_fine, cudaStream_t stream) {
+                                   int wrapy, float xspan, const int* xb,
+                                   float inv_q, int n_fine,
+                                   cudaStream_t stream) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
-  if (wrapx && nx < 3) return (int)cudaErrorInvalidValue;
+  if ((wrapx && nx < 3) || (wrapy && ny < 3)) return (int)cudaErrorInvalidValue;
   const int nc = nx * ny;
   if (nc == 0) return 0;
   const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
   rebin_move_2d_gated_kernel<<<blocks, kThreads, 0, stream>>>(
       pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1, wrapx,
-      xspan, xb, inv_q, n_fine);
+      wrapy, xspan, xb, inv_q, n_fine);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,10 @@ CPU tensor.  The loop is also the reference the kernels are checked against
 on the card.
 
 Ported: the transport-velocity pair style with the Sun-2018 pressure
-switch (the flagship lid-driven cavity) and the mechanics pair style (the
-FSI beam): the symmetric pressure force, XSPH, BVF walls of fixed solids,
+switch (the flagship lid-driven cavity), the mechanics pair style (the FSI
+beam) and the fsi pair style (cell polarization: mechanics plus the density
+diffusion ``ampl_damp`` and the species-softened shear modulus
+``g0_chem_coupling``): the symmetric pressure force, XSPH, BVF walls of fixed solids,
 free solids with the Pereira artificial viscosity, elastic solids (the
 9-component artificial stress, the deviatoric solid force and the Jaumann
 stress rate), periodic axes, with and without the Shepard-filter
@@ -100,9 +102,6 @@ def _unported(params: Params, cfg: PairConfig) -> list:
     """The pair branches this configuration needs that the port lacks."""
     return [what for what, needed in (
         ("thermal noise (thermal)", cfg.thermal),
-        ("density diffusion (ampl_damp)", cfg.ampl_damp != 0.0),
-        ("species-softened shear modulus (g0_chem_coupling)",
-         cfg.g0_chem_coupling),
         ("weighted-solid pass B (weighted_solid)",
          cfg.solids_present and cfg.weighted_solid),
         ("SSA species (n_ssa > 0)", params.n_ssa > 0),
@@ -129,6 +128,11 @@ def _per_particle(state: State, params: Params, cfg: PairConfig):
     m = params.mass[t]
     B = params.B[t]
     rho0 = params.rho0[t]
+    G0 = params.G0[t]
+    if cfg.g0_chem_coupling and state.C.shape[0] > 0:
+        # fsi softens the shear modulus with the first species
+        # (pair...fsi.cpp:441-445)
+        G0 = G0 * (1.0 - 0.99 * state.C[0])
     P = tait_pressure(state.rho, rho0, B)
     inv_rho = 1.0 / state.rho
     m_rho = m * inv_rho
@@ -157,7 +161,7 @@ def _per_particle(state: State, params: Params, cfg: PairConfig):
         valid=state.valid, x=state.x, v=state.v, vest=state.vest,
         rho=state.rho, rhoI=state.rhoI, C=state.C, S=state.S, ptype=t,
         solid=solid,
-        fluid=~solid, m=m, B=B, c0=params.c0[t], G0=params.G0[t], P=P,
+        fluid=~solid, m=m, B=B, c0=params.c0[t], G0=G0, P=P,
         P_rho2=P_rho2, inv_rho=inv_rho, m_rho=m_rho, V2=V2, **stress,
     )
 
@@ -264,14 +268,19 @@ def lookup_pair_coeffs(ti, tj, params: Params, cfg: PairConfig):
 # ---------------------------------------------------------------------------
 
 
-def _pass_a_dS(I, J, coeffs, dx, wfd):
+def _pass_a_dS(I, J, coeffs, cfg: PairConfig, dx, wfd):
     """Jaumann deviatoric stress-rate pair term (pair...mechanics.cpp:433-451)
     for one stencil offset, reduced over cj: [3, 3, ci, NC].  Exactly zero
     for every i that is not a solid with G0 > 0 or S != 0."""
     dvest = J["vest"] - I["vest"]
     # strain/rotation: 0.5 (mj/rhoj) wfd (dvest[m] dx[n] +/- dvest[n] dx[m])
     pref = 0.5 * J["m_rho"] * wfd
-    two_geff = 2.0 * coeffs["geff"]
+    if cfg.g0_chem_coupling:
+        # per-pair harmonic mean of the softened per-particle moduli
+        geff = 2.0 * I["G0"] * J["G0"] / (I["G0"] + J["G0"] + 1e-12)
+    else:
+        geff = coeffs["geff"]
+    two_geff = 2.0 * geff
     outer = [[dvest[a] * dx[b] for b in range(3)] for a in range(3)]
     strain = [[pref * (outer[a][b] + outer[b][a]) for b in range(3)]
               for a in range(3)]
@@ -396,7 +405,7 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
 
     # Jaumann deviatoric stress rate
     if cfg.elastic_present:
-        acc["dS"] += _pass_a_dS(I, J, coeffs, dx, wfd)
+        acc["dS"] += _pass_a_dS(I, J, coeffs, cfg, dx, wfd)
 
     # density evolution, "new density formulation"
     dvt = I["v"] - J["v"]  # transport-velocity difference
@@ -405,6 +414,19 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
     corr_j = rhoj * _dot3(J["vest"] - J["v"], dx)
     m_rho_j = J["m_rho"]
     drho = rhoi * delVtdotDelR * wfd * m_rho_j
+    if cfg.ampl_damp != 0.0:
+        # density diffusion of the fsi pair style (pair...fsi.cpp:535), with
+        # rhoi (rhoj/rhoi - 1) / rhoj rewritten as (rhoj - rhoi) m_rho_j / mj
+        drho = drho - (
+            cfg.ampl_damp
+            * h
+            * I["c0"]
+            * 2.0
+            * (rhoj - rhoi)
+            * (rsq / (rsq + 0.01 * h * h))
+            * wfd
+            * m_rho_j
+        )
     drho = drho - m_rho_j * (corr_i + corr_j) * wfd
     acc["drho"] += torch.sum(drho, dim=RED)
 
@@ -451,6 +473,8 @@ def _pass_a_j_fields(params: Params, cfg: PairConfig):
         fields.append("AS" if cfg.elastic_present else "ASd")
     if cfg.elastic_present:
         fields.append("S")
+        if cfg.g0_chem_coupling:
+            fields.append("G0")
     if params.n_sdpd > 0:
         fields.append("C")
     return fields

@@ -6,9 +6,9 @@ rowloop kernel and K3 (``csrc/pass_a_3d.cu``) its tiled 3D kernel.
 ``pass_a`` makes JAX's shape choice (``pair_pallas._pass_a_tiled3d`` for
 every 3D grid, ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3;
 2D grids with a mixed lattice (``base_occ == 0``) or a crowded cell
-(``cap > 24``) go to K2, the rest to K1.  K1 and K3 also carry the
+(``cap > 24``) go to K2, the rest to K1.  All three also carry the
 continuum species (the C rows in, a species table, the flux Q out) for up
-to ``MAX_SPECIES`` of them; K2 does not yet.  On a CUDA tensor each wrapper
+to ``MAX_SPECIES`` of them.  On a CUDA tensor each wrapper
 launches its kernel; the plain PyTorch loop (``ops/pair._pass_a_plain``)
 runs only on a CPU tensor.  A CUDA call the routed kernel cannot serve
 raises and names what is missing; it never falls back.
@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import (ghost_axes, grid_3d,
-                                         periodic_multicell, wrap_x)
+from sph_bvf_tpu_torch.core.halo import (grid_3d, periodic_multicell, wrap_x,
+                                         wrap_y)
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
 from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
@@ -37,21 +37,25 @@ PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
 ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
             ("phi", 1), ("nw", 3))
 FILTER_ACC_ROWS = (("rhoAux1", 1), ("rhoAux2", 1))
-# the most continuum species K1 and K3 are instantiated for (kMaxSpecies in
-# csrc/pass_a_tv.cuh); their Q rows follow the filter rows
+# the most continuum species K1, K2 and K3 are instantiated for (kMaxSpecies
+# in csrc/pass_a_tv.cuh); their Q rows follow the filter rows
 MAX_SPECIES = 4
 
 # K2 packed field rows (R_* in csrc/pass_a_2d_rowloop.cu): these, then AS
-# and S (elastic) or ASd, then rhoI (filter).
+# and S (elastic) or ASd, then rhoI (filter), then the Ns rows of C.  G0 is
+# the per-particle row of ``pair._per_particle`` (softened by the first
+# species under ``g0_chem_coupling``).
 K2_PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
               "P_rho2", "m_rho", "V2", "c0", "inv_rho", "G0")
 # K2 accumulator rows (O_* there): these, then dS (elastic), then the
-# filter rows.
+# filter rows, then the Ns rows of Q.
 K2_ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
                ("phi", 1), ("nw", 3), ("ddx", 3))
 # K2 runtime switches (F_* there); _F_NOSOLIDS: a solid-free scene (no
-# artificial-stress force, no BVF phi/nw)
-_F_PSWITCH, _F_XSPH, _F_FREE, _F_WRAPX, _F_NOSOLIDS = 1, 2, 4, 8, 16
+# artificial-stress force, no BVF phi/nw); _F_G0PAIR: geff of a pair from
+# the G0 rows of i and j (``g0_chem_coupling``), not from the type table
+(_F_PSWITCH, _F_XSPH, _F_FREE, _F_WRAPX, _F_NOSOLIDS, _F_WRAPY,
+ _F_G0PAIR) = 1, 2, 4, 8, 16, 32, 64
 
 
 def uses_rowloop(geom: Geometry) -> bool:
@@ -78,12 +82,15 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
     checks = [
         ("a 2D grid" if is3d else "a 3D grid", grid_3d(geom) != is3d),
     ]
+    too_many = (f"more than {MAX_SPECIES} continuum species (n_sdpd = {n_sdpd})",
+                n_sdpd > MAX_SPECIES)
     if kernel is pass_a_2d_rowloop:
         checks += [
-            ("a periodic y axis", bool(ghost_axes(geom))),
             ("a periodic x axis with fewer than 3 cells",
              wrap_x(geom) and geom.ncells[0] < 3),
-            ("continuum species (n_sdpd > 0)", n_sdpd > 0),
+            ("a periodic y axis with fewer than 3 cells",
+             wrap_y(geom) and geom.ncells[1] < 3),
+            too_many,
         ]
     else:
         checks += [
@@ -94,8 +101,8 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
              not cfg.pressure_switch),
             ("elastic solids (elastic_present)", cfg.elastic_present),
             ("free solids (free_solids_present)", cfg.free_solids_present),
-            (f"more than {MAX_SPECIES} continuum species (n_sdpd = {n_sdpd})",
-             n_sdpd > MAX_SPECIES),
+            ("density diffusion (ampl_damp)", cfg.ampl_damp != 0.0),
+            too_many,
         ]
     return [what for what, bad in checks if bad]
 
@@ -113,7 +120,7 @@ def _tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
 
 
 def _species_tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
-    """[4 + Ns, T*T] f32, the species rows of K1 and K3 (S_* in
+    """[4 + Ns, T*T] f32, the species rows of K1, K2 and K3 (S_* in
     csrc/pass_a_tv.cuh): 1/cutc, the r-independent Lucy W' factor of cutc,
     twice the harmonic mass, 0.01 cutc^2, then kappa of each species."""
     tabs = tabs or pair.coeff_tables(params, cfg)
@@ -124,13 +131,15 @@ def _species_tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
     return torch.stack([r.reshape(-1) for r in rows]).to(torch.float32).contiguous()
 
 
-def _k2_tables(params: Params, cfg) -> torch.Tensor:
-    """[7, T*T] f32: K1's five rows, then h (the Pereira viscosity) and the
-    harmonic shear modulus geff (0 without elastic solids)."""
-    tabs = pair.coeff_tables(params, cfg)
+def _k2_tables(params: Params, cfg, tabs: dict) -> torch.Tensor:
+    """[7, T*T] f32: K1's five rows, then h (the Pereira viscosity, the
+    density diffusion) and the harmonic shear modulus geff (0 without
+    elastic solids, and under ``g0_chem_coupling``, where the kernel takes
+    it from the G0 rows)."""
     geff = tabs.get("geff", torch.zeros_like(tabs["h"]))
     extra = torch.stack([tabs["h"].reshape(-1), geff.reshape(-1)])
-    return torch.cat([_tables(params, cfg), extra.to(torch.float32)]).contiguous()
+    return torch.cat([_tables(params, cfg, tabs),
+                      extra.to(torch.float32)]).contiguous()
 
 
 def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, kernel):
@@ -218,18 +227,21 @@ def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
     return result
 
 
-def kernel_attributes(wrapper, filt: bool, ns: int) -> tuple:
+def kernel_attributes(wrapper, filt: bool, ns: int, elastic: bool = False) -> tuple:
     """(registers per thread, local-memory bytes per thread: its spills) of
-    the instantiation of K1 or K3 (``wrapper``: ``pass_a_2d`` or
-    ``pass_a_3d``) for ``filt`` and ``ns`` species, from
-    ``cudaFuncGetAttributes``."""
+    the instantiation of a pass-A kernel (``wrapper``: ``pass_a_2d``,
+    ``pass_a_2d_rowloop`` or ``pass_a_3d``) for ``filt`` and ``ns`` species
+    (K2: and ``elastic``), from ``cudaFuncGetAttributes``."""
     name = wrapper.__name__
+    switches = ((int(filt), int(elastic)) if wrapper is pass_a_2d_rowloop
+                else (int(filt),))
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_attributes")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.argtypes = ([ctypes.c_int] * (len(switches) + 1)
+                   + [ctypes.POINTER(ctypes.c_int)] * 2)
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(lib, fn(int(filt), ns, ctypes.byref(regs), ctypes.byref(local)),
+    _build.check(lib, fn(*switches, ns, ctypes.byref(regs), ctypes.byref(local)),
                  f"{name}_attributes")
     return regs.value, local.value
 
@@ -264,51 +276,61 @@ pass_a_3d.launches = 0  # K3 launches in this process
 
 def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     """Pass A accumulators from ``pf`` through K2 on CUDA (the plain loop on
-    CPU): tv and mechanics physics, fixed and free solids, elastic solids,
-    solid-free scenes, XSPH, periodic x."""
+    CPU): tv, mechanics and fsi physics (the density diffusion, the shear
+    modulus softened per particle), fixed and free solids, elastic solids,
+    solid-free scenes, XSPH, periodic x and y, with up to ``MAX_SPECIES``
+    continuum species."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg)
     _check_launch(pf, params, geom, cfg, pass_a_2d_rowloop)
     cap, NC = pf["rho"].shape
     filt = bool(cfg.density_filter_accs)
     elastic = bool(cfg.elastic_present)
+    ns = params.n_sdpd
     stress = ("AS", "S") if elastic else ("ASd",)
-    PF = _pack(pf, K2_PF_ROWS + stress + (("rhoI",) if filt else ()), cap, NC)
-    tab = _k2_tables(params, cfg).to(PF.device)
+    PF = _pack(pf, K2_PF_ROWS + stress + (("rhoI",) if filt else ())
+               + (("C",) if ns else ()), cap, NC)
+    tabs = pair.coeff_tables(params, cfg)
+    tab = _k2_tables(params, cfg, tabs).to(PF.device)
+    stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
     accs = (K2_ACC_ROWS + ((("dS", 9),) if elastic else ())
-            + (FILTER_ACC_ROWS if filt else ()))
+            + (FILTER_ACC_ROWS if filt else ()) + ((("Q", ns),) if ns else ()))
     out = torch.empty((sum(n for _, n in accs), cap, NC), dtype=torch.float32,
                       device=PF.device)
     flags = ((_F_PSWITCH if cfg.pressure_switch else 0)
              | (_F_XSPH if cfg.xsph else 0)
              | (_F_FREE if cfg.free_solids_present else 0)
              | (_F_WRAPX if wrap_x(geom) else 0)
+             | (_F_WRAPY if wrap_y(geom) else 0)
+             | (_F_G0PAIR if cfg.g0_chem_coupling else 0)
              | (0 if cfg.solids_present else _F_NOSOLIDS))
-    # the periodic extent in f32, the constant the plain path's minimum
-    # image rounds it to
-    lx = float(np.float32(geom.hi[0] - geom.lo[0]))
+    # the periodic extents in f32, the constants the plain path's minimum
+    # image rounds them to
+    lx, ly = (float(np.float32(geom.hi[ax] - geom.lo[ax])) for ax in (0, 1))
 
     lib = _build.load("pass_a_2d_rowloop")
     fn = lib.pass_a_2d_rowloop
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
-    code = fn(PF.data_ptr(), tab.data_ptr(), out.data_ptr(), params.ntypes,
-              cap, geom.ncells[0], geom.ncells[1], int(filt), int(elastic),
-              flags, lx, _build.current_stream(PF.device))
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    code = fn(PF.data_ptr(), tab.data_ptr(),
+              None if stab is None else stab.data_ptr(), out.data_ptr(),
+              params.ntypes, ns, int(bool(cfg.species_advection)), cap,
+              geom.ncells[0], geom.ncells[1], int(filt), int(elastic), flags,
+              lx, ly, float(cfg.ampl_damp), _build.current_stream(PF.device))
     _build.check(lib, code, "pass_a_2d_rowloop")
     pass_a_2d_rowloop.launches += 1
 
     result = _unpack(out, accs)
+    if not ns:
+        result["Q"] = torch.zeros((0, cap, NC), dtype=torch.float32,
+                                  device=PF.device)
     if not filt:
         zero = torch.zeros((cap, NC), dtype=torch.float32, device=PF.device)
         result["rhoAux1"] = result["rhoAux2"] = zero
     if not elastic:
         result["dS"] = torch.zeros((3, 3, cap, NC), dtype=torch.float32,
                                    device=PF.device)
-    # K2 carries no species rows (_check_launch refuses n_sdpd > 0)
-    result["Q"] = torch.zeros((0, cap, NC), dtype=torch.float32,
-                              device=PF.device)
     return result
 
 

@@ -1,10 +1,12 @@
-"""Non-uniform x columns for the port's tests, without load balancing.
+"""Non-uniform x columns and seeded drifts for the port's tests, without
+load balancing.
 
 ``with_synthetic_edges`` is ``tests/test_halo_kernels.py``'s construction:
 x columns of alternating widths 7 and 9 on the cell/8 quantum.
 ``seeded_drift`` moves a state's particles as far as a rebin period may,
-with some of them exactly on a column edge.  Torch and numpy only (the
-kernel tests import this on a machine without JAX).
+with some of them exactly on a column edge; ``corner_drift`` does so on a
+doubly periodic grid, across every face and corner.  Torch and numpy only
+(the kernel tests import this on a machine without JAX).
 """
 
 import dataclasses
@@ -47,3 +49,26 @@ def seeded_drift(state, geom, seed=11):
     x[0] = np.where(snap, np.asarray(geom.x_edges)[col + side], x[0])
     x = torch.as_tensor(x.astype(np.float32), device=state.x.device)
     return dataclasses.replace(state, x=x)
+
+
+def corner_drift(x, valid, geom, seed=4):
+    """Positions ``x`` [3, cap, NC] (numpy, binned in ``geom``) with every
+    valid particle moved by a seeded step of up to 0.9 cells per axis
+    (one-ring moves), outward along both axes in the four corner cells, as
+    f32: on a doubly periodic box particles cross every face and corner and
+    stay unwrapped, as between two rebins (asserted)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
+    nx, ny = geom.ncells[:2]
+    c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
+    cx, cy = c // ny, c % ny
+    corner = ((cx == 0) | (cx == nx - 1)) & ((cy == 0) | (cy == ny - 1))
+    d[0] = np.where(corner, np.where(cx == 0, -1.0, 1.0) * np.abs(d[0]), d[0])
+    d[1] = np.where(corner, np.where(cy == 0, -1.0, 1.0) * np.abs(d[1]), d[1])
+    d[2] = 0.0
+    x = (x + np.where(valid, d, 0.0)).astype(np.float32)
+    for out_x in (x[0] < geom.lo[0], x[0] >= geom.hi[0]):
+        for out_y in (x[1] < geom.lo[1], x[1] >= geom.hi[1]):
+            assert int((valid & out_x).sum()) > 3 and int((valid & out_y).sum()) > 3
+            assert int((valid & out_x & out_y).sum()) > 0
+    return x

@@ -606,8 +606,8 @@ def test_bridge_round_trip_with_two_species():
 
 
 def test_species_limit_and_routes():
-    """K1 and K3 take up to ``MAX_SPECIES`` species and say so beyond; K2
-    refuses species by name; the convection grid routes to K1 and K5."""
+    """K1, K2 and K3 take up to ``MAX_SPECIES`` species and say so beyond;
+    the convection grid routes to K1 and K5."""
     _, _, spec, _ = tconv.build(N=12, device="cpu")
     assert pair_cuda.route(spec.geom) is pair_cuda.pass_a_2d
     assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_2d
@@ -617,16 +617,19 @@ def test_species_limit_and_routes():
     over = pair_cuda.kernel_unsupported(spec.geom, spec.pair,
                                         n_sdpd=pair_cuda.MAX_SPECIES + 1)
     assert len(over) == 1 and "continuum species" in over[0]
-    k2 = pair_cuda.kernel_unsupported(spec.geom, spec.pair,
-                                      pair_cuda.pass_a_2d_rowloop, n_sdpd=1)
-    assert k2 == ["continuum species (n_sdpd > 0)"]
+    for n_sdpd, refused in ((1, []), (pair_cuda.MAX_SPECIES, []),
+                            (pair_cuda.MAX_SPECIES + 1, over)):
+        assert pair_cuda.kernel_unsupported(
+            spec.geom, spec.pair, pair_cuda.pass_a_2d_rowloop,
+            n_sdpd=n_sdpd) == refused
 
 
 def test_species_tables_and_packed_rows():
-    """The species table K1 and K3 read ([4 + Ns, T*T]: 1/cutc, the W'
+    """The species table K1, K2 and K3 read ([4 + Ns, T*T]: 1/cutc, the W'
     factor of cutc, twice the harmonic mass, 0.01 cutc^2, kappa) against
     the plain path's coefficient tables, and the launcher's check on a
-    two-species state."""
+    two-species state (K1 and K2 take it; one species past the limit is
+    refused)."""
     s, p, jspec = _seeded_convection(np.float32, 2, 1.2)
     tspec = bridge.spec_to_port(jspec)
     params = bridge.params_to_port(_jax(JS.Params, p), device="cpu")
@@ -646,9 +649,13 @@ def test_species_tables_and_packed_rows():
     pair_cuda._check_launch(pf, params, tspec.geom, tspec.pair,
                             pair_cuda.pass_a_2d)
     assert tuple(pf["C"].shape) == (2, tspec.geom.cap, tspec.geom.ncells_total)
-    with pytest.raises(NotImplementedError, match="continuum species"):
-        pair_cuda._check_launch(pf, params, tspec.geom, tspec.pair,
-                                pair_cuda.pass_a_2d_rowloop)
+    pair_cuda._check_launch(pf, params, tspec.geom, tspec.pair,
+                            pair_cuda.pass_a_2d_rowloop)
+    five = pair_cuda.MAX_SPECIES + 1
+    over = dataclasses.replace(params, kappa=torch.zeros((2, 2, five)))
+    for kernel in (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_rowloop):
+        with pytest.raises(NotImplementedError, match="continuum species"):
+            pair_cuda._check_launch(pf, over, tspec.geom, tspec.pair, kernel)
 
 
 def test_build_defaults_to_the_card():

@@ -1,15 +1,16 @@
 """The port's hand-written CUDA kernels (K1, K2 and K3 pass A, K5, K6 and
 K7 rebin move), with K2's solid-free variant, the non-uniform x-column
-(``x_edges``) variants of K5, K6 and K7, and K1 and K3 with the species
-rows (C in, the flux Q out).
+(``x_edges``) variants of K5, K6 and K7, K1, K2 and K3 with the species
+rows (C in, the flux Q out), K2's fsi pair style and K2 and K6 on a doubly
+periodic grid (cell polarization).
 
 The kernel-vs-plain checks need a CUDA card and are marked ``gpu``: they
 skip on a machine without one (run them there with
 ``python -m pytest tests/test_torch_kernels.py -m gpu``).  The CPU checks
 hold what the wrappers promise off the card: a CPU tensor runs the plain
 version and never counts a launch, the kernels' eligibility covers the
-flagship, the FSI beam, the 3D cavity and the load-balanced drifting blob,
-and a configuration no kernel serves raises.
+flagship, the FSI beam, the 3D cavity, the load-balanced drifting blob and
+cell polarization, and a configuration no kernel serves raises.
 """
 
 import dataclasses
@@ -21,10 +22,11 @@ import torch
 from sph_bvf_tpu_torch.core import rebin_cuda
 from sph_bvf_tpu_torch.core import state as TS
 from sph_bvf_tpu_torch.core.stepper import run_chunk, setup
-from sph_bvf_tpu_torch.models import (drift_blob, fsi, lid_cavity,
-                                      lid_cavity3d, natural_convection)
+from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
+                                      lid_cavity, lid_cavity3d,
+                                      natural_convection)
 from sph_bvf_tpu_torch.ops import pair, pair_cuda
-from synthetic_edges import seeded_drift, with_synthetic_edges
+from synthetic_edges import corner_drift, seeded_drift, with_synthetic_edges
 
 K1_FIELDS = ("f", "drho", "num_den", "phi", "nw", "ddv", "de", "rhoAux1",
              "rhoAux2")
@@ -331,8 +333,9 @@ def test_k2_and_k6_serve_a_crowded_cavity_on_card(cuda, filt):
 def test_no_launch_on_cpu_tensors():
     """On CPU tensors the wrappers run the plain versions: setups and
     chunks of the cavity (K1/K5 grid), the FSI beam (K2/K6 grid), the 3D
-    cavity (K3/K7 grid) and the balanced drifting blob (solid-free K2, K6
-    with x_edges) move no launch counter."""
+    cavity (K3/K7 grid), the balanced drifting blob (solid-free K2, K6
+    with x_edges) and cell polarization (K2 with species, K2 and K6 doubly
+    periodic) move no launch counter."""
     counters = (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_rowloop,
                 pair_cuda.pass_a_3d, rebin_cuda.rebin_move_2d,
                 rebin_cuda.rebin_move_2d_gated, rebin_cuda.rebin_move_3d)
@@ -345,6 +348,8 @@ def test_no_launch_on_cpu_tensors():
     assert int(state.step) == 1
     state, params, spec = _blob("cpu", steps=5)
     assert int(state.step) == 5 and spec.geom.x_edges is not None
+    state, params, spec = _polar("cpu", steps=3)
+    assert int(state.step) == 3 and float(state.Q.abs().max()) > 0
     assert [c.launches for c in counters] == before
 
 
@@ -379,8 +384,8 @@ def test_kernels_serve_the_flagship_grid():
 def test_unsupported_configurations_raise():
     """The checks each wrapper runs before a launch raise
     NotImplementedError and name what is missing: grouped-shape physics K1
-    lacks, a periodic y axis on a K2 grid, and rebin grids no kernel
-    serves."""
+    lacks, a periodic y axis of two cells or a fifth species on a K2 grid,
+    and rebin grids no kernel serves."""
     state, params, spec, _ = lid_cavity.build(N=16, device="cpu")
     pf = pair._per_particle(state, params, spec.pair)
     for bad, what in ((dict(xsph=True), "XSPH"),
@@ -395,13 +400,20 @@ def test_unsupported_configurations_raise():
     pair_cuda._check_launch(pf, fparams, fspec.geom, fspec.pair,
                             pair_cuda.pass_a_2d_rowloop)
     periodic_y = dataclasses.replace(fspec.geom, periodic=(True, True, True))
-    with pytest.raises(NotImplementedError, match="periodic y"):
-        pair_cuda._check_launch(pf, fparams, periodic_y, fspec.pair,
-                                pair_cuda.pass_a_2d_rowloop)
-    with pytest.raises(NotImplementedError, match="periodic y"):
-        pair_cuda._check_launch(pf, fparams, periodic_y,
-                                dataclasses.replace(fspec.pair,
-                                                    elastic_present=False),
+    pair_cuda._check_launch(pf, fparams, periodic_y, fspec.pair,
+                            pair_cuda.pass_a_2d_rowloop)
+    two_rows = dataclasses.replace(periodic_y, ncells=(99, 2, 1))
+    for cfg in (fspec.pair,
+                dataclasses.replace(fspec.pair, elastic_present=False)):
+        assert pair_cuda.kernel_unsupported(two_rows, cfg) == [
+            "a periodic y axis with fewer than 3 cells"]
+    five = pair_cuda.MAX_SPECIES + 1
+    assert pair_cuda.kernel_unsupported(fspec.geom, fspec.pair, n_sdpd=five) == [
+        f"more than {pair_cuda.MAX_SPECIES} continuum species (n_sdpd = {five})"]
+    fparams5 = dataclasses.replace(
+        fparams, kappa=torch.zeros((fparams.ntypes,) * 2 + (five,)))
+    with pytest.raises(NotImplementedError, match="continuum species"):
+        pair_cuda._check_launch(pf, fparams5, fspec.geom, fspec.pair,
                                 pair_cuda.pass_a_2d_rowloop)
 
     geom = spec.geom
@@ -416,10 +428,12 @@ def test_unsupported_configurations_raise():
 
 
 def test_k2_tables_match_plain_coefficients():
-    """K2 reads K1's five rows, then h and geff, flattened [T*T]."""
+    """K2 reads K1's five rows, then h and geff, flattened [T*T]; under
+    ``g0_chem_coupling`` the geff row is 0 (the kernel takes the modulus
+    from the packed G0 rows)."""
     _, params, spec, _ = fsi.build(nx=24, device="cpu")
-    tab = pair_cuda._k2_tables(params, spec.pair)
     tabs = pair.coeff_tables(params, spec.pair)
+    tab = pair_cuda._k2_tables(params, spec.pair, tabs)
     T = params.ntypes
     assert tab.shape == (7, T * T) and tab.dtype == torch.float32
     np.testing.assert_array_equal(tab[:5].numpy(),
@@ -427,6 +441,10 @@ def test_k2_tables_match_plain_coefficients():
     np.testing.assert_array_equal(tab[5].numpy(), tabs["h"].reshape(-1).numpy())
     np.testing.assert_array_equal(tab[6].numpy(), tabs["geff"].reshape(-1).numpy())
     assert float(tab[6].max()) > 0
+    coupled = dataclasses.replace(spec.pair, g0_chem_coupling=True)
+    tabs = pair.coeff_tables(params, coupled)
+    assert "geff" not in tabs
+    assert float(pair_cuda._k2_tables(params, coupled, tabs)[6].abs().max()) == 0
 
 
 def test_k1_tables_match_plain_coefficients():
@@ -650,3 +668,148 @@ def test_what_x_edges_and_solid_free_still_lack():
     for ax in range(3):
         pg = dataclasses.replace(g3, periodic=tuple(a == ax for a in range(3)))
         assert rebin_cuda.move_route(pg) is None
+
+
+def _polar(device, steps=0, nx=24):
+    """cell_polarization.build(nx) (doubly periodic, an elastic free wall,
+    one species, the fsi pair style) after setup and ``steps`` steps."""
+    state, params, spec, _ = cell_polarization.build(nx=nx, rebin_every=5,
+                                                     device=device)
+    state = setup(state, params, spec, dt=1e-10)
+    if steps:
+        state = run_chunk(state, params, spec, steps)
+    return state, params, spec
+
+
+def _seeded_polar(state, params, ns, cutc_scale, c_hi=1.0, seed=0):
+    """(state, params) of a polarization state with a seeded symmetric S on
+    the wall (the artificial-stress tensor tensile somewhere), seeded noise
+    on v, vest and rho, ``ns`` species with C uniform in [0, ``c_hi``) on
+    the wall and a tenth of that elsewhere, a distinct symmetric kappa per
+    type pair and species and ``cutc = cutc_scale * h`` (numpy, ``seed``)."""
+    rng = np.random.default_rng(seed)
+    dev, fdt = state.x.device, state.x.dtype
+    t = lambda a: torch.as_tensor(a, dtype=fdt, device=dev)
+    shape = tuple(state.valid.shape)
+    valid = state.valid
+    wall = valid & (state.solid_tag == 1)
+    S = rng.normal(0.0, 2e3, (3, 3) + shape)
+    v = state.v + t(rng.normal(0, 0.5, (3,) + shape)) * valid
+    vest = v + t(rng.normal(0, 0.1, (3,) + shape)) * valid
+    v[2] = 0.0
+    vest[2] = 0.0
+    C = t(rng.uniform(0, c_hi, (ns,) + shape))
+    C = torch.where(wall, C, 0.1 * C) * valid
+    T = params.ntypes
+    kappa = rng.uniform(0.5, 1.5, (T, T, ns))
+    return (dataclasses.replace(
+                state, S=torch.where(wall, t(S + np.swapaxes(S, 0, 1)), 0.0),
+                v=v, vest=vest, C=C, Q=torch.zeros_like(C),
+                rho=torch.where(valid, state.rho * t(rng.uniform(0.99, 1.01, shape)),
+                                1.0)),
+            dataclasses.replace(
+                params, cutc=cutc_scale * params.cut,
+                kappa=t(1e-5 * 0.5 * (kappa + kappa.transpose(1, 0, 2)))))
+
+
+# (ampl_damp, g0_chem_coupling, species_advection, ns, cutc / h, C's upper
+# bound on the wall)
+POLAR_CASES = {
+    "model": (0.1, True, False, 1, 1.0, 1.0),
+    "no-ampl_damp": (0.0, True, False, 1, 1.0, 1.0),
+    "no-coupling": (0.1, False, False, 1, 1.0, 1.0),
+    "ns2-cutc1.2h-adv": (0.1, True, True, 2, 1.2, 1.0),
+    "ns4-cutc0.8h": (0.1, True, False, 4, 0.8, 1.0),
+    "C-past-1/0.99": (0.1, True, False, 1, 1.0, 1.5),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(POLAR_CASES))
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+def test_k2_polarization_matches_plain_on_card(cuda, filt, case):
+    """K2 vs the plain loop on the seeded nx=24 polarization state (doubly
+    periodic, fsi pair style, species): every field, dS and Q included,
+    within 5e-6 of its max, with the density diffusion and the modulus
+    coupling each off, two and four species, cutc above and below h, the
+    advection correction on, and a softened modulus below zero."""
+    ampl, coupling, advect, ns, cutc_scale, c_hi = POLAR_CASES[case]
+    state, params, spec = _polar(cuda, steps=3)
+    state, params = _seeded_polar(state, params, ns, cutc_scale, c_hi)
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=filt,
+                              ampl_damp=ampl, g0_chem_coupling=coupling,
+                              species_advection=advect)
+    pf = pair._per_particle(state, params, cfg)
+    ref = pair._pass_a_plain(pf, params, spec.geom, cfg)
+    before = pair_cuda.pass_a_2d_rowloop.launches
+    got = pair_cuda.pass_a(pf, params, spec.geom, cfg)
+    torch.cuda.synchronize()
+    assert pair_cuda.pass_a_2d_rowloop.launches == before + 1
+    assert float(pf["AS"].abs().max()) > 0 and float(ref["dS"].abs().max()) > 0
+    assert float(ref["Q"].abs().amax(dim=(1, 2)).min()) > 0
+    assert (float(pf["G0"].min()) < 0) == (c_hi > 1.0)
+    for name in (n for n in K2_FIELDS + ("Q",)
+                 if filt or not n.startswith("rhoAux")):
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+
+
+@pytest.mark.gpu
+def test_k6_periodic_y_matches_plain_walk_and_sort_on_card(cuda):
+    """K6 vs the plain walk and the sort rebin on the nx=40 polarization
+    state (both axes periodic, cap 30, the C, Q and S rows riding along)
+    after a seeded drift across all four faces and corners: every leaf
+    bitwise."""
+    state, params, spec = _polar(cuda, steps=3, nx=40)
+    geom = spec.geom
+    x = corner_drift(state.x.cpu().numpy(), state.valid.cpu().numpy(), geom)
+    state = dataclasses.replace(state, x=torch.as_tensor(x, device=cuda))
+    assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_2d_gated
+    fields = TS.particle_fields(state)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    kf, ki = rebin_cuda.rebin_move_2d_gated(PF, PI, geom, xr)
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
+    assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+
+
+def test_polarization_routes_and_what_is_still_refused():
+    """Cell polarization's grid goes to K2 and K6 with nothing missing; a
+    periodic y axis of two cells has no pass-A and no move kernel, a fifth
+    species none either, K5 (cap <= 16) still takes no periodic axis, x or
+    y, and K1 refuses the density diffusion."""
+    state, params, spec = _polar("cpu")
+    geom = spec.geom
+    assert geom.periodic == (True, True, True) and geom.cap > rebin_cuda.MAX_CAP
+    assert pair_cuda.route(geom) is pair_cuda.pass_a_2d_rowloop
+    assert pair_cuda.kernel_unsupported(geom, spec.pair, n_sdpd=1) == []
+    pf = pair._per_particle(state, params, spec.pair)
+    pair_cuda._check_launch(pf, params, geom, spec.pair,
+                            pair_cuda.pass_a_2d_rowloop)
+    assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_2d_gated
+    fields = TS.particle_fields(state)
+    PF, PI, _, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d_gated)
+
+    two_rows = dataclasses.replace(geom, ncells=(18, 2, 1))
+    assert pair_cuda.kernel_unsupported(two_rows, spec.pair, n_sdpd=1) == [
+        "a periodic y axis with fewer than 3 cells"]
+    assert rebin_cuda.move_route(two_rows) is None
+    assert rebin_cuda.move_route(
+        dataclasses.replace(geom, ncells=(2, 18, 1))) is None
+    assert pair_cuda.kernel_unsupported(
+        geom, spec.pair, n_sdpd=pair_cuda.MAX_SPECIES + 1) != []
+    for periodic in ((True, False, True), (False, True, True),
+                     (True, True, True)):
+        sparse = dataclasses.replace(geom, cap=rebin_cuda.MAX_CAP,
+                                     periodic=periodic)
+        assert rebin_cuda.move_route(sparse) is None
+        with pytest.raises(NotImplementedError, match="later PR"):
+            rebin_cuda._check_packs(PF, PI, sparse, rebin_cuda.rebin_move_2d)
+    assert "density diffusion (ampl_damp)" in pair_cuda.kernel_unsupported(
+        geom, spec.pair, pair_cuda.pass_a_2d, n_sdpd=1)

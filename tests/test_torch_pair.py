@@ -157,14 +157,19 @@ def test_compute_forces_matches_bruteforce(filt):
 
 def test_unported_branches_raise():
     """Branches outside the ported slices raise instead of running other
-    code: thermal noise, density diffusion, the species-softened shear
-    modulus and the weighted-solid pass B."""
+    code: thermal noise and the weighted-solid pass B everywhere; density
+    diffusion (ported on the plain path and in K2) at K1's launch check."""
     s, p, jspec = _perturbed_cavity(np.float32)
     tspec = bridge.spec_to_port(jspec)
     st = bridge.state_to_port(s, device="cpu")
     params = bridge.params_to_port(_jax(JParams, p), device="cpu")
-    for bad in (dict(thermal=True), dict(ampl_damp=0.1),
-                dict(g0_chem_coupling=True), dict(weighted_solid=True)):
+    for bad in (dict(thermal=True), dict(weighted_solid=True)):
         cfg = dataclasses.replace(tspec.pair, **bad)
         with pytest.raises(NotImplementedError):
             tpair.compute_forces(st, params, tspec.geom, cfg)
+    from sph_bvf_tpu_torch.ops import pair_cuda
+
+    cfg = dataclasses.replace(tspec.pair, ampl_damp=0.1)
+    with pytest.raises(NotImplementedError, match="density diffusion"):
+        pair_cuda._check_launch(tpair._per_particle(st, params, cfg), params,
+                                tspec.geom, cfg, pair_cuda.pass_a_2d)
