@@ -14,11 +14,16 @@ convection around a hot cylinder (K1 with the species rows, K5 moving the
 C rows) and cell polarization in a doubly periodic box (K2 with the fsi
 pair style, the species rows and a periodic y axis, K6 with a periodic y
 axis); K5 and K7 with x columns are checked on the cavities, K3 and K7
-with species on the 3D cavity.  Phases, one line each:
+with species on the 3D cavity; and the SDPD thermal noise (the thermal rows
+of K1, K2 and K3) on natural convection at the reference's own e = 1e-6 and
+on the flagship cavity with the noise made visible.  Phases, one line
+each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — compile the six hand-written kernels from
-             ``sph_bvf_tpu_torch/csrc``, one nvcc per source, all at once;
+             ``sph_bvf_tpu_torch/csrc``, one nvcc per source, all at once,
+             and print every pass-A instantiation's registers (with and
+             without the thermal rows);
 3. K1      — the pass-A kernel against the plain stencil loop on the N=200
              cavity after setup and 100 steps, both filter variants:
              max|diff| <= 5e-6 * max|plain| for every field;
@@ -40,12 +45,24 @@ with species on the 3D cavity.  Phases, one line each:
              0.8 h; Q nonzero for every species in each case; then K5
              moving the C rows against the plain walk and the sort rebin,
              bitwise, 10 steps later (Ns=1 as run and Ns=2 seeded);
+   K1 thermal — K1's thermal rows against the plain loop on that state
+             (Ns=1, and Ns=0 with its species stripped) read at step 12345
+             with a nonzero key, both filter variants, every field within
+             5e-6 * max|plain|: (a) at the SI kB and e = 1e-6, (b) at the kB
+             that makes the noise 20x the largest force without it; on (b)
+             the noise present (>= 10x), pair-symmetric (its sum over an
+             all-fluid copy with uniform e within 1e-6 x its max x
+             sqrt(particles)) and changed by the next step;
 5. K2      — the rowloop pass-A kernel against the plain loop on
              fsi.build(nx=60, tdamp_solid=100) after setup and 300 steps
              (the beam released at step 100), both filter variants, on that
              state and with the beam's S seeded from numpy (seed 0):
              max|diff| <= 5e-6 * max|plain| for every field, with the
              artificial-stress tensor AS and the stress rate dS nonzero;
+   K2 thermal — K2's thermal rows, as K1 thermal, on that FSI state
+             (elastic, Ns=0) and (below, after K2 polarization) on the
+             polarization state (elastic, Ns=1), then 10 steps of the
+             polarization with the noise (K2's launches and its timing);
 6. K6      — the gated rebin-move kernel against the plain walk and the
              sort rebin on that state 50 steps after its rebin: bitwise;
 7. K3      — the 3D pass-A kernel against the plain 27-offset loop on
@@ -60,6 +77,8 @@ with species on the 3D cavity.  Phases, one line each:
              cutc = 1.2 h), Q included and nonzero; then 10 steps of
              ``simulate`` with those species and K7 moving the C rows
              against the plain walk and the sort rebin, bitwise;
+   K3 thermal — K3's thermal rows, as K1 thermal, on the N=40 state (Ns=0
+             and one seeded species), then 10 steps with the noise;
    K2 solid-free — the load-balance path's pass A: K2 against the plain
              loop on the balanced s=20 drifting blob (840,000 particles,
              x_edges, periodic x, no solids) after setup and 100 steps of
@@ -112,15 +131,29 @@ with species on the 3D cavity.  Phases, one line each:
              dt/2, 0) to the bit), species in the neighbours, the wall
              moving (released at step 2), and max|v|, the wall's max|v| and
              mean C and max|S| inside bands around the JAX package's own
-             nx=100 run; and the N=50 cavity, the nx=24 FSI, the N=8 3D cavity
+             nx=100 run; main thermal: natural_convection.build(N=200) with
+             thermal=True at the SI kB and e = 1e-6 -> setup ->
+             simulate(1000) with a ThermoLogger(every=100, step dt press
+             temp etotal) callback (K1's thermal instantiation 1001
+             launches, K5 21, nothing else; a thermo row every 100 steps),
+             the convection's gates with bands around the JAX package's own
+             thermal-on N=200 run, and the gap to the thermal-off run; main
+             thermal visible: lid_cavity.build(N=200) with e = 1 and kB =
+             VISIBLE_KBE -> setup -> simulate(200), max|v| and the kinetic
+             energy (all and fluid) inside 2% bands around the JAX package's
+             own run of the same, the fluid's kinetic energy moved by more
+             than 10% against the same run without the noise; and the N=50
+             cavity, the nx=24 FSI, the N=8 3D cavity
              (20 steps) and the s=1 balanced blob (110 steps, its re-cut at
              step 100 included), the N=40 convection (x, v, rho and C) and
-             the nx=40 polarization (x, v, rho, C and S) on the card agree with the same runs through the plain path on
-             the CPU;
+             the nx=40 polarization (x, v, rho, C and S) and the N=40
+             visible-noise cavity (200 steps) on the card agree with the
+             same runs through the plain path on the CPU;
 10. speed  — particle-steps/s from the set-up state of the cavity at N=200
              and N=1000, of natural convection at N=200 and N=1000 (1,012,036
              particles, dt 2e-5; K1 with its species rows beside K1 on the
-             same state without them), of FSI at nx=60 and nx=240, of the 3D
+             same state without them), the same with the noise on (K1 with
+             its thermal rows beside K1 without them), of FSI at nx=60 and nx=240, of the 3D
              cavity at N=40 and N=100, of cell polarization at nx=100 and
              nx=1000 (1,030,980 particles, dt 1e-11) and of the balanced and
              the uniform blob at s=10 and
@@ -131,25 +164,31 @@ with species on the 3D cavity.  Phases, one line each:
              the sort rebin (and its host time), and the balanced blob's
              re-cut (host time of ``rebalance``, its sort rebin) (CUDA
              events after a warm-up), with each kernel's
-             bound: the larger of its bytes over 3.35 TB/s and its f32
-             operations on this run's data over 67 TFLOP/s, where the bytes
+             bound: the largest of its bytes over 3.35 TB/s, its f32
+             operations on this run's data over 67 TFLOP/s and, with the
+             noise, its 32-bit integer operations (the hash) over 16.7 TOP/s
+             (64 INT32 lanes per SM x 132 SMs x 1.98 GHz), where the bytes
              are, at the run's occupancy, the valid row of every slot and
              the other input rows of the valid slots read once, and every
              output row of every slot written once;
-11. profile — one chunk of the 3D cavity at N=40 and N=100, one of the
-             cavity and one of the convection at N=200 and N=1000 (the same
-             grids: K1 without and with its species rows), one of cell
+11. profile — one chunk of the 3D cavity at N=40 and N=100 (and at N=40
+             with the noise: K3's thermal rows), one of the cavity and one
+             of the convection at N=200 and N=1000, without and with the
+             noise (the same grids: K1 without and with its species and
+             thermal rows), one of cell polarization at nx=100 with the
+             noise (K2's thermal rows), one of cell
              polarization at nx=100 and nx=1000 and two of the s=20 blob,
              balanced and uniform, under torch.profiler:
-             device ops and device time per step, the busy share, and the
+             device ops, device-to-host copies and device time per step,
+             the busy share, and the
              pass-A and move kernels' device time per call; it fails if
              the profiler records no pass-A activity on the card.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (fourteen entries: the six
+second-to-last line is ``{"kernels": [...]}`` (seventeen entries: the six
 kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants, K1
-and K3 with species, and K2 and K6 on the polarization path as their own
-entries), the last
+and K3 with species, K2 and K6 on the polarization path, and K1, K2 and K3
+with their thermal rows as their own entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -188,9 +227,9 @@ POLAR_NX = (100, 1000)
 POLAR_DT = {100: 1e-10, 1000: 1e-11}
 POLAR_PARTICLES = 10_292
 SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8, "blob": 1,
-         "convection": 40, "polarization": 40}  # card vs CPU
+         "convection": 40, "polarization": 40, "thermal": 40}  # card vs CPU
 SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110,
-               "convection": 20, "polarization": 20}
+               "convection": 20, "polarization": 20, "thermal": 200}
 MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000,
               "convection": 1000, "polarization": 1000}
 PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100,
@@ -267,6 +306,27 @@ POLAR_JAX_STEP1000 = {
     "wall mean C": (0.12097806947825782, 0.98, 1.02),
     "max|S|": (47733.171875, 0.98, 1.02),
 }
+# The JAX package's own run of the convection main path with the SDPD noise
+# on (thermal=True at the SI kB and the model's e = 1e-6; otherwise as
+# CONV_JAX_STEP1000), and the bands the card's run must land in.
+CONV_THERMAL_JAX_STEP1000 = {
+    "max|v|": (0.019408080726861954, 0.98, 1.02),
+    "qdot": (0.14982211589813232, 0.98, 1.02),
+    "fluid mean C": (0.026109554825169978, 0.98, 1.02),
+}
+THERMO_EVERY = 100  # the reference script's thermo cadence
+# The JAX package's own run of the flagship cavity at N=200 with the noise
+# made visible (e = 1 on the valid slots, kB = VISIBLE_KBE; f32, jnp path,
+# on the CPU: lid_cavity.build -> setup -> simulate(VISIBLE_STEPS)): max|v|
+# (the lid's), the kinetic energy, and the fluid's max|v| and kinetic
+# energy, with the bands [lo, hi] x that value the card's run must land in
+VISIBLE_STEPS = 200
+CAVITY_VISIBLE_JAX_STEP200 = {
+    "max|v|": (1.0, 0.98, 1.02),
+    "ke": (0.016114081853033854, 0.98, 1.02),
+    "fluid max|v|": (0.8929688930511475, 0.98, 1.02),
+    "fluid ke": (0.005763092078582261, 0.98, 1.02),
+}
 SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
                "convection": {200: (200, 20), 1000: (50, 5)},
                "fsi": {60: (200, 10), 240: (50, 2)},
@@ -292,6 +352,26 @@ FLOPS_CANDIDATE, FLOPS_PAIR = 10, 120
 # and on each pair inside the species support cutc: the flux's common factor
 # and advection correction, then each species' term
 FLOPS_SPECIES_PAIR, FLOPS_PER_SPECIES = 30, 9
+# the thermal noise on each pair inside the support (csrc/pass_a_tv.cuh
+# `add_thermal`, by dimension): the hash's 32-bit integer operations, with
+# the words (seed, step) absorbed once per thread, then per pair the tags (2
+# x 11), per salt its word (11) and two uniforms (2 x 21), 3 salts in 2D and
+# 6 in 3D, plus min and max; and its f32 operations, ~60 per normal for
+# Box-Muller (logf, sqrtf, cosf) and the prefactor and W dx
+INT_OPS_THERMAL_PAIR = {2: 183, 3: 342}
+FLOPS_THERMAL_PAIR = {2: 210, 3: 400}
+# the H100 SXM's 32-bit integer issue rate: 64 INT32 lanes per SM x 132 SMs
+# at 1.98 GHz, the clock of its 67 TFLOP/s f32 peak (128 lanes x 2)
+PEAK_INT32 = 64 * 132 * 1.98e9
+# the thermal noise: the step and PRNG key of the parity states (nonzero, so
+# the kernels read them from the state), e where a model sets none (natural
+# convection's own 1e-6), and the kB x e of the flagship cavity's visible
+# run: at N=200 the noise's kinetic energy after 200 steps is about the lid-
+# driven fluid's own (the JAX package's run at 1e-11 moved it by 1%; the
+# parity phases' case (b) value, ~9e-8 there, kicks the fluid by ~1.2 a
+# step, past what c0 = 10 carries)
+THERMAL_STEP, THERMAL_KEY, THERMAL_E = 12345, (0xDEADBEEF, 0x12345), 1e-6
+VISIBLE_KBE = 1e-9
 
 
 def _nvidia_smi(query: str) -> str:
@@ -313,14 +393,16 @@ def _packed(S, rebin_cuda, state, geom, drop):
 
 def _pass_a_parity(torch, pair, kernel, state, params, geom, cfg0, names, tag):
     """Kernel vs plain pass A on one state, both filter variants: every
-    field of ``names`` within TOL of its max.  Returns ({field: rel err},
-    max abs err, the plain outputs of the filter variant)."""
+    field of ``names`` within TOL of its max (with the thermal noise, on
+    the state's own dt, step and key).  Returns ({field: rel err}, max abs
+    err, the plain outputs of the filter variant)."""
     errs, worst, refs = {}, 0.0, None
+    noise = pair.noise_inputs(state)
     for filt in (True, False):
         cfg = dataclasses.replace(cfg0, density_filter_accs=filt)
         pf = pair._per_particle(state, params, cfg)
-        ref = pair._pass_a_plain(pf, params, geom, cfg)
-        got = kernel(pf, params, geom, cfg)
+        ref = pair._pass_a_plain(pf, params, geom, cfg, noise)
+        got = kernel(pf, params, geom, cfg, noise)
         torch.cuda.synchronize()
         for name in names + (("rhoAux1", "rhoAux2") if filt else ()):
             err = float((got[name] - ref[name]).abs().max())
@@ -443,6 +525,118 @@ def _species_parity(torch, pair, kernel, cases, geom, cfg, tag):
         errs[label] = (err["Q"], err["Q/nf"], max(err.values()))
         worst = max(worst, err_abs)
     return errs, worst
+
+
+def _noise_on(spec):
+    """``spec`` with the pair style's SDPD thermal noise on."""
+    return dataclasses.replace(spec, pair=dataclasses.replace(spec.pair,
+                                                              thermal=True))
+
+
+def _with_noise(built):
+    """A model's (state, params, spec, scene) with the noise on."""
+    state, params, spec, scene = built
+    return state, params, _noise_on(spec), scene
+
+
+def _visible_cavity(N, device, thermal=True):
+    """The flagship cavity with e = 1 on its valid slots and kB =
+    VISIBLE_KBE, with the noise on (or, ``thermal=False``, off)."""
+    import torch
+
+    from sph_bvf_tpu_torch.models import lid_cavity
+
+    state, params, spec, scene = lid_cavity.build(N=N, device=device)
+    state = dataclasses.replace(state, e=torch.where(state.valid, 1.0, 0.0).to(
+        state.e.dtype))
+    spec = dataclasses.replace(spec, pair=dataclasses.replace(
+        spec.pair, thermal=thermal))
+    return state, dataclasses.replace(params, boltz=VISIBLE_KBE), spec, scene
+
+
+def _cavity_energy(torch, state, params):
+    """max|v| and the kinetic energy over the valid particles and over the
+    fluid."""
+    valid = state.valid
+    fluid = valid & (state.solid_tag == 0)
+    vsq = (state.v * state.v).sum(0)
+    mv2 = 0.5 * params.mass[state.ptype.long()] * vsq
+    return {"max|v|": float(torch.sqrt(vsq[valid].max())),
+            "ke": float(mv2[valid].double().sum()),
+            "fluid max|v|": float(torch.sqrt(vsq[fluid].max())),
+            "fluid ke": float(mv2[fluid].double().sum())}
+
+
+def _noisy(torch, state):
+    """``state`` with the thermal noise's inputs of the parity phases: the
+    step THERMAL_STEP, the key THERMAL_KEY and e = THERMAL_E on the valid
+    slots where the model sets none."""
+    return dataclasses.replace(
+        state, e=torch.where(state.valid, torch.where(
+            state.e != 0, state.e, THERMAL_E), 0.0),
+        step=torch.full_like(state.step, THERMAL_STEP),
+        key=torch.tensor(THERMAL_KEY, dtype=torch.int64, device=state.x.device))
+
+
+def _raised_kb(pair, state, params, geom, cfg):
+    """kB at which the plain path's random force is 20x the largest force
+    without it: the force scales as sqrt(kB), so one evaluation at kB = 1
+    sizes it."""
+    noise = pair.noise_inputs(state)
+    pf = pair._per_particle(state, params, cfg)
+    off = pair._pass_a_plain(pf, params, geom,
+                             dataclasses.replace(cfg, thermal=False))["f"]
+    one = pair._pass_a_plain(pf, dataclasses.replace(params, boltz=1.0), geom,
+                             cfg, noise)["f"]
+    return float((20 * off.abs().max() / (one - off).abs().max()) ** 2)
+
+
+def _thermal_rows(torch, pair, kernel, state, params, geom, cfg0, names, tag):
+    """The thermal rows of ``kernel`` against the plain loop on ``state``
+    with the noise's parity inputs (``_noisy``), both filter variants, every
+    field within TOL: case (a) at the state's kB, case (b) at the raised kB
+    (``_raised_kb``).  Then, on the kernel's own outputs at case (b)'s kB:
+    the noise present (at least 10x the largest force without it), pair-
+    symmetric (its sum over an all-fluid copy with uniform e within 1e-6 x
+    its max x sqrt(particles)) and changed by the next step.  Returns
+    ({case: the worst field's rel err}, max abs err, case (b)'s kB, the
+    checks)."""
+    state = _noisy(torch, state)
+    cfg = dataclasses.replace(cfg0, thermal=True)
+    kb = _raised_kb(pair, state, params, geom, cfg)
+    errs, worst = {}, 0.0
+    for case, p in (("a", params), ("b", dataclasses.replace(params, boltz=kb))):
+        err, err_abs, _ = _pass_a_parity(torch, pair, kernel, state, p, geom, cfg,
+                                         names, f"{tag} case ({case})")
+        errs[case], worst = max(err.values()), max(worst, err_abs)
+    p = dataclasses.replace(params, boltz=kb)
+
+    def force(s, thermal=True):
+        c = dataclasses.replace(cfg, thermal=thermal)
+        return kernel(pair._per_particle(s, p, c), p, geom, c,
+                      pair.noise_inputs(s))["f"]
+
+    off, on = force(state, False), force(state)
+    rand = on - off
+    fluid = dataclasses.replace(
+        state, solid_tag=torch.zeros_like(state.solid_tag),
+        fixed_tag=torch.zeros_like(state.fixed_tag),
+        e=torch.where(state.valid, THERMAL_E, 0.0))
+    frand = torch.where(fluid.valid, force(fluid) - force(fluid, False), 0.0)
+    total = float(frand.double().sum(dim=(1, 2)).abs().max())
+    n = int(state.valid.sum())
+    later = force(dataclasses.replace(state, step=state.step + 1)) - off
+    checks = {
+        "noise >= 10x max|f| without it":
+            float(rand.abs().max()) >= 10 * float(off.abs().max()),
+        "pair-symmetric": total <= 1e-6 * float(frand.abs().max()) * n ** 0.5,
+        "the next step draws other noise":
+            float((later - rand).abs().max()) > 0.1 * float(rand.abs().max()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{tag}: {checks}; |sum f_random| {total!r}")
+    checks["|sum f_random| / max"] = total / float(frand.abs().max())
+    return errs, worst, kb, checks
 
 
 def _move_parity(torch, S, rebin_cuda, kernel, state, geom, drop, tag):
@@ -596,10 +790,12 @@ def _chunk_split(chunks, log, every):
             for k, v in kinds.items() if v}
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, int_ops=0):
     """(ms, what bounds it): the least time the card could take to move
-    ``nbytes`` and do ``flops`` f32 operations, at its published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+    ``nbytes``, do ``flops`` f32 operations and issue ``int_ops`` 32-bit
+    integer operations, at its peak rates."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(flops / PEAK_F32, int_ops / PEAK_INT32)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -657,6 +853,8 @@ def _pass_a_rows(pair_cuda, pf, cfg, kernel):
         names, accs = pair_cuda.PF_ROWS, pair_cuda.ACC_ROWS
     if cfg.density_filter_accs:
         names, accs = names + ("rhoI",), accs + pair_cuda.FILTER_ACC_ROWS
+    if cfg.thermal:
+        names += pair_cuda.THERMAL_ROWS
     cap, NC = pf["rho"].shape
     ns = pf["C"].shape[0]  # the C rows in, the Q rows out
     return (sum(pf[n].reshape(-1, cap, NC).shape[0] for n in names) + ns,
@@ -681,6 +879,7 @@ def main() -> int:
                                           natural_convection)
     from sph_bvf_tpu_torch.ops import pair, pair_cuda
     from sph_bvf_tpu_torch.parallel.balance import rebalance, report
+    from sph_bvf_tpu_torch.utils.thermo import ThermoLogger
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -695,12 +894,18 @@ def main() -> int:
         """Per-call ms of the wrapper ``pass_a`` and of the plain loop on
         this state, and pass A's bound from these inputs at the state's
         occupancy: the packed rows in and out, the valid candidates, the
-        pairs inside the support h and, with species, those inside cutc."""
+        pairs inside the support h (with the thermal noise, their hash and
+        Box-Muller too) and, with species, those inside cutc."""
         pf = pair._per_particle(state, params, cfg)
+        noise = pair.noise_inputs(state)
         n, slots = int(state.n_valid), geom.cap * geom.ncells_total
         rows_in, rows_out = _pass_a_rows(pair_cuda, pf, cfg, pass_a.__name__)
         cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
         flops = FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside
+        int_ops = 0
+        if cfg.thermal:
+            flops += FLOPS_THERMAL_PAIR[geom.dim] * inside
+            int_ops = INT_OPS_THERMAL_PAIR[geom.dim] * inside
         ns = params.n_sdpd
         inside_c = 0
         if ns:
@@ -709,11 +914,12 @@ def main() -> int:
             flops += (FLOPS_SPECIES_PAIR + FLOPS_PER_SPECIES * ns) * inside_c
         return {
             "pass_a": _per_call_ms(
-                torch, lambda: pass_a(pf, params, geom, cfg), iters),
+                torch, lambda: pass_a(pf, params, geom, cfg, noise), iters),
             "pass_a_plain": _per_call_ms(
-                torch, lambda: pair._pass_a_plain(pf, params, geom, cfg), iters),
+                torch, lambda: pair._pass_a_plain(pf, params, geom, cfg, noise),
+                iters),
             "pass_a_bound": _bound(_packed_bytes(slots, n, rows_in, rows_out),
-                                   flops),
+                                   flops, int_ops),
             "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
                             f"{inside} pairs inside the support"
                             + (f", {inside_c} inside cutc with {ns} species"
@@ -739,20 +945,24 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # K1 and K3: every (filter, species count) instantiation, as the
-    # runtime reports it (registers, local-memory bytes: the spills)
+    # K1 and K3: every (filter, species count, thermal) instantiation, as
+    # the runtime reports it (registers, local-memory bytes: the spills, and
+    # in the thermal ones the stack frame of cosf's range reduction)
     for wrapper in (pair_cuda.pass_a_2d, pair_cuda.pass_a_3d):
-        attrs = {f"{'filter' if filt else 'nofilter'}/Ns={ns}":
-                 pair_cuda.kernel_attributes(wrapper, filt, ns)
+        attrs = {f"{'filter' if filt else 'nofilter'}/Ns={ns}"
+                 f"{'/thermal' if th else ''}":
+                 pair_cuda.kernel_attributes(wrapper, filt, ns, thermal=th)
+                 for th in (False, True)
                  for ns in range(pair_cuda.MAX_SPECIES + 1)
                  for filt in (True, False)}
         print(f"[build] {wrapper.__name__} instantiations (registers per "
               f"thread, local bytes per thread): {attrs}")
-    # K2: every (filter, elastic, species count) instantiation
+    # K2: every (filter, elastic, species count, thermal) instantiation
     attrs = {f"{'filter' if filt else 'nofilter'}/"
-             f"{'elastic' if el else 'plain'}/Ns={ns}":
-             pair_cuda.kernel_attributes(pair_cuda.pass_a_2d_rowloop, filt, ns, el)
-             for ns in range(pair_cuda.MAX_SPECIES + 1)
+             f"{'elastic' if el else 'plain'}/Ns={ns}{'/thermal' if th else ''}":
+             pair_cuda.kernel_attributes(pair_cuda.pass_a_2d_rowloop, filt, ns,
+                                         el, th)
+             for th in (False, True) for ns in range(pair_cuda.MAX_SPECIES + 1)
              for el in (True, False) for filt in (True, False)}
     print(f"[build] pass_a_2d_rowloop instantiations (registers per thread, "
           f"local bytes per thread): {attrs}")
@@ -862,7 +1072,29 @@ def main() -> int:
     print(f"[K5 species] rebin move kernel with C rows == plain walk == sort "
           f"rebin, bitwise (natural convection N={CONV_N[0]}, step "
           f"{int(state.step)}: Ns=1 {what}; Ns=2 seeded {what2})")
-    del state, s2, p2
+    del s2, p2
+
+    # -- K1's thermal rows on the convection state, with and without its
+    # species -----------------------------------------------------------------
+    k1_names = ("f", "drho", "num_den", "phi", "nw", "ddv", "de")
+    bare = (dataclasses.replace(state, C=state.C[:0], Q=state.Q[:0]),
+            dataclasses.replace(params, kappa=params.kappa[..., :0]))
+    k1t, k1t_abs = {}, 0.0
+    for label, s_, p_, names in (("Ns=1", state, params, k1_names + ("Q",)),
+                                 ("Ns=0", *bare, k1_names)):
+        errs, err_abs, kb, checks = _thermal_rows(
+            torch, pair, pair_cuda.pass_a_2d, s_, p_, geom, spec.pair, names,
+            f"K1 thermal {label}")
+        k1t[label], k1t_abs = (errs, kb, checks), max(k1t_abs, err_abs)
+    print(f"[K1 thermal] pass A kernel with the thermal rows == plain, every "
+          f"field (natural convection N={CONV_N[0]}, step {int(state.step)} "
+          f"read as {THERMAL_STEP}, key {THERMAL_KEY}, both filter variants); "
+          f"per case the worst field's max|diff|/max|ref| at (a) the SI kB and "
+          f"(b) the raised kB, and the checks on (b): "
+          + "; ".join(f"{k}: (a) {v[0]['a']:.3g}, (b) {v[0]['b']:.3g} at kB "
+                      f"{v[1]:.3g}, {v[2]}" for k, v in k1t.items())
+          + f"; max|diff| {k1t_abs!r}")
+    del state, bare
 
     # -- 5. K2 parity -------------------------------------------------------
     state, params, spec, _ = fsi.build(nx=FSI_NX[0],
@@ -901,6 +1133,10 @@ def main() -> int:
           + f"{ds_run:.3g} / seeded {ds_seeded:.3g}): "
           + ", ".join(f"{k} {v:.3g}" for k, v in err_s.items()))
     del seeded, ref, ref_s, seed
+    k2t_errs, k2t_abs, kb, checks = _thermal_rows(
+        torch, pair, pair_cuda.pass_a_2d_rowloop, state, params, geom, spec.pair,
+        k2_names, "K2 thermal fsi")
+    k2t = {f"fsi nx={FSI_NX[0]} elastic Ns=0": (k2t_errs, kb, checks)}
 
     # -- 6. K6 parity -------------------------------------------------------
     state = simulate(state, params, spec, 50)  # drifted since its last rebin
@@ -972,7 +1208,34 @@ def main() -> int:
                   + f"); K3 with Ns=1 per call ms {t_k3s['pass_a']!r} vs plain "
                   f"pass A {t_k3s['pass_a_plain']!r}, bound "
                   f"{t_k3s['pass_a_bound']} [{card}]")
-            del cases, s3, p3
+            k3t, k3t_abs = {}, 0.0
+            for label, s_, p_, names in (
+                    ("Ns=0", state, params, k1_names),
+                    ("Ns=1 seeded", *cases[0][1:], k1_names + ("Q",))):
+                errs, err_abs, kb, checks = _thermal_rows(
+                    torch, pair, pair_cuda.pass_a_3d, s_, p_, geom, spec.pair,
+                    names, f"K3 thermal N={N} {label}")
+                k3t[label], k3t_abs = (errs, kb, checks), max(k3t_abs, err_abs)
+            spec_t = _noise_on(spec)
+            for c in counters.values():
+                c.launches = 0
+            st = simulate(_noisy(torch, state), params, spec_t, 10)
+            k3t_launches = pair_cuda.pass_a_3d.launches
+            t_k3t = pass_a_timing(
+                pair_cuda.pass_a_3d, st, params, geom,
+                dataclasses.replace(spec_t.pair, density_filter_accs=False), 10)
+            print(f"[K3 thermal] 3D pass A kernel with the thermal rows == "
+                  f"plain, every field (lid_cavity3d N={N}, both filter "
+                  f"variants); per case the worst field's max|diff|/max|ref| at "
+                  f"(a) the SI kB and (b) the raised kB, and the checks on (b): "
+                  + "; ".join(f"{k}: (a) {v[0]['a']:.3g}, (b) {v[0]['b']:.3g} "
+                              f"at kB {v[1]:.3g}, {v[2]}" for k, v in k3t.items())
+                  + f"; max|diff| {k3t_abs!r}; 10 steps with the noise: K3 "
+                  f"launched {k3t_launches} times, per call ms "
+                  f"{t_k3t['pass_a']!r} vs plain pass A "
+                  f"{t_k3t['pass_a_plain']!r}, bound {t_k3t['pass_a_bound']} "
+                  f"[{card}]")
+            del cases, s3, p3, st
         if N == CAVITY3D_N[1]:
             k7e_launches, k7e_abs, t_k7e = edged_check(
                 "K7 edges", rebin_cuda.rebin_move_3d, state, params, spec,
@@ -1089,6 +1352,31 @@ def main() -> int:
               for when, err in k2p_err.items())
           + f"; max|diff| {k2p_abs!r}")
     del cases, ref
+    errs, err_abs, kb, checks = _thermal_rows(
+        torch, pair, pair_cuda.pass_a_2d_rowloop, state, params, geom, spec.pair,
+        k2p_names, "K2 thermal polarization")
+    k2t[f"polarization nx={nxp} elastic Ns=1"] = (errs, kb, checks)
+    k2t_abs = max(k2t_abs, err_abs)
+    # 10 steps with the noise on (K2 every step), then K2 timed on that state
+    spec_t = _noise_on(spec)
+    for c in counters.values():
+        c.launches = 0
+    st = simulate(_noisy(torch, state), params, spec_t, 10)
+    k2t_launches = pair_cuda.pass_a_2d_rowloop.launches
+    t_k2t = pass_a_timing(
+        pair_cuda.pass_a_2d_rowloop, st, params, geom,
+        dataclasses.replace(spec_t.pair, density_filter_accs=False), 10)
+    print(f"[K2 thermal] rowloop pass A kernel with the thermal rows == plain, "
+          f"every field, both filter variants; per state the worst field's "
+          f"max|diff|/max|ref| at (a) the SI kB and (b) the raised kB, and the "
+          f"checks on (b): "
+          + "; ".join(f"{k}: (a) {v[0]['a']:.3g}, (b) {v[0]['b']:.3g} at kB "
+                      f"{v[1]:.3g}, {v[2]}" for k, v in k2t.items())
+          + f"; max|diff| {k2t_abs!r}; 10 steps of the polarization with the "
+          f"noise: K2 launched {k2t_launches} times, per call ms "
+          f"{t_k2t['pass_a']!r} vs plain pass A {t_k2t['pass_a_plain']!r}, bound "
+          f"{t_k2t['pass_a_bound']} [{card}]")
+    del st
     drop = _rebin_drop(spec)
     state = simulate(state, params, spec, 50)  # since its last rebin
     what, k6p_abs = _move_parity(torch, S, rebin_cuda,
@@ -1110,7 +1398,9 @@ def main() -> int:
     del state, moved
 
     # -- 9. main paths ------------------------------------------------------
-    def run_main(build, dt, want_kernels, steps, **sim_kw):
+    def run_main(build, dt, want_kernels, steps, make_callback=None, **sim_kw):
+        """build -> setup -> simulate(steps) with the launch counters reset
+        first (``make_callback(params, spec)``: simulate's callback)."""
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
@@ -1119,6 +1409,8 @@ def main() -> int:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         n0 = int(state.n_valid)
+        if make_callback is not None:
+            sim_kw["callback"] = make_callback(params, spec)
         state = simulate(setup(state, params, spec, dt=dt), params, spec, steps,
                          **sim_kw)
         torch.cuda.synchronize()
@@ -1170,41 +1462,124 @@ def main() -> int:
         lambda: natural_convection.build(N=CONV_N[0], device=dev),
         CONV_DT[CONV_N[0]], ("pass_a_2d", "rebin_move_2d"),
         MAIN_STEPS["convection"])
-    params, scene = run_main.built[1], run_main.built[3]
-    C, C0 = state.C[0], 1.0
-    fluid = state.valid & (state.solid_tag == 0)
-    in_group = lambda name: state.valid & (
-        (state.groupmask & scene.groupbit(name)) != 0)
-    # the Dirichlet forcing clamps C after the first half step; the second
-    # half step then adds Q dt/2, so at a step's end a clamped particle
-    # holds exactly max(value + Q dt/2, 0)
-    held = lambda name, value: bool((C[in_group(name)] == torch.clamp_min(
-        value + state.Q[0] * (0.5 * state.dt), 0.0)[in_group(name)]).all())
-    got = {"max|v|": vmax,
-           "qdot": natural_convection.qdot(state, params,
-                                           scene.groupbit("sphere")),
-           "fluid mean C": float(C[fluid].double().mean())}
-    checks.update({
-        f"{CONV_PARTICLES} particles": n0 == CONV_PARTICLES,
-        "C and Q finite": bool(torch.isfinite(state.C).all()
-                               and torch.isfinite(state.Q).all()),
-        "0 <= C <= C0": bool(((C >= 0.0) & (C <= C0))[state.valid].all()),
-        "walls held at C = 0": held("walls", 0.0),
-        "cylinder held at C = C0": held("sphere", C0),
-        "qdot > 0": got["qdot"] > 0.0,
-    })
-    for name, (ref, lo, hi) in CONV_JAX_STEP1000.items():
-        checks[f"{name} in [{lo}, {hi}] x JAX's {ref}"] = lo * ref <= got[name] <= hi * ref
-    detail = (", ".join(f"{k} {v!r}" for k, v in got.items())
-              + f", fluid max C {float(C[fluid].max())!r}, fluid max|rho-1| "
-              f"{float((state.rho[fluid] - 1.0).abs().max())!r}")
+    def convection_gates(state, vmax, n0, checks, bands):
+        """The convection main path's checks on its final state: particles
+        kept, C and Q finite, 0 <= C <= C0, the Dirichlet values held one
+        half step on, qdot > 0, and max|v|, qdot and the fluid's mean C
+        inside ``bands`` around the JAX package's own run.  Returns (the
+        banded values, a description)."""
+        params, scene = run_main.built[1], run_main.built[3]
+        C, C0 = state.C[0], 1.0
+        fluid = state.valid & (state.solid_tag == 0)
+        in_group = lambda name: state.valid & (
+            (state.groupmask & scene.groupbit(name)) != 0)
+        # the Dirichlet forcing clamps C after the first half step; the
+        # second half step then adds Q dt/2, so at a step's end a clamped
+        # particle holds exactly max(value + Q dt/2, 0)
+        held = lambda name, value: bool((C[in_group(name)] == torch.clamp_min(
+            value + state.Q[0] * (0.5 * state.dt), 0.0)[in_group(name)]).all())
+        got = {"max|v|": vmax,
+               "qdot": natural_convection.qdot(state, params,
+                                               scene.groupbit("sphere")),
+               "fluid mean C": float(C[fluid].double().mean())}
+        checks.update({
+            f"{CONV_PARTICLES} particles": n0 == CONV_PARTICLES,
+            "C and Q finite": bool(torch.isfinite(state.C).all()
+                                   and torch.isfinite(state.Q).all()),
+            "0 <= C <= C0": bool(((C >= 0.0) & (C <= C0))[state.valid].all()),
+            "walls held at C = 0": held("walls", 0.0),
+            "cylinder held at C = C0": held("sphere", C0),
+            "qdot > 0": got["qdot"] > 0.0,
+        })
+        for name, (ref, lo, hi) in bands.items():
+            checks[f"{name} in [{lo}, {hi}] x JAX's {ref}"] = \
+                lo * ref <= got[name] <= hi * ref
+        return got, (", ".join(f"{k} {v!r}" for k, v in got.items())
+                     + f", fluid max C {float(C[fluid].max())!r}, fluid "
+                     f"max|rho-1| {float((state.rho[fluid] - 1.0).abs().max())!r}")
+
+    conv_got, detail = convection_gates(state, vmax, n0, checks,
+                                        CONV_JAX_STEP1000)
     require(checks, "convection main path", detail)
     print(f"[main convection] natural_convection N={CONV_N[0]} build+setup+"
           f"simulate({MAIN_STEPS['convection']}) in {secs[1]!r} s (build "
           f"{secs[0]!r} s): {n0} particles, cap {spec.geom.cap}, "
           f"{spec.geom.ncells_total} cells, {detail} (bands "
           f"{CONV_JAX_STEP1000}), launches {conv_launches} [{card}]")
-    del state, C
+    del state
+
+    # the reference's own configuration: natural convection with the SDPD
+    # noise at the SI kB and the model's e = 1e-6, the thermo table of its
+    # script every 100 steps
+    thermo_logs = []
+
+    def thermo(params, spec):
+        logger = ThermoLogger(params, every=THERMO_EVERY,
+                              columns=("step", "dt", "press", "temp", "etotal"),
+                              geom=spec.geom, pair_cfg=spec.pair)
+        thermo_logs.append(logger)
+        return logger
+
+    state, spec, n0, secs, th_launches, vmax, checks = run_main(
+        lambda: _with_noise(natural_convection.build(N=CONV_N[0], device=dev)),
+        CONV_DT[CONV_N[0]], ("pass_a_2d", "rebin_move_2d"),
+        MAIN_STEPS["convection"], make_callback=thermo,
+        callback_every=THERMO_EVERY)
+    rows = thermo_logs[-1].history
+    checks.update({
+        "thermal pair style": spec.pair.thermal,
+        "SI kB, e = 1e-6": run_main.built[1].boltz == 1.3806504e-23 and float(
+            state.e[state.valid].max()) == float(state.e[state.valid].min())
+        == float(torch.tensor(1e-6, dtype=state.e.dtype)),
+        f"a thermo row every {THERMO_EVERY} steps": [r["step"] for r in rows]
+        == list(range(THERMO_EVERY, MAIN_STEPS["convection"] + 1, THERMO_EVERY)),
+        "press, temp, etotal finite": all(
+            np.isfinite([r["press"], r["temp"], r["etotal"]]).all() for r in rows),
+    })
+    th_got, detail = convection_gates(state, vmax, n0, checks,
+                                      CONV_THERMAL_JAX_STEP1000)
+    require(checks, "thermal convection main path", detail)
+    gap_jax = {k: th_got[k] / CONV_JAX_STEP1000[k][0] - 1.0 for k in th_got}
+    gap_card = {k: th_got[k] / conv_got[k] - 1.0 for k in th_got}
+    print(f"[main thermal] natural_convection N={CONV_N[0]} with thermal=True "
+          f"(kB {run_main.built[1].boltz!r}, e 1e-6) build+setup+simulate("
+          f"{MAIN_STEPS['convection']}) with ThermoLogger(every={THERMO_EVERY}, "
+          f"step dt press temp etotal) in {secs[1]!r} s (build {secs[0]!r} s): "
+          f"{n0} particles, {detail} (bands {CONV_THERMAL_JAX_STEP1000}); "
+          f"relative gap to the thermal-off run: JAX's constants {gap_jax}, "
+          f"this card's {gap_card}; thermo rows {len(rows)}, the last "
+          f"{ {k: rows[-1][k] for k in ('step', 'dt', 'press', 'temp', 'etotal')} }; "
+          f"launches {th_launches} [{card}]")
+    del state
+
+    # the flagship cavity with the noise made visible, against the JAX
+    # package's own run, and beside the same run without the noise
+    visible = {}
+    for thermal in (True, False):
+        state, spec, n0, secs, launches, vmax, checks = run_main(
+            lambda thermal=thermal: _visible_cavity(CAVITY_N[0], dev, thermal),
+            1e-4, ("pass_a_2d", "rebin_move_2d"), VISIBLE_STEPS)
+        params = run_main.built[1]
+        visible[thermal] = got = _cavity_energy(torch, state, params)
+        if thermal:
+            for name, (ref, lo, hi) in CAVITY_VISIBLE_JAX_STEP200.items():
+                checks[f"{name} in [{lo}, {hi}] x JAX's {ref}"] = \
+                    lo * ref <= got[name] <= hi * ref
+            vis_launches, vis_secs = launches, secs
+        require(checks, f"visible-noise cavity (thermal {thermal})",
+                f"{got}")
+        del state
+    # the noise must move the fluid by more than the bands allow
+    moved = visible[True]["fluid ke"] / visible[False]["fluid ke"] - 1.0
+    if not abs(moved) > 0.1:
+        raise AssertionError(f"the visible noise changed the fluid's kinetic "
+                             f"energy by only {moved!r}: {visible}")
+    print(f"[main thermal visible] lid_cavity N={CAVITY_N[0]} with thermal=True,"
+          f" e 1 and kB {VISIBLE_KBE!r}, build+setup+simulate({VISIBLE_STEPS}) in "
+          f"{vis_secs[1]!r} s: {visible[True]} (bands "
+          f"{CAVITY_VISIBLE_JAX_STEP200}); without the noise {visible[False]} "
+          f"(fluid kinetic energy {moved:+.3g} with it); launches "
+          f"{vis_launches} [{card}]")
 
     # cell polarization at the reference's size
     state, spec, n0, secs, polar_launches, vmax, checks = run_main(
@@ -1432,6 +1807,10 @@ def main() -> int:
                 lambda d: cell_polarization.build(nx=SMALL["polarization"],
                                                   rebin_every=5, device=d),
                 1e-10, ("x", "v", "rho", "C", "S"))
+    card_vs_cpu(f"visible-noise cavity N={SMALL['thermal']} (e 1, kB "
+                f"{VISIBLE_KBE!r})", "thermal",
+                lambda d: _visible_cavity(SMALL["thermal"], d), 1e-4,
+                ("x", "v", "rho"))
 
     # -- 10. speed ----------------------------------------------------------
     def speed(label, path, size, state, params, spec, pass_a, move):
@@ -1475,9 +1854,18 @@ def main() -> int:
             bare_p = dataclasses.replace(params, kappa=params.kappa[..., :0])
             pf0 = pair._per_particle(bare_s, bare_p, cfg)
             t["pass_a_no_species"] = _per_call_ms(
-                torch, lambda: pass_a(pf0, bare_p, geom, cfg), iters)
+                torch, lambda: pass_a(pf0, bare_p, geom, cfg,
+                                      pair.noise_inputs(bare_s)), iters)
             species = (f" with its {params.n_sdpd} species row(s), "
                        f"{t['pass_a_no_species']!r} without them,")
+        if cfg.thermal:
+            # the same kernel on the same state without its thermal rows
+            quiet = dataclasses.replace(cfg, thermal=False)
+            pfq = pair._per_particle(state, params, quiet)
+            t["pass_a_no_thermal"] = _per_call_ms(
+                torch, lambda: pass_a(pfq, params, geom, quiet), iters)
+            species += (f" with its thermal rows, "
+                        f"{t['pass_a_no_thermal']!r} without them,")
         t["rates"] = [n * steps / secs for _, _, secs, _ in runs]
         t["rate"] = sum(t["rates"]) / len(t["rates"])
         t["chunks"] = [_chunk_split(ch, lg, every) for _, lg, _, ch in runs]
@@ -1536,6 +1924,17 @@ def main() -> int:
         t_conv[N] = speed(f"natural convection N={N} (dt {CONV_DT[N]})",
                           "convection", N, state, params, spec,
                           pair_cuda.pass_a_2d, rebin_cuda.rebin_move_2d)
+        del state
+    # the convection with the noise on (the SI kB, e 1e-6): K1's thermal rows
+    t_conv_thermal = {}
+    for N in CONV_N:
+        state, params, spec, _ = _with_noise(natural_convection.build(
+            N=N, dt=CONV_DT[N], device=dev))
+        state = setup(state, params, spec, dt=CONV_DT[N])
+        t_conv_thermal[N] = speed(
+            f"natural convection N={N} (dt {CONV_DT[N]}) with thermal=True",
+            "convection", N, state, params, spec, pair_cuda.pass_a_2d,
+            rebin_cuda.rebin_move_2d)
         del state
     t_fsi = {}
     for nx in FSI_NX:
@@ -1624,6 +2023,12 @@ def main() -> int:
                                                       device=dev), CONV_DT[N],
                  (("K1 species", "pass_a_2d_kernel"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
+    # and with the noise on: the thermal rows add no device op to a step
+    targets += [(f"natural convection N={N} with thermal=True",
+                 lambda N=N: _with_noise(natural_convection.build(
+                     N=N, dt=CONV_DT[N], device=dev)), CONV_DT[N],
+                 (("K1 species/thermal", "pass_a_2d_kernel"),
+                  ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
     # cell polarization, rebinning every 20 steps so that a profiled chunk
     # stays short
     targets += [(f"cell polarization nx={nx}",
@@ -1633,6 +2038,19 @@ def main() -> int:
                  (("K2 species/fsi", "pass_a_2d_rowloop_kernel"),
                   ("K6 periodic y", "rebin_move_2d_gated_kernel")))
                 for nx in POLAR_NX]
+    # K2's and K3's thermal instantiations beside the targets above (the
+    # models' e is 0, so the rows do all their work and add no force)
+    targets += [(f"cell polarization nx={POLAR_NX[0]} with thermal=True",
+                 lambda: _with_noise(cell_polarization.build(
+                     nx=POLAR_NX[0], dt=POLAR_DT[POLAR_NX[0]], rebin_every=20,
+                     device=dev)), POLAR_DT[POLAR_NX[0]],
+                 (("K2 species/fsi/thermal", "pass_a_2d_rowloop_kernel"),
+                  ("K6 periodic y", "rebin_move_2d_gated_kernel"))),
+                (f"lid_cavity3d N={CAVITY3D_N[0]} with thermal=True",
+                 lambda: _with_noise(lid_cavity3d.build(N=CAVITY3D_N[0],
+                                                        device=dev)), 1e-4,
+                 (("K3 thermal", "pass_a_3d_kernel"),
+                  ("K7", "rebin_move_3d_kernel")))]
     # the blob, balanced and uniform, over two chunks without a re-cut (a
     # chunk of 5 steps is too short to show the pass-A mix)
     targets += [(
@@ -1666,7 +2084,8 @@ def main() -> int:
             raise AssertionError(f"[profile] {label}: torch.profiler recorded "
                                  f"no {kernels[0][0]} activity on the card")
         print(f"[profile] {label}, {steps} steps under torch.profiler: "
-              f"{count() / steps!r} device ops per step, device time "
+              f"{count() / steps!r} device ops per step ({count('DtoH') / steps!r}"
+              f" device-to-host copies), device time "
               f"{us() / steps / 1e3!r} ms per step (busy share "
               f"{us() / wall_us!r} of the profiled steps' wall time); "
               + ", ".join(f"{k} {us(n) / max(count(n), 1) / 1e3!r} ms per call "
@@ -1720,6 +2139,16 @@ def main() -> int:
         ("rebin_move_2d_gated (periodic y)", "csrc/rebin_move_2d_gated.cu",
          "core/rebin_pallas.py:346", polar_launches["rebin_move_2d_gated"],
          k6p_abs, t_polar[POLAR_NX[0]], "move"),
+        # the thermal rows: K1 on the thermal convection's main path at
+        # N=200, K2 on the polarization at nx=100 and K3 on the 3D cavity at
+        # N=40, each with its launches from a 10-step run with the noise
+        ("pass_a_2d (thermal)", "csrc/pass_a_2d.cu", "ops/pair_pallas.py:308",
+         th_launches["pass_a_2d"], k1t_abs, t_conv_thermal[CONV_N[0]],
+         "pass_a"),
+        ("pass_a_2d_rowloop (thermal)", "csrc/pass_a_2d_rowloop.cu",
+         "ops/pair_pallas.py:527", k2t_launches, k2t_abs, t_k2t, "pass_a"),
+        ("pass_a_3d (thermal)", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106",
+         k3t_launches, k3t_abs, t_k3t, "pass_a"),
     )
     # no single PyTorch call computes pass A or the locality move
     kernels = [

@@ -14,7 +14,9 @@ variant without the Shepard accumulators).
 
 ``simulate`` carries in-run load balancing (``spec.balance``): at a chunk
 boundary every ``balance.every`` steps it may re-cut the x columns and
-rebin the state into the new geometry with the sort rebin.
+rebin the state into the new geometry with the sort rebin.  A callback that
+raises ``utils.thermo.StopSimulation`` (``Halt``) ends the run at that
+chunk, as fix halt does.
 
 Not ported yet (raise when set): multi-device meshes and SSA species.
 """
@@ -41,6 +43,7 @@ from sph_bvf_tpu_torch.core.state import (
     rebin_droppable,
 )
 from sph_bvf_tpu_torch.ops.pair import PairConfig, compute_forces
+from sph_bvf_tpu_torch.utils.thermo import StopSimulation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,7 +137,9 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
     ``callback(state)`` every ``callback_every`` steps (default: one chunk).
 
     Overflow and drift counters are read back every 10 chunks and at the
-    end; a nonzero count raises.
+    end; a nonzero count raises.  A callback that raises ``StopSimulation``
+    ends the run there: the message is printed, the counters are checked
+    and the state is returned.
 
     With ``spec.balance`` set (``parallel/balance.BalanceFix``), every
     ``balance.every`` steps a chunk boundary asks ``rebalance`` for new x
@@ -205,7 +210,12 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
         state = run_chunk(state, params, spec, n, phase=phase)
         done += n
         if callback is not None and (done % cb_every == 0 or done >= nsteps):
-            callback(state)
+            try:
+                callback(state)
+            except StopSimulation as e:
+                print(f"[halt] {e}")
+                check(state)
+                return state
         # the counter readback costs a host round trip; amortize over chunks
         # but always check at the end so nothing slips through
         if done % (10 * chunk) == 0 or done >= nsteps:

@@ -6,15 +6,19 @@
 // stencil cells, j != i, for the configuration the port supports: the
 // transport-velocity pressure switch, fixed BVF wall solids, the diagonal
 // artificial stress of non-elastic solids, with (FILTER) or without the
-// Shepard-filter accumulators rhoAux1/rhoAux2, and with NS continuum species
-// (the C rows in, the flux Q out; natural convection runs NS = 1).  The plain
+// Shepard-filter accumulators rhoAux1/rhoAux2, with NS continuum species
+// (the C rows in, the flux Q out; natural convection runs NS = 1), and with
+// (THERMAL) or without the SDPD thermal noise (the e and tag rows in; dt,
+// step and the PRNG key read from the state's device tensors).  The plain
 // PyTorch version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
 //
 // What bounds it on an H100: each i-thread walks up to 9*cap candidates,
 // reads about 15 f32 fields of each (the 3x3 windows of neighbouring threads
 // overlap, so these loads hit L1/L2 and the state is read from HBM about
 // once per call) and spends ~130 flops on each candidate inside the kernel
-// support.  The bound is issue rate and L1 traffic, not HBM bandwidth.
+// support; the thermal noise adds ~180 integer operations (the hash) and
+// three Box-Muller normals there.  The bound is issue rate and L1 traffic,
+// not HBM bandwidth.
 // Design: accumulators stay in registers; neighbouring threads take
 // neighbouring cells of one slot row, so every load of the [F, cap, NC]
 // matrix is coalesced; walls are bounds checks on cx+-1 and cy+-1 (no halo
@@ -32,10 +36,13 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool FILTER, int NS>
+template <bool FILTER, int NS, bool THERMAL>
 __global__ void __launch_bounds__(kThreads) pass_a_2d_kernel(
     const float* __restrict__ pf, const float* __restrict__ tab,
-    const float* __restrict__ stab, float* __restrict__ out, int ntypes,
+    const float* __restrict__ stab, float* __restrict__ out,
+    const float* __restrict__ dt, const int* __restrict__ step,
+    const long long* __restrict__ key, unsigned rng_seed, float neg4kb,
+    int ntypes,
     int advect, int cap, int nx, int ny) {
   constexpr int A = tv::kAccs<FILTER, NS>;
   const int nc = nx * ny;
@@ -51,7 +58,9 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_kernel(
   for (int a = 0; a < A; ++a) acc[a] = 0.f;
 
   if (tv::ld(pf, m, tv::R_VALID, s) != 0.f) {
-    const tv::ISide<NS> I = tv::load_i<FILTER, NS>(pf, m, s, ntypes);
+    const tv::ISide<NS> I = tv::load_i<FILTER, NS, THERMAL>(pf, m, s, ntypes);
+    tv::Noise noise{};
+    if constexpr (THERMAL) noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
     for (int ox = -1; ox <= 1; ++ox) {
       const int cxj = cx + ox;
       if (cxj < 0 || cxj >= nx) continue;
@@ -63,7 +72,8 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_kernel(
           const long long k = (long long)j * nc + cj;
           if (k == s) continue;  // the self pair (zero offset, j == i)
           if (tv::ld(pf, m, tv::R_VALID, k) == 0.f) continue;
-          tv::add_pair<FILTER, NS>(pf, m, k, tab, stab, advect, tt, I, acc);
+          tv::add_pair<FILTER, NS, THERMAL, 2>(pf, m, k, tab, stab, advect, tt,
+                                                 noise, I, acc);
         }
       }
     }
@@ -75,18 +85,23 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_kernel(
 }  // namespace
 
 // filter: with the Shepard-filter rows; ns: the species count (stab is read
-// only when ns > 0); advect: PairConfig.species_advection
+// only when ns > 0); advect: PairConfig.species_advection; thermal: with the
+// SDPD noise, whose inputs are the state's dt (f32), step (i32) and PRNG key
+// (two words in i64) on the device, PairConfig.rng_seed and -4 kB in f32
 extern "C" int pass_a_2d(const float* pf, const float* tab, const float* stab,
                         float* out, int ntypes, int ns, int advect, int cap,
-                        int nx, int ny, int filter, cudaStream_t stream) {
+                        int nx, int ny, int filter, int thermal, const float* dt,
+                        const int* step, const long long* key, unsigned rng_seed,
+                        float neg4kb, cudaStream_t stream) {
   const long long m = (long long)cap * nx * ny;
   if (m == 0) return 0;
   const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
-  switch (tv::variant_key(filter != 0, ns)) {
-#define X(F, N)                                                            \
-  case tv::variant_key(F, N):                                              \
-    pass_a_2d_kernel<F, N><<<blocks, kThreads, 0, stream>>>(               \
-        pf, tab, stab, out, ntypes, advect, cap, nx, ny);                  \
+  switch (tv::variant_key(filter != 0, ns, thermal != 0)) {
+#define X(F, N, T)                                                         \
+  case tv::variant_key(F, N, T):                                           \
+    pass_a_2d_kernel<F, N, T><<<blocks, kThreads, 0, stream>>>(            \
+        pf, tab, stab, out, dt, step, key, rng_seed, neg4kb, ntypes,       \
+        advect, cap, nx, ny);                                              \
     break;
     TV_FOR_EACH_VARIANT(X)
 #undef X
@@ -97,14 +112,15 @@ extern "C" int pass_a_2d(const float* pf, const float* tab, const float* stab,
 }
 
 // registers per thread and local-memory (spill) bytes per thread of the
-// (filter, ns) instantiation, as the runtime reports them
-extern "C" int pass_a_2d_attributes(int filter, int ns, int* regs, int* local_bytes) {
+// (filter, ns, thermal) instantiation, as the runtime reports them
+extern "C" int pass_a_2d_attributes(int filter, int ns, int thermal, int* regs,
+                                    int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaErrorInvalidValue;
-  switch (tv::variant_key(filter != 0, ns)) {
-#define X(F, N)                                                      \
-  case tv::variant_key(F, N):                                        \
-    err = cudaFuncGetAttributes(&attr, pass_a_2d_kernel<F, N>);      \
+  switch (tv::variant_key(filter != 0, ns, thermal != 0)) {
+#define X(F, N, T)                                                   \
+  case tv::variant_key(F, N, T):                                     \
+    err = cudaFuncGetAttributes(&attr, pass_a_2d_kernel<F, N, T>);   \
     break;
     TV_FOR_EACH_VARIANT(X)
 #undef X

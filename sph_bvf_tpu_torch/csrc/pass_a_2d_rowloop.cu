@@ -16,8 +16,9 @@
 // packed G0 row of i and j, not from the type table) and NS continuum
 // species (the tSDPD flux Q of the C rows, csrc/pass_a_tv.cuh
 // `add_species_flux`, inside its own support cutc and so before the test
-// against h).  The plain PyTorch version is sph_bvf_tpu_torch/ops/pair.py
-// `_pass_a_plain`.
+// against h), and (THERMAL) the SDPD thermal noise on the fluid branch
+// (csrc/pass_a_tv.cuh `add_thermal`).  The plain PyTorch version is
+// sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
 //
 // What bounds it on an H100: FSI cells hold cap = 47 slots but ~9-16
 // particles, so a walk over every slot of the 3x3 window would spend two
@@ -41,10 +42,12 @@
 // minimum image dx - L * rint(dx / L) with round-to-nearest-even and unfused
 // arithmetic, as torch.round does.  NS is a template parameter (0..4, as in
 // K1 and K3): the Q sums stay in registers and the NS = 0 code has no species.
+// THERMAL is one too: the instantiations without noise carry no hash code.
 //
 // Layouts (kept in step with sph_bvf_tpu_torch/ops/pair_cuda.py):
 //   pf   f32 [F, cap, NC]: K2_PF_ROWS, then AS(9), S(9) (ELASTIC) or ASd,
-//        then rhoI (FILTER), then C (NS)
+//        then rhoI (FILTER), then C (NS), then e and tag (THERMAL; tag as the
+//        int32 bits)
 //   tab  f32 [7, T*T]: inv_h, eta, inv_wdelta, W' factor, W factor, h, geff
 //   stab f32 [4 + NS, T*T] (NS > 0): the species table of csrc/pass_a_tv.cuh
 //   out  f32 [A, cap, NC]: K2_ACC_ROWS, then dS(9) (ELASTIC), then rhoAux1,
@@ -72,7 +75,7 @@ constexpr int F_PSWITCH = 1, F_XSPH = 2, F_FREE = 4, F_WRAPX = 8,
               F_NOSOLIDS = 16, F_WRAPY = 32, F_G0PAIR = 64;
 // the rows add_species_flux reads by tv's names
 static_assert(R_V == tv::R_V && R_VEST == tv::R_VEST && R_RHO == tv::R_RHO &&
-                  R_MRHO == tv::R_MRHO,
+                  R_MRHO == tv::R_MRHO && T_H == tv::T_H,
               "K2's packed rows must match csrc/pass_a_tv.cuh");
 constexpr int kThreads = 128;
 // the diagonal factor (1 - 1/3) of the deviatoric strain, rounded to f32
@@ -80,16 +83,21 @@ constexpr int kThreads = 128;
 constexpr float kTwoThirds = (float)(1.0 - 1.0 / 3.0);
 
 // ampl: PairConfig.ampl_damp, the density-diffusion amplitude (0: no such
-// term); advect: PairConfig.species_advection; lx, ly: the periodic extents
-template <bool FILTER, bool ELASTIC, int NS>
+// term); advect: PairConfig.species_advection; lx, ly: the periodic extents;
+// dt, step, key, rng_seed, neg4kb: the thermal noise's inputs (THERMAL), as
+// csrc/pass_a_2d.cu takes them
+template <bool FILTER, bool ELASTIC, int NS, bool THERMAL>
 __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
     const float* __restrict__ pf, const float* __restrict__ tab,
-    const float* __restrict__ stab, float* __restrict__ out, int ntypes,
-    int cap, int nx, int ny, int flags, int advect, float lx, float ly,
-    float ampl) {
+    const float* __restrict__ stab, float* __restrict__ out,
+    const float* __restrict__ dt, const int* __restrict__ step,
+    const long long* __restrict__ key, unsigned rng_seed, float neg4kb,
+    int ntypes, int cap, int nx, int ny, int flags, int advect, float lx,
+    float ly, float ampl) {
   constexpr int R_S = R_STRESS + 9;                      // ELASTIC only
   constexpr int R_RHOI = R_STRESS + (ELASTIC ? 18 : 1);  // FILTER only
   constexpr int R_C = R_RHOI + (FILTER ? 1 : 0);         // NS > 0 only
+  constexpr int R_E = R_C + NS;                          // THERMAL only; tag next
   constexpr int O_AUX = O_DS + (ELASTIC ? 9 : 0);        // FILTER only
   constexpr int O_Q = O_AUX + (FILTER ? 2 : 0);          // NS > 0 only
   constexpr int A = O_Q + NS;
@@ -132,6 +140,14 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
     if constexpr (NS > 0) {
 #pragma unroll
       for (int c = 0; c < NS; ++c) Ci[c] = ld(R_C + c, s);
+    }
+    tv::Noise noise{};
+    float energy_i = 0.f;
+    int tagi = 0;
+    if constexpr (THERMAL) {
+      noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
+      energy_i = ld(R_E, s);
+      tagi = __float_as_int(ld(R_E + 1, s));
     }
 
     // i-side stress: the artificial-stress tensor, the deviatoric tensor
@@ -302,6 +318,10 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
             for (int a = 0; a < 3; ++a)
               acc[O_F + a] += -fpair * dx[a] + fvisc * vv[a] +
                               vw * (0.5f * (ti_s * ei[a] + tj_s * ej[a])) + fart[a];
+            if constexpr (THERMAL)
+              tv::add_thermal<2>(noise, tagi, __float_as_int(ld(R_E + 1, k)),
+                                 energy_i, mi, mj, wfd, inv_rhoi, ld(R_INVRHO, k),
+                                 r, tb(T_H, tp), dx, acc + O_F);
           }
 
           // Jaumann deviatoric stress rate (solid i with G0 > 0 or S != 0)
@@ -373,34 +393,41 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
   for (int a = 0; a < A; ++a) out[(long long)a * m + s] = acc[a];
 }
 
-// every (FILTER, ELASTIC, NS) instantiation, for the C entry points' dispatch
-#define K2_FOR_EACH_NS(X, F, E) X(F, E, 0) X(F, E, 1) X(F, E, 2) X(F, E, 3) X(F, E, 4)
-#define K2_FOR_EACH_VARIANT(X)                                  \
-  K2_FOR_EACH_NS(X, false, false) K2_FOR_EACH_NS(X, false, true) \
-  K2_FOR_EACH_NS(X, true, false) K2_FOR_EACH_NS(X, true, true)
+// every (FILTER, ELASTIC, NS, THERMAL) instantiation, for the C entry points'
+// dispatch
+#define K2_FOR_EACH_NS(X, F, E, T) \
+  X(F, E, 0, T) X(F, E, 1, T) X(F, E, 2, T) X(F, E, 3, T) X(F, E, 4, T)
+#define K2_FOR_EACH_FE(X, T)                                          \
+  K2_FOR_EACH_NS(X, false, false, T) K2_FOR_EACH_NS(X, false, true, T) \
+  K2_FOR_EACH_NS(X, true, false, T) K2_FOR_EACH_NS(X, true, true, T)
+#define K2_FOR_EACH_VARIANT(X) K2_FOR_EACH_FE(X, false) K2_FOR_EACH_FE(X, true)
 static_assert(tv::kMaxSpecies == 4, "K2_FOR_EACH_NS lists NS = 0..4");
-constexpr int variant_key(bool filter, bool elastic, int ns) {
-  return 4 * ns + (filter ? 2 : 0) + (elastic ? 1 : 0);
+constexpr int variant_key(bool filter, bool elastic, int ns, bool thermal) {
+  return 4 * ns + (filter ? 2 : 0) + (elastic ? 1 : 0) + (thermal ? 20 : 0);
 }
 
 }  // namespace
 
-// filter, elastic: the template switches; ns: the species count (stab is read
-// only when ns > 0); flags: F_*; advect, lx, ly, ampl: see the kernel
+// filter, elastic, thermal: the template switches; ns: the species count
+// (stab is read only when ns > 0); flags: F_*; advect, lx, ly, ampl and the
+// noise's inputs: see the kernel
 extern "C" int pass_a_2d_rowloop(const float* pf, const float* tab,
                                  const float* stab, float* out, int ntypes,
                                  int ns, int advect, int cap, int nx, int ny,
                                  int filter, int elastic, int flags, float lx,
-                                 float ly, float ampl, cudaStream_t stream) {
+                                 float ly, float ampl, int thermal,
+                                 const float* dt, const int* step,
+                                 const long long* key, unsigned rng_seed,
+                                 float neg4kb, cudaStream_t stream) {
   const long long m = (long long)cap * nx * ny;
   if (m == 0) return 0;
   const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
-  switch (variant_key(filter != 0, elastic != 0, ns)) {
-#define X(F, E, N)                                                         \
-  case variant_key(F, E, N):                                               \
-    pass_a_2d_rowloop_kernel<F, E, N><<<blocks, kThreads, 0, stream>>>(    \
-        pf, tab, stab, out, ntypes, cap, nx, ny, flags, advect, lx, ly,    \
-        ampl);                                                             \
+  switch (variant_key(filter != 0, elastic != 0, ns, thermal != 0)) {
+#define X(F, E, N, T)                                                      \
+  case variant_key(F, E, N, T):                                            \
+    pass_a_2d_rowloop_kernel<F, E, N, T><<<blocks, kThreads, 0, stream>>>( \
+        pf, tab, stab, out, dt, step, key, rng_seed, neg4kb, ntypes, cap,  \
+        nx, ny, flags, advect, lx, ly, ampl);                              \
     break;
     K2_FOR_EACH_VARIANT(X)
 #undef X
@@ -411,15 +438,16 @@ extern "C" int pass_a_2d_rowloop(const float* pf, const float* tab,
 }
 
 // registers per thread and local-memory (spill) bytes per thread of the
-// (filter, elastic, ns) instantiation, as the runtime reports them
+// (filter, elastic, ns, thermal) instantiation, as the runtime reports them
 extern "C" int pass_a_2d_rowloop_attributes(int filter, int elastic, int ns,
-                                            int* regs, int* local_bytes) {
+                                            int thermal, int* regs,
+                                            int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaErrorInvalidValue;
-  switch (variant_key(filter != 0, elastic != 0, ns)) {
-#define X(F, E, N)                                                          \
-  case variant_key(F, E, N):                                                \
-    err = cudaFuncGetAttributes(&attr, pass_a_2d_rowloop_kernel<F, E, N>);  \
+  switch (variant_key(filter != 0, elastic != 0, ns, thermal != 0)) {
+#define X(F, E, N, T)                                                          \
+  case variant_key(F, E, N, T):                                                \
+    err = cudaFuncGetAttributes(&attr, pass_a_2d_rowloop_kernel<F, E, N, T>);  \
     break;
     K2_FOR_EACH_VARIANT(X)
 #undef X

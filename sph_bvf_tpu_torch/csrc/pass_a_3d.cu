@@ -7,9 +7,10 @@
 // the 27 stencil cells, j != i, for the configuration K1 serves: the
 // transport-velocity pressure switch, fixed BVF wall solids, the diagonal
 // artificial stress of non-elastic solids, no periodic axis, with (FILTER) or
-// without the Shepard-filter accumulators rhoAux1/rhoAux2, and with NS
-// continuum species (the C rows in, the flux Q out).  The plain PyTorch
-// version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
+// without the Shepard-filter accumulators rhoAux1/rhoAux2, with NS
+// continuum species (the C rows in, the flux Q out), and with (THERMAL) or
+// without the SDPD thermal noise (six normals per pair in 3D).  The plain
+// PyTorch version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
 //
 // What bounds it on an H100: at the 1.19M-particle cavity (N=100: cap 38,
 // 27 particles per cell, 46,656 cells) each valid i walks 27 cells x ~27
@@ -40,10 +41,13 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <bool FILTER, int NS>
+template <bool FILTER, int NS, bool THERMAL>
 __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
     const float* __restrict__ pf, const float* __restrict__ tab,
-    const float* __restrict__ stab, float* __restrict__ out, int ntypes,
+    const float* __restrict__ stab, float* __restrict__ out,
+    const float* __restrict__ dt, const int* __restrict__ step,
+    const long long* __restrict__ key, unsigned rng_seed, float neg4kb,
+    int ntypes,
     int advect, int cap, int nx, int ny, int nz) {
   constexpr int A = tv::kAccs<FILTER, NS>;
   const int nc = nx * ny * nz;
@@ -61,7 +65,9 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
 
   // slots at or above the cell's occupancy are invalid: nothing to sum
   if (tv::ld(pf, m, tv::R_VALID, s) != 0.f) {
-    const tv::ISide<NS> I = tv::load_i<FILTER, NS>(pf, m, s, ntypes);
+    const tv::ISide<NS> I = tv::load_i<FILTER, NS, THERMAL>(pf, m, s, ntypes);
+    tv::Noise noise{};
+    if constexpr (THERMAL) noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
     for (int ox = -1; ox <= 1; ++ox) {
       const int sx = cx + ox;
       if (sx < 0 || sx >= nx) continue;
@@ -77,7 +83,8 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
             // compacted slots: the first empty one ends the cell
             if (tv::ld(pf, m, tv::R_VALID, k) == 0.f) break;
             if (k == s) continue;  // the self pair (zero offset, j == i)
-            tv::add_pair<FILTER, NS>(pf, m, k, tab, stab, advect, tt, I, acc);
+            tv::add_pair<FILTER, NS, THERMAL, 3>(pf, m, k, tab, stab, advect, tt,
+                                                 noise, I, acc);
           }
         }
       }
@@ -90,18 +97,22 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
 }  // namespace
 
 // filter: with the Shepard-filter rows; ns: the species count (stab is read
-// only when ns > 0); advect: PairConfig.species_advection
+// only when ns > 0); advect: PairConfig.species_advection; thermal and the
+// noise's inputs: as csrc/pass_a_2d.cu
 extern "C" int pass_a_3d(const float* pf, const float* tab, const float* stab,
                         float* out, int ntypes, int ns, int advect, int cap,
-                        int nx, int ny, int nz, int filter, cudaStream_t stream) {
+                        int nx, int ny, int nz, int filter, int thermal,
+                        const float* dt, const int* step, const long long* key,
+                        unsigned rng_seed, float neg4kb, cudaStream_t stream) {
   const long long m = (long long)cap * nx * ny * nz;
   if (m == 0) return 0;
   const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
-  switch (tv::variant_key(filter != 0, ns)) {
-#define X(F, N)                                                            \
-  case tv::variant_key(F, N):                                              \
-    pass_a_3d_kernel<F, N><<<blocks, kThreads, 0, stream>>>(               \
-        pf, tab, stab, out, ntypes, advect, cap, nx, ny, nz);                  \
+  switch (tv::variant_key(filter != 0, ns, thermal != 0)) {
+#define X(F, N, T)                                                         \
+  case tv::variant_key(F, N, T):                                           \
+    pass_a_3d_kernel<F, N, T><<<blocks, kThreads, 0, stream>>>(            \
+        pf, tab, stab, out, dt, step, key, rng_seed, neg4kb, ntypes,       \
+        advect, cap, nx, ny, nz);                                          \
     break;
     TV_FOR_EACH_VARIANT(X)
 #undef X
@@ -112,14 +123,15 @@ extern "C" int pass_a_3d(const float* pf, const float* tab, const float* stab,
 }
 
 // registers per thread and local-memory (spill) bytes per thread of the
-// (filter, ns) instantiation, as the runtime reports them
-extern "C" int pass_a_3d_attributes(int filter, int ns, int* regs, int* local_bytes) {
+// (filter, ns, thermal) instantiation, as the runtime reports them
+extern "C" int pass_a_3d_attributes(int filter, int ns, int thermal, int* regs,
+                                    int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaErrorInvalidValue;
-  switch (tv::variant_key(filter != 0, ns)) {
-#define X(F, N)                                                      \
-  case tv::variant_key(F, N):                                        \
-    err = cudaFuncGetAttributes(&attr, pass_a_3d_kernel<F, N>);      \
+  switch (tv::variant_key(filter != 0, ns, thermal != 0)) {
+#define X(F, N, T)                                                   \
+  case tv::variant_key(F, N, T):                                     \
+    err = cudaFuncGetAttributes(&attr, pass_a_3d_kernel<F, N, T>);   \
     break;
     TV_FOR_EACH_VARIANT(X)
 #undef X

@@ -7,8 +7,9 @@
 // It is ops/pair.py `_pass_a_offset` for one pair under the configuration
 // both kernels serve: the transport-velocity pressure switch, fixed BVF wall
 // solids, the diagonal artificial stress of non-elastic solids, with (FILTER)
-// or without the Shepard-filter accumulators rhoAux1/rhoAux2, and with NS
-// continuum species (the tSDPD flux Q of the concentrations C).  A candidate
+// or without the Shepard-filter accumulators rhoAux1/rhoAux2, with NS
+// continuum species (the tSDPD flux Q of the concentrations C), and with
+// (THERMAL) or without the SDPD thermal noise.  A candidate
 // outside the kernel support h skips the mechanics arithmetic, which changes
 // no sum because every term carries a factor W or dW/dr that is exactly zero
 // there.  The species flux has its own support cutc (a separate per-pair
@@ -22,10 +23,21 @@
 // the C entry points return cudaErrorInvalidValue and the Python wrapper
 // raises before launching.
 //
+// THERMAL is a template parameter too, so the instantiations without noise
+// carry no hash code.  The random force (`add_thermal`, which K2 shares) is
+// ops/pair.py `_thermal_force` for one pair: the traceless symmetric matrix
+// of dim (dim + 1) / 2 pair-symmetric normals (csrc/rand.cuh) times dx,
+// scaled by sqrt(max(-4 kB e_i mi mj wfd / (rho_i rho_j) / dt, 0)) /
+// (r + 0.01 h) in the plain path's order of operations.  It is drawn only
+// inside the support h: outside it wfd, and so the prefactor, is exactly 0.
+// dt, step and the PRNG key are read from the state's device tensors, so a
+// step needs no host readback; tags travel as the int32 bits of an f32 row.
+//
 // Layouts (kept in step with sph_bvf_tpu_torch/ops/pair_cuda.py):
-//   pf   f32 [F, cap, NC], F = 19 + FILTER + NS: rows PF_ROWS, rhoI (FILTER),
-//        then C
-//   tab  f32 [5, T*T]: inv_h, eta, inv_wdelta, W' factor, W factor per type pair
+//   pf   f32 [F, cap, NC], F = 19 + FILTER + NS + 2 THERMAL: rows PF_ROWS, rhoI
+//        (FILTER), then C, then e and tag (THERMAL)
+//   tab  f32 [6, T*T]: inv_h, eta, inv_wdelta, W' factor, W factor, h per type
+//        pair
 //   stab f32 [4 + NS, T*T] (NS > 0): 1/cutc, the W' factor of cutc, twice the
 //        harmonic mass, 0.01 cutc^2, then kappa of each species per type pair
 //   acc  f32 [A], A = 13 + 2 FILTER + NS: rows ACC_ROWS, the filter rows
@@ -35,6 +47,8 @@
 
 #include <cuda_runtime.h>
 
+#include "rand.cuh"
+
 namespace tv {
 
 constexpr int R_VALID = 0, R_PTYPE = 1, R_SOLID = 2, R_X = 3, R_V = 6,
@@ -42,7 +56,8 @@ constexpr int R_VALID = 0, R_PTYPE = 1, R_SOLID = 2, R_X = 3, R_V = 6,
               R_MRHO = 16, R_V2 = 17, R_ASD = 18, R_RHOI = 19;
 constexpr int O_NUMDEN = 0, O_DDV = 1, O_F = 4, O_DRHO = 7, O_DE = 8,
               O_PHI = 9, O_NW = 10, O_RHOAUX1 = 13, O_RHOAUX2 = 14;
-constexpr int T_INVH = 0, T_ETA = 1, T_INVWD = 2, T_CWFD = 3, T_CWF = 4;
+constexpr int T_INVH = 0, T_ETA = 1, T_INVWD = 2, T_CWFD = 3, T_CWF = 4,
+              T_H = 5;
 
 constexpr int S_INVHC = 0, S_CWFD = 1, S_M2 = 2, S_HC2 = 3, S_KAPPA = 4;
 constexpr int kMaxSpecies = 4;
@@ -54,12 +69,75 @@ template <bool FILTER>
 constexpr int kRowC = FILTER ? 20 : 19;
 template <bool FILTER>
 constexpr int kRowQ = FILTER ? 15 : 13;
+// the e row of pf (THERMAL); the tag row follows it
+template <bool FILTER, int NS>
+constexpr int kRowE = kRowC<FILTER> + NS;
 
-// every (FILTER, NS) instantiation, for the C entry points' dispatch
-#define TV_FOR_EACH_VARIANT(X)                                              \
-  X(false, 0) X(true, 0) X(false, 1) X(true, 1) X(false, 2) X(true, 2)      \
-  X(false, 3) X(true, 3) X(false, 4) X(true, 4)
-constexpr int variant_key(bool filter, int ns) { return 2 * ns + (filter ? 1 : 0); }
+// every (FILTER, NS, THERMAL) instantiation, for the C entry points' dispatch
+#define TV_FOR_EACH_NS(X, F, T) X(F, 0, T) X(F, 1, T) X(F, 2, T) X(F, 3, T) X(F, 4, T)
+#define TV_FOR_EACH_VARIANT(X)                                             \
+  TV_FOR_EACH_NS(X, false, false) TV_FOR_EACH_NS(X, true, false)           \
+  TV_FOR_EACH_NS(X, false, true) TV_FOR_EACH_NS(X, true, true)
+static_assert(kMaxSpecies == 4, "TV_FOR_EACH_NS lists NS = 0..4");
+constexpr int variant_key(bool filter, int ns, bool thermal) {
+  return 2 * ns + (filter ? 1 : 0) + (thermal ? 2 * (kMaxSpecies + 1) : 0);
+}
+
+// The thermal noise's per-launch inputs: the hash state after the words
+// (seed, step), dt, and -4 kB rounded to f32 as the plain path rounds it.
+struct Noise {
+  uint32_t h;
+  float dt, neg4kb;
+};
+
+// seed = rng_seed ^ key[0] ^ key[1] (the key holds two 32-bit words in int64)
+__device__ __forceinline__ Noise load_noise(const float* __restrict__ dt,
+                                            const int* __restrict__ step,
+                                            const long long* __restrict__ key,
+                                            unsigned rng_seed, float neg4kb) {
+  Noise n;
+  const uint32_t seed = rng_seed ^ (uint32_t)(__ldg(key) ^ __ldg(key + 1));
+  n.h = rnd::absorb(rnd::absorb(rnd::kInit, seed), (uint32_t)__ldg(step));
+  n.dt = __ldg(dt);
+  n.neg4kb = neg4kb;
+  return n;
+}
+
+// The SDPD random force of the pair (i, j) inside the support, added to
+// f[0..DIM): pref W dx with W the traceless symmetric matrix of the normals
+// of salts 0, 1, ... over its upper triangle, row by row.
+template <int DIM>
+__device__ __forceinline__ void add_thermal(const Noise& noise, int tag_i, int tag_j,
+                                            float e_i, float mi, float mj,
+                                            float wfd, float inv_rho_i,
+                                            float inv_rho_j, float r, float h,
+                                            const float* dx, float* f) {
+  const float pref =
+      sqrtf(fmaxf(noise.neg4kb * e_i * (mi * mj * wfd * inv_rho_i * inv_rho_j) / noise.dt,
+                  0.f)) /
+      (r + 0.01f * h);
+  const uint32_t hp = rnd::absorb(rnd::absorb(noise.h, (uint32_t)min(tag_i, tag_j)),
+                                  (uint32_t)max(tag_i, tag_j));
+  float w[DIM][DIM];
+  float tr = 0.f;
+  uint32_t salt = 0;
+#pragma unroll
+  for (int a = 0; a < DIM; ++a)
+#pragma unroll
+    for (int b = a; b < DIM; ++b) w[a][b] = w[b][a] = rnd::normal(rnd::absorb(hp, salt++));
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) tr += w[a][a];
+  tr /= (float)DIM;
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) w[a][a] -= tr;
+#pragma unroll
+  for (int l = 0; l < DIM; ++l) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < DIM; ++k) s += w[l][k] * dx[k];
+    f[l] += pref * s;
+  }
+}
 
 // one field of one slot; m is the slot count of a field row (cap * NC)
 __device__ __forceinline__ float ld(const float* __restrict__ pf, long long m,
@@ -74,10 +152,12 @@ struct ISide {
   bool solid;
   float x[3], v[3], e[3], b[3];  // b = v - vest
   float rho, m, B, P, V2, AS;
-  float inv_rho, C[NS > 0 ? NS : 1];  // species only (NS > 0)
+  float inv_rho, C[NS > 0 ? NS : 1];  // species or thermal noise only
+  int tag;                            // thermal noise only
+  float energy;
 };
 
-template <bool FILTER, int NS>
+template <bool FILTER, int NS, bool THERMAL>
 __device__ __forceinline__ ISide<NS> load_i(const float* __restrict__ pf,
                                             long long m, long long s,
                                             int ntypes) {
@@ -97,12 +177,16 @@ __device__ __forceinline__ ISide<NS> load_i(const float* __restrict__ pf,
   I.P = ld(pf, m, R_PRHO2, s);
   I.V2 = ld(pf, m, R_V2, s);
   I.AS = ld(pf, m, R_ASD, s);
+  // 1/rho is not a packed row: IEEE division rounds it exactly as the plain
+  // path's per-particle reciprocal
+  if constexpr (NS > 0 || THERMAL) I.inv_rho = 1.f / I.rho;
   if constexpr (NS > 0) {
-    // 1/rho is not a packed row: IEEE division rounds it exactly as the plain
-    // path's per-particle reciprocal
-    I.inv_rho = 1.f / I.rho;
 #pragma unroll
     for (int c = 0; c < NS; ++c) I.C[c] = ld(pf, m, kRowC<FILTER> + c, s);
+  }
+  if constexpr (THERMAL) {
+    I.energy = ld(pf, m, kRowE<FILTER, NS>, s);
+    I.tag = __float_as_int(ld(pf, m, kRowE<FILTER, NS> + 1, s));
   }
   return I;
 }
@@ -146,13 +230,14 @@ __device__ __forceinline__ void add_species_flux(
 
 // add the pair (i, j = slot k) to acc; the caller has checked that j is valid
 // and not i.  advect: the transport-velocity advection correction of the
-// species flux (PairConfig.species_advection).
-template <bool FILTER, int NS>
+// species flux (PairConfig.species_advection); DIM: the grid's, for the
+// thermal noise (THERMAL) only.
+template <bool FILTER, int NS, bool THERMAL, int DIM>
 __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
                                          long long m, long long k,
                                          const float* __restrict__ tab,
                                          const float* __restrict__ stab,
-                                         int advect, int tt,
+                                         int advect, int tt, const Noise& noise,
                                          const ISide<NS>& I, float* acc) {
   const float dx0 = I.x[0] - ld(pf, m, R_X, k), dx1 = I.x[1] - ld(pf, m, R_X + 1, k),
               dx2 = I.x[2] - ld(pf, m, R_X + 2, k);
@@ -209,6 +294,12 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
   acc[O_F + 0] += fdx * dx0 + fvisc * vv0 + vw * (0.5f * (ti_s * I.e[0] + tj_s * ej0));
   acc[O_F + 1] += fdx * dx1 + fvisc * vv1 + vw * (0.5f * (ti_s * I.e[1] + tj_s * ej1));
   acc[O_F + 2] += fdx * dx2 + fvisc * vv2 + vw * (0.5f * (ti_s * I.e[2] + tj_s * ej2));
+  if constexpr (THERMAL) {
+    const float dx[3] = {dx0, dx1, dx2};
+    add_thermal<DIM>(noise, I.tag, __float_as_int(ld(pf, m, kRowE<FILTER, NS> + 1, k)),
+                     I.energy, I.m, mj, wfd, I.inv_rho, 1.f / rhoj, r,
+                     __ldg(tab + T_H * tt + tp), dx, acc + O_F);
+  }
 
   // density evolution: corr = rho (vest - v).dx = -ti_s / -tj_s
   const float mrhoj = ld(pf, m, R_MRHO, k);

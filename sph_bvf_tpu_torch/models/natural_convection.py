@@ -8,8 +8,11 @@ Boussinesq buoyancy f_y = -a m (C - C_ref) with a = -1, Dirichlet forcing
 C=0 on walls and C=C0 on the cylinder.  eta* = sqrt(Sc/Ra),
 kappa* = 1/sqrt(Sc Ra), c0 = 5, h = cutc = 2.5 dx, dt = 1e-4.
 
-The reference script also sets e = 1e-6, which only feeds the thermal
-force; the state carries it and the thermal force stays off.
+The reference script also sets e = 1e-6, which only feeds the SDPD thermal
+force; the state carries it and the force stays off, as in the JAX package.
+The reference's own configuration turns it on:
+``dataclasses.replace(spec, pair=dataclasses.replace(spec.pair,
+thermal=True))`` at the SI ``params.boltz`` (an O(1e-13) force).
 """
 
 from __future__ import annotations

@@ -21,8 +21,9 @@ free solids with the Pereira artificial viscosity, elastic solids (the
 stress rate), periodic axes, with and without the Shepard-filter
 accumulators, and continuum species transport (the tSDPD flux ``Q`` of
 ``C``, with its own support ``cutc`` and the transport-velocity advection
-correction).  Every other branch raises ``NotImplementedError`` (see
-``_unported``).
+correction) and the SDPD thermal noise (``thermal``: the pair-symmetric
+random force of counter-based draws, ``ops/rand.py``).  Every other branch
+raises ``NotImplementedError`` (see ``_unported``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import dataclasses
 import torch
 
 from sph_bvf_tpu_torch.core.state import Geometry, Params, State, shift_cells
+from sph_bvf_tpu_torch.ops import rand
 from sph_bvf_tpu_torch.ops.eos import tait_pressure
 from sph_bvf_tpu_torch.ops.kernels import ipow, lucy_w, lucy_w_ih, lucy_wfd_ih
 
@@ -101,7 +103,6 @@ class PairConfig:
 def _unported(params: Params, cfg: PairConfig) -> list:
     """The pair branches this configuration needs that the port lacks."""
     return [what for what, needed in (
-        ("thermal noise (thermal)", cfg.thermal),
         ("weighted-solid pass B (weighted_solid)",
          cfg.solids_present and cfg.weighted_solid),
         ("SSA species (n_ssa > 0)", params.n_ssa > 0),
@@ -159,7 +160,8 @@ def _per_particle(state: State, params: Params, cfg: PairConfig):
         stress = dict(ASd=tensile(-p_for_as))
     return dict(
         valid=state.valid, x=state.x, v=state.v, vest=state.vest,
-        rho=state.rho, rhoI=state.rhoI, C=state.C, S=state.S, ptype=t,
+        rho=state.rho, rhoI=state.rhoI, e=state.e, C=state.C, S=state.S,
+        tag=state.tag, ptype=t,
         solid=solid,
         fluid=~solid, m=m, B=B, c0=params.c0[t], G0=G0, P=P,
         P_rho2=P_rho2, inv_rho=inv_rho, m_rho=m_rho, V2=V2, **stress,
@@ -302,11 +304,13 @@ def _pass_a_dS(I, J, coeffs, cfg: PairConfig, dx, wfd):
 
 
 def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
-                   acc, pbc=()):
+                   acc, pbc=(), dt=None, step=None, seed=None):
     """Accumulate all sweep-1/2 terms for one stencil offset into ``acc``.
 
     The ported branches of the JAX function of the same name, term for term
-    and in the same order (reference citations there)."""
+    and in the same order (reference citations there).  ``dt``, ``step`` and
+    ``seed`` (device tensors) feed the thermal noise only; with a ``vir``
+    entry in ``acc`` it also sums the pairwise virial."""
     fdt = I["x"].dtype
     dim = cfg.dim
     RED = -2  # the cj axis of a scalar pair block
@@ -366,6 +370,11 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
     else:
         fpair = mi * mj * pij * wfd
 
+    # SDPD thermal random force
+    if cfg.thermal:
+        f_random = _thermal_force(I, J, dx, r, h, wfd, params, cfg, dt, step,
+                                  seed)
+
     # artificial-stress force: mi mj wfd (wf/wdelta)^4 dx.(AS_i + AS_j)
     if cfg.solids_present:
         as_coef = mi * mj * wfd * ipow(wf * coeffs["inv_wdelta"], 4)
@@ -378,6 +387,8 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
         f_art = 0.0
 
     f_fluid = (-fpair)[None] * dx + fvisc[None] * velvec + ftransport + f_art
+    if cfg.thermal:
+        f_fluid = f_fluid + f_random
 
     if cfg.solids_present and cfg.free_solids_present:
         # solid-branch force
@@ -402,6 +413,9 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
         # every solid is fixed, so its force is discarded
         fsum = f_fluid
     acc["f"] += torch.sum(fsum, dim=RED)
+    if "vir" in acc:
+        # pairwise virial r_ij . f_ij (each pair appears twice over i)
+        acc["vir"] += torch.sum(_dot3(dx, fsum), dim=RED)
 
     # Jaumann deviatoric stress rate
     if cfg.elastic_present:
@@ -466,6 +480,47 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
     return acc
 
 
+def _thermal_force(I, J, dx, r, h, wfd, params: Params, cfg: PairConfig, dt,
+                   step, seed):
+    """SDPD random force (pair...transport_velocity.cpp:406-431), [3, ...].
+
+    Wiener increment: a symmetric dim x dim gaussian matrix made traceless;
+    prefactor sqrt(-4 kB e_i mi mj wfd / (rho_i rho_j dt)) / (r + 0.01 h).
+    The draws are float32 (``rand.normal``) and pair-symmetric; each
+    off-diagonal is one shared draw where the reference averages two (the
+    JAX package's documented deviation, same distribution).  Only e of i
+    enters, as in the reference: with a non-uniform e the noise is not
+    pair-symmetric."""
+    dim = cfg.dim
+    W = [[None] * 3 for _ in range(3)]
+    salt = 0
+    for a in range(dim):
+        for b in range(a, dim):
+            g = rand.pair_symmetric_normal(
+                (cfg.rng_seed & 0xFFFFFFFF) ^ seed, step, I["tag"], J["tag"],
+                salt)
+            W[a][b] = W[b][a] = g
+            salt += 1
+    trace = sum(W[a][a] for a in range(dim)) / dim
+    for a in range(dim):
+        W[a][a] = W[a][a] - trace
+    pref = _thermal_prefactor(I, J, r, h, wfd, params, dt)
+    comps = [pref * sum(W[l][k] * dx[k] for k in range(dim)) if l < dim
+             else torch.zeros_like(r) for l in range(3)]
+    return torch.stack(comps, dim=0)
+
+
+def _thermal_prefactor(I, J, r, h, wfd, params: Params, dt):
+    """sqrt(max(-4 kB e_i mi mj wfd / (rho_i rho_j) / dt, 0)) / (r + 0.01 h)
+    in the JAX package's order of operations.  m_i m_j wfd / (rho_i rho_j)
+    goes through the hoisted reciprocals, so it is 0 (not inf or nan) on
+    masked lanes and the mask in wfd suffices."""
+    return torch.sqrt(torch.clamp_min(
+        -4.0 * params.boltz * I["e"]
+        * (I["m"] * J["m"] * wfd * I["inv_rho"] * J["inv_rho"]) / dt,
+        0.0)) / (r + 0.01 * h)
+
+
 def _pass_a_j_fields(params: Params, cfg: PairConfig):
     """The per-particle fields the ported pass-A branches read j-side."""
     fields = "valid x v vest rho rhoI ptype solid m c0 P_rho2 inv_rho m_rho V2".split()
@@ -477,6 +532,8 @@ def _pass_a_j_fields(params: Params, cfg: PairConfig):
             fields.append("G0")
     if params.n_sdpd > 0:
         fields.append("C")
+    if cfg.thermal:
+        fields.append("tag")
     return fields
 
 
@@ -492,11 +549,14 @@ def acc_lead(name: str, params: Params) -> tuple:
     return (params.n_sdpd,) if name == "Q" else _ACC_LEAD.get(name, ())
 
 
-def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig):
+def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
+                  noise=None, virial: bool = False):
     """Pass A as a loop over the stencil offsets: the plain version of the
     K1, K2 and K3 kernels.  Returns every ``PASS_A_ACCS`` entry ([cap, NC]
     scalars, [3, cap, NC] vectors, [3, 3, cap, NC] dS, [Ns, cap, NC] Q);
-    accumulators the configuration skips stay 0."""
+    accumulators the configuration skips stay 0.  ``noise``: the state's
+    (dt, step, key), read by the thermal noise only; ``virial`` adds the
+    ``vir`` accumulator (``compute_pair_virial``)."""
     cap, NC = pf["rho"].shape
     fdt, dev = pf["x"].dtype, pf["x"].device
     I = {k: _bc(v, "i") for k, v in pf.items()}
@@ -506,13 +566,30 @@ def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig):
     acc = {name: torch.zeros(acc_lead(name, params) + (cap, NC), dtype=fdt,
                              device=dev)
            for name in PASS_A_ACCS}
+    if virial:
+        acc["vir"] = torch.zeros((cap, NC), dtype=fdt, device=dev)
+    dt = step = seed = None
+    if cfg.thermal:
+        if noise is None:
+            raise ValueError("thermal noise needs the state's (dt, step, key)")
+        dt, step, key = noise
+        # the per-run seed word: the key's first and last words xor-ed
+        key = key.reshape(-1)
+        seed = (key[0] ^ key[-1]) & 0xFFFFFFFF
     ja_fields = _pass_a_j_fields(params, cfg)
     for off in geom.stencil_offsets():
         J = {k: _bc(shift_cells(pf[k], off, geom), "j") for k in ja_fields}
         notself = not_diag if off == (0, 0, 0) else True
         coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
-        acc = _pass_a_offset(I, J, coeffs, params, cfg, notself, acc, pbc=pbc)
+        acc = _pass_a_offset(I, J, coeffs, params, cfg, notself, acc, pbc=pbc,
+                             dt=dt, step=step, seed=seed)
     return acc
+
+
+def noise_inputs(state: State) -> tuple:
+    """The thermal noise's inputs (dt, step, key): the state's own device
+    tensors, never read back to the host."""
+    return state.dt, state.step, state.key
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +615,7 @@ def compute_forces(
     NC, cap = geom.ncells_total, geom.cap
     fdt, dev = state.x.dtype, state.x.device
     pf = _per_particle(state, params, cfg)
-    acc = pass_a(pf, params, geom, cfg)
+    acc = pass_a(pf, params, geom, cfg, noise_inputs(state))
 
     def zeros(*lead, dtype=fdt):
         return torch.zeros(lead + (cap, NC), dtype=dtype, device=dev)
@@ -563,3 +640,18 @@ def compute_forces(
         rhoAux2=torch.where(state.valid, acc["rhoAux2"], one),
         Pnew=pf["P"] if cfg.store_pnew else state.Pnew,
     )
+
+
+def compute_pair_virial(state: State, params: Params, geom: Geometry,
+                        cfg: PairConfig) -> torch.Tensor:
+    """Per-particle pairwise virial sum_j r_ij . f_ij as [cap, NC], 0 on
+    empty slots.
+
+    Feeds the thermo ``press`` keyword (thermo.cpp:56 -> compute pressure):
+    P = (sum m v^2 + 0.5 sum_i vir_i) / (dim V).  It runs the plain stencil
+    loop on whatever device the state is on, at thermo cadence only, as the
+    JAX package runs its jnp loop: no kernel carries the extra accumulator.
+    """
+    pf = _per_particle(state, params, cfg)
+    acc = _pass_a_plain(pf, params, geom, cfg, noise_inputs(state), virial=True)
+    return torch.where(state.valid, acc["vir"], 0.0)

@@ -8,10 +8,13 @@ every 3D grid, ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3;
 2D grids with a mixed lattice (``base_occ == 0``) or a crowded cell
 (``cap > 24``) go to K2, the rest to K1.  All three also carry the
 continuum species (the C rows in, a species table, the flux Q out) for up
-to ``MAX_SPECIES`` of them.  On a CUDA tensor each wrapper
-launches its kernel; the plain PyTorch loop (``ops/pair._pass_a_plain``)
-runs only on a CPU tensor.  A CUDA call the routed kernel cannot serve
-raises and names what is missing; it never falls back.
+to ``MAX_SPECIES`` of them, and the SDPD thermal noise (``thermal``: the e
+and tag rows in, the random force summed into f; dt, step and the PRNG key
+read in the kernel from the state's device tensors).  On a CUDA tensor
+each wrapper launches its kernel; the plain PyTorch loop
+(``ops/pair._pass_a_plain``) runs only on a CPU tensor.  A CUDA call the
+routed kernel cannot serve raises and names what is missing; it never
+falls back.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
 
 # K1 and K3 packed field rows, in the order csrc/pass_a_tv.cuh reads them
 # (R_* there); rhoI is staged only when the Shepard-filter accumulators are
-# wanted, and the Ns rows of C follow it.
+# wanted, the Ns rows of C follow it, then THERMAL_ROWS under ``thermal``.
 PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
            "P_rho2", "m_rho", "V2", "ASd")
 # K1 and K3 accumulator rows (O_* there).
@@ -40,9 +43,13 @@ FILTER_ACC_ROWS = (("rhoAux1", 1), ("rhoAux2", 1))
 # the most continuum species K1, K2 and K3 are instantiated for (kMaxSpecies
 # in csrc/pass_a_tv.cuh); their Q rows follow the filter rows
 MAX_SPECIES = 4
+# the rows the thermal noise reads, last in every kernel's pack; tag travels
+# as its int32 bits (``_pack``), so the kernels hash the plain path's words
+THERMAL_ROWS = ("e", "tag")
 
 # K2 packed field rows (R_* in csrc/pass_a_2d_rowloop.cu): these, then AS
-# and S (elastic) or ASd, then rhoI (filter), then the Ns rows of C.  G0 is
+# and S (elastic) or ASd, then rhoI (filter), then the Ns rows of C, then
+# THERMAL_ROWS (thermal).  G0 is
 # the per-particle row of ``pair._per_particle`` (softened by the first
 # species under ``g0_chem_coupling``).
 K2_PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
@@ -108,14 +115,14 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
 
 
 def _tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
-    """[5, T*T] f32: inv_h, eta, inv_wdelta and the two r-independent Lucy
-    factors per type pair — the coefficients the plain path computes
+    """[6, T*T] f32: inv_h, eta, inv_wdelta, the two r-independent Lucy
+    factors and h per type pair — the coefficients the plain path computes
     (inv_wdelta 0 in a solid-free scene, which never reads it), from
     ``tabs`` (``pair.coeff_tables``, made here unless the caller has it)."""
     tabs = tabs or pair.coeff_tables(params, cfg)
     ih = tabs["inv_h"]
     rows = [ih, tabs["eta"], tabs.get("inv_wdelta", torch.zeros_like(ih)),
-            lucy_wfd_coef(ih, cfg.dim), lucy_w_coef(ih, cfg.dim)]
+            lucy_wfd_coef(ih, cfg.dim), lucy_w_coef(ih, cfg.dim), tabs["h"]]
     return torch.stack([r.reshape(-1) for r in rows]).to(torch.float32).contiguous()
 
 
@@ -132,18 +139,18 @@ def _species_tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
 
 
 def _k2_tables(params: Params, cfg, tabs: dict) -> torch.Tensor:
-    """[7, T*T] f32: K1's five rows, then h (the Pereira viscosity, the
-    density diffusion) and the harmonic shear modulus geff (0 without
-    elastic solids, and under ``g0_chem_coupling``, where the kernel takes
-    it from the G0 rows)."""
+    """[7, T*T] f32: K1's six rows, then the harmonic shear modulus geff (0
+    without elastic solids, and under ``g0_chem_coupling``, where the kernel
+    takes it from the G0 rows)."""
     geff = tabs.get("geff", torch.zeros_like(tabs["h"]))
-    extra = torch.stack([tabs["h"].reshape(-1), geff.reshape(-1)])
     return torch.cat([_tables(params, cfg, tabs),
-                      extra.to(torch.float32)]).contiguous()
+                      geff.reshape(1, -1).to(torch.float32)]).contiguous()
 
 
-def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, kernel):
-    """Raise unless the wrapper ``kernel`` can take these fields."""
+def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, kernel,
+                  noise=None):
+    """Raise unless the wrapper ``kernel`` can take these fields (and, for
+    the thermal noise, the state's (dt, step, key) ``noise``)."""
     pair.check_ported(params, cfg)
     missing = kernel_unsupported(geom, cfg, kernel, params.n_sdpd)
     if missing:
@@ -158,10 +165,40 @@ def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, kernel):
                          f"[{geom.cap}, {geom.ncells_total}]")
     if cap * NC >= 2**31:
         raise ValueError(f"{cap * NC} slots overflow the kernels' 32-bit index")
+    if cfg.thermal:
+        if noise is None:
+            raise ValueError("thermal noise needs the state's (dt, step, key)")
+        dt, step, key = noise
+        for what, t, dtype, n in (("dt", dt, torch.float32, 1),
+                                  ("step", step, torch.int32, 1),
+                                  ("key", key, torch.int64, 2)):
+            if (t.dtype != dtype or t.numel() != n or not t.is_contiguous()
+                    or t.device != pf["x"].device):
+                raise TypeError(f"thermal noise reads {what} as {n} {dtype} on "
+                                f"{pf['x'].device}, got {t.numel()} {t.dtype} "
+                                f"on {t.device}")
+
+
+def _noise_args(params: Params, cfg, noise) -> tuple:
+    """The kernels' thermal arguments: the switch, the device pointers of
+    dt, step and the key, the configuration's seed and -4 kB in f32 (the
+    constant the plain path multiplies e by first)."""
+    if not cfg.thermal:
+        return 0, None, None, None, 0, 0.0
+    dt, step, key = noise
+    return (1, dt.data_ptr(), step.data_ptr(), key.data_ptr(),
+            cfg.rng_seed & 0xFFFFFFFF, float(np.float32(-4.0 * params.boltz)))
+
+
+_NOISE_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_uint, ctypes.c_float]
 
 
 def _pack(pf: dict, names, cap: int, NC: int) -> torch.Tensor:
-    return torch.cat([pf[k].reshape(-1, cap, NC).to(torch.float32) for k in names])
+    """The f32 rows of ``names``; the int32 tags keep their bits."""
+    return torch.cat([(pf[k].view(torch.float32) if k == "tag"
+                       else pf[k].to(torch.float32)).reshape(-1, cap, NC)
+                      for k in names])
 
 
 def _unpack(out: torch.Tensor, accs) -> dict:
@@ -175,26 +212,29 @@ def _unpack(out: torch.Tensor, accs) -> dict:
     return result
 
 
-def pass_a(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+def pass_a(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     """Pass A accumulators (``pair.PASS_A_ACCS``) from the per-particle dict
     ``pf`` (``pair._per_particle``) through the wrapper ``route`` picks: its
-    kernel on CUDA, the plain loop on CPU."""
-    return route(geom)(pf, params, geom, cfg)
+    kernel on CUDA, the plain loop on CPU.  ``noise``: the state's (dt,
+    step, key) (``pair.noise_inputs``), which the thermal noise reads."""
+    return route(geom)(pf, params, geom, cfg, noise)
 
 
 def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
-               cfg) -> dict:
+               cfg, noise) -> dict:
     """Launch ``wrapper``'s kernel, K1 or K3 (``csrc/<its name>.cu``, the
     transport-velocity pair of ``csrc/pass_a_tv.cuh``), over the grid
     ``dims`` and unpack its rows.  With continuum species the C rows and the
-    species tables go in and the Q rows come out."""
-    _check_launch(pf, params, geom, cfg, wrapper)
+    species tables go in and the Q rows come out; with the thermal noise the
+    e and tag rows go in."""
+    _check_launch(pf, params, geom, cfg, wrapper, noise)
     name = wrapper.__name__
     cap, NC = pf["rho"].shape
     filt = bool(cfg.density_filter_accs)
     ns = params.n_sdpd
     PF = _pack(pf, PF_ROWS + (("rhoI",) if filt else ())
-               + (("C",) if ns else ()), cap, NC)
+               + (("C",) if ns else ())
+               + (THERMAL_ROWS if cfg.thermal else ()), cap, NC)
     tabs = pair.coeff_tables(params, cfg)
     tab = _tables(params, cfg, tabs).to(PF.device)
     stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
@@ -207,11 +247,12 @@ def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (5 + len(dims))
-                   + [ctypes.c_void_p])
+                   + _NOISE_ARGTYPES + [ctypes.c_void_p])
     code = fn(PF.data_ptr(), tab.data_ptr(),
               None if stab is None else stab.data_ptr(), out.data_ptr(),
               params.ntypes, ns, int(bool(cfg.species_advection)), cap, *dims,
-              int(filt), _build.current_stream(PF.device))
+              int(filt), *_noise_args(params, cfg, noise),
+              _build.current_stream(PF.device))
     _build.check(lib, code, name)
 
     result = _unpack(out, accs)
@@ -227,32 +268,33 @@ def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
     return result
 
 
-def kernel_attributes(wrapper, filt: bool, ns: int, elastic: bool = False) -> tuple:
+def kernel_attributes(wrapper, filt: bool, ns: int, elastic: bool = False,
+                      thermal: bool = False) -> tuple:
     """(registers per thread, local-memory bytes per thread: its spills) of
     the instantiation of a pass-A kernel (``wrapper``: ``pass_a_2d``,
-    ``pass_a_2d_rowloop`` or ``pass_a_3d``) for ``filt`` and ``ns`` species
-    (K2: and ``elastic``), from ``cudaFuncGetAttributes``."""
+    ``pass_a_2d_rowloop`` or ``pass_a_3d``) for ``filt``, ``ns`` species and
+    ``thermal`` (K2: and ``elastic``), from ``cudaFuncGetAttributes``."""
     name = wrapper.__name__
     switches = ((int(filt), int(elastic)) if wrapper is pass_a_2d_rowloop
                 else (int(filt),))
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_attributes")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * (len(switches) + 1)
+    fn.argtypes = ([ctypes.c_int] * (len(switches) + 2)
                    + [ctypes.POINTER(ctypes.c_int)] * 2)
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(lib, fn(*switches, ns, ctypes.byref(regs), ctypes.byref(local)),
-                 f"{name}_attributes")
+    _build.check(lib, fn(*switches, ns, int(thermal), ctypes.byref(regs),
+                         ctypes.byref(local)), f"{name}_attributes")
     return regs.value, local.value
 
 
-def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K1 on CUDA (the plain loop on
     CPU): the transport-velocity pair with fixed walls on a 2D grid, with up
-    to ``MAX_SPECIES`` continuum species."""
+    to ``MAX_SPECIES`` continuum species, with or without the thermal noise."""
     if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg)
-    result = _tv_launch(pass_a_2d, geom.ncells[:2], pf, params, geom, cfg)
+        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+    result = _tv_launch(pass_a_2d, geom.ncells[:2], pf, params, geom, cfg, noise)
     pass_a_2d.launches += 1
     return result
 
@@ -260,13 +302,13 @@ def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
 pass_a_2d.launches = 0  # K1 launches in this process
 
 
-def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K3 on CUDA (the plain loop on
     CPU): the transport-velocity pair with fixed walls on a 3D grid, with up
-    to ``MAX_SPECIES`` continuum species."""
+    to ``MAX_SPECIES`` continuum species, with or without the thermal noise."""
     if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg)
-    result = _tv_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg)
+        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+    result = _tv_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg, noise)
     pass_a_3d.launches += 1
     return result
 
@@ -274,22 +316,25 @@ def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
 pass_a_3d.launches = 0  # K3 launches in this process
 
 
-def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
+def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg,
+                      noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K2 on CUDA (the plain loop on
     CPU): tv, mechanics and fsi physics (the density diffusion, the shear
     modulus softened per particle), fixed and free solids, elastic solids,
     solid-free scenes, XSPH, periodic x and y, with up to ``MAX_SPECIES``
-    continuum species."""
+    continuum species, with or without the thermal noise (on the fluid
+    branch)."""
     if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg)
-    _check_launch(pf, params, geom, cfg, pass_a_2d_rowloop)
+        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+    _check_launch(pf, params, geom, cfg, pass_a_2d_rowloop, noise)
     cap, NC = pf["rho"].shape
     filt = bool(cfg.density_filter_accs)
     elastic = bool(cfg.elastic_present)
     ns = params.n_sdpd
     stress = ("AS", "S") if elastic else ("ASd",)
     PF = _pack(pf, K2_PF_ROWS + stress + (("rhoI",) if filt else ())
-               + (("C",) if ns else ()), cap, NC)
+               + (("C",) if ns else ())
+               + (THERMAL_ROWS if cfg.thermal else ()), cap, NC)
     tabs = pair.coeff_tables(params, cfg)
     tab = _k2_tables(params, cfg, tabs).to(PF.device)
     stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
@@ -312,12 +357,13 @@ def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg) -> dict:
     fn = lib.pass_a_2d_rowloop
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 3 + _NOISE_ARGTYPES + [ctypes.c_void_p])
     code = fn(PF.data_ptr(), tab.data_ptr(),
               None if stab is None else stab.data_ptr(), out.data_ptr(),
               params.ntypes, ns, int(bool(cfg.species_advection)), cap,
               geom.ncells[0], geom.ncells[1], int(filt), int(elastic), flags,
-              lx, ly, float(cfg.ampl_damp), _build.current_stream(PF.device))
+              lx, ly, float(cfg.ampl_damp), *_noise_args(params, cfg, noise),
+              _build.current_stream(PF.device))
     _build.check(lib, code, "pass_a_2d_rowloop")
     pass_a_2d_rowloop.launches += 1
 

@@ -2,7 +2,8 @@
 K7 rebin move), with K2's solid-free variant, the non-uniform x-column
 (``x_edges``) variants of K5, K6 and K7, K1, K2 and K3 with the species
 rows (C in, the flux Q out), K2's fsi pair style and K2 and K6 on a doubly
-periodic grid (cell polarization).
+periodic grid (cell polarization), and the thermal rows of K1, K2 and K3
+(the SDPD random force).
 
 The kernel-vs-plain checks need a CUDA card and are marked ``gpu``: they
 skip on a machine without one (run them there with
@@ -428,15 +429,15 @@ def test_unsupported_configurations_raise():
 
 
 def test_k2_tables_match_plain_coefficients():
-    """K2 reads K1's five rows, then h and geff, flattened [T*T]; under
-    ``g0_chem_coupling`` the geff row is 0 (the kernel takes the modulus
-    from the packed G0 rows)."""
+    """K2 reads K1's six rows (h the last), then geff, flattened [T*T];
+    under ``g0_chem_coupling`` the geff row is 0 (the kernel takes the
+    modulus from the packed G0 rows)."""
     _, params, spec, _ = fsi.build(nx=24, device="cpu")
     tabs = pair.coeff_tables(params, spec.pair)
     tab = pair_cuda._k2_tables(params, spec.pair, tabs)
     T = params.ntypes
     assert tab.shape == (7, T * T) and tab.dtype == torch.float32
-    np.testing.assert_array_equal(tab[:5].numpy(),
+    np.testing.assert_array_equal(tab[:6].numpy(),
                                   pair_cuda._tables(params, spec.pair).numpy())
     np.testing.assert_array_equal(tab[5].numpy(), tabs["h"].reshape(-1).numpy())
     np.testing.assert_array_equal(tab[6].numpy(), tabs["geff"].reshape(-1).numpy())
@@ -449,14 +450,15 @@ def test_k2_tables_match_plain_coefficients():
 
 def test_k1_tables_match_plain_coefficients():
     """The per-type-pair rows K1 reads are the plain path's coefficients:
-    1/h, eta, 1/wdelta and the two Lucy factors, flattened [T*T]."""
+    1/h, eta, 1/wdelta, the two Lucy factors and h (the thermal noise's
+    prefactor), flattened [T*T]."""
     from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
 
     _, params, spec, _ = lid_cavity.build(N=50, device="cpu")
     tab = pair_cuda._tables(params, spec.pair)
     tabs = pair.coeff_tables(params, spec.pair)
     T = params.ntypes
-    assert tab.shape == (5, T * T) and tab.dtype == torch.float32
+    assert tab.shape == (6, T * T) and tab.dtype == torch.float32
     ih = tabs["inv_h"].reshape(-1)
     np.testing.assert_array_equal(tab[0].numpy(), ih.numpy())
     np.testing.assert_array_equal(tab[1].numpy(), tabs["eta"].reshape(-1).numpy())
@@ -464,6 +466,7 @@ def test_k1_tables_match_plain_coefficients():
                                   tabs["inv_wdelta"].reshape(-1).numpy())
     np.testing.assert_array_equal(tab[3].numpy(), lucy_wfd_coef(ih, 2).numpy())
     np.testing.assert_array_equal(tab[4].numpy(), lucy_w_coef(ih, 2).numpy())
+    np.testing.assert_array_equal(tab[5].numpy(), tabs["h"].reshape(-1).numpy())
 
 
 def test_3d_cavity_routes_to_k3_and_k7():
@@ -813,3 +816,111 @@ def test_polarization_routes_and_what_is_still_refused():
             rebin_cuda._check_packs(PF, PI, sparse, rebin_cuda.rebin_move_2d)
     assert "density diffusion (ampl_damp)" in pair_cuda.kernel_unsupported(
         geom, spec.pair, pair_cuda.pass_a_2d, n_sdpd=1)
+
+
+# ---------------------------------------------------------------------------
+# the thermal rows of K1, K2 and K3
+# ---------------------------------------------------------------------------
+
+
+def _thermal_state(kernel, ns, device):
+    """A set-up state of ``kernel``'s route with ``ns`` (0 or 1) species:
+    K1 the N=40 convection (its species stripped for Ns=0), K2 cell
+    polarization at nx=24 (Ns=1) or the nx=24 FSI beam with seeded S (Ns=0),
+    K3 the N=8 3D cavity (one seeded species for Ns=1)."""
+    if kernel is pair_cuda.pass_a_2d:
+        state, params, spec, _ = natural_convection.build(N=40, device=device)
+        state = run_chunk(setup(state, params, spec, dt=1e-4), params, spec, 20)
+        if not ns:
+            state = dataclasses.replace(state, C=state.C[:0], Q=state.Q[:0])
+            params = dataclasses.replace(params, kappa=params.kappa[..., :0])
+        return state, params, spec
+    if kernel is pair_cuda.pass_a_2d_rowloop:
+        return _polar(device, steps=5) if ns else _fsi(device, seed_S=True)
+    state, params, spec = _cavity3d(8, device, steps=9)
+    if ns:
+        state, params = _with_species(state, params, 1, 1.0)
+    return state, params, spec
+
+
+def _thermal_rows_parity(kernel, state, params, spec, case, names):
+    """``kernel`` vs the plain loop with the thermal noise, both filter
+    variants, at a nonzero step and key with e = 1e-6 where the model sets
+    none (natural convection's value): every field of ``names`` (Q with
+    species) within 5e-6 of its max.  Case "a": the state's kB (SI);
+    case "b": kB raised until the noise is 20x the largest force without it,
+    which the check then requires to be at least 10x."""
+    dev = state.x.device
+    state = dataclasses.replace(
+        state, e=torch.where(state.valid, torch.where(state.e != 0, state.e,
+                                                      1e-6), 0.0),
+        step=torch.full_like(state.step, 12345),
+        key=torch.tensor([0xDEADBEEF, 0x12345], dtype=torch.int64, device=dev))
+    noise = pair.noise_inputs(state)
+    names = names + (("Q",) if params.n_sdpd else ())
+    for filt in (True, False):
+        cfg = dataclasses.replace(spec.pair, density_filter_accs=filt,
+                                  thermal=True)
+        pf = pair._per_particle(state, params, cfg)
+        p = params
+        off = pair._pass_a_plain(pf, params, spec.geom,
+                                 dataclasses.replace(cfg, thermal=False))["f"]
+        if case == "b":
+            one = pair._pass_a_plain(pf, dataclasses.replace(params, boltz=1.0),
+                                     spec.geom, cfg, noise)["f"]
+            p = dataclasses.replace(params, boltz=float(
+                (20 * off.abs().max() / (one - off).abs().max()) ** 2))
+        ref = pair._pass_a_plain(pf, p, spec.geom, cfg, noise)
+        got = kernel(pf, p, spec.geom, cfg, noise)
+        torch.cuda.synchronize()
+        if case == "b":
+            assert float((ref["f"] - off).abs().max()) >= 10 * float(
+                off.abs().max())
+        for name in names if filt else tuple(
+                n for n in names if n not in ("rhoAux1", "rhoAux2")):
+            scale = max(float(ref[name].abs().max()), 1e-30)
+            err = float((got[name] - ref[name]).abs().max())
+            assert err <= 5e-6 * scale, (name, filt, err / scale)
+
+
+THERMAL_KERNELS = {"K1": (pair_cuda.pass_a_2d, K1_FIELDS),
+                   "K2": (pair_cuda.pass_a_2d_rowloop, K2_FIELDS),
+                   "K3": (pair_cuda.pass_a_3d, K1_FIELDS)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["a", "b"], ids=["as_run", "raised_kB"])
+@pytest.mark.parametrize("ns", [0, 1], ids=["Ns0", "Ns1"])
+@pytest.mark.parametrize("which", list(THERMAL_KERNELS))
+def test_thermal_rows_match_plain_on_card(cuda, which, ns, case):
+    """The thermal rows of K1, K2 (elastic) and K3 vs the plain loop on the
+    same CUDA tensors, with and without a species, as run and with the
+    noise dominating the force (``_thermal_rows_parity``)."""
+    kernel, names = THERMAL_KERNELS[which]
+    state, params, spec = _thermal_state(kernel, ns, cuda)
+    assert pair_cuda.route(spec.geom) is kernel and params.n_sdpd == ns
+    _thermal_rows_parity(kernel, state, params, spec, case, names)
+
+
+def test_thermal_noise_is_routed_and_staged():
+    """With the noise on, every route's launch check takes the state's dt,
+    step and key and refuses them when absent or of another dtype; the
+    kernels' pack ends with e and the int32 bits of the tags (the K2 and
+    K1 tables carry h, which the prefactor reads)."""
+    for build in (lambda: _cavity(16, "cpu"), lambda: _fsi("cpu"),
+                  lambda: _cavity3d(6, "cpu"), lambda: _polar("cpu")):
+        state, params, spec = build()
+        cfg = dataclasses.replace(spec.pair, thermal=True)
+        kernel = pair_cuda.route(spec.geom)
+        pf = pair._per_particle(state, params, cfg)
+        noise = pair.noise_inputs(state)
+        pair_cuda._check_launch(pf, params, spec.geom, cfg, kernel, noise)
+        with pytest.raises(ValueError, match="dt, step, key"):
+            pair_cuda._check_launch(pf, params, spec.geom, cfg, kernel)
+        bad = (state.dt, state.step.long(), state.key)
+        with pytest.raises(TypeError, match="step"):
+            pair_cuda._check_launch(pf, params, spec.geom, cfg, kernel, bad)
+        cap, NC = pf["rho"].shape
+        packed = pair_cuda._pack(pf, ("rho",) + pair_cuda.THERMAL_ROWS, cap, NC)
+        assert torch.equal(packed[1], state.e.float())
+        assert torch.equal(packed[2].view(torch.int32), state.tag)

@@ -157,17 +157,28 @@ def test_compute_forces_matches_bruteforce(filt):
 
 def test_unported_branches_raise():
     """Branches outside the ported slices raise instead of running other
-    code: thermal noise and the weighted-solid pass B everywhere; density
-    diffusion (ported on the plain path and in K2) at K1's launch check."""
+    code: the weighted-solid pass B and SSA species everywhere; density
+    diffusion (ported on the plain path and in K2) at K1's launch check.
+    Thermal noise (ported) passes the check, and a kernel launch refuses it
+    without the state's dt, step and key."""
     s, p, jspec = _perturbed_cavity(np.float32)
     tspec = bridge.spec_to_port(jspec)
     st = bridge.state_to_port(s, device="cpu")
     params = bridge.params_to_port(_jax(JParams, p), device="cpu")
-    for bad in (dict(thermal=True), dict(weighted_solid=True)):
-        cfg = dataclasses.replace(tspec.pair, **bad)
-        with pytest.raises(NotImplementedError):
-            tpair.compute_forces(st, params, tspec.geom, cfg)
+    with pytest.raises(NotImplementedError, match="pass B"):
+        tpair.compute_forces(st, params, tspec.geom,
+                             dataclasses.replace(tspec.pair, weighted_solid=True))
+    ssa = dataclasses.replace(params, kappa_ssa=torch.ones(
+        tuple(params.kappa.shape[:2]) + (1,), dtype=params.kappa.dtype))
+    with pytest.raises(NotImplementedError, match="SSA"):
+        tpair.compute_forces(st, ssa, tspec.geom, tspec.pair)
+    thermal = dataclasses.replace(tspec.pair, thermal=True)
+    tpair.check_ported(params, thermal)
     from sph_bvf_tpu_torch.ops import pair_cuda
+
+    with pytest.raises(ValueError, match="dt, step, key"):
+        pair_cuda._check_launch(tpair._per_particle(st, params, thermal), params,
+                                tspec.geom, thermal, pair_cuda.pass_a_2d)
 
     cfg = dataclasses.replace(tspec.pair, ampl_damp=0.1)
     with pytest.raises(NotImplementedError, match="density diffusion"):

@@ -383,9 +383,9 @@ def test_steps_f64_match_jax(monkeypatch):
     asked = []
     plain = pair_cuda.pass_a
 
-    def spy(pf, params, geom, cfg):
+    def spy(pf, params, geom, cfg, noise=None):
         asked.append(cfg.density_filter_accs)
-        return plain(pf, params, geom, cfg)
+        return plain(pf, params, geom, cfg, noise)
 
     monkeypatch.setattr(pair_cuda, "pass_a", spy)
     jspec = dataclasses.replace(
