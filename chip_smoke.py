@@ -14,10 +14,12 @@ convection around a hot cylinder (K1 with the species rows, K5 moving the
 C rows) and cell polarization in a doubly periodic box (K2 with the fsi
 pair style, the species rows and a periodic y axis, K6 with a periodic y
 axis); K5 and K7 with x columns are checked on the cavities, K3 and K7
-with species on the 3D cavity; and the SDPD thermal noise (the thermal rows
+with species on the 3D cavity; the SDPD thermal noise (the thermal rows
 of K1, K2 and K3) on natural convection at the reference's own e = 1e-6 and
-on the flagship cavity with the noise made visible.  Phases, one line
-each:
+on the flagship cavity with the noise made visible; and the spanwise-
+periodic 3D cavity (K3 and K7 with a periodic axis), written out as VTK
+frames with per-atom computes and checkpointed and resumed.  Phases, one
+line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — compile the six hand-written kernels from
@@ -79,6 +81,19 @@ each:
              against the plain walk and the sort rebin, bitwise;
    K3 thermal — K3's thermal rows, as K1 thermal, on the N=40 state (Ns=0
              and one seeded species), then 10 steps with the noise;
+   K3 periodic — K3 against the plain loop with periodic axes, both filter
+             variants, 5e-6 * max|plain| per field: on the spanwise cavity
+             (y periodic) at N=40 after setup and 100 steps with x jittered
+             by up to a tenth of a spacing (numpy, seed 1), and on a fully
+             periodic box of 45^3 sites around a fixed sphere (cells of at
+             most three spacings, cap 38; x, v and rho seeded) with one
+             seeded species (Q included)
+             and with the thermal rows, as K1 thermal;
+   K7 periodic — K7 against the plain walk and the sort rebin, bitwise, on
+             the spanwise state, on a channel periodic in x and z and on the
+             box, each after a seeded drift of up to 0.9 cells that crosses
+             every periodic face and, outward in the corner cells, every
+             corner;
    K2 solid-free — the load-balance path's pass A: K2 against the plain
              loop on the balanced s=20 drifting blob (840,000 particles,
              x_edges, periodic x, no solids) after setup and 100 steps of
@@ -142,12 +157,31 @@ each:
              VISIBLE_KBE -> setup -> simulate(200), max|v| and the kinetic
              energy (all and fluid) inside 2% bands around the JAX package's
              own run of the same, the fluid's kinetic energy moved by more
-             than 10% against the same run without the noise; and the N=50
+             than 10% against the same run without the noise; main
+             spanwise: lid_cavity3d.build_spanwise(N=100) -> setup ->
+             simulate(500) (1,123,600 particles, y periodic; K3 501
+             launches, K7 51, every rebin through K7, none sorted) with a
+             callback every 250 steps that writes a Restart checkpoint and a
+             legacy VTK frame (id, type, v and the rho and p computes),
+             overflow and drift 0, max|v| <= 1.05, the fluid's density
+             within 0.2% on the mean and 5% at the extreme, max|v_y| /
+             max|v| under 1e-3 (SPAN_VY_BOUND; traced every 50 steps, the
+             largest |v_y| located), each frame read back with read_vtk
+             (every particle, finite), and K3 and K7 against their plain
+             versions on the step-500 state;
+             main spanwise resume: the step-250 checkpoint loaded on the
+             card and run 250 steps equals the uninterrupted step-500 state
+             bitwise, every field; main spanwise vs JAX: N=20, 200 steps,
+             the fluid's max|v|, kinetic energy and mean density inside 2%
+             bands around the JAX package's own run, and max|v_y| / max|v|
+             within 10x the JAX package's own runs at N=12 and N=20 (step
+             200) and N=40 (step 500); and the N=50
              cavity, the nx=24 FSI, the N=8 3D cavity
-             (20 steps) and the s=1 balanced blob (110 steps, its re-cut at
-             step 100 included), the N=40 convection (x, v, rho and C) and
+             (20 steps), the N=12 spanwise cavity (20 steps) and the s=1
+             balanced blob (110 steps, its re-cut at step 100 included), the
+             N=40 convection (x, v, rho and C) and
              the nx=40 polarization (x, v, rho, C and S) and the N=40
-             visible-noise cavity (200 steps) on the card agree with the
+             visible-noise cavity (100 steps) on the card agree with the
              same runs through the plain path on the CPU;
 10. speed  — particle-steps/s from the set-up state of the cavity at N=200
              and N=1000, of natural convection at N=200 and N=1000 (1,012,036
@@ -157,7 +191,8 @@ each:
              cavity at N=40 and N=100, of cell polarization at nx=100 and
              nx=1000 (1,030,980 particles, dt 1e-11) and of the balanced and
              the uniform blob at s=10 and
-             s=20 (its 1000-step main path, twice), each chunk timed on the
+             s=20 (its 1000-step main path, twice), of the spanwise cavity at
+             N=40 and N=100, each chunk timed on the
              host clock and by CUDA events, the blob's chunks split into
              those with a re-cut, with a balance check and without; per
              call each kernel beside its plain version, each rebin beside
@@ -177,7 +212,9 @@ each:
              noise (the same grids: K1 without and with its species and
              thermal rows), one of cell polarization at nx=100 with the
              noise (K2's thermal rows), one of cell
-             polarization at nx=100 and nx=1000 and two of the s=20 blob,
+             polarization at nx=100 and nx=1000, one of the spanwise cavity
+             at N=40 and N=100 (K3 and K7 periodic beside the walled cavity's
+             K3 and K7) and two of the s=20 blob,
              balanced and uniform, under torch.profiler:
              device ops, device-to-host copies and device time per step,
              the busy share, and the
@@ -185,10 +222,11 @@ each:
              the profiler records no pass-A activity on the card.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (seventeen entries: the six
+second-to-last line is ``{"kernels": [...]}`` (nineteen entries: the six
 kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants, K1
-and K3 with species, K2 and K6 on the polarization path, and K1, K2 and K3
-with their thermal rows as their own entries), the last
+and K3 with species, K2 and K6 on the polarization path, K1, K2 and K3
+with their thermal rows, and K3 and K7 with periodic axes as their own
+entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -199,15 +237,32 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 KERNELS = ("pass_a_2d", "pass_a_2d_rowloop", "pass_a_3d", "rebin_move_2d",
            "rebin_move_2d_gated", "rebin_move_3d")
 CAVITY_N = (200, 1000)  # parity/main/speed size, large speed size
 FSI_NX = (60, 240)  # the reference's size, large speed size (~225k particles)
 CAVITY3D_N = (40, 100)  # parity/speed size (97k particles), main/speed size (1.19M)
+# the spanwise-periodic 3D cavity (lid_cavity3d.spanwise_scene: y periodic):
+# parity/speed size (84,640 particles), main/speed size (1,123,600)
+SPAN_N = (40, 100)
+SPAN_PARTICLES = {40: 84_640, 100: 1_123_600}
+# its main path: steps, and the cadence of its Restart checkpoints and VTK
+# frames (the rho and p computes); the resumed run starts at the first
+SPAN_STEPS, SPAN_EVERY = 500, 250
+SPAN_TRACE = 50  # the cadence of its max|v_y| / max|v| trace
+# the fully periodic box and the channel periodic in x and z of K3's and
+# K7's periodic parity: lattice sites per periodic axis (91,125 in the box),
+# and the cell margin that keeps a periodic cell under 3 spacings wide (45
+# sites make 16 cells of 2.8; at most 27 particles a cell, cap 38; at the
+# default 0.25 h they make 14 cells of 3.2, up to 64 particles a cell, and
+# cap passes K7's 64)
+BOX_N, BOX_MARGIN = 45, 0.1
 BLOB_S = (10, 20)  # drifting blob scales: speed size (210k), main size (840k)
 BLOB_N = {1: 2115, 10: 210_000, 20: 840_000}  # its particle counts
 # natural convection: the reference's size (42,436 particles), large speed
@@ -227,9 +282,13 @@ POLAR_NX = (100, 1000)
 POLAR_DT = {100: 1e-10, 1000: 1e-11}
 POLAR_PARTICLES = 10_292
 SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8, "blob": 1,
-         "convection": 40, "polarization": 40, "thermal": 40}  # card vs CPU
+         "convection": 40, "polarization": 40, "thermal": 40,
+         "spanwise": 12}  # card vs CPU
+# (the visible-noise cavity's CPU run is the script's longest phase, ~1 s
+# a step on the host: 100 steps keep the whole script under ten minutes)
 SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110,
-               "convection": 20, "polarization": 20, "thermal": 200}
+               "convection": 20, "polarization": 20, "thermal": 100,
+               "spanwise": 20}
 MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000,
               "convection": 1000, "polarization": 1000}
 PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100,
@@ -314,6 +373,30 @@ CONV_THERMAL_JAX_STEP1000 = {
     "qdot": (0.14982211589813232, 0.98, 1.02),
     "fluid mean C": (0.026109554825169978, 0.98, 1.02),
 }
+# The JAX package's own run of the spanwise-periodic cavity at N=20 (f32,
+# jnp path, on the CPU: spanwise_scene(...).build() -> setup ->
+# simulate(200)) at step 200, and the band [lo, hi] x that value the card's
+# run of the same scene must land in.
+SPAN_JAX_N, SPAN_JAX_STEPS = 20, 200
+SPAN_JAX_STEP200 = {
+    "fluid max|v|": (0.06267447769641876, 0.98, 1.02),
+    "fluid ke": (9.765082213272918e-05, 0.98, 1.02),
+    "fluid mean rho": (1.0000001458898187, 0.98, 1.02),
+}
+# max|v_y| / max|v| of the spanwise cavity: the flow is spanwise-invariant,
+# so v_y is f32 rounding, which a wrong image across the y seam would break
+# first.  The JAX package's own runs (f32, jnp path, on the CPU) at N and
+# step: the card sums in another order, with FMA, and is held to 10x each
+SPAN_JAX_VY = {12: (200, 7.314140475500608e-07),
+               20: (200, 1.1972692846029531e-06),
+               40: (500, 4.278628239262616e-06)}
+# At N=100 no JAX run exists, and from step ~250 the downstream lid corner
+# amplifies the rounding, past any extrapolation of the runs above (2.1e-4
+# at step 500 on an NVIDIA H100 80GB HBM3 at 700 W, spread over y, not at
+# the seam); a wrong image across the seam gives v_y of the order of v near
+# the seam within a few steps.  The main path holds max|v_y| / max|v| under
+# this bound
+SPAN_VY_BOUND = 1e-3
 THERMO_EVERY = 100  # the reference script's thermo cadence
 # The JAX package's own run of the flagship cavity at N=200 with the noise
 # made visible (e = 1 on the valid slots, kB = VISIBLE_KBE; f32, jnp path,
@@ -332,11 +415,12 @@ SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
                "fsi": {60: (200, 10), 240: (50, 2)},
                "polarization": {100: (200, 10), 1000: (50, 3)},
                "cavity3d": {40: (100, 10), 100: (50, 3)},
+               "spanwise": {40: (100, 10), 100: (50, 3)},
                "blob": {10: (1000, 5), 20: (1000, 3)}}
 # timed runs of simulate per size, each from the same set-up state (the
 # blob's: its 1000-step main path without the build, twice)
 SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2,
-                 "convection": 1, "polarization": 1}
+                 "convection": 1, "polarization": 1, "spanwise": 1}
 # FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
 # smaller and the start-up pressure waves (|v| up to ~0.4) drift particles
 # past the budget within 100 steps, so the run rebins every 20
@@ -508,6 +592,111 @@ def _corner_drift(torch, state, geom, seed):
         state, x=torch.as_tensor(x, device=state.x.device)), across
 
 
+def _seam_drift(torch, state, geom, seed):
+    """The 3D counterpart of ``_corner_drift``: every valid particle moved
+    by a seeded step of up to 0.9 cells per axis, outward along every
+    periodic axis in the corner cells (those at an end of each periodic
+    axis), so that particles cross every periodic face and corner;
+    positions beyond the box stay unwrapped.  Returns the state and the
+    count of particles beyond each periodic face and beyond a corner."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = state.x.cpu().numpy()
+    valid = state.valid.cpu().numpy()
+    d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
+    c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
+    coord = [(c // geom.strides[ax]) % geom.ncells[ax] for ax in range(3)]
+    axes = [ax for ax in range(3) if geom.periodic[ax]]
+    corner = np.ones(valid.shape, bool)
+    for ax in axes:
+        corner &= (coord[ax] == 0) | (coord[ax] == geom.ncells[ax] - 1)
+    for ax in axes:
+        d[ax] = np.where(corner, np.where(coord[ax] == 0, -1.0, 1.0)
+                         * np.abs(d[ax]), d[ax])
+    x = (x + np.where(valid, d, 0.0)).astype(np.float32)
+    across, past = {}, valid.copy()
+    for ax in axes:
+        lo, hi = x[ax] < geom.lo[ax], x[ax] >= geom.hi[ax]
+        across["xyz"[ax] + "-"] = int((valid & lo).sum())
+        across["xyz"[ax] + "+"] = int((valid & hi).sum())
+        past &= lo | hi
+    across["corner"] = int(past.sum())
+    if min(across.values()) == 0:
+        raise AssertionError(f"the seam drift crossed no particle somewhere: {across}")
+    return dataclasses.replace(
+        state, x=torch.as_tensor(x, device=state.x.device)), across
+
+
+def _jitter(torch, state, spacing, seed, stir=False):
+    """``state`` with every valid position moved by a seeded step of up to
+    a tenth of the lattice ``spacing`` per axis (numpy); with ``stir``, also
+    v from N(0, 0.05), vest from v + N(0, 0.01) and rho from U(0.99, 1.01)
+    on the valid slots, so that every pair term is live in a fluid at rest."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=state.x.dtype, device=state.x.device)
+    valid = state.valid
+    d = rng.uniform(-0.1, 0.1, tuple(state.x.shape)) * spacing
+    state = dataclasses.replace(state, x=state.x + t(d) * valid)
+    if stir:
+        v = t(rng.normal(0.0, 0.05, tuple(state.v.shape))) * valid
+        state = dataclasses.replace(
+            state, v=v, vest=v + t(rng.normal(0.0, 0.01, tuple(v.shape))) * valid,
+            rho=torch.where(valid, t(rng.uniform(0.99, 1.01, tuple(valid.shape))),
+                            state.rho))
+    return state
+
+
+def _periodic_grid(Scene, Region, N, shape, thermal=False):
+    """An unbuilt scene for K3's and K7's periodic parity: ``shape`` "box",
+    a fully periodic unit box of fluid around a fixed solid sphere of
+    radius 0.25 at its centre, or "channel", a channel periodic in x and z
+    between fixed walls of three layers normal to y; N lattice sites per
+    periodic axis, the cell margin BOX_MARGIN (cells of at most three
+    spacings), the transport-velocity pair with h = 2.5 spacings, e = 1,
+    and the thermal noise on with ``thermal``."""
+    import numpy as np
+
+    d = 1.0 / N
+    channel = shape == "channel"
+    sc = Scene(dim=3, boundary=("p", "f", "p") if channel else ("p", "p", "p"))
+    sc.margin_frac = BOX_MARGIN
+    if channel:
+        sc.create_box(2, Region.block(0.0, 1.0, -3 * d, 1.0 + 3 * d, 0.0, 1.0))
+        solid = ~Region.block(-np.inf, np.inf, 0.0, 1.0, -np.inf, np.inf)
+    else:
+        sc.create_box(2, Region.block(0.0, 1.0, 0.0, 1.0, 0.0, 1.0))
+        solid = Region.sphere(0.5, 0.5, 0.5, 0.25)
+    sc.lattice("sc", d, origin=(0.5, 0.5, 0.5))
+    sc.create_atoms(1, ~solid)
+    sc.create_atoms(2, solid)
+    sc.group_region("solid", solid)
+    sc.mass(1, d**3).mass(2, d**3)
+    sc.set("all", rho=1.0, e=1.0)
+    sc.set("solid", solid_tag=1, fixed=True)
+    sc.pair_style("transport_velocity", thermal=thermal)
+    for (i, j) in ((1, 1), (1, 2), (2, 2)):
+        sc.pair_coeff(i, j, 1.0, 10.0, 0.01, 2.5 * d, 2.5 * d, 0.0)
+    sc.integrator("transport_velocity")
+    sc.timestep(1e-4)
+    return sc
+
+
+def _write_frame(S, computes, vtk, path, state, geom):
+    """A legacy ASCII VTK frame of the valid particles by tag: id, type,
+    the velocity and the rho and p per-atom computes (DumpVTK's names).
+    Returns the particle count written."""
+    out = S.gather_particles(state, geom, ("x", "v", "ptype"))
+    pd = {"id": out["tag"], "type": out["ptype"] + 1,
+          "vx": out["v"][:, 0], "vy": out["v"][:, 1], "vz": out["v"][:, 2],
+          "c_rhoatom": computes.gather_compute(state, geom, "rho"),
+          "c_patom": computes.gather_compute(state, geom, "p")}
+    vtk.write_vtk(str(path), out["x"], pd)
+    return out["x"].shape[0]
+
+
 def _species_parity(torch, pair, kernel, cases, geom, cfg, tag):
     """Kernel vs plain pass A with species on each of ``cases`` (label,
     state, params): every field and Q within TOL, both filter variants, and
@@ -591,16 +780,20 @@ def _raised_kb(pair, state, params, geom, cfg):
     return float((20 * off.abs().max() / (one - off).abs().max()) ** 2)
 
 
-def _thermal_rows(torch, pair, kernel, state, params, geom, cfg0, names, tag):
+def _thermal_rows(torch, pair, kernel, state, params, geom, cfg0, names, tag,
+                  fluid_e=THERMAL_E):
     """The thermal rows of ``kernel`` against the plain loop on ``state``
     with the noise's parity inputs (``_noisy``), both filter variants, every
     field within TOL: case (a) at the state's kB, case (b) at the raised kB
     (``_raised_kb``).  Then, on the kernel's own outputs at case (b)'s kB:
     the noise present (at least 10x the largest force without it), pair-
-    symmetric (its sum over an all-fluid copy with uniform e within 1e-6 x
-    its max x sqrt(particles)) and changed by the next step.  Returns
-    ({case: the worst field's rel err}, max abs err, case (b)'s kB, the
-    checks)."""
+    symmetric (its sum over an all-fluid copy with uniform e = ``fluid_e``
+    within 1e-6 x its max x sqrt(particles)) and changed by the next step.
+    The sum is read as the difference of two forces, so it resolves the
+    noise only where the noise is not far below the force without it: a
+    fluid at rest moved by seeded velocities and densities everywhere needs
+    the e at which kB was raised (1), not THERMAL_E.  Returns ({case: the
+    worst field's rel err}, max abs err, case (b)'s kB, the checks)."""
     state = _noisy(torch, state)
     cfg = dataclasses.replace(cfg0, thermal=True)
     kb = _raised_kb(pair, state, params, geom, cfg)
@@ -621,7 +814,7 @@ def _thermal_rows(torch, pair, kernel, state, params, geom, cfg0, names, tag):
     fluid = dataclasses.replace(
         state, solid_tag=torch.zeros_like(state.solid_tag),
         fixed_tag=torch.zeros_like(state.fixed_tag),
-        e=torch.where(state.valid, THERMAL_E, 0.0))
+        e=torch.where(state.valid, fluid_e, 0.0))
     frand = torch.where(fluid.valid, force(fluid) - force(fluid, False), 0.0)
     total = float(frand.double().sum(dim=(1, 2)).abs().max())
     n = int(state.valid.sum())
@@ -871,9 +1064,12 @@ def main() -> int:
         return 2
 
     from sph_bvf_tpu_torch import _build
-    from sph_bvf_tpu_torch.core import rebin_cuda
+    from sph_bvf_tpu_torch.api.scene import Region, Scene
+    from sph_bvf_tpu_torch.core import computes, rebin_cuda
+    from sph_bvf_tpu_torch.core import stepper as stepper_mod
     from sph_bvf_tpu_torch.core import state as S
     from sph_bvf_tpu_torch.core.stepper import _rebin_drop, setup, simulate
+    from sph_bvf_tpu_torch.io import checkpoint, vtk
     from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
                                           lid_cavity, lid_cavity3d,
                                           natural_convection)
@@ -1241,6 +1437,72 @@ def main() -> int:
                 "K7 edges", rebin_cuda.rebin_move_3d, state, params, spec,
                 "pass_a_3d")
         del state
+
+    # -- K3 and K7 on periodic axes: the spanwise cavity at N=40 after
+    # seeded jitter, the fully periodic box (one seeded species, the thermal
+    # rows) and the x-z periodic channel; K7 after seeded seam drifts -------
+    Ns = SPAN_N[0]
+    state, params, spec, _ = lid_cavity3d.build_spanwise(Ns, device=dev)
+    state = simulate(setup(state, params, spec, dt=1e-4), params, spec,
+                     PARITY_STEPS["cavity3d"])
+    geom = spec.geom
+    state = _jitter(torch, state, 1.0 / Ns, seed=1)
+    k3p_err, k3p_abs, _ = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_3d, state, params, geom, spec.pair,
+        k1_names, f"K3 periodic spanwise N={Ns}")
+    print(f"[K3 periodic] 3D pass A kernel with a periodic y axis == plain "
+          f"(spanwise cavity N={Ns}, {geom.ncells} cells, cap {geom.cap}, "
+          f"{int(state.n_valid)} particles, step {int(state.step)}, x jittered "
+          f"by up to 0.1 spacing), max|diff| {k3p_abs!r}, max|diff|/max|ref| per "
+          f"field: " + ", ".join(f"{k} {v:.3g}" for k, v in k3p_err.items()))
+    k7p_what = []
+    drifted, across = _seam_drift(torch, state, geom, seed=2)
+    what, k7p_abs = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
+                                 drifted, geom, _rebin_drop(spec),
+                                 "K7 periodic spanwise")
+    k7p_what.append(f"spanwise N={Ns} {geom.ncells}: {what}, across {across}")
+    del state, drifted
+    for shape in ("channel", "box"):
+        state, params, spec = _periodic_grid(Scene, Region, BOX_N, shape).build(
+            device=dev)
+        geom = spec.geom
+        if geom.cap > rebin_cuda.MAX_CAP_3D:
+            raise AssertionError(f"the {shape}'s cap {geom.cap} is past K7's")
+        state = setup(_jitter(torch, state, 1.0 / BOX_N, seed=3, stir=True),
+                      params, spec, dt=1e-4)
+        drifted, across = _seam_drift(torch, state, geom, seed=4)
+        what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
+                                 drifted, geom, _rebin_drop(spec),
+                                 f"K7 periodic {shape}")
+        k7p_abs = max(k7p_abs, err)
+        k7p_what.append(f"{shape} periodic {geom.periodic} {geom.ncells}: "
+                        f"{what}, across {across}")
+        del drifted
+    print(f"[K7 periodic] 3D rebin move kernel on periodic axes == plain walk "
+          f"== sort rebin, bitwise, after seeded drifts of up to 0.9 cells, "
+          f"outward at the corners: " + "; ".join(k7p_what))
+    # the box (its state is the loop's last) with one seeded species, then
+    # its thermal rows
+    box_cases = [("Ns=1 seeded", *_seed_species(torch, state, params, 1, seed=5))]
+    k3pb_err, k3pb_abs = _species_parity(
+        torch, pair, pair_cuda.pass_a_3d, box_cases, geom, spec.pair,
+        "K3 periodic box species")
+    errs, k3pt_abs, kb, checks = _thermal_rows(
+        torch, pair, pair_cuda.pass_a_3d, state, params, geom, spec.pair,
+        k1_names, "K3 periodic box thermal", fluid_e=1.0)
+    k3p_abs = max(k3p_abs, k3pb_abs, k3pt_abs)
+    print(f"[K3 periodic] 3D pass A kernel on the fully periodic box == plain "
+          f"(N={BOX_N}, {geom.ncells} cells, cap {geom.cap}, "
+          f"{int(state.n_valid)} particles, a fixed sphere, x, v and rho "
+          f"seeded): with "
+          f"one seeded species (Q's max|diff|/max|ref| with / without the "
+          f"filter rows, the worst field's) "
+          + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g} ({v[2]:.3g})"
+                      for k, v in k3pb_err.items())
+          + f"; with the thermal rows, the worst field's at (a) the SI kB "
+          f"{errs['a']:.3g} and (b) kB {kb:.3g} {errs['b']:.3g}, {checks}; "
+          f"max|diff| {k3p_abs!r}")
+    del state, box_cases
 
     # -- K2 solid-free and K6 edges: the load-balance path's kernels --------
     sb = BLOB_S[1]
@@ -1690,6 +1952,176 @@ def main() -> int:
           f"vs the JAX package's own run: {detail} (bands {CAVITY3D_JAX_STEP200})")
     del state
 
+    # the spanwise-periodic cavity at 1,123,600 particles, with a Restart
+    # checkpoint and a VTK frame (the rho and p computes) every SPAN_EVERY
+    # steps, written under the checkout's build/ and removed at the end;
+    # every rebin is counted, so a sort rebin after the build would show
+    Nsp = SPAN_N[1]
+    span_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_spanwise"
+    shutil.rmtree(span_dir, ignore_errors=True)
+    span_dir.mkdir(parents=True)
+    frames, rebins, vy_trace = [], [], []
+
+    def span_callback(params, spec):
+        restart = checkpoint.Restart(SPAN_EVERY, str(span_dir / "restart_{step}.npz"),
+                                     spec.geom)
+
+        def callback(state):
+            """Every SPAN_TRACE steps max|v_y| / max|v| and the fluid's
+            max|rho-1|; every SPAN_EVERY steps a checkpoint and a frame."""
+            step = int(state.step)
+            fluid = state.valid & (state.solid_tag == 0)
+            speed = torch.sqrt((state.v * state.v).sum(0))[state.valid]
+            vy_trace.append((step, float(state.v[1][state.valid].abs().max()
+                                         / speed.max()),
+                             float((state.rho[fluid] - 1.0).abs().max())))
+            if step % SPAN_EVERY:
+                return
+            t0 = time.perf_counter()
+            restart(state)
+            t1 = time.perf_counter()
+            path = span_dir / f"frame_{step}.vtk"
+            n = _write_frame(S, computes, vtk, path, state, spec.geom)
+            frames.append((path, n, t1 - t0, time.perf_counter() - t1))
+        return callback
+
+    real_rebin = stepper_mod.rebin
+
+    def counted_rebin(state, geom, drop=(), use_kernel=True, drift_check=True):
+        rebins.append(use_kernel and drift_check and rebin_cuda.move_supported(geom))
+        return real_rebin(state, geom, drop, use_kernel, drift_check)
+
+    stepper_mod.rebin = counted_rebin
+    try:
+        state, spec, n0, secs, span_launches, vmax, checks = run_main(
+            lambda: lid_cavity3d.build_spanwise(Nsp, device=dev), 1e-4,
+            ("pass_a_3d", "rebin_move_3d"), SPAN_STEPS, span_callback,
+            callback_every=SPAN_TRACE)
+    finally:
+        stepper_mod.rebin = real_rebin
+    params = run_main.built[1]
+    geom = spec.geom
+    valid = state.valid
+    fluid = valid & (state.solid_tag == 0)
+    speed_sp = torch.sqrt((state.v * state.v).sum(0))
+    vy_ratio = float(state.v[1][valid].abs().max()) / vmax
+    rho_mean = float(state.rho[fluid].mean())
+    rho_dev = float((state.rho[fluid] - 1.0).abs().max())
+    reads = []
+    for path, n, ck_s, frame_s in frames:
+        t0 = time.perf_counter()
+        points, data = vtk.read_vtk(str(path))
+        reads.append((path.name, points.shape[0], n, sorted(data), ck_s, frame_s,
+                      time.perf_counter() - t0,
+                      bool(np.isfinite(points).all()
+                           and all(np.isfinite(a).all() for a in data.values()))))
+    checks.update({
+        f"{SPAN_PARTICLES[Nsp]} particles": n0 == SPAN_PARTICLES[Nsp],
+        "y periodic": geom.periodic == (False, True, False),
+        "max|v| <= 1.05": vmax <= 1.05,
+        "fluid |mean rho-1| <= 0.002": abs(rho_mean - 1.0) <= 0.002,
+        "fluid max|rho-1| <= 0.05": rho_dev <= 0.05,
+        f"max|v_y|/max|v| <= {SPAN_VY_BOUND!r}": vy_ratio <= SPAN_VY_BOUND,
+        "every rebin through K7, none sorted": (
+            len(rebins) == span_launches["rebin_move_3d"] and all(rebins)),
+        f"{SPAN_STEPS // SPAN_EVERY} frames read back, every particle, finite":
+            len(reads) == SPAN_STEPS // SPAN_EVERY and all(
+                r[1] == r[2] == n0 and r[7]
+                and {"c_rhoatom", "c_patom", "vy"} <= set(r[3]) for r in reads),
+        "checkpoints at each frame": all(
+            (span_dir / f"restart_{k}.npz").exists()
+            for k in range(SPAN_EVERY, SPAN_STEPS + 1, SPAN_EVERY)),
+    })
+    detail = (f"max|v| {vmax!r}, fluid max|v| {float(speed_sp[fluid].max())!r}, "
+              f"max|v_y|/max|v| {vy_ratio!r}, fluid max|rho-1| {rho_dev!r}, fluid "
+              f"mean rho {rho_mean!r}, rebins {len(rebins)} (all through K7: "
+              f"{all(rebins)}), frames (name, points read, written, fields, "
+              f"checkpoint s, frame s, read s, finite) {reads}")
+    require(checks, "spanwise main path", detail)
+    # where the largest |v_y| sit (x, y, z, |v|), and K3 and K7 against
+    # their plain versions on this state at the main path's size
+    vy = torch.where(valid, state.v[1].abs(), 0.0).reshape(-1)
+    top = torch.topk(vy, 5).indices
+    where_vy = [(float(vy[k]), [round(float(state.x[a].reshape(-1)[k]), 4)
+                                for a in range(3)],
+                 float(speed_sp.reshape(-1)[k])) for k in top.tolist()]
+    k3n_err, k3n_abs, _ = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_3d, state, params, geom, spec.pair,
+        k1_names, f"K3 periodic spanwise N={Nsp}")
+    k3p_abs = max(k3p_abs, k3n_abs)
+    what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
+                             state, geom, _rebin_drop(spec),
+                             f"K7 periodic spanwise N={Nsp}")
+    k7p_abs = max(k7p_abs, err)
+    detail += (f"; max|v_y|/max|v| and fluid max|rho-1| every {SPAN_TRACE} "
+               f"steps {vy_trace}; the largest |v_y| (value, x, |v|) "
+               f"{where_vy}; on the step-{SPAN_STEPS} state K3 == plain "
+               f"(max|diff|/max|ref| per field: "
+               + ", ".join(f"{k} {v:.3g}" for k, v in k3n_err.items())
+               + f") and K7 == plain walk == sort rebin, bitwise ({what})")
+    print(f"[main spanwise] spanwise-periodic cavity N={Nsp} build_spanwise+"
+          f"setup+simulate({SPAN_STEPS}, callback every {SPAN_TRACE} steps, "
+          f"every {SPAN_EVERY} a Restart + VTK frame with the rho and p "
+          f"computes) in {secs[1]!r} s (build "
+          f"{secs[0]!r} s): {n0} particles, {geom.ncells} cells, cap "
+          f"{geom.cap}, {detail}, launches {span_launches} [{card}]")
+
+    # the resumed run: the step-SPAN_EVERY checkpoint loaded on the card and
+    # run to SPAN_STEPS equals the uninterrupted run bit for bit
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    resumed = checkpoint.load(str(span_dir / f"restart_{SPAN_EVERY}.npz"), geom,
+                              device=dev)
+    load_s = time.perf_counter() - t0
+    if int(resumed.step) != SPAN_EVERY or resumed.x.device.type != dev.type:
+        raise AssertionError(f"resume: loaded step {int(resumed.step)} on "
+                             f"{resumed.x.device}")
+    resumed = simulate(resumed, params, spec, SPAN_STEPS - SPAN_EVERY)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    differ = [f.name for f in dataclasses.fields(state)
+              if not torch.equal(getattr(state, f.name), getattr(resumed, f.name))]
+    if differ:
+        raise AssertionError(f"the resumed spanwise run differs from the "
+                             f"uninterrupted one in {differ}")
+    print(f"[main spanwise resume] checkpoint.load(restart_{SPAN_EVERY}.npz, "
+          f"device=cuda) in {load_s!r} s, then simulate({SPAN_STEPS - SPAN_EVERY})"
+          f" in {resume_s - load_s!r} s: every field equal to the uninterrupted "
+          f"step-{SPAN_STEPS} state bitwise (x, v, rho, tag, valid, step, key "
+          f"...), launches "
+          f"{ {k: c.launches for k, c in counters.items() if c.launches} }")
+    del state, resumed
+    shutil.rmtree(span_dir, ignore_errors=True)
+
+    # the spanwise cavity against the JAX package's own runs: at N=20 the
+    # fluid's max|v|, kinetic energy and mean density in 2% bands, and at
+    # N=12, 20 and 40 max|v_y| / max|v| within 10x JAX's at the same step
+    got_vy = {}
+    for N, (steps, ref) in SPAN_JAX_VY.items():
+        state, params, spec, _ = lid_cavity3d.build_spanwise(N, device=dev)
+        state = simulate(setup(state, params, spec, dt=1e-4), params, spec,
+                         steps)
+        e = _cavity_energy(torch, state, params)
+        got_vy[N] = (steps, float(state.v[1][state.valid].abs().max()) / e["max|v|"], ref)
+        if N != SPAN_JAX_N:
+            continue
+        fluid = state.valid & (state.solid_tag == 0)
+        got = {"fluid max|v|": e["fluid max|v|"], "fluid ke": e["fluid ke"],
+               "fluid mean rho": float(state.rho[fluid].double().mean())}
+    checks = {f"{name} in [{lo}, {hi}] x JAX's {ref}": lo * ref <= got[name] <= hi * ref
+              for name, (ref, lo, hi) in SPAN_JAX_STEP200.items()}
+    checks.update({f"N={N} step {steps}: max|v_y|/max|v| <= 10 x JAX's {ref!r}":
+                   ratio <= 10 * ref for N, (steps, ratio, ref) in got_vy.items()})
+    detail = (f"N={SPAN_JAX_N}: " + ", ".join(f"{k} {v!r}" for k, v in got.items())
+              + "; max|v_y|/max|v| (N, step, card, JAX) "
+              + ", ".join(f"({N}, {st}, {r!r}, {ref!r})"
+                          for N, (st, r, ref) in got_vy.items()))
+    require(checks, "spanwise cavity vs JAX", detail)
+    print(f"[main spanwise vs JAX] spanwise cavity on the card vs the JAX "
+          f"package's own runs: {detail} (bands {SPAN_JAX_STEP200})")
+    del state
+
     # in-run load balancing: the s=20 drifting blob, balanced at build and
     # re-cut in the run, then the same blob on the uniform grid
     sb, steps = BLOB_S[1], MAIN_STEPS["blob"]
@@ -1807,6 +2239,9 @@ def main() -> int:
                 lambda d: cell_polarization.build(nx=SMALL["polarization"],
                                                   rebin_every=5, device=d),
                 1e-10, ("x", "v", "rho", "C", "S"))
+    card_vs_cpu(f"spanwise-periodic cavity N={SMALL['spanwise']}", "spanwise",
+                lambda d: lid_cavity3d.build_spanwise(SMALL["spanwise"], device=d),
+                1e-4, ("x", "v", "rho"))
     card_vs_cpu(f"visible-noise cavity N={SMALL['thermal']} (e 1, kB "
                 f"{VISIBLE_KBE!r})", "thermal",
                 lambda d: _visible_cavity(SMALL["thermal"], d), 1e-4,
@@ -1965,6 +2400,14 @@ def main() -> int:
         t_c3[N] = speed(f"lid_cavity3d N={N}", "cavity3d", N, state, params,
                         spec, pair_cuda.pass_a_3d, rebin_cuda.rebin_move_3d)
         del state
+    t_span = {}
+    for N in SPAN_N:
+        state, params, spec, _ = lid_cavity3d.build_spanwise(N, device=dev)
+        state = setup(state, params, spec, dt=1e-4)
+        t_span[N] = speed(f"spanwise-periodic cavity N={N}", "spanwise", N,
+                          state, params, spec, pair_cuda.pass_a_3d,
+                          rebin_cuda.rebin_move_3d)
+        del state
     t_blob = {}
     for sb in BLOB_S:
         for bal in (True, False):
@@ -2011,6 +2454,13 @@ def main() -> int:
                 lambda N=N: lid_cavity3d.build(N=N, device=dev), 1e-4,
                 (("K3", "pass_a_3d_kernel"), ("K7", "rebin_move_3d_kernel")))
                for N in CAVITY3D_N]
+    # the spanwise-periodic cavity beside the walled one at the same sizes:
+    # K3 and K7 with and without a periodic axis
+    targets += [(f"spanwise-periodic cavity N={N}",
+                 lambda N=N: lid_cavity3d.build_spanwise(N, device=dev), 1e-4,
+                 (("K3 periodic", "pass_a_3d_kernel"),
+                  ("K7 periodic", "rebin_move_3d_kernel")))
+                for N in SPAN_N]
     # the cavity beside the convection on the same grids: K1 without and
     # with its species rows, and the ops the three fixes and the species
     # half-steps add to a step
@@ -2149,6 +2599,14 @@ def main() -> int:
          "ops/pair_pallas.py:527", k2t_launches, k2t_abs, t_k2t, "pass_a"),
         ("pass_a_3d (thermal)", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106",
          k3t_launches, k3t_abs, t_k3t, "pass_a"),
+        # periodic axes: K3 and K7 on the spanwise cavity's main path at
+        # N=100 (y periodic), their errors the worst of the parity phases
+        # (spanwise, the x-z channel, the fully periodic box)
+        ("pass_a_3d (periodic)", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1147",
+         span_launches["pass_a_3d"], k3p_abs, t_span[SPAN_N[1]], "pass_a"),
+        ("rebin_move_3d (periodic)", "csrc/rebin_move_3d.cu",
+         "core/rebin_pallas.py:584", span_launches["rebin_move_3d"], k7p_abs,
+         t_span[SPAN_N[1]], "move"),
     )
     # no single PyTorch call computes pass A or the locality move
     kernels = [

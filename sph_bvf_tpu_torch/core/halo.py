@@ -1,9 +1,10 @@
 """Cell-grid geometry helpers shared with the JAX package's halo module.
 
 Only the geometry half of ``sph_bvf_tpu/core/halo.py`` is ported.  The CUDA
-kernels index neighbour cells directly with bounds masks on each axis, so
-the padded halo buffers the TPU kernels stream through (``assemble_padded``,
-``add_ghosts``) have no counterpart here.
+kernels index neighbour cells directly, with a bounds mask on a wall axis
+and a wrap by index on a periodic one, so the padded halo buffers and ghost
+columns the TPU kernels stream through (``assemble_padded``,
+``assemble_tiled``, ``add_ghosts``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -42,8 +43,28 @@ def wrap_y(geom) -> bool:
 
 def periodic_multicell(geom) -> bool:
     """Any periodic axis with more than one cell (an x wrap or ghost
-    columns): the grids K1, K3, K5 and K7 do not serve."""
+    columns): the grids K1 and K5 do not serve."""
     return wrap_x(geom) or bool(ghost_axes(geom))
+
+
+def wrap_axes(geom) -> Tuple[bool, bool, bool]:
+    """Per axis: periodic with more than one cell, so a neighbour cell wraps
+    by index and a pair offset takes the minimum image (the axes of
+    ``ops/pair._pbc``)."""
+    return tuple(bool(geom.periodic[ax]) and geom.ncells[ax] > 1
+                 for ax in range(3))
+
+
+def wrap_bits(geom) -> int:
+    """``wrap_axes`` as the kernels' bit mask: bit a for axis a."""
+    return sum(1 << ax for ax, w in enumerate(wrap_axes(geom)) if w)
+
+
+def narrow_wrap_axes(geom) -> Tuple[str, ...]:
+    """The wrapping axes ("x", "y", "z") with fewer than 3 cells, which the
+    kernels refuse: a stencil would reach one neighbour cell twice."""
+    return tuple("xyz"[ax] for ax, w in enumerate(wrap_axes(geom))
+                 if w and geom.ncells[ax] < 3)
 
 
 def grid_3d(geom) -> bool:

@@ -5,11 +5,12 @@
 Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the 2D static branch
 (cap <= 16, no periodic axis), K6 for the 2D gated branch (16 < cap <= 64,
 walls or periodic axes, x and y alike), K7 for the 3D tiled kernel (cap <=
-64, walls on every axis); each with uniform or non-uniform x columns
-(``Geometry.x_edges``, the load-balance lever).  Between rebins a
-particle moves at most one cell (the drift contract ``core/state.rebin``
-checks), so the particles that belong in cell c are the matching candidates
-among the slots of its 3^dim stencil cells.  Walking them slot-major, then
+64, walls or periodic axes, x, y and z alike); each with uniform or
+non-uniform x columns (``Geometry.x_edges``, the load-balance lever; in 3D
+only without a periodic axis).  Between rebins a particle moves at most one
+cell (the drift contract ``core/state.rebin`` checks), so the particles that
+belong in cell c are the matching candidates among the slots of its 3^dim
+stencil cells.  Walking them slot-major, then
 by the source cell's flat index after the periodic wrap, visits them in the
 sort rebin's stable (cell, old flat slot) order, so the slot assignment is
 bit-identical to the sort.
@@ -30,8 +31,9 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import (grid_3d, periodic_multicell, wrap_x,
-                                         wrap_y)
+from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
+                                         periodic_multicell, wrap_axes,
+                                         wrap_bits, wrap_x, wrap_y)
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
 MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
@@ -39,28 +41,59 @@ GATED_MAX_CAP = 64  # kMaxCap in csrc/rebin_move_2d_gated.cu (K6)
 MAX_CAP_3D = 64  # kMaxCap in csrc/rebin_move_3d.cu (K7)
 
 
-def move_route(geom: Geometry):
-    """The kernel wrapper that serves this grid's rebin move, or None.
+def move_unsupported(geom: Geometry, kernel) -> list:
+    """What keeps the move wrapper ``kernel`` from serving this grid.
 
-    A 3D grid goes to K7 when no axis is periodic and cap <= 64.  On a 2D
-    grid K5 takes cap <= 16 without a periodic axis; K6 takes 16 < cap <=
-    64, with walls or periodic axes (x, y or both) of at least 3 cells
-    each (with 2, the same source cell would sit in a target's window
-    twice).  Non-uniform x columns (``x_edges``) route by the same rules."""
-    if grid_3d(geom):
-        ok = geom.cap <= MAX_CAP_3D and not periodic_multicell(geom)
-        return rebin_move_3d if ok else None
-    if geom.cap <= MAX_CAP:
-        return None if periodic_multicell(geom) else rebin_move_2d
-    two_cells = any(geom.periodic[ax] and geom.ncells[ax] == 2 for ax in (0, 1))
-    if geom.cap <= GATED_MAX_CAP and not two_cells:
-        return rebin_move_2d_gated
+    K7 takes a 3D grid of cap <= 64 with walls or periodic axes (x, y, z
+    alike); K5 a 2D grid of cap <= 16 without a periodic axis; K6 a 2D grid
+    of 16 < cap <= 64 with walls or periodic axes (x, y or both).  A
+    periodic axis needs at least 3 cells (with 2, the same source cell would
+    sit in a target's window twice).  Non-uniform x columns (``x_edges``)
+    route by the same rules, except that K7 takes them only without a
+    periodic axis."""
+    is3d = kernel is rebin_move_3d
+    limit = {rebin_move_2d: MAX_CAP, rebin_move_2d_gated: GATED_MAX_CAP,
+             rebin_move_3d: MAX_CAP_3D}[kernel]
+    checks = [("a 2D grid" if is3d else "a 3D grid", grid_3d(geom) != is3d),
+              (f"cap {geom.cap} above {limit}", geom.cap > limit)]
+    if kernel is rebin_move_2d:
+        checks.append(("a periodic axis", periodic_multicell(geom)))
+    else:
+        checks += [(f"a periodic {a} axis with fewer than 3 cells", True)
+                   for a in narrow_wrap_axes(geom)]
+    if kernel is rebin_move_2d_gated:
+        checks.append((f"cap {geom.cap} of at most {MAX_CAP} (K5's)",
+                       geom.cap <= MAX_CAP))
+    if is3d:
+        checks.append(("non-uniform x columns (x_edges) with a periodic axis",
+                       geom.x_edges is not None and any(wrap_axes(geom))))
+    return [what for what, bad in checks if bad]
+
+
+def _move_kernels(geom: Geometry) -> tuple:
+    """The move wrappers that may serve this grid, in the order tried."""
+    return ((rebin_move_3d,) if grid_3d(geom)
+            else (rebin_move_2d, rebin_move_2d_gated))
+
+
+def move_route(geom: Geometry):
+    """The kernel wrapper that serves this grid's rebin move
+    (``move_unsupported`` lists the rules), or None."""
+    for kernel in _move_kernels(geom):
+        if not move_unsupported(geom, kernel):
+            return kernel
     return None
 
 
 def move_supported(geom: Geometry) -> bool:
     """Does a locality-walk kernel serve this grid (see ``move_route``)?"""
     return move_route(geom) is not None
+
+
+def move_refusal(geom: Geometry) -> str:
+    """Why no move kernel serves this grid: each candidate's reasons."""
+    return "; ".join(f"{k.__name__}: " + ", ".join(move_unsupported(geom, k))
+                     for k in _move_kernels(geom))
 
 
 def _pack_fields(fields: Dict[str, torch.Tensor], cap: int, NC: int):
@@ -111,18 +144,21 @@ def _walk_sources(geom: Geometry, device):
     """The candidate source cells of every target cell, [3^dim, NC] each:
     the source cell's flat index (0 where off the grid) and whether it is
     on the grid, ordered per target by ascending flat index after the
-    periodic wraps of x and y (off-grid candidates last)."""
+    periodic wraps (off-grid candidates last)."""
     nx, ny, nz = geom.ncells
     NC = geom.ncells_total
     c = torch.arange(NC, dtype=torch.int64, device=device)
     cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
+    wx, wy, wz = wrap_axes(geom)
     srcs, ons = [], []
     for ox, oy, oz in geom.stencil_offsets():
         sx, sy, sz = cx + ox, cy + oy, cz + oz
-        if wrap_x(geom):
+        if wx:
             sx = sx % nx
-        if wrap_y(geom):
+        if wy:
             sy = sy % ny
+        if wz:
+            sz = sz % nz
         srcs.append((sx * ny + sy) * nz + sz)
         ons.append((sx >= 0) & (sx < nx) & (sy >= 0) & (sy < ny)
                    & (sz >= 0) & (sz < nz))
@@ -171,11 +207,12 @@ def rebin_move_plain(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
 
 
 def _check_packs(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry, wrapper):
-    if move_route(geom) is not wrapper:
+    missing = move_unsupported(geom, wrapper)
+    if missing:
         raise NotImplementedError(
-            f"rebin move kernel {wrapper.__name__} for this grid (dim={geom.dim}, "
-            f"cap={geom.cap}, periodic={geom.periodic}, ncells={geom.ncells}, "
-            f"x_edges={geom.x_edges is not None}) is ported in a later PR")
+            f"rebin move kernel {wrapper.__name__} for " + ", ".join(missing)
+            + f" (dim={geom.dim}, ncells={geom.ncells}, periodic="
+            f"{geom.periodic}) is ported in a later PR")
     if PF.dtype != torch.float32 or PI.dtype != torch.int32:
         raise TypeError(f"rebin move kernel takes f32/i32 packs, got "
                         f"{PF.dtype}/{PI.dtype}")
@@ -274,7 +311,8 @@ def rebin_move_3d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
         return rebin_move_plain(PF, PI, geom, xr)
-    return _launch(rebin_move_3d, PF, PI, geom, xr, 3)
+    return _launch(rebin_move_3d, PF, PI, geom, xr, 3,
+                   ((ctypes.c_int, wrap_bits(geom)),))
 
 
 rebin_move_3d.launches = 0  # K7 launches in this process

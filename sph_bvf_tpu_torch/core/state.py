@@ -490,9 +490,12 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
             )
             return _neutralize_invalid(new_state)
         if state.x.is_cuda:
+            from sph_bvf_tpu_torch.core.rebin_cuda import move_refusal
+
             raise NotImplementedError(
                 f"rebin move for this grid (dim={geom.dim}, cap={geom.cap}, "
-                f"periodic={geom.periodic}) is ported in a later PR"
+                f"ncells={geom.ncells}, periodic={geom.periodic}) is ported "
+                f"in a later PR: {move_refusal(geom)}"
             )
 
     dev = state.x.device

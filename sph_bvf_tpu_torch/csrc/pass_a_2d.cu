@@ -61,6 +61,7 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_kernel(
     const tv::ISide<NS> I = tv::load_i<FILTER, NS, THERMAL>(pf, m, s, ntypes);
     tv::Noise noise{};
     if constexpr (THERMAL) noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
+    const tv::Wrap nowrap{};  // no periodic axis
     for (int ox = -1; ox <= 1; ++ox) {
       const int cxj = cx + ox;
       if (cxj < 0 || cxj >= nx) continue;
@@ -73,7 +74,7 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_kernel(
           if (k == s) continue;  // the self pair (zero offset, j == i)
           if (tv::ld(pf, m, tv::R_VALID, k) == 0.f) continue;
           tv::add_pair<FILTER, NS, THERMAL, 2>(pf, m, k, tab, stab, advect, tt,
-                                                 noise, I, acc);
+                                                 noise, nowrap, I, acc);
         }
       }
     }

@@ -40,8 +40,9 @@
 // axis (x, y or both; the TPU kernel builds ghost columns for y,
 // pair_pallas.py:359-365) wraps the neighbour cell by index and takes the
 // minimum image dx - L * rint(dx / L) with round-to-nearest-even and unfused
-// arithmetic, as torch.round does.  NS is a template parameter (0..4, as in
-// K1 and K3): the Q sums stay in registers and the NS = 0 code has no species.
+// arithmetic, as torch.round does (csrc/pass_a_tv.cuh `min_image`).  NS is a
+// template parameter (0..4, as in K1 and K3): the Q sums stay in registers
+// and the NS = 0 code has no species.
 // THERMAL is one too: the instantiations without noise carry no hash code.
 //
 // Layouts (kept in step with sph_bvf_tpu_torch/ops/pair_cuda.py):
@@ -177,14 +178,14 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
     for (int ox = -1; ox <= 1; ++ox) {
       int cxj = cx + ox;
       if (wrapx) {
-        cxj = cxj < 0 ? cxj + nx : (cxj >= nx ? cxj - nx : cxj);
+        cxj = tv::wrap_cell(cxj, nx);
       } else if (cxj < 0 || cxj >= nx) {
         continue;
       }
       for (int oy = -1; oy <= 1; ++oy) {
         int cyj = cy + oy;
         if (wrapy) {
-          cyj = cyj < 0 ? cyj + ny : (cyj >= ny ? cyj - ny : cyj);
+          cyj = tv::wrap_cell(cyj, ny);
         } else if (cyj < 0 || cyj >= ny) {
           continue;
         }
@@ -197,10 +198,8 @@ __global__ void __launch_bounds__(kThreads) pass_a_2d_rowloop_kernel(
           float dx[3];
 #pragma unroll
           for (int a = 0; a < 3; ++a) dx[a] = xi[a] - ld(R_X + a, k);
-          if (wrapx)  // minimum image, unfused like the plain path
-            dx[0] = __fsub_rn(dx[0], __fmul_rn(lx, rintf(__fdiv_rn(dx[0], lx))));
-          if (wrapy)
-            dx[1] = __fsub_rn(dx[1], __fmul_rn(ly, rintf(__fdiv_rn(dx[1], ly))));
+          if (wrapx) dx[0] = tv::min_image(dx[0], lx);  // unfused, as the plain path
+          if (wrapy) dx[1] = tv::min_image(dx[1], ly);
           const float rsq = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2];
           const float r = sqrtf(rsq);
           const int tp = ti * ntypes + (int)ld(R_PTYPE, k);

@@ -6,11 +6,12 @@
 // every valid slot i it sums ops/pair.py `_pass_a_offset` over the valid j of
 // the 27 stencil cells, j != i, for the configuration K1 serves: the
 // transport-velocity pressure switch, fixed BVF wall solids, the diagonal
-// artificial stress of non-elastic solids, no periodic axis, with (FILTER) or
-// without the Shepard-filter accumulators rhoAux1/rhoAux2, with NS
-// continuum species (the C rows in, the flux Q out), and with (THERMAL) or
-// without the SDPD thermal noise (six normals per pair in 3D).  The plain
-// PyTorch version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
+// artificial stress of non-elastic solids, with (FILTER) or without the
+// Shepard-filter accumulators rhoAux1/rhoAux2, with NS continuum species (the
+// C rows in, the flux Q out), and with (THERMAL) or without the SDPD thermal
+// noise (six normals per pair in 3D); and, beyond K1, periodic axes (x, y, z
+// in any combination, at least 3 cells each: the spanwise-periodic cavity).
+// The plain PyTorch version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
 //
 // What bounds it on an H100: at the 1.19M-particle cavity (N=100: cap 38,
 // 27 particles per cell, 46,656 cells) each valid i walks 27 cells x ~27
@@ -29,9 +30,21 @@
 // each axis (no halo buffer); accumulators stay in registers.  The f32 sums
 // run in another order than the plain path's per-offset sums.
 //
+// Periodic axes (replaces the TPU kernel's wrapped halo plane for x and its
+// ghost columns for y and z, pair_pallas.py:1147-1152, 1253-1261): a
+// runtime bit per axis (`wrap`, tv::Wrap), as K2's F_WRAPX / F_WRAPY, so no
+// template variant is added.  On a wrapping axis the neighbour cell index
+// is taken modulo n instead of skipped — with n >= 3 the three offsets
+// reach three distinct cells, so no pair is counted twice (the wrapper
+// refuses fewer) — and every pair offset on that axis takes the minimum
+// image d - L rint(d / L) (tv::min_image: unfused, rounded half to even,
+// with L = hi - lo rounded to f32, as ops/pair.py `_pair_delta`).  The noise
+// is keyed by the tags, so a pair across the seam draws what it draws
+// elsewhere.
+//
 // The pair term, the packed rows and the accumulator rows are shared with
 // K1 (csrc/pass_a_tv.cuh).  Flat cell c = (cx * ny + cy) * nz + cz
-// (Geometry.strides, z minor); no axis is periodic.
+// (Geometry.strides, z minor).
 
 #include <cuda_runtime.h>
 
@@ -47,8 +60,7 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
     const float* __restrict__ stab, float* __restrict__ out,
     const float* __restrict__ dt, const int* __restrict__ step,
     const long long* __restrict__ key, unsigned rng_seed, float neg4kb,
-    int ntypes,
-    int advect, int cap, int nx, int ny, int nz) {
+    int ntypes, int advect, int cap, int nx, int ny, int nz, tv::Wrap wrap) {
   constexpr int A = tv::kAccs<FILTER, NS>;
   const int nc = nx * ny * nz;
   const long long m = (long long)cap * nc;  // slots per field row
@@ -68,15 +80,28 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
     const tv::ISide<NS> I = tv::load_i<FILTER, NS, THERMAL>(pf, m, s, ntypes);
     tv::Noise noise{};
     if constexpr (THERMAL) noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
+    const bool wx = wrap.axes & 1, wy = wrap.axes & 2, wz = wrap.axes & 4;
     for (int ox = -1; ox <= 1; ++ox) {
-      const int sx = cx + ox;
-      if (sx < 0 || sx >= nx) continue;
+      int sx = cx + ox;
+      if (wx) {
+        sx = tv::wrap_cell(sx, nx);
+      } else if (sx < 0 || sx >= nx) {
+        continue;
+      }
       for (int oy = -1; oy <= 1; ++oy) {
-        const int sy = cy + oy;
-        if (sy < 0 || sy >= ny) continue;
+        int sy = cy + oy;
+        if (wy) {
+          sy = tv::wrap_cell(sy, ny);
+        } else if (sy < 0 || sy >= ny) {
+          continue;
+        }
         for (int oz = -1; oz <= 1; ++oz) {
-          const int sz = cz + oz;
-          if (sz < 0 || sz >= nz) continue;
+          int sz = cz + oz;
+          if (wz) {
+            sz = tv::wrap_cell(sz, nz);
+          } else if (sz < 0 || sz >= nz) {
+            continue;
+          }
           const int cj = (sx * ny + sy) * nz + sz;
           for (int j = 0; j < cap; ++j) {
             const long long k = (long long)j * nc + cj;
@@ -84,7 +109,7 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
             if (tv::ld(pf, m, tv::R_VALID, k) == 0.f) break;
             if (k == s) continue;  // the self pair (zero offset, j == i)
             tv::add_pair<FILTER, NS, THERMAL, 3>(pf, m, k, tab, stab, advect, tt,
-                                                 noise, I, acc);
+                                                 noise, wrap, I, acc);
           }
         }
       }
@@ -97,22 +122,29 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
 }  // namespace
 
 // filter: with the Shepard-filter rows; ns: the species count (stab is read
-// only when ns > 0); advect: PairConfig.species_advection; thermal and the
-// noise's inputs: as csrc/pass_a_2d.cu
+// only when ns > 0); advect: PairConfig.species_advection; wrap: bit a set
+// when axis a is periodic (with more than one cell), lx, ly, lz the extents
+// hi - lo in f32 (read on the wrapping axes only); thermal and the noise's
+// inputs: as csrc/pass_a_2d.cu
 extern "C" int pass_a_3d(const float* pf, const float* tab, const float* stab,
                         float* out, int ntypes, int ns, int advect, int cap,
-                        int nx, int ny, int nz, int filter, int thermal,
-                        const float* dt, const int* step, const long long* key,
+                        int nx, int ny, int nz, int wrap, float lx, float ly,
+                        float lz, int filter, int thermal, const float* dt,
+                        const int* step, const long long* key,
                         unsigned rng_seed, float neg4kb, cudaStream_t stream) {
+  // a wrapping axis of fewer than 3 cells would reach one cell twice
+  if (((wrap & 1) && nx < 3) || ((wrap & 2) && ny < 3) || ((wrap & 4) && nz < 3))
+    return (int)cudaErrorInvalidValue;
   const long long m = (long long)cap * nx * ny * nz;
   if (m == 0) return 0;
+  const tv::Wrap w{wrap, {lx, ly, lz}};
   const unsigned blocks = (unsigned)((m + kThreads - 1) / kThreads);
   switch (tv::variant_key(filter != 0, ns, thermal != 0)) {
 #define X(F, N, T)                                                         \
   case tv::variant_key(F, N, T):                                           \
     pass_a_3d_kernel<F, N, T><<<blocks, kThreads, 0, stream>>>(            \
         pf, tab, stab, out, dt, step, key, rng_seed, neg4kb, ntypes,       \
-        advect, cap, nx, ny, nz);                                          \
+        advect, cap, nx, ny, nz, w);                                       \
     break;
     TV_FOR_EACH_VARIANT(X)
 #undef X

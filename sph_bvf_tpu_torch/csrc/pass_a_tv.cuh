@@ -1,12 +1,14 @@
 // The transport-velocity pass-A pair term shared by K1 (csrc/pass_a_2d.cu) and
 // K3 (csrc/pass_a_3d.cu): the packed-row layout, the i-side values a thread
 // loads once, and the accumulation of one (i, j) pair.  Its species flux
-// (`add_species_flux`, the species table and kMaxSpecies) also serves K2
+// (`add_species_flux`, the species table and kMaxSpecies), its minimum
+// image (`min_image`) and its cell wrap (`wrap_cell`) also serve K2
 // (csrc/pass_a_2d_rowloop.cu).
 //
 // It is ops/pair.py `_pass_a_offset` for one pair under the configuration
 // both kernels serve: the transport-velocity pressure switch, fixed BVF wall
-// solids, the diagonal artificial stress of non-elastic solids, with (FILTER)
+// solids, the diagonal artificial stress of non-elastic solids, periodic
+// axes (K3 only: the minimum image of the pair offset), with (FILTER)
 // or without the Shepard-filter accumulators rhoAux1/rhoAux2, with NS
 // continuum species (the tSDPD flux Q of the concentrations C), and with
 // (THERMAL) or without the SDPD thermal noise.  A candidate
@@ -139,6 +141,27 @@ __device__ __forceinline__ void add_thermal(const Noise& noise, int tag_i, int t
   }
 }
 
+// The minimum image of the offset d along a periodic axis of extent l:
+// d - l rint(d / l), as ops/pair.py `_pair_delta` computes it.  Unfused
+// (an FMA would round once where the plain path rounds twice), and rintf
+// rounds half to even, as torch.round does.  K2 and K3 share it.
+__device__ __forceinline__ float min_image(float d, float l) {
+  return __fsub_rn(d, __fmul_rn(l, rintf(__fdiv_rn(d, l))));
+}
+
+// The periodic axes a pair offset wraps on (bit a: axis a; the axes with
+// more than one cell that Geometry.periodic marks) and their extents hi -
+// lo, rounded to f32 as the plain path rounds them.  K1 passes none.
+struct Wrap {
+  int axes;
+  float l[3];
+};
+
+// wrap a neighbour cell index that left [0, n) by one step back into it
+__device__ __forceinline__ int wrap_cell(int c, int n) {
+  return c < 0 ? c + n : (c >= n ? c - n : c);
+}
+
 // one field of one slot; m is the slot count of a field row (cap * NC)
 __device__ __forceinline__ float ld(const float* __restrict__ pf, long long m,
                                     int row, long long slot) {
@@ -230,7 +253,8 @@ __device__ __forceinline__ void add_species_flux(
 
 // add the pair (i, j = slot k) to acc; the caller has checked that j is valid
 // and not i.  advect: the transport-velocity advection correction of the
-// species flux (PairConfig.species_advection); DIM: the grid's, for the
+// species flux (PairConfig.species_advection); wrap: the periodic axes the
+// offset x_i - x_j takes the minimum image on; DIM: the grid's, for the
 // thermal noise (THERMAL) only.
 template <bool FILTER, int NS, bool THERMAL, int DIM>
 __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
@@ -238,9 +262,15 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
                                          const float* __restrict__ tab,
                                          const float* __restrict__ stab,
                                          int advect, int tt, const Noise& noise,
-                                         const ISide<NS>& I, float* acc) {
-  const float dx0 = I.x[0] - ld(pf, m, R_X, k), dx1 = I.x[1] - ld(pf, m, R_X + 1, k),
-              dx2 = I.x[2] - ld(pf, m, R_X + 2, k);
+                                         const Wrap& wrap, const ISide<NS>& I,
+                                         float* acc) {
+  float dx0 = I.x[0] - ld(pf, m, R_X, k), dx1 = I.x[1] - ld(pf, m, R_X + 1, k),
+        dx2 = I.x[2] - ld(pf, m, R_X + 2, k);
+  if (wrap.axes) {  // the minimum image on the periodic axes
+    if (wrap.axes & 1) dx0 = min_image(dx0, wrap.l[0]);
+    if (wrap.axes & 2) dx1 = min_image(dx1, wrap.l[1]);
+    if (wrap.axes & 4) dx2 = min_image(dx2, wrap.l[2]);
+  }
   const float rsq = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
   const float r = sqrtf(rsq);
   const int tp = I.tp0 + (int)ld(pf, m, R_PTYPE, k);

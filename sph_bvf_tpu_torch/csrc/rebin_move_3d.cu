@@ -1,20 +1,20 @@
-// K7 — 3D locality rebin move (cap <= 64, walls on every axis), one thread per
-// target cell, walking source slots only up to the window's occupancy.
+// K7 — 3D locality rebin move (cap <= 64; walls or periodic axes), one thread
+// per target cell, walking source slots only up to the window's occupancy.
 //
 // Replaces sph_bvf_tpu/core/rebin_pallas.py `_move_call_tiled3d` (the TPU
 // kernel on the (x-plane, yz-block) grid with 27 staged offsets and
-// window-occupancy trip counts) for grids with no periodic axis and uniform
-// columns.  Between rebins a particle moves at most one cell (the drift
-// contract that rebin's drift check enforces), so the particles that belong in
-// cell c are the matching candidates among the slots of its 27 stencil cells.
-// The thread walks them slot-major, then by ascending source flat index — the
-// order of the TPU kernel's offsets sorted by flat offset and of the sort
-// rebin's stable (cell, old flat slot) key, so the slot assignment is
+// window-occupancy trip counts).  Between rebins a particle moves at most one
+// cell (the drift contract that rebin's drift check enforces), so the
+// particles that belong in cell c are the matching candidates among the slots
+// of its 27 stencil cells.  The thread walks them slot-major, then by
+// ascending source flat index after the periodic wraps — the order of the
+// sort rebin's stable (cell, old flat slot) key, so the slot assignment is
 // bit-identical to sph_bvf_tpu_torch/core/state.py `rebin` with
-// use_kernel=False — recomputes each candidate's cell from its f32 position
-// exactly as `cell_index_of` does (round-to-nearest subtract and multiply,
-// never fused, with the same f32 lo and 1/cell_size, clamped to the wall
-// axes), and keeps the first cap matches.  A match of rank >= cap, or a
+// use_kernel=False on wall and periodic grids alike — recomputes each
+// candidate's cell from its f32 position exactly as `cell_index_of` does
+// (round-to-nearest subtract and multiply, never fused, with the same f32 lo
+// and 1/cell_size; clamped on a wall axis, a floored modulo on a periodic
+// one), and keeps the first cap matches.  A match of rank >= cap, or a
 // particle that moved beyond one ring, is dropped; the caller counts the loss
 // as overflow.  The plain PyTorch version is
 // sph_bvf_tpu_torch/core/rebin_cuda.py `rebin_move_plain`.
@@ -38,11 +38,22 @@
 // in plane cx when its fine bin clamp(floor((x - lo0) * inv_q), 0,
 // n_fine - 1) lies in [xb[cx], xb[cx+1]): the planes partition the fine grid,
 // so this is `cell_index_of`'s table gather bit for bit.  xb == nullptr means
-// uniform planes.
+// uniform planes.  With x_edges no axis is periodic (the wrapper refuses it).
+//
+// Periodic axes (replaces the TPU kernel's periodic binning,
+// rebin_pallas.py:573-600, and its wrapped halo planes and ghost columns): a
+// runtime bit per axis (`wrap`), as K6's wrapx / wrapy.  A source cell
+// wraps by index, a candidate's bin on that axis is the floored modulo of
+// its f32 bin (the position is already wrapped into the box by `wrap_pbc`),
+// and the 27 source cells are sorted by flat index after the wrap, so the
+// walk keeps the sort rebin's order.  Every wrapping axis has at least 3
+// cells, so no source cell sits in a window twice.  The TPU kernel may order
+// a cell's slots differently on a periodic grid (rebin_pallas.py:28-31); the
+// cells' contents are the same.
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
 // x at f32 rows xr, xr+1, xr+2; outputs of the same shapes.  Flat cell
-// c = (cx * ny + cy) * nz + cz; no axis is periodic.
+// c = (cx * ny + cy) * nz + cz.
 
 #include <cuda_runtime.h>
 
@@ -51,20 +62,28 @@ namespace {
 constexpr int kMaxCap = 64;
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ int bin(float x, float lo, float inv, int n) {
+__device__ __forceinline__ int bin(float x, float lo, float inv, int n,
+                                   bool periodic) {
   if (n == 1) return 0;
   const int b = (int)floorf(__fmul_rn(__fsub_rn(x, lo), inv));
+  if (periodic) return ((b % n) + n) % n;  // floored modulo, as _mod
   return min(max(b, 0), n - 1);
+}
+
+// a source cell index one step outside [0, n) wrapped back into it
+__device__ __forceinline__ int wrap_cell(int c, int n) {
+  return c < 0 ? c + n : (c >= n ? c - n : c);
 }
 
 // x plane membership: the fine bin against [xb0, xb1) with edges, else the
 // uniform bin against cx
 __device__ __forceinline__ bool in_column(float x, int cx, int nx, float lo0,
-                                          float inv0, const int* xb, int xb0,
-                                          int xb1, float inv_q, int n_fine) {
+                                          float inv0, bool wrapx, const int* xb,
+                                          int xb0, int xb1, float inv_q,
+                                          int n_fine) {
   if (nx == 1) return true;
-  if (xb == nullptr) return bin(x, lo0, inv0, nx) == cx;
-  const int f = bin(x, lo0, inv_q, n_fine);
+  if (xb == nullptr) return bin(x, lo0, inv0, nx, wrapx) == cx;
+  const int f = bin(x, lo0, inv_q, n_fine, false);
   return f >= xb0 && f < xb1;
 }
 
@@ -72,7 +91,7 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
     int nx, int ny, int nz, int xr, float lo0, float lo1, float lo2,
-    float inv0, float inv1, float inv2, const int* __restrict__ xb,
+    float inv0, float inv1, float inv2, int wrap, const int* __restrict__ xb,
     float inv_q, int n_fine) {
   const int nc = nx * ny * nz;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -85,20 +104,35 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
   const float* py = px + m;
   const float* pz = py + m;
 
-  // the window's source cells: x-major, z-minor loops give ascending flat
-  // indices on a grid without a wrap
+  // the window's source cells, in ascending flat index after the wraps
+  const bool wx = wrap & 1, wy = wrap & 2, wz = wrap & 4;
   int src[27];
   int ns = 0;
   for (int ox = -1; ox <= 1; ++ox) {
-    const int sx = cx + ox;
-    if (sx < 0 || sx >= nx) continue;
+    int sx = cx + ox;
+    if (wx) {
+      sx = wrap_cell(sx, nx);
+    } else if (sx < 0 || sx >= nx) {
+      continue;
+    }
     for (int oy = -1; oy <= 1; ++oy) {
-      const int sy = cy + oy;
-      if (sy < 0 || sy >= ny) continue;
+      int sy = cy + oy;
+      if (wy) {
+        sy = wrap_cell(sy, ny);
+      } else if (sy < 0 || sy >= ny) {
+        continue;
+      }
       for (int oz = -1; oz <= 1; ++oz) {
-        const int sz = cz + oz;
-        if (sz < 0 || sz >= nz) continue;
-        src[ns++] = (sx * ny + sy) * nz + sz;
+        int sz = cz + oz;
+        if (wz) {
+          sz = wrap_cell(sz, nz);
+        } else if (sz < 0 || sz >= nz) {
+          continue;
+        }
+        const int v = (sx * ny + sy) * nz + sz;
+        int q = ns++;
+        for (; q > 0 && src[q - 1] > v; --q) src[q] = src[q - 1];
+        src[q] = v;
       }
     }
   }
@@ -111,10 +145,10 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
       const int k = s * nc + src[q];
       if (__ldg(pi + k) == 0) continue;  // row 0: valid
       occupied = true;
-      const int by = bin(__ldg(py + k), lo1, inv1, ny);
-      const int bz = bin(__ldg(pz + k), lo2, inv2, nz);
+      const int by = bin(__ldg(py + k), lo1, inv1, ny, wy);
+      const int bz = bin(__ldg(pz + k), lo2, inv2, nz, wz);
       if (by != cy || bz != cz ||
-          !in_column(__ldg(px + k), cx, nx, lo0, inv0, xb, xb0, xb1, inv_q,
+          !in_column(__ldg(px + k), cx, nx, lo0, inv0, wx, xb, xb0, xb1, inv_q,
                      n_fine))
         continue;
       if (n < cap) list[n] = k;
@@ -138,19 +172,23 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
 
 }  // namespace
 
+// wrap: bit a set when axis a is periodic with more than one cell
 extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int nz, int xr, float lo0, float lo1, float lo2,
-                             float inv0, float inv1, float inv2,
+                             float inv0, float inv1, float inv2, int wrap,
                              const int* xb, float inv_q, int n_fine,
                              cudaStream_t stream) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
+  if (((wrap & 1) && nx < 3) || ((wrap & 2) && ny < 3) || ((wrap & 4) && nz < 3) ||
+      (wrap && xb != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int nc = nx * ny * nz;
   if (nc == 0) return 0;
   const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
   rebin_move_3d_kernel<<<blocks, kThreads, 0, stream>>>(
       pf, pi, outf, outi, ff, fi, cap, nx, ny, nz, xr, lo0, lo1, lo2, inv0,
-      inv1, inv2, xb, inv_q, n_fine);
+      inv1, inv2, wrap, xb, inv_q, n_fine);
   return (int)cudaGetLastError();
 }
 

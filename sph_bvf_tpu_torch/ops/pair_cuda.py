@@ -6,7 +6,8 @@ rowloop kernel and K3 (``csrc/pass_a_3d.cu``) its tiled 3D kernel.
 ``pass_a`` makes JAX's shape choice (``pair_pallas._pass_a_tiled3d`` for
 every 3D grid, ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3;
 2D grids with a mixed lattice (``base_occ == 0``) or a crowded cell
-(``cap > 24``) go to K2, the rest to K1.  All three also carry the
+(``cap > 24``) go to K2, the rest to K1.  K2 and K3 take periodic axes
+(K3 on x, y and z), K1 none.  All three also carry the
 continuum species (the C rows in, a species table, the flux Q out) for up
 to ``MAX_SPECIES`` of them, and the SDPD thermal noise (``thermal``: the e
 and tag rows in, the random force summed into f; dt, step and the PRNG key
@@ -25,7 +26,8 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import (grid_3d, periodic_multicell, wrap_x,
+from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
+                                         periodic_multicell, wrap_bits, wrap_x,
                                          wrap_y)
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
@@ -83,7 +85,9 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
                        kernel=None, n_sdpd: int = 0) -> list:
     """What keeps the wrapper ``kernel`` (by default the one this grid
     routes to) from serving this geometry, configuration and count of
-    continuum species."""
+    continuum species.  K2 and K3 take periodic axes of at least 3 cells
+    (with fewer, a stencil would reach one cell twice); K1 takes none.  K1
+    and K3 serve the transport-velocity pair with fixed walls only."""
     kernel = kernel or route(geom)
     is3d = kernel is pass_a_3d
     checks = [
@@ -91,18 +95,16 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
     ]
     too_many = (f"more than {MAX_SPECIES} continuum species (n_sdpd = {n_sdpd})",
                 n_sdpd > MAX_SPECIES)
+    if kernel is pass_a_2d:
+        checks.append(("a periodic axis", periodic_multicell(geom)))
+    else:
+        checks += [(f"a periodic {a} axis with fewer than 3 cells", True)
+                   for a in narrow_wrap_axes(geom)]
     if kernel is pass_a_2d_rowloop:
-        checks += [
-            ("a periodic x axis with fewer than 3 cells",
-             wrap_x(geom) and geom.ncells[0] < 3),
-            ("a periodic y axis with fewer than 3 cells",
-             wrap_y(geom) and geom.ncells[1] < 3),
-            too_many,
-        ]
+        checks.append(too_many)
     else:
         checks += [
             ("a solid-free scene (solids_present=False)", not cfg.solids_present),
-            ("a periodic axis", periodic_multicell(geom)),
             ("XSPH (xsph)", cfg.xsph),
             ("the symmetric pressure force (pressure_switch=False)",
              not cfg.pressure_switch),
@@ -221,12 +223,13 @@ def pass_a(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
 
 
 def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
-               cfg, noise) -> dict:
+               cfg, noise, extra=()) -> dict:
     """Launch ``wrapper``'s kernel, K1 or K3 (``csrc/<its name>.cu``, the
     transport-velocity pair of ``csrc/pass_a_tv.cuh``), over the grid
     ``dims`` and unpack its rows.  With continuum species the C rows and the
     species tables go in and the Q rows come out; with the thermal noise the
-    e and tag rows go in."""
+    e and tag rows go in.  ``extra``: ``(ctypes type, value)`` pairs the C
+    entry point takes after the grid (K3: the periodic axes)."""
     _check_launch(pf, params, geom, cfg, wrapper, noise)
     name = wrapper.__name__
     cap, NC = pf["rho"].shape
@@ -246,13 +249,14 @@ def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
     lib = _build.load(name)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (5 + len(dims))
-                   + _NOISE_ARGTYPES + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(dims))
+                   + [t for t, _ in extra] + [ctypes.c_int] + _NOISE_ARGTYPES
+                   + [ctypes.c_void_p])
     code = fn(PF.data_ptr(), tab.data_ptr(),
               None if stab is None else stab.data_ptr(), out.data_ptr(),
               params.ntypes, ns, int(bool(cfg.species_advection)), cap, *dims,
-              int(filt), *_noise_args(params, cfg, noise),
-              _build.current_stream(PF.device))
+              *(v for _, v in extra), int(filt),
+              *_noise_args(params, cfg, noise), _build.current_stream(PF.device))
     _build.check(lib, code, name)
 
     result = _unpack(out, accs)
@@ -304,11 +308,18 @@ pass_a_2d.launches = 0  # K1 launches in this process
 
 def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K3 on CUDA (the plain loop on
-    CPU): the transport-velocity pair with fixed walls on a 3D grid, with up
-    to ``MAX_SPECIES`` continuum species, with or without the thermal noise."""
+    CPU): the transport-velocity pair with fixed walls on a 3D grid, walls
+    or periodic axes (x, y, z, at least 3 cells each: the neighbour cell
+    wraps by index, the pair offset takes the minimum image), with up to
+    ``MAX_SPECIES`` continuum species, with or without the thermal noise."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
-    result = _tv_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg, noise)
+    # the periodic extents in f32, the constants the plain path's minimum
+    # image rounds them to (read on the wrapping axes only)
+    ext = [(ctypes.c_float, float(np.float32(geom.hi[ax] - geom.lo[ax])))
+           for ax in range(3)]
+    result = _tv_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg, noise,
+                        [(ctypes.c_int, wrap_bits(geom))] + ext)
     pass_a_3d.launches += 1
     return result
 

@@ -357,9 +357,10 @@ def test_no_launch_on_cpu_tensors():
 def test_kernels_serve_the_flagship_grid():
     """The flagship geometry and pair configuration are what K1 and K5
     serve; a crowded grid (cap 17..64) moves through K6; a grid with more
-    than one cell along z takes K3 and K7; a periodic grid of cap <= 16, a
-    cap above 64 or a periodic 3D grid has no kernel (it raises on a CUDA
-    tensor)."""
+    than one cell along z takes K3 and K7, periodic axes of at least 3
+    cells included; a periodic grid of cap <= 16, a cap above 64 or a 3D
+    grid periodic along an axis of two cells has no kernel (it raises on a
+    CUDA tensor)."""
     state, params, spec, _ = lid_cavity.build(N=50, device="cpu")
     assert not pair_cuda.uses_rowloop(spec.geom)
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair) == []
@@ -378,8 +379,12 @@ def test_kernels_serve_the_flagship_grid():
     assert pair_cuda.route(flat3d) is pair_cuda.pass_a_3d
     assert pair_cuda.kernel_unsupported(flat3d, cfg3d) == []
     periodic3d = dataclasses.replace(flat3d, periodic=(False, False, True))
-    assert not rebin_cuda.move_supported(periodic3d)
-    assert pair_cuda.kernel_unsupported(periodic3d, cfg3d) == ["a periodic axis"]
+    assert rebin_cuda.move_route(periodic3d) is rebin_cuda.rebin_move_3d
+    assert pair_cuda.kernel_unsupported(periodic3d, cfg3d) == []
+    two_z = dataclasses.replace(periodic3d, ncells=(19, 38, 2))
+    assert not rebin_cuda.move_supported(two_z)
+    assert pair_cuda.kernel_unsupported(two_z, cfg3d) == [
+        "a periodic z axis with fewer than 3 cells"]
 
 
 def test_unsupported_configurations_raise():
@@ -481,9 +486,11 @@ def test_3d_cavity_routes_to_k3_and_k7():
 
 def test_3d_kernels_refuse_what_they_do_not_serve():
     """K3 names the physics and grids it lacks (mechanics, XSPH, free or
-    elastic solids, a periodic axis, a 2D grid), K1 refuses a 3D grid, and
-    K7 refuses a periodic axis (with or without x_edges) and cap > 64:
-    each raises NotImplementedError before a launch."""
+    elastic solids, a periodic axis of fewer than 3 cells, a 2D grid), K1
+    refuses a 3D grid, and K7 refuses a periodic axis of fewer than 3
+    cells, a periodic axis with x_edges and cap > 64: each raises
+    NotImplementedError before a launch.  A periodic axis of 3 or more
+    cells is served by both."""
     state, params, spec, _ = lid_cavity3d.build(N=6, device="cpu")
     geom = spec.geom
     pf = pair._per_particle(state, params, spec.pair)
@@ -498,10 +505,19 @@ def test_3d_kernels_refuse_what_they_do_not_serve():
     for ax in range(3):
         periodic = tuple(a == ax for a in range(3))
         pgeom = dataclasses.replace(geom, periodic=periodic)
-        with pytest.raises(NotImplementedError, match="periodic axis"):
-            pair_cuda._check_launch(pf, params, pgeom, spec.pair,
+        pair_cuda._check_launch(pf, params, pgeom, spec.pair,
+                                pair_cuda.pass_a_3d)
+        assert rebin_cuda.move_route(pgeom) is rebin_cuda.rebin_move_3d
+        # with two cells along it (64 in all), a stencil would reach one
+        # cell twice
+        ncells = tuple(2 if a == ax else (4 if a == (ax + 1) % 3 else 8)
+                       for a in range(3))
+        narrow = dataclasses.replace(pgeom, ncells=ncells)
+        with pytest.raises(NotImplementedError,
+                           match=f"a periodic {'xyz'[ax]} axis with fewer"):
+            pair_cuda._check_launch(pf, params, narrow, spec.pair,
                                     pair_cuda.pass_a_3d)
-        assert rebin_cuda.move_route(pgeom) is None
+        assert rebin_cuda.move_route(narrow) is None
     with pytest.raises(NotImplementedError, match="a 3D grid"):
         pair_cuda._check_launch(pf, params, geom, spec.pair,
                                 pair_cuda.pass_a_2d)
@@ -518,7 +534,7 @@ def test_3d_kernels_refuse_what_they_do_not_serve():
     for bad in (dict(x_edges=edged.x_edges, x_quantum=edged.x_quantum,
                      periodic=(True, False, False)),
                 dict(cap=rebin_cuda.MAX_CAP_3D + 1),
-                dict(periodic=(True, False, False))):
+                dict(periodic=(True, False, False), ncells=(2, 8, 4))):
         with pytest.raises(NotImplementedError):
             rebin_cuda._check_packs(PF, PI, dataclasses.replace(geom, **bad),
                                     rebin_cuda.rebin_move_3d)
@@ -924,3 +940,163 @@ def test_thermal_noise_is_routed_and_staged():
         packed = pair_cuda._pack(pf, ("rho",) + pair_cuda.THERMAL_ROWS, cap, NC)
         assert torch.equal(packed[1], state.e.float())
         assert torch.equal(packed[2].view(torch.int32), state.tag)
+
+
+# ---------------------------------------------------------------------------
+# periodic 3D grids: K3 and K7 on periodic axes
+# ---------------------------------------------------------------------------
+
+
+def _periodic_grid(grid, device):
+    """A periodic 3D grid on ``device``, after setup: the spanwise cavity
+    at N=20 (y periodic, 9 x 6 x 9 cells, cap 49) after a 9-step chunk
+    with seeded jitter on x (a tenth of a spacing); a channel periodic in x
+    and z and a fully periodic box around a fixed solid sphere (9 sites an
+    axis, 3 cells an axis of 3 spacings, cap 38: the cell margin 0.1 h),
+    the box with one seeded species or with the thermal noise on (e = 1)."""
+    from sph_bvf_tpu_torch.api.scene import Region, Scene
+
+    if grid == "spanwise":
+        state, params, spec, _ = lid_cavity3d.build_spanwise(20, device=device)
+        state = run_chunk(setup(state, params, spec, dt=1e-4), params, spec, 9)
+        rng = np.random.default_rng(3)
+        jitter = rng.uniform(-0.1, 0.1, tuple(state.x.shape)) / 20
+        state = dataclasses.replace(state, x=state.x + torch.as_tensor(
+            jitter, dtype=state.x.dtype, device=device) * state.valid)
+        return state, params, spec
+    d = 1.0 / 9
+    sc = Scene(dim=3, boundary=("p", "f", "p") if grid == "channel_xz"
+               else ("p", "p", "p"))
+    sc.margin_frac = 0.1
+    if grid == "channel_xz":
+        sc.create_box(2, Region.block(0.0, 1.0, -3 * d, 1.0 + 3 * d, 0.0, 1.0))
+        solid = ~Region.block(-np.inf, np.inf, 0.0, 1.0, -np.inf, np.inf)
+    else:
+        sc.create_box(2, Region.block(0.0, 1.0, 0.0, 1.0, 0.0, 1.0))
+        solid = Region.sphere(0.5, 0.5, 0.5, 0.25)
+    sc.lattice("sc", d, origin=(0.5, 0.5, 0.5))
+    sc.create_atoms(1, ~solid)
+    sc.create_atoms(2, solid)
+    sc.group_region("solid", solid)
+    sc.mass(1, d**3).mass(2, d**3)
+    sc.set("all", rho=1.0, e=1.0)
+    sc.set("solid", solid_tag=1, fixed=True)
+    sc.pair_style("transport_velocity", thermal=grid == "box_thermal")
+    for (i, j) in ((1, 1), (1, 2), (2, 2)):
+        sc.pair_coeff(i, j, 1.0, 10.0, 0.01, 2.5 * d, 2.5 * d, 0.0)
+    sc.integrator("transport_velocity")
+    sc.timestep(1e-4)
+    state, params, spec = sc.build(device=device)
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.as_tensor(a, dtype=state.x.dtype, device=device)
+    state = dataclasses.replace(
+        state, v=t(rng.normal(0, 0.05, tuple(state.v.shape))) * state.valid,
+        x=state.x + t(rng.uniform(-0.1, 0.1, tuple(state.x.shape)) * d)
+        * state.valid)
+    state = setup(state, params, spec, dt=1e-4)
+    if grid == "box_species":
+        state, params = _with_species(state, params, 1, 1.0)
+    return state, params, spec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["spanwise", "channel_xz", "box_species",
+                                  "box_thermal"])
+def test_k3_periodic_matches_plain_on_card(cuda, grid):
+    """K3 on periodic axes vs the plain 27-offset loop on the same CUDA
+    tensors, both filter variants: every field (Q with the species) within
+    5e-6 of its max; the thermal box at the state's kB and with the noise
+    dominating (``_thermal_rows_parity``)."""
+    state, params, spec = _periodic_grid(grid, cuda)
+    geom = spec.geom
+    assert any(geom.periodic) and pair_cuda.route(geom) is pair_cuda.pass_a_3d
+    if grid == "box_thermal":
+        for case in ("a", "b"):
+            _thermal_rows_parity(pair_cuda.pass_a_3d, state, params, spec,
+                                 case, K1_FIELDS)
+        return
+    if grid == "box_species":
+        _species_parity(pair_cuda.pass_a_3d, state, params, spec)
+        return
+    for filt in (True, False):
+        cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+        pf = pair._per_particle(state, params, cfg)
+        ref = pair._pass_a_plain(pf, params, geom, cfg)
+        got = pair_cuda.pass_a_3d(pf, params, geom, cfg)
+        torch.cuda.synchronize()
+        for name in K1_FIELDS if filt else K1_FIELDS[:-2]:
+            scale = max(float(ref[name].abs().max()), 1e-30)
+            err = float((got[name] - ref[name]).abs().max())
+            assert err <= 5e-6 * scale, (name, filt, err / scale)
+
+
+def _seam_drift(state, geom, seed):
+    """``state`` with every valid particle moved by a seeded step of up to
+    0.9 cells per axis, outward along every periodic axis in the corner
+    cells (those at an end of each periodic axis), so particles cross every
+    periodic face and corner; positions beyond the box stay unwrapped."""
+    rng = np.random.default_rng(seed)
+    x = state.x.cpu().numpy()
+    valid = state.valid.cpu().numpy()
+    d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
+    c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
+    coord = [(c // geom.strides[ax]) % geom.ncells[ax] for ax in range(3)]
+    axes = [ax for ax in range(3) if geom.periodic[ax]]
+    corner = np.ones(valid.shape, bool)
+    for ax in axes:
+        corner &= (coord[ax] == 0) | (coord[ax] == geom.ncells[ax] - 1)
+    for ax in axes:
+        d[ax] = np.where(corner, np.where(coord[ax] == 0, -1.0, 1.0)
+                         * np.abs(d[ax]), d[ax])
+    x = (x + np.where(valid, d, 0.0)).astype(np.float32)
+    past = np.ones(valid.shape, bool)
+    for ax in axes:
+        past &= (x[ax] < geom.lo[ax]) | (x[ax] >= geom.hi[ax])
+    assert int((valid & past).sum()) > 0  # a corner is crossed
+    return dataclasses.replace(state, x=torch.as_tensor(x, device=state.x.device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["spanwise", "channel_xz", "box_species"])
+def test_k7_periodic_matches_plain_walk_and_sort_on_card(cuda, grid):
+    """K7 on periodic axes vs the plain 3D walk and the sort rebin on the
+    same CUDA state after a seeded drift across every periodic seam and
+    corner (the C rows riding along on the box): every leaf bitwise."""
+    state, params, spec = _periodic_grid(grid, cuda)
+    geom = spec.geom
+    state = _seam_drift(state, geom, seed=4)
+    fields = TS.particle_fields(state)
+    fields["x"] = TS.wrap_pbc(fields["x"], geom)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    kf, ki = rebin_cuda.rebin_move_3d(PF, PI, geom, xr)
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
+    assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+    assert int(got.drift_violation) > 0
+
+
+def test_periodic_grids_route_to_k3_and_k7():
+    """The periodic test grids route to K3 and K7 with nothing missing (the
+    seeded species and the thermal rows included), and their plain walk
+    equals the sort rebin after a drift across every seam."""
+    _, _, spec, _ = lid_cavity3d.build_spanwise(20, device="cpu")
+    assert spec.geom.ncells == (9, 6, 9) and spec.geom.cap == 49
+    assert pair_cuda.kernel_unsupported(spec.geom, spec.pair) == []
+    assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_3d
+    for grid in ("channel_xz", "box_species", "box_thermal"):
+        state, params, spec = _periodic_grid(grid, "cpu")
+        geom = spec.geom
+        assert geom.cap == 38 and geom.ncells[0] == geom.ncells[2] == 3
+        assert pair_cuda.route(geom) is pair_cuda.pass_a_3d
+        assert pair_cuda.kernel_unsupported(geom, spec.pair,
+                                            n_sdpd=params.n_sdpd) == []
+        assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_3d
+        drifted = _seam_drift(state, geom, seed=4)
+        ref = TS.rebin(drifted, geom, use_kernel=False)
+        got = TS.rebin(drifted, geom, use_kernel=True)
+        for f in dataclasses.fields(ref):
+            assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
