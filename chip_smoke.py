@@ -16,10 +16,13 @@ pair style, the species rows and a periodic y axis, K6 with a periodic y
 axis); K5 and K7 with x columns are checked on the cavities, K3 and K7
 with species on the 3D cavity; the SDPD thermal noise (the thermal rows
 of K1, K2 and K3) on natural convection at the reference's own e = 1e-6 and
-on the flagship cavity with the noise made visible; and the spanwise-
+on the flagship cavity with the noise made visible; the spanwise-
 periodic 3D cavity (K3 and K7 with a periodic axis), written out as VTK
-frames with per-atom computes and checkpointed and resumed.  Phases, one
-line each:
+frames with per-atom computes and checkpointed and resumed; and two 3D
+scenes built by ``Scene`` in either package: the spanwise-periodic 3D FSI
+beam (K3 with the mechanics pair style, XSPH and free elastic solids, K7
+past cap 64) and the triply periodic Taylor-Green vortex (K3 without
+solids, K7 past cap 64).  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
 2. build   — compile the six hand-written kernels from
@@ -94,6 +97,26 @@ line each:
              box, each after a seeded drift of up to 0.9 cells that crosses
              every periodic face and, outward in the corner cells, every
              corner;
+   K3 mechanics — K3 against the plain loop, 5e-6 * max|plain| per field,
+             dS and ddx included, both filter variants, on the 3D FSI beam
+             (fsi.build_spanwise(nx=30): x and z periodic, cap 208, a mixed
+             lattice) released at step 10 and run 20 steps, as run and with
+             the beam's S seeded (AS, dS, ddx and phi live);
+   K3 fsi  — the same beam with the fsi pair style and one species
+             (pair_style="fsi", kappa): K3 against the plain loop on five of
+             K2 polarization's seeded cases (S, v, rho and C on the beam up
+             to 1.5 seeded; one and two species, cutc 0.8 h with the
+             advection correction, ampl_damp 0, the modulus coupling off),
+             dS and Q included, then 10 steps with one species (K3's
+             launches and timing);
+   K3 solid-free — K3 against the plain loop on the Taylor-Green vortex
+             (taylor_green3d.build(N=20): no solids, every axis periodic,
+             cap 86) after 100 steps with x jittered by up to 0.1 spacing,
+             phi, nw, dS and ddx exactly 0;
+   K7 large cap — K7 against the plain walk and the sort rebin, bitwise, on
+             the beam at nx=30 (cap 208; the run and a seeded seam drift),
+             the vortex at N=20 (cap 86; likewise) and the beam at nx=60
+             (cap 296, a seeded seam drift);
    K2 solid-free — the load-balance path's pass A: K2 against the plain
              loop on the balanced s=20 drifting blob (840,000 particles,
              x_edges, periodic x, no solids) after setup and 100 steps of
@@ -175,7 +198,19 @@ line each:
              the fluid's max|v|, kinetic energy and mean density inside 2%
              bands around the JAX package's own run, and max|v_y| / max|v|
              within 10x the JAX package's own runs at N=12 and N=20 (step
-             200) and N=40 (step 500); and the N=50
+             200) and N=40 (step 500); main fsi3d:
+             fsi.build_spanwise(nx=60, tdamp_solid=500) -> setup ->
+             simulate(1000) (170,632 particles; K3 1001 launches, K7 11,
+             nothing else), overflow 0, the beam's tip displacement and
+             max|S| > 0; main tgv3d: taylor_green3d.build(N=100) -> setup ->
+             simulate(1000) (1,000,000 particles; K3 1001, K7 101), the
+             kinetic energy ratio E/E0 between 0.98 x the JAX package's N=20
+             value and 1.01 x exp(-6 nu t), the mean density within 1e-3;
+             main fsi3d vs JAX: nx=12, 20 steps released at step 10, max|v|,
+             the fluid's density, the beam's max|v| and max|S| inside 2%
+             bands around the JAX package's own run; main tgv3d vs JAX:
+             N=20, 200 steps, E/E0, max|v| and mean density likewise; and
+             the N=50
              cavity, the nx=24 FSI, the N=8 3D cavity
              (20 steps), the N=12 spanwise cavity (20 steps) and the s=1
              balanced blob (110 steps, its re-cut at step 100 included), the
@@ -192,7 +227,9 @@ line each:
              nx=1000 (1,030,980 particles, dt 1e-11) and of the balanced and
              the uniform blob at s=10 and
              s=20 (its 1000-step main path, twice), of the spanwise cavity at
-             N=40 and N=100, each chunk timed on the
+             N=40 and N=100, of the 3D FSI beam at nx=30 and nx=60 (frozen;
+             the plain pass A timed at nx=30 only) and of the Taylor-Green
+             vortex at N=20 and N=100, each chunk timed on the
              host clock and by CUDA events, the blob's chunks split into
              those with a re-cut, with a balance check and without; per
              call each kernel beside its plain version, each rebin beside
@@ -214,7 +251,9 @@ line each:
              noise (K2's thermal rows), one of cell
              polarization at nx=100 and nx=1000, one of the spanwise cavity
              at N=40 and N=100 (K3 and K7 periodic beside the walled cavity's
-             K3 and K7) and two of the s=20 blob,
+             K3 and K7), one of the 3D FSI beam at nx=60 (released) and one
+             of the vortex at N=100 (K3's elastic and solid-free
+             instantiations, K7 past cap 64) and two of the s=20 blob,
              balanced and uniform, under torch.profiler:
              device ops, device-to-host copies and device time per step,
              the busy share, and the
@@ -222,11 +261,12 @@ line each:
              the profiler records no pass-A activity on the card.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (nineteen entries: the six
-kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants, K1
-and K3 with species, K2 and K6 on the polarization path, K1, K2 and K3
-with their thermal rows, and K3 and K7 with periodic axes as their own
-entries), the last
+second-to-last line is ``{"kernels": [...]}`` (twenty-three entries: the
+six kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants,
+K1 and K3 with species, K2 and K6 on the polarization path, K1, K2 and K3
+with their thermal rows, K3 and K7 with periodic axes, and K3 with the
+mechanics and fsi pair styles and without solids and K7 past cap 64 as
+their own entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -237,6 +277,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -260,9 +301,26 @@ SPAN_TRACE = 50  # the cadence of its max|v_y| / max|v| trace
 # K7's periodic parity: lattice sites per periodic axis (91,125 in the box),
 # and the cell margin that keeps a periodic cell under 3 spacings wide (45
 # sites make 16 cells of 2.8; at most 27 particles a cell, cap 38; at the
-# default 0.25 h they make 14 cells of 3.2, up to 64 particles a cell, and
-# cap passes K7's 64)
+# default 0.25 h they make 14 cells of 3.2, up to 64 particles a cell)
 BOX_N, BOX_MARGIN = 45, 0.1
+# the spanwise-periodic 3D FSI beam (fsi.spanwise_scene: the reference's
+# beam in a channel extruded along z over 3 periodic cells; mechanics, XSPH,
+# a free elastic beam on a 0.6x finer lattice, walls, the two sponges):
+# parity/speed size (46,728 particles, cap 208), main/speed size, the
+# reference's nx (170,632 particles, cap 296)
+FSI3D_NX = (30, 60)
+FSI3D_PARTICLES = {30: 46_728, 60: 170_632}
+# its parity run: the beam's release and the steps before the parity phases
+FSI3D_PARITY_RELEASE, FSI3D_PARITY_STEPS = 10, 20
+# K3 with the fsi pair style on the 3D beam: the POLAR_CASES it runs
+FSI3D_CASES = ("Ns=1 as the model", "Ns=2 cutc=0.8h advection",
+               "Ns=1 ampl_damp=0", "Ns=1 no coupling", "Ns=1 C up to 1.5")
+# the triply periodic 3D Taylor-Green vortex (taylor_green3d: solid-free,
+# transport velocity, Re 100, dt 0.1 h / c0; cap 86): parity/speed size
+# (8,000 particles), main/speed size (1,000,000)
+TGV_N = (20, 100)
+TGV_PARTICLES = {20: 8_000, 100: 1_000_000}
+TGV_TRACE = 100  # the cadence of its main path's max|v| and max|vest| trace
 BLOB_S = (10, 20)  # drifting blob scales: speed size (210k), main size (840k)
 BLOB_N = {1: 2115, 10: 210_000, 20: 840_000}  # its particle counts
 # natural convection: the reference's size (42,436 particles), large speed
@@ -290,9 +348,10 @@ SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110,
                "convection": 20, "polarization": 20, "thermal": 100,
                "spanwise": 20}
 MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000,
-              "convection": 1000, "polarization": 1000}
+              "convection": 1000, "polarization": 1000, "fsi3d": 1000,
+              "tgv": 1000}
 PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100,
-                "convection": 200, "polarization": 200}
+                "convection": 200, "polarization": 200, "tgv": 100}
 # K2 on the seeded polarization state: (label, ampl_damp, g0_chem_coupling,
 # species_advection, species, cutc / h, C's upper bound on the wall)
 POLAR_CASES = (
@@ -397,6 +456,31 @@ SPAN_JAX_VY = {12: (200, 7.314140475500608e-07),
 # the seam within a few steps.  The main path holds max|v_y| / max|v| under
 # this bound
 SPAN_VY_BOUND = 1e-3
+# The JAX package's own run of the 3D FSI beam at nx=12 (the JAX package as
+# of commit 259c089; tdamp_solid 10, rebin every 5, dt 1e-8, f32, jnp path,
+# on the CPU: fsi.spanwise_scene(...).build() -> setup -> simulate(20)) at
+# step 20, and the band [lo, hi] x that value the card's run of the same
+# scene must land in
+FSI3D_JAX_NX, FSI3D_JAX_STEPS, FSI3D_JAX_RELEASE, FSI3D_JAX_REBIN = 12, 20, 10, 5
+FSI3D_JAX_STEP20 = {
+    "max|v|": (0.03329138457775116, 0.98, 1.02),
+    "fluid max|rho/1000-1|": (3.8262972831726074, 0.98, 1.02),
+    "fluid mean rho": (1106.560502283385, 0.98, 1.02),
+    "beam max|v|": (8.701364606622519e-08, 0.98, 1.02),
+    "beam max|S|": (4.488551894610282e-06, 0.98, 1.02),
+}
+# The JAX package's own run of the Taylor-Green vortex at N=20 (the JAX
+# package as of commit 259c089; f32, jnp path, on the CPU:
+# taylor_green3d.scene(...).build(), the velocity set in numpy -> setup ->
+# simulate(200), t = 1.5708) at step 200, and the band [lo, hi] x that
+# value the card's run of the same scene must land in; beside it
+# exp(-6 nu t) = 0.91006
+TGV_JAX_N, TGV_JAX_STEPS = 20, 200
+TGV_JAX_STEP200 = {
+    "E/E0": (0.875730266896161, 0.98, 1.02),
+    "max|v|": (0.8506942987442017, 0.98, 1.02),
+    "mean rho": (1.0004214131981135, 0.98, 1.02),
+}
 THERMO_EVERY = 100  # the reference script's thermo cadence
 # The JAX package's own run of the flagship cavity at N=200 with the noise
 # made visible (e = 1 on the valid slots, kB = VISIBLE_KBE; f32, jnp path,
@@ -416,11 +500,14 @@ SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
                "polarization": {100: (200, 10), 1000: (50, 3)},
                "cavity3d": {40: (100, 10), 100: (50, 3)},
                "spanwise": {40: (100, 10), 100: (50, 3)},
+               "fsi3d": {30: (100, 10), 60: (100, 3)},
+               "tgv": {20: (100, 10), 100: (50, 3)},
                "blob": {10: (1000, 5), 20: (1000, 3)}}
 # timed runs of simulate per size, each from the same set-up state (the
 # blob's: its 1000-step main path without the build, twice)
 SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2,
-                 "convection": 1, "polarization": 1, "spanwise": 1}
+                 "convection": 1, "polarization": 1, "spanwise": 1,
+                 "fsi3d": 1, "tgv": 1}
 # FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
 # smaller and the start-up pressure waves (|v| up to ~0.4) drift particles
 # past the budget within 100 steps, so the run rebins every 20
@@ -558,6 +645,52 @@ def _seed_polar(torch, state, params, ns, seed, cutc_scale=1.0, c_hi=1.0):
                 v=v, vest=vest, C=C, Q=torch.zeros_like(C),
                 rho=torch.where(valid, state.rho * t(rng.uniform(0.99, 1.01, shape)),
                                 one)),
+            dataclasses.replace(params, cutc=cutc_scale * params.cut,
+                                kappa=t(kappa)))
+
+
+def _seed_beam_S(torch, state, seed):
+    """``state`` with a symmetric S drawn from N(0, 1e3) (numpy's
+    ``seed``) on the free solids (the beam), so that AS is tensile on some
+    particles and every elastic term of pass A is live."""
+    import numpy as np
+
+    beam = state.valid & (state.solid_tag == 1) & (state.fixed_tag == 0)
+    S = np.random.default_rng(seed).normal(0.0, 1e3, tuple(state.S.shape))
+    S = torch.as_tensor(S + np.swapaxes(S, 0, 1), dtype=state.S.dtype,
+                        device=state.x.device)
+    return dataclasses.replace(state, S=torch.where(beam, S, state.S))
+
+
+def _seed_beam(torch, state, params, ns, seed, cutc_scale=1.0, c_hi=1.0):
+    """(state, params) of the 3D FSI beam with every pair term of the fsi
+    pair style live, as ``_seed_polar`` for the polarization's wall: a
+    seeded symmetric S on the beam, seeded noise on v (N(0, 0.01)), vest (v
+    + N(0, 0.002)) and rho (x U(0.99, 1.01)), ``ns`` species with C
+    uniform in [0, ``c_hi``) on the beam and a tenth of that elsewhere,
+    kappa [T, T, ns] symmetric with a distinct value per type pair and
+    species (0.5e-5..1.5e-5) and the species support cutc = ``cutc_scale``
+    x h; all from numpy's ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dev, fdt = state.x.device, state.x.dtype
+    t = lambda a: torch.as_tensor(a, dtype=fdt, device=dev)
+    shape = tuple(state.valid.shape)
+    valid = state.valid
+    beam = valid & (state.solid_tag == 1) & (state.fixed_tag == 0)
+    v = state.v + t(rng.normal(0, 0.01, (3,) + shape)) * valid
+    vest = v + t(rng.normal(0, 0.002, (3,) + shape)) * valid
+    C = t(rng.uniform(0.0, c_hi, (ns,) + shape))
+    C = torch.where(beam, C, 0.1 * C) * valid
+    T = params.ntypes
+    kappa = rng.uniform(0.5, 1.5, (T, T, ns))
+    kappa = 1e-5 * 0.5 * (kappa + kappa.transpose(1, 0, 2))
+    state = _seed_beam_S(torch, state, seed)
+    return (dataclasses.replace(
+                state, v=v, vest=vest, C=C, Q=torch.zeros_like(C),
+                rho=torch.where(valid, state.rho * t(rng.uniform(0.99, 1.01, shape)),
+                                state.rho)),
             dataclasses.replace(params, cutc=cutc_scale * params.cut,
                                 kappa=t(kappa)))
 
@@ -1038,10 +1171,11 @@ def _pass_a_work(torch, S, pair, state, geom, h):
 
 def _pass_a_rows(pair_cuda, pf, cfg, kernel):
     """(packed input rows, output rows) of one call of ``kernel``."""
-    if kernel == "pass_a_2d_rowloop":
+    if kernel == "pass_a_2d_rowloop" or (kernel == "pass_a_3d"
+                                         and pair_cuda.tv_lacks(cfg)):
         elastic = cfg.elastic_present
-        names = pair_cuda.K2_PF_ROWS + (("AS", "S") if elastic else ("ASd",))
-        accs = pair_cuda.K2_ACC_ROWS + ((("dS", 9),) if elastic else ())
+        names = pair_cuda.MECH_PF_ROWS + (("AS", "S") if elastic else ("ASd",))
+        accs = pair_cuda.MECH_ACC_ROWS + ((("dS", 9),) if elastic else ())
     else:
         names, accs = pair_cuda.PF_ROWS, pair_cuda.ACC_ROWS
     if cfg.density_filter_accs:
@@ -1072,7 +1206,7 @@ def main() -> int:
     from sph_bvf_tpu_torch.io import checkpoint, vtk
     from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
                                           lid_cavity, lid_cavity3d,
-                                          natural_convection)
+                                          natural_convection, taylor_green3d)
     from sph_bvf_tpu_torch.ops import pair, pair_cuda
     from sph_bvf_tpu_torch.parallel.balance import rebalance, report
     from sph_bvf_tpu_torch.utils.thermo import ThermoLogger
@@ -1086,12 +1220,13 @@ def main() -> int:
                 "rebin_move_2d_gated": rebin_cuda.rebin_move_2d_gated,
                 "rebin_move_3d": rebin_cuda.rebin_move_3d}
 
-    def pass_a_timing(pass_a, state, params, geom, cfg, iters):
-        """Per-call ms of the wrapper ``pass_a`` and of the plain loop on
-        this state, and pass A's bound from these inputs at the state's
-        occupancy: the packed rows in and out, the valid candidates, the
-        pairs inside the support h (with the thermal noise, their hash and
-        Box-Muller too) and, with species, those inside cutc."""
+    def pass_a_timing(pass_a, state, params, geom, cfg, iters, plain=True):
+        """Per-call ms of the wrapper ``pass_a`` and (with ``plain``) of the
+        plain loop on this state, and pass A's bound from these inputs at
+        the state's occupancy: the packed rows in and out, the valid
+        candidates, the pairs inside the support h (with the thermal noise,
+        their hash and Box-Muller too) and, with species, those inside
+        cutc."""
         pf = pair._per_particle(state, params, cfg)
         noise = pair.noise_inputs(state)
         n, slots = int(state.n_valid), geom.cap * geom.ncells_total
@@ -1113,7 +1248,7 @@ def main() -> int:
                 torch, lambda: pass_a(pf, params, geom, cfg, noise), iters),
             "pass_a_plain": _per_call_ms(
                 torch, lambda: pair._pass_a_plain(pf, params, geom, cfg, noise),
-                iters),
+                iters) if plain else None,
             "pass_a_bound": _bound(_packed_bytes(slots, n, rows_in, rows_out),
                                    flops, int_ops),
             "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
@@ -1141,27 +1276,33 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # K1 and K3: every (filter, species count, thermal) instantiation, as
-    # the runtime reports it (registers, local-memory bytes: the spills, and
-    # in the thermal ones the stack frame of cosf's range reduction)
-    for wrapper in (pair_cuda.pass_a_2d, pair_cuda.pass_a_3d):
-        attrs = {f"{'filter' if filt else 'nofilter'}/Ns={ns}"
+    # K1: every (filter, species count, thermal) instantiation, as the
+    # runtime reports it (registers, local-memory bytes: the spills, and in
+    # the thermal ones the stack frame of cosf's range reduction)
+    attrs = {f"{'filter' if filt else 'nofilter'}/Ns={ns}"
+             f"{'/thermal' if th else ''}":
+             pair_cuda.kernel_attributes(pair_cuda.pass_a_2d, filt, ns,
+                                         thermal=th)
+             for th in (False, True) for ns in range(pair_cuda.MAX_SPECIES + 1)
+             for filt in (True, False)}
+    print(f"[build] pass_a_2d instantiations (registers per thread, local "
+          f"bytes per thread): {attrs}")
+    # K2 and K3 (the shared body of csrc/pass_a_mech.cuh): every (filter,
+    # elastic, species count, thermal) instantiation; K3's transport-
+    # velocity body ("tv") beside them
+    for wrapper in (pair_cuda.pass_a_2d_rowloop, pair_cuda.pass_a_3d):
+        bodies = ((False, True) if wrapper is pair_cuda.pass_a_3d
+                  else (False,))
+        attrs = {f"{'tv/' if tv else ''}{'filter' if filt else 'nofilter'}/"
+                 f"{'elastic' if el else 'plain'}/Ns={ns}"
                  f"{'/thermal' if th else ''}":
-                 pair_cuda.kernel_attributes(wrapper, filt, ns, thermal=th)
-                 for th in (False, True)
+                 pair_cuda.kernel_attributes(wrapper, filt, ns, el, th, tv)
+                 for tv in bodies for th in (False, True)
                  for ns in range(pair_cuda.MAX_SPECIES + 1)
+                 for el in ((False,) if tv else (True, False))
                  for filt in (True, False)}
         print(f"[build] {wrapper.__name__} instantiations (registers per "
               f"thread, local bytes per thread): {attrs}")
-    # K2: every (filter, elastic, species count, thermal) instantiation
-    attrs = {f"{'filter' if filt else 'nofilter'}/"
-             f"{'elastic' if el else 'plain'}/Ns={ns}{'/thermal' if th else ''}":
-             pair_cuda.kernel_attributes(pair_cuda.pass_a_2d_rowloop, filt, ns,
-                                         el, th)
-             for th in (False, True) for ns in range(pair_cuda.MAX_SPECIES + 1)
-             for el in (True, False) for filt in (True, False)}
-    print(f"[build] pass_a_2d_rowloop instantiations (registers per thread, "
-          f"local bytes per thread): {attrs}")
 
     # -- 3. K1 parity -------------------------------------------------------
     state, params, spec, _ = lid_cavity.build(N=CAVITY_N[0], device=dev)
@@ -1305,12 +1446,7 @@ def main() -> int:
         spec.pair, k2_names, "K2")
     ds_run = float(ref["dS"].abs().max())
     # the beam's S seeded so that AS is tensile on some particles
-    beam = state.valid & (state.solid_tag == 1) & (state.fixed_tag == 0)
-    rng = np.random.default_rng(0)
-    seed = rng.normal(0.0, 1e3, tuple(state.S.shape))
-    seed = torch.as_tensor(seed + np.swapaxes(seed, 0, 1), dtype=state.S.dtype,
-                           device=dev)
-    seeded = dataclasses.replace(state, S=torch.where(beam, seed, state.S))
+    seeded = _seed_beam_S(torch, state, seed=0)
     as_max = float(pair._per_particle(seeded, params, spec.pair)["AS"].abs().max())
     err_s, abs_s, ref_s = _pass_a_parity(
         torch, pair, pair_cuda.pass_a_2d_rowloop, seeded, params, geom,
@@ -1328,7 +1464,7 @@ def main() -> int:
           + "; beam S seeded (max|AS| " + f"{as_max:.3g}, max|dS| run "
           + f"{ds_run:.3g} / seeded {ds_seeded:.3g}): "
           + ", ".join(f"{k} {v:.3g}" for k, v in err_s.items()))
-    del seeded, ref, ref_s, seed
+    del seeded, ref, ref_s
     k2t_errs, k2t_abs, kb, checks = _thermal_rows(
         torch, pair, pair_cuda.pass_a_2d_rowloop, state, params, geom, spec.pair,
         k2_names, "K2 thermal fsi")
@@ -1466,8 +1602,6 @@ def main() -> int:
         state, params, spec = _periodic_grid(Scene, Region, BOX_N, shape).build(
             device=dev)
         geom = spec.geom
-        if geom.cap > rebin_cuda.MAX_CAP_3D:
-            raise AssertionError(f"the {shape}'s cap {geom.cap} is past K7's")
         state = setup(_jitter(torch, state, 1.0 / BOX_N, seed=3, stir=True),
                       params, spec, dt=1e-4)
         drifted, across = _seam_drift(torch, state, geom, seed=4)
@@ -1503,6 +1637,153 @@ def main() -> int:
           f"{errs['a']:.3g} and (b) kB {kb:.3g} {errs['b']:.3g}, {checks}; "
           f"max|diff| {k3p_abs!r}")
     del state, box_cases
+
+    # -- K3's mechanics, fsi and solid-free paths, and K7 past cap 64: the
+    # 3D FSI beam at nx=30 (cap 208) released and run, then with S seeded;
+    # its fsi-style variant with seeded species; the Taylor-Green vortex at
+    # N=20 (cap 86) run and jittered; K7 on both grids and on the beam's
+    # main-size grid (nx=60, cap 296) after seeded seam drifts ---------------
+    nf = FSI3D_NX[0]
+    state, params, spec, _ = fsi.build_spanwise(
+        nf, tdamp_solid=FSI3D_PARITY_RELEASE, device=dev)
+    state = simulate(setup(state, params, spec, dt=1e-8), params, spec,
+                     FSI3D_PARITY_STEPS)
+    geom = spec.geom
+    k3m_err, k3m_abs, ref = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_3d, state, params, geom, spec.pair,
+        k2_names, "K3 mechanics")
+    seeded = _seed_beam_S(torch, state, seed=0)
+    err_s, abs_s, ref_s = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_3d, seeded, params, geom, spec.pair,
+        k2_names, "K3 mechanics (seeded S)")
+    k3m_abs = max(k3m_abs, abs_s)
+    live = {"AS": float(pair._per_particle(seeded, params, spec.pair)["AS"]
+                        .abs().max()),
+            "dS run": float(ref["dS"].abs().max()),
+            "dS seeded": float(ref_s["dS"].abs().max()),
+            "ddx": float(ref_s["ddx"].abs().max()),
+            "phi": float(ref_s["phi"].abs().max())}
+    if not all(v > 0 for v in live.values()):
+        raise AssertionError(f"K3 mechanics parity is vacuous: max|.| {live}")
+    print(f"[K3 mechanics] 3D pass A kernel, mechanics pair style == plain "
+          f"(3D FSI beam nx={nf}, {geom.ncells} cells, cap {geom.cap}, "
+          f"periodic {geom.periodic}, {int(state.n_valid)} particles, step "
+          f"{int(state.step)}, beam released at {FSI3D_PARITY_RELEASE}; both "
+          f"filter variants), max|diff|/max|ref| per field: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in k3m_err.items())
+          + f"; beam S seeded (max|.| {live}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in err_s.items())
+          + f"; max|diff| {k3m_abs!r}")
+    del seeded, ref, ref_s
+    # K7 on the beam's grid: the run's state and a seeded seam drift
+    drifted, across = _seam_drift(torch, state, geom, seed=8)
+    k7l_what = []
+    for label, st in (("run", state), ("seam drift", drifted)):
+        what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
+                                 st, geom, _rebin_drop(spec),
+                                 f"K7 large cap fsi3d nx={nf} {label}")
+        k7l_what.append(f"3D FSI beam nx={nf} cap {geom.cap} {label}: {what}"
+                        + (f", across {across}" if st is drifted else ""))
+        k7l_abs = max(k7l_abs, err) if label != "run" else err
+    del state, drifted
+
+    # the fsi pair style on the 3D beam with seeded species (POLAR_CASES'
+    # ranges, C up to 1.5), then 10 steps of it with one species
+    state, params, spec, _ = fsi.build_spanwise(
+        nf, tdamp_solid=FSI3D_PARITY_RELEASE, pair_style="fsi", kappa=1e-5,
+        device=dev)
+    state = simulate(setup(state, params, spec, dt=1e-8), params, spec,
+                     FSI3D_PARITY_STEPS)
+    geom = spec.geom
+    k3f_err, k3f_abs = {}, 0.0
+    for i, (label, ampl, coupling, advect, ns, cutc, c_hi) in enumerate(POLAR_CASES):
+        if label not in FSI3D_CASES:
+            continue
+        s_, p_ = _seed_beam(torch, state, params, ns, seed=i, cutc_scale=cutc,
+                            c_hi=c_hi)
+        cfg = dataclasses.replace(spec.pair, ampl_damp=ampl,
+                                  g0_chem_coupling=coupling,
+                                  species_advection=advect)
+        tag = f"K3 fsi {label}"
+        err, err_abs, ref = _pass_a_parity(torch, pair, pair_cuda.pass_a_3d, s_,
+                                           p_, geom, cfg, k2_names + ("Q",), tag)
+        live = {"AS": float(pair._per_particle(s_, p_, cfg)["AS"].abs().max()),
+                "dS": float(ref["dS"].abs().max()),
+                "Q": float(ref["Q"].abs().amax(dim=(1, 2)).min())}
+        if not all(v > 0 for v in live.values()):
+            raise AssertionError(f"{tag} is vacuous: max|.| {live}")
+        k3f_err[label] = (err["Q"], err["dS"], max(err.values()))
+        k3f_abs = max(k3f_abs, err_abs)
+    s_, p_ = _seed_beam(torch, state, params, 1, seed=0)
+    for c in counters.values():
+        c.launches = 0
+    s_ = simulate(s_, p_, spec, 10)
+    k3f_launches = pair_cuda.pass_a_3d.launches
+    t_k3f = pass_a_timing(
+        pair_cuda.pass_a_3d, s_, p_, geom,
+        dataclasses.replace(spec.pair, density_filter_accs=False), 10)
+    print(f"[K3 fsi] 3D pass A kernel, fsi pair style with species == plain, "
+          f"every field, dS and Q (3D FSI beam nx={nf} with pair_style fsi, "
+          f"cap {geom.cap}, step {int(state.step)}, beam S, v, rho and C "
+          f"seeded, both filter variants); per case (max|diff|/max|ref| of Q, "
+          f"of dS, of the worst field): "
+          + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g} ({v[2]:.3g})"
+                      for k, v in k3f_err.items())
+          + f"; max|diff| {k3f_abs!r}; 10 steps with one seeded species: K3 "
+          f"launched {k3f_launches} times, per call ms {t_k3f['pass_a']!r} vs "
+          f"plain pass A {t_k3f['pass_a_plain']!r}, bound "
+          f"{t_k3f['pass_a_bound']} ({t_k3f['pass_a_work']}) [{card}]")
+    del state, s_, p_, ref
+
+    # the Taylor-Green vortex: solid-free, every axis periodic
+    nt = TGV_N[0]
+    state, params, spec, _ = taylor_green3d.build(nt, device=dev)
+    state = simulate(setup(state, params, spec, dt=taylor_green3d.timestep(nt)),
+                     params, spec, PARITY_STEPS["tgv"])
+    geom = spec.geom
+    # positions jittered by up to a tenth of a spacing (seed 6): on the
+    # lattice ddv is a sum that cancels to a thousandth of its terms, which
+    # f32 cannot resolve in any order of summation
+    jittered = _jitter(torch, state, taylor_green3d.L / nt, seed=6)
+    k3sf_err, k3sf_abs, ref = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_3d, jittered, params, geom, spec.pair,
+        k2_names, "K3 solid-free")
+    got = pair_cuda.pass_a_3d(pair._per_particle(jittered, params, spec.pair),
+                              params, geom, spec.pair)
+    zero = {k: float(got[k].abs().max()) for k in ("phi", "nw", "dS", "ddx")}
+    if any(zero.values()) or not float(ref["ddv"].abs().max()) > 0:
+        raise AssertionError(f"K3 solid-free: phi, nw, dS and ddx must stay 0 "
+                             f"({zero}) and ddv be live")
+    print(f"[K3 solid-free] 3D pass A kernel, no solids == plain (Taylor-Green "
+          f"vortex N={nt}, {geom.ncells} cells, cap {geom.cap}, periodic "
+          f"{geom.periodic}, {int(state.n_valid)} particles, step "
+          f"{int(state.step)}, x jittered by up to 0.1 spacing; both filter "
+          f"variants), max|diff|/max|ref| per field: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in k3sf_err.items())
+          + f"; phi, nw, dS and ddx exactly 0; max|diff| {k3sf_abs!r}")
+    drifted, across = _seam_drift(torch, state, geom, seed=9)
+    for label, st in (("run", state), ("seam drift", drifted)):
+        what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
+                                 st, geom, _rebin_drop(spec),
+                                 f"K7 large cap vortex N={nt} {label}")
+        k7l_what.append(f"vortex N={nt} cap {geom.cap} {label}: {what}"
+                        + (f", across {across}" if st is drifted else ""))
+        k7l_abs = max(k7l_abs, err)
+    del state, jittered, drifted, ref, got
+    # the beam's main-size grid
+    state, params, spec, _ = fsi.build_spanwise(FSI3D_NX[1], device=dev)
+    state = setup(state, params, spec, dt=1e-8)
+    geom = spec.geom
+    drifted, across = _seam_drift(torch, state, geom, seed=10)
+    what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
+                             drifted, geom, _rebin_drop(spec),
+                             f"K7 large cap fsi3d nx={FSI3D_NX[1]}")
+    k7l_what.append(f"3D FSI beam nx={FSI3D_NX[1]} cap {geom.cap} seam drift: "
+                    f"{what}, across {across}")
+    k7l_abs = max(k7l_abs, err)
+    print(f"[K7 large cap] 3D rebin move kernel past cap 64 == plain walk == "
+          f"sort rebin, bitwise: " + "; ".join(k7l_what))
+    del state, drifted
 
     # -- K2 solid-free and K6 edges: the load-balance path's kernels --------
     sb = BLOB_S[1]
@@ -2122,6 +2403,153 @@ def main() -> int:
           f"package's own runs: {detail} (bands {SPAN_JAX_STEP200})")
     del state
 
+    # the 3D FSI beam at the reference's nx (170,632 particles), released
+    # half way; every rebin through K7 (its launches are the chunks)
+    nf = FSI3D_NX[1]
+    state, spec, n0, secs, f3_launches, vmax, checks = run_main(
+        lambda: fsi.build_spanwise(nf, tdamp_solid=FSI_RELEASE["main"],
+                                   device=dev), 1e-8,
+        ("pass_a_3d", "rebin_move_3d"), MAIN_STEPS["fsi3d"])
+    built = run_main.built[0]
+    start = S.gather_particles(built, spec.geom, ("x", "solid_tag", "fixed_tag"))
+    end = S.gather_particles(state, spec.geom, ("x", "v", "rho", "S"))
+    beam = (start["solid_tag"] == 1) & (start["fixed_tag"] == 0)
+    fluid = start["solid_tag"] == 0
+    disp = np.sqrt(((end["x"] - start["x"]) ** 2).sum(1))
+    tip = np.argmax(np.where(beam, start["x"][:, 1], -np.inf))
+    got = {"max|v|": vmax,
+           "fluid max|rho/1000-1|": float(np.abs(end["rho"][fluid] / 1000.0 - 1.0).max()),
+           "fluid mean rho": float(end["rho"][fluid].astype(np.float64).mean()),
+           "beam max|v|": float(np.sqrt((end["v"][beam] ** 2).sum(1)).max()),
+           "beam max|S|": float(np.abs(end["S"][beam]).max()),
+           "beam max displacement": float(disp[beam].max()),
+           "tip displacement": float(disp[tip])}
+    checks.update({
+        f"{FSI3D_PARTICLES[nf]} particles": n0 == FSI3D_PARTICLES[nf],
+        "tags kept": bool((start["tag"] == end["tag"]).all()),
+        "the beam moves and strains (released at step 500)":
+            got["beam max|v|"] > 0 and got["beam max|S|"] > 0,
+        "max|v| <= 1 (30 x the inlet's 0.0333)": vmax <= 1.0,
+    })
+    detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
+    require(checks, "3D FSI main path", detail)
+    print(f"[main fsi3d] spanwise 3D FSI beam nx={nf} build_spanwise+setup+"
+          f"simulate({MAIN_STEPS['fsi3d']}), beam released at "
+          f"{FSI_RELEASE['main']}, in {secs[1]!r} s (build {secs[0]!r} s): "
+          f"{n0} particles, {spec.geom.ncells} cells, cap {spec.geom.cap}, "
+          f"periodic {spec.geom.periodic}, overflow 0, {detail}, launches "
+          f"{f3_launches} [{card}]")
+    del state, built, start, end
+
+    # the Taylor-Green vortex at 1,000,000 particles
+    nt = TGV_N[1]
+    dt_t = taylor_green3d.timestep(nt)
+    tg_trace = []
+
+    def tg_callback(params, spec):
+        def callback(state):
+            """max|v| and max|vest| over the valid particles."""
+            v, e = state.v[:, state.valid], state.vest[:, state.valid]
+            tg_trace.append((int(state.step),
+                             float(torch.sqrt((v * v).sum(0)).max()),
+                             float(torch.sqrt((e * e).sum(0)).max())))
+        return callback
+
+    state, spec, n0, secs, tg_launches, vmax, checks = run_main(
+        lambda: taylor_green3d.build(nt, device=dev), dt_t,
+        ("pass_a_3d", "rebin_move_3d"), MAIN_STEPS["tgv"], tg_callback,
+        callback_every=TGV_TRACE)
+    params = run_main.built[1]
+    e0 = taylor_green3d.kinetic_energy(run_main.built[0], params)
+    t_end = MAIN_STEPS["tgv"] * dt_t
+    # the early viscous decay with nu = U0 / Re = 0.01: each mode has |k|^2
+    # = 3; the JAX package's N=20 run to the same t dissipates more
+    decay = math.exp(-6 * 0.01 * t_end)
+    ratio = taylor_green3d.kinetic_energy(state, params) / e0
+    rho_mean = float(state.rho[state.valid].double().mean())
+    lo = 0.98 * TGV_JAX_STEP200["E/E0"][0]
+    # the density varies by O(Mach^2) = 1e-2 at c0 = 10 U0; its mean is
+    # not conserved by the continuity equation and the Shepard filter
+    checks.update({
+        f"{TGV_PARTICLES[nt]} particles": n0 == TGV_PARTICLES[nt],
+        f"E/E0 in [{lo!r}, 1.01 x exp(-6 nu t)]": lo <= ratio <= 1.01 * decay,
+        "|mean rho - 1| <= 1e-2": abs(rho_mean - 1.0) <= 1e-2,
+    })
+    detail = (f"t {t_end!r}, E/E0 {ratio!r} vs exp(-6 nu t) {decay!r} (the "
+              f"JAX package's N={TGV_JAX_N}: {TGV_JAX_STEP200['E/E0'][0]!r}), "
+              f"max|v| {vmax!r}, mean rho {rho_mean!r}, max|rho-1| "
+              f"{float((state.rho[state.valid] - 1.0).abs().max())!r}; (step, "
+              f"max|v|, max|vest|) every {TGV_TRACE} steps {tg_trace}")
+    require(checks, "Taylor-Green main path", detail)
+    # K3 and K7 against their plain versions on the step-1000 state (K3's
+    # with x jittered by up to 0.1 spacing, as in [K3 solid-free]: the flow
+    # carries whole lattice patches, and on them ddv's cancellation is past
+    # f32, 1.7e-5 of max|ddv| on this state unjittered)
+    k3n_err, k3n_abs, _ = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_3d,
+        _jitter(torch, state, taylor_green3d.L / nt, seed=11), params,
+        spec.geom, spec.pair, k2_names, f"K3 solid-free N={nt}")
+    k3sf_abs = max(k3sf_abs, k3n_abs)
+    what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
+                             state, spec.geom, _rebin_drop(spec),
+                             f"K7 large cap vortex N={nt}")
+    k7l_abs = max(k7l_abs, err)
+    detail += (f"; on the step-{MAIN_STEPS['tgv']} state jittered K3 == plain "
+               f"(max|diff|/max|ref| per field: "
+               + ", ".join(f"{k} {v:.3g}" for k, v in k3n_err.items())
+               + f") and K7 == plain walk == sort rebin, bitwise ({what})")
+    print(f"[main tgv3d] Taylor-Green vortex N={nt} build+setup+simulate("
+          f"{MAIN_STEPS['tgv']}) at dt {dt_t!r} in {secs[1]!r} s (build "
+          f"{secs[0]!r} s): {n0} particles, {spec.geom.ncells} cells, cap "
+          f"{spec.geom.cap}, no solids, overflow 0, {detail}, launches "
+          f"{tg_launches} [{card}]")
+    del state
+
+    # both 3D paths at small sizes against the JAX package's own runs
+    state, params, spec, _ = fsi.build_spanwise(
+        FSI3D_JAX_NX, tdamp_solid=FSI3D_JAX_RELEASE, rebin_every=FSI3D_JAX_REBIN,
+        device=dev)
+    state = simulate(setup(state, params, spec, dt=1e-8), params, spec,
+                     FSI3D_JAX_STEPS)
+    valid = state.valid
+    solid = state.solid_tag == 1
+    fluid = valid & ~solid
+    beam = valid & solid & (state.fixed_tag == 0)
+    speed_f = torch.sqrt((state.v * state.v).sum(0))
+    got = {"max|v|": float(speed_f[valid].max()),
+           "fluid max|rho/1000-1|": float((state.rho[fluid] / 1000.0 - 1.0)
+                                          .abs().max()),
+           "fluid mean rho": float(state.rho[fluid].double().mean()),
+           "beam max|v|": float(speed_f[beam].max()),
+           "beam max|S|": float(state.S.abs().amax(dim=(0, 1))[beam].max())}
+    checks = {f"{name} in [{lo}, {hi}] x JAX's {ref}": lo * ref <= got[name] <= hi * ref
+              for name, (ref, lo, hi) in FSI3D_JAX_STEP20.items()}
+    checks["overflow 0"] = int(state.overflow) == 0
+    detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
+    require(checks, f"3D FSI nx={FSI3D_JAX_NX} vs JAX", detail)
+    print(f"[main fsi3d vs JAX] spanwise 3D FSI beam nx={FSI3D_JAX_NX}, "
+          f"{FSI3D_JAX_STEPS} steps (released at {FSI3D_JAX_RELEASE}, rebin "
+          f"every {FSI3D_JAX_REBIN}) on the card vs the JAX package's own run: "
+          f"{detail} (bands {FSI3D_JAX_STEP20})")
+    nt = TGV_JAX_N
+    state, params, spec, _ = taylor_green3d.build(nt, device=dev)
+    e0 = taylor_green3d.kinetic_energy(state, params)
+    state = simulate(setup(state, params, spec, dt=taylor_green3d.timestep(nt)),
+                     params, spec, TGV_JAX_STEPS)
+    speed_t = torch.sqrt((state.v * state.v).sum(0))
+    got = {"E/E0": taylor_green3d.kinetic_energy(state, params) / e0,
+           "max|v|": float(speed_t[state.valid].max()),
+           "mean rho": float(state.rho[state.valid].double().mean())}
+    checks = {f"{name} in [{lo}, {hi}] x JAX's {ref}": lo * ref <= got[name] <= hi * ref
+              for name, (ref, lo, hi) in TGV_JAX_STEP200.items()}
+    checks["overflow 0"] = int(state.overflow) == 0
+    detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
+    require(checks, f"Taylor-Green N={nt} vs JAX", detail)
+    print(f"[main tgv3d vs JAX] Taylor-Green vortex N={nt}, {TGV_JAX_STEPS} "
+          f"steps on the card vs the JAX package's own run: {detail} (bands "
+          f"{TGV_JAX_STEP200})")
+    del state
+
     # in-run load balancing: the s=20 drifting blob, balanced at build and
     # re-cut in the run, then the same blob on the uniform grid
     sb, steps = BLOB_S[1], MAIN_STEPS["blob"]
@@ -2248,13 +2676,15 @@ def main() -> int:
                 ("x", "v", "rho"))
 
     # -- 10. speed ----------------------------------------------------------
-    def speed(label, path, size, state, params, spec, pass_a, move):
+    def speed(label, path, size, state, params, spec, pass_a, move,
+              plain=True):
         """Steady-state particle-steps/s of ``simulate`` (with its re-cuts
         when ``spec.balance`` is set), then per call, on the geometry the run
-        ended on: pass A and the move beside their plain versions, the rebin
-        with the kernel beside the sort rebin, the bounds, and with
-        ``spec.balance`` the re-cut: the host time of a ``rebalance`` forced
-        to cut and the sort rebin into its geometry."""
+        ended on: pass A and the move beside their plain versions (pass A's
+        only with ``plain``), the rebin with the kernel beside the sort
+        rebin, the bounds, and with ``spec.balance`` the re-cut: the host
+        time of a ``rebalance`` forced to cut and the sort rebin into its
+        geometry."""
         steps, iters = SPEED_STEPS[path][size]
         n = int(state.n_valid)
         every = spec.balance.every if spec.balance is not None else None
@@ -2269,7 +2699,7 @@ def main() -> int:
         cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
         drop = _rebin_drop(spec)
         t = _move_timing(torch, S, rebin_cuda, move, state, geom, drop, iters)
-        t.update(pass_a_timing(pass_a, state, params, geom, cfg, iters))
+        t.update(pass_a_timing(pass_a, state, params, geom, cfg, iters, plain))
         t.update({
             "rebin_kernel": _per_call_ms(
                 torch, lambda: S.rebin(state, geom, drop=drop, use_kernel=True),
@@ -2408,6 +2838,24 @@ def main() -> int:
                           state, params, spec, pair_cuda.pass_a_3d,
                           rebin_cuda.rebin_move_3d)
         del state
+    # the 3D FSI beam (frozen, as the model keeps it until step 1e6) and the
+    # Taylor-Green vortex; at nx=60 (cap 296) the plain pass A's [cap, cap,
+    # NC] temporaries, ~10 GB a 3 x 3 tensor, are not timed
+    t_fsi3d = {}
+    for nx in FSI3D_NX:
+        state, params, spec, _ = fsi.build_spanwise(nx, device=dev)
+        state = setup(state, params, spec, dt=1e-8)
+        t_fsi3d[nx] = speed(f"3D FSI beam nx={nx}", "fsi3d", nx, state, params,
+                            spec, pair_cuda.pass_a_3d, rebin_cuda.rebin_move_3d,
+                            plain=nx == FSI3D_NX[0])
+        del state
+    t_tgv = {}
+    for N in TGV_N:
+        state, params, spec, _ = taylor_green3d.build(N, device=dev)
+        state = setup(state, params, spec, dt=taylor_green3d.timestep(N))
+        t_tgv[N] = speed(f"Taylor-Green vortex N={N}", "tgv", N, state, params,
+                         spec, pair_cuda.pass_a_3d, rebin_cuda.rebin_move_3d)
+        del state
     t_blob = {}
     for sb in BLOB_S:
         for bal in (True, False):
@@ -2452,13 +2900,13 @@ def main() -> int:
     sb = BLOB_S[1]
     targets = [(f"lid_cavity3d N={N}",
                 lambda N=N: lid_cavity3d.build(N=N, device=dev), 1e-4,
-                (("K3", "pass_a_3d_kernel"), ("K7", "rebin_move_3d_kernel")))
+                (("K3", "pass_a_3d_"), ("K7", "rebin_move_3d_kernel")))
                for N in CAVITY3D_N]
     # the spanwise-periodic cavity beside the walled one at the same sizes:
     # K3 and K7 with and without a periodic axis
     targets += [(f"spanwise-periodic cavity N={N}",
                  lambda N=N: lid_cavity3d.build_spanwise(N, device=dev), 1e-4,
-                 (("K3 periodic", "pass_a_3d_kernel"),
+                 (("K3 periodic", "pass_a_3d_"),
                   ("K7 periodic", "rebin_move_3d_kernel")))
                 for N in SPAN_N]
     # the cavity beside the convection on the same grids: K1 without and
@@ -2479,6 +2927,19 @@ def main() -> int:
                      N=N, dt=CONV_DT[N], device=dev)), CONV_DT[N],
                  (("K1 species/thermal", "pass_a_2d_kernel"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
+    # the 3D FSI beam at nx=60 (released at once, so K3's elastic terms run
+    # on a moving beam) and the vortex at N=100: K3's elastic and solid-free
+    # instantiations and K7 past cap 64
+    targets += [(f"3D FSI beam nx={FSI3D_NX[1]}",
+                 lambda: fsi.build_spanwise(FSI3D_NX[1], tdamp_solid=0,
+                                            rebin_every=20, device=dev), 1e-8,
+                 (("K3 mechanics/elastic", "pass_a_3d_"),
+                  ("K7 large cap", "rebin_move_3d_kernel"))),
+                (f"Taylor-Green vortex N={TGV_N[1]}",
+                 lambda: taylor_green3d.build(TGV_N[1], device=dev),
+                 taylor_green3d.timestep(TGV_N[1]),
+                 (("K3 solid-free", "pass_a_3d_"),
+                  ("K7 large cap", "rebin_move_3d_kernel")))]
     # cell polarization, rebinning every 20 steps so that a profiled chunk
     # stays short
     targets += [(f"cell polarization nx={nx}",
@@ -2499,7 +2960,7 @@ def main() -> int:
                 (f"lid_cavity3d N={CAVITY3D_N[0]} with thermal=True",
                  lambda: _with_noise(lid_cavity3d.build(N=CAVITY3D_N[0],
                                                         device=dev)), 1e-4,
-                 (("K3 thermal", "pass_a_3d_kernel"),
+                 (("K3 thermal", "pass_a_3d_"),
                   ("K7", "rebin_move_3d_kernel")))]
     # the blob, balanced and uniform, over two chunks without a re-cut (a
     # chunk of 5 steps is too short to show the pass-A mix)
@@ -2607,6 +3068,22 @@ def main() -> int:
         ("rebin_move_3d (periodic)", "csrc/rebin_move_3d.cu",
          "core/rebin_pallas.py:584", span_launches["rebin_move_3d"], k7p_abs,
          t_span[SPAN_N[1]], "move"),
+        # K3's mechanics, fsi and solid-free paths: the launches of the 3D
+        # FSI beam's main path (nx=60) with the timing at nx=30, where the
+        # plain pass A fits (nx=60's kernel time is in its [speed] line), of
+        # the fsi style's 10-step seeded run at nx=30, and of the vortex's
+        # main path (N=100); K7 past cap 64 on the beam's main path (cap 296)
+        ("pass_a_3d (mechanics/elastic)", "csrc/pass_a_3d.cu",
+         "ops/pair_pallas.py:1106", f3_launches["pass_a_3d"], k3m_abs,
+         t_fsi3d[FSI3D_NX[0]], "pass_a"),
+        ("pass_a_3d (fsi)", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106",
+         k3f_launches, k3f_abs, t_k3f, "pass_a"),
+        ("pass_a_3d (solid-free)", "csrc/pass_a_3d.cu",
+         "ops/pair_pallas.py:1106", tg_launches["pass_a_3d"], k3sf_abs,
+         t_tgv[TGV_N[1]], "pass_a"),
+        ("rebin_move_3d (large cap)", "csrc/rebin_move_3d.cu",
+         "core/rebin_pallas.py:441", f3_launches["rebin_move_3d"], k7l_abs,
+         t_fsi3d[FSI3D_NX[1]], "move"),
     )
     # no single PyTorch call computes pass A or the locality move
     kernels = [

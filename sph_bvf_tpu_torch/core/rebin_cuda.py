@@ -4,8 +4,8 @@
 
 Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the 2D static branch
 (cap <= 16, no periodic axis), K6 for the 2D gated branch (16 < cap <= 64,
-walls or periodic axes, x and y alike), K7 for the 3D tiled kernel (cap <=
-64, walls or periodic axes, x, y and z alike); each with uniform or
+walls or periodic axes, x and y alike), K7 for the 3D tiled kernel (any
+cap, walls or periodic axes, x, y and z alike); each with uniform or
 non-uniform x columns (``Geometry.x_edges``, the load-balance lever; in 3D
 only without a periodic axis).  Between rebins a particle moves at most one
 cell (the drift contract ``core/state.rebin`` checks), so the particles that
@@ -38,24 +38,24 @@ from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
 MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
 GATED_MAX_CAP = 64  # kMaxCap in csrc/rebin_move_2d_gated.cu (K6)
-MAX_CAP_3D = 64  # kMaxCap in csrc/rebin_move_3d.cu (K7)
 
 
 def move_unsupported(geom: Geometry, kernel) -> list:
     """What keeps the move wrapper ``kernel`` from serving this grid.
 
-    K7 takes a 3D grid of cap <= 64 with walls or periodic axes (x, y, z
-    alike); K5 a 2D grid of cap <= 16 without a periodic axis; K6 a 2D grid
-    of 16 < cap <= 64 with walls or periodic axes (x, y or both).  A
+    K7 takes a 3D grid of any cap (its slot list is a scratch in global
+    memory) with walls or periodic axes (x, y, z alike); K5 a 2D grid of cap
+    <= 16 without a periodic axis; K6 a 2D grid of 16 < cap <= 64 with walls
+    or periodic axes (x, y or both).  A
     periodic axis needs at least 3 cells (with 2, the same source cell would
     sit in a target's window twice).  Non-uniform x columns (``x_edges``)
     route by the same rules, except that K7 takes them only without a
     periodic axis."""
     is3d = kernel is rebin_move_3d
-    limit = {rebin_move_2d: MAX_CAP, rebin_move_2d_gated: GATED_MAX_CAP,
-             rebin_move_3d: MAX_CAP_3D}[kernel]
+    limit = {rebin_move_2d: MAX_CAP, rebin_move_2d_gated: GATED_MAX_CAP}.get(kernel)
     checks = [("a 2D grid" if is3d else "a 3D grid", grid_3d(geom) != is3d),
-              (f"cap {geom.cap} above {limit}", geom.cap > limit)]
+              (f"cap {geom.cap} above {limit}",
+               limit is not None and geom.cap > limit)]
     if kernel is rebin_move_2d:
         checks.append(("a periodic axis", periodic_multicell(geom)))
     else:
@@ -247,16 +247,19 @@ def _column_bounds(geom: Geometry, device):
 
 
 def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
-            xr: int, naxes: int, extra=()):
+            xr: int, naxes: int, extra=(), scratch: bool = False):
     """Launch ``wrapper``'s kernel (``csrc/<its name>.cu``) on the packs.
 
     Every move kernel's C entry point takes the four packs, their row
     counts and cap, the cell counts of the first ``naxes`` axes, the x row,
     those axes' f32 binning constants, then ``extra`` (``(ctypes type,
-    value)`` pairs), the x columns' fine-bin bounds (``_column_bounds``)
-    and the stream.  Returns (outF, outI) of the input shapes."""
+    value)`` pairs), the x columns' fine-bin bounds (``_column_bounds``),
+    with ``scratch`` an i32 [cap, NC] scratch (K7's slot list), and the
+    stream.  Returns (outF, outI) of the input shapes."""
     _check_packs(PF, PI, geom, wrapper)
     outf, outi = torch.empty_like(PF), torch.empty_like(PI)
+    lists = (torch.empty(PI.shape[1:], dtype=torch.int32, device=PI.device)
+             if scratch else None)
     xb, inv_q, n_fine = _column_bounds(geom, PF.device)
     name = wrapper.__name__
     lib = _build.load(name)
@@ -264,12 +267,13 @@ def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + naxes)
                    + [ctypes.c_float] * (2 * naxes) + [t for t, _ in extra]
-                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_void_p] * (2 if scratch else 1))
     code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
               PF.shape[0], PI.shape[0], geom.cap, *geom.ncells[:naxes], xr,
               *_bin_constants(geom, naxes), *(v for _, v in extra),
               None if xb is None else xb.data_ptr(), inv_q, n_fine,
+              *((lists.data_ptr(),) if scratch else ()),
               _build.current_stream(PF.device))
     _build.check(lib, code, name)
     wrapper.launches += 1
@@ -312,7 +316,7 @@ def rebin_move_3d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     if not PF.is_cuda:
         return rebin_move_plain(PF, PI, geom, xr)
     return _launch(rebin_move_3d, PF, PI, geom, xr, 3,
-                   ((ctypes.c_int, wrap_bits(geom)),))
+                   ((ctypes.c_int, wrap_bits(geom)),), scratch=True)
 
 
 rebin_move_3d.launches = 0  # K7 launches in this process

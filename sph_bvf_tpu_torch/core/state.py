@@ -423,7 +423,16 @@ def _flat_slots(a):
 
 
 def _drift_count(fields, geom: Geometry):
-    """Valid particles farther than drift_budget outside their assigned cell."""
+    """Valid particles farther than drift_budget outside their assigned cell.
+
+    On a periodic axis of more than one cell the position's image nearest
+    its cell is measured.  ``wrap_pbc`` can return hi itself (a position a
+    hair below lo, plus the f32 extent, rounds to hi), which
+    ``cell_index_of`` bins into cell 0: the particle sits at cell 0's lower
+    face, one period away, and pairs see it there (the minimum image).  The
+    JAX package's count measures the raw position and counts it as a drift
+    past the whole box (``sph_bvf_tpu/core/state.py`` ``rebin``); any other
+    position has the same count in both."""
     NC = geom.ncells_total
     x = fields["x"]  # [3, cap, NC]
     cell_ids = torch.arange(NC, dtype=torch.int32, device=x.device)
@@ -436,8 +445,13 @@ def _drift_count(fields, geom: Geometry):
         else:
             ax_lo = geom.lo[ax] + coord.to(x.dtype) * geom.cell_size[ax]
             ax_hi = ax_lo + geom.cell_size[ax]
-        below = ax_lo[None, :] - x[ax]
-        above = x[ax] - ax_hi[None, :]
+        xa = x[ax]
+        if geom.periodic[ax] and geom.ncells[ax] > 1:
+            span = geom.hi[ax] - geom.lo[ax]
+            centre = 0.5 * (ax_lo + ax_hi)
+            xa = xa - span * torch.round((xa - centre[None, :]) / span)
+        below = ax_lo[None, :] - xa
+        above = xa - ax_hi[None, :]
         excess = torch.maximum(excess, torch.maximum(below, above))
     bad = fields["valid"] & (excess > geom.drift_budget)
     return torch.sum(bad.to(torch.int32))
@@ -492,9 +506,12 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
         if state.x.is_cuda:
             from sph_bvf_tpu_torch.core.rebin_cuda import move_refusal
 
+            # what is left: K5 on a periodic axis, K6 past cap 64, K7 on
+            # x_edges with a periodic axis, a periodic axis of 2 cells
             raise NotImplementedError(
                 f"rebin move for this grid (dim={geom.dim}, cap={geom.cap}, "
-                f"ncells={geom.ncells}, periodic={geom.periodic}) is ported "
+                f"ncells={geom.ncells}, periodic={geom.periodic}, x_edges "
+                f"{'set' if geom.x_edges is not None else 'unset'}) is ported "
                 f"in a later PR: {move_refusal(geom)}"
             )
 

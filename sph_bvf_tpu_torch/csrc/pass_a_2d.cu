@@ -3,7 +3,7 @@
 // Replaces sph_bvf_tpu/ops/pair_pallas.py `_call_padded`, grouped branch (the
 // TPU kernel that carries the flagship lid-driven cavity).  For every valid
 // slot i it sums ops/pair.py `_pass_a_offset` over the valid j of the 3x3
-// stencil cells, j != i, for the configuration the port supports: the
+// stencil cells, j != i, for the configuration K1 serves: the
 // transport-velocity pressure switch, fixed BVF wall solids, the diagonal
 // artificial stress of non-elastic solids, with (FILTER) or without the
 // Shepard-filter accumulators rhoAux1/rhoAux2, with NS continuum species
@@ -24,8 +24,8 @@
 // matrix is coalesced; walls are bounds checks on cx+-1 and cy+-1 (no halo
 // buffer); a candidate outside the kernel support skips all arithmetic.
 //
-// The pair term, the packed rows and the accumulator rows are shared with
-// K3 (csrc/pass_a_tv.cuh).  Flat cell c = cx * ny + cy; the grid has one
+// The pair term, the packed rows and the accumulator rows are
+// csrc/pass_a_tv.cuh's.  Flat cell c = cx * ny + cy; the grid has one
 // cell along z.
 
 #include <cuda_runtime.h>

@@ -1,17 +1,18 @@
-// The transport-velocity pass-A pair term shared by K1 (csrc/pass_a_2d.cu) and
-// K3 (csrc/pass_a_3d.cu): the packed-row layout, the i-side values a thread
-// loads once, and the accumulation of one (i, j) pair.  Its species flux
-// (`add_species_flux`, the species table and kMaxSpecies), its minimum
-// image (`min_image`) and its cell wrap (`wrap_cell`) also serve K2
-// (csrc/pass_a_2d_rowloop.cu).
+// The transport-velocity pass-A pair term of K1 (csrc/pass_a_2d.cu): the
+// packed-row layout, the i-side values a thread loads once, and the
+// accumulation of one (i, j) pair.  Its species flux (`add_species_flux`,
+// the species table and kMaxSpecies), its thermal noise (`Noise`,
+// `load_noise`, `add_thermal`), its minimum image (`min_image`, `Wrap`) and
+// its cell wrap (`wrap_cell`) also serve the pair body K2 and K3 share
+// (csrc/pass_a_mech.cuh).
 //
 // It is ops/pair.py `_pass_a_offset` for one pair under the configuration
-// both kernels serve: the transport-velocity pressure switch, fixed BVF wall
-// solids, the diagonal artificial stress of non-elastic solids, periodic
-// axes (K3 only: the minimum image of the pair offset), with (FILTER)
-// or without the Shepard-filter accumulators rhoAux1/rhoAux2, with NS
-// continuum species (the tSDPD flux Q of the concentrations C), and with
-// (THERMAL) or without the SDPD thermal noise.  A candidate
+// K1 serves: the transport-velocity pressure switch, fixed BVF wall
+// solids, the diagonal artificial stress of non-elastic solids, with
+// (FILTER) or without the Shepard-filter accumulators rhoAux1/rhoAux2, with
+// NS continuum species (the tSDPD flux Q of the concentrations C), and with
+// (THERMAL) or without the SDPD thermal noise; `add_pair` also takes the
+// minimum image on periodic axes (K1 passes none).  A candidate
 // outside the kernel support h skips the mechanics arithmetic, which changes
 // no sum because every term carries a factor W or dW/dr that is exactly zero
 // there.  The species flux has its own support cutc (a separate per-pair
@@ -144,8 +145,12 @@ __device__ __forceinline__ void add_thermal(const Noise& noise, int tag_i, int t
 // The minimum image of the offset d along a periodic axis of extent l:
 // d - l rint(d / l), as ops/pair.py `_pair_delta` computes it.  Unfused
 // (an FMA would round once where the plain path rounds twice), and rintf
-// rounds half to even, as torch.round does.  K2 and K3 share it.
+// rounds half to even, as torch.round does.  An offset with |d| <= l / 2
+// is its own image (d / l rounds to at most 1/2 in magnitude, which rintf
+// takes to 0), so only the pairs across the seam pay for the division.
+// K2 and K3 share it.
 __device__ __forceinline__ float min_image(float d, float l) {
+  if (fabsf(d) <= 0.5f * l) return d;
   return __fsub_rn(d, __fmul_rn(l, rintf(__fdiv_rn(d, l))));
 }
 

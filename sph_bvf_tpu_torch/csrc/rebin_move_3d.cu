@@ -1,4 +1,4 @@
-// K7 — 3D locality rebin move (cap <= 64; walls or periodic axes), one thread
+// K7 — 3D locality rebin move (any cap; walls or periodic axes), one thread
 // per target cell, walking source slots only up to the window's occupancy.
 //
 // Replaces sph_bvf_tpu/core/rebin_pallas.py `_move_call_tiled3d` (the TPU
@@ -27,9 +27,13 @@
 // cell's valid slots to 0..occ-1, so the window's occupancy is the first slot
 // at which all 27 source cells are empty — the walk stops there, exactly (the
 // GPU form of the TPU kernel's trip count, with no prepass).  Phase 1 records
-// the source slot of each output slot in a cap-long list; phase 2 copies row by
-// row, output slot by output slot, so neighbouring threads write neighbouring
-// addresses.
+// the source slot of each output slot in a list; phase 2 copies row by row,
+// output slot by output slot, so neighbouring threads write neighbouring
+// addresses.  The list is a caller-provided i32 [cap, NC] scratch in global
+// memory (entry (s, c) at s * NC + c, so neighbouring threads' entries are
+// neighbours too), not a thread-local array, whose size would be fixed at
+// compile time: the TPU kernel has no cap limit but VMEM, and the 3D FSI
+// beam's finer lattice needs cap 119-296.
 //
 // Non-uniform x columns (Geometry.x_edges, load balancing; replaces the TPU
 // kernel's `edges` variant, rebin_pallas.py:487-492, 595-600, 641, whose
@@ -59,7 +63,6 @@
 
 namespace {
 
-constexpr int kMaxCap = 64;
 constexpr int kThreads = 128;
 
 __device__ __forceinline__ int bin(float x, float lo, float inv, int n,
@@ -92,7 +95,7 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
     int nx, int ny, int nz, int xr, float lo0, float lo1, float lo2,
     float inv0, float inv1, float inv2, int wrap, const int* __restrict__ xb,
-    float inv_q, int n_fine) {
+    float inv_q, int n_fine, int* __restrict__ list) {
   const int nc = nx * ny * nz;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
@@ -137,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
     }
   }
 
-  int list[kMaxCap];
+  // list[r * nc + c]: the source slot of output slot r of this cell
   int n = 0;
   for (int s = 0; s < cap; ++s) {
     bool occupied = false;
@@ -151,35 +154,39 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
           !in_column(__ldg(px + k), cx, nx, lo0, inv0, wx, xb, xb0, xb1, inv_q,
                      n_fine))
         continue;
-      if (n < cap) list[n] = k;
+      if (n < cap) list[(long long)n * nc + c] = k;
       ++n;
     }
     // compacted slots: an all-empty slot row ends every source cell
     if (!occupied) break;
   }
   const int kept = n < cap ? n : cap;
+  const int* lc = list + c;
   for (int r = 0; r < ff; ++r) {
     const float* in = pf + (long long)r * m;
     float* o = outf + (long long)r * m + c;
-    for (int s = 0; s < cap; ++s) o[(long long)s * nc] = s < kept ? __ldg(in + list[s]) : 0.f;
+    for (int s = 0; s < cap; ++s)
+      o[(long long)s * nc] = s < kept ? __ldg(in + lc[(long long)s * nc]) : 0.f;
   }
   for (int r = 0; r < fi; ++r) {
     const int* in = pi + (long long)r * m;
     int* o = outi + (long long)r * m + c;
-    for (int s = 0; s < cap; ++s) o[(long long)s * nc] = s < kept ? __ldg(in + list[s]) : 0;
+    for (int s = 0; s < cap; ++s)
+      o[(long long)s * nc] = s < kept ? __ldg(in + lc[(long long)s * nc]) : 0;
   }
 }
 
 }  // namespace
 
-// wrap: bit a set when axis a is periodic with more than one cell
+// wrap: bit a set when axis a is periodic with more than one cell; list:
+// i32 scratch of cap * nx * ny * nz entries (its contents are not read
+// before this call writes them)
 extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int nz, int xr, float lo0, float lo1, float lo2,
                              float inv0, float inv1, float inv2, int wrap,
-                             const int* xb, float inv_q, int n_fine,
+                             const int* xb, float inv_q, int n_fine, int* list,
                              cudaStream_t stream) {
-  if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
   if (((wrap & 1) && nx < 3) || ((wrap & 2) && ny < 3) || ((wrap & 4) && nz < 3) ||
       (wrap && xb != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -188,7 +195,7 @@ extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
   const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
   rebin_move_3d_kernel<<<blocks, kThreads, 0, stream>>>(
       pf, pi, outf, outi, ff, fi, cap, nx, ny, nz, xr, lo0, lo1, lo2, inv0,
-      inv1, inv2, wrap, xb, inv_q, n_fine);
+      inv1, inv2, wrap, xb, inv_q, n_fine, list);
   return (int)cudaGetLastError();
 }
 

@@ -6,10 +6,16 @@ rowloop kernel and K3 (``csrc/pass_a_3d.cu``) its tiled 3D kernel.
 ``pass_a`` makes JAX's shape choice (``pair_pallas._pass_a_tiled3d`` for
 every 3D grid, ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3;
 2D grids with a mixed lattice (``base_occ == 0``) or a crowded cell
-(``cap > 24``) go to K2, the rest to K1.  K2 and K3 take periodic axes
-(K3 on x, y and z), K1 none.  All three also carry the
-continuum species (the C rows in, a species table, the flux Q out) for up
-to ``MAX_SPECIES`` of them, and the SDPD thermal noise (``thermal``: the e
+(``cap > 24``) go to K2, the rest to K1.  K2 and K3 share one pair body
+(``csrc/pass_a_mech.cuh``), one pack and one launcher (``_mech_launch``):
+every pair style (transport-velocity, mechanics, fsi), XSPH, fixed, free
+and elastic solids, solid-free scenes and periodic axes (K3 on x, y and z).
+K1 serves the transport-velocity pair with fixed walls and no periodic
+axis (``csrc/pass_a_tv.cuh``); K3 runs that leaner pair too, on walls or
+periodic axes, for the configurations it serves (``tv_lacks`` empty: the
+3D cavities).  All three also carry the continuum species
+(the C rows in, a species table, the flux Q out) for up to
+``MAX_SPECIES`` of them, and the SDPD thermal noise (``thermal``: the e
 and tag rows in, the random force summed into f; dt, step and the PRNG key
 read in the kernel from the state's device tensors).  On a CUDA tensor
 each wrapper launches its kernel; the plain PyTorch loop
@@ -27,18 +33,17 @@ import torch
 
 from sph_bvf_tpu_torch import _build
 from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
-                                         periodic_multicell, wrap_bits, wrap_x,
-                                         wrap_y)
+                                         periodic_multicell, wrap_bits)
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
 from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
 
-# K1 and K3 packed field rows, in the order csrc/pass_a_tv.cuh reads them
-# (R_* there); rhoI is staged only when the Shepard-filter accumulators are
+# K1 packed field rows, in the order csrc/pass_a_tv.cuh reads them (R_*
+# there); rhoI is staged only when the Shepard-filter accumulators are
 # wanted, the Ns rows of C follow it, then THERMAL_ROWS under ``thermal``.
 PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
            "P_rho2", "m_rho", "V2", "ASd")
-# K1 and K3 accumulator rows (O_* there).
+# K1 accumulator rows (O_* there).
 ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
             ("phi", 1), ("nw", 3))
 FILTER_ACC_ROWS = (("rhoAux1", 1), ("rhoAux2", 1))
@@ -49,22 +54,22 @@ MAX_SPECIES = 4
 # as its int32 bits (``_pack``), so the kernels hash the plain path's words
 THERMAL_ROWS = ("e", "tag")
 
-# K2 packed field rows (R_* in csrc/pass_a_2d_rowloop.cu): these, then AS
+# K2 and K3 packed field rows (R_* in csrc/pass_a_mech.cuh): these, then AS
 # and S (elastic) or ASd, then rhoI (filter), then the Ns rows of C, then
-# THERMAL_ROWS (thermal).  G0 is
-# the per-particle row of ``pair._per_particle`` (softened by the first
-# species under ``g0_chem_coupling``).
-K2_PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
-              "P_rho2", "m_rho", "V2", "c0", "inv_rho", "G0")
-# K2 accumulator rows (O_* there): these, then dS (elastic), then the
+# THERMAL_ROWS (thermal).  G0 is the per-particle row of
+# ``pair._per_particle`` (softened by the first species under
+# ``g0_chem_coupling``).
+MECH_PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
+                "P_rho2", "m_rho", "V2", "c0", "inv_rho", "G0")
+# K2 and K3 accumulator rows (O_* there): these, then dS (elastic), then the
 # filter rows, then the Ns rows of Q.
-K2_ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
-               ("phi", 1), ("nw", 3), ("ddx", 3))
-# K2 runtime switches (F_* there); _F_NOSOLIDS: a solid-free scene (no
-# artificial-stress force, no BVF phi/nw); _F_G0PAIR: geff of a pair from
-# the G0 rows of i and j (``g0_chem_coupling``), not from the type table
-(_F_PSWITCH, _F_XSPH, _F_FREE, _F_WRAPX, _F_NOSOLIDS, _F_WRAPY,
- _F_G0PAIR) = 1, 2, 4, 8, 16, 32, 64
+MECH_ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1),
+                 ("de", 1), ("phi", 1), ("nw", 3), ("ddx", 3))
+# K2 and K3 runtime switches (F_* there); _F_NOSOLIDS: a solid-free scene
+# (no artificial-stress force, no BVF phi/nw); _F_G0PAIR: geff of a pair
+# from the G0 rows of i and j (``g0_chem_coupling``), not from the type
+# table.  The periodic axes travel as their own bits (``halo.wrap_bits``).
+_F_PSWITCH, _F_XSPH, _F_FREE, _F_NOSOLIDS, _F_G0PAIR = 1, 2, 4, 8, 16
 
 
 def uses_rowloop(geom: Geometry) -> bool:
@@ -85,35 +90,39 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
                        kernel=None, n_sdpd: int = 0) -> list:
     """What keeps the wrapper ``kernel`` (by default the one this grid
     routes to) from serving this geometry, configuration and count of
-    continuum species.  K2 and K3 take periodic axes of at least 3 cells
-    (with fewer, a stencil would reach one cell twice); K1 takes none.  K1
-    and K3 serve the transport-velocity pair with fixed walls only."""
+    continuum species.  K2 and K3 serve every pair configuration (the
+    shared body of ``csrc/pass_a_mech.cuh``) on periodic axes of at least 3
+    cells (with fewer, a stencil would reach one cell twice); K1 serves the
+    transport-velocity pair with fixed walls and no periodic axis."""
     kernel = kernel or route(geom)
     is3d = kernel is pass_a_3d
     checks = [
         ("a 2D grid" if is3d else "a 3D grid", grid_3d(geom) != is3d),
     ]
-    too_many = (f"more than {MAX_SPECIES} continuum species (n_sdpd = {n_sdpd})",
-                n_sdpd > MAX_SPECIES)
     if kernel is pass_a_2d:
         checks.append(("a periodic axis", periodic_multicell(geom)))
+        checks += [(what, True) for what in tv_lacks(cfg)]
     else:
         checks += [(f"a periodic {a} axis with fewer than 3 cells", True)
                    for a in narrow_wrap_axes(geom)]
-    if kernel is pass_a_2d_rowloop:
-        checks.append(too_many)
-    else:
-        checks += [
-            ("a solid-free scene (solids_present=False)", not cfg.solids_present),
-            ("XSPH (xsph)", cfg.xsph),
-            ("the symmetric pressure force (pressure_switch=False)",
-             not cfg.pressure_switch),
-            ("elastic solids (elastic_present)", cfg.elastic_present),
-            ("free solids (free_solids_present)", cfg.free_solids_present),
-            ("density diffusion (ampl_damp)", cfg.ampl_damp != 0.0),
-            too_many,
-        ]
+    checks.append((f"more than {MAX_SPECIES} continuum species (n_sdpd = {n_sdpd})",
+                   n_sdpd > MAX_SPECIES))
     return [what for what, bad in checks if bad]
+
+
+def tv_lacks(cfg) -> list:
+    """The pair physics of ``cfg`` that the transport-velocity pair of
+    ``csrc/pass_a_tv.cuh`` (K1's, and K3's leaner body) lacks; the full
+    body of ``csrc/pass_a_mech.cuh`` has it all."""
+    return [what for what, needed in (
+        ("a solid-free scene (solids_present=False)", not cfg.solids_present),
+        ("XSPH (xsph)", cfg.xsph),
+        ("the symmetric pressure force (pressure_switch=False)",
+         not cfg.pressure_switch),
+        ("elastic solids (elastic_present)", cfg.elastic_present),
+        ("free solids (free_solids_present)", cfg.free_solids_present),
+        ("density diffusion (ampl_damp)", cfg.ampl_damp != 0.0),
+    ) if needed]
 
 
 def _tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
@@ -140,10 +149,10 @@ def _species_tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
     return torch.stack([r.reshape(-1) for r in rows]).to(torch.float32).contiguous()
 
 
-def _k2_tables(params: Params, cfg, tabs: dict) -> torch.Tensor:
-    """[7, T*T] f32: K1's six rows, then the harmonic shear modulus geff (0
-    without elastic solids, and under ``g0_chem_coupling``, where the kernel
-    takes it from the G0 rows)."""
+def _mech_tables(params: Params, cfg, tabs: dict) -> torch.Tensor:
+    """[7, T*T] f32, K2's and K3's: K1's six rows, then the harmonic shear
+    modulus geff (0 without elastic solids, and under ``g0_chem_coupling``,
+    where the kernel takes it from the G0 rows)."""
     geff = tabs.get("geff", torch.zeros_like(tabs["h"]))
     return torch.cat([_tables(params, cfg, tabs),
                       geff.reshape(1, -1).to(torch.float32)]).contiguous()
@@ -222,27 +231,36 @@ def pass_a(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     return route(geom)(pf, params, geom, cfg, noise)
 
 
-def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
-               cfg, noise, extra=()) -> dict:
-    """Launch ``wrapper``'s kernel, K1 or K3 (``csrc/<its name>.cu``, the
-    transport-velocity pair of ``csrc/pass_a_tv.cuh``), over the grid
-    ``dims`` and unpack its rows.  With continuum species the C rows and the
-    species tables go in and the Q rows come out; with the thermal noise the
-    e and tag rows go in.  ``extra``: ``(ctypes type, value)`` pairs the C
-    entry point takes after the grid (K3: the periodic axes)."""
+def _finish(result: dict, out_device, cap: int, NC: int) -> dict:
+    """``result`` with zeros for every pass-A accumulator the kernel did not
+    write (Q without species, the filter rows, ddx and dS)."""
+    zeros = {"Q": (0,), "rhoAux1": (), "rhoAux2": (), "ddx": (3,), "dS": (3, 3)}
+    for name, lead in zeros.items():
+        if name not in result:
+            result[name] = torch.zeros(lead + (cap, NC), dtype=torch.float32,
+                                       device=out_device)
+    return result
+
+
+def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
+            noise, rows, table, accs, args) -> dict:
+    """Pack ``rows`` of ``pf``, launch ``wrapper``'s kernel (``csrc/<its
+    name>.cu``) over the grid ``dims`` and unpack the accumulators
+    ``accs``.  The C entry point takes the pack, the coefficient table
+    (``table(params, cfg, tabs)``), the species table, the output, the type
+    count, the species count, the advection switch, cap, ``dims``, then
+    ``args`` (``(ctypes type, value)`` pairs), the noise's arguments and the
+    stream."""
     _check_launch(pf, params, geom, cfg, wrapper, noise)
     name = wrapper.__name__
     cap, NC = pf["rho"].shape
-    filt = bool(cfg.density_filter_accs)
     ns = params.n_sdpd
-    PF = _pack(pf, PF_ROWS + (("rhoI",) if filt else ())
-               + (("C",) if ns else ())
+    PF = _pack(pf, rows + (("C",) if ns else ())
                + (THERMAL_ROWS if cfg.thermal else ()), cap, NC)
     tabs = pair.coeff_tables(params, cfg)
-    tab = _tables(params, cfg, tabs).to(PF.device)
+    tab = table(params, cfg, tabs).to(PF.device)
     stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
-    accs = (ACC_ROWS + (FILTER_ACC_ROWS if filt else ())
-            + ((("Q", ns),) if ns else ()))
+    accs = accs + ((("Q", ns),) if ns else ())
     out = torch.empty((sum(n for _, n in accs), cap, NC), dtype=torch.float32,
                       device=PF.device)
 
@@ -250,37 +268,81 @@ def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(dims))
-                   + [t for t, _ in extra] + [ctypes.c_int] + _NOISE_ARGTYPES
-                   + [ctypes.c_void_p])
+                   + [t for t, _ in args] + _NOISE_ARGTYPES + [ctypes.c_void_p])
     code = fn(PF.data_ptr(), tab.data_ptr(),
               None if stab is None else stab.data_ptr(), out.data_ptr(),
               params.ntypes, ns, int(bool(cfg.species_advection)), cap, *dims,
-              *(v for _, v in extra), int(filt),
-              *_noise_args(params, cfg, noise), _build.current_stream(PF.device))
+              *(v for _, v in args), *_noise_args(params, cfg, noise),
+              _build.current_stream(PF.device))
     _build.check(lib, code, name)
+    return _finish(_unpack(out, accs), PF.device, cap, NC)
 
-    result = _unpack(out, accs)
-    if not ns:
-        result["Q"] = torch.zeros((0, cap, NC), dtype=torch.float32,
-                                  device=PF.device)
-    if not filt:
-        zero = torch.zeros((cap, NC), dtype=torch.float32, device=PF.device)
-        result["rhoAux1"] = result["rhoAux2"] = zero
-    result["ddx"] = torch.zeros((3, cap, NC), dtype=torch.float32, device=PF.device)
-    result["dS"] = torch.zeros((3, 3, cap, NC), dtype=torch.float32,
-                               device=PF.device)
-    return result
+
+def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
+               noise, before=(), after=()) -> dict:
+    """K1 or K3's leaner body (the transport-velocity pair of
+    ``csrc/pass_a_tv.cuh``) over the grid ``dims``: PF_ROWS, then rhoI
+    (filter) in, ACC_ROWS, then the filter rows out; the species and
+    thermal rows as in ``_launch``; the C arguments ``before`` and
+    ``after`` the filter switch."""
+    filt = bool(cfg.density_filter_accs)
+    return _launch(wrapper, dims, pf, params, geom, cfg, noise,
+                   PF_ROWS + (("rhoI",) if filt else ()), _tables,
+                   ACC_ROWS + (FILTER_ACC_ROWS if filt else ()),
+                   list(before) + [(ctypes.c_int, int(filt))] + list(after))
+
+
+def _mech_flags(cfg) -> int:
+    """The runtime switches (``_F_*``) K2 and K3 read from ``cfg``."""
+    return ((_F_PSWITCH if cfg.pressure_switch else 0)
+            | (_F_XSPH if cfg.xsph else 0)
+            | (_F_FREE if cfg.free_solids_present else 0)
+            | (_F_G0PAIR if cfg.g0_chem_coupling else 0)
+            | (0 if cfg.solids_present else _F_NOSOLIDS))
+
+
+def _mech_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
+                 cfg, noise, before=()) -> dict:
+    """K2 or K3 (the pair body of ``csrc/pass_a_mech.cuh``) over the grid
+    ``dims``, the C arguments ``before`` the filter switch: MECH_PF_ROWS,
+    then AS and S (elastic) or ASd, then rhoI (filter) in; MECH_ACC_ROWS,
+    then dS (elastic), then the filter rows out; the species and thermal
+    rows as in ``_launch``."""
+    filt = bool(cfg.density_filter_accs)
+    elastic = bool(cfg.elastic_present)
+    return _launch(
+        wrapper, dims, pf, params, geom, cfg, noise,
+        MECH_PF_ROWS + (("AS", "S") if elastic else ("ASd",))
+        + (("rhoI",) if filt else ()),
+        _mech_tables,
+        MECH_ACC_ROWS + ((("dS", 9),) if elastic else ())
+        + (FILTER_ACC_ROWS if filt else ()),
+        list(before) + [(ctypes.c_int, int(filt)), (ctypes.c_int, int(elastic)),
+                        (ctypes.c_int, _mech_flags(cfg))] + _wrap_args(geom)
+        + [(ctypes.c_float, float(cfg.ampl_damp))])
+
+
+def _wrap_args(geom: Geometry) -> list:
+    """The periodic axes' bits and their extents in f32, the constants the
+    plain path's minimum image rounds them to (read on the wrapping axes
+    only), as ``(ctypes type, value)`` pairs."""
+    return [(ctypes.c_int, wrap_bits(geom))] + [
+        (ctypes.c_float, float(np.float32(geom.hi[ax] - geom.lo[ax])))
+        for ax in range(3)]
 
 
 def kernel_attributes(wrapper, filt: bool, ns: int, elastic: bool = False,
-                      thermal: bool = False) -> tuple:
+                      thermal: bool = False, tv: bool = False) -> tuple:
     """(registers per thread, local-memory bytes per thread: its spills) of
     the instantiation of a pass-A kernel (``wrapper``: ``pass_a_2d``,
     ``pass_a_2d_rowloop`` or ``pass_a_3d``) for ``filt``, ``ns`` species and
-    ``thermal`` (K2: and ``elastic``), from ``cudaFuncGetAttributes``."""
+    ``thermal`` (K2 and K3: and ``elastic``; K3: its transport-velocity
+    body with ``tv``), from ``cudaFuncGetAttributes``."""
     name = wrapper.__name__
-    switches = ((int(filt), int(elastic)) if wrapper is pass_a_2d_rowloop
-                else (int(filt),))
+    switches = ((int(filt),) if wrapper is pass_a_2d
+                else (int(filt), int(elastic)))
+    if wrapper is pass_a_3d:
+        switches = (0 if tv else 1,) + switches
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_attributes")
     fn.restype = ctypes.c_int
@@ -298,7 +360,8 @@ def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict
     to ``MAX_SPECIES`` continuum species, with or without the thermal noise."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
-    result = _tv_launch(pass_a_2d, geom.ncells[:2], pf, params, geom, cfg, noise)
+    result = _tv_launch(pass_a_2d, geom.ncells[:2], pf, params, geom, cfg,
+                        noise)
     pass_a_2d.launches += 1
     return result
 
@@ -308,20 +371,34 @@ pass_a_2d.launches = 0  # K1 launches in this process
 
 def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K3 on CUDA (the plain loop on
-    CPU): the transport-velocity pair with fixed walls on a 3D grid, walls
-    or periodic axes (x, y, z, at least 3 cells each: the neighbour cell
-    wraps by index, the pair offset takes the minimum image), with up to
-    ``MAX_SPECIES`` continuum species, with or without the thermal noise."""
+    CPU) on a 3D grid: every pair style (transport-velocity, mechanics,
+    fsi), XSPH, fixed, free and elastic solids, solid-free scenes, walls or
+    periodic axes (x, y, z, at least 3 cells each: the neighbour cell wraps
+    by index, the pair offset takes the minimum image), with up to
+    ``MAX_SPECIES`` continuum species, with or without the thermal noise
+    (on the fluid branch).  The configurations the transport-velocity pair
+    serves (``tv_lacks`` empty: the 3D cavities) run that leaner body, the
+    rest the full one."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
-    # the periodic extents in f32, the constants the plain path's minimum
-    # image rounds them to (read on the wrapping axes only)
-    ext = [(ctypes.c_float, float(np.float32(geom.hi[ax] - geom.lo[ax])))
-           for ax in range(3)]
-    result = _tv_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg, noise,
-                        [(ctypes.c_int, wrap_bits(geom))] + ext)
+    result = _k3_launch(pf, params, geom, cfg, noise)
     pass_a_3d.launches += 1
     return result
+
+
+def _k3_launch(pf: dict, params: Params, geom: Geometry, cfg, noise) -> dict:
+    """K3 with the body ``cfg`` needs: the transport-velocity pair where it
+    serves (``tv_lacks`` empty), else the full one."""
+    if tv_lacks(cfg):
+        return _mech_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg,
+                            noise, [(ctypes.c_int, 1)])
+    # the C entry point's arguments are the full body's either way: body 0,
+    # filter, elastic 0, flags 0, the periodic axes, ampl 0
+    return _tv_launch(
+        pass_a_3d, geom.ncells, pf, params, geom, cfg, noise,
+        before=[(ctypes.c_int, 0)],
+        after=[(ctypes.c_int, 0), (ctypes.c_int, 0)] + _wrap_args(geom)
+        + [(ctypes.c_float, 0.0)])
 
 
 pass_a_3d.launches = 0  # K3 launches in this process
@@ -330,64 +407,12 @@ pass_a_3d.launches = 0  # K3 launches in this process
 def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg,
                       noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K2 on CUDA (the plain loop on
-    CPU): tv, mechanics and fsi physics (the density diffusion, the shear
-    modulus softened per particle), fixed and free solids, elastic solids,
-    solid-free scenes, XSPH, periodic x and y, with up to ``MAX_SPECIES``
-    continuum species, with or without the thermal noise (on the fluid
-    branch)."""
+    CPU): K3's physics (``pass_a_3d``) on a 2D grid, periodic in x and y."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
-    _check_launch(pf, params, geom, cfg, pass_a_2d_rowloop, noise)
-    cap, NC = pf["rho"].shape
-    filt = bool(cfg.density_filter_accs)
-    elastic = bool(cfg.elastic_present)
-    ns = params.n_sdpd
-    stress = ("AS", "S") if elastic else ("ASd",)
-    PF = _pack(pf, K2_PF_ROWS + stress + (("rhoI",) if filt else ())
-               + (("C",) if ns else ())
-               + (THERMAL_ROWS if cfg.thermal else ()), cap, NC)
-    tabs = pair.coeff_tables(params, cfg)
-    tab = _k2_tables(params, cfg, tabs).to(PF.device)
-    stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
-    accs = (K2_ACC_ROWS + ((("dS", 9),) if elastic else ())
-            + (FILTER_ACC_ROWS if filt else ()) + ((("Q", ns),) if ns else ()))
-    out = torch.empty((sum(n for _, n in accs), cap, NC), dtype=torch.float32,
-                      device=PF.device)
-    flags = ((_F_PSWITCH if cfg.pressure_switch else 0)
-             | (_F_XSPH if cfg.xsph else 0)
-             | (_F_FREE if cfg.free_solids_present else 0)
-             | (_F_WRAPX if wrap_x(geom) else 0)
-             | (_F_WRAPY if wrap_y(geom) else 0)
-             | (_F_G0PAIR if cfg.g0_chem_coupling else 0)
-             | (0 if cfg.solids_present else _F_NOSOLIDS))
-    # the periodic extents in f32, the constants the plain path's minimum
-    # image rounds them to
-    lx, ly = (float(np.float32(geom.hi[ax] - geom.lo[ax])) for ax in (0, 1))
-
-    lib = _build.load("pass_a_2d_rowloop")
-    fn = lib.pass_a_2d_rowloop
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 3 + _NOISE_ARGTYPES + [ctypes.c_void_p])
-    code = fn(PF.data_ptr(), tab.data_ptr(),
-              None if stab is None else stab.data_ptr(), out.data_ptr(),
-              params.ntypes, ns, int(bool(cfg.species_advection)), cap,
-              geom.ncells[0], geom.ncells[1], int(filt), int(elastic), flags,
-              lx, ly, float(cfg.ampl_damp), *_noise_args(params, cfg, noise),
-              _build.current_stream(PF.device))
-    _build.check(lib, code, "pass_a_2d_rowloop")
+    result = _mech_launch(pass_a_2d_rowloop, geom.ncells[:2], pf, params, geom,
+                          cfg, noise)
     pass_a_2d_rowloop.launches += 1
-
-    result = _unpack(out, accs)
-    if not ns:
-        result["Q"] = torch.zeros((0, cap, NC), dtype=torch.float32,
-                                  device=PF.device)
-    if not filt:
-        zero = torch.zeros((cap, NC), dtype=torch.float32, device=PF.device)
-        result["rhoAux1"] = result["rhoAux2"] = zero
-    if not elastic:
-        result["dS"] = torch.zeros((3, 3, cap, NC), dtype=torch.float32,
-                                   device=PF.device)
     return result
 
 

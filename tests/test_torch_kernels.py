@@ -2,8 +2,9 @@
 K7 rebin move), with K2's solid-free variant, the non-uniform x-column
 (``x_edges``) variants of K5, K6 and K7, K1, K2 and K3 with the species
 rows (C in, the flux Q out), K2's fsi pair style and K2 and K6 on a doubly
-periodic grid (cell polarization), and the thermal rows of K1, K2 and K3
-(the SDPD random force).
+periodic grid (cell polarization), the thermal rows of K1, K2 and K3
+(the SDPD random force), and K3's mechanics, fsi and solid-free paths
+with K7 past cap 64 (the 3D FSI beam and the Taylor-Green vortex).
 
 The kernel-vs-plain checks need a CUDA card and are marked ``gpu``: they
 skip on a machine without one (run them there with
@@ -434,12 +435,12 @@ def test_unsupported_configurations_raise():
 
 
 def test_k2_tables_match_plain_coefficients():
-    """K2 reads K1's six rows (h the last), then geff, flattened [T*T];
-    under ``g0_chem_coupling`` the geff row is 0 (the kernel takes the
-    modulus from the packed G0 rows)."""
+    """K2 and K3 read K1's six rows (h the last), then geff, flattened
+    [T*T]; under ``g0_chem_coupling`` the geff row is 0 (the kernel takes
+    the modulus from the packed G0 rows)."""
     _, params, spec, _ = fsi.build(nx=24, device="cpu")
     tabs = pair.coeff_tables(params, spec.pair)
-    tab = pair_cuda._k2_tables(params, spec.pair, tabs)
+    tab = pair_cuda._mech_tables(params, spec.pair, tabs)
     T = params.ntypes
     assert tab.shape == (7, T * T) and tab.dtype == torch.float32
     np.testing.assert_array_equal(tab[:6].numpy(),
@@ -450,7 +451,7 @@ def test_k2_tables_match_plain_coefficients():
     coupled = dataclasses.replace(spec.pair, g0_chem_coupling=True)
     tabs = pair.coeff_tables(params, coupled)
     assert "geff" not in tabs
-    assert float(pair_cuda._k2_tables(params, coupled, tabs)[6].abs().max()) == 0
+    assert float(pair_cuda._mech_tables(params, coupled, tabs)[6].abs().max()) == 0
 
 
 def test_k1_tables_match_plain_coefficients():
@@ -485,23 +486,23 @@ def test_3d_cavity_routes_to_k3_and_k7():
 
 
 def test_3d_kernels_refuse_what_they_do_not_serve():
-    """K3 names the physics and grids it lacks (mechanics, XSPH, free or
-    elastic solids, a periodic axis of fewer than 3 cells, a 2D grid), K1
-    refuses a 3D grid, and K7 refuses a periodic axis of fewer than 3
-    cells, a periodic axis with x_edges and cap > 64: each raises
-    NotImplementedError before a launch.  A periodic axis of 3 or more
-    cells is served by both."""
+    """K3 names the grids it lacks (a periodic axis of fewer than 3 cells, a
+    2D grid) and serves every pair configuration (mechanics, XSPH, free and
+    elastic solids, solid-free scenes, density diffusion), K1 refuses a 3D
+    grid, and K7 refuses a periodic axis of fewer than 3 cells and a
+    periodic axis with x_edges: each raises NotImplementedError before a
+    launch.  A periodic axis of 3 or more cells and any cap (past 64 too)
+    are served by both."""
     state, params, spec, _ = lid_cavity3d.build(N=6, device="cpu")
     geom = spec.geom
     pf = pair._per_particle(state, params, spec.pair)
     pair_cuda._check_launch(pf, params, geom, spec.pair, pair_cuda.pass_a_3d)
-    for bad, what in ((dict(xsph=True), "XSPH"),
-                      (dict(pressure_switch=False), "symmetric pressure"),
-                      (dict(elastic_present=True), "elastic solids"),
-                      (dict(free_solids_present=True), "free solids")):
-        cfg = dataclasses.replace(spec.pair, **bad)
-        with pytest.raises(NotImplementedError, match=what):
-            pair_cuda._check_launch(pf, params, geom, cfg, pair_cuda.pass_a_3d)
+    for good in (dict(xsph=True), dict(pressure_switch=False),
+                 dict(elastic_present=True), dict(free_solids_present=True),
+                 dict(solids_present=False), dict(ampl_damp=0.1)):
+        cfg = dataclasses.replace(spec.pair, **good)
+        pair_cuda._check_launch(pair._per_particle(state, params, cfg), params,
+                                geom, cfg, pair_cuda.pass_a_3d)
     for ax in range(3):
         periodic = tuple(a == ax for a in range(3))
         pgeom = dataclasses.replace(geom, periodic=periodic)
@@ -531,9 +532,10 @@ def test_3d_kernels_refuse_what_they_do_not_serve():
     rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_3d)
     edged = with_synthetic_edges(geom)
     rebin_cuda._check_packs(PF, PI, edged, rebin_cuda.rebin_move_3d)
+    assert rebin_cuda.move_unsupported(dataclasses.replace(geom, cap=296),
+                                       rebin_cuda.rebin_move_3d) == []
     for bad in (dict(x_edges=edged.x_edges, x_quantum=edged.x_quantum,
                      periodic=(True, False, False)),
-                dict(cap=rebin_cuda.MAX_CAP_3D + 1),
                 dict(periodic=(True, False, False), ncells=(2, 8, 4))):
         with pytest.raises(NotImplementedError):
             rebin_cuda._check_packs(PF, PI, dataclasses.replace(geom, **bad),
@@ -1100,3 +1102,107 @@ def test_periodic_grids_route_to_k3_and_k7():
         got = TS.rebin(drifted, geom, use_kernel=True)
         for f in dataclasses.fields(ref):
             assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+
+
+def _k3_physics(case, device):
+    """(state, params, spec) of K3's mechanics, fsi and solid-free paths:
+    "fsi3d", the spanwise 3D FSI beam at nx=12 (cap 119) released at step
+    2 and run 4 steps, with the beam's S seeded (numpy, seed 0); "fsi3d
+    style", its fsi-style variant with one species, C on the beam seeded up
+    to 1.5 (a softened modulus below zero) and a tenth of that elsewhere;
+    "vortex", the Taylor-Green vortex at N=12 (cap 86) after 3 steps with x
+    jittered by up to a tenth of a spacing (seed 1), so that ddv is not a
+    cancellation of a perfect lattice."""
+    from sph_bvf_tpu_torch.models import taylor_green3d
+
+    rng = np.random.default_rng(0)
+    t = lambda a, like: torch.as_tensor(a, dtype=like.dtype, device=device)
+    if case == "vortex":
+        state, params, spec, _ = taylor_green3d.build(12, device=device)
+        state = run_chunk(setup(state, params, spec, dt=0.0131), params, spec, 3)
+        d = rng.uniform(-0.1, 0.1, tuple(state.x.shape)) * (taylor_green3d.L / 12)
+        return (dataclasses.replace(state, x=state.x + t(d, state.x) * state.valid),
+                params, spec)
+    kw = dict(pair_style="fsi", kappa=1e-5) if case == "fsi3d style" else {}
+    state, params, spec, _ = fsi.build_spanwise(12, tdamp_solid=2, device=device,
+                                                **kw)
+    state = run_chunk(setup(state, params, spec, dt=1e-8), params, spec, 4)
+    beam = state.valid & (state.solid_tag == 1) & (state.fixed_tag == 0)
+    S = rng.normal(0.0, 1e3, tuple(state.S.shape))
+    state = dataclasses.replace(state, S=torch.where(
+        beam, t(S + np.swapaxes(S, 0, 1), state.S), state.S))
+    if kw:
+        C = t(rng.uniform(0.0, 1.5, tuple(state.C.shape)), state.C)
+        state = dataclasses.replace(state, C=torch.where(beam, C, 0.1 * C) * state.valid)
+    return state, params, spec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fsi3d", "fsi3d style", "vortex"])
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+def test_k3_mechanics_fsi_and_solid_free_match_plain_on_card(cuda, filt, case):
+    """K3's elastic and solid-free instantiations against the plain
+    27-offset loop: the 3D FSI beam (mechanics, XSPH, free elastic solids,
+    a mixed lattice at cap 119), its fsi-style variant with a species and
+    the Taylor-Green vortex (no solids, every axis periodic, cap 86): each
+    field within 5e-6 of its max; dS, ddx and Q live where the physics has
+    them, phi, nw and dS exactly 0 without solids."""
+    state, params, spec = _k3_physics(case, cuda)
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+    pf = pair._per_particle(state, params, cfg)
+    ref = pair._pass_a_plain(pf, params, spec.geom, cfg)
+    before = pair_cuda.pass_a_3d.launches
+    got = pair_cuda.pass_a_3d(pf, params, spec.geom, cfg)
+    torch.cuda.synchronize()
+    assert pair_cuda.pass_a_3d.launches == before + 1
+    names = K2_FIELDS + (("Q",) if params.n_sdpd else ())
+    for name in (n for n in names if filt or not n.startswith("rhoAux")):
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+    if case == "vortex":
+        for name in ("phi", "nw", "dS"):
+            assert float(got[name].abs().max()) == 0.0, name
+    else:
+        for name in ("dS", "ddx", "phi") + (("Q",) if params.n_sdpd else ()):
+            assert float(ref[name].abs().max()) > 0, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["vortex cap 86", "fsi3d cap 119",
+                                  "fsi3d cap 208"])
+def test_k7_past_cap_64_matches_plain_walk_and_sort_on_card(cuda, case):
+    """K7 on 3D grids past its former cap of 64, after a seeded drift of up
+    to 0.9 cells (``synthetic_edges.seeded_drift``'s steps without the
+    edge snap): the kernel == the plain walk == the sort rebin, every leaf
+    bitwise, on the vortex (every axis periodic) and the 3D FSI beam at
+    nx=12 and nx=30 (x and z periodic, a mixed lattice)."""
+    from sph_bvf_tpu_torch.models import taylor_green3d
+
+    if case.startswith("vortex"):
+        state, params, spec, _ = taylor_green3d.build(12, device=cuda)
+    else:
+        nx = 12 if case.endswith("119") else 30
+        state, params, spec, _ = fsi.build_spanwise(nx, device=cuda)
+    geom = spec.geom
+    assert geom.cap == int(case.split()[-1])
+    rng = np.random.default_rng(2)
+    d = rng.uniform(-0.9, 0.9, tuple(state.x.shape)) * np.asarray(
+        geom.cell_size)[:, None, None]
+    state = dataclasses.replace(state, x=state.x + torch.as_tensor(
+        d, dtype=state.x.dtype, device=cuda) * state.valid)
+    assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_3d
+    fields = TS.particle_fields(state)
+    fields["x"] = TS.wrap_pbc(fields["x"], geom)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    before = rebin_cuda.rebin_move_3d.launches
+    kf, ki = rebin_cuda.rebin_move_3d(PF, PI, geom, xr)
+    assert rebin_cuda.rebin_move_3d.launches == before + 1
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
+    assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+    assert int(got.valid.sum(0).max()) > 64

@@ -395,10 +395,10 @@ def test_spanwise_steps_match_jax(dt):
 
 def test_remaining_refusals_raise_by_name():
     """What K1, K3 and K7 still refuse raises NotImplementedError at the
-    launch check and names it: a periodic axis on K1, a solid-free scene
-    on K3, a periodic 3D axis of two cells on K3 and K7, and non-uniform x
-    columns with a periodic axis on K7 (and the rebin on a CUDA state says
-    which)."""
+    launch check and names it: a periodic axis on K1, a periodic 3D axis of
+    two cells on K3 and K7, and non-uniform x columns with a periodic axis
+    on K7 (and the rebin on a CUDA state says which); K3 serves a
+    solid-free scene on the same grid."""
     s, p, jspec = _perturbed("spanwise", np.float32)
     tspec = bridge.spec_to_port(jspec)
     st = bridge.state_to_port(s, device="cpu")
@@ -410,10 +410,9 @@ def test_remaining_refusals_raise_by_name():
     cfg2 = dataclasses.replace(cfg, dim=2)
     with pytest.raises(NotImplementedError, match="a periodic axis"):
         pair_cuda._check_launch(pf, tp, flat, cfg2, pair_cuda.pass_a_2d)
-    with pytest.raises(NotImplementedError, match="solid-free"):
-        pair_cuda._check_launch(
-            pf, tp, g, dataclasses.replace(cfg, solids_present=False),
-            pair_cuda.pass_a_3d)
+    pair_cuda._check_launch(
+        pf, tp, g, dataclasses.replace(cfg, solids_present=False),
+        pair_cuda.pass_a_3d)
     two = dataclasses.replace(g, periodic=(True, True, False),
                               ncells=(2, g.ncells[1], g.ncells[2] * 3))
     assert pair_cuda.kernel_unsupported(two, cfg) == [
