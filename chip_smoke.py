@@ -202,10 +202,20 @@ solids, K7 past cap 64).  Phases, one line each:
              fsi.build_spanwise(nx=60, tdamp_solid=500) -> setup ->
              simulate(1000) (170,632 particles; K3 1001 launches, K7 11,
              nothing else), overflow 0, the beam's tip displacement and
-             max|S| > 0; main tgv3d: taylor_green3d.build(N=100) -> setup ->
-             simulate(1000) (1,000,000 particles; K3 1001, K7 101), the
-             kinetic energy ratio E/E0 between 0.98 x the JAX package's N=20
-             value and 1.01 x exp(-6 nu t), the mean density within 1e-3;
+             max|S| > 0, and K3 against the plain loop on the step-1000
+             state (the beam released, S live; 5e-6 * max|plain| per field,
+             both filter variants), the plain loop run over pieces of
+             target cells (PLAIN_PAIR_BLOCK); main tgv3d:
+             taylor_green3d.build(N=100) -> setup -> simulate(1000)
+             (1,000,000 particles; K3 1001, K7 201), the kinetic energy
+             ratio E/E0 between 0.98 x the JAX package's N=20 value and
+             1.01 x exp(-6 nu t), the mean density within 1e-2 (the
+             O(Mach^2) of c0 = 10 U0), and on the step-1000 state K3
+             against the plain loop with x jittered by up to 0.1 spacing
+             (5e-6 * max|plain|) and, as run, K3 and the plain loop in f32
+             each against the plain loop in f64 on the same inputs: K3
+             within 5e-6 * max or F64_ERR_MULT x the plain f32 loop's own
+             error, per field;
              main fsi3d vs JAX: nx=12, 20 steps released at step 10, max|v|,
              the fluid's density, the beam's max|v| and max|S| inside 2%
              bands around the JAX package's own run; main tgv3d vs JAX:
@@ -228,7 +238,7 @@ solids, K7 past cap 64).  Phases, one line each:
              the uniform blob at s=10 and
              s=20 (its 1000-step main path, twice), of the spanwise cavity at
              N=40 and N=100, of the 3D FSI beam at nx=30 and nx=60 (frozen;
-             the plain pass A timed at nx=30 only) and of the Taylor-Green
+             at nx=60 the plain pass A timed over pieces of target cells) and of the Taylor-Green
              vortex at N=20 and N=100, each chunk timed on the
              host clock and by CUDA events, the blob's chunks split into
              those with a re-cut, with a balance check and without; per
@@ -513,6 +523,15 @@ SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2,
 # past the budget within 100 steps, so the run rebins every 20
 FSI_REBIN = {60: 100, 240: 20}
 TOL = 5e-6  # kernel vs plain, relative to the field's max
+# Where the plain pass A's [cap, cap, NC] pair blocks would not fit on the
+# card (the 3D FSI beam at nx=60, cap 296, and the vortex at N=100 in
+# f64), it runs over pieces of target cells of at most this many pair
+# slots each (cap^2 x cells; 128 MiB an f32 block)
+PLAIN_PAIR_BLOCK = 1 << 25
+# K3 in f32 against the plain loop in f64 on the vortex's step-1000 state:
+# a field passes within TOL or within this multiple of the plain f32
+# loop's own error against the same f64 reference
+F64_ERR_MULT = 4.0
 # the H100 SXM's published peaks: HBM bytes/s and f32 (non-tensor-core) flop/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # f32 operations a pass-A kernel spends on each valid candidate j of i's
@@ -562,17 +581,20 @@ def _packed(S, rebin_cuda, state, geom, drop):
     return PF, PI, rebin_cuda._x_row(fmeta)
 
 
-def _pass_a_parity(torch, pair, kernel, state, params, geom, cfg0, names, tag):
+def _pass_a_parity(torch, pair, kernel, state, params, geom, cfg0, names, tag,
+                   piece=None):
     """Kernel vs plain pass A on one state, both filter variants: every
     field of ``names`` within TOL of its max (with the thermal noise, on
-    the state's own dt, step and key).  Returns ({field: rel err}, max abs
-    err, the plain outputs of the filter variant)."""
+    the state's own dt, step and key; the plain loop over ``piece`` target
+    cells at a time, all at once by default).  Returns ({field: rel err},
+    max abs err, the plain outputs of the filter variant)."""
     errs, worst, refs = {}, 0.0, None
     noise = pair.noise_inputs(state)
     for filt in (True, False):
         cfg = dataclasses.replace(cfg0, density_filter_accs=filt)
         pf = pair._per_particle(state, params, cfg)
-        ref = pair._pass_a_plain(pf, params, geom, cfg, noise)
+        ref = pair._pass_a_plain(pf, params, geom, cfg, noise,
+                                 cells_per_piece=piece)
         got = kernel(pf, params, geom, cfg, noise)
         torch.cuda.synchronize()
         for name in names + (("rhoAux1", "rhoAux2") if filt else ()):
@@ -589,6 +611,41 @@ def _pass_a_parity(torch, pair, kernel, state, params, geom, cfg0, names, tag):
         if refs is None:
             refs = ref
     return errs, worst, refs
+
+
+def _f64_parity(torch, pair, kernel, state, params, geom, cfg, names, tag,
+                piece):
+    """The kernel and the plain pass A in f32, each against the plain pass
+    A in f64 on the same f32 inputs (the per-particle fields and the
+    params widened), over ``piece`` target cells at a time: every field of
+    ``names``, relative to its f64 max, passes within TOL or within
+    F64_ERR_MULT x the plain f32 loop's own error.  Returns {field:
+    (kernel's error, the plain f32 loop's)}."""
+    pf = pair._per_particle(state, params, cfg)
+    got = kernel(pf, params, geom, cfg)
+    p32 = pair._pass_a_plain(pf, params, geom, cfg, cells_per_piece=piece)
+
+    def wide(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+    params64 = dataclasses.replace(params, **{
+        f.name: wide(getattr(params, f.name))
+        for f in dataclasses.fields(params)})
+    ref = pair._pass_a_plain({k: wide(v) for k, v in pf.items()}, params64,
+                             geom, cfg, cells_per_piece=piece)
+    torch.cuda.synchronize()
+    errs = {}
+    for name in names + (("rhoAux1", "rhoAux2")
+                         if cfg.density_filter_accs else ()):
+        scale = max(float(ref[name].abs().max()), 1e-300)
+        ek = float((got[name].double() - ref[name]).abs().max()) / scale
+        ep = float((p32[name].double() - ref[name]).abs().max()) / scale
+        errs[name] = (ek, ep)
+        if not ek <= max(TOL, F64_ERR_MULT * ep):
+            raise AssertionError(
+                f"{tag} {name}: the kernel's error against the f64 plain loop "
+                f"{ek!r} of max exceeds {TOL} and {F64_ERR_MULT} x the f32 "
+                f"plain loop's {ep!r}")
+    return errs
 
 
 def _seed_species(torch, state, params, ns, seed, cutc_scale=1.0):
@@ -1220,9 +1277,10 @@ def main() -> int:
                 "rebin_move_2d_gated": rebin_cuda.rebin_move_2d_gated,
                 "rebin_move_3d": rebin_cuda.rebin_move_3d}
 
-    def pass_a_timing(pass_a, state, params, geom, cfg, iters, plain=True):
-        """Per-call ms of the wrapper ``pass_a`` and (with ``plain``) of the
-        plain loop on this state, and pass A's bound from these inputs at
+    def pass_a_timing(pass_a, state, params, geom, cfg, iters, piece=None):
+        """Per-call ms of the wrapper ``pass_a`` and of the plain loop (over
+        ``piece`` target cells at a time, all at once by default) on this
+        state, and pass A's bound from these inputs at
         the state's occupancy: the packed rows in and out, the valid
         candidates, the pairs inside the support h (with the thermal noise,
         their hash and Box-Muller too) and, with species, those inside
@@ -1247,8 +1305,9 @@ def main() -> int:
             "pass_a": _per_call_ms(
                 torch, lambda: pass_a(pf, params, geom, cfg, noise), iters),
             "pass_a_plain": _per_call_ms(
-                torch, lambda: pair._pass_a_plain(pf, params, geom, cfg, noise),
-                iters) if plain else None,
+                torch, lambda: pair._pass_a_plain(pf, params, geom, cfg, noise,
+                                                  cells_per_piece=piece),
+                iters),
             "pass_a_bound": _bound(_packed_bytes(slots, n, rows_in, rows_out),
                                    flops, int_ops),
             "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
@@ -2433,6 +2492,22 @@ def main() -> int:
     })
     detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
     require(checks, "3D FSI main path", detail)
+    # K3 against the plain loop on the step-1000 state (the beam released,
+    # S live), the plain loop over pieces of target cells
+    params = run_main.built[1]
+    piece = PLAIN_PAIR_BLOCK // spec.geom.cap ** 2
+    k3m_main_err, k3m_main_abs, ref = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_3d, state, params, spec.geom, spec.pair,
+        k2_names, f"K3 mechanics nx={nf}", piece=piece)
+    live = {k: float(ref[k].abs().max()) for k in ("dS", "ddx", "phi", "nw")}
+    if not all(v > 0 for v in live.values()):
+        raise AssertionError(f"K3 mechanics nx={nf} parity is vacuous: {live}")
+    detail += (f"; on the step-{MAIN_STEPS['fsi3d']} state K3 == plain (its "
+               f"loop over {piece} cells at a time; max|.| {live}; "
+               f"max|diff|/max|ref| per field: "
+               + ", ".join(f"{k} {v:.3g}" for k, v in k3m_main_err.items())
+               + f"; max|diff| {k3m_main_abs!r})")
+    del ref
     print(f"[main fsi3d] spanwise 3D FSI beam nx={nf} build_spanwise+setup+"
           f"simulate({MAIN_STEPS['fsi3d']}), beam released at "
           f"{FSI_RELEASE['main']}, in {secs[1]!r} s (build {secs[0]!r} s): "
@@ -2481,15 +2556,21 @@ def main() -> int:
               f"{float((state.rho[state.valid] - 1.0).abs().max())!r}; (step, "
               f"max|v|, max|vest|) every {TGV_TRACE} steps {tg_trace}")
     require(checks, "Taylor-Green main path", detail)
-    # K3 and K7 against their plain versions on the step-1000 state (K3's
-    # with x jittered by up to 0.1 spacing, as in [K3 solid-free]: the flow
-    # carries whole lattice patches, and on them ddv's cancellation is past
-    # f32, 1.7e-5 of max|ddv| on this state unjittered)
+    # K3 and K7 against their plain versions on the step-1000 state: K3's
+    # with x jittered by up to 0.1 spacing, as in [K3 solid-free] (the flow
+    # carries whole lattice patches, on which ddv cancels to a small part of
+    # its terms: K3 and the plain loop in f32 differ there by 1.7e-5 of
+    # max|ddv|), and as run, K3 and the plain f32 loop each against the
+    # plain loop in f64
     k3n_err, k3n_abs, _ = _pass_a_parity(
         torch, pair, pair_cuda.pass_a_3d,
         _jitter(torch, state, taylor_green3d.L / nt, seed=11), params,
         spec.geom, spec.pair, k2_names, f"K3 solid-free N={nt}")
     k3sf_abs = max(k3sf_abs, k3n_abs)
+    k3n_f64 = _f64_parity(torch, pair, pair_cuda.pass_a_3d, state, params,
+                          spec.geom, spec.pair, k2_names,
+                          f"K3 solid-free N={nt} vs f64",
+                          PLAIN_PAIR_BLOCK // spec.geom.cap ** 2)
     what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
                              state, spec.geom, _rebin_drop(spec),
                              f"K7 large cap vortex N={nt}")
@@ -2497,6 +2578,10 @@ def main() -> int:
     detail += (f"; on the step-{MAIN_STEPS['tgv']} state jittered K3 == plain "
                f"(max|diff|/max|ref| per field: "
                + ", ".join(f"{k} {v:.3g}" for k, v in k3n_err.items())
+               + f"), unjittered against the plain loop in f64 (max|diff|/"
+               f"max|f64| per field, K3 / the plain f32 loop: "
+               + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in
+                           k3n_f64.items() if a or b)
                + f") and K7 == plain walk == sort rebin, bitwise ({what})")
     print(f"[main tgv3d] Taylor-Green vortex N={nt} build+setup+simulate("
           f"{MAIN_STEPS['tgv']}) at dt {dt_t!r} in {secs[1]!r} s (build "
@@ -2677,11 +2762,12 @@ def main() -> int:
 
     # -- 10. speed ----------------------------------------------------------
     def speed(label, path, size, state, params, spec, pass_a, move,
-              plain=True):
+              plain_piece=None):
         """Steady-state particle-steps/s of ``simulate`` (with its re-cuts
         when ``spec.balance`` is set), then per call, on the geometry the run
         ended on: pass A and the move beside their plain versions (pass A's
-        only with ``plain``), the rebin with the kernel beside the sort
+        over ``plain_piece`` target cells at a time), the rebin with the
+        kernel beside the sort
         rebin, the bounds, and with ``spec.balance`` the re-cut: the host
         time of a ``rebalance`` forced to cut and the sort rebin into its
         geometry."""
@@ -2699,7 +2785,8 @@ def main() -> int:
         cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
         drop = _rebin_drop(spec)
         t = _move_timing(torch, S, rebin_cuda, move, state, geom, drop, iters)
-        t.update(pass_a_timing(pass_a, state, params, geom, cfg, iters, plain))
+        t.update(pass_a_timing(pass_a, state, params, geom, cfg, iters,
+                               plain_piece))
         t.update({
             "rebin_kernel": _per_call_ms(
                 torch, lambda: S.rebin(state, geom, drop=drop, use_kernel=True),
@@ -2839,15 +2926,17 @@ def main() -> int:
                           rebin_cuda.rebin_move_3d)
         del state
     # the 3D FSI beam (frozen, as the model keeps it until step 1e6) and the
-    # Taylor-Green vortex; at nx=60 (cap 296) the plain pass A's [cap, cap,
-    # NC] temporaries, ~10 GB a 3 x 3 tensor, are not timed
+    # Taylor-Green vortex; at nx=60 (cap 296) the plain pass A runs over
+    # pieces of target cells (its whole [cap, cap, NC] blocks take ~10 GB a
+    # 3 x 3 tensor)
     t_fsi3d = {}
     for nx in FSI3D_NX:
         state, params, spec, _ = fsi.build_spanwise(nx, device=dev)
         state = setup(state, params, spec, dt=1e-8)
-        t_fsi3d[nx] = speed(f"3D FSI beam nx={nx}", "fsi3d", nx, state, params,
-                            spec, pair_cuda.pass_a_3d, rebin_cuda.rebin_move_3d,
-                            plain=nx == FSI3D_NX[0])
+        t_fsi3d[nx] = speed(
+            f"3D FSI beam nx={nx}", "fsi3d", nx, state, params, spec,
+            pair_cuda.pass_a_3d, rebin_cuda.rebin_move_3d,
+            None if nx == FSI3D_NX[0] else PLAIN_PAIR_BLOCK // spec.geom.cap ** 2)
         del state
     t_tgv = {}
     for N in TGV_N:
@@ -3068,14 +3157,14 @@ def main() -> int:
         ("rebin_move_3d (periodic)", "csrc/rebin_move_3d.cu",
          "core/rebin_pallas.py:584", span_launches["rebin_move_3d"], k7p_abs,
          t_span[SPAN_N[1]], "move"),
-        # K3's mechanics, fsi and solid-free paths: the launches of the 3D
-        # FSI beam's main path (nx=60) with the timing at nx=30, where the
-        # plain pass A fits (nx=60's kernel time is in its [speed] line), of
-        # the fsi style's 10-step seeded run at nx=30, and of the vortex's
-        # main path (N=100); K7 past cap 64 on the beam's main path (cap 296)
+        # K3's mechanics, fsi and solid-free paths: the launches, the error
+        # on the final state and the timing of the 3D FSI beam's main path
+        # (nx=60), of the fsi style's 10-step seeded run at nx=30, and of
+        # the vortex's main path (N=100); K7 past cap 64 on the beam's main
+        # path (cap 296)
         ("pass_a_3d (mechanics/elastic)", "csrc/pass_a_3d.cu",
-         "ops/pair_pallas.py:1106", f3_launches["pass_a_3d"], k3m_abs,
-         t_fsi3d[FSI3D_NX[0]], "pass_a"),
+         "ops/pair_pallas.py:1106", f3_launches["pass_a_3d"], k3m_main_abs,
+         t_fsi3d[FSI3D_NX[1]], "pass_a"),
         ("pass_a_3d (fsi)", "csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106",
          k3f_launches, k3f_abs, t_k3f, "pass_a"),
         ("pass_a_3d (solid-free)", "csrc/pass_a_3d.cu",

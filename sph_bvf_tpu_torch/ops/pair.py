@@ -550,16 +550,20 @@ def acc_lead(name: str, params: Params) -> tuple:
 
 
 def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
-                  noise=None, virial: bool = False):
+                  noise=None, virial: bool = False, cells_per_piece=None):
     """Pass A as a loop over the stencil offsets: the plain version of the
     K1, K2 and K3 kernels.  Returns every ``PASS_A_ACCS`` entry ([cap, NC]
     scalars, [3, cap, NC] vectors, [3, 3, cap, NC] dS, [Ns, cap, NC] Q);
     accumulators the configuration skips stay 0.  ``noise``: the state's
     (dt, step, key), read by the thermal noise only; ``virial`` adds the
-    ``vir`` accumulator (``compute_pair_virial``)."""
+    ``vir`` accumulator (``compute_pair_virial``).  ``cells_per_piece``:
+    evaluate each offset's [cap, cap, NC] pair blocks over that many target
+    cells at a time (every cell's sums are its own, so the pieces change
+    only the memory the blocks take); all NC at once by default."""
     cap, NC = pf["rho"].shape
     fdt, dev = pf["x"].dtype, pf["x"].device
-    I = {k: _bc(v, "i") for k, v in pf.items()}
+    piece = NC if cells_per_piece is None else max(1, int(cells_per_piece))
+    pieces = [slice(c, min(c + piece, NC)) for c in range(0, NC, piece)]
     # self-pair exclusion for the zero offset ([cap, cap, 1])
     not_diag = ~torch.eye(cap, dtype=torch.bool, device=dev)[:, :, None]
     pbc = _pbc(geom)
@@ -578,11 +582,16 @@ def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
         seed = (key[0] ^ key[-1]) & 0xFFFFFFFF
     ja_fields = _pass_a_j_fields(params, cfg)
     for off in geom.stencil_offsets():
-        J = {k: _bc(shift_cells(pf[k], off, geom), "j") for k in ja_fields}
+        shifted = {k: shift_cells(pf[k], off, geom) for k in ja_fields}
         notself = not_diag if off == (0, 0, 0) else True
-        coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
-        acc = _pass_a_offset(I, J, coeffs, params, cfg, notself, acc, pbc=pbc,
-                             dt=dt, step=step, seed=seed)
+        for sl in pieces:
+            I = {k: _bc(v[..., sl], "i") for k, v in pf.items()}
+            J = {k: _bc(v[..., sl], "j") for k, v in shifted.items()}
+            coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
+            # the accumulators' views of the piece, summed into in place
+            _pass_a_offset(I, J, coeffs, params, cfg, notself,
+                           {k: v[..., sl] for k, v in acc.items()}, pbc=pbc,
+                           dt=dt, step=step, seed=seed)
     return acc
 
 

@@ -2,7 +2,7 @@
 
 Two 3D scenes that no model of either registry builds, each a ``Scene``
 function that both packages run: the spanwise-periodic 3D FSI beam
-(``models/fsi.spanwise_scene``: the paper's beam in a channel extruded
+(``models/fsi.scene`` with ``nz_cells``: the paper's beam in a channel extruded
 along a periodic z axis; the mechanics pair style, XSPH, a free elastic
 beam on a 0.6x finer lattice, fixed walls, the two sponges) and the triply
 periodic 3D Taylor-Green vortex (``models/taylor_green3d.scene``:
@@ -84,7 +84,7 @@ def _classes(pkg):
 
 def _mini_beam(Scene, Region, Buffer, pair_style="mechanics", kappa=None,
                tdamp_solid=2):
-    """A miniature of ``fsi.spanwise_scene``: the same materials, pair
+    """A miniature of ``fsi.scene`` extruded: the same materials, pair
     style, integrator and sponges in a channel of 8 x 4 fluid spacings
     (10 um; periodic x, three wall layers on y), h = 2 spacings, cells of at
     least 1.1 h (the cell margin 0.1 h), z periodic over 3 cells of 1.15 h,
@@ -199,9 +199,10 @@ def test_spanwise_fsi_scene_matches_jax_and_routes_to_k3():
     and its fsi-style variant with one species (K7 moves both), while K1
     names every branch it lacks."""
     for kw in ({}, dict(pair_style="fsi", kappa=1e-5)):
-        js, jp, jspec = tfsi.spanwise_scene(*_classes("jax"), nx=12, **kw).build()
-        ts, tp, tspec = tfsi.spanwise_scene(*_classes("torch"), nx=12,
-                                            **kw).build(device="cpu")
+        js, jp, jspec = tfsi.scene(*_classes("jax"), nx=12, nz_cells=3,
+                                       **kw).build()
+        ts, tp, tspec = tfsi.scene(*_classes("torch"), nx=12, nz_cells=3,
+                                    **kw).build(device="cpu")
         g = tspec.geom
         assert dataclasses.asdict(g) == dataclasses.asdict(jspec.geom)
         assert (dataclasses.asdict(tspec.pair)
@@ -328,6 +329,33 @@ def test_pass_a_matches_jax(name, filt):
         assert (float(np.abs(got[key]).max(initial=0.0)) > 0) == want, key
 
 
+@pytest.mark.parametrize("name", ["beam_fsi", "vortex"])
+def test_plain_pass_a_in_pieces_equals_whole(name):
+    """The plain pass A evaluated over a few target cells at a time (the
+    memory bound the card's checks use at full size) equals the whole
+    evaluation at f64 to rtol 1e-12, every accumulator, with the virial."""
+    s, p, jspec = _live(name, np.float64)
+    tcfg = bridge._plain(tpair.PairConfig,
+                         dataclasses.replace(jspec.pair, use_pallas=False))
+    geom = bridge.spec_to_port(jspec).geom
+    st = bridge.state_to_port(s, device="cpu")
+    tp = bridge.params_to_port(_jax(JS.Params, p), device="cpu")
+    pf = tpair._per_particle(st, tp, tcfg)
+    whole = tpair._pass_a_plain(pf, tp, geom, tcfg, virial=True)
+    piece = max(1, geom.ncells_total // 3 - 1)  # pieces of unequal size
+    got = tpair._pass_a_plain(pf, tp, geom, tcfg, virial=True,
+                              cells_per_piece=piece)
+    assert geom.ncells_total % piece != 0
+    for key in FIELDS + ("vir",):
+        a, b = whole[key], got[key]
+        assert a.shape == b.shape, key
+        if not a.numel():  # Q without species
+            continue
+        tol = 1e-12 * float(a.abs().max()) + 1e-300
+        assert float((b - a).abs().max()) <= tol, key
+    assert float(whole["f"].abs().max()) > 0
+
+
 def _steps(name, n):
     """``n`` steps of scene ``name`` at f64 from identical inputs in both
     packages (setup's rebin, then chunks of ``rebin_every``): (JAX state,
@@ -391,7 +419,7 @@ def test_walk_matches_both_sorts_past_cap_64(which):
         js, _, jspec = ttg.scene(*_classes("jax")[:2], N=12).build()
         g = jspec.geom
     else:
-        js, _, jspec = tfsi.spanwise_scene(*_classes("jax"), nx=12).build()
+        js, _, jspec = tfsi.scene(*_classes("jax"), nx=12, nz_cells=3).build()
         g = jspec.geom
         if which.endswith("walls"):
             g = dataclasses.replace(g, periodic=(False, False, False))
