@@ -22,13 +22,18 @@ frames with per-atom computes and checkpointed and resumed; and two 3D
 scenes built by ``Scene`` in either package: the spanwise-periodic 3D FSI
 beam (K3 with the mechanics pair style, XSPH and free elastic solids, K7
 past cap 64) and the triply periodic Taylor-Green vortex (K3 without
-solids, K7 past cap 64).  Phases, one line each:
+solids, K7 past cap 64); the rest of the grouped 2D kernel: the flagship
+at N=1000 with ``preshift_window`` (K4, the pre-shifted copies) and the
+cavity under the mechanics pair style (K1's full body), with K1's full body
+and K4 held on the FSI, polarization and blob states and the JAX package's
+crowded-cell grid.  Phases, one line each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
-2. build   — compile the six hand-written kernels from
-             ``sph_bvf_tpu_torch/csrc``, one nvcc per source, all at once,
-             and print every pass-A instantiation's registers (with and
-             without the thermal rows);
+2. build   — compile the seven hand-written kernels from
+             ``sph_bvf_tpu_torch/csrc``, one nvcc per source, all at once
+             (K4's seconds on their own line), and print every pass-A
+             instantiation's registers (with and without the thermal rows;
+             K1, K4 and K3 with both pair bodies);
 3. K1      — the pass-A kernel against the plain stencil loop on the N=200
              cavity after setup and 100 steps, both filter variants:
              max|diff| <= 5e-6 * max|plain| for every field;
@@ -64,6 +69,20 @@ solids, K7 past cap 64).  Phases, one line each:
              state and with the beam's S seeded from numpy (seed 0):
              max|diff| <= 5e-6 * max|plain| for every field, with the
              artificial-stress tensor AS and the stress rate dS nonzero;
+   K1 full body — K1 (called directly, as the JAX package's tests call
+             the grouped kernel with rowloop=False) against the plain loop
+             on that FSI state as run and with S seeded (periodic x,
+             mechanics, XSPH, the free elastic beam; AS, dS and ddx
+             nonzero), both filter variants, 5e-6 * max|plain| per field,
+             and K4 bitwise K1 on each; the same with the thermal rows
+             (K1 full body thermal, as K1 thermal); on the polarization
+             state (below: the fsi style, ampl_damp, the G0 row, Ns=1,
+             periodic x and y) as run and seeded; on the balanced s=20
+             blob (solid-free; phi, nw and dS exactly 0) as run and with
+             rho and v seeded; and on the JAX package's crowded-cell grid
+             (tests/test_pair_pallas.py:351-437, rebuilt from numpy:
+             solid-free, lattice-aligned, routed to K1 by default), then 10
+             steps of it through simulate (K1 11 launches, K5 2);
    K2 thermal — K2's thermal rows, as K1 thermal, on that FSI state
              (elastic, Ns=0) and (below, after K2 polarization) on the
              polarization state (elastic, Ns=1), then 10 steps of the
@@ -162,7 +181,24 @@ solids, K7 past cap 64).  Phases, one line each:
              re-cuts with distinct edges, each improving the metric that
              fired it, the final slab imbalance under 1.5, and x, v and rho
              tag by tag within BLOB_TOL of the uniform-grid run of the same
-             blob; main polarization: cell_polarization.build(nx=100) ->
+             blob; main preshift: lid_cavity.scene(N=1000,
+             preshift_window=True) -> setup -> simulate(1000) (1,012,036
+             particles in 112,896 cells of cap 14; K4 1001 launches, K5
+             101, nothing else), the same run through K1 (K1 1001, K5 101)
+             with the same inputs, the step-1000 states bitwise equal, every
+             field, and K4 against the plain loop on that state at that
+             shape (5e-6 * max|plain|, both filter variants); main
+             mechanics: lid_cavity.scene(N=1000, pair_style="mechanics") ->
+             setup -> simulate(1000) (K1's full body 1001, K5 101), the
+             flagship's gate on the mean density and the extreme within 2%
+             of the plain loop's own run of the same scene on the card
+             (MECH_PLAIN_RHO1000), K1 against the plain loop on the
+             step-1000 state (ddx nonzero) and K4 bitwise K1 there, then
+             10 more steps through K4 and through K1, bitwise equal; main
+             mechanics vs JAX: N=50, 1,000 steps, the fluid's max|v|,
+             kinetic energy and mean density inside 2% bands around the
+             JAX package's own run; main polarization:
+             cell_polarization.build(nx=100) ->
              setup -> simulate(1000) at dt 1e-10 (K2 1001 launches, K6 11,
              nothing else), 10,292 particles kept, 0 <= C <= 1, the lower
              wall one half step from its Dirichlet value (C == max(1 + Q
@@ -242,7 +278,11 @@ solids, K7 past cap 64).  Phases, one line each:
              vortex at N=20 and N=100, each chunk timed on the
              host clock and by CUDA events, the blob's chunks split into
              those with a re-cut, with a balance check and without; per
-             call each kernel beside its plain version, each rebin beside
+             call each kernel beside its plain version (K1 and K4 side by
+             side on the flagship's N=200 set-up state, on the N=1000
+             step-1000 states of main preshift and main mechanics, and K1
+             on the seeded FSI state; K4's bytes include its 9 staged
+             copies, written once and read once), each rebin beside
              the sort rebin (and its host time), and the balanced blob's
              re-cut (host time of ``rebalance``, its sort rebin) (CUDA
              events after a warm-up), with each kernel's
@@ -268,15 +308,19 @@ solids, K7 past cap 64).  Phases, one line each:
              device ops, device-to-host copies and device time per step,
              the busy share, and the
              pass-A and move kernels' device time per call; it fails if
-             the profiler records no pass-A activity on the card.
+             the profiler records no pass-A activity on the card; and K1's
+             and K4's device time per call over 10 calls each on the states
+             their speed rows time.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (twenty-three entries: the
-six kernels, then K2's solid-free and K5's, K6's and K7's x_edges variants,
-K1 and K3 with species, K2 and K6 on the polarization path, K1, K2 and K3
-with their thermal rows, K3 and K7 with periodic axes, and K3 with the
-mechanics and fsi pair styles and without solids and K7 past cap 64 as
-their own entries), the last
+second-to-last line is ``{"kernels": [...]}`` (twenty-eight entries: the
+six kernels of PRs 1-3, then K2's solid-free and K5's, K6's and K7's
+x_edges variants, K1 and K3 with species, K2 and K6 on the polarization
+path, K1, K2 and K3 with their thermal rows, K3 and K7 with periodic axes,
+K3 with the mechanics and fsi pair styles and without solids, K7 past cap
+64, K4 on the flagship and on the mechanics cavity, K1's full body on the
+mechanics cavity, K1 elastic/periodic and K1 solid-free as their own
+entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -294,8 +338,8 @@ import sys
 import time
 from pathlib import Path
 
-KERNELS = ("pass_a_2d", "pass_a_2d_rowloop", "pass_a_3d", "rebin_move_2d",
-           "rebin_move_2d_gated", "rebin_move_3d")
+KERNELS = ("pass_a_2d", "pass_a_2d_preshift", "pass_a_2d_rowloop", "pass_a_3d",
+           "rebin_move_2d", "rebin_move_2d_gated", "rebin_move_3d")
 CAVITY_N = (200, 1000)  # parity/main/speed size, large speed size
 FSI_NX = (60, 240)  # the reference's size, large speed size (~225k particles)
 CAVITY3D_N = (40, 100)  # parity/speed size (97k particles), main/speed size (1.19M)
@@ -562,6 +606,126 @@ PEAK_INT32 = 64 * 132 * 1.98e9
 # step, past what c0 = 10 carries)
 THERMAL_STEP, THERMAL_KEY, THERMAL_E = 12345, (0xDEADBEEF, 0x12345), 1e-6
 VISIBLE_KBE = 1e-9
+# the grouped kernel's main paths: the flagship with preshift_window (K4) and
+# the cavity under the mechanics pair style (K1's full body), at this N
+# (1,012,036 particles in 112,896 cells of cap 14), this many steps, at
+# lid_cavity's dt past N=200
+GROUPED_N, GROUPED_STEPS = 1000, 1000
+GROUPED_DT = 5e-3 / GROUPED_N
+# The JAX package's own run of the mechanics cavity at N=50 (f32, jnp path,
+# on the CPU: lid_cavity.scene(..., pair_style="mechanics").build() ->
+# setup -> simulate(1000)) at step 1000, and the band [lo, hi] x that value
+# the card's run of the same scene must land in
+MECH_JAX_N, MECH_JAX_STEPS = 50, 1000
+# The fluid's max|rho-1| of the mechanics cavity at GROUPED_N after
+# GROUPED_STEPS with pass A through the plain PyTorch loop on the card
+# (tools/torch_cavity_rho_trace.py 1000 1000 mechanics plain, on an NVIDIA
+# H100 80GB HBM3 at 700 W; K1 and K2 read 0.07230198 there), and the band
+# [lo, hi] x that value the card's run must land in.  The flagship's bound
+# of 0.05, set from the JAX package's N=200 run, does not hold here: the
+# lid's upper-left corner drives the extreme up through the run, from 0.050
+# at step 200 to 0.072 at step 1000 (the flagship at N=1000: 0.045)
+MECH_PLAIN_RHO1000 = (0.07230180501937866, 0.98, 1.02)
+MECH_JAX_STEP1000 = {
+    "fluid max|v|": (0.6236324310302734, 0.98, 1.02),
+    "fluid ke": (0.005463925098311307, 0.98, 1.02),
+    "fluid mean rho": (0.9980279005527496, 0.98, 1.02),
+}
+
+
+def _k4_bitwise(torch, pair, pair_cuda, state, params, geom, cfg0, tag):
+    """K4 against K1 on one state, both filter variants: every pass-A
+    accumulator bitwise equal."""
+    noise = pair.noise_inputs(state)
+    for filt in (True, False):
+        cfg = dataclasses.replace(cfg0, density_filter_accs=filt)
+        pf = pair._per_particle(state, params, cfg)
+        k1 = pair_cuda.pass_a_2d(pf, params, geom, cfg, noise)
+        k4 = pair_cuda.pass_a_2d_preshift(pf, params, geom, cfg, noise)
+        for name in pair.PASS_A_ACCS:
+            if not torch.equal(k1[name], k4[name]):
+                diff = float((k1[name] - k4[name]).abs().max())
+                raise AssertionError(f"{tag} {name} (filter={filt}): K4 != K1, "
+                                     f"max|diff| {diff!r}")
+
+
+def _grouped_parity(torch, pair, pair_cuda, state, params, geom, cfg, names,
+                    tag, piece=None):
+    """K1 against the plain loop (``_pass_a_parity``), then K4 bitwise K1
+    on the same state.  Returns ``_pass_a_parity``'s result."""
+    out = _pass_a_parity(torch, pair, pair_cuda.pass_a_2d, state, params, geom,
+                         cfg, names, tag, piece)
+    _k4_bitwise(torch, pair, pair_cuda, state, params, geom, cfg, tag)
+    return out
+
+
+def _crowded_grid(torch, S, pair, dev):
+    """tests/test_pair_pallas.py's crowded-cell grid
+    (``test_grouped_crowded_cell``), rebuilt from numpy: a lattice-aligned
+    solid-free grid (32 x 16 cells of cap 12, base_occ 4, one particle per
+    unit site) with 7 more particles in cell (1, 1), seeded velocities,
+    one type, transport velocity without solids.  Returns (state, params,
+    geom, cfg)."""
+    import numpy as np
+
+    from sph_bvf_tpu_torch.ops.eos import tait_b
+
+    geom = S.Geometry.build(dim=2, lo=(0.0, 0.0, 0.0), hi=(64.0, 32.0, 1.0),
+                            cutoff=1.0, cap=12, quantum=1.0)
+    if not (geom.base_occ == 4 and geom.ncells == (32, 16, 1)):
+        raise AssertionError(f"crowded grid: {geom.ncells}, base_occ "
+                             f"{geom.base_occ}")
+    gx, gy = np.meshgrid(np.arange(64) + 0.5, np.arange(32) + 0.5)
+    x = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    rng = np.random.default_rng(11)
+    extra = np.stack([2.05 + 1.9 * rng.random(7), 2.05 + 1.9 * rng.random(7)],
+                     axis=1)
+    x = np.concatenate([x, extra])
+    state = S.state_from_particles(geom, x, np.zeros(len(x), np.int64),
+                                   dtype=torch.float32, device=dev)
+    n = len(x)
+    v = rng.standard_normal((n, 3)).astype(np.float32) * 0.01
+    v[:, 2] = 0.0
+    state = S.scatter_by_tag(state, v=v, vest=v,
+                             rho=np.full(n, 1.0, np.float32),
+                             rhoI=np.full(n, 1.0, np.float32))
+    state = dataclasses.replace(
+        state, rho=torch.where(state.valid, state.rho, 1.0),
+        rhoI=torch.where(state.valid, state.rhoI, 1.0),
+        dt=torch.tensor(1e-4, dtype=torch.float32, device=dev))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    one = t(np.ones(1))
+    params = S.Params(
+        mass=one, rho0=one, c0=10.0 * one, B=t(tait_b(10.0 * np.ones(1),
+                                                      np.ones(1))),
+        G0=0.0 * one, cut=t(np.ones((1, 1))), cutc=t(np.ones((1, 1))),
+        visc=t(0.1 * np.ones((1, 1))), kappa=t(np.zeros((1, 1, 0))),
+        kappa_ssa=t(np.zeros((1, 1, 0))))
+    cfg = pair.PairConfig.transport_velocity(
+        dim=2, solids_present=False, elastic_present=False,
+        free_solids_present=False, weighted_solid=False)
+    return state, params, geom, cfg
+
+
+def _kernel_device_ms(torch, fn, match, iters):
+    """Device ms per call of the kernels whose name holds ``match`` over
+    ``iters`` calls of ``fn`` under torch.profiler (after a warm-up call),
+    and their count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
+    count = sum(e.count for e in hits)
+    if count == 0:
+        raise AssertionError(f"torch.profiler recorded no {match} kernel")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3, count
 
 
 def _nvidia_smi(query: str) -> str:
@@ -1226,10 +1390,11 @@ def _pass_a_work(torch, S, pair, state, geom, h):
     return cand, inside
 
 
-def _pass_a_rows(pair_cuda, pf, cfg, kernel):
-    """(packed input rows, output rows) of one call of ``kernel``."""
-    if kernel == "pass_a_2d_rowloop" or (kernel == "pass_a_3d"
-                                         and pair_cuda.tv_lacks(cfg)):
+def _pass_a_rows(pair_cuda, pf, geom, cfg, kernel):
+    """(packed input rows, output rows) of one call of ``kernel``: the full
+    body's (K2's, and K1's, K4's and K3's where ``tv_body`` is False) or
+    the transport-velocity body's."""
+    if kernel == "pass_a_2d_rowloop" or not pair_cuda.tv_body(geom, cfg):
         elastic = cfg.elastic_present
         names = pair_cuda.MECH_PF_ROWS + (("AS", "S") if elastic else ("ASd",))
         accs = pair_cuda.MECH_ACC_ROWS + ((("dS", 9),) if elastic else ())
@@ -1259,6 +1424,7 @@ def main() -> int:
     from sph_bvf_tpu_torch.core import computes, rebin_cuda
     from sph_bvf_tpu_torch.core import stepper as stepper_mod
     from sph_bvf_tpu_torch.core import state as S
+    from sph_bvf_tpu_torch.core.fixes import SetForce
     from sph_bvf_tpu_torch.core.stepper import _rebin_drop, setup, simulate
     from sph_bvf_tpu_torch.io import checkpoint, vtk
     from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
@@ -1271,24 +1437,32 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     counters = {"pass_a_2d": pair_cuda.pass_a_2d,
+                "pass_a_2d_preshift": pair_cuda.pass_a_2d_preshift,
                 "pass_a_2d_rowloop": pair_cuda.pass_a_2d_rowloop,
                 "pass_a_3d": pair_cuda.pass_a_3d,
                 "rebin_move_2d": rebin_cuda.rebin_move_2d,
                 "rebin_move_2d_gated": rebin_cuda.rebin_move_2d_gated,
                 "rebin_move_3d": rebin_cuda.rebin_move_3d}
 
-    def pass_a_timing(pass_a, state, params, geom, cfg, iters, piece=None):
+    def pass_a_timing(pass_a, state, params, geom, cfg, iters, piece=None,
+                      plain_iters=None):
         """Per-call ms of the wrapper ``pass_a`` and of the plain loop (over
-        ``piece`` target cells at a time, all at once by default) on this
+        ``piece`` target cells at a time, all at once by default; over
+        ``plain_iters`` calls, ``iters`` by default) on this
         state, and pass A's bound from these inputs at
-        the state's occupancy: the packed rows in and out, the valid
+        the state's occupancy: the packed rows in and out (for K4 also its
+        9 staged copies of the pack, written once and read once), the valid
         candidates, the pairs inside the support h (with the thermal noise,
         their hash and Box-Muller too) and, with species, those inside
         cutc."""
         pf = pair._per_particle(state, params, cfg)
         noise = pair.noise_inputs(state)
         n, slots = int(state.n_valid), geom.cap * geom.ncells_total
-        rows_in, rows_out = _pass_a_rows(pair_cuda, pf, cfg, pass_a.__name__)
+        rows_in, rows_out = _pass_a_rows(pair_cuda, pf, geom, cfg,
+                                         pass_a.__name__)
+        nbytes = _packed_bytes(slots, n, rows_in, rows_out)
+        if pass_a is pair_cuda.pass_a_2d_preshift:
+            nbytes += 2 * 4 * 9 * rows_in * slots
         cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
         flops = FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside
         int_ops = 0
@@ -1307,9 +1481,8 @@ def main() -> int:
             "pass_a_plain": _per_call_ms(
                 torch, lambda: pair._pass_a_plain(pf, params, geom, cfg, noise,
                                                   cells_per_piece=piece),
-                iters),
-            "pass_a_bound": _bound(_packed_bytes(slots, n, rows_in, rows_out),
-                                   flops, int_ops),
+                plain_iters or iters),
+            "pass_a_bound": _bound(nbytes, flops, int_ops),
             "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
                             f"{inside} pairs inside the support"
                             + (f", {inside_c} inside cutc with {ns} species"
@@ -1335,23 +1508,17 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    # K1: every (filter, species count, thermal) instantiation, as the
-    # runtime reports it (registers, local-memory bytes: the spills, and in
-    # the thermal ones the stack frame of cosf's range reduction)
-    attrs = {f"{'filter' if filt else 'nofilter'}/Ns={ns}"
-             f"{'/thermal' if th else ''}":
-             pair_cuda.kernel_attributes(pair_cuda.pass_a_2d, filt, ns,
-                                         thermal=th)
-             for th in (False, True) for ns in range(pair_cuda.MAX_SPECIES + 1)
-             for filt in (True, False)}
-    print(f"[build] pass_a_2d instantiations (registers per thread, local "
-          f"bytes per thread): {attrs}")
-    # K2 and K3 (the shared body of csrc/pass_a_mech.cuh): every (filter,
-    # elastic, species count, thermal) instantiation; K3's transport-
-    # velocity body ("tv") beside them
-    for wrapper in (pair_cuda.pass_a_2d_rowloop, pair_cuda.pass_a_3d):
-        bodies = ((False, True) if wrapper is pair_cuda.pass_a_3d
-                  else (False,))
+    print(f"[build] K4 (pass_a_2d_preshift, its own nvcc beside the others): "
+          f"{_build.build_seconds.get('pass_a_2d_preshift')!r} s")
+    # every instantiation, as the runtime reports it (registers, local-memory
+    # bytes: the spills, and in the thermal ones the stack frame of cosf's
+    # range reduction): K1, K4 and K3 with both bodies (the transport-
+    # velocity body "tv": (filter, species count, thermal); the full body of
+    # csrc/pass_a_mech.cuh: and elastic), K2 the full body
+    for wrapper in (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_preshift,
+                    pair_cuda.pass_a_2d_rowloop, pair_cuda.pass_a_3d):
+        bodies = ((False,) if wrapper is pair_cuda.pass_a_2d_rowloop
+                  else (True, False))
         attrs = {f"{'tv/' if tv else ''}{'filter' if filt else 'nofilter'}/"
                  f"{'elastic' if el else 'plain'}/Ns={ns}"
                  f"{'/thermal' if th else ''}":
@@ -1523,11 +1690,55 @@ def main() -> int:
           + "; beam S seeded (max|AS| " + f"{as_max:.3g}, max|dS| run "
           + f"{ds_run:.3g} / seeded {ds_seeded:.3g}): "
           + ", ".join(f"{k} {v:.3g}" for k, v in err_s.items()))
-    del seeded, ref, ref_s
+    # K1's full body and K4 on the same states, forced through the grouped
+    # shape (as the JAX package's tests call pass_a_pallas(rowloop=False)):
+    # periodic x, mechanics, XSPH, the free elastic beam
+    k1f_err, k1f_abs = {}, 0.0
+    for label, s_ in (("as run", state), ("S seeded", seeded)):
+        err, err_abs, ref = _grouped_parity(
+            torch, pair, pair_cuda, s_, params, geom, spec.pair, k2_names,
+            f"K1 full body fsi {label}")
+        live = {"AS": float(pair._per_particle(s_, params, spec.pair)["AS"]
+                            .abs().max()),
+                "dS": float(ref["dS"].abs().max()),
+                "ddx": float(ref["ddx"].abs().max())}
+        if label == "S seeded" and not all(v > 0 for v in live.values()):
+            raise AssertionError(f"K1 full body fsi is vacuous: {live}")
+        k1f_err[f"fsi nx={FSI_NX[0]} {label}"] = (max(err.values()), live)
+        k1f_abs = max(k1f_abs, err_abs)
+    cfg_nf = dataclasses.replace(spec.pair, density_filter_accs=False)
+    t_k1f = pass_a_timing(pair_cuda.pass_a_2d, seeded, params, geom, cfg_nf, 10)
+    pf_nf = pair._per_particle(seeded, params, cfg_nf)
+    k2_ms = _per_call_ms(torch, lambda: pair_cuda.pass_a_2d_rowloop(
+        pf_nf, params, geom, cfg_nf), 10)
+    print(f"[K1 full body] grouped pass A kernel, full body == plain, K4 == K1 "
+          f"bitwise (fsi nx={FSI_NX[0]}: periodic x, cap {geom.cap}, mechanics, "
+          f"XSPH, the free elastic beam, both filter variants); per state the "
+          f"worst field's max|diff|/max|ref| and max|AS|, |dS|, |ddx|: "
+          + "; ".join(f"{k}: {v[0]:.3g} ({v[1]})" for k, v in k1f_err.items())
+          + f"; S seeded, per call ms: K1 {t_k1f['pass_a']!r} (K2 on it "
+          f"{k2_ms!r}) vs plain {t_k1f['pass_a_plain']!r}, bound "
+          f"{t_k1f['pass_a_bound']} [{card}]")
+    del seeded, ref, ref_s, pf_nf
     k2t_errs, k2t_abs, kb, checks = _thermal_rows(
         torch, pair, pair_cuda.pass_a_2d_rowloop, state, params, geom, spec.pair,
         k2_names, "K2 thermal fsi")
     k2t = {f"fsi nx={FSI_NX[0]} elastic Ns=0": (k2t_errs, kb, checks)}
+    # K1's thermal rows on the same FSI state, and K4 bitwise K1 with them
+    k1ft_errs, k1ft_abs, kb1, checks1 = _thermal_rows(
+        torch, pair, pair_cuda.pass_a_2d, state, params, geom, spec.pair,
+        k2_names, "K1 thermal fsi")
+    for boltz in (params.boltz, kb1):
+        _k4_bitwise(torch, pair, pair_cuda, _noisy(torch, state),
+                    dataclasses.replace(params, boltz=boltz), geom,
+                    dataclasses.replace(spec.pair, thermal=True),
+                    f"K4 thermal fsi kB {boltz!r}")
+    k1f_abs = max(k1f_abs, k1ft_abs)
+    print(f"[K1 full body thermal] the full body's thermal rows == plain, K4 == "
+          f"K1 bitwise (fsi nx={FSI_NX[0]}, elastic, Ns=0, step read as "
+          f"{THERMAL_STEP}, both filter variants): the worst field's "
+          f"max|diff|/max|ref| at (a) the SI kB {k1ft_errs['a']:.3g}, (b) kB "
+          f"{kb1:.3g} {k1ft_errs['b']:.3g}, the checks on (b) {checks1}")
 
     # -- 6. K6 parity -------------------------------------------------------
     state = simulate(state, params, spec, 50)  # drifted since its last rebin
@@ -1886,6 +2097,17 @@ def main() -> int:
           f"{live_max['drho']:.3g}, max|ddv| {live_max['ddv']:.3g}): "
           + ", ".join(f"{k} {v:.3g}" for k, v in err_l.items())
           + f"; max|diff| {k2sf_abs!r}")
+    k1sf_err, k1sf_abs = {}, 0.0
+    sf_names = ("f", "drho", "de", "num_den", "ddv", "ddx", "phi", "nw", "dS")
+    for label, s_ in (("as run", state), ("rho, v seeded", live)):
+        err, err_abs, _ = _grouped_parity(
+            torch, pair, pair_cuda, s_, params, geom, spec.pair, sf_names,
+            f"K1 solid-free blob {label}")
+        k1sf_err[f"blob s={sb} {label}"] = max(err.values())
+        k1sf_abs = max(k1sf_abs, err_abs)
+    t_k1sf = pass_a_timing(pair_cuda.pass_a_2d, live, params, geom,
+                           dataclasses.replace(spec.pair,
+                                               density_filter_accs=False), 10)
     del live, ref_l
     # a chunk later on the geometry the run ended on, without re-cuts
     spec = dataclasses.replace(spec, geom=geom, balance=None)
@@ -1953,7 +2175,50 @@ def main() -> int:
               f"{k} {v[0]:.3g} / {v[1]:.3g} ({v[2]:.3g})" for k, v in err.items())
               for when, err in k2p_err.items())
           + f"; max|diff| {k2p_abs!r}")
-    del cases, ref
+    for label, s_, p_, cfg in cases[:2]:
+        err, err_abs, ref = _grouped_parity(
+            torch, pair, pair_cuda, s_, p_, geom, cfg, k2p_names,
+            f"K1 full body polarization {label}")
+        live = {"dS": float(ref["dS"].abs().max()),
+                "Q": float(ref["Q"].abs().max()),
+                "ddx": float(ref["ddx"].abs().max())}
+        if not all(v > 0 for v in live.values()):
+            raise AssertionError(f"K1 full body polarization {label} is "
+                                 f"vacuous: {live}")
+        k1f_err[f"polarization nx={nxp} {label}"] = (max(err.values()), live)
+        k1f_abs = max(k1f_abs, err_abs)
+    # the crowded-cell grid of the JAX package's grouped-kernel test, which
+    # JAX and the port route to the grouped kernel by default, then 10
+    # steps of it through simulate (K1's solid-free launches)
+    cs, cp, cgeom, ccfg = _crowded_grid(torch, S, pair, dev)
+    if pair_cuda.route(cgeom, ccfg) is not pair_cuda.pass_a_2d:
+        raise AssertionError("the crowded-cell grid does not route to K1")
+    err, err_abs, _ = _grouped_parity(
+        torch, pair, pair_cuda, cs, cp, cgeom, ccfg, sf_names,
+        "K1 solid-free crowded cell")
+    k1sf_err["crowded cell"] = max(err.values())
+    k1sf_abs = max(k1sf_abs, err_abs)
+    cspec = stepper_mod.ModelSpec(
+        geom=cgeom, pair=ccfg,
+        integ=stepper_mod.IntegratorConfig.transport_velocity())
+    for c in counters.values():
+        c.launches = 0
+    cs = simulate(setup(cs, cp, cspec, dt=1e-4), cp, cspec, 10)
+    k1sf_launches = {k: c.launches for k, c in counters.items() if c.launches}
+    if k1sf_launches != {"pass_a_2d": 11, "rebin_move_2d": 2}:
+        raise AssertionError(f"crowded-cell run: launch counts {k1sf_launches}")
+    print(f"[K1 full body] on the polarization state (fsi style, ampl_damp, "
+          f"the G0 row, Ns=1, periodic {geom.periodic[:2]}, cap {geom.cap}) as "
+          f"run and seeded, K4 == K1 bitwise: "
+          + "; ".join(f"{k}: {v[0]:.3g} ({v[1]})" for k, v in k1f_err.items()
+                      if k.startswith("polarization"))
+          + f"; solid-free (phi, nw, dS exactly 0), K4 == K1 bitwise: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in k1sf_err.items())
+          + f"; the crowded-cell grid ({cgeom.ncells[:2]} cells of cap "
+          f"{cgeom.cap}, base_occ {cgeom.base_occ}) through simulate(10): "
+          f"launches {k1sf_launches}; max|diff| full body {k1f_abs!r}, "
+          f"solid-free {k1sf_abs!r}")
+    del cases, ref, cs
     errs, err_abs, kb, checks = _thermal_rows(
         torch, pair, pair_cuda.pass_a_2d_rowloop, state, params, geom, spec.pair,
         k2p_names, "K2 thermal polarization")
@@ -2058,6 +2323,156 @@ def main() -> int:
     print(f"[main] cavity N={CAVITY_N[0]} build+setup+simulate("
           f"{MAIN_STEPS['cavity']}) in {secs[1]!r} s (build {secs[0]!r} s): "
           f"{n0} particles, {detail}, launches {cav_launches}")
+
+    # -- the grouped kernel's main paths: the flagship at GROUPED_N through
+    # K4 (preshift_window), then the same run through K1; the cavity under
+    # the mechanics pair style through K1's full body; against the JAX run
+    Ng = GROUPED_N
+
+    def cavity_build(N, **kw):
+        """lid_cavity.scene(N=N, **kw) built on the card."""
+        sc = lid_cavity.scene(Scene, Region, SetForce, N=N, **kw)
+        return (*sc.build(device=dev), sc)
+
+    def k1_k4_timing(tag, state, params, geom, cfg, launches):
+        """K1 and K4 per call on one state (CUDA events; the plain loop
+        once), their device ms per call (torch.profiler) and bounds."""
+        cfg = dataclasses.replace(cfg, density_filter_accs=False)
+        t = {}
+        for name, kernel, match in (("K1", pair_cuda.pass_a_2d, "Neighbour"),
+                                    ("K4", pair_cuda.pass_a_2d_preshift,
+                                     "Preshift")):
+            t[name] = pass_a_timing(kernel, state, params, geom, cfg, 10,
+                                    plain_iters=1)
+            pf = pair._per_particle(state, params, cfg)
+            t[name]["device_ms"], _ = _kernel_device_ms(
+                torch, lambda: kernel(pf, params, geom, cfg), match, 10)
+        for name in ("K1", "K4"):
+            tt = t[name]
+            print(f"[speed] {tag}: {name} {tt['pass_a']!r} ms per call as called "
+                  f"(CUDA events, packing{' and staging' if name == 'K4' else ''}"
+                  f" included), launches on its main path {launches[name]}, "
+                  f"bound {tt['pass_a_bound']} ({tt['pass_a_work']}), plain pass "
+                  f"A {tt['pass_a_plain']!r} [{card}]")
+            print(f"[profile] {tag}: {name} {tt['device_ms']!r} ms of device "
+                  f"time per call (torch.profiler, 10 calls) [{card}]")
+        return t
+
+    state, spec, n0, secs, pre_launches, vmax, checks = run_main(
+        lambda: cavity_build(Ng, preshift_window=True), GROUPED_DT,
+        ("pass_a_2d_preshift", "rebin_move_2d"), GROUPED_STEPS)
+    params = run_main.built[1]
+    require(checks, "preshift main path", f"max|v| {vmax!r}")
+    s_k1, p_k1, spec_k1, _ = cavity_build(Ng)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    via_k1 = simulate(setup(s_k1, p_k1, spec_k1, dt=GROUPED_DT), p_k1, spec_k1,
+                      GROUPED_STEPS)
+    torch.cuda.synchronize()
+    k1_secs = time.perf_counter() - t0
+    k1_launches = {k: c.launches for k, c in counters.items() if c.launches}
+    if k1_launches != {"pass_a_2d": GROUPED_STEPS + 1,
+                       "rebin_move_2d": pre_launches["rebin_move_2d"]}:
+        raise AssertionError(f"the K1 run: launch counts {k1_launches}")
+    differ = [f.name for f in dataclasses.fields(state)
+              if isinstance(getattr(state, f.name), torch.Tensor)
+              and not torch.equal(getattr(state, f.name), getattr(via_k1, f.name))]
+    if differ:
+        raise AssertionError(f"[main preshift] the K4 run's step-{GROUPED_STEPS} "
+                             f"state differs from the K1 run's in {differ}")
+    del via_k1, s_k1
+    k4_err, k4_abs, _ = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_2d_preshift, state, params, spec.geom,
+        spec.pair, k1_names, "K4 main preshift")
+    fluid = state.valid & (state.solid_tag == 0)
+    print(f"[main preshift] lid_cavity.scene(N={Ng}, preshift_window=True) "
+          f"build+setup+simulate({GROUPED_STEPS}) in {secs[1]!r} s (build "
+          f"{secs[0]!r} s): {n0} particles, cap {spec.geom.cap}, "
+          f"{spec.geom.ncells_total} cells, launches {pre_launches}; the same "
+          f"run through K1 in {k1_secs!r} s, launches {k1_launches}: the "
+          f"step-{GROUPED_STEPS} states bitwise equal, every field; K4 == plain "
+          f"on that state, max|diff|/max|ref| per field: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in k4_err.items())
+          + f"; max|v| {vmax!r}, fluid max|rho-1| "
+          f"{float((state.rho[fluid] - 1.0).abs().max())!r} [{card}]")
+    t_pre = k1_k4_timing(f"flagship N={Ng} step {GROUPED_STEPS}", state, params,
+                         spec.geom, spec.pair,
+                         {"K1": k1_launches["pass_a_2d"],
+                          "K4": pre_launches["pass_a_2d_preshift"]})
+    del state
+
+    state, spec, n0, secs, mech_launches, vmax, checks = run_main(
+        lambda: cavity_build(Ng, pair_style="mechanics"), GROUPED_DT,
+        ("pass_a_2d", "rebin_move_2d"), GROUPED_STEPS)
+    params = run_main.built[1]
+    fluid = state.valid & (state.solid_tag == 0)
+    rho_dev = float((state.rho[fluid] - 1.0).abs().max())
+    rho_mean = float(state.rho[fluid].double().mean())
+    ref_dev, lo, hi = MECH_PLAIN_RHO1000
+    checks.update({"max|v| <= 1.1": vmax <= 1.1,
+                   f"fluid max|rho-1| in [{lo}, {hi}] x the plain loop's "
+                   f"{ref_dev}": lo * ref_dev <= rho_dev <= hi * ref_dev,
+                   "fluid |mean rho-1| <= 0.002": abs(rho_mean - 1.0) <= 0.002,
+                   "full body": not pair_cuda.tv_body(spec.geom, spec.pair)})
+    detail = (f"max|v| {vmax!r}, fluid max|rho-1| {rho_dev!r}, fluid mean rho "
+              f"{rho_mean!r}")
+    require(checks, "mechanics main path", detail)
+    k1m_err, k1m_abs, ref = _grouped_parity(
+        torch, pair, pair_cuda, state, params, spec.geom, spec.pair,
+        k1_names + ("ddx",), "K1 main mechanics")
+    ddx_max = float(ref["ddx"].abs().max())
+    if not ddx_max > 0:
+        raise AssertionError("K1 main mechanics: ddx is 0")
+    del ref
+    # 10 more steps through K4 and through K1: bitwise the same states
+    spec_k4 = dataclasses.replace(spec, pair=dataclasses.replace(
+        spec.pair, preshift_window=True))
+    for c in counters.values():
+        c.launches = 0
+    a = simulate(_clone(torch, state), params, spec_k4, 10)
+    k4m_launches = pair_cuda.pass_a_2d_preshift.launches
+    b = simulate(_clone(torch, state), params, spec, 10)
+    if k4m_launches != 10 or pair_cuda.pass_a_2d.launches != 10:
+        raise AssertionError(f"mechanics +10 steps: K4 {k4m_launches}, K1 "
+                             f"{pair_cuda.pass_a_2d.launches} launches")
+    differ = [f.name for f in dataclasses.fields(a)
+              if isinstance(getattr(a, f.name), torch.Tensor)
+              and not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+    if differ:
+        raise AssertionError(f"mechanics +10 steps: K4's run differs from "
+                             f"K1's in {differ}")
+    del a, b
+    print(f"[main mechanics] lid_cavity.scene(N={Ng}, pair_style=\"mechanics\") "
+          f"build+setup+simulate({GROUPED_STEPS}) in {secs[1]!r} s (build "
+          f"{secs[0]!r} s): {n0} particles, {detail}, launches {mech_launches} "
+          f"(K1's full body); K1 == plain on the step-{GROUPED_STEPS} state, "
+          f"K4 == K1 bitwise, max|diff|/max|ref| per field: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in k1m_err.items())
+          + f" (max|ddx| {ddx_max:.3g}); 10 more steps through K4 ({k4m_launches} "
+          f"launches) and through K1: bitwise equal [{card}]")
+    t_mech = k1_k4_timing(f"mechanics cavity N={Ng} step {GROUPED_STEPS}", state,
+                          params, spec.geom, spec.pair,
+                          {"K1": mech_launches["pass_a_2d"], "K4": k4m_launches})
+    del state
+
+    state, spec, n0, secs, mj_launches, vmax, checks = run_main(
+        lambda: cavity_build(MECH_JAX_N, pair_style="mechanics"), 1e-4,
+        ("pass_a_2d", "rebin_move_2d"), MECH_JAX_STEPS)
+    params = run_main.built[1]
+    fluid = state.valid & (state.solid_tag == 0)
+    energy = _cavity_energy(torch, state, params)
+    got = {"fluid max|v|": energy["fluid max|v|"], "fluid ke": energy["fluid ke"],
+           "fluid mean rho": float(state.rho[fluid].double().mean())}
+    for name, (ref_v, lo, hi) in MECH_JAX_STEP1000.items():
+        checks[f"{name} in [{lo}, {hi}] x JAX's {ref_v}"] = \
+            lo * ref_v <= got[name] <= hi * ref_v
+    require(checks, "mechanics vs JAX", f"{got}")
+    print(f"[main mechanics vs JAX] mechanics cavity N={MECH_JAX_N}, "
+          f"{MECH_JAX_STEPS} steps on the card in {secs[1]!r} s: {got} inside "
+          f"the bands {MECH_JAX_STEP1000} around the JAX package's own run, "
+          f"launches {mj_launches} [{card}]")
+    del state
 
     # natural convection around the hot cylinder, at the reference's size
     state, spec, n0, secs, conv_launches, vmax, checks = run_main(
@@ -2867,6 +3282,11 @@ def main() -> int:
         state = setup(state, params, spec, dt=dt)
         t_cav[N] = speed(f"cavity N={N}", "cavity", N, state, params, spec,
                          pair_cuda.pass_a_2d, rebin_cuda.rebin_move_2d)
+        if N != GROUPED_N:  # K1 and K4 at GROUPED_N: the [main preshift] state
+            k1_k4_timing(
+                f"flagship N={N} set-up state", state, params, spec.geom,
+                spec.pair, {"K1": cav_launches["pass_a_2d"],
+                            "K4": "none (the N=200 main path runs K1)"})
         del state
     t_conv = {}
     for N in CONV_N:
@@ -3003,18 +3423,18 @@ def main() -> int:
     # half-steps add to a step
     targets += [(f"cavity N={N}",
                  lambda N=N, dt=dt: lid_cavity.build(N=N, dt=dt, device=dev), dt,
-                 (("K1", "pass_a_2d_kernel"), ("K5", "rebin_move_2d_kernel")))
+                 (("K1", "Neighbour"), ("K5", "rebin_move_2d_kernel")))
                 for N, dt in zip(CAVITY_N, (1e-4, 5e-6))]
     targets += [(f"natural convection N={N}",
                  lambda N=N: natural_convection.build(N=N, dt=CONV_DT[N],
                                                       device=dev), CONV_DT[N],
-                 (("K1 species", "pass_a_2d_kernel"),
+                 (("K1 species", "Neighbour"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
     # and with the noise on: the thermal rows add no device op to a step
     targets += [(f"natural convection N={N} with thermal=True",
                  lambda N=N: _with_noise(natural_convection.build(
                      N=N, dt=CONV_DT[N], device=dev)), CONV_DT[N],
-                 (("K1 species/thermal", "pass_a_2d_kernel"),
+                 (("K1 species/thermal", "Neighbour"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
     # the 3D FSI beam at nx=60 (released at once, so K3's elastic terms run
     # on a moving beam) and the vortex at N=100: K3's elastic and solid-free
@@ -3173,6 +3593,27 @@ def main() -> int:
         ("rebin_move_3d (large cap)", "csrc/rebin_move_3d.cu",
          "core/rebin_pallas.py:441", f3_launches["rebin_move_3d"], k7l_abs,
          t_fsi3d[FSI3D_NX[1]], "move"),
+        # the rest of the grouped kernel: K4 on the flagship's main path at
+        # GROUPED_N (preshift_window) and on the mechanics cavity (its 10
+        # steps after that main path; K4 is bitwise K1, so its error is
+        # K1's), K1's full body on the mechanics cavity's main path; K1 on
+        # the FSI and polarization states (periodic, elastic: no user path
+        # routes such a grid to the grouped kernel, so 0 launches on a main
+        # path; timed on the seeded FSI state) and solid-free (launches from
+        # the crowded-cell grid's 10-step run, timed on the s=20 blob)
+        ("pass_a_2d_preshift", "csrc/pass_a_2d_preshift.cu",
+         "ops/pair_pallas.py:848", pre_launches["pass_a_2d_preshift"], k4_abs,
+         t_pre["K4"], "pass_a"),
+        ("pass_a_2d_preshift (mechanics)", "csrc/pass_a_2d_preshift.cu",
+         "ops/pair_pallas.py:848", k4m_launches, k1m_abs, t_mech["K4"],
+         "pass_a"),
+        ("pass_a_2d (full body, mechanics)", "csrc/pass_a_2d.cu",
+         "ops/pair_pallas.py:308", mech_launches["pass_a_2d"], k1m_abs,
+         t_mech["K1"], "pass_a"),
+        ("pass_a_2d (elastic/periodic)", "csrc/pass_a_2d.cu",
+         "ops/pair_pallas.py:308", 0, k1f_abs, t_k1f, "pass_a"),
+        ("pass_a_2d (solid-free)", "csrc/pass_a_2d.cu", "ops/pair_pallas.py:308",
+         k1sf_launches["pass_a_2d"], k1sf_abs, t_k1sf, "pass_a"),
     )
     # no single PyTorch call computes pass A or the locality move
     kernels = [

@@ -1,9 +1,10 @@
-// The full pass-A pair body shared by K2 (csrc/pass_a_2d_rowloop.cu) and K3
-// (csrc/pass_a_3d.cu): the packed-row layout, the i-side values a thread
-// loads once, and the accumulation of one (i, j) pair.
+// The full pass-A pair body shared by K2 (csrc/pass_a_2d_rowloop.cu), K3
+// (csrc/pass_a_3d.cu), K1 and K4 (csrc/pass_a_2d.cuh): the packed-row
+// layout, the i-side values a thread loads once, and the accumulation of one
+// (i, j) pair.
 //
 // It is ops/pair.py `_pass_a_offset` (with `_pass_a_dS`) for one pair under
-// every configuration the JAX package's rowloop and tiled-3D kernels serve:
+// every configuration the JAX package's pass-A kernels serve:
 // the transport-velocity (pressure switch) or mechanics (symmetric pressure)
 // force, XSPH (ddx), BVF walls, free solids with the Pereira artificial
 // viscosity, elastic solids (the 9-component artificial stress f_art, the

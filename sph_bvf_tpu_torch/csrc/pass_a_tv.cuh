@@ -1,18 +1,19 @@
-// The transport-velocity pass-A pair term of K1 (csrc/pass_a_2d.cu): the
-// packed-row layout, the i-side values a thread loads once, and the
-// accumulation of one (i, j) pair.  Its species flux (`add_species_flux`,
+// The transport-velocity pass-A pair term, the leaner body of K1, K4 and K3
+// (csrc/pass_a_2d.cuh, csrc/pass_a_3d.cu): the packed-row layout, the
+// i-side values a thread loads once, and the accumulation of one (i, j)
+// pair.  Its species flux (`add_species_flux`,
 // the species table and kMaxSpecies), its thermal noise (`Noise`,
 // `load_noise`, `add_thermal`), its minimum image (`min_image`, `Wrap`) and
 // its cell wrap (`wrap_cell`) also serve the pair body K2 and K3 share
 // (csrc/pass_a_mech.cuh).
 //
 // It is ops/pair.py `_pass_a_offset` for one pair under the configuration
-// K1 serves: the transport-velocity pressure switch, fixed BVF wall
+// this body serves: the transport-velocity pressure switch, fixed BVF wall
 // solids, the diagonal artificial stress of non-elastic solids, with
 // (FILTER) or without the Shepard-filter accumulators rhoAux1/rhoAux2, with
 // NS continuum species (the tSDPD flux Q of the concentrations C), and with
 // (THERMAL) or without the SDPD thermal noise; `add_pair` also takes the
-// minimum image on periodic axes (K1 passes none).  A candidate
+// minimum image on periodic axes (K3's; in 2D none).  A candidate
 // outside the kernel support h skips the mechanics arithmetic, which changes
 // no sum because every term carries a factor W or dW/dr that is exactly zero
 // there.  The species flux has its own support cutc (a separate per-pair

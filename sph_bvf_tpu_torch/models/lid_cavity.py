@@ -5,6 +5,10 @@ cavity of N x N fluid particles surrounded by 3 layers of fixed BVF wall
 particles; the lid row is a fixed solid "conveyor belt" with velocity
 (U0, 0) and its forces frozen by setforce.  Pair/integrator:
 ssa_tsdpd/bvf/transportVelocity.  Re = U0 L / nu, c0 = 10, h = 2.5 dx.
+
+``scene`` builds the cavity from either package's classes, with the
+model's pair style or the mechanics one and any ``Scene.pair_style``
+keyword (``preshift_window=True``, say); it is in neither registry.
 """
 
 from __future__ import annotations
@@ -13,14 +17,16 @@ from sph_bvf_tpu_torch.api.scene import Region, Scene
 from sph_bvf_tpu_torch.core.fixes import SetForce
 
 
-def build(N: int = 50, Re: float = 100.0, U0: float = 1.0, dt: float | None = None,
-          c0: float = 10.0, n_wall_layers: int = 3, rebin_every: int = 10,
-          ncx_multiple_of: int = 1, cap: int | None = None, device=None):
-    """Returns (state, params, spec, scene), the state and params on ``device``
-    (default: the card).
-
-    ``cap`` overrides the slot capacity (default: density-derived, 14 at
-    this lattice)."""
+def scene(Scene, Region, SetForce, N: int = 50, Re: float = 100.0,
+          U0: float = 1.0, dt: float | None = None, c0: float = 10.0,
+          n_wall_layers: int = 3, rebin_every: int = 10,
+          ncx_multiple_of: int = 1, cap: int | None = None,
+          pair_style: str = "transport_velocity", **pair_kwargs):
+    """The cavity as an unbuilt scene of the given package's classes.
+    ``pair_style``: "transport_velocity" (the model's) or "mechanics" (the
+    mechanics pair style and integrator: the symmetric pressure force and
+    XSPH); ``pair_kwargs`` pass on to ``Scene.pair_style``.  Build it with
+    ``.build(device=...)`` (the port) or ``.build()`` (the JAX package)."""
     if dt is None:
         # dt = 1e-4 is the reference's value for its N <= 200 configs;
         # finer grids need CFL-scaled steps
@@ -75,14 +81,28 @@ def build(N: int = 50, Re: float = 100.0, U0: float = 1.0, dt: float | None = No
     sc.set("wall", solid_tag=1, fixed=True)
     sc.set("lid", solid_tag=1, fixed=True)
 
-    sc.pair_style("transport_velocity")
+    sc.pair_style(pair_style, **pair_kwargs)
     for (i, j) in ((1, 1), (1, 2), (2, 2)):
         sc.pair_coeff(i, j, rho_f, c0, nu, h, h, 0.0)
-    sc.integrator("transport_velocity")
+    sc.integrator(pair_style)
 
     sc.velocity("lid", vx=U0)
     sc.fix(SetForce(groupbit=sc.groupbit("lid"), fx=0.0, fy=0.0, fz=0.0))
 
     sc.timestep(dt)
+    return sc
+
+
+def build(N: int = 50, Re: float = 100.0, U0: float = 1.0, dt: float | None = None,
+          c0: float = 10.0, n_wall_layers: int = 3, rebin_every: int = 10,
+          ncx_multiple_of: int = 1, cap: int | None = None, device=None):
+    """Returns (state, params, spec, scene), the state and params on ``device``
+    (default: the card).
+
+    ``cap`` overrides the slot capacity (default: density-derived, 14 at
+    this lattice)."""
+    sc = scene(Scene, Region, SetForce, N=N, Re=Re, U0=U0, dt=dt, c0=c0,
+               n_wall_layers=n_wall_layers, rebin_every=rebin_every,
+               ncx_multiple_of=ncx_multiple_of, cap=cap)
     state, params, spec = sc.build(device=device)
     return state, params, spec, sc

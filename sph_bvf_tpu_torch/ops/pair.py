@@ -6,8 +6,8 @@ so no scatter-adds are needed.  Pair blocks are ``[ci, cj, NC]`` with
 components leading; reductions run over the cj axis.
 
 ``compute_forces`` sends pass A through ``ops/pair_cuda.pass_a``: the
-hand-written kernel the grid routes to (K1 or K2 in 2D, K3 in 3D) on a CUDA
-tensor, the stencil loop below (``_pass_a_plain``, over 3^dim offsets) on a
+hand-written kernel the grid routes to (K1, K4 or K2 in 2D, K3 in 3D) on a
+CUDA tensor, the stencil loop below (``_pass_a_plain``, over 3^dim offsets) on a
 CPU tensor.  The loop is also the reference the kernels are checked against
 on the card.
 
@@ -70,6 +70,7 @@ class PairConfig:
     rng_seed: int = 0
     ssa_poisson_terms: int = 6
     ssa_kernel_split: bool = False
+    # K4 (the pre-shifted copies) in place of K1: ops/pair_cuda.route
     preshift_window: bool = False
     # accumulate the Shepard-filter inputs rhoAux1/rhoAux2 this step?
     # The stepper turns this off on the steps between filter events.
@@ -613,7 +614,7 @@ def compute_forces(
     """Full force evaluation; returns the state with all accumulators replaced
     (force_clear + Pair::compute).
 
-    Pass A goes through ``pair_cuda.pass_a``: the K1, K2 or K3 kernel on a
+    Pass A goes through ``pair_cuda.pass_a``: the K1, K4, K2 or K3 kernel on a
     CUDA tensor, ``_pass_a_plain`` on a CPU tensor.
     """
     if mesh is not None:

@@ -1,24 +1,30 @@
 """The pass-A pair kernels, their wrappers and the route between them.
 
 K1 (``csrc/pass_a_2d.cu``) ports the grouped kernel of
-``sph_bvf_tpu/ops/pair_pallas.py``, K2 (``csrc/pass_a_2d_rowloop.cu``) its
-rowloop kernel and K3 (``csrc/pass_a_3d.cu``) its tiled 3D kernel.
-``pass_a`` makes JAX's shape choice (``pair_pallas._pass_a_tiled3d`` for
-every 3D grid, ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3;
-2D grids with a mixed lattice (``base_occ == 0``) or a crowded cell
-(``cap > 24``) go to K2, the rest to K1.  K2 and K3 share one pair body
-(``csrc/pass_a_mech.cuh``), one pack and one launcher (``_mech_launch``):
-every pair style (transport-velocity, mechanics, fsi), XSPH, fixed, free
-and elastic solids, solid-free scenes and periodic axes (K3 on x, y and z).
-K1 serves the transport-velocity pair with fixed walls and no periodic
-axis (``csrc/pass_a_tv.cuh``); K3 runs that leaner pair too, on walls or
-periodic axes, for the configurations it serves (``tv_lacks`` empty: the
-3D cavities).  All three also carry the continuum species
-(the C rows in, a species table, the flux Q out) for up to
-``MAX_SPECIES`` of them, and the SDPD thermal noise (``thermal``: the e
-and tag rows in, the random force summed into f; dt, step and the PRNG key
-read in the kernel from the state's device tensors).  On a CUDA tensor
-each wrapper launches its kernel; the plain PyTorch loop
+``sph_bvf_tpu/ops/pair_pallas.py``, K4 (``csrc/pass_a_2d_preshift.cu``) its
+pre-shifted variant, K2 (``csrc/pass_a_2d_rowloop.cu``) its rowloop kernel
+and K3 (``csrc/pass_a_3d.cu``) its tiled 3D kernel.  ``pass_a`` makes JAX's
+shape choice (``pair_pallas._pass_a_tiled3d`` for every 3D grid,
+``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3; 2D grids with a
+mixed lattice (``base_occ == 0``) or a crowded cell (``cap > 24``) go to
+K2, the rest to K1, or to K4 when ``PairConfig.preshift_window`` is set
+(``pair_pallas.py:1596``; the flag changes no other route).  K1 and K4 are
+one kernel template (``csrc/pass_a_2d.cuh``) that differs only in where it
+reads j: K1 at the neighbour cell of the pack, K4 from 9 pre-shifted copies
+of it (``preshift_views``), bitwise the same sums.  Every pass-A kernel
+serves every pair configuration: every pair style (transport-velocity,
+mechanics, fsi), XSPH, fixed, free and elastic solids, solid-free scenes
+and periodic axes of at least 3 cells (x and y; K3 z too), through the
+full pair body K2 and K3 share (``csrc/pass_a_mech.cuh``, one pack and one
+launcher, ``_mech_launch``).  K1, K4 and K3 run the leaner
+transport-velocity pair of ``csrc/pass_a_tv.cuh`` instead where it serves
+(``tv_lacks`` empty, and in 2D no periodic axis: the flagship, natural
+convection and the 3D cavities; ``_two_body_launch``).  All of them also
+carry the continuum species (the C rows in, a species table, the flux Q
+out) for up to ``MAX_SPECIES`` of them, and the SDPD thermal noise
+(``thermal``: the e and tag rows in, the random force summed into f; dt,
+step and the PRNG key read in the kernel from the state's device tensors).
+On a CUDA tensor each wrapper launches its kernel; the plain PyTorch loop
 (``ops/pair._pass_a_plain``) runs only on a CPU tensor.  A CUDA call the
 routed kernel cannot serve raises and names what is missing; it never
 falls back.
@@ -33,17 +39,19 @@ import torch
 
 from sph_bvf_tpu_torch import _build
 from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
-                                         periodic_multicell, wrap_bits)
+                                         periodic_multicell, wrap_axes,
+                                         wrap_bits)
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
 from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
 
-# K1 packed field rows, in the order csrc/pass_a_tv.cuh reads them (R_*
-# there); rhoI is staged only when the Shepard-filter accumulators are
-# wanted, the Ns rows of C follow it, then THERMAL_ROWS under ``thermal``.
+# K1's, K4's and K3's transport-velocity packed field rows, in the order
+# csrc/pass_a_tv.cuh reads them (R_* there); rhoI is staged only when the
+# Shepard-filter accumulators are wanted, the Ns rows of C follow it, then
+# THERMAL_ROWS under ``thermal``.
 PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
            "P_rho2", "m_rho", "V2", "ASd")
-# K1 accumulator rows (O_* there).
+# their accumulator rows (O_* there).
 ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1), ("de", 1),
             ("phi", 1), ("nw", 3))
 FILTER_ACC_ROWS = (("rhoAux1", 1), ("rhoAux2", 1))
@@ -54,18 +62,18 @@ MAX_SPECIES = 4
 # as its int32 bits (``_pack``), so the kernels hash the plain path's words
 THERMAL_ROWS = ("e", "tag")
 
-# K2 and K3 packed field rows (R_* in csrc/pass_a_mech.cuh): these, then AS
-# and S (elastic) or ASd, then rhoI (filter), then the Ns rows of C, then
-# THERMAL_ROWS (thermal).  G0 is the per-particle row of
+# the full body's packed field rows (R_* in csrc/pass_a_mech.cuh): these,
+# then AS and S (elastic) or ASd, then rhoI (filter), then the Ns rows of C,
+# then THERMAL_ROWS (thermal).  G0 is the per-particle row of
 # ``pair._per_particle`` (softened by the first species under
 # ``g0_chem_coupling``).
 MECH_PF_ROWS = ("valid", "ptype", "solid", "x", "v", "vest", "rho", "m", "B",
                 "P_rho2", "m_rho", "V2", "c0", "inv_rho", "G0")
-# K2 and K3 accumulator rows (O_* there): these, then dS (elastic), then the
+# its accumulator rows (O_* there): these, then dS (elastic), then the
 # filter rows, then the Ns rows of Q.
 MECH_ACC_ROWS = (("num_den", 1), ("ddv", 3), ("f", 3), ("drho", 1),
                  ("de", 1), ("phi", 1), ("nw", 3), ("ddx", 3))
-# K2 and K3 runtime switches (F_* there); _F_NOSOLIDS: a solid-free scene
+# its runtime switches (F_* there); _F_NOSOLIDS: a solid-free scene
 # (no artificial-stress force, no BVF phi/nw); _F_G0PAIR: geff of a pair
 # from the G0 rows of i and j (``g0_chem_coupling``), not from the type
 # table.  The periodic axes travel as their own bits (``halo.wrap_bits``).
@@ -78,33 +86,34 @@ def uses_rowloop(geom: Geometry) -> bool:
     return geom.base_occ == 0 or geom.cap > 24
 
 
-def route(geom: Geometry):
+def route(geom: Geometry, cfg=None):
     """The wrapper this grid's pass A goes to: ``pass_a_3d`` (K3) for a 3D
-    grid, else ``pass_a_2d_rowloop`` (K2) or ``pass_a_2d`` (K1)."""
+    grid, else ``pass_a_2d_rowloop`` (K2), or ``pass_a_2d`` (K1) and, when
+    ``cfg.preshift_window`` is set, ``pass_a_2d_preshift`` (K4) in its
+    place."""
     if grid_3d(geom):
         return pass_a_3d
-    return pass_a_2d_rowloop if uses_rowloop(geom) else pass_a_2d
+    if uses_rowloop(geom):
+        return pass_a_2d_rowloop
+    return pass_a_2d_preshift if cfg is not None and cfg.preshift_window \
+        else pass_a_2d
 
 
 def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
                        kernel=None, n_sdpd: int = 0) -> list:
-    """What keeps the wrapper ``kernel`` (by default the one this grid
-    routes to) from serving this geometry, configuration and count of
-    continuum species.  K2 and K3 serve every pair configuration (the
-    shared body of ``csrc/pass_a_mech.cuh``) on periodic axes of at least 3
-    cells (with fewer, a stencil would reach one cell twice); K1 serves the
-    transport-velocity pair with fixed walls and no periodic axis."""
-    kernel = kernel or route(geom)
+    """What keeps the wrapper ``kernel`` (by default the one this grid and
+    configuration route to) from serving this geometry, configuration and
+    count of continuum species.  Every pass-A kernel serves every pair
+    configuration on walls and on periodic axes of at least 3 cells (with
+    fewer, a stencil would reach one cell twice), for up to
+    ``MAX_SPECIES`` species."""
+    kernel = kernel or route(geom, cfg)
     is3d = kernel is pass_a_3d
     checks = [
         ("a 2D grid" if is3d else "a 3D grid", grid_3d(geom) != is3d),
     ]
-    if kernel is pass_a_2d:
-        checks.append(("a periodic axis", periodic_multicell(geom)))
-        checks += [(what, True) for what in tv_lacks(cfg)]
-    else:
-        checks += [(f"a periodic {a} axis with fewer than 3 cells", True)
-                   for a in narrow_wrap_axes(geom)]
+    checks += [(f"a periodic {a} axis with fewer than 3 cells", True)
+               for a in narrow_wrap_axes(geom)]
     checks.append((f"more than {MAX_SPECIES} continuum species (n_sdpd = {n_sdpd})",
                    n_sdpd > MAX_SPECIES))
     return [what for what, bad in checks if bad]
@@ -112,8 +121,8 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
 
 def tv_lacks(cfg) -> list:
     """The pair physics of ``cfg`` that the transport-velocity pair of
-    ``csrc/pass_a_tv.cuh`` (K1's, and K3's leaner body) lacks; the full
-    body of ``csrc/pass_a_mech.cuh`` has it all."""
+    ``csrc/pass_a_tv.cuh`` (the leaner body of K1, K4 and K3) lacks; the
+    full body of ``csrc/pass_a_mech.cuh`` has it all."""
     return [what for what, needed in (
         ("a solid-free scene (solids_present=False)", not cfg.solids_present),
         ("XSPH (xsph)", cfg.xsph),
@@ -150,7 +159,7 @@ def _species_tables(params: Params, cfg, tabs: dict = None) -> torch.Tensor:
 
 
 def _mech_tables(params: Params, cfg, tabs: dict) -> torch.Tensor:
-    """[7, T*T] f32, K2's and K3's: K1's six rows, then the harmonic shear
+    """[7, T*T] f32, the full body's: the six rows of ``_tables``, then the harmonic shear
     modulus geff (0 without elastic solids, and under ``g0_chem_coupling``,
     where the kernel takes it from the G0 rows)."""
     geff = tabs.get("geff", torch.zeros_like(tabs["h"]))
@@ -228,7 +237,7 @@ def pass_a(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     ``pf`` (``pair._per_particle``) through the wrapper ``route`` picks: its
     kernel on CUDA, the plain loop on CPU.  ``noise``: the state's (dt,
     step, key) (``pair.noise_inputs``), which the thermal noise reads."""
-    return route(geom)(pf, params, geom, cfg, noise)
+    return route(geom, cfg)(pf, params, geom, cfg, noise)
 
 
 def _finish(result: dict, out_device, cap: int, NC: int) -> dict:
@@ -242,6 +251,32 @@ def _finish(result: dict, out_device, cap: int, NC: int) -> dict:
     return result
 
 
+def preshift_views(PF: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """K4's staging: [9, F, cap, NC] copies of the 2D pack ``PF`` [F, cap,
+    NC], copy o = 3 (ox + 1) + (oy + 1) holding at (row, slot, cell c) the
+    pack at the neighbour cell c + (ox, oy) (``core/state.shift_cells``):
+    wrapped by index on a periodic axis (``halo.wrap_axes``), all rows zero
+    past a walled edge.  The counterpart of the XLA slices of
+    ``pair_pallas._call_preshift`` over ``halo.assemble_padded``: the
+    padded grid (one ghost cell a side) once, then the 9 windows of it."""
+    F, cap, NC = PF.shape
+    nx, ny = geom.ncells[:2]
+    grid = PF.reshape(F, cap, nx, ny)
+    for dim, wrap in ((2, wrap_axes(geom)[0]), (3, wrap_axes(geom)[1])):
+        n = grid.shape[dim]
+        if wrap:
+            lo, hi = grid.narrow(dim, n - 1, 1), grid.narrow(dim, 0, 1)
+        else:
+            lo = hi = torch.zeros_like(grid.narrow(dim, 0, 1))
+        grid = torch.cat([lo, grid, hi], dim=dim)
+    views = torch.empty((9, F, cap, NC), dtype=PF.dtype, device=PF.device)
+    for ox in (-1, 0, 1):
+        for oy in (-1, 0, 1):
+            views[3 * (ox + 1) + (oy + 1)].view(F, cap, nx, ny).copy_(
+                grid[:, :, 1 + ox:1 + ox + nx, 1 + oy:1 + oy + ny])
+    return views
+
+
 def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
             noise, rows, table, accs, args) -> dict:
     """Pack ``rows`` of ``pf``, launch ``wrapper``'s kernel (``csrc/<its
@@ -250,13 +285,17 @@ def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
     (``table(params, cfg, tabs)``), the species table, the output, the type
     count, the species count, the advection switch, cap, ``dims``, then
     ``args`` (``(ctypes type, value)`` pairs), the noise's arguments and the
-    stream."""
+    stream.  K4 takes the pack's 9 pre-shifted copies (``preshift_views``)
+    and, first of ``args``, its row count."""
     _check_launch(pf, params, geom, cfg, wrapper, noise)
     name = wrapper.__name__
     cap, NC = pf["rho"].shape
     ns = params.n_sdpd
     PF = _pack(pf, rows + (("C",) if ns else ())
                + (THERMAL_ROWS if cfg.thermal else ()), cap, NC)
+    if wrapper is pass_a_2d_preshift:
+        args = [(ctypes.c_int, PF.shape[0])] + list(args)
+        PF = preshift_views(PF, geom)
     tabs = pair.coeff_tables(params, cfg)
     tab = table(params, cfg, tabs).to(PF.device)
     stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
@@ -280,7 +319,7 @@ def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
 
 def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
                noise, before=(), after=()) -> dict:
-    """K1 or K3's leaner body (the transport-velocity pair of
+    """The leaner body of K1, K4 or K3 (the transport-velocity pair of
     ``csrc/pass_a_tv.cuh``) over the grid ``dims``: PF_ROWS, then rhoI
     (filter) in, ACC_ROWS, then the filter rows out; the species and
     thermal rows as in ``_launch``; the C arguments ``before`` and
@@ -293,7 +332,7 @@ def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
 
 
 def _mech_flags(cfg) -> int:
-    """The runtime switches (``_F_*``) K2 and K3 read from ``cfg``."""
+    """The runtime switches (``_F_*``) the full body reads from ``cfg``."""
     return ((_F_PSWITCH if cfg.pressure_switch else 0)
             | (_F_XSPH if cfg.xsph else 0)
             | (_F_FREE if cfg.free_solids_present else 0)
@@ -303,8 +342,9 @@ def _mech_flags(cfg) -> int:
 
 def _mech_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
                  cfg, noise, before=()) -> dict:
-    """K2 or K3 (the pair body of ``csrc/pass_a_mech.cuh``) over the grid
-    ``dims``, the C arguments ``before`` the filter switch: MECH_PF_ROWS,
+    """The full body (``csrc/pass_a_mech.cuh``: K2's, and K1's, K4's and
+    K3's other) over the grid ``dims``, the C arguments ``before`` the
+    filter switch: MECH_PF_ROWS,
     then AS and S (elastic) or ASd, then rhoI (filter) in; MECH_ACC_ROWS,
     then dS (elastic), then the filter rows out; the species and thermal
     rows as in ``_launch``."""
@@ -335,13 +375,13 @@ def kernel_attributes(wrapper, filt: bool, ns: int, elastic: bool = False,
                       thermal: bool = False, tv: bool = False) -> tuple:
     """(registers per thread, local-memory bytes per thread: its spills) of
     the instantiation of a pass-A kernel (``wrapper``: ``pass_a_2d``,
-    ``pass_a_2d_rowloop`` or ``pass_a_3d``) for ``filt``, ``ns`` species and
-    ``thermal`` (K2 and K3: and ``elastic``; K3: its transport-velocity
-    body with ``tv``), from ``cudaFuncGetAttributes``."""
+    ``pass_a_2d_preshift``, ``pass_a_2d_rowloop`` or ``pass_a_3d``) for
+    ``filt``, ``elastic``, ``ns`` species and ``thermal`` (K1, K4 and K3:
+    their transport-velocity body with ``tv``), from
+    ``cudaFuncGetAttributes``."""
     name = wrapper.__name__
-    switches = ((int(filt),) if wrapper is pass_a_2d
-                else (int(filt), int(elastic)))
-    if wrapper is pass_a_3d:
+    switches = (int(filt), int(elastic))
+    if wrapper is not pass_a_2d_rowloop:
         switches = (0 if tv else 1,) + switches
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_attributes")
@@ -356,18 +396,42 @@ def kernel_attributes(wrapper, filt: bool, ns: int, elastic: bool = False,
 
 def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K1 on CUDA (the plain loop on
-    CPU): the transport-velocity pair with fixed walls on a 2D grid, with up
-    to ``MAX_SPECIES`` continuum species, with or without the thermal noise."""
+    CPU) on a 2D grid: every pair configuration (as ``pass_a_3d``), walls or
+    periodic x and y of at least 3 cells, with up to ``MAX_SPECIES``
+    continuum species, with or without the thermal noise."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
-    result = _tv_launch(pass_a_2d, geom.ncells[:2], pf, params, geom, cfg,
-                        noise)
+    result = _two_body_launch(pass_a_2d, geom.ncells[:2], pf, params, geom,
+                              cfg, noise)
     pass_a_2d.launches += 1
     return result
 
 
 pass_a_2d.launches = 0  # K1 launches in this process
 
+
+def pass_a_2d_preshift(pf: dict, params: Params, geom: Geometry, cfg,
+                       noise=None) -> dict:
+    """Pass A accumulators from ``pf`` through K4 on CUDA (the plain loop on
+    CPU): K1's sums, bitwise, with j read from the pack's 9 pre-shifted
+    copies (``preshift_views``, staged on every call) at each thread's own
+    cell.  ``route`` sends K1's grids here under ``preshift_window``."""
+    if not pf["x"].is_cuda:
+        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+    result = _two_body_launch(pass_a_2d_preshift, geom.ncells[:2], pf, params,
+                              geom, cfg, noise)
+    pass_a_2d_preshift.launches += 1
+    return result
+
+
+pass_a_2d_preshift.launches = 0  # K4 launches in this process
+
+
+def tv_body(geom: Geometry, cfg) -> bool:
+    """Whether K1, K4 and K3 run the transport-velocity pair (``tv_lacks``
+    empty; in 2D also no periodic axis: K1's and K4's leaner body takes
+    walls only) rather than the full body."""
+    return not tv_lacks(cfg) and (grid_3d(geom) or not periodic_multicell(geom))
 
 def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K3 on CUDA (the plain loop on
@@ -381,21 +445,24 @@ def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict
     rest the full one."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
-    result = _k3_launch(pf, params, geom, cfg, noise)
+    result = _two_body_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg,
+                              noise)
     pass_a_3d.launches += 1
     return result
 
 
-def _k3_launch(pf: dict, params: Params, geom: Geometry, cfg, noise) -> dict:
-    """K3 with the body ``cfg`` needs: the transport-velocity pair where it
-    serves (``tv_lacks`` empty), else the full one."""
-    if tv_lacks(cfg):
-        return _mech_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg,
-                            noise, [(ctypes.c_int, 1)])
+def _two_body_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry,
+                     cfg, noise) -> dict:
+    """K1, K4 or K3 over the grid ``dims`` with the body this grid and
+    ``cfg`` need: the transport-velocity pair where it serves (``tv_body``),
+    else the full one."""
+    if not tv_body(geom, cfg):
+        return _mech_launch(wrapper, dims, pf, params, geom, cfg, noise,
+                            [(ctypes.c_int, 1)])
     # the C entry point's arguments are the full body's either way: body 0,
     # filter, elastic 0, flags 0, the periodic axes, ampl 0
     return _tv_launch(
-        pass_a_3d, geom.ncells, pf, params, geom, cfg, noise,
+        wrapper, dims, pf, params, geom, cfg, noise,
         before=[(ctypes.c_int, 0)],
         after=[(ctypes.c_int, 0), (ctypes.c_int, 0)] + _wrap_args(geom)
         + [(ctypes.c_float, 0.0)])

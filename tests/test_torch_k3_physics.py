@@ -196,8 +196,8 @@ def test_spanwise_fsi_scene_matches_jax_and_routes_to_k3():
     """The 3D FSI beam at nx=12 built from one scene function by both
     packages' Scene, bitwise: (11, 5, 3) cells, x and z periodic, cap 119
     (past K7's former 64), a mixed lattice, 9,264 particles; K3 serves it
-    and its fsi-style variant with one species (K7 moves both), while K1
-    names every branch it lacks."""
+    and its fsi-style variant with one species (K7 moves both), and K1
+    serves the same physics on a 2D grid of these cells."""
     for kw in ({}, dict(pair_style="fsi", kappa=1e-5)):
         js, jp, jspec = tfsi.scene(*_classes("jax"), nx=12, nz_cells=3,
                                        **kw).build()
@@ -224,14 +224,9 @@ def test_spanwise_fsi_scene_matches_jax_and_routes_to_k3():
         refused = pair_cuda.kernel_unsupported(
             flat, dataclasses.replace(cfg, dim=2), pair_cuda.pass_a_2d,
             n_sdpd=tp.n_sdpd)
-        want = ["a periodic axis", "XSPH (xsph)",
-                "the symmetric pressure force (pressure_switch=False)",
-                "elastic solids (elastic_present)",
-                "free solids (free_solids_present)"]
         if kw:
             assert tp.n_sdpd == 1 and cfg.g0_chem_coupling
-            want.append("density diffusion (ampl_damp)")
-        assert refused == want
+        assert refused == []
     bs, _, bspec, _ = tfsi.build_spanwise(12, device="cpu")
     assert bspec.geom == g and torch.equal(bs.x, ts.x)
 
@@ -239,8 +234,8 @@ def test_spanwise_fsi_scene_matches_jax_and_routes_to_k3():
 def test_taylor_green_scene_matches_jax_and_routes_to_k3():
     """The vortex at N=12 built by both packages, bitwise (1,728 particles,
     3 x 3 x 3 cells of cap 86 at the default margin), solid-free, the
-    velocity field set on the valid slots; K3 and K7 serve it, K1 refuses
-    its periodic axes and its solid-free pair by name."""
+    velocity field set on the valid slots; K3 and K7 serve it, and K1
+    serves its periodic axes and its solid-free pair on a 2D grid."""
     js, jp, jspec = ttg.scene(*_classes("jax")[:2], N=12).build()
     ts, tp, tspec, _ = ttg.build(12, device="cpu")
     g, cfg = tspec.geom, tspec.pair
@@ -260,8 +255,7 @@ def test_taylor_green_scene_matches_jax_and_routes_to_k3():
     assert rebin_cuda.move_route(g) is rebin_cuda.rebin_move_3d
     flat = dataclasses.replace(g, dim=2, ncells=(3, 9, 1))
     assert pair_cuda.kernel_unsupported(
-        flat, dataclasses.replace(cfg, dim=2), pair_cuda.pass_a_2d) == [
-        "a periodic axis", "a solid-free scene (solids_present=False)"]
+        flat, dataclasses.replace(cfg, dim=2), pair_cuda.pass_a_2d) == []
 
 
 def _live(name, dtype):

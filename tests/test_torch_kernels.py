@@ -359,16 +359,17 @@ def test_kernels_serve_the_flagship_grid():
     """The flagship geometry and pair configuration are what K1 and K5
     serve; a crowded grid (cap 17..64) moves through K6; a grid with more
     than one cell along z takes K3 and K7, periodic axes of at least 3
-    cells included; a periodic grid of cap <= 16, a cap above 64 or a 3D
-    grid periodic along an axis of two cells has no kernel (it raises on a
-    CUDA tensor)."""
+    cells included; a periodic grid of cap <= 16 has no move kernel (K1
+    serves its pass A), nor has a cap above 64, and a 3D grid periodic
+    along an axis of two cells has no kernel (it raises on a CUDA
+    tensor)."""
     state, params, spec, _ = lid_cavity.build(N=50, device="cpu")
     assert not pair_cuda.uses_rowloop(spec.geom)
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair) == []
     assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_2d
     periodic = dataclasses.replace(spec.geom, periodic=(True, False, True))
     assert not rebin_cuda.move_supported(periodic)
-    assert pair_cuda.kernel_unsupported(periodic, spec.pair)
+    assert pair_cuda.kernel_unsupported(periodic, spec.pair) == []
     crowded = dataclasses.replace(spec.geom, cap=rebin_cuda.MAX_CAP + 1)
     assert rebin_cuda.move_route(crowded) is rebin_cuda.rebin_move_2d_gated
     big_cap = dataclasses.replace(spec.geom, cap=rebin_cuda.GATED_MAX_CAP + 1)
@@ -390,18 +391,23 @@ def test_kernels_serve_the_flagship_grid():
 
 def test_unsupported_configurations_raise():
     """The checks each wrapper runs before a launch raise
-    NotImplementedError and name what is missing: grouped-shape physics K1
-    lacks, a periodic y axis of two cells or a fifth species on a K2 grid,
-    and rebin grids no kernel serves."""
+    NotImplementedError and name what is missing: a periodic axis of two
+    cells on a K1 or K4 grid (the grouped kernel's physics all pass), a
+    periodic y axis of two cells or a fifth species on a K2 grid, and
+    rebin grids no kernel serves."""
     state, params, spec, _ = lid_cavity.build(N=16, device="cpu")
     pf = pair._per_particle(state, params, spec.pair)
-    for bad, what in ((dict(xsph=True), "XSPH"),
-                      (dict(pressure_switch=False), "symmetric pressure"),
-                      (dict(free_solids_present=True), "free solids")):
-        cfg = dataclasses.replace(spec.pair, **bad)
-        with pytest.raises(NotImplementedError, match=what):
-            pair_cuda._check_launch(pf, params, spec.geom, cfg,
-                                    pair_cuda.pass_a_2d)
+    for ok in (dict(xsph=True), dict(pressure_switch=False),
+               dict(free_solids_present=True)):
+        cfg = dataclasses.replace(spec.pair, **ok)
+        for kernel in (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_preshift):
+            pair_cuda._check_launch(pf, params, spec.geom, cfg, kernel)
+    narrow = dataclasses.replace(spec.geom, periodic=(True, False, True),
+                                 ncells=(2, spec.geom.ncells_total // 2, 1))
+    for kernel in (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_preshift):
+        with pytest.raises(NotImplementedError,
+                           match="a periodic x axis with fewer than 3 cells"):
+            pair_cuda._check_launch(pf, params, narrow, spec.pair, kernel)
     fstate, fparams, fspec, _ = fsi.build(nx=24, device="cpu")
     pf = pair._per_particle(fstate, fparams, fspec.pair)
     pair_cuda._check_launch(pf, fparams, fspec.geom, fspec.pair,
@@ -664,8 +670,8 @@ def test_balanced_and_edged_grids_route_to_kernels():
 
 def test_what_x_edges_and_solid_free_still_lack():
     """What the new variants do not cover raises before a launch: K5 with a
-    periodic x axis (with or without x_edges), K1 on a solid-free scene and
-    K7 with a periodic axis on an x_edges grid."""
+    periodic x axis (with or without x_edges) and K7 with a periodic axis
+    on an x_edges grid; K1 serves a solid-free scene, as K2 does."""
     state, params, spec, _ = lid_cavity.build(N=16, device="cpu")
     geom = with_synthetic_edges(spec.geom)
     fields = TS.particle_fields(state)
@@ -677,11 +683,9 @@ def test_what_x_edges_and_solid_free_still_lack():
         with pytest.raises(NotImplementedError, match="later PR"):
             rebin_cuda._check_packs(PF, PI, periodic, rebin_cuda.rebin_move_2d)
     free = dataclasses.replace(spec.pair, solids_present=False)
-    assert pair_cuda.kernel_unsupported(spec.geom, free) == [
-        "a solid-free scene (solids_present=False)"]
+    assert pair_cuda.kernel_unsupported(spec.geom, free) == []
     pf = pair._per_particle(state, params, free)
-    with pytest.raises(NotImplementedError, match="solid-free"):
-        pair_cuda._check_launch(pf, params, spec.geom, free, pair_cuda.pass_a_2d)
+    pair_cuda._check_launch(pf, params, spec.geom, free, pair_cuda.pass_a_2d)
     assert pair_cuda.kernel_unsupported(spec.geom, free,
                                         pair_cuda.pass_a_2d_rowloop) == []
     _, _, spec3, _ = lid_cavity3d.build(N=6, device="cpu")
@@ -803,7 +807,7 @@ def test_polarization_routes_and_what_is_still_refused():
     """Cell polarization's grid goes to K2 and K6 with nothing missing; a
     periodic y axis of two cells has no pass-A and no move kernel, a fifth
     species none either, K5 (cap <= 16) still takes no periodic axis, x or
-    y, and K1 refuses the density diffusion."""
+    y, and K1 serves the density diffusion on this grid too."""
     state, params, spec = _polar("cpu")
     geom = spec.geom
     assert geom.periodic == (True, True, True) and geom.cap > rebin_cuda.MAX_CAP
@@ -832,8 +836,8 @@ def test_polarization_routes_and_what_is_still_refused():
         assert rebin_cuda.move_route(sparse) is None
         with pytest.raises(NotImplementedError, match="later PR"):
             rebin_cuda._check_packs(PF, PI, sparse, rebin_cuda.rebin_move_2d)
-    assert "density diffusion (ampl_damp)" in pair_cuda.kernel_unsupported(
-        geom, spec.pair, pair_cuda.pass_a_2d, n_sdpd=1)
+    assert pair_cuda.kernel_unsupported(
+        geom, spec.pair, pair_cuda.pass_a_2d, n_sdpd=1) == []
 
 
 # ---------------------------------------------------------------------------
@@ -1206,3 +1210,122 @@ def test_k7_past_cap_64_matches_plain_walk_and_sort_on_card(cuda, case):
     for f in dataclasses.fields(ref):
         assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
     assert int(got.valid.sum(0).max()) > 64
+
+
+# ---------------------------------------------------------------------------
+# the rest of K1 (its full body) and K4 (the pre-shifted copies)
+# ---------------------------------------------------------------------------
+
+
+def _grouped_case(case, device):
+    """(state, params, spec) of a K1 branch: "flagship", the N=30 cavity
+    (the transport-velocity body); "mechanics", the N=30 cavity under the
+    mechanics pair style (symmetric pressure, XSPH); "fsi", the nx=24 FSI
+    beam released at step 2 with its S seeded (periodic x, free elastic
+    solids, a mixed lattice forced through the grouped shape); "fsi
+    thermal", that state with e = 1 and kB 1e-13 under the thermal rows;
+    "polarization", the nx=24 polarization state (the fsi pair style,
+    ``ampl_damp``, the G0 row, one species, periodic x and y); "blob", the
+    s=1 balanced blob with rho and v seeded (solid-free)."""
+    from sph_bvf_tpu_torch.api.scene import Region, Scene
+    from sph_bvf_tpu_torch.core.fixes import SetForce
+
+    if case in ("flagship", "mechanics"):
+        style = "mechanics" if case == "mechanics" else "transport_velocity"
+        state, params, spec = lid_cavity.scene(
+            Scene, Region, SetForce, N=30, pair_style=style).build(device=device)
+        state = run_chunk(setup(state, params, spec, dt=1e-4), params, spec, 9)
+        return state, params, spec
+    if case.startswith("fsi"):
+        state, params, spec, _ = fsi.build(nx=24, rebin_every=4, tdamp_solid=2,
+                                           device=device)
+        state = run_chunk(setup(state, params, spec, dt=1e-8), params, spec, 4)
+        rng = np.random.default_rng(0)
+        S = rng.normal(0.0, 50.0, tuple(state.S.shape))
+        S = torch.as_tensor(S + np.swapaxes(S, 0, 1), dtype=state.S.dtype,
+                            device=device)
+        solid = state.valid & (state.solid_tag == 1)
+        state = dataclasses.replace(state, S=torch.where(solid, S, 0.0))
+        if case == "fsi thermal":
+            state = dataclasses.replace(state, e=state.valid.to(state.e.dtype))
+            params = dataclasses.replace(params, boltz=1e-13)
+            spec = dataclasses.replace(
+                spec, pair=dataclasses.replace(spec.pair, thermal=True))
+        return state, params, spec
+    if case == "polarization":
+        return _polar(device, steps=3)
+    state, params, spec = _blob(device, steps=5)
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, dtype=state.rho.dtype, device=device)
+    return (dataclasses.replace(
+        state, rho=state.rho * t(1.0 + 0.01 * rng.standard_normal(
+            tuple(state.rho.shape))),
+        v=state.v + t(0.01 * rng.standard_normal(tuple(state.v.shape)))),
+        params, spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flagship", "mechanics", "fsi", "fsi thermal",
+                                  "polarization", "blob"])
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+def test_k1_branches_and_k4_match_on_card(cuda, filt, case):
+    """K1 with each branch of the grouped kernel against the plain loop on
+    the same CUDA tensors, each field within 5e-6 of its max (the full
+    body's dS, ddx and Q included), and K4 on the same inputs bitwise K1:
+    the same template, offsets, j order and body, j read from the 9
+    pre-shifted copies."""
+    state, params, spec = _grouped_case(case, cuda)
+    geom = spec.geom
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+    assert pair_cuda.kernel_unsupported(geom, cfg, pair_cuda.pass_a_2d,
+                                        n_sdpd=params.n_sdpd) == []
+    assert pair_cuda.tv_body(geom, cfg) == (case == "flagship")
+    pf = pair._per_particle(state, params, cfg)
+    noise = pair.noise_inputs(state)
+    ref = pair._pass_a_plain(pf, params, geom, cfg, noise)
+    before = (pair_cuda.pass_a_2d.launches, pair_cuda.pass_a_2d_preshift.launches)
+    got = pair_cuda.pass_a_2d(pf, params, geom, cfg, noise)
+    pre = pair_cuda.pass_a_2d_preshift(pf, params, geom, cfg, noise)
+    torch.cuda.synchronize()
+    assert (pair_cuda.pass_a_2d.launches,
+            pair_cuda.pass_a_2d_preshift.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    names = K2_FIELDS + (("Q",) if params.n_sdpd else ())
+    for name in (n for n in names if filt or not n.startswith("rhoAux")):
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+    for name in pair.PASS_A_ACCS:
+        assert torch.equal(pre[name], got[name]), name
+    if case in ("mechanics", "fsi", "polarization"):
+        assert float(ref["ddx"].abs().max()) > 0
+    if case.startswith("fsi") or case == "polarization":
+        assert float(ref["dS"].abs().max()) > 0
+    if case == "blob":
+        for name in ("phi", "nw", "dS"):
+            assert float(got[name].abs().max()) == 0.0, name
+
+
+@pytest.mark.gpu
+def test_preshift_window_routes_the_flagship_to_k4_on_card(cuda):
+    """With ``preshift_window`` the flagship's steps launch K4 and never
+    K1, and end bitwise where K1's do."""
+    from sph_bvf_tpu_torch.api.scene import Region, Scene
+    from sph_bvf_tpu_torch.core.fixes import SetForce
+
+    runs = {}
+    for flag in (False, True):
+        state, params, spec = lid_cavity.scene(
+            Scene, Region, SetForce, N=30,
+            preshift_window=flag).build(device=cuda)
+        before = (pair_cuda.pass_a_2d.launches,
+                  pair_cuda.pass_a_2d_preshift.launches)
+        state = run_chunk(setup(state, params, spec, dt=1e-4), params, spec, 10)
+        torch.cuda.synchronize()
+        got = (pair_cuda.pass_a_2d.launches - before[0],
+               pair_cuda.pass_a_2d_preshift.launches - before[1])
+        assert got == ((0, 11) if flag else (11, 0))
+        runs[flag] = state
+    for f in dataclasses.fields(runs[False]):
+        assert torch.equal(getattr(runs[False], f.name),
+                           getattr(runs[True], f.name)), f.name

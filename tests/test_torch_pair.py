@@ -157,10 +157,10 @@ def test_compute_forces_matches_bruteforce(filt):
 
 def test_unported_branches_raise():
     """Branches outside the ported slices raise instead of running other
-    code: the weighted-solid pass B and SSA species everywhere; density
-    diffusion (ported on the plain path and in K2) at K1's launch check.
-    Thermal noise (ported) passes the check, and a kernel launch refuses it
-    without the state's dt, step and key."""
+    code: the weighted-solid pass B and SSA species everywhere.  Density
+    diffusion (ported on the plain path and in every pass-A kernel) passes
+    K1's launch check; so does the thermal noise (ported), and a kernel
+    launch refuses it without the state's dt, step and key."""
     s, p, jspec = _perturbed_cavity(np.float32)
     tspec = bridge.spec_to_port(jspec)
     st = bridge.state_to_port(s, device="cpu")
@@ -181,6 +181,5 @@ def test_unported_branches_raise():
                                 tspec.geom, thermal, pair_cuda.pass_a_2d)
 
     cfg = dataclasses.replace(tspec.pair, ampl_damp=0.1)
-    with pytest.raises(NotImplementedError, match="density diffusion"):
-        pair_cuda._check_launch(tpair._per_particle(st, params, cfg), params,
-                                tspec.geom, cfg, pair_cuda.pass_a_2d)
+    pair_cuda._check_launch(tpair._per_particle(st, params, cfg), params,
+                            tspec.geom, cfg, pair_cuda.pass_a_2d)

@@ -395,8 +395,9 @@ def test_spanwise_steps_match_jax(dt):
 
 def test_remaining_refusals_raise_by_name():
     """What K1, K3 and K7 still refuse raises NotImplementedError at the
-    launch check and names it: a periodic axis on K1, a periodic 3D axis of
-    two cells on K3 and K7, and non-uniform x columns with a periodic axis
+    launch check and names it: a periodic axis of two cells on K1 (which
+    serves the flattened grid itself), a periodic 3D axis of two cells on K3
+    and K7, and non-uniform x columns with a periodic axis
     on K7 (and the rebin on a CUDA state says which); K3 serves a
     solid-free scene on the same grid."""
     s, p, jspec = _perturbed("spanwise", np.float32)
@@ -408,8 +409,11 @@ def test_remaining_refusals_raise_by_name():
     pair_cuda._check_launch(pf, tp, g, cfg, pair_cuda.pass_a_3d)
     flat = dataclasses.replace(g, dim=2, ncells=(g.ncells[0], g.ncells[1] * g.ncells[2], 1))
     cfg2 = dataclasses.replace(cfg, dim=2)
-    with pytest.raises(NotImplementedError, match="a periodic axis"):
-        pair_cuda._check_launch(pf, tp, flat, cfg2, pair_cuda.pass_a_2d)
+    pair_cuda._check_launch(pf, tp, flat, cfg2, pair_cuda.pass_a_2d)
+    narrow = dataclasses.replace(flat, ncells=(g.ncells_total // 2, 2, 1))
+    with pytest.raises(NotImplementedError,
+                       match="a periodic y axis with fewer than 3 cells"):
+        pair_cuda._check_launch(pf, tp, narrow, cfg2, pair_cuda.pass_a_2d)
     pair_cuda._check_launch(
         pf, tp, g, dataclasses.replace(cfg, solids_present=False),
         pair_cuda.pass_a_3d)
