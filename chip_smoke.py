@@ -194,10 +194,13 @@ crowded-cell grid.  Phases, one line each:
              of the plain loop's own run of the same scene on the card
              (MECH_PLAIN_RHO1000), K1 against the plain loop on the
              step-1000 state (ddx nonzero) and K4 bitwise K1 there, then
-             10 more steps through K4 and through K1, bitwise equal; main
-             mechanics vs JAX: N=50, 1,000 steps, the fluid's max|v|,
-             kinetic energy and mean density inside 2% bands around the
-             JAX package's own run; main polarization:
+             the same run with preshift_window=True (K4 1001, K5 101), its
+             step-1000 state bitwise the K1 run's, every field; main
+             mechanics vs JAX: N=50 and N=500 (where the lid corner's
+             density extreme climbs as at N=1000), 1,000 steps each, the
+             fluid's max|v|, kinetic energy, mean density and max|rho-1|
+             inside 2% bands around the JAX package's own runs; main
+             polarization:
              cell_polarization.build(nx=100) ->
              setup -> simulate(1000) at dt 1e-10 (K2 1001 launches, K6 11,
              nothing else), 10,292 particles kept, 0 <= C <= 1, the lower
@@ -281,8 +284,10 @@ crowded-cell grid.  Phases, one line each:
              call each kernel beside its plain version (K1 and K4 side by
              side on the flagship's N=200 set-up state, on the N=1000
              step-1000 states of main preshift and main mechanics, and K1
-             on the seeded FSI state; K4's bytes include its 9 staged
-             copies, written once and read once), each rebin beside
+             on the seeded FSI state and on the crowded-cell grid after its
+             10 steps; K4's bound is K1's, and its staging is timed alone
+             beside the bytes of its 9 copies, written once and read once),
+             each rebin beside
              the sort rebin (and its host time), and the balanced blob's
              re-cut (host time of ``rebalance``, its sort rebin) (CUDA
              events after a warm-up), with each kernel's
@@ -319,8 +324,9 @@ x_edges variants, K1 and K3 with species, K2 and K6 on the polarization
 path, K1, K2 and K3 with their thermal rows, K3 and K7 with periodic axes,
 K3 with the mechanics and fsi pair styles and without solids, K7 past cap
 64, K4 on the flagship and on the mechanics cavity, K1's full body on the
-mechanics cavity, K1 elastic/periodic and K1 solid-free as their own
-entries), the last
+mechanics cavity, K1 elastic/periodic (its launches those of its parity
+and timing calls: no main path routes such a grid to it) and K1
+solid-free as their own entries), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -612,11 +618,6 @@ VISIBLE_KBE = 1e-9
 # lid_cavity's dt past N=200
 GROUPED_N, GROUPED_STEPS = 1000, 1000
 GROUPED_DT = 5e-3 / GROUPED_N
-# The JAX package's own run of the mechanics cavity at N=50 (f32, jnp path,
-# on the CPU: lid_cavity.scene(..., pair_style="mechanics").build() ->
-# setup -> simulate(1000)) at step 1000, and the band [lo, hi] x that value
-# the card's run of the same scene must land in
-MECH_JAX_N, MECH_JAX_STEPS = 50, 1000
 # The fluid's max|rho-1| of the mechanics cavity at GROUPED_N after
 # GROUPED_STEPS with pass A through the plain PyTorch loop on the card
 # (tools/torch_cavity_rho_trace.py 1000 1000 mechanics plain, on an NVIDIA
@@ -624,12 +625,31 @@ MECH_JAX_N, MECH_JAX_STEPS = 50, 1000
 # [lo, hi] x that value the card's run must land in.  The flagship's bound
 # of 0.05, set from the JAX package's N=200 run, does not hold here: the
 # lid's upper-left corner drives the extreme up through the run, from 0.050
-# at step 200 to 0.072 at step 1000 (the flagship at N=1000: 0.045)
+# at step 200 to 0.072 at step 1000 (the flagship at N=1000: 0.045).  The
+# JAX package's own run at N=500 (MECH_JAX) is the witness that this climb
+# is the scene's, not the port's
 MECH_PLAIN_RHO1000 = (0.07230180501937866, 0.98, 1.02)
-MECH_JAX_STEP1000 = {
-    "fluid max|v|": (0.6236324310302734, 0.98, 1.02),
-    "fluid ke": (0.005463925098311307, 0.98, 1.02),
-    "fluid mean rho": (0.9980279005527496, 0.98, 1.02),
+# The JAX package's own runs of the mechanics cavity (f32, jnp path, on the
+# CPU: tests/jax_mechanics_cavity_run.py N 1000 100, i.e.
+# lid_cavity.scene(..., pair_style="mechanics").build() -> setup ->
+# simulate(MECH_JAX_STEPS) at lid_cavity's dt) at N=50 and at N=500, where
+# the corner's extreme climbs as at GROUPED_N (0.0199 at step 100, 0.0406
+# at step 1000): per N its dt and, per value, the value at the last step
+# and the band [lo, hi] x it the card's run of the same scene must land in
+MECH_JAX_STEPS = 1000
+MECH_JAX = {
+    50: (1e-4, {
+        "fluid max|v|": (0.6236324310302734, 0.98, 1.02),
+        "fluid ke": (0.005463925098311307, 0.98, 1.02),
+        "fluid mean rho": (0.9980279005527496, 0.98, 1.02),
+        "fluid max|rho-1|": (0.009687364101409912, 0.98, 1.02),
+    }),
+    500: (1e-5, {
+        "fluid max|v|": (0.8683755993843079, 0.98, 1.02),
+        "fluid ke": (0.0027457284159890733, 0.98, 1.02),
+        "fluid mean rho": (0.9996966768286228, 0.98, 1.02),
+        "fluid max|rho-1|": (0.04062420129776001, 0.98, 1.02),
+    }),
 }
 
 
@@ -1450,19 +1470,17 @@ def main() -> int:
         ``piece`` target cells at a time, all at once by default; over
         ``plain_iters`` calls, ``iters`` by default) on this
         state, and pass A's bound from these inputs at
-        the state's occupancy: the packed rows in and out (for K4 also its
-        9 staged copies of the pack, written once and read once), the valid
+        the state's occupancy: the packed rows in and out, the valid
         candidates, the pairs inside the support h (with the thermal noise,
         their hash and Box-Muller too) and, with species, those inside
-        cutc."""
+        cutc.  K4's bound is K1's: its 9 staged copies of the pack are its
+        own way of computing the function, not bytes the function needs."""
         pf = pair._per_particle(state, params, cfg)
         noise = pair.noise_inputs(state)
         n, slots = int(state.n_valid), geom.cap * geom.ncells_total
         rows_in, rows_out = _pass_a_rows(pair_cuda, pf, geom, cfg,
                                          pass_a.__name__)
         nbytes = _packed_bytes(slots, n, rows_in, rows_out)
-        if pass_a is pair_cuda.pass_a_2d_preshift:
-            nbytes += 2 * 4 * 9 * rows_in * slots
         cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
         flops = FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside
         int_ops = 0
@@ -1483,6 +1501,7 @@ def main() -> int:
                                                   cells_per_piece=piece),
                 plain_iters or iters),
             "pass_a_bound": _bound(nbytes, flops, int_ops),
+            "pass_a_rows": rows_in,
             "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
                             f"{inside} pairs inside the support"
                             + (f", {inside_c} inside cutc with {ns} species"
@@ -1692,8 +1711,11 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3g}" for k, v in err_s.items()))
     # K1's full body and K4 on the same states, forced through the grouped
     # shape (as the JAX package's tests call pass_a_pallas(rowloop=False)):
-    # periodic x, mechanics, XSPH, the free elastic beam
+    # periodic x, mechanics, XSPH, the free elastic beam.  No user path
+    # routes such a grid to the grouped kernel, so K1's launches here are
+    # those of its parity and timing calls, counted from 0
     k1f_err, k1f_abs = {}, 0.0
+    pair_cuda.pass_a_2d.launches = 0
     for label, s_ in (("as run", state), ("S seeded", seeded)):
         err, err_abs, ref = _grouped_parity(
             torch, pair, pair_cuda, s_, params, geom, spec.pair, k2_names,
@@ -1708,6 +1730,7 @@ def main() -> int:
         k1f_abs = max(k1f_abs, err_abs)
     cfg_nf = dataclasses.replace(spec.pair, density_filter_accs=False)
     t_k1f = pass_a_timing(pair_cuda.pass_a_2d, seeded, params, geom, cfg_nf, 10)
+    k1f_launches = pair_cuda.pass_a_2d.launches
     pf_nf = pair._per_particle(seeded, params, cfg_nf)
     k2_ms = _per_call_ms(torch, lambda: pair_cuda.pass_a_2d_rowloop(
         pf_nf, params, geom, cfg_nf), 10)
@@ -1716,7 +1739,8 @@ def main() -> int:
           f"XSPH, the free elastic beam, both filter variants); per state the "
           f"worst field's max|diff|/max|ref| and max|AS|, |dS|, |ddx|: "
           + "; ".join(f"{k}: {v[0]:.3g} ({v[1]})" for k, v in k1f_err.items())
-          + f"; S seeded, per call ms: K1 {t_k1f['pass_a']!r} (K2 on it "
+          + f"; K1 launches in these parity and timing calls {k1f_launches}"
+          f"; S seeded, per call ms: K1 {t_k1f['pass_a']!r} (K2 on it "
           f"{k2_ms!r}) vs plain {t_k1f['pass_a_plain']!r}, bound "
           f"{t_k1f['pass_a_bound']} [{card}]")
     del seeded, ref, ref_s, pf_nf
@@ -2105,9 +2129,6 @@ def main() -> int:
             f"K1 solid-free blob {label}")
         k1sf_err[f"blob s={sb} {label}"] = max(err.values())
         k1sf_abs = max(k1sf_abs, err_abs)
-    t_k1sf = pass_a_timing(pair_cuda.pass_a_2d, live, params, geom,
-                           dataclasses.replace(spec.pair,
-                                               density_filter_accs=False), 10)
     del live, ref_l
     # a chunk later on the geometry the run ended on, without re-cuts
     spec = dataclasses.replace(spec, geom=geom, balance=None)
@@ -2207,6 +2228,10 @@ def main() -> int:
     k1sf_launches = {k: c.launches for k, c in counters.items() if c.launches}
     if k1sf_launches != {"pass_a_2d": 11, "rebin_move_2d": 2}:
         raise AssertionError(f"crowded-cell run: launch counts {k1sf_launches}")
+    # K1 solid-free timed on the state its launches come from
+    t_k1sf = pass_a_timing(pair_cuda.pass_a_2d, cs, cp, cgeom,
+                           dataclasses.replace(ccfg, density_filter_accs=False),
+                           10)
     print(f"[K1 full body] on the polarization state (fsi style, ampl_damp, "
           f"the G0 row, Ns=1, periodic {geom.periodic[:2]}, cap {geom.cap}) as "
           f"run and seeded, K4 == K1 bitwise: "
@@ -2216,7 +2241,9 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3g}" for k, v in k1sf_err.items())
           + f"; the crowded-cell grid ({cgeom.ncells[:2]} cells of cap "
           f"{cgeom.cap}, base_occ {cgeom.base_occ}) through simulate(10): "
-          f"launches {k1sf_launches}; max|diff| full body {k1f_abs!r}, "
+          f"launches {k1sf_launches}, then K1 {t_k1sf['pass_a']!r} ms per call "
+          f"on its step-10 state vs plain {t_k1sf['pass_a_plain']!r}, bound "
+          f"{t_k1sf['pass_a_bound']}; max|diff| full body {k1f_abs!r}, "
           f"solid-free {k1sf_abs!r}")
     del cases, ref, cs
     errs, err_abs, kb, checks = _thermal_rows(
@@ -2336,7 +2363,10 @@ def main() -> int:
 
     def k1_k4_timing(tag, state, params, geom, cfg, launches):
         """K1 and K4 per call on one state (CUDA events; the plain loop
-        once), their device ms per call (torch.profiler) and bounds."""
+        once), their device ms per call (torch.profiler) and bounds, and
+        K4's staging alone: ``preshift_views`` on a pack of K4's rows, its
+        ms per call and the bytes of its 9 copies written once and read
+        once by the kernel."""
         cfg = dataclasses.replace(cfg, density_filter_accs=False)
         t = {}
         for name, kernel, match in (("K1", pair_cuda.pass_a_2d, "Neighbour"),
@@ -2347,13 +2377,24 @@ def main() -> int:
             pf = pair._per_particle(state, params, cfg)
             t[name]["device_ms"], _ = _kernel_device_ms(
                 torch, lambda: kernel(pf, params, geom, cfg), match, 10)
+        pack = torch.zeros((t["K4"]["pass_a_rows"], geom.cap, geom.ncells_total),
+                           dtype=torch.float32, device=dev)
+        stage_ms = _per_call_ms(
+            torch, lambda: pair_cuda.preshift_views(pack, geom), 10)
+        stage_bytes = 2 * 9 * pack.numel() * pack.element_size()
+        del pack
         for name in ("K1", "K4"):
             tt = t[name]
+            staging = (f"; its staging alone {stage_ms!r} ms (9 copies of "
+                       f"{tt['pass_a_rows']} rows, {stage_bytes} bytes written "
+                       f"and read: {stage_bytes / PEAK_BYTES * 1e3!r} ms at the "
+                       f"memory rate), not in its bound"
+                       if name == "K4" else "")
             print(f"[speed] {tag}: {name} {tt['pass_a']!r} ms per call as called "
                   f"(CUDA events, packing{' and staging' if name == 'K4' else ''}"
                   f" included), launches on its main path {launches[name]}, "
                   f"bound {tt['pass_a_bound']} ({tt['pass_a_work']}), plain pass "
-                  f"A {tt['pass_a_plain']!r} [{card}]")
+                  f"A {tt['pass_a_plain']!r}{staging} [{card}]")
             print(f"[profile] {tag}: {name} {tt['device_ms']!r} ms of device "
                   f"time per call (torch.profiler, 10 calls) [{card}]")
         return t
@@ -2425,54 +2466,54 @@ def main() -> int:
     if not ddx_max > 0:
         raise AssertionError("K1 main mechanics: ddx is 0")
     del ref
-    # 10 more steps through K4 and through K1: bitwise the same states
-    spec_k4 = dataclasses.replace(spec, pair=dataclasses.replace(
-        spec.pair, preshift_window=True))
-    for c in counters.values():
-        c.launches = 0
-    a = simulate(_clone(torch, state), params, spec_k4, 10)
-    k4m_launches = pair_cuda.pass_a_2d_preshift.launches
-    b = simulate(_clone(torch, state), params, spec, 10)
-    if k4m_launches != 10 or pair_cuda.pass_a_2d.launches != 10:
-        raise AssertionError(f"mechanics +10 steps: K4 {k4m_launches}, K1 "
-                             f"{pair_cuda.pass_a_2d.launches} launches")
-    differ = [f.name for f in dataclasses.fields(a)
-              if isinstance(getattr(a, f.name), torch.Tensor)
-              and not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+    # the same scene with preshift_window: K4's own main path, its
+    # step-GROUPED_STEPS state bitwise the K1 run's
+    via_k4, _, _, k4m_secs, k4m_launches, _, k4m_checks = run_main(
+        lambda: cavity_build(Ng, pair_style="mechanics", preshift_window=True),
+        GROUPED_DT, ("pass_a_2d_preshift", "rebin_move_2d"), GROUPED_STEPS)
+    require(k4m_checks, "mechanics main path through K4", "")
+    differ = [f.name for f in dataclasses.fields(state)
+              if isinstance(getattr(state, f.name), torch.Tensor)
+              and not torch.equal(getattr(state, f.name), getattr(via_k4, f.name))]
     if differ:
-        raise AssertionError(f"mechanics +10 steps: K4's run differs from "
-                             f"K1's in {differ}")
-    del a, b
+        raise AssertionError(f"[main mechanics] the K4 run's step-{GROUPED_STEPS} "
+                             f"state differs from the K1 run's in {differ}")
+    del via_k4
     print(f"[main mechanics] lid_cavity.scene(N={Ng}, pair_style=\"mechanics\") "
           f"build+setup+simulate({GROUPED_STEPS}) in {secs[1]!r} s (build "
           f"{secs[0]!r} s): {n0} particles, {detail}, launches {mech_launches} "
           f"(K1's full body); K1 == plain on the step-{GROUPED_STEPS} state, "
           f"K4 == K1 bitwise, max|diff|/max|ref| per field: "
           + ", ".join(f"{k} {v:.3g}" for k, v in k1m_err.items())
-          + f" (max|ddx| {ddx_max:.3g}); 10 more steps through K4 ({k4m_launches} "
-          f"launches) and through K1: bitwise equal [{card}]")
+          + f" (max|ddx| {ddx_max:.3g}); with preshift_window=True the same "
+          f"run in {k4m_secs[1]!r} s, launches {k4m_launches}: the "
+          f"step-{GROUPED_STEPS} states bitwise equal, every field [{card}]")
     t_mech = k1_k4_timing(f"mechanics cavity N={Ng} step {GROUPED_STEPS}", state,
                           params, spec.geom, spec.pair,
-                          {"K1": mech_launches["pass_a_2d"], "K4": k4m_launches})
+                          {"K1": mech_launches["pass_a_2d"],
+                           "K4": k4m_launches["pass_a_2d_preshift"]})
     del state
 
-    state, spec, n0, secs, mj_launches, vmax, checks = run_main(
-        lambda: cavity_build(MECH_JAX_N, pair_style="mechanics"), 1e-4,
-        ("pass_a_2d", "rebin_move_2d"), MECH_JAX_STEPS)
-    params = run_main.built[1]
-    fluid = state.valid & (state.solid_tag == 0)
-    energy = _cavity_energy(torch, state, params)
-    got = {"fluid max|v|": energy["fluid max|v|"], "fluid ke": energy["fluid ke"],
-           "fluid mean rho": float(state.rho[fluid].double().mean())}
-    for name, (ref_v, lo, hi) in MECH_JAX_STEP1000.items():
-        checks[f"{name} in [{lo}, {hi}] x JAX's {ref_v}"] = \
-            lo * ref_v <= got[name] <= hi * ref_v
-    require(checks, "mechanics vs JAX", f"{got}")
-    print(f"[main mechanics vs JAX] mechanics cavity N={MECH_JAX_N}, "
-          f"{MECH_JAX_STEPS} steps on the card in {secs[1]!r} s: {got} inside "
-          f"the bands {MECH_JAX_STEP1000} around the JAX package's own run, "
-          f"launches {mj_launches} [{card}]")
-    del state
+    for nj, (dtj, bands) in MECH_JAX.items():
+        state, spec, n0, secs, mj_launches, vmax, checks = run_main(
+            lambda: cavity_build(nj, pair_style="mechanics"), dtj,
+            ("pass_a_2d", "rebin_move_2d"), MECH_JAX_STEPS)
+        params = run_main.built[1]
+        fluid = state.valid & (state.solid_tag == 0)
+        energy = _cavity_energy(torch, state, params)
+        got = {"fluid max|v|": energy["fluid max|v|"],
+               "fluid ke": energy["fluid ke"],
+               "fluid mean rho": float(state.rho[fluid].double().mean()),
+               "fluid max|rho-1|": float((state.rho[fluid] - 1.0).abs().max())}
+        for name, (ref_v, lo, hi) in bands.items():
+            checks[f"{name} in [{lo}, {hi}] x JAX's {ref_v}"] = \
+                lo * ref_v <= got[name] <= hi * ref_v
+        require(checks, f"mechanics N={nj} vs JAX", f"{got}")
+        print(f"[main mechanics vs JAX] mechanics cavity N={nj}, "
+              f"{MECH_JAX_STEPS} steps on the card in {secs[1]!r} s: {got} "
+              f"inside the bands {bands} around the JAX package's own run, "
+              f"launches {mj_launches} [{card}]")
+        del state
 
     # natural convection around the hot cylinder, at the reference's size
     state, spec, n0, secs, conv_launches, vmax, checks = run_main(
@@ -3593,25 +3634,27 @@ def main() -> int:
         ("rebin_move_3d (large cap)", "csrc/rebin_move_3d.cu",
          "core/rebin_pallas.py:441", f3_launches["rebin_move_3d"], k7l_abs,
          t_fsi3d[FSI3D_NX[1]], "move"),
-        # the rest of the grouped kernel: K4 on the flagship's main path at
-        # GROUPED_N (preshift_window) and on the mechanics cavity (its 10
-        # steps after that main path; K4 is bitwise K1, so its error is
-        # K1's), K1's full body on the mechanics cavity's main path; K1 on
-        # the FSI and polarization states (periodic, elastic: no user path
-        # routes such a grid to the grouped kernel, so 0 launches on a main
-        # path; timed on the seeded FSI state) and solid-free (launches from
-        # the crowded-cell grid's 10-step run, timed on the s=20 blob)
+        # the rest of the grouped kernel: K4 on the main paths of the
+        # flagship and of the mechanics cavity at GROUPED_N with
+        # preshift_window (K4 is bitwise K1, so its error on the mechanics
+        # cavity is K1's), K1's full body on the mechanics cavity's main
+        # path; K1 on the FSI and polarization states (periodic, elastic: no
+        # user path routes such a grid to the grouped kernel, so the
+        # launches of its parity and timing calls on the FSI states; timed
+        # on the seeded one) and solid-free (launches and time from the
+        # crowded-cell grid's 10-step run and its last state)
         ("pass_a_2d_preshift", "csrc/pass_a_2d_preshift.cu",
          "ops/pair_pallas.py:848", pre_launches["pass_a_2d_preshift"], k4_abs,
          t_pre["K4"], "pass_a"),
         ("pass_a_2d_preshift (mechanics)", "csrc/pass_a_2d_preshift.cu",
-         "ops/pair_pallas.py:848", k4m_launches, k1m_abs, t_mech["K4"],
+         "ops/pair_pallas.py:848", k4m_launches["pass_a_2d_preshift"], k1m_abs,
+         t_mech["K4"],
          "pass_a"),
         ("pass_a_2d (full body, mechanics)", "csrc/pass_a_2d.cu",
          "ops/pair_pallas.py:308", mech_launches["pass_a_2d"], k1m_abs,
          t_mech["K1"], "pass_a"),
         ("pass_a_2d (elastic/periodic)", "csrc/pass_a_2d.cu",
-         "ops/pair_pallas.py:308", 0, k1f_abs, t_k1f, "pass_a"),
+         "ops/pair_pallas.py:308", k1f_launches, k1f_abs, t_k1f, "pass_a"),
         ("pass_a_2d (solid-free)", "csrc/pass_a_2d.cu", "ops/pair_pallas.py:308",
          k1sf_launches["pass_a_2d"], k1sf_abs, t_k1sf, "pass_a"),
     )

@@ -86,7 +86,7 @@ def uses_rowloop(geom: Geometry) -> bool:
     return geom.base_occ == 0 or geom.cap > 24
 
 
-def route(geom: Geometry, cfg=None):
+def route(geom: Geometry, cfg: "pair.PairConfig"):
     """The wrapper this grid's pass A goes to: ``pass_a_3d`` (K3) for a 3D
     grid, else ``pass_a_2d_rowloop`` (K2), or ``pass_a_2d`` (K1) and, when
     ``cfg.preshift_window`` is set, ``pass_a_2d_preshift`` (K4) in its
@@ -95,8 +95,7 @@ def route(geom: Geometry, cfg=None):
         return pass_a_3d
     if uses_rowloop(geom):
         return pass_a_2d_rowloop
-    return pass_a_2d_preshift if cfg is not None and cfg.preshift_window \
-        else pass_a_2d
+    return pass_a_2d_preshift if cfg.preshift_window else pass_a_2d
 
 
 def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",

@@ -109,7 +109,7 @@ def test_compute_forces_matches_jax(dt, filt):
     ref = bridge.to_numpy(jpair.compute_forces(_jax(JS.State, s), jparams,
                                                jspec.geom, cfg))
     tspec = bridge.spec_to_port(jspec)
-    assert pair_cuda.route(tspec.geom) is pair_cuda.pass_a_3d
+    assert pair_cuda.route(tspec.geom, tspec.pair) is pair_cuda.pass_a_3d
     got = bridge.state_from_port(tpair.compute_forces(
         bridge.state_to_port(s, device="cpu"),
         bridge.params_to_port(jparams, device="cpu"), tspec.geom,

@@ -278,7 +278,7 @@ def test_pass_a_3d_with_species_matches_jax(dt):
     ref = bridge.to_numpy(jpair.compute_forces(_jax(JS.State, s), jparams,
                                                geom, cfg))
     tgeom = TS.Geometry(**dataclasses.asdict(geom))
-    assert pair_cuda.route(tgeom) is pair_cuda.pass_a_3d
+    assert pair_cuda.route(tgeom, cfg) is pair_cuda.pass_a_3d
     got = bridge.state_from_port(tpair.compute_forces(
         bridge.state_to_port(s, device="cpu"),
         bridge.params_to_port(jparams, device="cpu"), tgeom,
@@ -609,7 +609,7 @@ def test_species_limit_and_routes():
     """K1, K2 and K3 take up to ``MAX_SPECIES`` species and say so beyond;
     the convection grid routes to K1 and K5."""
     _, _, spec, _ = tconv.build(N=12, device="cpu")
-    assert pair_cuda.route(spec.geom) is pair_cuda.pass_a_2d
+    assert pair_cuda.route(spec.geom, spec.pair) is pair_cuda.pass_a_2d
     assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_2d
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair, n_sdpd=1) == []
     assert pair_cuda.kernel_unsupported(

@@ -216,7 +216,7 @@ def test_spanwise_fsi_scene_matches_jax_and_routes_to_k3():
         cfg = tspec.pair
         assert (cfg.elastic_present and cfg.free_solids_present and cfg.xsph
                 and not cfg.pressure_switch)
-        assert pair_cuda.route(g) is pair_cuda.pass_a_3d
+        assert pair_cuda.route(g, cfg) is pair_cuda.pass_a_3d
         assert pair_cuda.kernel_unsupported(g, cfg, pair_cuda.pass_a_3d,
                                             n_sdpd=tp.n_sdpd) == []
         assert rebin_cuda.move_route(g) is rebin_cuda.rebin_move_3d
@@ -250,7 +250,7 @@ def test_taylor_green_scene_matches_jax_and_routes_to_k3():
     assert float(np.abs(b["v"][:, ~b["valid"]]).max(initial=0.0)) == 0.0
     # E0 = rho0 (2 pi)^3 / 8 with U0 = 1, to the lattice's quadrature
     assert abs(ttg.kinetic_energy(ts, tp) / (math.pi**3) - 1.0) < 1e-5
-    assert pair_cuda.route(g) is pair_cuda.pass_a_3d
+    assert pair_cuda.route(g, cfg) is pair_cuda.pass_a_3d
     assert pair_cuda.kernel_unsupported(g, cfg, pair_cuda.pass_a_3d) == []
     assert rebin_cuda.move_route(g) is rebin_cuda.rebin_move_3d
     flat = dataclasses.replace(g, dim=2, ncells=(3, 9, 1))

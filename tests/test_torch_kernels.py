@@ -378,7 +378,7 @@ def test_kernels_serve_the_flagship_grid():
                                  periodic=(False, False, False))
     cfg3d = dataclasses.replace(spec.pair, dim=3)
     assert rebin_cuda.move_route(flat3d) is rebin_cuda.rebin_move_3d
-    assert pair_cuda.route(flat3d) is pair_cuda.pass_a_3d
+    assert pair_cuda.route(flat3d, cfg3d) is pair_cuda.pass_a_3d
     assert pair_cuda.kernel_unsupported(flat3d, cfg3d) == []
     periodic3d = dataclasses.replace(flat3d, periodic=(False, False, True))
     assert rebin_cuda.move_route(periodic3d) is rebin_cuda.rebin_move_3d
@@ -486,7 +486,7 @@ def test_3d_cavity_routes_to_k3_and_k7():
     serve; ``pass_a`` and ``move_route`` send it there."""
     _, _, spec, _ = lid_cavity3d.build(N=6, device="cpu")
     geom = spec.geom
-    assert pair_cuda.route(geom) is pair_cuda.pass_a_3d
+    assert pair_cuda.route(geom, spec.pair) is pair_cuda.pass_a_3d
     assert pair_cuda.kernel_unsupported(geom, spec.pair) == []
     assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_3d
 
@@ -645,7 +645,7 @@ def test_balanced_and_edged_grids_route_to_kernels():
     geom = spec.geom
     assert geom.x_edges is not None and geom.cap == 18 and geom.base_occ == 0
     assert not spec.pair.solids_present
-    assert pair_cuda.route(geom) is pair_cuda.pass_a_2d_rowloop
+    assert pair_cuda.route(geom, spec.pair) is pair_cuda.pass_a_2d_rowloop
     assert pair_cuda.kernel_unsupported(geom, spec.pair) == []
     pf = pair._per_particle(state, params, spec.pair)
     pair_cuda._check_launch(pf, params, geom, spec.pair,
@@ -811,7 +811,7 @@ def test_polarization_routes_and_what_is_still_refused():
     state, params, spec = _polar("cpu")
     geom = spec.geom
     assert geom.periodic == (True, True, True) and geom.cap > rebin_cuda.MAX_CAP
-    assert pair_cuda.route(geom) is pair_cuda.pass_a_2d_rowloop
+    assert pair_cuda.route(geom, spec.pair) is pair_cuda.pass_a_2d_rowloop
     assert pair_cuda.kernel_unsupported(geom, spec.pair, n_sdpd=1) == []
     pf = pair._per_particle(state, params, spec.pair)
     pair_cuda._check_launch(pf, params, geom, spec.pair,
@@ -920,7 +920,7 @@ def test_thermal_rows_match_plain_on_card(cuda, which, ns, case):
     noise dominating the force (``_thermal_rows_parity``)."""
     kernel, names = THERMAL_KERNELS[which]
     state, params, spec = _thermal_state(kernel, ns, cuda)
-    assert pair_cuda.route(spec.geom) is kernel and params.n_sdpd == ns
+    assert pair_cuda.route(spec.geom, spec.pair) is kernel and params.n_sdpd == ns
     _thermal_rows_parity(kernel, state, params, spec, case, names)
 
 
@@ -933,7 +933,7 @@ def test_thermal_noise_is_routed_and_staged():
                   lambda: _cavity3d(6, "cpu"), lambda: _polar("cpu")):
         state, params, spec = build()
         cfg = dataclasses.replace(spec.pair, thermal=True)
-        kernel = pair_cuda.route(spec.geom)
+        kernel = pair_cuda.route(spec.geom, cfg)
         pf = pair._per_particle(state, params, cfg)
         noise = pair.noise_inputs(state)
         pair_cuda._check_launch(pf, params, spec.geom, cfg, kernel, noise)
@@ -1015,7 +1015,7 @@ def test_k3_periodic_matches_plain_on_card(cuda, grid):
     dominating (``_thermal_rows_parity``)."""
     state, params, spec = _periodic_grid(grid, cuda)
     geom = spec.geom
-    assert any(geom.periodic) and pair_cuda.route(geom) is pair_cuda.pass_a_3d
+    assert any(geom.periodic) and pair_cuda.route(geom, spec.pair) is pair_cuda.pass_a_3d
     if grid == "box_thermal":
         for case in ("a", "b"):
             _thermal_rows_parity(pair_cuda.pass_a_3d, state, params, spec,
@@ -1097,7 +1097,7 @@ def test_periodic_grids_route_to_k3_and_k7():
         state, params, spec = _periodic_grid(grid, "cpu")
         geom = spec.geom
         assert geom.cap == 38 and geom.ncells[0] == geom.ncells[2] == 3
-        assert pair_cuda.route(geom) is pair_cuda.pass_a_3d
+        assert pair_cuda.route(geom, spec.pair) is pair_cuda.pass_a_3d
         assert pair_cuda.kernel_unsupported(geom, spec.pair,
                                             n_sdpd=params.n_sdpd) == []
         assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_3d

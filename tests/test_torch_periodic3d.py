@@ -190,7 +190,7 @@ def test_spanwise_scene_matches_jax():
         np.testing.assert_array_equal(pa[name], pb[name], err_msg=name)
     # the bridge carries the periodic geometry unchanged
     assert bridge.spec_to_port(jspec).geom == g
-    assert pair_cuda.route(g) is pair_cuda.pass_a_3d
+    assert pair_cuda.route(g, tspec.pair) is pair_cuda.pass_a_3d
     assert pair_cuda.kernel_unsupported(g, tspec.pair) == []
     assert rebin_cuda.move_route(g) is rebin_cuda.rebin_move_3d
     # the same scene through the port's entry point
@@ -265,7 +265,7 @@ def test_pass_a_matches_jax(grid, filt):
     tcfg = bridge._plain(tpair.PairConfig, cfg)
     st = bridge.state_to_port(s, device="cpu")
     tp = bridge.params_to_port(jparams, device="cpu")
-    assert pair_cuda.route(tspec.geom) is pair_cuda.pass_a_3d
+    assert pair_cuda.route(tspec.geom, tcfg) is pair_cuda.pass_a_3d
     assert pair_cuda.kernel_unsupported(tspec.geom, tcfg,
                                         n_sdpd=tp.n_sdpd) == []
     got = bridge.state_from_port(tpair.compute_forces(st, tp, tspec.geom, tcfg))

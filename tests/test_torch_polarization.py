@@ -251,7 +251,7 @@ def test_plain_pass_a_matches_jax_kernel_interpreted():
     tspec = bridge.spec_to_port(jspec)
     tparams = bridge.params_to_port(jparams, device="cpu")
     tcfg = bridge._plain(tpair.PairConfig, cfg)
-    assert pair_cuda.route(tspec.geom) is pair_cuda.pass_a_2d_rowloop
+    assert pair_cuda.route(tspec.geom, tcfg) is pair_cuda.pass_a_2d_rowloop
     got = tpair._pass_a_plain(
         tpair._per_particle(bridge.state_to_port(s, device="cpu"), tparams, tcfg),
         tparams, tspec.geom, tcfg)
@@ -438,7 +438,7 @@ def test_polarization_routes_to_k2_and_k6():
     """The polarization grid takes K2 (mixed lattice, cap > 24) and K6 (cap
     > 16, both axes periodic); K2 serves every switch the model sets."""
     _, params, spec, _ = tpolar.build(nx=40, device="cpu")
-    assert pair_cuda.route(spec.geom) is pair_cuda.pass_a_2d_rowloop
+    assert pair_cuda.route(spec.geom, spec.pair) is pair_cuda.pass_a_2d_rowloop
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair,
                                         n_sdpd=params.n_sdpd) == []
     assert tpair._unported(params, spec.pair) == []

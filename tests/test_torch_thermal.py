@@ -264,7 +264,7 @@ def test_thermal_pass_a_matches_jax(route, dt):
     dtype = np.float64 if dt == "f64" else np.float32
     s, p = _cast(s, dtype), _cast(p, dtype)
     st, params, tspec, ratio = _thermal_parity(s, p, jspec, boltz, dt == "f64")
-    assert pair_cuda.route(tspec.geom) is ROUTES[route]
+    assert pair_cuda.route(tspec.geom, tspec.pair) is ROUTES[route]
     assert pair_cuda.kernel_unsupported(tspec.geom, tspec.pair,
                                         n_sdpd=params.n_sdpd) == []
     assert ratio > 10.0, ratio

@@ -36,8 +36,8 @@ def main() -> int:
     N, steps, style = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     route = pair_cuda.route
     routes = {"K1": route,
-              "K2": lambda geom, cfg=None: pair_cuda.pass_a_2d_rowloop,
-              "plain": lambda geom, cfg=None: _plain}
+              "K2": lambda geom, cfg: pair_cuda.pass_a_2d_rowloop,
+              "plain": lambda geom, cfg: _plain}
     for which in sys.argv[4].split(","):
         pair_cuda.route = routes[which]
         state, params, spec = lid_cavity.scene(Scene, Region, SetForce, N=N,

@@ -6,13 +6,10 @@ called (CUDA events, 20 calls) and on the device (torch.profiler, 20 calls).
 
     python3 tools/torch_k1_tv_timing.py LABEL
 
-from the root of a checkout: it imports the package found there.  Run it
-from the roots of two checkouts in one session (say a parent's and a
-change's, unpacked with ``git archive``) to hold one to the other.
+from the root of a checkout: it imports the package found there.
 """
 
 import dataclasses
-import inspect
 import os
 import sys
 
@@ -29,13 +26,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     label = sys.argv[1]
-    # trees with K4 pick K1's bodies with ``tv``; older ones have one body
-    kw = (dict(tv=True) if hasattr(pair_cuda, "pass_a_2d_preshift")
-          and "tv" in inspect.signature(pair_cuda.kernel_attributes).parameters
-          else {})
     regs = {f"{'f' if f else 'nf'}/{ns}{'/th' if th else ''}":
             pair_cuda.kernel_attributes(pair_cuda.pass_a_2d, f, ns,
-                                        thermal=th, **kw)
+                                        thermal=th, tv=True)
             for th in (False, True) for ns in range(5) for f in (True, False)}
     print(label, "K1 tv registers", regs)
     state, params, spec, _ = lid_cavity.build(N=1000, dt=5e-6)
@@ -57,10 +50,10 @@ def main() -> int:
         for _ in range(20):
             pair_cuda.pass_a_2d(*args)
         torch.cuda.synchronize()
-    # K1's kernel: pass_a_2d_kernel before the template, pa2d::*<Neighbour>
+    # K1's kernel: pa2d::*<Neighbour> (K4's reads j through Preshift)
     hits = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and ("pass_a_2d_kernel" in e.key or "Neighbour" in e.key)]
+            and "Neighbour" in e.key]
     device_ms = (sum(e.self_device_time_total for e in hits)
                  / sum(e.count for e in hits) / 1e3)
     print(label, "K1 tv N=1000 step 100: as called ms",
