@@ -26,10 +26,15 @@ solids, K7 past cap 64); the rest of the grouped 2D kernel: the flagship
 at N=1000 with ``preshift_window`` (K4, the pre-shifted copies) and the
 cavity under the mechanics pair style (K1's full body), with K1's full body
 and K4 held on the FSI, polarization and blob states and the JAX package's
-crowded-cell grid.  Phases, one line each:
+crowded-cell grid; and the last three kernel pieces: the doubly periodic 2D
+Taylor-Green vortex (K2 solid-free with periodic x and y, K5 on both
+periodic axes), the 3D drifting blob (K3 solid-free, K7 with x_edges on a
+grid periodic in x and z) and K8, the window-rotation probe, through its
+own entry point (``tools/torch_rotation_probe.py``).  Phases, one line
+each:
 
 1. device  — the card's name, and its name and power limit from nvidia-smi;
-2. build   — compile the seven hand-written kernels from
+2. build   — compile the eight hand-written kernel sources from
              ``sph_bvf_tpu_torch/csrc``, one nvcc per source, all at once
              (K4's seconds on their own line), and print every pass-A
              instantiation's registers (with and without the thermal rows;
@@ -158,6 +163,22 @@ crowded-cell grid.  Phases, one line each:
    K6 periodic y — K6 against the plain walk and the sort rebin on that
              state and on a seeded drift of it across all four faces and
              corners of the box, the C, Q and S rows riding along: bitwise;
+   K5 periodic — K5 against the plain walk and the sort rebin on the 2D
+             vortex (taylor_green2d.build(N=1000): 336 x 336 doubly periodic
+             cells of cap 14) after setup and 100 steps, with uniform x
+             columns and with columns of widths 7/8 and 9/8 of a cell: as
+             run, after a seeded drift across every face and corner and
+             with positions a hair below and at the box's ends: bitwise;
+   K7 edges periodic — K7 against the plain walk and the sort rebin on the
+             balanced 3D blob (drift_blob.build(8, nz_cells=3): x_edges, x
+             and z periodic) a chunk in and after a seeded drift across
+             the x and z seams: bitwise;
+   K8      — tools/torch_rotation_probe.py's ``run`` (the probe's entry
+             point, its launches counted): mma bitwise slice, the three
+             variants' times and torch.matmul(x, S)'s at f32 with TF32 off;
+             then each kernel against its plain version, bitwise, the plain
+             versions' times and the bounds (slice, base: the bytes; mma:
+             3 x R x W x 9 BLK x g multiply-adds at 495 TFLOP/s dense TF32);
 9. main    — each path through its entry points with the launch counters
              reset first: lid_cavity.build(N=200) -> setup -> simulate(1000)
              (K1 once per step plus setup, K5 once per chunk plus setup),
@@ -255,6 +276,23 @@ crowded-cell grid.  Phases, one line each:
              each against the plain loop in f64 on the same inputs: K3
              within 5e-6 * max or F64_ERR_MULT x the plain f32 loop's own
              error, per field;
+             main tgv2d: taylor_green2d.build(N=1000) -> setup ->
+             simulate(1000) (1,000,000 particles; K2 1001, K5 201, nothing
+             else), E/E0 between 0.98 x the JAX package's N=60 value and
+             1.01 x exp(-4 nu t), the mean density within 1e-2, and on the
+             step-1000 state K2 against the plain loop (its solid-free and
+             periodic-y flags together) and K5 against the plain walk and
+             the sort; main tgv2d vs JAX: N=60, 100 steps, E/E0, max|v| and
+             mean density in 2% bands around the JAX package's own run;
+             main blob3d: drift_blob.build(8, balance, inrun, nz_cells=3)
+             -> setup -> simulate(1000, balance_log=log) (1,324,800
+             particles; K3 1001, K7 201 = every in-place rebin, the re-cuts
+             sort rebins, nothing else), overflow and drift 0, at least one
+             accepted re-cut improving its metric, max|v| 2, K7 against the
+             plain walk and the sort on the step-1000 state, and x, v and
+             rho tag by tag within BLOB3D_TOL of the uniform-grid run of the
+             same blob; main blob3d vs JAX: s=1, 20 steps, max|v|, mean
+             density and mean x in 1e-5 bands around the JAX package's run;
              main fsi3d vs JAX: nx=12, 20 steps released at step 10, max|v|,
              the fluid's density, the beam's max|v| and max|S| inside 2%
              bands around the JAX package's own run; main tgv3d vs JAX:
@@ -278,7 +316,8 @@ crowded-cell grid.  Phases, one line each:
              s=20 (its 1000-step main path, twice), of the spanwise cavity at
              N=40 and N=100, of the 3D FSI beam at nx=30 and nx=60 (frozen;
              at nx=60 the plain pass A timed over pieces of target cells) and of the Taylor-Green
-             vortex at N=20 and N=100, each chunk timed on the
+             vortex at N=20 and N=100, of the 2D vortex at N=1000 and of
+             the balanced 3D blob at s=8, each chunk timed on the
              host clock and by CUDA events, the blob's chunks split into
              those with a re-cut, with a balance check and without; per
              call each kernel beside its plain version (K1 and K4 side by
@@ -308,8 +347,11 @@ crowded-cell grid.  Phases, one line each:
              at N=40 and N=100 (K3 and K7 periodic beside the walled cavity's
              K3 and K7), one of the 3D FSI beam at nx=60 (released) and one
              of the vortex at N=100 (K3's elastic and solid-free
-             instantiations, K7 past cap 64) and two of the s=20 blob,
-             balanced and uniform, under torch.profiler:
+             instantiations, K7 past cap 64), two of the s=20 blob,
+             balanced and uniform, one of the 2D vortex at N=1000 (K2
+             solid-free periodic, K5 periodic) and one of the balanced 3D
+             blob at s=8 (K3 solid-free, K7 with x_edges on the periodic
+             grid), under torch.profiler:
              device ops, device-to-host copies and device time per step,
              the busy share, and the
              pass-A and move kernels' device time per call; it fails if
@@ -318,7 +360,7 @@ crowded-cell grid.  Phases, one line each:
              their speed rows time.
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (twenty-eight entries: the
+second-to-last line is ``{"kernels": [...]}`` (thirty-three entries: the
 six kernels of PRs 1-3, then K2's solid-free and K5's, K6's and K7's
 x_edges variants, K1 and K3 with species, K2 and K6 on the polarization
 path, K1, K2 and K3 with their thermal rows, K3 and K7 with periodic axes,
@@ -326,7 +368,9 @@ K3 with the mechanics and fsi pair styles and without solids, K7 past cap
 64, K4 on the flagship and on the mechanics cavity, K1's full body on the
 mechanics cavity, K1 elastic/periodic (its launches those of its parity
 and timing calls: no main path routes such a grid to it) and K1
-solid-free as their own entries), the last
+solid-free as their own entries, then K5 periodic, K7 with x_edges on a
+periodic grid and K8's three variants, with torch.matmul(x, S) as the mma
+variant's library time), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -345,7 +389,8 @@ import time
 from pathlib import Path
 
 KERNELS = ("pass_a_2d", "pass_a_2d_preshift", "pass_a_2d_rowloop", "pass_a_3d",
-           "rebin_move_2d", "rebin_move_2d_gated", "rebin_move_3d")
+           "rebin_move_2d", "rebin_move_2d_gated", "rebin_move_3d",
+           "rotation_probe")
 CAVITY_N = (200, 1000)  # parity/main/speed size, large speed size
 FSI_NX = (60, 240)  # the reference's size, large speed size (~225k particles)
 CAVITY3D_N = (40, 100)  # parity/speed size (97k particles), main/speed size (1.19M)
@@ -409,7 +454,7 @@ SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110,
                "spanwise": 20}
 MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000,
               "convection": 1000, "polarization": 1000, "fsi3d": 1000,
-              "tgv": 1000}
+              "tgv": 1000, "tgv2d": 1000, "blob3d": 1000}
 PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100,
                 "convection": 200, "polarization": 200, "tgv": 100}
 # K2 on the seeded polarization state: (label, ampl_damp, g0_chem_coupling,
@@ -562,12 +607,14 @@ SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
                "spanwise": {40: (100, 10), 100: (50, 3)},
                "fsi3d": {30: (100, 10), 60: (100, 3)},
                "tgv": {20: (100, 10), 100: (50, 3)},
-               "blob": {10: (1000, 5), 20: (1000, 3)}}
+               "blob": {10: (1000, 5), 20: (1000, 3)},
+               "tgv2d": {1000: (50, 3)},
+               "blob3d": {8: (50, 3)}}
 # timed runs of simulate per size, each from the same set-up state (the
 # blob's: its 1000-step main path without the build, twice)
 SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2,
                  "convection": 1, "polarization": 1, "spanwise": 1,
-                 "fsi3d": 1, "tgv": 1}
+                 "fsi3d": 1, "tgv": 1, "tgv2d": 1, "blob3d": 1}
 # FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
 # smaller and the start-up pressure waves (|v| up to ~0.4) drift particles
 # past the budget within 100 steps, so the run rebins every 20
@@ -651,6 +698,45 @@ MECH_JAX = {
         "fluid max|rho-1|": (0.04062420129776001, 0.98, 1.02),
     }),
 }
+
+
+# the doubly periodic 2D Taylor-Green vortex (taylor_green2d: solid-free,
+# transport velocity, Re 100, cells under 3 spacings: cap 14, so K2 and K5
+# on both periodic axes): the main path's N (1,000,000 particles in 336 x
+# 336 cells), and the steps of K5's parity state
+TGV2D_N, TGV2D_PARTICLES, TGV2D_PARITY_STEPS = 1000, 1_000_000, 100
+# The JAX package's own run of the vortex at N=60 (f32, jnp path, on the
+# CPU: taylor_green2d.scene(...).build(), the velocity set in numpy -> setup
+# -> simulate(100), t = 0.2618; exp(-4 nu t) = 0.98958 there) and the band
+# [lo, hi] x that value the card's run of the same scene must land in
+TGV2D_JAX_N, TGV2D_JAX_STEPS = 60, 100
+TGV2D_JAX = {
+    "E/E0": (0.9777353014504775, 0.98, 1.02),
+    "max|v|": (1.0016767978668213, 0.98, 1.02),
+    "mean rho": (1.0020084295007918, 0.98, 1.02),
+}
+# the 3D drifting blob (drift_blob.scene(..., nz_cells=3): x and z periodic,
+# x_edges from Scene.balance, re-cut by fix_balance; K3 solid-free, K7 with
+# x_edges on the periodic grid): the main path's s (1,324,800 particles)
+BLOB3D_S, BLOB3D_NZ, BLOB3D_PARTICLES = 8, 3, 1_324_800
+# the balanced 3D run against the uniform one, tag by tag, as BLOB_TOL: every
+# pair term is exactly 0 here too, whatever the order of the 27-cell sums
+BLOB3D_TOL = dict(BLOB_TOL)
+# The JAX package's own run of the 3D blob at s=1 (f32, jnp path, on the CPU:
+# drift_blob.scene(1, True, True, 3, ...).build() -> setup -> simulate(20))
+# and the band [lo, hi] x that value the card's run of the same scene must
+# land in (pure advection: the speed stays 2 and the density 1)
+BLOB3D_JAX_S, BLOB3D_JAX_STEPS = 1, 20
+BLOB3D_JAX = {
+    "max|v|": (2.0, 0.99999, 1.00001),
+    "mean rho": (1.0, 0.99999, 1.00001),
+    "mean x": (0.7194285499789412, 0.99999, 1.00001),
+}
+# K8, the window-rotation probe (tools/torch_rotation_probe.py): the calls
+# per timed run of its entry point, and the H100 SXM's dense TF32
+# tensor-core rate, the mma variant's bound
+PROBE_REPEATS = 50
+PEAK_TF32 = 495e12
 
 
 def _k4_bitwise(torch, pair, pair_cuda, state, params, geom, cfg0, tag):
@@ -1000,6 +1086,75 @@ def _seam_drift(torch, state, geom, seed):
         raise AssertionError(f"the seam drift crossed no particle somewhere: {across}")
     return dataclasses.replace(
         state, x=torch.as_tensor(x, device=state.x.device)), across
+
+
+def _edges_seam_drift(torch, state, geom, seed):
+    """``state`` on a 3D x_edges grid periodic in x and z with every valid
+    particle moved by a seeded step of up to 0.9 of the narrowest cell per
+    axis, outward along z in the first and last z layer, and a seeded half
+    of the first and last x column's particles put past the x seam by up to
+    0.9 of the narrowest column (a wide end column's particles may sit far
+    from its edge); positions beyond the box stay unwrapped.  Returns the
+    state and the count of particles beyond each face."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = state.x.cpu().numpy()
+    valid = state.valid.cpu().numpy()
+    d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
+    nx, ny, nz = geom.ncells
+    c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
+    cx, cz = c // (ny * nz), c % nz
+    d[2] = np.where(cz == 0, -np.abs(d[2]),
+                    np.where(cz == nz - 1, np.abs(d[2]), d[2]))
+    x = (x + np.where(valid, d, 0.0)).astype(np.float32)
+    past = np.abs(d[0]) * (rng.uniform(size=valid.shape) < 0.5)
+    x[0] = np.where(cx == 0, np.where(past > 0, geom.lo[0] - past, x[0]),
+                    np.where((cx == nx - 1) & (past > 0), geom.hi[0] + past,
+                             x[0])).astype(np.float32)
+    across = {f"{'xyz'[ax]}{sign}": int((valid & beyond).sum())
+              for ax in (0, 2)
+              for sign, beyond in (("-", x[ax] < geom.lo[ax]),
+                                   ("+", x[ax] >= geom.hi[ax]))}
+    if min(across.values()) == 0:
+        raise AssertionError(f"the seam drift crossed no particle somewhere: {across}")
+    return dataclasses.replace(
+        state, x=torch.as_tensor(x, device=state.x.device)), across
+
+
+def _seam_hairs(torch, state, geom, seed):
+    """``state`` on a doubly periodic 2D grid with a seeded share of the
+    particles of the first and last cell along x and along y put a hair
+    below the box's low end (-1e-7, -1e-30), at its high end or a hair below
+    or above it, in f32: the positions whose wrap and bin the seam
+    decides."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = state.x.cpu().numpy().astype(np.float32)
+    valid = state.valid.cpu().numpy()
+    c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
+    for ax, ci in ((0, c // geom.ncells[1]), (1, c % geom.ncells[1])):
+        L = np.float32(geom.hi[ax])
+        hairs = np.array([-1e-7, -1e-30, np.nextafter(L, np.float32(0)), L,
+                          L + np.float32(1e-6)], np.float32)
+        edge = (ci == 0) | (ci == geom.ncells[ax] - 1)
+        sel = valid & edge & (rng.uniform(size=valid.shape) < 0.3)
+        x[ax] = np.where(sel, hairs[rng.integers(0, len(hairs), valid.shape)],
+                         x[ax])
+    return dataclasses.replace(
+        state, x=torch.as_tensor(x, device=state.x.device))
+
+
+def _load_tool(name):
+    """``tools/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _jitter(torch, state, spacing, seed, stir=False):
@@ -1449,8 +1604,10 @@ def main() -> int:
     from sph_bvf_tpu_torch.io import checkpoint, vtk
     from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
                                           lid_cavity, lid_cavity3d,
-                                          natural_convection, taylor_green3d)
+                                          natural_convection, taylor_green2d,
+                                          taylor_green3d)
     from sph_bvf_tpu_torch.ops import pair, pair_cuda
+    from sph_bvf_tpu_torch.ops import rotation_probe as rp
     from sph_bvf_tpu_torch.parallel.balance import rebalance, report
     from sph_bvf_tpu_torch.utils.thermo import ThermoLogger
 
@@ -1462,7 +1619,9 @@ def main() -> int:
                 "pass_a_3d": pair_cuda.pass_a_3d,
                 "rebin_move_2d": rebin_cuda.rebin_move_2d,
                 "rebin_move_2d_gated": rebin_cuda.rebin_move_2d_gated,
-                "rebin_move_3d": rebin_cuda.rebin_move_3d}
+                "rebin_move_3d": rebin_cuda.rebin_move_3d,
+                "probe_slice": rp.probe_slice, "probe_mma": rp.probe_mma,
+                "probe_base": rp.probe_base}
 
     def pass_a_timing(pass_a, state, params, geom, cfg, iters, piece=None,
                       plain_iters=None):
@@ -2290,6 +2449,130 @@ def main() -> int:
           f"{what}; after a seeded drift with particles beyond the faces and "
           f"corners {across}: {what_d})")
     del state, moved
+
+    # -- K5 on periodic grids: the doubly periodic 2D vortex ---------------
+    nv = TGV2D_N
+    state, params, spec, _ = taylor_green2d.build(nv, device=dev)
+    geom = spec.geom
+    if (rebin_cuda.move_route(geom) is not rebin_cuda.rebin_move_2d
+            or pair_cuda.route(geom, spec.pair) is not pair_cuda.pass_a_2d_rowloop):
+        raise AssertionError(f"the 2D vortex at N={nv} (cap {geom.cap}) does "
+                             f"not route to K2 and K5")
+    state = simulate(setup(state, params, spec,
+                           dt=taylor_green2d.timestep(nv)), params, spec,
+                     TGV2D_PARITY_STEPS)
+    drop = _rebin_drop(spec)
+    edged = _synthetic_edges(geom)
+    k5p_abs, k5p_what = 0.0, []
+    for g, st in ((geom, state), (edged, S.rebin(state, edged, drop=drop,
+                                                 use_kernel=False,
+                                                 drift_check=False))):
+        for seed in range(64):  # the first drift that crosses them all
+            moved, across = _corner_drift(torch, st, g, seed=seed)
+            if all(across.values()):
+                break
+        else:
+            raise AssertionError(f"K5 periodic: every seeded drift left a "
+                                 f"face or a corner uncrossed: {across}")
+        cols = "x_edges" if g.x_edges else "uniform"
+        for label, s_ in (("as run", st), ("seeded drift", moved),
+                          ("seam hairs", _seam_hairs(torch, st, g, seed=9))):
+            what, err = _move_parity(torch, S, rebin_cuda,
+                                     rebin_cuda.rebin_move_2d, s_, g, drop,
+                                     f"K5 periodic {cols} {label}")
+            k5p_abs = max(k5p_abs, err)
+            k5p_what.append(f"{cols} {label}: {what}")
+    print(f"[K5 periodic] rebin move kernel on both periodic axes == plain "
+          f"walk == sort rebin, bitwise (2D Taylor-Green vortex N={nv}, "
+          f"{geom.ncells[:2]} cells of cap {geom.cap}, step "
+          f"{int(state.step)}; with uniform columns and with x columns of "
+          f"widths 7/8 and 9/8 of a cell, as run, after a seeded drift "
+          f"across every face and corner and with positions a hair below and "
+          f"at the box's ends: {'; '.join(k5p_what)})")
+    del state, moved, st, s_
+
+    # -- K7 with x_edges on a periodic grid: the 3D drifting blob ----------
+    sb3 = BLOB3D_S
+    state, params, spec, _ = drift_blob.build(sb3, True, True, device=dev,
+                                              nz_cells=BLOB3D_NZ)
+    geom = spec.geom
+    if (geom.x_edges is None or geom.periodic != (True, False, True)
+            or rebin_cuda.move_route(geom) is not rebin_cuda.rebin_move_3d):
+        raise AssertionError(f"the 3D blob s={sb3} is not an x_edges grid "
+                             f"periodic in x and z routed to K7")
+    state = simulate(setup(state, params, spec, dt=drift_blob.timestep(sb3)),
+                     params, spec, spec.rebin_every)  # a chunk in
+    drop = _rebin_drop(spec)
+    what, k7ep_abs = _move_parity(torch, S, rebin_cuda,
+                                  rebin_cuda.rebin_move_3d, state, geom, drop,
+                                  "K7 edges periodic")
+    moved, across = _edges_seam_drift(torch, state, geom, seed=0)
+    what_d, err_d = _move_parity(torch, S, rebin_cuda,
+                                 rebin_cuda.rebin_move_3d, moved, geom, drop,
+                                 "K7 edges periodic (seam drift)")
+    k7ep_abs = max(k7ep_abs, err_d)
+    print(f"[K7 edges periodic] 3D rebin move kernel with x_edges on a grid "
+          f"periodic in x and z == plain walk == sort rebin, bitwise (3D "
+          f"drifting blob s={sb3}, {geom.ncells} cells of cap {geom.cap}, x "
+          f"columns of {min(np.diff(geom.x_edges)) / geom.x_quantum:.0f}-"
+          f"{max(np.diff(geom.x_edges)) / geom.x_quantum:.0f} quanta, step "
+          f"{int(state.step)}: {what}; after a seeded drift across the x "
+          f"and z seams {across}: {what_d})")
+    del state, moved
+
+    # -- K8: the window-rotation probe through its entry point -------------
+    torch.backends.cuda.matmul.allow_tf32 = False  # the matmul's yardstick
+    probe_tool = _load_tool("torch_rotation_probe")
+    k8_names = ("probe_slice", "probe_mma", "probe_base")
+    for name in k8_names:
+        counters[name].launches = 0
+    probe_out = probe_tool.run(rp.BLOCKS, PROBE_REPEATS, dev)
+    k8_launches = {name: counters[name].launches for name in k8_names}
+    if min(k8_launches.values()) == 0 or not probe_out["mma_bit_identical"]:
+        raise AssertionError(f"[K8] the probe's run: launches {k8_launches}, "
+                             f"mma bitwise slice {probe_out['mma_bit_identical']}")
+    xw, shift = probe_tool.window(dev), rp.shift_matrix(dev)
+    g8 = rp.BLOCKS
+    k8 = {}
+    for variant in rp.VARIANTS:
+        got = rp.probe(variant, xw, g8, shift)
+        ref = rp.plain(variant, xw, g8, shift)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"[K8] {variant} != its plain version: "
+                                 f"max|diff| {float((got - ref).abs().max())!r}")
+        k8[variant] = {
+            "err": float((got - ref).abs().max()),
+            "ms": probe_out[f"{variant}_ms"],
+            "plain": _per_call_ms(
+                torch, lambda v=variant: rp.plain(v, xw, g8, shift), 20)}
+    if not torch.equal(rp.probe_mma(xw, shift, g8), rp.probe_slice(xw, g8)):
+        raise AssertionError("[K8] mma != slice")
+    # bounds: slice and base read x once and write the output once; mma also
+    # reads S, and does 3 x R x W x 9 BLK multiply-adds a block (the three
+    # TF32 parts) at the dense TF32 rate
+    out_bytes = 4 * rp.R * rp.BLK * g8
+    k8_bytes = {"slice": 4 * rp.R * rp.W + out_bytes,
+                "base": 4 * rp.R * rp.W + out_bytes,
+                "mma": 4 * (rp.R * rp.W + rp.W * 9 * rp.BLK) + out_bytes}
+    mma_flops = 2 * 3 * rp.R * rp.W * 9 * rp.BLK * g8
+    for variant in rp.VARIANTS:
+        t_b = k8_bytes[variant] / PEAK_BYTES
+        t_o = mma_flops / PEAK_TF32 if variant == "mma" else 0.0
+        k8[variant]["bound"] = (max(t_b, t_o) * 1e3,
+                                "bytes" if t_b >= t_o else "operations")
+    print(f"[K8] window-rotation probe (tools/torch_rotation_probe.py, "
+          f"{g8} blocks of the [{rp.R}, {rp.W}] window, {PROBE_REPEATS} calls "
+          f"a timed run), each kernel == its plain version bitwise, mma == "
+          f"slice bitwise: launches {k8_launches}; per call ms slice "
+          f"{k8['slice']['ms']!r}, mma {k8['mma']['ms']!r}, base "
+          f"{k8['base']['ms']!r}, torch.matmul(x, S) at f32 with TF32 off "
+          f"{probe_out['matmul_ms']!r}; plain versions "
+          + ", ".join(f"{v} {k8[v]['plain']!r}" for v in rp.VARIANTS)
+          + "; bounds " + ", ".join(f"{v} {k8[v]['bound']}" for v in rp.VARIANTS)
+          + f"; rotation cost (slice - base) {probe_out['rotation_cost_ms']!r}, "
+          f"mma cost (mma - base) {probe_out['mma_cost_ms']!r} ms [{card}]")
+    del xw, shift
 
     # -- 9. main paths ------------------------------------------------------
     def run_main(build, dt, want_kernels, steps, make_callback=None, **sim_kw):
@@ -3156,6 +3439,184 @@ def main() -> int:
           f"tag by tag: max|diff| {err} (bounds {BLOB_TOL}; tags equal) [{card}]")
     del balanced, uniform, diff
 
+    # the doubly periodic 2D Taylor-Green vortex at 1,000,000 particles: K2
+    # (solid-free, periodic x and y) and K5 on both periodic axes
+    nv = TGV2D_N
+    dt_v = taylor_green2d.timestep(nv)
+    state, spec, n0, secs, tgv2d_launches, vmax, checks = run_main(
+        lambda: taylor_green2d.build(nv, device=dev), dt_v,
+        ("pass_a_2d_rowloop", "rebin_move_2d"), MAIN_STEPS["tgv2d"])
+    params = run_main.built[1]
+    e0 = taylor_green2d.kinetic_energy(run_main.built[0], params)
+    t_end = MAIN_STEPS["tgv2d"] * dt_v
+    # the viscous decay with nu = U0 / Re = 0.01 (the mode has |k|^2 = 2);
+    # the JAX package's N=60 run dissipates more, over a longer t
+    decay = math.exp(-4 * 0.01 * t_end)
+    ratio = taylor_green2d.kinetic_energy(state, params) / e0
+    rho_mean = float(state.rho[state.valid].double().mean())
+    lo = 0.98 * TGV2D_JAX["E/E0"][0]
+    checks.update({
+        f"{TGV2D_PARTICLES} particles": n0 == TGV2D_PARTICLES,
+        f"E/E0 in [{lo!r}, 1.01 x exp(-4 nu t)]": lo <= ratio <= 1.01 * decay,
+        "|mean rho - 1| <= 1e-2": abs(rho_mean - 1.0) <= 1e-2,
+    })
+    detail = (f"t {t_end!r}, E/E0 {ratio!r} vs exp(-4 nu t) {decay!r} (the "
+              f"JAX package's N={TGV2D_JAX_N} at step {TGV2D_JAX_STEPS}: "
+              f"{TGV2D_JAX['E/E0'][0]!r}), max|v| {vmax!r}, mean rho "
+              f"{rho_mean!r}, max|rho-1| "
+              f"{float((state.rho[state.valid] - 1.0).abs().max())!r}")
+    require(checks, "2D Taylor-Green main path", detail)
+    # K2's solid-free and periodic-y branches meet on this run: on the
+    # step-1000 state, as [main tgv3d] holds K3, K2 against the plain loop
+    # with x jittered by up to 0.1 spacing (the vortex carries whole lattice
+    # patches, on which ddv cancels to a small part of its terms: K2 and the
+    # plain f32 loop differ there by 2.1e-5 of max|ddv| as run), and as run
+    # K2 and the plain f32 loop each against the plain loop in f64; then K5
+    # against the plain walk and the sort
+    k2v_err, k2v_abs, _ = _pass_a_parity(
+        torch, pair, pair_cuda.pass_a_2d_rowloop,
+        _jitter(torch, state, taylor_green2d.L / nv, seed=11), params,
+        spec.geom, spec.pair, k2_names, f"K2 solid-free periodic N={nv}")
+    k2sf_abs = max(k2sf_abs, k2v_abs)  # K2 solid-free's entry: both paths
+    k2v_f64 = _f64_parity(torch, pair, pair_cuda.pass_a_2d_rowloop, state,
+                          params, spec.geom, spec.pair, k2_names,
+                          f"K2 solid-free periodic N={nv} vs f64", None)
+    what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_2d,
+                             state, spec.geom, _rebin_drop(spec),
+                             f"K5 periodic vortex N={nv}")
+    k5p_abs = max(k5p_abs, err)
+    print(f"[main tgv2d] 2D Taylor-Green vortex N={nv} build+setup+simulate("
+          f"{MAIN_STEPS['tgv2d']}) at dt {dt_v!r} in {secs[1]!r} s (build "
+          f"{secs[0]!r} s): {n0} particles, {spec.geom.ncells[:2]} cells, cap "
+          f"{spec.geom.cap}, periodic x and y, no solids, overflow 0, "
+          f"{detail}; on the step-{MAIN_STEPS['tgv2d']} state jittered K2 "
+          f"== plain (max|diff|/max|ref| per field: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in k2v_err.items())
+          + f"), unjittered against the plain loop in f64 (max|diff|/"
+          f"max|f64| per field, K2 / the plain f32 loop: "
+          + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in
+                      k2v_f64.items() if a or b)
+          + f") and K5 == plain walk == sort rebin, bitwise ({what}); "
+          f"launches {tgv2d_launches} [{card}]")
+    del state
+    nj = TGV2D_JAX_N
+    state, params, spec, _ = taylor_green2d.build(nj, device=dev)
+    e0 = taylor_green2d.kinetic_energy(state, params)
+    state = simulate(setup(state, params, spec,
+                           dt=taylor_green2d.timestep(nj)), params, spec,
+                     TGV2D_JAX_STEPS)
+    speed_v = torch.sqrt((state.v * state.v).sum(0))
+    got = {"E/E0": taylor_green2d.kinetic_energy(state, params) / e0,
+           "max|v|": float(speed_v[state.valid].max()),
+           "mean rho": float(state.rho[state.valid].double().mean())}
+    checks = {f"{name} in [{lo}, {hi}] x JAX's {ref}": lo * ref <= got[name] <= hi * ref
+              for name, (ref, lo, hi) in TGV2D_JAX.items()}
+    checks["overflow 0"] = int(state.overflow) == 0
+    detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
+    require(checks, f"2D Taylor-Green N={nj} vs JAX", detail)
+    print(f"[main tgv2d vs JAX] 2D Taylor-Green vortex N={nj}, "
+          f"{TGV2D_JAX_STEPS} steps on the card vs the JAX package's own run: "
+          f"{detail} (bands {TGV2D_JAX})")
+    del state
+
+    # the 3D drifting blob at s=8: x_edges on a grid periodic in x and z,
+    # re-cut in the run (K3 solid-free at every step, K7 with x_edges at
+    # every in-place rebin; a re-cut is a sort rebin into the new geometry,
+    # not a K7 launch), then the same blob on the uniform grid
+    sb3, steps = BLOB3D_S, MAIN_STEPS["blob3d"]
+    dt_b3 = drift_blob.timestep(sb3)
+    log3 = []
+    state, spec, n0, secs, blob3d_launches, vmax, checks = run_main(
+        lambda: drift_blob.build(sb3, True, True, device=dev,
+                                 nz_cells=BLOB3D_NZ),
+        dt_b3, ("pass_a_3d", "rebin_move_3d"), steps, balance_log=log3)
+    cap3, fix3 = spec.geom.cap, spec.balance
+    cuts3 = [c for c in log3 if c["geom"] is not None]
+    geom3 = _current_geom(spec.geom, log3)
+    rep3 = report(state, geom3, fix3.n_shards)
+
+    def improved3(c):
+        """The re-cut fired a trigger and improved the metric that fired."""
+        by_imb = (c["imbalance"] > fix3.threshold
+                  and c["new_imbalance"] < c["imbalance"])
+        by_occ = (c["max_occ"] >= fix3.occ_frac * cap3
+                  and c["new_max_occ"] < c["max_occ"])
+        return (by_imb or by_occ) and c["new_max_occ"] <= cap3
+
+    checks.update({
+        f"{BLOB3D_PARTICLES} particles": n0 == BLOB3D_PARTICLES,
+        "x_edges on a grid periodic in x and z": (
+            spec.geom.x_edges is not None
+            and spec.geom.periodic == (True, False, True)),
+        ">= 1 accepted re-cut": len(cuts3) >= 1,
+        "each re-cut improved its firing metric": all(map(improved3, cuts3)),
+        "max|v| within 1e-3 of the drift speed 2.0": abs(vmax - 2.0) <= 1e-3,
+    })
+    detail = (f"max|v| {vmax!r}, re-cuts (sort rebins) "
+              + "; ".join(f"step {c['step']}: imbalance {c['imbalance']} -> "
+                          f"{c['new_imbalance']}, max_occ {c['max_occ']} -> "
+                          f"{c['new_max_occ']}" for c in cuts3)
+              + f", refusals {[(c['step'], c['reason']) for c in log3 if c['geom'] is None and 'reason' in c]}"
+              f", final slab counts {rep3['counts']} (imbalance "
+              f"{rep3['imbalance']})")
+    require(checks, "3D blob main path", detail)
+    what, err = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_3d,
+                             state, geom3, _rebin_drop(spec),
+                             f"K7 edges periodic blob s={sb3} step {steps}")
+    k7ep_abs = max(k7ep_abs, err)
+    print(f"[main blob3d] 3D drifting blob s={sb3} Scene.balance+fix_balance "
+          f"-> build+setup+simulate({steps}, balance_log) in {secs[1]!r} s "
+          f"(build {secs[0]!r} s): {n0} particles, grid {spec.geom.ncells} cap "
+          f"{cap3} -> {geom3.ncells}, {detail}; every in-place rebin through "
+          f"K7 with x_edges on the periodic grid ({blob3d_launches['rebin_move_3d']}"
+          f" launches: setup and {steps // spec.rebin_every} chunks), "
+          f"{len(cuts3)} re-cuts sorted; on the step-{steps} state K7 == "
+          f"plain walk == sort rebin, bitwise ({what}); launches "
+          f"{blob3d_launches} [{card}]")
+    balanced = S.gather_particles(state, spec.geom, ("x", "v", "rho"))
+    del state
+    state, spec_u, n0u, secs_u, uni3_launches, vmax_u, checks = run_main(
+        lambda: drift_blob.build(sb3, device=dev, nz_cells=BLOB3D_NZ), dt_b3,
+        ("pass_a_3d", "rebin_move_3d"), steps)
+    checks[f"{BLOB3D_PARTICLES} particles"] = n0u == BLOB3D_PARTICLES
+    require(checks, "uniform 3D blob run", f"max|v| {vmax_u!r}")
+    uniform = S.gather_particles(state, spec_u.geom, ("x", "v", "rho"))
+    del state
+    diff = {k: balanced[k] - uniform[k] for k in BLOB3D_TOL}
+    span = spec_u.geom.hi[0] - spec_u.geom.lo[0]
+    diff["x"][:, 0] -= span * np.round(diff["x"][:, 0] / span)
+    span_z = spec_u.geom.hi[2] - spec_u.geom.lo[2]
+    diff["x"][:, 2] -= span_z * np.round(diff["x"][:, 2] / span_z)
+    err3 = {k: float(np.abs(d).max()) for k, d in diff.items()}
+    if not ((balanced["tag"] == uniform["tag"]).all()
+            and all(err3[k] <= BLOB3D_TOL[k] for k in BLOB3D_TOL)):
+        raise AssertionError(f"balanced 3D blob != uniform 3D blob: {err3} "
+                             f"(bounds {BLOB3D_TOL})")
+    print(f"[main blob3d] uniform 3D blob s={sb3} (grid {spec_u.geom.ncells}, "
+          f"cap {spec_u.geom.cap}) build+setup+simulate({steps}) in "
+          f"{secs_u[1]!r} s, launches {uni3_launches}; balanced vs uniform "
+          f"tag by tag: max|diff| {err3} (bounds {BLOB3D_TOL}; tags equal) "
+          f"[{card}]")
+    del balanced, uniform, diff
+    sj = BLOB3D_JAX_S
+    state, params, spec, _ = drift_blob.build(sj, True, True, device=dev,
+                                              nz_cells=BLOB3D_NZ)
+    state = simulate(setup(state, params, spec, dt=drift_blob.timestep(sj)),
+                     params, spec, BLOB3D_JAX_STEPS)
+    valid = state.valid
+    got = {"max|v|": float(torch.sqrt((state.v * state.v).sum(0))[valid].max()),
+           "mean rho": float(state.rho[valid].double().mean()),
+           "mean x": float(state.x[0][valid].double().mean())}
+    checks = {f"{name} in [{lo}, {hi}] x JAX's {ref}": lo * ref <= got[name] <= hi * ref
+              for name, (ref, lo, hi) in BLOB3D_JAX.items()}
+    checks["overflow 0"] = int(state.overflow) == 0
+    detail = ", ".join(f"{k} {v!r}" for k, v in got.items())
+    require(checks, f"3D blob s={sj} vs JAX", detail)
+    print(f"[main blob3d vs JAX] 3D drifting blob s={sj} (balanced, "
+          f"fix_balance), {BLOB3D_JAX_STEPS} steps on the card vs the JAX "
+          f"package's own run: {detail} (bands {BLOB3D_JAX})")
+    del state
+
     # small-input references: the card's kernel paths vs the CPU plain paths
     # bounds relative to each field's max|value| on the CPU: x 1e-5, v 1e-3,
     # rho 1e-4, S 1e-3 (the cavity's lid speed and density are 1)
@@ -3441,6 +3902,21 @@ def main() -> int:
               f"{u['rebin_host']!r} ms; K2 {b['pass_a']!r} / {u['pass_a']!r} "
               f"ms, K6 with x_edges {b['move']!r} ms vs uniform K6 "
               f"{u['move']!r} ms vs plain walk {b['move_plain']!r} ms [{card}]")
+    # the 2D vortex (K2 solid-free periodic, K5 periodic) and the balanced 3D
+    # blob (K3 solid-free, K7 with x_edges on the periodic grid)
+    state, params, spec, _ = taylor_green2d.build(TGV2D_N, device=dev)
+    state = setup(state, params, spec, dt=taylor_green2d.timestep(TGV2D_N))
+    t_tgv2d = speed(f"2D Taylor-Green vortex N={TGV2D_N}", "tgv2d", TGV2D_N,
+                    state, params, spec, pair_cuda.pass_a_2d_rowloop,
+                    rebin_cuda.rebin_move_2d)
+    del state
+    state, params, spec, _ = drift_blob.build(BLOB3D_S, True, True, device=dev,
+                                              nz_cells=BLOB3D_NZ)
+    state = setup(state, params, spec, dt=drift_blob.timestep(BLOB3D_S))
+    t_blob3d = speed(f"3D drifting blob s={BLOB3D_S} balanced, with "
+                     f"fix_balance", "blob3d", BLOB3D_S, state, params, spec,
+                     pair_cuda.pass_a_3d, rebin_cuda.rebin_move_3d)
+    del state
     print(f"[speed] {_nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}"
           f" (clocks.sm, power.draw, power.limit, temperature after the runs)")
 
@@ -3520,6 +3996,18 @@ def main() -> int:
         drift_blob.timestep(sb),
         (("K2 solid-free", "pass_a_2d_rowloop_kernel"),
          ("K6", "rebin_move_2d_gated_kernel"))) for bal in (True, False)]
+    # the 2D vortex and the balanced 3D blob
+    targets += [(f"2D Taylor-Green vortex N={TGV2D_N}",
+                 lambda: taylor_green2d.build(TGV2D_N, device=dev),
+                 taylor_green2d.timestep(TGV2D_N),
+                 (("K2 solid-free periodic", "pass_a_2d_rowloop_kernel"),
+                  ("K5 periodic", "rebin_move_2d_kernel"))),
+                (f"3D drifting blob s={BLOB3D_S} balanced",
+                 lambda: drift_blob.build(BLOB3D_S, balance=True, device=dev,
+                                          nz_cells=BLOB3D_NZ),
+                 drift_blob.timestep(BLOB3D_S),
+                 (("K3 solid-free", "pass_a_3d_"),
+                  ("K7 x_edges periodic", "rebin_move_3d_kernel")))]
     for label, build, dt, kernels in targets:
         state, params, spec, _ = build()
         steps = max(spec.rebin_every, 10)
@@ -3658,6 +4146,17 @@ def main() -> int:
         ("pass_a_2d (solid-free)", "csrc/pass_a_2d.cu", "ops/pair_pallas.py:308",
          k1sf_launches["pass_a_2d"], k1sf_abs, t_k1sf, "pass_a"),
     )
+    # K5 on both periodic axes and K7 with x_edges on the periodic grid on
+    # their main paths (the 2D vortex at N=1000, the 3D blob at s=8), their
+    # errors the worst of their parity phases
+    rows += (
+        ("rebin_move_2d (periodic)", "csrc/rebin_move_2d.cu",
+         "core/rebin_pallas.py:370", tgv2d_launches["rebin_move_2d"], k5p_abs,
+         t_tgv2d, "move"),
+        ("rebin_move_3d (x_edges, periodic)", "csrc/rebin_move_3d.cu",
+         "core/rebin_pallas.py:595", blob3d_launches["rebin_move_3d"],
+         k7ep_abs, t_blob3d, "move"),
+    )
     # no single PyTorch call computes pass A or the locality move
     kernels = [
         {"name": name, "route": "cuda", "source": f"sph_bvf_tpu_torch/{src}",
@@ -3666,6 +4165,18 @@ def main() -> int:
          "bound_ms": t[f"{op}_bound"][0], "bound_by": t[f"{op}_bound"][1],
          "library_ms": None}
         for name, src, tpu, launches, err, t, op in rows
+    ]
+    # K8: launches from the probe's entry point; torch.matmul(x, S) computes
+    # the mma variant's product
+    kernels += [
+        {"name": f"rotation_probe ({v})", "route": "cuda",
+         "source": "sph_bvf_tpu_torch/csrc/rotation_probe.cu",
+         "replaces": "tools/mxu_rotation_probe.py:97",
+         "launches": k8_launches[f"probe_{v}"], "max_abs_err": k8[v]["err"],
+         "ms": k8[v]["ms"], "plain_ms": k8[v]["plain"],
+         "bound_ms": k8[v]["bound"][0], "bound_by": k8[v]["bound"][1],
+         "library_ms": probe_out["matmul_ms"] if v == "mma" else None}
+        for v in rp.VARIANTS
     ]
     print(f"[time] {time.perf_counter() - t_start!r} s from the first build "
           f"to here [{card}]")

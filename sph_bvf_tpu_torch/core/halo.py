@@ -44,7 +44,7 @@ def wrap_y(geom) -> bool:
 
 def periodic_multicell(geom) -> bool:
     """Any periodic axis with more than one cell (an x wrap or ghost
-    columns): the grids K1 and K5 do not serve."""
+    columns): the 2D grids on which K1 and K4 take their full pair body."""
     return wrap_x(geom) or bool(ghost_axes(geom))
 
 

@@ -3,16 +3,16 @@
 (``csrc/rebin_move_3d.cu``).
 
 Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the 2D static branch
-(cap <= 16, no periodic axis), K6 for the 2D gated branch (16 < cap <= 64,
-walls or periodic axes, x and y alike), K7 for the 3D tiled kernel (any
-cap, walls or periodic axes, x, y and z alike); each with uniform or
-non-uniform x columns (``Geometry.x_edges``, the load-balance lever; in 3D
-only without a periodic axis).  Between rebins a particle moves at most one
-cell (the drift contract ``core/state.rebin`` checks), so the particles that
-belong in cell c are the matching candidates among the slots of its 3^dim
-stencil cells.  Walking them slot-major, then
-by the source cell's flat index after the periodic wrap, visits them in the
-sort rebin's stable (cell, old flat slot) order, so the slot assignment is
+(cap <= 16), K6 for the 2D gated branch (16 < cap <= 64), K7 for the 3D
+tiled kernel (any cap); each with walls or periodic axes (of at least 3
+cells; x, y and, in 3D, z alike) and with uniform or non-uniform x columns
+(``Geometry.x_edges``, the load-balance lever).  The three share their
+binning and wrap (``csrc/rebin_move.cuh``).  Between rebins a particle
+moves at most one cell (the drift contract ``core/state.rebin`` checks), so
+the particles that belong in cell c are the matching candidates among the
+slots of its 3^dim stencil cells.  Walking them slot-major, then by the
+source cell's flat index after the periodic wrap, visits them in the sort
+rebin's stable (cell, old flat slot) order, so the slot assignment is
 bit-identical to the sort.
 
 ``move`` packs the per-particle fields into one f32 and one i32 matrix,
@@ -32,8 +32,7 @@ import torch
 
 from sph_bvf_tpu_torch import _build
 from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
-                                         periodic_multicell, wrap_axes,
-                                         wrap_bits, wrap_x, wrap_y)
+                                         wrap_axes, wrap_bits, wrap_x, wrap_y)
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
 MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
@@ -44,29 +43,21 @@ def move_unsupported(geom: Geometry, kernel) -> list:
     """What keeps the move wrapper ``kernel`` from serving this grid.
 
     K7 takes a 3D grid of any cap (its slot list is a scratch in global
-    memory) with walls or periodic axes (x, y, z alike); K5 a 2D grid of cap
-    <= 16 without a periodic axis; K6 a 2D grid of 16 < cap <= 64 with walls
-    or periodic axes (x, y or both).  A
-    periodic axis needs at least 3 cells (with 2, the same source cell would
-    sit in a target's window twice).  Non-uniform x columns (``x_edges``)
-    route by the same rules, except that K7 takes them only without a
-    periodic axis."""
+    memory); K5 a 2D grid of cap <= 16; K6 a 2D grid of 16 < cap <= 64.
+    Each takes walls or periodic axes (x, y and, in 3D, z alike), and
+    uniform or non-uniform x columns (``x_edges``) alike.  A periodic axis
+    needs at least 3 cells (with 2, the same source cell would sit in a
+    target's window twice)."""
     is3d = kernel is rebin_move_3d
     limit = {rebin_move_2d: MAX_CAP, rebin_move_2d_gated: GATED_MAX_CAP}.get(kernel)
     checks = [("a 2D grid" if is3d else "a 3D grid", grid_3d(geom) != is3d),
               (f"cap {geom.cap} above {limit}",
                limit is not None and geom.cap > limit)]
-    if kernel is rebin_move_2d:
-        checks.append(("a periodic axis", periodic_multicell(geom)))
-    else:
-        checks += [(f"a periodic {a} axis with fewer than 3 cells", True)
-                   for a in narrow_wrap_axes(geom)]
+    checks += [(f"a periodic {a} axis with fewer than 3 cells", True)
+               for a in narrow_wrap_axes(geom)]
     if kernel is rebin_move_2d_gated:
         checks.append((f"cap {geom.cap} of at most {MAX_CAP} (K5's)",
                        geom.cap <= MAX_CAP))
-    if is3d:
-        checks.append(("non-uniform x columns (x_edges) with a periodic axis",
-                       geom.x_edges is not None and any(wrap_axes(geom))))
     return [what for what, bad in checks if bad]
 
 
@@ -246,6 +237,19 @@ def _column_bounds(geom: Geometry, device):
             cols.table.shape[0])
 
 
+def _x_span(geom: Geometry) -> float:
+    """The f32 span ``x_edges[-1] - x_edges[0]`` that the x-edges binning
+    wraps a periodic x by (0 without edges, unread)."""
+    span = geom.x_edges[-1] - geom.x_edges[0] if geom.x_edges else 0.0
+    return float(np.float32(span))
+
+
+def _wrap_2d(geom: Geometry) -> tuple:
+    """The periodic arguments of K5 and K6: wrapx, wrapy and the x span."""
+    return ((ctypes.c_int, int(wrap_x(geom))), (ctypes.c_int, int(wrap_y(geom))),
+            (ctypes.c_float, _x_span(geom)))
+
+
 def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
             xr: int, naxes: int, extra=(), scratch: bool = False):
     """Launch ``wrapper``'s kernel (``csrc/<its name>.cu``) on the packs.
@@ -286,7 +290,7 @@ def rebin_move_2d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
         return rebin_move_plain(PF, PI, geom, xr)
-    return _launch(rebin_move_2d, PF, PI, geom, xr, 2)
+    return _launch(rebin_move_2d, PF, PI, geom, xr, 2, _wrap_2d(geom))
 
 
 rebin_move_2d.launches = 0  # K5 launches in this process
@@ -298,12 +302,7 @@ def rebin_move_2d_gated(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
         return rebin_move_plain(PF, PI, geom, xr)
-    # the periodic span the x-edges binning wraps by, in f32 (0 unused)
-    span = geom.x_edges[-1] - geom.x_edges[0] if geom.x_edges else 0.0
-    return _launch(rebin_move_2d_gated, PF, PI, geom, xr, 2,
-                   ((ctypes.c_int, int(wrap_x(geom))),
-                    (ctypes.c_int, int(wrap_y(geom))),
-                    (ctypes.c_float, float(np.float32(span)))))
+    return _launch(rebin_move_2d_gated, PF, PI, geom, xr, 2, _wrap_2d(geom))
 
 
 rebin_move_2d_gated.launches = 0  # K6 launches in this process
@@ -316,7 +315,8 @@ def rebin_move_3d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     if not PF.is_cuda:
         return rebin_move_plain(PF, PI, geom, xr)
     return _launch(rebin_move_3d, PF, PI, geom, xr, 3,
-                   ((ctypes.c_int, wrap_bits(geom)),), scratch=True)
+                   ((ctypes.c_int, wrap_bits(geom)),
+                    (ctypes.c_float, _x_span(geom))), scratch=True)
 
 
 rebin_move_3d.launches = 0  # K7 launches in this process

@@ -506,8 +506,8 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
         if state.x.is_cuda:
             from sph_bvf_tpu_torch.core.rebin_cuda import move_refusal
 
-            # what is left: K5 on a periodic axis, K6 past cap 64, K7 on
-            # x_edges with a periodic axis, a periodic axis of 2 cells
+            # what is left: a 2D grid past cap 64 (K6's limit) and a
+            # periodic axis of 2 cells
             raise NotImplementedError(
                 f"rebin move for this grid (dim={geom.dim}, cap={geom.cap}, "
                 f"ncells={geom.ncells}, periodic={geom.periodic}, x_edges "

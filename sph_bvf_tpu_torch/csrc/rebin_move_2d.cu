@@ -25,45 +25,49 @@
 // neighbouring threads write neighbouring addresses.
 //
 // Non-uniform x columns (Geometry.x_edges, load balancing; replaces the same
-// TPU kernel's `edges` variant, rebin_pallas.py:176-199, 328-333): xb holds
-// each column's fine-bin bounds, i32 [nx+1] = round((edge - edge0) /
-// x_quantum).  A candidate lies in column cx when its fine bin
-// clamp(floor((x - lo0) * inv_q), 0, n_fine - 1) lies in [xb[cx], xb[cx+1]):
-// the columns partition the fine grid, so this is `cell_index_of`'s table
-// gather bit for bit.  xb == nullptr means uniform columns.
+// TPU kernel's `edges` variant, rebin_pallas.py:176-199, 328-333): each
+// candidate's fine bin against its target column's bounds (`in_column`,
+// rebin_move.cuh).
+//
+// Periodic axes (replaces the same TPU kernel on a grid with a periodic
+// axis, rebin_pallas.py:90-92: its wrapped halo on x, assemble_padded, and
+// its ghost columns on y with the target binned by the floored modulo,
+// :305-321): two runtime bits, wrapx and wrapy, select the periodic
+// instantiation, which follows K6 (rebin_move_2d_gated.cu) and bins through
+// the same rebin_move.cuh.  A source cell wraps by index, and the 9 source
+// cells are sorted by flat index after the wrap, so the walk keeps the
+// sort rebin's order; a candidate's bin on a periodic axis is the floored
+// modulo of its f32 bin, and with x_edges x wraps by the edges' span xspan,
+// not by hi - lo.  Every wrapping axis has at least 3 cells (the wrapper
+// refuses 2), so no source cell sits in a window twice.  The TPU kernel may order
+// a cell's slots differently on a periodic grid (rebin_pallas.py:28-31);
+// this one keeps the sort's order.  The wall instantiation (kPeriodic
+// false) is the walk it always was.
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
 // x at f32 rows xr, xr+1; outputs of the same shapes.  Flat cell
-// c = cx * ny + cy; the grid has one cell along z and no periodic axis.
+// c = cx * ny + cy; the grid has one cell along z.
 
 #include <cuda_runtime.h>
 
+#include "rebin_move.cuh"
+
 namespace {
+
+using rebin::bin;
+using rebin::in_column;
+using rebin::wrap_cell;
 
 constexpr int kMaxCap = 16;
 constexpr int kThreads = 128;
 
-__device__ __forceinline__ int bin(float x, float lo, float inv, int n) {
-  const int b = (int)floorf(__fmul_rn(__fsub_rn(x, lo), inv));
-  return min(max(b, 0), n - 1);
-}
-
-// x column membership: the fine bin against [xb0, xb1) with edges, else the
-// uniform bin against cx
-__device__ __forceinline__ bool in_column(float x, int cx, int nx, float lo0,
-                                          float inv0, const int* xb, int xb0,
-                                          int xb1, float inv_q, int n_fine) {
-  if (nx == 1) return true;
-  if (xb == nullptr) return bin(x, lo0, inv0, nx) == cx;
-  const int f = bin(x, lo0, inv_q, n_fine);
-  return f >= xb0 && f < xb1;
-}
-
+template <bool kPeriodic>
 __global__ void __launch_bounds__(kThreads) rebin_move_2d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
     int nx, int ny, int xr, float lo0, float lo1, float inv0, float inv1,
-    const int* __restrict__ xb, float inv_q, int n_fine) {
+    int wrapx, int wrapy, float xspan, const int* __restrict__ xb, float inv_q,
+    int n_fine) {
   const int nc = nx * ny;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
@@ -75,18 +79,56 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_kernel(
 
   long long src[kMaxCap];
   int n = 0;
-  for (int s = 0; s < cap; ++s) {
+  if (!kPeriodic) {
+    for (int s = 0; s < cap; ++s) {
+      for (int ox = -1; ox <= 1; ++ox) {
+        const int cxs = cx + ox;
+        if (cxs < 0 || cxs >= nx) continue;
+        for (int oy = -1; oy <= 1; ++oy) {
+          const int cys = cy + oy;
+          if (cys < 0 || cys >= ny) continue;
+          const long long k = (long long)s * nc + cxs * ny + cys;
+          if (__ldg(pi + k) == 0) continue;  // row 0: valid
+          const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, false) : 0;
+          if (by != cy || !in_column(__ldg(px + k), cx, nx, lo0, inv0, false,
+                                     0.f, xb, xb0, xb1, inv_q, n_fine))
+            continue;
+          if (n < cap) src[n] = k;
+          ++n;
+        }
+      }
+    }
+  } else {
+    // the window's source cells, in ascending flat index after both wraps
+    int cell[9];
+    int ns = 0;
     for (int ox = -1; ox <= 1; ++ox) {
-      const int cxs = cx + ox;
-      if (cxs < 0 || cxs >= nx) continue;
+      int cxs = cx + ox;
+      if (wrapx) {
+        cxs = wrap_cell(cxs, nx);
+      } else if (cxs < 0 || cxs >= nx) {
+        continue;
+      }
       for (int oy = -1; oy <= 1; ++oy) {
-        const int cys = cy + oy;
-        if (cys < 0 || cys >= ny) continue;
-        const long long k = (long long)s * nc + cxs * ny + cys;
+        int cys = cy + oy;
+        if (wrapy) {
+          cys = wrap_cell(cys, ny);
+        } else if (cys < 0 || cys >= ny) {
+          continue;
+        }
+        const int v = cxs * ny + cys;
+        int q = ns++;
+        for (; q > 0 && cell[q - 1] > v; --q) cell[q] = cell[q - 1];
+        cell[q] = v;
+      }
+    }
+    for (int s = 0; s < cap; ++s) {
+      for (int q = 0; q < ns; ++q) {
+        const long long k = (long long)s * nc + cell[q];
         if (__ldg(pi + k) == 0) continue;  // row 0: valid
-        const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny) : 0;
-        if (by != cy || !in_column(__ldg(px + k), cx, nx, lo0, inv0, xb, xb0,
-                                   xb1, inv_q, n_fine))
+        const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, wrapy) : 0;
+        if (by != cy || !in_column(__ldg(px + k), cx, nx, lo0, inv0, wrapx,
+                                   xspan, xb, xb0, xb1, inv_q, n_fine))
           continue;
         if (n < cap) src[n] = k;
         ++n;
@@ -108,18 +150,28 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_kernel(
 
 }  // namespace
 
+// wrapx / wrapy: x / y periodic with more than one cell; xspan: the x
+// edges' span (read only with xb and wrapx)
 extern "C" int rebin_move_2d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int xr, float lo0, float lo1, float inv0,
-                             float inv1, const int* xb, float inv_q,
-                             int n_fine, cudaStream_t stream) {
+                             float inv1, int wrapx, int wrapy, float xspan,
+                             const int* xb, float inv_q, int n_fine,
+                             cudaStream_t stream) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
+  if ((wrapx && nx < 3) || (wrapy && ny < 3)) return (int)cudaErrorInvalidValue;
   const int nc = nx * ny;
   if (nc == 0) return 0;
   const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
-  rebin_move_2d_kernel<<<blocks, kThreads, 0, stream>>>(
-      pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1, xb,
-      inv_q, n_fine);
+  if (wrapx || wrapy) {
+    rebin_move_2d_kernel<true><<<blocks, kThreads, 0, stream>>>(
+        pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1,
+        wrapx, wrapy, xspan, xb, inv_q, n_fine);
+  } else {
+    rebin_move_2d_kernel<false><<<blocks, kThreads, 0, stream>>>(
+        pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1,
+        0, 0, 0.f, xb, inv_q, n_fine);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -32,16 +32,11 @@
 //
 // Non-uniform x columns (Geometry.x_edges, load balancing; replaces the same
 // TPU kernel's `edges` variant, rebin_pallas.py:176-199, 328-333 — the main
-// path of the load-balance slice): xb holds each column's fine-bin bounds,
-// i32 [nx+1] = round((edge - edge0) / x_quantum).  A candidate lies in column
-// cx when its fine bin clamp(floor((x - lo0) * inv_q), 0, n_fine - 1) lies in
-// [xb[cx], xb[cx+1]): the columns partition the fine grid, so this is
-// `cell_index_of`'s table gather bit for bit.  On a periodic x axis
-// `cell_index_of` first wraps the (already wrap_pbc'd) position once more by
-// the edges' own span xspan = edge[nx] - edge0 (lo0 + floored mod), which the
-// kernel repeats with the same f32 rounding.  The candidate order is the
-// order after the wrap, as with uniform columns.  xb == nullptr means uniform
-// columns.
+// path of the load-balance slice): each candidate's fine bin against its
+// target column's bounds, on a periodic x axis after the wrap by the edges'
+// own span xspan (`in_column`; the binning, the wrap and the column test
+// are K5's and K7's too, in rebin_move.cuh).  The candidate order is the
+// order after the wrap, as with uniform columns.
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
 // x at f32 rows xr, xr+1; outputs of the same shapes.  Flat cell
@@ -50,35 +45,16 @@
 
 #include <cuda_runtime.h>
 
+#include "rebin_move.cuh"
+
 namespace {
+
+using rebin::bin;
+using rebin::in_column;
+using rebin::wrap_cell;
 
 constexpr int kMaxCap = 64;
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ int bin(float x, float lo, float inv, int n,
-                                   bool periodic) {
-  const int b = (int)floorf(__fmul_rn(__fsub_rn(x, lo), inv));
-  if (periodic) return ((b % n) + n) % n;  // floored modulo, as _mod
-  return min(max(b, 0), n - 1);
-}
-
-// x column membership: with edges, the fine bin of the position (wrapped by
-// the edges' span on a periodic axis) against [xb0, xb1); else the uniform
-// bin against cx
-__device__ __forceinline__ bool in_column(float x, int cx, int nx, float lo0,
-                                          float inv0, bool wrapx, float xspan,
-                                          const int* xb, int xb0, int xb1,
-                                          float inv_q, int n_fine) {
-  if (nx == 1) return true;
-  if (xb == nullptr) return bin(x, lo0, inv0, nx, wrapx) == cx;
-  if (wrapx) {  // lo0 + _mod(x - lo0, xspan): fmod, then shift the sign
-    float r = fmodf(__fsub_rn(x, lo0), xspan);
-    if (r != 0.f && ((r < 0.f) != (xspan < 0.f))) r = __fadd_rn(r, xspan);
-    x = __fadd_rn(r, lo0);
-  }
-  const int f = bin(x, lo0, inv_q, n_fine, false);
-  return f >= xb0 && f < xb1;
-}
 
 __global__ void __launch_bounds__(kThreads) rebin_move_2d_gated_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
@@ -101,14 +77,14 @@ __global__ void __launch_bounds__(kThreads) rebin_move_2d_gated_kernel(
   for (int ox = -1; ox <= 1; ++ox) {
     int cxs = cx + ox;
     if (wrapx) {
-      cxs = cxs < 0 ? cxs + nx : (cxs >= nx ? cxs - nx : cxs);
+      cxs = wrap_cell(cxs, nx);
     } else if (cxs < 0 || cxs >= nx) {
       continue;
     }
     for (int oy = -1; oy <= 1; ++oy) {
       int cys = cy + oy;
       if (wrapy) {
-        cys = cys < 0 ? cys + ny : (cys >= ny ? cys - ny : cys);
+        cys = wrap_cell(cys, ny);
       } else if (cys < 0 || cys >= ny) {
         continue;
       }

@@ -37,12 +37,13 @@
 //
 // Non-uniform x columns (Geometry.x_edges, load balancing; replaces the TPU
 // kernel's `edges` variant, rebin_pallas.py:487-492, 595-600, 641, whose
-// per-plane column bounds are scalars): xb holds each x plane's fine-bin
-// bounds, i32 [nx+1] = round((edge - edge0) / x_quantum).  A candidate lies
-// in plane cx when its fine bin clamp(floor((x - lo0) * inv_q), 0,
-// n_fine - 1) lies in [xb[cx], xb[cx+1]): the planes partition the fine grid,
-// so this is `cell_index_of`'s table gather bit for bit.  xb == nullptr means
-// uniform planes.  With x_edges no axis is periodic (the wrapper refuses it).
+// per-plane column bounds are scalars): a candidate lies in plane cx when its
+// fine bin lies in the plane's bounds [xb[cx], xb[cx+1]) (`in_column`,
+// rebin_move.cuh, K5's and K6's test).  On a periodic grid x wraps by the
+// edges' own span xspan before the fine bin, as `cell_index_of` does (the
+// TPU kernel skips x's uniform bin under `edges`, :582, and tests the fine
+// bin against the plane's bounds, :595-600); y and z bin as without edges.
+// xb == nullptr means uniform planes.
 //
 // Periodic axes (replaces the TPU kernel's periodic binning,
 // rebin_pallas.py:573-600, and its wrapped halo planes and ghost columns): a
@@ -61,41 +62,23 @@
 
 #include <cuda_runtime.h>
 
+#include "rebin_move.cuh"
+
 namespace {
 
+using rebin::bin;
+using rebin::in_column;
+using rebin::wrap_cell;
+
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ int bin(float x, float lo, float inv, int n,
-                                   bool periodic) {
-  if (n == 1) return 0;
-  const int b = (int)floorf(__fmul_rn(__fsub_rn(x, lo), inv));
-  if (periodic) return ((b % n) + n) % n;  // floored modulo, as _mod
-  return min(max(b, 0), n - 1);
-}
-
-// a source cell index one step outside [0, n) wrapped back into it
-__device__ __forceinline__ int wrap_cell(int c, int n) {
-  return c < 0 ? c + n : (c >= n ? c - n : c);
-}
-
-// x plane membership: the fine bin against [xb0, xb1) with edges, else the
-// uniform bin against cx
-__device__ __forceinline__ bool in_column(float x, int cx, int nx, float lo0,
-                                          float inv0, bool wrapx, const int* xb,
-                                          int xb0, int xb1, float inv_q,
-                                          int n_fine) {
-  if (nx == 1) return true;
-  if (xb == nullptr) return bin(x, lo0, inv0, nx, wrapx) == cx;
-  const int f = bin(x, lo0, inv_q, n_fine, false);
-  return f >= xb0 && f < xb1;
-}
 
 __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
     int nx, int ny, int nz, int xr, float lo0, float lo1, float lo2,
-    float inv0, float inv1, float inv2, int wrap, const int* __restrict__ xb,
-    float inv_q, int n_fine, int* __restrict__ list) {
+    float inv0, float inv1, float inv2, int wrap, float xspan,
+    const int* __restrict__ xb, float inv_q, int n_fine,
+    int* __restrict__ list) {
   const int nc = nx * ny * nz;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= nc) return;
@@ -148,11 +131,11 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
       const int k = s * nc + src[q];
       if (__ldg(pi + k) == 0) continue;  // row 0: valid
       occupied = true;
-      const int by = bin(__ldg(py + k), lo1, inv1, ny, wy);
-      const int bz = bin(__ldg(pz + k), lo2, inv2, nz, wz);
+      const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, wy) : 0;
+      const int bz = nz > 1 ? bin(__ldg(pz + k), lo2, inv2, nz, wz) : 0;
       if (by != cy || bz != cz ||
-          !in_column(__ldg(px + k), cx, nx, lo0, inv0, wx, xb, xb0, xb1, inv_q,
-                     n_fine))
+          !in_column(__ldg(px + k), cx, nx, lo0, inv0, wx, xspan, xb, xb0, xb1,
+                     inv_q, n_fine))
         continue;
       if (n < cap) list[(long long)n * nc + c] = k;
       ++n;
@@ -178,24 +161,24 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
 
 }  // namespace
 
-// wrap: bit a set when axis a is periodic with more than one cell; list:
-// i32 scratch of cap * nx * ny * nz entries (its contents are not read
-// before this call writes them)
+// wrap: bit a set when axis a is periodic with more than one cell; xspan:
+// the x edges' span (read only with xb and a periodic x); list: i32 scratch
+// of cap * nx * ny * nz entries (its contents are not read before this call
+// writes them)
 extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int nz, int xr, float lo0, float lo1, float lo2,
                              float inv0, float inv1, float inv2, int wrap,
-                             const int* xb, float inv_q, int n_fine, int* list,
-                             cudaStream_t stream) {
-  if (((wrap & 1) && nx < 3) || ((wrap & 2) && ny < 3) || ((wrap & 4) && nz < 3) ||
-      (wrap && xb != nullptr))
+                             float xspan, const int* xb, float inv_q,
+                             int n_fine, int* list, cudaStream_t stream) {
+  if (((wrap & 1) && nx < 3) || ((wrap & 2) && ny < 3) || ((wrap & 4) && nz < 3))
     return (int)cudaErrorInvalidValue;
   const int nc = nx * ny * nz;
   if (nc == 0) return 0;
   const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
   rebin_move_3d_kernel<<<blocks, kThreads, 0, stream>>>(
       pf, pi, outf, outi, ff, fi, cap, nx, ny, nz, xr, lo0, lo1, lo2, inv0,
-      inv1, inv2, wrap, xb, inv_q, n_fine, list);
+      inv1, inv2, wrap, xspan, xb, inv_q, n_fine, list);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,10 @@ load balancing.
 x columns of alternating widths 7 and 9 on the cell/8 quantum.
 ``seeded_drift`` moves a state's particles as far as a rebin period may,
 with some of them exactly on a column edge; ``corner_drift`` does so on a
-doubly periodic grid, across every face and corner.  Torch and numpy only
-(the kernel tests import this on a machine without JAX).
+doubly periodic grid, across every face and corner, ``seam_drift`` on a 3D
+grid across the x and z seams; ``seam_hairs`` puts particles a hair below
+and at the ends of a doubly periodic box.  Torch and numpy only (the
+kernel tests import this on a machine without JAX).
 """
 
 import dataclasses
@@ -71,4 +73,62 @@ def corner_drift(x, valid, geom, seed=4):
         for out_y in (x[1] < geom.lo[1], x[1] >= geom.hi[1]):
             assert int((valid & out_x).sum()) > 3 and int((valid & out_y).sum()) > 3
             assert int((valid & out_x & out_y).sum()) > 0
+    return x
+
+
+def any_corner_drift(x, valid, geom, first_seed=4):
+    """``corner_drift`` with the first seed from ``first_seed`` whose drift
+    crosses every face and corner of the box."""
+    for seed in range(first_seed, first_seed + 64):
+        try:
+            return corner_drift(x, valid, geom, seed=seed)
+        except AssertionError:
+            continue
+    raise AssertionError("no seeded drift crosses every face and corner")
+
+
+def seam_hairs(x, valid, geom, seed=9):
+    """Positions ``x`` (numpy, binned in the 2D ``geom``) with a seeded
+    share of the particles of the first and last cell along x and along y
+    put a hair below the box's low end, at its high end or a hair below it,
+    in f32: the positions whose wrap and bin the seam decides.  (Not a
+    subnormal: the JAX package's wrap flushes those to zero on the CPU.)"""
+    rng = np.random.default_rng(seed)
+    c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
+    x = x.astype(np.float32)
+    for ax, ci in ((0, c // geom.ncells[1]), (1, c % geom.ncells[1])):
+        L = np.float32(geom.hi[ax])
+        hairs = np.array([-1e-7, -1e-30, np.nextafter(L, np.float32(0)), L,
+                          L + np.float32(1e-6)], np.float32)
+        edge = (ci == 0) | (ci == geom.ncells[ax] - 1)
+        sel = valid & edge & (rng.uniform(size=valid.shape) < 0.3)
+        x[ax] = np.where(sel, hairs[rng.integers(0, len(hairs), valid.shape)],
+                         x[ax])
+    return x
+
+
+def seam_drift(x, valid, geom, seed=3):
+    """Positions ``x`` [3, cap, NC] (numpy, binned in the 3D ``geom``) with
+    every valid particle moved by a seeded step of up to 0.9 of the
+    narrowest cell per axis, outward along z in the first and last z
+    layer, and a seeded half of the first and last x column's particles
+    put past the x seam by up to 0.9 of the narrowest column (into the
+    column across it: a wide end column's particles may sit far from its
+    edge), as f32: on a grid periodic in x and z particles cross both
+    seams and stay unwrapped, as between two rebins (asserted)."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
+    nx, ny, nz = geom.ncells
+    c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
+    cx, cz = c // (ny * nz), c % nz
+    d[2] = np.where(cz == 0, -np.abs(d[2]),
+                    np.where(cz == nz - 1, np.abs(d[2]), d[2]))
+    x = (x + np.where(valid, d, 0.0)).astype(np.float32)
+    past = np.abs(d[0]) * (rng.uniform(size=valid.shape) < 0.5)
+    x[0] = np.where(cx == 0, np.where(past > 0, geom.lo[0] - past, x[0]),
+                    np.where((cx == nx - 1) & (past > 0), geom.hi[0] + past,
+                             x[0])).astype(np.float32)
+    for ax in (0, 2):
+        assert int((valid & (x[ax] < geom.lo[ax])).sum()) > 0
+        assert int((valid & (x[ax] >= geom.hi[ax])).sum()) > 0
     return x

@@ -3,8 +3,10 @@ K7 rebin move), with K2's solid-free variant, the non-uniform x-column
 (``x_edges``) variants of K5, K6 and K7, K1, K2 and K3 with the species
 rows (C in, the flux Q out), K2's fsi pair style and K2 and K6 on a doubly
 periodic grid (cell polarization), the thermal rows of K1, K2 and K3
-(the SDPD random force), and K3's mechanics, fsi and solid-free paths
-with K7 past cap 64 (the 3D FSI beam and the Taylor-Green vortex).
+(the SDPD random force), K3's mechanics, fsi and solid-free paths
+with K7 past cap 64 (the 3D FSI beam and the Taylor-Green vortex), K5 on
+periodic grids (the 2D Taylor-Green vortex), K7 with x_edges on a periodic
+grid (the 3D drifting blob) and K8, the window-rotation probe.
 
 The kernel-vs-plain checks need a CUDA card and are marked ``gpu``: they
 skip on a machine without one (run them there with
@@ -26,9 +28,11 @@ from sph_bvf_tpu_torch.core import state as TS
 from sph_bvf_tpu_torch.core.stepper import run_chunk, setup
 from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
                                       lid_cavity, lid_cavity3d,
-                                      natural_convection)
+                                      natural_convection, taylor_green2d)
 from sph_bvf_tpu_torch.ops import pair, pair_cuda
-from synthetic_edges import corner_drift, seeded_drift, with_synthetic_edges
+from sph_bvf_tpu_torch.ops import rotation_probe as rp
+from synthetic_edges import (any_corner_drift, corner_drift, seam_drift,
+                             seam_hairs, seeded_drift, with_synthetic_edges)
 
 K1_FIELDS = ("f", "drho", "num_den", "phi", "nw", "ddv", "de", "rhoAux1",
              "rhoAux2")
@@ -359,16 +363,16 @@ def test_kernels_serve_the_flagship_grid():
     """The flagship geometry and pair configuration are what K1 and K5
     serve; a crowded grid (cap 17..64) moves through K6; a grid with more
     than one cell along z takes K3 and K7, periodic axes of at least 3
-    cells included; a periodic grid of cap <= 16 has no move kernel (K1
-    serves its pass A), nor has a cap above 64, and a 3D grid periodic
-    along an axis of two cells has no kernel (it raises on a CUDA
-    tensor)."""
+    cells included; a periodic grid of cap <= 16 moves through K5 (K1
+    serves its pass A); a cap above 64 has no 2D move kernel, and a 3D
+    grid periodic along an axis of two cells has no kernel (it raises on a
+    CUDA tensor)."""
     state, params, spec, _ = lid_cavity.build(N=50, device="cpu")
     assert not pair_cuda.uses_rowloop(spec.geom)
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair) == []
     assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_2d
     periodic = dataclasses.replace(spec.geom, periodic=(True, False, True))
-    assert not rebin_cuda.move_supported(periodic)
+    assert rebin_cuda.move_route(periodic) is rebin_cuda.rebin_move_2d
     assert pair_cuda.kernel_unsupported(periodic, spec.pair) == []
     crowded = dataclasses.replace(spec.geom, cap=rebin_cuda.MAX_CAP + 1)
     assert rebin_cuda.move_route(crowded) is rebin_cuda.rebin_move_2d_gated
@@ -394,7 +398,8 @@ def test_unsupported_configurations_raise():
     NotImplementedError and name what is missing: a periodic axis of two
     cells on a K1 or K4 grid (the grouped kernel's physics all pass), a
     periodic y axis of two cells or a fifth species on a K2 grid, and
-    rebin grids no kernel serves."""
+    rebin grids a move kernel does not serve (K5 on a periodic axis of two
+    cells, K6 below cap 17); K5 takes a periodic axis of 3 or more."""
     state, params, spec, _ = lid_cavity.build(N=16, device="cpu")
     pf = pair._per_particle(state, params, spec.pair)
     for ok in (dict(xsph=True), dict(pressure_switch=False),
@@ -434,8 +439,12 @@ def test_unsupported_configurations_raise():
     PF, PI, _, _ = rebin_cuda._pack_fields(fields, geom.cap, geom.ncells_total)
     rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d)
     periodic = dataclasses.replace(geom, periodic=(True, False, True))
-    with pytest.raises(NotImplementedError):  # K5 takes no periodic axis
-        rebin_cuda._check_packs(PF, PI, periodic, rebin_cuda.rebin_move_2d)
+    rebin_cuda._check_packs(PF, PI, periodic, rebin_cuda.rebin_move_2d)
+    with pytest.raises(NotImplementedError,
+                       match="a periodic x axis with fewer than 3 cells"):
+        rebin_cuda._check_packs(PF, PI, dataclasses.replace(
+            periodic, ncells=(2, geom.ncells_total // 2, 1)),
+            rebin_cuda.rebin_move_2d)
     with pytest.raises(NotImplementedError):  # K6 takes cap > 16 only
         rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d_gated)
 
@@ -495,10 +504,10 @@ def test_3d_kernels_refuse_what_they_do_not_serve():
     """K3 names the grids it lacks (a periodic axis of fewer than 3 cells, a
     2D grid) and serves every pair configuration (mechanics, XSPH, free and
     elastic solids, solid-free scenes, density diffusion), K1 refuses a 3D
-    grid, and K7 refuses a periodic axis of fewer than 3 cells and a
-    periodic axis with x_edges: each raises NotImplementedError before a
-    launch.  A periodic axis of 3 or more cells and any cap (past 64 too)
-    are served by both."""
+    grid, and K7 refuses a periodic axis of fewer than 3 cells, with or
+    without x_edges: each raises NotImplementedError before a launch.  A
+    periodic axis of 3 or more cells (with x_edges too) and any cap (past
+    64 too) are served by both."""
     state, params, spec, _ = lid_cavity3d.build(N=6, device="cpu")
     geom = spec.geom
     pf = pair._per_particle(state, params, spec.pair)
@@ -540,9 +549,11 @@ def test_3d_kernels_refuse_what_they_do_not_serve():
     rebin_cuda._check_packs(PF, PI, edged, rebin_cuda.rebin_move_3d)
     assert rebin_cuda.move_unsupported(dataclasses.replace(geom, cap=296),
                                        rebin_cuda.rebin_move_3d) == []
-    for bad in (dict(x_edges=edged.x_edges, x_quantum=edged.x_quantum,
-                     periodic=(True, False, False)),
-                dict(periodic=(True, False, False), ncells=(2, 8, 4))):
+    periodic_edged = dataclasses.replace(edged, periodic=(True, False, False))
+    rebin_cuda._check_packs(PF, PI, periodic_edged, rebin_cuda.rebin_move_3d)
+    for bad in (dict(periodic=(True, False, False), ncells=(2, 8, 4)),
+                dict(x_edges=edged.x_edges[:3], x_quantum=edged.x_quantum,
+                     periodic=(True, False, False), ncells=(2, 8, 4))):
         with pytest.raises(NotImplementedError):
             rebin_cuda._check_packs(PF, PI, dataclasses.replace(geom, **bad),
                                     rebin_cuda.rebin_move_3d)
@@ -669,9 +680,10 @@ def test_balanced_and_edged_grids_route_to_kernels():
 
 
 def test_what_x_edges_and_solid_free_still_lack():
-    """What the new variants do not cover raises before a launch: K5 with a
-    periodic x axis (with or without x_edges) and K7 with a periodic axis
-    on an x_edges grid; K1 serves a solid-free scene, as K2 does."""
+    """K5 with a periodic x axis and K7 with a periodic axis on an x_edges
+    grid are served; what the x_edges variants still do not cover, a
+    periodic axis of two cells, raises before a launch; K1 serves a
+    solid-free scene, as K2 does."""
     state, params, spec, _ = lid_cavity.build(N=16, device="cpu")
     geom = with_synthetic_edges(spec.geom)
     fields = TS.particle_fields(state)
@@ -679,9 +691,12 @@ def test_what_x_edges_and_solid_free_still_lack():
     rebin_cuda._check_packs(PF, PI, geom, rebin_cuda.rebin_move_2d)
     for g in (geom, spec.geom):
         periodic = dataclasses.replace(g, periodic=(True, False, True))
-        assert rebin_cuda.move_route(periodic) is None
+        assert rebin_cuda.move_route(periodic) is rebin_cuda.rebin_move_2d
+        rebin_cuda._check_packs(PF, PI, periodic, rebin_cuda.rebin_move_2d)
+        narrow = dataclasses.replace(periodic, ncells=(2, g.ncells_total // 2, 1))
+        assert rebin_cuda.move_route(narrow) is None
         with pytest.raises(NotImplementedError, match="later PR"):
-            rebin_cuda._check_packs(PF, PI, periodic, rebin_cuda.rebin_move_2d)
+            rebin_cuda._check_packs(PF, PI, narrow, rebin_cuda.rebin_move_2d)
     free = dataclasses.replace(spec.pair, solids_present=False)
     assert pair_cuda.kernel_unsupported(spec.geom, free) == []
     pf = pair._per_particle(state, params, free)
@@ -692,7 +707,9 @@ def test_what_x_edges_and_solid_free_still_lack():
     g3 = with_synthetic_edges(spec3.geom)
     for ax in range(3):
         pg = dataclasses.replace(g3, periodic=tuple(a == ax for a in range(3)))
-        assert rebin_cuda.move_route(pg) is None
+        assert rebin_cuda.move_route(pg) is rebin_cuda.rebin_move_3d
+        ncells = tuple(2 if a == ax else g3.ncells[a] for a in range(3))
+        assert rebin_cuda.move_route(dataclasses.replace(pg, ncells=ncells)) is None
 
 
 def _polar(device, steps=0, nx=24):
@@ -806,8 +823,8 @@ def test_k6_periodic_y_matches_plain_walk_and_sort_on_card(cuda):
 def test_polarization_routes_and_what_is_still_refused():
     """Cell polarization's grid goes to K2 and K6 with nothing missing; a
     periodic y axis of two cells has no pass-A and no move kernel, a fifth
-    species none either, K5 (cap <= 16) still takes no periodic axis, x or
-    y, and K1 serves the density diffusion on this grid too."""
+    species none either, K5 (cap <= 16) takes the periodic axes, x, y or
+    both, and K1 serves the density diffusion on this grid too."""
     state, params, spec = _polar("cpu")
     geom = spec.geom
     assert geom.periodic == (True, True, True) and geom.cap > rebin_cuda.MAX_CAP
@@ -833,9 +850,8 @@ def test_polarization_routes_and_what_is_still_refused():
                      (True, True, True)):
         sparse = dataclasses.replace(geom, cap=rebin_cuda.MAX_CAP,
                                      periodic=periodic)
-        assert rebin_cuda.move_route(sparse) is None
-        with pytest.raises(NotImplementedError, match="later PR"):
-            rebin_cuda._check_packs(PF, PI, sparse, rebin_cuda.rebin_move_2d)
+        assert rebin_cuda.move_route(sparse) is rebin_cuda.rebin_move_2d
+        assert rebin_cuda.move_unsupported(sparse, rebin_cuda.rebin_move_2d) == []
     assert pair_cuda.kernel_unsupported(
         geom, spec.pair, pair_cuda.pass_a_2d, n_sdpd=1) == []
 
@@ -1329,3 +1345,92 @@ def test_preshift_window_routes_the_flagship_to_k4_on_card(cuda):
     for f in dataclasses.fields(runs[False]):
         assert torch.equal(getattr(runs[False], f.name),
                            getattr(runs[True], f.name)), f.name
+
+
+# ---------------------------------------------------------------------------
+# K5 on periodic grids, K7 with x_edges on a periodic grid, K8
+# ---------------------------------------------------------------------------
+
+
+def _move_parity_on_card(wrapper, state, geom):
+    """``wrapper`` on the state's packs against the plain walk, and the
+    rebin through it against the sort rebin: every leaf bitwise, one
+    launch."""
+    fields = TS.particle_fields(state)
+    fields["x"] = TS.wrap_pbc(fields["x"], geom)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap,
+                                               geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    before = wrapper.launches
+    kf, ki = wrapper(PF, PI, geom, xr)
+    wf, wi = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(kf, wf) and torch.equal(ki, wi)
+    ref = TS.rebin(state, geom, use_kernel=False)
+    got = TS.rebin(state, geom, use_kernel=True)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edges", [False, True], ids=["uniform", "x_edges"])
+def test_k5_periodic_matches_plain_walk_and_sort_on_card(cuda, edges):
+    """K5 on the 2D vortex's doubly periodic grid (N=60, cap 14) on the
+    card, after setup and 10 steps, after a seeded drift across every face
+    and corner and with positions a hair below and at the box's ends, with
+    uniform x columns and with columns of widths 7/8 and 9/8 of a cell:
+    bitwise the plain walk and the sort."""
+    N = 60
+    state, params, spec, _ = taylor_green2d.build(N, device=cuda)
+    state = run_chunk(setup(state, params, spec,
+                            dt=taylor_green2d.timestep(N)), params, spec, 10)
+    geom = spec.geom
+    if edges:
+        geom = with_synthetic_edges(geom)
+        state = TS.rebin(state, geom, use_kernel=False, drift_check=False)
+    assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_2d
+    _move_parity_on_card(rebin_cuda.rebin_move_2d, state, geom)
+    x, valid = state.x.cpu().numpy(), state.valid.cpu().numpy()
+    for moved in (any_corner_drift(x, valid, geom),
+                  seam_hairs(x, valid, geom)):
+        _move_parity_on_card(rebin_cuda.rebin_move_2d, dataclasses.replace(
+            state, x=torch.as_tensor(moved, device=cuda)), geom)
+
+
+@pytest.mark.gpu
+def test_k7_edges_periodic_matches_plain_walk_and_sort_on_card(cuda):
+    """K7 with x_edges on the periodic grid of the balanced 3D blob at s=1
+    on the card, after setup and after a seeded drift across the x and z
+    seams: bitwise the plain walk and the sort."""
+    state, params, spec, _ = drift_blob.build(1, True, True, device=cuda,
+                                              nz_cells=3)
+    geom = spec.geom
+    assert geom.x_edges is not None and geom.periodic == (True, False, True)
+    state = setup(state, params, spec, dt=drift_blob.timestep(1))
+    _move_parity_on_card(rebin_cuda.rebin_move_3d, state, geom)
+    x = seam_drift(state.x.cpu().numpy(), state.valid.cpu().numpy(), geom)
+    _move_parity_on_card(rebin_cuda.rebin_move_3d, dataclasses.replace(
+        state, x=torch.as_tensor(x, device=cuda)), geom)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", rp.VARIANTS)
+def test_k8_matches_plain_on_card(cuda, variant):
+    """Each K8 kernel on the card against its plain version on the same
+    CUDA tensors at the JAX tool's default grid (19 blocks), bitwise, with
+    mma bitwise slice: one launch each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((rp.R, rp.W)).astype(np.float32),
+                        device=cuda)
+    S = rp.shift_matrix(cuda)
+    wrapper = {"slice": rp.probe_slice, "mma": rp.probe_mma,
+               "base": rp.probe_base}[variant]
+    before = wrapper.launches
+    got = rp.probe(variant, x, rp.BLOCKS, S)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, rp.plain(variant, x, rp.BLOCKS, S))
+    if variant == "mma":
+        assert torch.equal(got, rp.probe_slice(x, rp.BLOCKS))

@@ -397,9 +397,9 @@ def test_remaining_refusals_raise_by_name():
     """What K1, K3 and K7 still refuse raises NotImplementedError at the
     launch check and names it: a periodic axis of two cells on K1 (which
     serves the flattened grid itself), a periodic 3D axis of two cells on K3
-    and K7, and non-uniform x columns with a periodic axis
-    on K7 (and the rebin on a CUDA state says which); K3 serves a
-    solid-free scene on the same grid."""
+    and K7, with or without non-uniform x columns (and the rebin on a CUDA
+    state says which); K7 serves x columns with a periodic axis, and K3 a
+    solid-free scene, on the same grid."""
     s, p, jspec = _perturbed("spanwise", np.float32)
     tspec = bridge.spec_to_port(jspec)
     st = bridge.state_to_port(s, device="cpu")
@@ -431,10 +431,14 @@ def test_remaining_refusals_raise_by_name():
     nx = g.ncells[0]
     edges = tuple(g.lo[0] + i * g.cell_size[0] for i in range(nx + 1))
     edged = dataclasses.replace(g, x_edges=edges, x_quantum=g.cell_size[0])
-    assert rebin_cuda.move_route(edged) is None
-    with pytest.raises(NotImplementedError, match="x_edges"):
-        rebin_cuda._check_packs(PF, PI, edged, rebin_cuda.rebin_move_3d)
-    assert "x_edges" in rebin_cuda.move_refusal(edged)
+    assert rebin_cuda.move_route(edged) is rebin_cuda.rebin_move_3d
+    rebin_cuda._check_packs(PF, PI, edged, rebin_cuda.rebin_move_3d)
+    narrow_y = dataclasses.replace(edged, ncells=(nx, 2, g.ncells_total // (2 * nx)))
+    assert rebin_cuda.move_route(narrow_y) is None
+    with pytest.raises(NotImplementedError,
+                       match="a periodic y axis with fewer than 3 cells"):
+        rebin_cuda._check_packs(PF, PI, narrow_y, rebin_cuda.rebin_move_3d)
+    assert "a periodic y axis" in rebin_cuda.move_refusal(narrow_y)
     # walls on every axis keep the edged K7
     assert rebin_cuda.move_route(dataclasses.replace(
         edged, periodic=(False, False, False))) is rebin_cuda.rebin_move_3d
