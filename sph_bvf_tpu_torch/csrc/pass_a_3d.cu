@@ -1,4 +1,5 @@
-// K3 — 3D pass A of the SPH-BVF pair physics, one thread per (slot i, cell c).
+// K3 — 3D pass A of the SPH-BVF pair physics, one thread per valid slot i,
+// the lanes of a warp on the slots of one cell.
 //
 // Replaces sph_bvf_tpu/ops/pair_pallas.py `_call_tiled3d` (the TPU kernel that
 // carries every 3D grid: a (x-plane, yz-block) grid over halo planes, with
@@ -12,38 +13,64 @@
 // solids (AS, f_dev and the Jaumann dS), solid-free scenes, the fsi pair
 // style (density diffusion, G0 softened per particle).  The configurations
 // K1's transport-velocity pair serves (fixed walls, none of the above; the
-// 3D cavities) run that pair instead (csrc/pass_a_tv.cuh, with K1's rows):
-// it holds fewer values live across the j loop, so more warps fit an SM,
-// and the walled cavity's pass A took 1.3x as long through the full body
-// (PERF.md).  Both take the Shepard-filter accumulators (FILTER), NS
-// continuum species (the C rows in, the flux Q out) and the SDPD thermal
-// noise (THERMAL; six normals per pair in 3D), on walls or periodic axes
-// (x, y, z in any combination, at least 3 cells each).  The plain PyTorch
+// 3D cavities) and the solid-free scenes (the 3D vortex and blob: with no
+// solid its artificial stress and BVF terms add exact zeros) run that pair
+// instead (csrc/pass_a_tv.cuh, with K1's rows): it holds fewer values live
+// across the j loop, so more warps fit an SM (the walled cavity's pass A
+// took 1.3x as long through the full body; on the solid-free scenes the
+// two bodies now take about the same time; PERF.md).  Both take the
+// Shepard-filter accumulators (FILTER), NS continuum species (the C rows
+// in, the flux Q out) and the SDPD thermal noise (THERMAL; six normals per
+// pair in 3D), on walls or periodic axes (x, y, z in any combination, at
+// least 3 cells each).  The plain PyTorch
 // version is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
 //
 // What bounds it on an H100: at the 1.19M-particle cavity (N=100: cap 38,
 // 27 particles per cell, 46,656 cells) each valid i walks 27 cells x ~27
 // occupied slots = ~729 candidates, of which ~65 lie inside the support
-// (h = 2.5 lattice spacings) and cost ~130 flops each.  The state is read
-// from HBM about once per call (neighbouring threads' 27-cell windows
-// overlap, so the repeated loads hit L1/L2), so the bound is the issue rate
-// of the candidate checks, not HBM bandwidth.  The elastic terms (dS ~110
-// flops a pair, f_art and f_dev ~40 more) run only for the solid pairs
-// their exact gates let through.  Design: the TPU kernel's structure (VMEM
-// windows over halo planes, occupancy scalars) has no counterpart here.
-// Every rebin leaves each cell's valid slots compacted at 0..occ-1 and
-// validity does not change until the next rebin, so a thread on an empty
-// slot writes zeros and stops and the j loop over a neighbour cell stops at
-// its first empty slot — the occupancy gates as exact loop bounds, on a
-// mixed lattice too (the FSI beam's finer lattice fills its cells more).
-// Neighbouring threads take neighbouring cells of one slot row, so every
-// load of the [F, cap, NC] pack is coalesced; walls are bounds checks on
-// each axis (no halo buffer); accumulators stay in registers.  The f32 sums
-// run in another order than the plain path's per-offset sums.  In the full
-// body ELASTIC, NS (0..4) and THERMAL are template parameters (40
-// instantiations, as K2) and the pressure switch, XSPH, free solids,
-// solid-free scenes and the per-particle G0 runtime bits (mech::F_*); the
-// transport-velocity body has FILTER, NS and THERMAL (20, as K1).
+// (h = 2.5 lattice spacings) and cost ~130 flops each (the vortex: ~910
+// and ~77).  The state is read from HBM about once per call (the j loads
+// of one cell's neighbourhood hit L1/L2), so the bound is the issue rate
+// of the candidate tests and of the pair bodies, not HBM bandwidth.  The
+// elastic terms (dS ~110 flops a pair, f_art and f_dev ~40 more) run only
+// for the solid pairs their exact gates let through.
+//
+// Design: the TPU kernel's structure (VMEM windows over halo planes,
+// occupancy scalars) has no counterpart here.  Two choices keep a warp's
+// 32 lanes doing the same work:
+//   - the lanes share a cell.  Thread t takes the valid slot order[t]
+//     (ops/pair_cuda.py `walk_index`: the valid slots cell by cell, then
+//     -1), so a warp's lanes are the particles of one or two cells, walk the
+//     same candidates in lockstep and read each candidate's position as one
+//     broadcast load; no thread sits on an empty slot (61% of the slots on
+//     the vortex).  A cell's j loop stops at its first empty slot (lead,
+//     the count of its leading valid slots: every rebin leaves the valid
+//     slots compacted at 0..occ-1 and validity does not change until the
+//     next rebin).  An empty slot's accumulators are written as zeros by
+//     the thread of its own index.
+//   - the support test is apart from the body.  Only ~9-15% of the
+//     candidates lie inside the support, and with 32 lanes testing 32
+//     different i nearly every candidate has some lane inside, so a warp
+//     that ran the body per candidate would issue the whole body for
+//     nearly every candidate.  A lane tests r^2 against the largest
+//     support (h, or with species the larger of h and cutc), kStep
+//     candidates a step with their loads issued together, and appends a
+//     passing j to its list of kChunk slots in shared memory; whenever
+//     some lane's list could not take another step, and at the end, the
+//     warp runs the body over every lane's list in lockstep, so no list
+//     overflows.  The lists keep the walk's order, so each accumulator
+//     adds the same non-zero terms in the same order as a walk that runs
+//     the body on every candidate: the full body's output is bitwise such
+//     a walk's (the 3D FSI beam, vortex and blob), the tv body's differs
+//     in drho and f by one rounding (nvcc contracts a multiply-add of them
+//     the other way; PERF.md).
+// Walls are bounds checks on each axis (no halo buffer); accumulators stay
+// in registers.  The f32 sums run in another order than the plain path's
+// per-offset sums.  In the full body ELASTIC, NS (0..4) and THERMAL are
+// template parameters (40 instantiations, as K2) and the pressure switch,
+// XSPH, free solids, solid-free scenes and the per-particle G0 runtime bits
+// (mech::F_*); the transport-velocity body has FILTER, NS and THERMAL (20,
+// as K1).
 //
 // Periodic axes (replaces the TPU kernel's wrapped halo plane for x and its
 // ghost columns for y and z, pair_pallas.py:1147-1152, 1253-1261): a
@@ -65,49 +92,132 @@
 namespace {
 
 constexpr int kThreads = 128;
+// the in-support j a lane collects (in shared memory) before its warp runs
+// the pair body over them, and the candidates a lane tests in one step
+constexpr int kChunk = 32, kStep = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Call pair(k) for every valid slot k != s of the 27 stencil cells of cell
-// (cx, cy, cz), a wrapping axis (bit a of wrap) taken modulo its cell count
-// and any other skipped past its ends.
+// The square of the largest support over the type pairs, h or, with
+// species, the larger of h and cutc (1 / the tables' inverses), with a
+// margin far above the rounding of r, r^2 and the inverses: every pair a
+// body sums from passes the test; a pair just outside passes too and its
+// body skips it, as the body skipped every candidate outside its support.
+__device__ __forceinline__ float support_cut2(const float* __restrict__ tab,
+                                              const float* __restrict__ stab,
+                                              int ns, int tt) {
+  float cut = 0.f;
+  for (int p = 0; p < tt; ++p) {
+    cut = fmaxf(cut, 1.f / __ldg(tab + tv::T_INVH * tt + p));
+    if (ns > 0) cut = fmaxf(cut, 1.f / __ldg(stab + tv::S_INVHC * tt + p));
+  }
+  return cut * cut * 1.001f;
+}
+
+// The walk of the lane on slot s (s < 0: no slot; such a lane takes no
+// step but keeps its warp's votes) over the candidates j != s of the 27
+// stencil cells of its cell in the order (ox, oy, oz, slot) — a wrapping
+// axis (bit a of wrap.axes) taken modulo its cell count, any other skipped
+// past its ends, a cell's slots up to its first empty one (lead) — in two
+// phases a warp runs in lockstep: the support test (the pair offset with
+// its minimum image against cut2), which appends a passing j to the lane's
+// list in shared memory (buf, stride kThreads), and, whenever a lane's
+// list could not take another step and once at the end, pair(k) over
+// every lane's list in order.  So pair sees the j a body sums, in the
+// walk's order.
 template <class Pair>
-__device__ __forceinline__ void for_each_neighbour(const float* __restrict__ pf,
-                                                   long long m, long long s,
-                                                   int cap, int nx, int ny,
-                                                   int nz, int cx, int cy,
-                                                   int cz, int wrap, Pair&& pair) {
+__device__ __forceinline__ void walk(const float* __restrict__ pf, long long m,
+                                     long long s, const int* __restrict__ lead,
+                                     int nx, int ny, int nz,
+                                     const tv::Wrap& wrap, float cut2,
+                                     const float* xi, int* buf, Pair&& pair) {
   const int nc = nx * ny * nz;
-  const bool wx = wrap & 1, wy = wrap & 2, wz = wrap & 4;
-  for (int ox = -1; ox <= 1; ++ox) {
-    int sx = cx + ox;
-    if (wx) {
-      sx = tv::wrap_cell(sx, nx);
-    } else if (sx < 0 || sx >= nx) {
-      continue;
-    }
-    for (int oy = -1; oy <= 1; ++oy) {
-      int sy = cy + oy;
-      if (wy) {
+  int cx = 0, cy = 0, cz = 0;
+  if (s >= 0) {
+    const int c = (int)(s % nc);
+    cz = c % nz;
+    cy = (c / nz) % ny;
+    cx = c / nz / ny;
+  }
+  int nb = 0, cj = 0, j = 0, jend = 0;
+  // step to the next stencil cell that holds a slot; false past the last
+  auto next_cell = [&]() {
+    while (nb < 27) {
+      const int o = nb++;
+      int sx = cx + o / 9 - 1, sy = cy + (o / 3) % 3 - 1, sz = cz + o % 3 - 1;
+      if (wrap.axes & 1) {
+        sx = tv::wrap_cell(sx, nx);
+      } else if (sx < 0 || sx >= nx) {
+        continue;
+      }
+      if (wrap.axes & 2) {
         sy = tv::wrap_cell(sy, ny);
       } else if (sy < 0 || sy >= ny) {
         continue;
       }
-      for (int oz = -1; oz <= 1; ++oz) {
-        int sz = cz + oz;
-        if (wz) {
-          sz = tv::wrap_cell(sz, nz);
-        } else if (sz < 0 || sz >= nz) {
-          continue;
-        }
-        const int cj = (sx * ny + sy) * nz + sz;
-        for (int j = 0; j < cap; ++j) {
-          const long long k = (long long)j * nc + cj;
-          // compacted slots: the first empty one ends the cell
-          if (tv::ld(pf, m, tv::R_VALID, k) == 0.f) break;
-          if (k == s) continue;  // the self pair (zero offset, j == i)
-          pair(k);
+      if (wrap.axes & 4) {
+        sz = tv::wrap_cell(sz, nz);
+      } else if (sz < 0 || sz >= nz) {
+        continue;
+      }
+      cj = (sx * ny + sy) * nz + sz;
+      jend = __ldg(lead + cj);
+      j = 0;
+      if (jend > 0) return true;
+    }
+    return false;
+  };
+  int n = 0;  // entries in this lane's list
+  auto flush = [&]() {
+    const int most = __reduce_max_sync(kFull, n);
+    for (int q = 0; q < most; ++q)
+      if (q < n) pair((long long)buf[q * kThreads]);
+    n = 0;
+  };
+  bool live = s >= 0 && next_cell();
+  while (__any_sync(kFull, live)) {
+    if (live) {
+      // up to kStep candidates of this cell: their loads first, then tests
+      const int cnt = min(kStep, jend - j);
+      float xj[kStep][3];
+#pragma unroll
+      for (int u = 0; u < kStep; ++u)
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          xj[u][a] = u < cnt ? tv::ld(pf, m, tv::R_X + a,
+                                      (long long)(j + u) * nc + cj)
+                             : 0.f;
+#pragma unroll
+      for (int u = 0; u < kStep; ++u) {
+        const long long k = (long long)(j + u) * nc + cj;
+        if (u < cnt && k != s) {  // k == s: the self pair (j == i)
+          float d[3];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            d[a] = xi[a] - xj[u][a];
+            if (wrap.axes & (1 << a)) d[a] = tv::min_image(d[a], wrap.l[a]);
+          }
+          if (d[0] * d[0] + d[1] * d[1] + d[2] * d[2] < cut2)
+            buf[(n++) * kThreads] = (int)k;
         }
       }
+      j += cnt;
+      if (j == jend) live = next_cell();
     }
+    // a list never passes kChunk: a step adds at most kStep entries
+    if (__any_sync(kFull, n > kChunk - kStep)) flush();
+  }
+  flush();
+}
+
+// the accumulators of slot t, zero where the slot is empty: every slot of
+// out is written, an empty one by the thread of its own index
+template <int A>
+__device__ __forceinline__ void zero_if_empty(const float* __restrict__ pf,
+                                              float* __restrict__ out,
+                                              long long m, long long t) {
+  if (t < m && tv::ld(pf, m, tv::R_VALID, t) == 0.f) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) out[(long long)a * m + t] = 0.f;
   }
 }
 
@@ -117,34 +227,32 @@ template <bool FILTER, int NS, bool THERMAL>
 __global__ void __launch_bounds__(kThreads) pass_a_3d_tv_kernel(
     const float* __restrict__ pf, const float* __restrict__ tab,
     const float* __restrict__ stab, float* __restrict__ out,
+    const int* __restrict__ order, const int* __restrict__ lead,
     const float* __restrict__ dt, const int* __restrict__ step,
     const long long* __restrict__ key, unsigned rng_seed, float neg4kb,
     int ntypes, int advect, int cap, int nx, int ny, int nz, tv::Wrap wrap) {
+  __shared__ int lists[kChunk * kThreads];
   constexpr int A = tv::kAccs<FILTER, NS>;
-  const int nc = nx * ny * nz;
-  const long long m = (long long)cap * nc;  // slots per field row
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= m) return;
-  const int c = (int)(s % nc);
-  const int cz = c % nz, cxy = c / nz;
-  const int cy = cxy % ny, cx = cxy / ny;
+  const long long m = (long long)cap * nx * ny * nz;  // slots per field row
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  zero_if_empty<A>(pf, out, m, t);
+  const long long s = t < m ? __ldg(order + t) : -1;
+  if (__all_sync(kFull, s < 0)) return;
   const int tt = ntypes * ntypes;
 
   float acc[A];
 #pragma unroll
   for (int a = 0; a < A; ++a) acc[a] = 0.f;
-
-  // slots at or above the cell's occupancy are invalid: nothing to sum
-  if (tv::ld(pf, m, tv::R_VALID, s) != 0.f) {
-    const tv::ISide<NS> I = tv::load_i<FILTER, NS, THERMAL>(pf, m, s, ntypes);
-    tv::Noise noise{};
-    if constexpr (THERMAL) noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
-    for_each_neighbour(pf, m, s, cap, nx, ny, nz, cx, cy, cz, wrap.axes,
-                       [&](long long k) {
-                         tv::add_pair<FILTER, NS, THERMAL, 3>(
-                             pf, m, k, tab, stab, advect, tt, noise, wrap, I, acc);
-                       });
-  }
+  const tv::ISide<NS> I =
+      tv::load_i<FILTER, NS, THERMAL>(pf, m, s < 0 ? 0 : s, ntypes);
+  tv::Noise noise{};
+  if constexpr (THERMAL) noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
+  walk(pf, m, s, lead, nx, ny, nz, wrap, support_cut2(tab, stab, NS, tt), I.x,
+       lists + threadIdx.x, [&](long long k) {
+         tv::add_pair<FILTER, NS, THERMAL, 3>(pf, m, k, tab, stab, advect, tt,
+                                              noise, wrap, I, acc);
+       });
+  if (s < 0) return;
 #pragma unroll
   for (int a = 0; a < A; ++a) out[(long long)a * m + s] = acc[a];
 }
@@ -155,34 +263,32 @@ template <bool FILTER, bool ELASTIC, int NS, bool THERMAL>
 __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
     const float* __restrict__ pf, const float* __restrict__ tab,
     const float* __restrict__ stab, float* __restrict__ out,
+    const int* __restrict__ order, const int* __restrict__ lead,
     const float* __restrict__ dt, const int* __restrict__ step,
     const long long* __restrict__ key, unsigned rng_seed, float neg4kb,
     int ntypes, int cap, int nx, int ny, int nz, int flags, int advect,
     tv::Wrap wrap, float ampl) {
+  __shared__ int lists[kChunk * kThreads];
   constexpr int A = mech::Rows<FILTER, ELASTIC, NS>::A;
-  const int nc = nx * ny * nz;
-  const long long m = (long long)cap * nc;  // slots per field row
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= m) return;
-  const int c = (int)(s % nc);
-  const int cz = c % nz, cxy = c / nz;
-  const int cy = cxy % ny, cx = cxy / ny;
+  const long long m = (long long)cap * nx * ny * nz;  // slots per field row
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  zero_if_empty<A>(pf, out, m, t);
+  const long long s = t < m ? __ldg(order + t) : -1;
+  if (__all_sync(kFull, s < 0)) return;
 
   float acc[A];
 #pragma unroll
   for (int a = 0; a < A; ++a) acc[a] = 0.f;
-
-  // slots at or above the cell's occupancy are invalid: nothing to sum
-  if (tv::ld(pf, m, mech::R_VALID, s) != 0.f) {
-    mech::Ctx ctx = mech::make_ctx(ntypes, flags, advect, ampl, wrap);
-    if constexpr (THERMAL) ctx.noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
-    const auto I = mech::load_i<FILTER, ELASTIC, NS, THERMAL>(pf, m, s, ctx);
-    for_each_neighbour(pf, m, s, cap, nx, ny, nz, cx, cy, cz, wrap.axes,
-                       [&](long long k) {
-                         mech::add_pair<FILTER, ELASTIC, NS, THERMAL, 3>(
-                             pf, m, k, tab, stab, ctx, I, acc);
-                       });
-  }
+  mech::Ctx ctx = mech::make_ctx(ntypes, flags, advect, ampl, wrap);
+  if constexpr (THERMAL) ctx.noise = tv::load_noise(dt, step, key, rng_seed, neg4kb);
+  const auto I =
+      mech::load_i<FILTER, ELASTIC, NS, THERMAL>(pf, m, s < 0 ? 0 : s, ctx);
+  walk(pf, m, s, lead, nx, ny, nz, wrap, support_cut2(tab, stab, NS, ctx.tt),
+       I.x, lists + threadIdx.x, [&](long long k) {
+         mech::add_pair<FILTER, ELASTIC, NS, THERMAL, 3>(pf, m, k, tab, stab,
+                                                         ctx, I, acc);
+       });
+  if (s < 0) return;
 #pragma unroll
   for (int a = 0; a < A; ++a) out[(long long)a * m + s] = acc[a];
 }
@@ -199,7 +305,8 @@ __global__ void __launch_bounds__(kThreads) pass_a_3d_kernel(
 // as csrc/pass_a_2d.cu
 extern "C" int pass_a_3d(const float* pf, const float* tab, const float* stab,
                         float* out, int ntypes, int ns, int advect, int cap,
-                        int nx, int ny, int nz, int body, int filter,
+                        int nx, int ny, int nz, const int* order,
+                        const int* lead, int body, int filter,
                         int elastic, int flags, int wrap, float lx, float ly,
                         float lz, float ampl, int thermal, const float* dt,
                         const int* step, const long long* key,
@@ -217,8 +324,8 @@ extern "C" int pass_a_3d(const float* pf, const float* tab, const float* stab,
 #define X(F, N, T)                                                         \
   case tv::variant_key(F, N, T):                                           \
     pass_a_3d_tv_kernel<F, N, T><<<blocks, kThreads, 0, stream>>>(         \
-        pf, tab, stab, out, dt, step, key, rng_seed, neg4kb, ntypes,       \
-        advect, cap, nx, ny, nz, w);                                       \
+        pf, tab, stab, out, order, lead, dt, step, key, rng_seed, neg4kb,  \
+        ntypes, advect, cap, nx, ny, nz, w);                               \
     break;
       TV_FOR_EACH_VARIANT(X)
 #undef X
@@ -231,8 +338,8 @@ extern "C" int pass_a_3d(const float* pf, const float* tab, const float* stab,
 #define X(F, E, N, T)                                                     \
   case mech::variant_key(F, E, N, T):                                     \
     pass_a_3d_kernel<F, E, N, T><<<blocks, kThreads, 0, stream>>>(        \
-        pf, tab, stab, out, dt, step, key, rng_seed, neg4kb, ntypes, cap, \
-        nx, ny, nz, flags, advect, w, ampl);                              \
+        pf, tab, stab, out, order, lead, dt, step, key, rng_seed, neg4kb, \
+        ntypes, cap, nx, ny, nz, flags, advect, w, ampl);                 \
     break;
     MECH_FOR_EACH_VARIANT(X)
 #undef X

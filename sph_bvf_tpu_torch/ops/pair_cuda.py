@@ -18,8 +18,9 @@ and periodic axes of at least 3 cells (x and y; K3 z too), through the
 full pair body K2 and K3 share (``csrc/pass_a_mech.cuh``, one pack and one
 launcher, ``_mech_launch``).  K1, K4 and K3 run the leaner
 transport-velocity pair of ``csrc/pass_a_tv.cuh`` instead where it serves
-(``tv_lacks`` empty, and in 2D no periodic axis: the flagship, natural
-convection and the 3D cavities; ``_two_body_launch``).  All of them also
+(``tv_body``: ``tv_lacks`` empty, and in 2D no periodic axis; in 3D
+solid-free scenes too: the flagship, natural convection, the 3D cavities,
+the 3D vortex and the 3D blob; ``_two_body_launch``).  All of them also
 carry the continuum species (the C rows in, a species table, the flux Q
 out) for up to ``MAX_SPECIES`` of them, and the SDPD thermal noise
 (``thermal``: the e and tag rows in, the random force summed into f; dt,
@@ -118,12 +119,15 @@ def kernel_unsupported(geom: Geometry, cfg: "pair.PairConfig",
     return [what for what, bad in checks if bad]
 
 
+_SOLID_FREE = "a solid-free scene (solids_present=False)"
+
+
 def tv_lacks(cfg) -> list:
     """The pair physics of ``cfg`` that the transport-velocity pair of
     ``csrc/pass_a_tv.cuh`` (the leaner body of K1, K4 and K3) lacks; the
     full body of ``csrc/pass_a_mech.cuh`` has it all."""
     return [what for what, needed in (
-        ("a solid-free scene (solids_present=False)", not cfg.solids_present),
+        (_SOLID_FREE, not cfg.solids_present),
         ("XSPH (xsph)", cfg.xsph),
         ("the symmetric pressure force (pressure_switch=False)",
          not cfg.pressure_switch),
@@ -285,7 +289,8 @@ def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
     count, the species count, the advection switch, cap, ``dims``, then
     ``args`` (``(ctypes type, value)`` pairs), the noise's arguments and the
     stream.  K4 takes the pack's 9 pre-shifted copies (``preshift_views``)
-    and, first of ``args``, its row count."""
+    and, first of ``args``, its row count; K3, first of ``args``, its
+    thread and walk index (``walk_index``)."""
     _check_launch(pf, params, geom, cfg, wrapper, noise)
     name = wrapper.__name__
     cap, NC = pf["rho"].shape
@@ -295,6 +300,10 @@ def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
     if wrapper is pass_a_2d_preshift:
         args = [(ctypes.c_int, PF.shape[0])] + list(args)
         PF = preshift_views(PF, geom)
+    if wrapper is pass_a_3d:
+        order, lead = walk_index(pf["valid"])
+        args = [(ctypes.c_void_p, order.data_ptr()),
+                (ctypes.c_void_p, lead.data_ptr())] + list(args)
     tabs = pair.coeff_tables(params, cfg)
     tab = table(params, cfg, tabs).to(PF.device)
     stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
@@ -429,8 +438,39 @@ pass_a_2d_preshift.launches = 0  # K4 launches in this process
 def tv_body(geom: Geometry, cfg) -> bool:
     """Whether K1, K4 and K3 run the transport-velocity pair (``tv_lacks``
     empty; in 2D also no periodic axis: K1's and K4's leaner body takes
-    walls only) rather than the full body."""
-    return not tv_lacks(cfg) and (grid_3d(geom) or not periodic_multicell(geom))
+    walls only) rather than the full body.  K3 runs it for solid-free
+    scenes too (the 3D vortex, the 3D blob): with no solid its artificial
+    stress carries the table's inv_wdelta of 0 and its BVF terms never
+    run, so it adds the terms the full body adds under ``F_NOSOLIDS``,
+    with fewer registers (``PERF.md``: as fast as the full body on the
+    vortex, 2% faster on the blob)."""
+    lacks = tv_lacks(cfg)
+    if grid_3d(geom):
+        return all(what == _SOLID_FREE for what in lacks)
+    return not lacks and not periodic_multicell(geom)
+
+
+def walk_index(valid: torch.Tensor) -> tuple:
+    """K3's thread and walk index from the [cap, NC] validity: ``order``,
+    int32 [cap * NC], the flat slot s = slot * NC + c of every valid slot
+    in cell-major order (cell by cell, each cell's slots in order), then -1
+    to the end; ``lead``, int32 [NC], the count of each cell's leading
+    valid slots (a cell's j walk stops at its first empty slot).  Thread t
+    of K3 takes slot ``order[t]``, so the lanes of a warp share a cell and
+    walk the same candidates; no list here can overflow: ``order`` has a
+    place for every slot."""
+    cap, NC = valid.shape
+    v = valid.bool()
+    lead = v.to(torch.int32).cumprod(0).sum(0, dtype=torch.int32)
+    by_cell = v.t().reshape(-1)  # flat c * cap + slot
+    flat = torch.arange(cap * NC, device=v.device)
+    slot_of = (flat % cap) * NC + flat // cap
+    # each valid slot's rank among the valid ones; the rest to a spill place
+    dest = torch.where(by_cell, torch.cumsum(by_cell, 0) - 1, cap * NC)
+    order = torch.full((cap * NC + 1,), -1, dtype=torch.int32, device=v.device)
+    order.scatter_(0, dest, slot_of.to(torch.int32))
+    return order[:-1], lead
+
 
 def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K3 on CUDA (the plain loop on
@@ -440,8 +480,8 @@ def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict
     by index, the pair offset takes the minimum image), with up to
     ``MAX_SPECIES`` continuum species, with or without the thermal noise
     (on the fluid branch).  The configurations the transport-velocity pair
-    serves (``tv_lacks`` empty: the 3D cavities) run that leaner body, the
-    rest the full one."""
+    serves (``tv_body``: the 3D cavities and the solid-free scenes) run
+    that leaner body, the rest the full one."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
     result = _two_body_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg,

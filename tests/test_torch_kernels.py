@@ -500,6 +500,103 @@ def test_3d_cavity_routes_to_k3_and_k7():
     assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_3d
 
 
+def _walk_index_reference(valid):
+    """``pair_cuda.walk_index`` by plain Python loops: the valid slots cell
+    by cell, each cell's in slot order, then -1; each cell's count of
+    leading valid slots."""
+    cap, NC = valid.shape
+    order = [slot * NC + c for c in range(NC) for slot in range(cap)
+             if valid[slot, c]]
+    lead = []
+    for c in range(NC):
+        n = 0
+        while n < cap and valid[n, c]:
+            n += 1
+        lead.append(n)
+    return order + [-1] * (cap * NC - len(order)), lead
+
+
+@pytest.mark.parametrize("case", ["compacted", "holes", "empty", "full"])
+def test_k3_walk_index_orders_valid_slots_by_cell(case):
+    """K3's thread and walk index (torch ops, run on every call before the
+    kernel): ``order`` lists every valid slot once, cell-major, then -1;
+    ``lead`` stops each cell's j walk at its first empty slot: on seeded
+    occupancies (compacted, as every rebin leaves them), with holes, all
+    empty and all full."""
+    rng = np.random.default_rng(7)
+    cap, NC = 11, 37
+    if case == "compacted":
+        occ = rng.integers(0, cap + 1, NC)
+        valid = np.arange(cap)[:, None] < occ[None, :]
+    elif case == "holes":
+        valid = rng.random((cap, NC)) < 0.6
+    else:
+        valid = np.full((cap, NC), case == "full")
+    order, lead = pair_cuda.walk_index(torch.as_tensor(valid))
+    want_order, want_lead = _walk_index_reference(valid)
+    assert order.dtype == torch.int32 and lead.dtype == torch.int32
+    assert order.tolist() == want_order and lead.tolist() == want_lead
+
+
+def test_k3_walk_index_on_a_rebinned_3d_state():
+    """On the 3D cavity after setup's rebin, the index lists exactly the
+    state's particles and each cell's walk bound is its occupancy."""
+    state, _, spec = _cavity3d(6, "cpu")
+    order, lead = pair_cuda.walk_index(state.valid)
+    n = int(state.valid.sum())
+    assert (order[n:] == -1).all() and (order[:n] >= 0).all()
+    slots = state.valid.reshape(-1).nonzero().reshape(-1)
+    assert torch.equal(order[:n].long().sort().values, slots)
+    assert torch.equal(lead.long(), state.valid.sum(0))
+
+
+def test_k3_takes_the_tv_body_for_solid_free_scenes():
+    """K3 runs the transport-velocity body (body 0) for the solid-free 3D
+    scenes, the vortex and the blob, as for the 3D cavity, and the full
+    body where the tv body lacks more than solids (the 3D FSI beam); the
+    2D routes keep their bodies: the same solid-free configurations on 2D
+    grids, walled or periodic, take the full body."""
+    from sph_bvf_tpu_torch.models import taylor_green3d
+
+    _, _, tgv = taylor_green3d.build(12, device="cpu")[:3]
+    _, _, blob = drift_blob.build(1, True, True, device="cpu", nz_cells=3)[:3]
+    _, _, cav = lid_cavity3d.build(N=6, device="cpu")[:3]
+    _, _, beam = fsi.build_spanwise(12, device="cpu")[:3]
+    for spec, tv in ((tgv, True), (blob, True), (cav, True), (beam, False)):
+        assert pair_cuda.route(spec.geom, spec.pair) is pair_cuda.pass_a_3d
+        assert pair_cuda.tv_body(spec.geom, spec.pair) == tv
+    assert pair_cuda.tv_lacks(tgv.pair) == pair_cuda.tv_lacks(blob.pair) == [
+        "a solid-free scene (solids_present=False)"]
+    _, _, cav2d = lid_cavity.build(N=16, device="cpu")[:3]
+    _, _, tgv2d = taylor_green2d.build(60, device="cpu")[:3]
+    _, _, blob2d = drift_blob.build(1, True, True, device="cpu")[:3]
+    for spec in (tgv2d, blob2d):
+        assert not pair_cuda.tv_body(spec.geom, spec.pair)
+    assert not pair_cuda.tv_body(cav2d.geom, tgv.pair)
+    assert pair_cuda.tv_body(cav2d.geom, cav2d.pair)
+
+
+@pytest.mark.gpu
+def test_k3_lists_flush_and_never_truncate_on_card(cuda):
+    """K3's per-lane lists of in-support candidates hold kChunk entries
+    and are run and emptied whenever one could not take another step, so
+    none overflows: with every support widened 5x (past the 27 cells'
+    diagonal), every candidate passes the test (the lists fill every few
+    steps), and K3 still matches the plain 27-offset loop field by field
+    within 5e-6 of its max."""
+    state, params, spec = _cavity3d(12, cuda, steps=3)
+    wide = dataclasses.replace(params, cut=params.cut * 5.0)
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=True)
+    pf = pair._per_particle(state, wide, cfg)
+    ref = pair._pass_a_plain(pf, wide, spec.geom, cfg)
+    got = pair_cuda.pass_a_3d(pf, wide, spec.geom, cfg)
+    torch.cuda.synchronize()
+    for name in K1_FIELDS:
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+
+
 def test_3d_kernels_refuse_what_they_do_not_serve():
     """K3 names the grids it lacks (a periodic axis of fewer than 3 cells, a
     2D grid) and serves every pair configuration (mechanics, XSPH, free and

@@ -104,3 +104,23 @@ def test_mma_is_slice_bitwise_and_the_variants_differ():
         rp._check(x[:, :-1], 2, None)
     with pytest.raises(ValueError, match="shift matrix"):
         rp._check(x, 2, S[:-1])
+
+
+def test_library_yardstick_folds_to_the_mma_variant():
+    """K8 mma's library time is one PyTorch call of its g products,
+    ``tools/torch_rotation_probe.library_product`` (torch.matmul of x
+    expanded to g windows with S): [g, R, 9 BLK], each product folded as
+    the probe folds is the plain mma version's block, bitwise."""
+    path = TOOL.parent / "torch_rotation_probe.py"
+    spec = importlib.util.spec_from_file_location("torch_rotation_probe", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    g = 3
+    x = torch.as_tensor(_window(2))
+    S = rp.shift_matrix()
+    y = tool.library_product(x, S, g)
+    assert y.shape == (g, rp.R, 9 * rp.BLK) and y.dtype == torch.float32
+    folded = torch.cat([rp._fold([y[b, :, o * rp.BLK:(o + 1) * rp.BLK]
+                                  for o in range(len(rp.OFFS))])
+                        for b in range(g)], dim=1)
+    assert torch.equal(folded, rp.plain("mma", x, g, S))

@@ -9,12 +9,13 @@ from the root of a checkout.  On a seeded window x (f32 [352, 512], numpy
 seed 0) it first checks that ``mma`` (the shifts as a product with the 0/1
 shift matrix on the tensor cores, in three TF32 parts) is bitwise
 ``slice`` (9 shifted loads), then times each variant (``slice``, ``mma``,
-``base``: one aligned view, the floor) and ``torch.matmul(x, S)`` at f32
-with TF32 off, the one PyTorch call that computes ``mma``'s product: the
-least of 7 runs of ``repeats`` launches each, by CUDA events, after a
-warm-up.  It prints one JSON line per step, as the JAX tool does, and a
-summary with the rotation's cost (slice - base) and the product's (mma -
-base).
+``base``: one aligned view, the floor) and ``library_product`` at f32
+with TF32 off, the one PyTorch call that computes ``mma``'s ``blocks``
+products (``torch.matmul(x.expand(blocks, R, W), S)``; the mma kernel
+computes one product per output block): the least of 7 runs of
+``repeats`` launches each, by CUDA events, after a warm-up.  It prints
+one JSON line per step, as the JAX tool does, and a summary with the
+rotation's cost (slice - base) and the product's (mma - base).
 """
 
 from __future__ import annotations
@@ -60,6 +61,13 @@ def window(device, seed: int = 0) -> torch.Tensor:
                            device=device)
 
 
+def library_product(x: torch.Tensor, S: torch.Tensor, g: int) -> torch.Tensor:
+    """The ``g`` products x @ S that the mma kernel computes, one per output
+    block, in one PyTorch call: f32 [g, R, 9 BLK].  A yardstick only; the
+    port never calls it."""
+    return torch.matmul(x.expand(g, rp.R, rp.W), S)
+
+
 def run(blocks: int = rp.BLOCKS, repeats: int = 200, device=None) -> dict:
     """The probe on ``device`` (default: the card): prints its JSON lines
     and returns the summary."""
@@ -78,7 +86,7 @@ def run(blocks: int = rp.BLOCKS, repeats: int = 200, device=None) -> dict:
     calls = {"slice": lambda: rp.probe_slice(x, blocks),
              "mma": lambda: rp.probe_mma(x, S, blocks),
              "base": lambda: rp.probe_base(x, blocks),
-             "matmul": lambda: torch.matmul(x, S)}
+             "matmul": lambda: library_product(x, S, blocks)}
     for name, fn in calls.items():
         ms, spread = time_ms(fn, repeats)
         out[f"{name}_ms"] = ms
