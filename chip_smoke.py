@@ -23,7 +23,8 @@ scenes built by ``Scene`` in either package: the spanwise-periodic 3D FSI
 beam (K3 with the mechanics pair style, XSPH and free elastic solids, K7
 past cap 64) and the triply periodic Taylor-Green vortex (K3 without
 solids, K7 past cap 64); the rest of the grouped 2D kernel: the flagship
-at N=1000 with ``preshift_window`` (K4, the pre-shifted copies) and the
+at N=1000 with ``preshift_window`` (K4, the window staged in shared
+memory) and the
 cavity under the mechanics pair style (K1's full body), with K1's full body
 and K4 held on the FSI, polarization and blob states and the JAX package's
 crowded-cell grid; and the last three kernel pieces: the doubly periodic 2D
@@ -325,9 +326,9 @@ each:
              side on the flagship's N=200 set-up state, on the N=1000
              step-1000 states of main preshift and main mechanics, and K1
              on the seeded FSI state and on the crowded-cell grid after its
-             10 steps; K4's bound is K1's, and its staging is timed alone
-             beside the bytes of its 9 copies, written once and read once),
-             each rebin beside
+             10 steps; K4's bound is K1's; K2 elastic on the polarization
+             at nx=1000 with its device time and its launches in the timed
+             run), each rebin beside
              the sort rebin (and its host time), and the balanced blob's
              re-cut (host time of ``rebalance``, its sort rebin) (CUDA
              events after a warm-up), with each kernel's
@@ -818,22 +819,28 @@ def _crowded_grid(torch, S, pair, dev):
 def _kernel_device_ms(torch, fn, match, iters):
     """Device ms per call of the kernels whose name holds ``match`` over
     ``iters`` calls of ``fn`` under torch.profiler (after a warm-up call),
-    and their count."""
+    and their count.  A window whose device records the profiler lost
+    (it has dropped a whole window's on the H100 host, and part of one:
+    PERF.md) is profiled again, at most twice."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
-    count = sum(e.count for e in hits)
-    if count == 0:
-        raise AssertionError(f"torch.profiler recorded no {match} kernel")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3, count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and match in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return (sum(e.self_device_time_total for e in hits) / count / 1e3,
+                    count)
+    raise AssertionError(f"torch.profiler recorded no {match} kernel in 3 "
+                         f"windows of {iters} calls")
 
 
 def _nvidia_smi(query: str) -> str:
@@ -2649,38 +2656,28 @@ def main() -> int:
 
     def k1_k4_timing(tag, state, params, geom, cfg, launches):
         """K1 and K4 per call on one state (CUDA events; the plain loop
-        once), their device ms per call (torch.profiler) and bounds, and
-        K4's staging alone: ``preshift_views`` on a pack of K4's rows, its
-        ms per call and the bytes of its 9 copies written once and read
-        once by the kernel."""
+        once), their device ms per call (torch.profiler) and bounds (K4's
+        tile from ``pair_cuda.k4_tile``)."""
         cfg = dataclasses.replace(cfg, density_filter_accs=False)
         t = {}
         for name, kernel, match in (("K1", pair_cuda.pass_a_2d, "Neighbour"),
                                     ("K4", pair_cuda.pass_a_2d_preshift,
-                                     "Preshift")):
+                                     "preshift_")):
             t[name] = pass_a_timing(kernel, state, params, geom, cfg, 10,
                                     plain_iters=1)
             pf = pair._per_particle(state, params, cfg)
             t[name]["device_ms"], _ = _kernel_device_ms(
                 torch, lambda: kernel(pf, params, geom, cfg), match, 10)
-        pack = torch.zeros((t["K4"]["pass_a_rows"], geom.cap, geom.ncells_total),
-                           dtype=torch.float32, device=dev)
-        stage_ms = _per_call_ms(
-            torch, lambda: pair_cuda.preshift_views(pack, geom), 10)
-        stage_bytes = 2 * 9 * pack.numel() * pack.element_size()
-        del pack
+        tile = pair_cuda.k4_tile(t["K4"]["pass_a_rows"], geom.cap,
+                                 pair_cuda.tv_body(geom, cfg))
         for name in ("K1", "K4"):
             tt = t[name]
-            staging = (f"; its staging alone {stage_ms!r} ms (9 copies of "
-                       f"{tt['pass_a_rows']} rows, {stage_bytes} bytes written "
-                       f"and read: {stage_bytes / PEAK_BYTES * 1e3!r} ms at the "
-                       f"memory rate), not in its bound"
-                       if name == "K4" else "")
             print(f"[speed] {tag}: {name} {tt['pass_a']!r} ms per call as called "
-                  f"(CUDA events, packing{' and staging' if name == 'K4' else ''}"
-                  f" included), launches on its main path {launches[name]}, "
-                  f"bound {tt['pass_a_bound']} ({tt['pass_a_work']}), plain pass "
-                  f"A {tt['pass_a_plain']!r}{staging} [{card}]")
+                  f"(CUDA events, packing included"
+                  f"{f'; tile {tile}' if name == 'K4' else ''}), launches on "
+                  f"its main path {launches[name]}, bound {tt['pass_a_bound']} "
+                  f"({tt['pass_a_work']}), plain pass A {tt['pass_a_plain']!r} "
+                  f"[{card}]")
             print(f"[profile] {tag}: {name} {tt['device_ms']!r} ms of device "
                   f"time per call (torch.profiler, 10 calls) [{card}]")
         return t
@@ -3690,16 +3687,18 @@ def main() -> int:
         kernel beside the sort
         rebin, the bounds, and with ``spec.balance`` the re-cut: the host
         time of a ``rebalance`` forced to cut and the sort rebin into its
-        geometry."""
+        geometry; pass A's launches per timed run."""
         steps, iters = SPEED_STEPS[path][size]
         n = int(state.n_valid)
         every = spec.balance.every if spec.balance is not None else None
         # a warm-up chunk on a copy (shorter than a balance period: no
         # re-cut), then the timed runs, each from a copy of the set-up state
         simulate(_clone(torch, state), params, spec, spec.rebin_every)
+        launched = pass_a.launches
         runs = [_timed_chunks(torch, simulate, _clone(torch, state), params,
                               spec, steps)
                 for _ in range(SPEED_REPEATS[path])]
+        launched = (pass_a.launches - launched) // len(runs)
         state, log = runs[-1][:2]
         geom = _current_geom(spec.geom, log)
         cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
@@ -3741,6 +3740,7 @@ def main() -> int:
                 torch, lambda: pass_a(pfq, params, geom, quiet), iters)
             species += (f" with its thermal rows, "
                         f"{t['pass_a_no_thermal']!r} without them,")
+        t["launches"] = launched
         t["rates"] = [n * steps / secs for _, _, secs, _ in runs]
         t["rate"] = sum(t["rates"]) / len(t["rates"])
         t["chunks"] = [_chunk_split(ch, lg, every) for _, lg, _, ch in runs]
@@ -4014,6 +4014,7 @@ def main() -> int:
                  drift_blob.timestep(BLOB3D_S),
                  (("K3 solid-free", "pass_a_3d_"),
                   ("K7 x_edges periodic", "rebin_move_3d_kernel")))]
+    profiled = {}  # (target, kernel) -> device ms per call
     for label, build, dt, kernels in targets:
         state, params, spec, _ = build()
         steps = max(spec.rebin_every, 10)
@@ -4046,7 +4047,20 @@ def main() -> int:
               + ", ".join(f"{k} {us(n) / max(count(n), 1) / 1e3!r} ms per call "
                           f"x {count(n)}" for k, n in kernels)
               + f" [{card}]")
+        profiled.update({(label, k): us(n) / max(count(n), 1) / 1e3
+                         for k, n in kernels})
         del state, prof
+    # K2 elastic at the polarization's speed size: its [speed] and
+    # [profile] numbers side by side
+    nx = POLAR_NX[1]
+    tp = t_polar[nx]
+    print(f"[speed] K2 elastic (fsi style, one species, periodic x and y), "
+          f"cell polarization nx={nx}: {tp['pass_a']!r} ms per call as called, "
+          f"{profiled[f'cell polarization nx={nx}', 'K2 species/fsi']!r} ms of "
+          f"device time per call ([profile]), {tp['launches']} launches in its "
+          f"timed run of {SPEED_STEPS['polarization'][nx][0]} steps, bound "
+          f"{tp['pass_a_bound']} ({tp['pass_a_work']}), plain pass A "
+          f"{tp['pass_a_plain']!r} [{card}]")
 
     # each kernel at its main path's size: the cavity N=200, FSI nx=60, the
     # 3D cavity N=100, the s=20 balanced blob, the convection N=200, the

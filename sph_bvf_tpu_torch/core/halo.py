@@ -4,8 +4,9 @@ Only the geometry half of ``sph_bvf_tpu/core/halo.py`` is ported.  The CUDA
 kernels index neighbour cells directly, with a bounds mask on a wall axis
 and a wrap by index on a periodic one, so the padded halo buffers and ghost
 columns the TPU kernels stream through (``assemble_padded``,
-``assemble_tiled``, ``add_ghosts``) have no counterpart here, except K4's
-9 pre-shifted copies of the 2D pack (``ops/pair_cuda.preshift_views``).
+``assemble_tiled``, ``add_ghosts``) have no counterpart here: K4 stages
+each tile's 3x3 window of the 2D pack in shared memory
+(``csrc/pass_a_2d_preshift.cu``).
 """
 
 from __future__ import annotations

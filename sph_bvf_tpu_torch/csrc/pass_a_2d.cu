@@ -5,9 +5,9 @@
 // lattice-aligned 2D grid of cap <= 24).  For every valid slot i it sums
 // ops/pair.py `_pass_a_offset` over the valid j of the 3x3 stencil cells,
 // j != i, reading j at the neighbour cell of the one packed matrix: the
-// kernel template of csrc/pass_a_2d.cuh with its `Neighbour` source, which
-// K4 (csrc/pass_a_2d_preshift.cu) shares with its pre-shifted copies.  Two
-// pair bodies, as K3 has them:
+// kernel template of csrc/pass_a_2d.cuh with its `Neighbour` source (K4,
+// csrc/pass_a_2d_preshift.cu, sums the same pairs from a window staged in
+// shared memory).  Two pair bodies, as K3 has them:
 // - the transport-velocity pair of csrc/pass_a_tv.cuh, for the
 //   configurations it serves (pair_cuda.tv_lacks empty and no periodic
 //   axis: the flagship, natural convection), with (FILTER) or without the

@@ -1,13 +1,11 @@
-// The 2D pass-A kernel template of K1 (csrc/pass_a_2d.cu) and K4
-// (csrc/pass_a_2d_preshift.cu), one thread per (slot i, cell c).
+// The 2D pass-A kernel template of K1 (csrc/pass_a_2d.cu), one thread per
+// (slot i, cell c).
 //
-// Both replace the grouped branch of sph_bvf_tpu/ops/pair_pallas.py: K1
-// `_call_padded`, K4 `_call_preshift`, which the JAX package holds
-// bit-identical to it (tests/test_pair_pallas.py:48-93).  For every valid
-// slot i a thread sums ops/pair.py `_pass_a_offset` over the valid j of the
-// 3x3 stencil cells, j != i, offsets in the order (ox, oy) = (-1, -1),
-// (-1, 0), ..., (1, 1) and slots j = 0..cap-1 within each, with one of two
-// pair bodies:
+// It replaces the grouped branch of sph_bvf_tpu/ops/pair_pallas.py
+// (`_call_padded`).  For every valid slot i a thread sums ops/pair.py
+// `_pass_a_offset` over the valid j of the 3x3 stencil cells, j != i,
+// offsets in the order (ox, oy) = (-1, -1), (-1, 0), ..., (1, 1) and slots
+// j = 0..cap-1 within each, with one of two pair bodies:
 // - the transport-velocity pair of csrc/pass_a_tv.cuh (`tv_kernel`): the
 //   pressure switch, fixed BVF walls, no periodic axis; template FILTER,
 //   NS, THERMAL (20 instantiations);
@@ -16,19 +14,12 @@
 //   per-particle G0, solid-free scenes, periodic x and y of at least 3
 //   cells (the neighbour cell wraps by index, the offset takes the minimum
 //   image); template FILTER, ELASTIC, NS, THERMAL (40).
-// The two kernels differ only in where the j-side rows are read from, the
-// template's `Src`:
-// - `Neighbour` (K1): the one pack, at the neighbour cell c + (ox, oy); an
-//   offset past a walled edge is skipped, one past a periodic edge wraps;
-// - `Preshift` (K4): copy o = 3 (ox + 1) + (oy + 1) of the 9 pre-shifted
-//   copies the wrapper stages (ops/pair_cuda.py `preshift_views`), read at
-//   the thread's own cell: no neighbour-cell arithmetic, no bounds test
-//   (off a walled edge the copy's rows are all zero, so every j is
-//   invalid), and the loads of neighbouring threads are neighbouring
-//   words of one row.
-// The same body sums the same pairs in the same order with the same j
-// values, so K4's result is bitwise K1's.  The plain PyTorch version of
-// both is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
+// The j rows come from the template's `Src`, `Neighbour`: the one pack, at
+// the neighbour cell c + (ox, oy); an offset past a walled edge is skipped,
+// one past a periodic edge wraps.  K4 (csrc/pass_a_2d_preshift.cu) sums
+// the same pairs in the same order with the same bodies from a window it
+// stages in shared memory, bitwise this result.  The plain PyTorch version
+// of both is sph_bvf_tpu_torch/ops/pair.py `_pass_a_plain`.
 //
 // Flat cell c = cx * ny + cy; the grid has one cell along z.  An invalid
 // slot j is skipped, not taken as the end of its cell: the grouped grids
@@ -73,26 +64,6 @@ struct Neighbour {
   }
 };
 
-// K4's j rows: copy o of the [9, F, cap, NC] pre-shifted copies (`stride`
-// = F cap NC floats apart), at the thread's own cell.
-struct Preshift {
-  const float* __restrict__ views;
-  long long stride;
-
-  __device__ __forceinline__ bool axis(int c, int, int, int, int& cj) const {
-    cj = c;
-    return true;
-  }
-  __device__ __forceinline__ const float* pack(const float*, int ox,
-                                               int oy) const {
-    return views + (long long)(3 * (ox + 1) + (oy + 1)) * stride;
-  }
-  __device__ __forceinline__ bool self(int ox, int oy, long long k,
-                                       long long s) const {
-    return ox == 0 && oy == 0 && k == s;
-  }
-};
-
 // Call pair(pj, k) for every valid slot k != s of the 3x3 stencil cells of
 // cell (cx, cy), pj the rows slot k is read from (pf: i's pack).
 template <class Src, class Pair>
@@ -120,8 +91,8 @@ __device__ __forceinline__ void for_each_j(const Src& src,
   }
 }
 
-// the transport-velocity pair: pack PF_ROWS (pf: i's rows, K1's pack or
-// K4's centre copy), accumulators ACC_ROWS
+// the transport-velocity pair: pack PF_ROWS (pf: i's rows), accumulators
+// ACC_ROWS
 template <class Src, bool FILTER, int NS, bool THERMAL>
 __global__ void __launch_bounds__(kThreads) tv_kernel(
     const float* __restrict__ pf, Src src, const float* __restrict__ tab,

@@ -1,5 +1,6 @@
 // The full pass-A pair body shared by K2 (csrc/pass_a_2d_rowloop.cu), K3
-// (csrc/pass_a_3d.cu), K1 and K4 (csrc/pass_a_2d.cuh): the packed-row
+// (csrc/pass_a_3d.cu), K1 (csrc/pass_a_2d.cuh) and K4
+// (csrc/pass_a_2d_preshift.cu): the packed-row
 // layout, the i-side values a thread loads once, and the accumulation of one
 // (i, j) pair.
 //
@@ -201,8 +202,10 @@ __device__ __forceinline__ ISide<ELASTIC, NS> load_i(const float* __restrict__ p
 }
 
 // add the pair (i, j = slot k) to acc; the caller has checked that j is
-// valid and not i.  DIM: the grid's, for the thermal noise (THERMAL) only.
-template <bool FILTER, bool ELASTIC, int NS, bool THERMAL, int DIM>
+// valid and not i.  DIM: the grid's, for the thermal noise (THERMAL) only;
+// L: where j's rows are read (tv::Global or, in K4, tv::Shared).
+template <bool FILTER, bool ELASTIC, int NS, bool THERMAL, int DIM,
+          class L = tv::Global>
 __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
                                          long long m, long long k,
                                          const float* __restrict__ tab,
@@ -211,7 +214,7 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
                                          const ISide<ELASTIC, NS>& I,
                                          float* acc) {
   using R = Rows<FILTER, ELASTIC, NS>;
-  auto ld = [&](int row) { return tv::ld(pf, m, row, k); };
+  auto ld = [&](int row) { return L::ld(pf, m, row, k); };
   const int tt = ctx.tt;
   auto tb = [&](int row, int tp) { return __ldg(tab + row * tt + tp); };
 
@@ -228,9 +231,9 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
   const int tp = I.ti * ctx.ntypes + (int)ld(R_PTYPE);
   // the species flux has its own support: before the test against h
   if constexpr (NS > 0)
-    tv::add_species_flux<NS>(pf, m, k, stab, ctx.advect, tt, tp, R::C, dx[0],
-                             dx[1], dx[2], rsq, r, I.inv_rho, I.C, I.b,
-                             acc + R::Q);
+    tv::add_species_flux<NS, L>(pf, m, k, stab, ctx.advect, tt, tp, R::C,
+                                dx[0], dx[1], dx[2], rsq, r, I.inv_rho, I.C,
+                                I.b, acc + R::Q);
   const float q = r * tb(T_INVH, tp);
   const float t = fmaxf(1.f - q, 0.f);
   if (t == 0.f) return;  // outside the support: every term is 0

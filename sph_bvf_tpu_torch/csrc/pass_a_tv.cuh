@@ -1,7 +1,7 @@
 // The transport-velocity pass-A pair term, the leaner body of K1, K4 and K3
-// (csrc/pass_a_2d.cuh, csrc/pass_a_3d.cu): the packed-row layout, the
-// i-side values a thread loads once, and the accumulation of one (i, j)
-// pair.  Its species flux (`add_species_flux`,
+// (csrc/pass_a_2d.cuh, csrc/pass_a_2d_preshift.cu, csrc/pass_a_3d.cu): the
+// packed-row layout, the i-side values a thread loads once, and the
+// accumulation of one (i, j) pair.  Its species flux (`add_species_flux`,
 // the species table and kMaxSpecies), its thermal noise (`Noise`,
 // `load_noise`, `add_thermal`), its minimum image (`min_image`, `Wrap`) and
 // its cell wrap (`wrap_cell`) also serve the pair body K2 and K3 share
@@ -174,6 +174,25 @@ __device__ __forceinline__ float ld(const float* __restrict__ pf, long long m,
   return __ldg(pf + (long long)row * m + slot);
 }
 
+// Where a pair body reads j's rows (its template parameter L): `Global`, a
+// pack in device memory through the read-only cache (K1, K2, K3); `Shared`,
+// the window of the pack a block of K4 staged in shared memory (m: the
+// window's slots per row, at most 227 KB of floats, so int arithmetic).
+struct Global {
+  static __device__ __forceinline__ float ld(const float* __restrict__ pf,
+                                             long long m, int row,
+                                             long long slot) {
+    return tv::ld(pf, m, row, slot);
+  }
+};
+struct Shared {
+  static __device__ __forceinline__ float ld(const float* __restrict__ pf,
+                                             long long m, int row,
+                                             long long slot) {
+    return pf[row * (int)m + (int)slot];
+  }
+};
+
 // the i-side values every pair of a thread reads
 template <int NS>
 struct ISide {
@@ -227,7 +246,7 @@ __device__ __forceinline__ ISide<NS> load_i(const float* __restrict__ pf,
 // K2 (csrc/pass_a_2d_rowloop.cu) shares it: its rows R_V, R_VEST, R_RHO and
 // R_MRHO are the ones above.  row_c is the first C row of pf, dx the pair
 // separation (after any minimum image), Ci the C of i and bi its v - vest.
-template <int NS>
+template <int NS, class L = Global>
 __device__ __forceinline__ void add_species_flux(
     const float* __restrict__ pf, long long m, long long k,
     const float* __restrict__ stab, int advect, int tt, int tp, int row_c,
@@ -238,20 +257,20 @@ __device__ __forceinline__ void add_species_flux(
   if (tc == 0.f) return;
   const float wfd_c = __ldg(stab + S_CWFD * tt + tp) * tc * tc;
   const float base = __ldg(stab + S_M2 * tt + tp) *
-                     (inv_rho_i + 1.f / ld(pf, m, R_RHO, k)) * rsq * wfd_c /
-                     (rsq + __ldg(stab + S_HC2 * tt + tp));
+                     (inv_rho_i + 1.f / L::ld(pf, m, R_RHO, k)) * rsq *
+                     wfd_c / (rsq + __ldg(stab + S_HC2 * tt + tp));
   // (vest - v).dx of i and of j; bi is v - vest, hence the sign
   float corr_i = 0.f, corr_j = 0.f, mw = 0.f;
   if (advect) {
     corr_i = -(bi[0] * dx0 + bi[1] * dx1 + bi[2] * dx2);
-    corr_j = (ld(pf, m, R_VEST, k) - ld(pf, m, R_V, k)) * dx0 +
-             (ld(pf, m, R_VEST + 1, k) - ld(pf, m, R_V + 1, k)) * dx1 +
-             (ld(pf, m, R_VEST + 2, k) - ld(pf, m, R_V + 2, k)) * dx2;
-    mw = ld(pf, m, R_MRHO, k) * wfd_c;
+    corr_j = (L::ld(pf, m, R_VEST, k) - L::ld(pf, m, R_V, k)) * dx0 +
+             (L::ld(pf, m, R_VEST + 1, k) - L::ld(pf, m, R_V + 1, k)) * dx1 +
+             (L::ld(pf, m, R_VEST + 2, k) - L::ld(pf, m, R_V + 2, k)) * dx2;
+    mw = L::ld(pf, m, R_MRHO, k) * wfd_c;
   }
 #pragma unroll
   for (int c = 0; c < NS; ++c) {
-    const float Cj = ld(pf, m, row_c + c, k);
+    const float Cj = L::ld(pf, m, row_c + c, k);
     q[c] += __ldg(stab + (S_KAPPA + c) * tt + tp) * (Ci[c] - Cj) * base -
             mw * (Ci[c] * corr_i + Cj * corr_j);
   }
@@ -261,8 +280,9 @@ __device__ __forceinline__ void add_species_flux(
 // and not i.  advect: the transport-velocity advection correction of the
 // species flux (PairConfig.species_advection); wrap: the periodic axes the
 // offset x_i - x_j takes the minimum image on; DIM: the grid's, for the
-// thermal noise (THERMAL) only.
-template <bool FILTER, int NS, bool THERMAL, int DIM>
+// thermal noise (THERMAL) only; L: where j's rows are read (Global or, in
+// K4, Shared).
+template <bool FILTER, int NS, bool THERMAL, int DIM, class L = Global>
 __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
                                          long long m, long long k,
                                          const float* __restrict__ tab,
@@ -270,8 +290,9 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
                                          int advect, int tt, const Noise& noise,
                                          const Wrap& wrap, const ISide<NS>& I,
                                          float* acc) {
-  float dx0 = I.x[0] - ld(pf, m, R_X, k), dx1 = I.x[1] - ld(pf, m, R_X + 1, k),
-        dx2 = I.x[2] - ld(pf, m, R_X + 2, k);
+  float dx0 = I.x[0] - L::ld(pf, m, R_X, k),
+        dx1 = I.x[1] - L::ld(pf, m, R_X + 1, k),
+        dx2 = I.x[2] - L::ld(pf, m, R_X + 2, k);
   if (wrap.axes) {  // the minimum image on the periodic axes
     if (wrap.axes & 1) dx0 = min_image(dx0, wrap.l[0]);
     if (wrap.axes & 2) dx1 = min_image(dx1, wrap.l[1]);
@@ -279,11 +300,11 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
   }
   const float rsq = dx0 * dx0 + dx1 * dx1 + dx2 * dx2;
   const float r = sqrtf(rsq);
-  const int tp = I.tp0 + (int)ld(pf, m, R_PTYPE, k);
+  const int tp = I.tp0 + (int)L::ld(pf, m, R_PTYPE, k);
 
   // ---- species flux, inside its own support cutc
   if constexpr (NS > 0)
-    add_species_flux<NS>(pf, m, k, stab, advect, tt, tp, kRowC<FILTER>, dx0, dx1,
+    add_species_flux<NS, L>(pf, m, k, stab, advect, tt, tp, kRowC<FILTER>, dx0, dx1,
                          dx2, rsq, r, I.inv_rho, I.C, I.b, acc + kRowQ<FILTER>);
 
   const float q = r * __ldg(tab + T_INVH * tt + tp);
@@ -292,14 +313,14 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
   const float wfd = __ldg(tab + T_CWFD * tt + tp) * t * t;
   const float wf = __ldg(tab + T_CWF * tt + tp) * t * t * t * (1.f + 3.f * q);
 
-  const float mj = ld(pf, m, R_M, k), rhoj = ld(pf, m, R_RHO, k),
-              Vj2 = ld(pf, m, R_V2, k);
-  const bool solid_j = ld(pf, m, R_SOLID, k) != 0.f;
+  const float mj = L::ld(pf, m, R_M, k), rhoj = L::ld(pf, m, R_RHO, k),
+              Vj2 = L::ld(pf, m, R_V2, k);
+  const bool solid_j = L::ld(pf, m, R_SOLID, k) != 0.f;
 
   // ---- sweep 1
   acc[O_NUMDEN] += Vj2 * wf;
   if constexpr (FILTER) {
-    acc[O_RHOAUX1] += ld(pf, m, R_RHOI, k) * wf;
+    acc[O_RHOAUX1] += L::ld(pf, m, R_RHOI, k) * wf;
     acc[O_RHOAUX2] += wf;
   }
   const float vsum = I.V2 + Vj2;
@@ -309,10 +330,11 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
   acc[O_DDV + 2] += ddv_coef * dx2;
 
   // ---- sweep 2
-  const float vj0 = ld(pf, m, R_V, k), vj1 = ld(pf, m, R_V + 1, k),
-              vj2 = ld(pf, m, R_V + 2, k);
-  const float ej0 = ld(pf, m, R_VEST, k), ej1 = ld(pf, m, R_VEST + 1, k),
-              ej2 = ld(pf, m, R_VEST + 2, k);
+  const float vj0 = L::ld(pf, m, R_V, k), vj1 = L::ld(pf, m, R_V + 1, k),
+              vj2 = L::ld(pf, m, R_V + 2, k);
+  const float ej0 = L::ld(pf, m, R_VEST, k),
+              ej1 = L::ld(pf, m, R_VEST + 1, k),
+              ej2 = L::ld(pf, m, R_VEST + 2, k);
   const float vv0 = I.e[0] - ej0, vv1 = I.e[1] - ej1, vv2 = I.e[2] - ej2;
   const float delVdotDelR = dx0 * vv0 + dx1 * vv1 + dx2 * vv2;
   const float ti_s = I.rho * (I.b[0] * dx0 + I.b[1] * dx1 + I.b[2] * dx2);
@@ -320,25 +342,27 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pf,
                              (vj2 - ej2) * dx2);
   const float vw = vsum * wfd;
   const float fvisc = vsum * __ldg(tab + T_ETA * tt + tp) * wfd;
-  const float Pj = ld(pf, m, R_PRHO2, k);
+  const float Pj = L::ld(pf, m, R_PRHO2, k);
   const float sgn = (Pj + I.P >= 0.f || (I.solid && solid_j)) ? 1.f : -1.f;
   const float fpair = I.m * mj * (Pj + sgn * I.P) * wfd;
   const float w = wf * __ldg(tab + T_INVWD * tt + tp);
   const float w2 = w * w;
-  const float fart = I.m * mj * wfd * (w2 * w2) * (I.AS + ld(pf, m, R_ASD, k));
+  const float fart =
+      I.m * mj * wfd * (w2 * w2) * (I.AS + L::ld(pf, m, R_ASD, k));
   const float fdx = fart - fpair;  // coefficient of dx
   acc[O_F + 0] += fdx * dx0 + fvisc * vv0 + vw * (0.5f * (ti_s * I.e[0] + tj_s * ej0));
   acc[O_F + 1] += fdx * dx1 + fvisc * vv1 + vw * (0.5f * (ti_s * I.e[1] + tj_s * ej1));
   acc[O_F + 2] += fdx * dx2 + fvisc * vv2 + vw * (0.5f * (ti_s * I.e[2] + tj_s * ej2));
   if constexpr (THERMAL) {
     const float dx[3] = {dx0, dx1, dx2};
-    add_thermal<DIM>(noise, I.tag, __float_as_int(ld(pf, m, kRowE<FILTER, NS> + 1, k)),
+    add_thermal<DIM>(noise, I.tag,
+                     __float_as_int(L::ld(pf, m, kRowE<FILTER, NS> + 1, k)),
                      I.energy, I.m, mj, wfd, I.inv_rho, 1.f / rhoj, r,
                      __ldg(tab + T_H * tt + tp), dx, acc + O_F);
   }
 
   // density evolution: corr = rho (vest - v).dx = -ti_s / -tj_s
-  const float mrhoj = ld(pf, m, R_MRHO, k);
+  const float mrhoj = L::ld(pf, m, R_MRHO, k);
   const float delVt = dx0 * (I.v[0] - vj0) + dx1 * (I.v[1] - vj1) +
                       dx2 * (I.v[2] - vj2);
   acc[O_DRHO] += I.rho * delVt * wfd * mrhoj + mrhoj * (ti_s + tj_s) * wfd;

@@ -70,7 +70,7 @@ class PairConfig:
     rng_seed: int = 0
     ssa_poisson_terms: int = 6
     ssa_kernel_split: bool = False
-    # K4 (the pre-shifted copies) in place of K1: ops/pair_cuda.route
+    # K4 (the window in shared memory) in place of K1: ops/pair_cuda.route
     preshift_window: bool = False
     # accumulate the Shepard-filter inputs rhoAux1/rhoAux2 this step?
     # The stepper turns this off on the steps between filter events.

@@ -8,10 +8,14 @@ shape choice (``pair_pallas._pass_a_tiled3d`` for every 3D grid,
 ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3; 2D grids with a
 mixed lattice (``base_occ == 0``) or a crowded cell (``cap > 24``) go to
 K2, the rest to K1, or to K4 when ``PairConfig.preshift_window`` is set
-(``pair_pallas.py:1596``; the flag changes no other route).  K1 and K4 are
-one kernel template (``csrc/pass_a_2d.cuh``) that differs only in where it
-reads j: K1 at the neighbour cell of the pack, K4 from 9 pre-shifted copies
-of it (``preshift_views``), bitwise the same sums.  Every pass-A kernel
+(``pair_pallas.py:1596``; the flag changes no other route).  K1 and K4 run
+the same pair bodies over the same j order and differ only in where they
+read j: K1 at the neighbour cell of the pack (``csrc/pass_a_2d.cuh``), K4
+from the 3x3 window of a tile of cells that each block stages in shared
+memory (``k4_tile``), bitwise the same sums.  K2 and K3 share one
+neighbour walk (``csrc/walk.cuh``: a warp's lanes on one cell, over
+``walk_index``, which ``walk_index_of`` keeps from one rebin to the next;
+the support test apart from the body).  Every pass-A kernel
 serves every pair configuration: every pair style (transport-velocity,
 mechanics, fsi), XSPH, fixed, free and elastic solids, solid-free scenes
 and periodic axes of at least 3 cells (x and y; K3 z too), through the
@@ -34,14 +38,15 @@ falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
 from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
-                                         periodic_multicell, wrap_axes,
-                                         wrap_bits)
+                                         periodic_multicell, wrap_bits)
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
 from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
@@ -170,6 +175,35 @@ def _mech_tables(params: Params, cfg, tabs: dict) -> torch.Tensor:
                       geff.reshape(1, -1).to(torch.float32)]).contiguous()
 
 
+# kernel_tables's entries: (table, cfg, device) -> (params' field values,
+# their tensors' versions, (tab, stab))
+_table_cache: dict = {}
+
+
+def kernel_tables(params: Params, cfg, table, device) -> tuple:
+    """(``table(params, cfg, tabs)``, the species table or None without
+    species) on ``device``, from ``pair.coeff_tables``: built once and kept
+    while ``params`` holds the same field values, its tensors unedited
+    (their ``_version``), so a step's launch adds no device op for them.
+    The entry holds the field values themselves, so no identity is
+    reused."""
+    values = tuple(getattr(params, f.name) for f in dataclasses.fields(params))
+    versions = tuple(v._version if isinstance(v, torch.Tensor) else None
+                     for v in values)
+    key = (table, cfg, device)
+    hit = _table_cache.get(key)
+    if (hit is None or hit[1] != versions
+            or any(a is not b for a, b in zip(hit[0], values))):
+        tabs = pair.coeff_tables(params, cfg)
+        tab = table(params, cfg, tabs).to(device)
+        stab = (_species_tables(params, cfg, tabs).to(device)
+                if params.n_sdpd else None)
+        if len(_table_cache) >= 16:
+            _table_cache.clear()
+        hit = _table_cache[key] = (values, versions, (tab, stab))
+    return hit[2]
+
+
 def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, kernel,
                   noise=None):
     """Raise unless the wrapper ``kernel`` can take these fields (and, for
@@ -245,39 +279,42 @@ def pass_a(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
 
 def _finish(result: dict, out_device, cap: int, NC: int) -> dict:
     """``result`` with zeros for every pass-A accumulator the kernel did not
-    write (Q without species, the filter rows, ddx and dS)."""
+    write (Q without species, the filter rows, ddx and dS): views of one
+    zero-filled tensor, one device op."""
     zeros = {"Q": (0,), "rhoAux1": (), "rhoAux2": (), "ddx": (3,), "dS": (3, 3)}
-    for name, lead in zeros.items():
-        if name not in result:
-            result[name] = torch.zeros(lead + (cap, NC), dtype=torch.float32,
-                                       device=out_device)
+    missing = {name: lead for name, lead in zeros.items() if name not in result}
+    rows = [math.prod(lead) for lead in missing.values()]
+    block = torch.zeros((sum(rows), cap, NC), dtype=torch.float32,
+                        device=out_device)
+    for (name, lead), part in zip(missing.items(), block.split(rows)):
+        result[name] = part.reshape(lead + (cap, NC))
     return result
 
 
-def preshift_views(PF: torch.Tensor, geom: Geometry) -> torch.Tensor:
-    """K4's staging: [9, F, cap, NC] copies of the 2D pack ``PF`` [F, cap,
-    NC], copy o = 3 (ox + 1) + (oy + 1) holding at (row, slot, cell c) the
-    pack at the neighbour cell c + (ox, oy) (``core/state.shift_cells``):
-    wrapped by index on a periodic axis (``halo.wrap_axes``), all rows zero
-    past a walled edge.  The counterpart of the XLA slices of
-    ``pair_pallas._call_preshift`` over ``halo.assemble_padded``: the
-    padded grid (one ghost cell a side) once, then the 9 windows of it."""
-    F, cap, NC = PF.shape
-    nx, ny = geom.ncells[:2]
-    grid = PF.reshape(F, cap, nx, ny)
-    for dim, wrap in ((2, wrap_axes(geom)[0]), (3, wrap_axes(geom)[1])):
-        n = grid.shape[dim]
-        if wrap:
-            lo, hi = grid.narrow(dim, n - 1, 1), grid.narrow(dim, 0, 1)
-        else:
-            lo = hi = torch.zeros_like(grid.narrow(dim, 0, 1))
-        grid = torch.cat([lo, grid, hi], dim=dim)
-    views = torch.empty((9, F, cap, NC), dtype=PF.dtype, device=PF.device)
-    for ox in (-1, 0, 1):
-        for oy in (-1, 0, 1):
-            views[3 * (ox + 1) + (oy + 1)].view(F, cap, nx, ny).copy_(
-                grid[:, :, 1 + ox:1 + ox + nx, 1 + oy:1 + oy + ny])
-    return views
+# K4's tile of cells per block, (along x, along y), by body (``tv_body``:
+# True, the transport-velocity pair; False, the full body), then the
+# smaller tiles it falls back to, in order, where a window of that tile
+# would not fit a block's shared memory (many rows at a large cap).  A
+# window holds (tx + 2)(ty + 2) cells x the pack's rows x cap f32; it may
+# hold at most K4_SHARED bytes and 128 cells (one per thread of a block).
+# The tiles are the fastest of six on the H100 (tools/torch_pass_a3d_timing.py
+# ``tiles``, PERF.md): the tv body's 4 x 8 window of 20 rows at cap 14
+# (67 KB) lets 3 blocks share an SM; the full body holds more registers
+# and rows, and its 4 x 4 window (46 KB) lets 4.
+K4_TILE = {True: (4, 8), False: (4, 4)}
+K4_FALLBACK = ((4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+K4_SHARED = 232_448
+
+
+def k4_tile(rows: int, cap: int, tv: bool) -> tuple:
+    """K4's tile (cells along x, along y) for a pack of ``rows`` rows at
+    ``cap``: ``K4_TILE[tv]``, or the first of ``K4_FALLBACK`` whose window
+    fits ``K4_SHARED`` bytes."""
+    for tx, ty in (K4_TILE[tv],) + K4_FALLBACK:
+        if 4 * rows * cap * (tx + 2) * (ty + 2) <= K4_SHARED:
+            return tx, ty
+    raise ValueError(f"no K4 window of {rows} rows at cap {cap} fits "
+                     f"{K4_SHARED} bytes")
 
 
 def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
@@ -288,9 +325,9 @@ def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
     (``table(params, cfg, tabs)``), the species table, the output, the type
     count, the species count, the advection switch, cap, ``dims``, then
     ``args`` (``(ctypes type, value)`` pairs), the noise's arguments and the
-    stream.  K4 takes the pack's 9 pre-shifted copies (``preshift_views``)
-    and, first of ``args``, its row count; K3, first of ``args``, its
-    thread and walk index (``walk_index``)."""
+    stream.  K4 takes, first of ``args``, the pack's row count and its tile
+    (``k4_tile``); K2 and K3, first of ``args``, their thread and walk
+    index (``walk_index_of``)."""
     _check_launch(pf, params, geom, cfg, wrapper, noise)
     name = wrapper.__name__
     cap, NC = pf["rho"].shape
@@ -298,15 +335,13 @@ def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
     PF = _pack(pf, rows + (("C",) if ns else ())
                + (THERMAL_ROWS if cfg.thermal else ()), cap, NC)
     if wrapper is pass_a_2d_preshift:
-        args = [(ctypes.c_int, PF.shape[0])] + list(args)
-        PF = preshift_views(PF, geom)
-    if wrapper is pass_a_3d:
-        order, lead = walk_index(pf["valid"])
+        tile = k4_tile(PF.shape[0], cap, table is _tables)
+        args = [(ctypes.c_int, n) for n in (PF.shape[0],) + tile] + list(args)
+    if wrapper in (pass_a_3d, pass_a_2d_rowloop):
+        order, lead = walk_index_of(pf["valid"])
         args = [(ctypes.c_void_p, order.data_ptr()),
                 (ctypes.c_void_p, lead.data_ptr())] + list(args)
-    tabs = pair.coeff_tables(params, cfg)
-    tab = table(params, cfg, tabs).to(PF.device)
-    stab = _species_tables(params, cfg, tabs).to(PF.device) if ns else None
+    tab, stab = kernel_tables(params, cfg, table, PF.device)
     accs = accs + ((("Q", ns),) if ns else ())
     out = torch.empty((sum(n for _, n in accs), cap, NC), dtype=torch.float32,
                       device=PF.device)
@@ -421,9 +456,9 @@ pass_a_2d.launches = 0  # K1 launches in this process
 def pass_a_2d_preshift(pf: dict, params: Params, geom: Geometry, cfg,
                        noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K4 on CUDA (the plain loop on
-    CPU): K1's sums, bitwise, with j read from the pack's 9 pre-shifted
-    copies (``preshift_views``, staged on every call) at each thread's own
-    cell.  ``route`` sends K1's grids here under ``preshift_window``."""
+    CPU): K1's sums, bitwise, with j read from the 3x3 window of a tile of
+    cells (``k4_tile``) that each block stages once in shared memory.
+    ``route`` sends K1's grids here under ``preshift_window``."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
     result = _two_body_launch(pass_a_2d_preshift, geom.ncells[:2], pf, params,
@@ -451,25 +486,42 @@ def tv_body(geom: Geometry, cfg) -> bool:
 
 
 def walk_index(valid: torch.Tensor) -> tuple:
-    """K3's thread and walk index from the [cap, NC] validity: ``order``,
-    int32 [cap * NC], the flat slot s = slot * NC + c of every valid slot
-    in cell-major order (cell by cell, each cell's slots in order), then -1
-    to the end; ``lead``, int32 [NC], the count of each cell's leading
-    valid slots (a cell's j walk stops at its first empty slot).  Thread t
-    of K3 takes slot ``order[t]``, so the lanes of a warp share a cell and
-    walk the same candidates; no list here can overflow: ``order`` has a
-    place for every slot."""
+    """K2's and K3's thread and walk index from the [cap, NC] validity:
+    ``order``, int32 [cap * NC], the flat slot s = slot * NC + c of every
+    valid slot in cell-major order (cell by cell, each cell's slots in
+    order), then -1 to the end; ``lead``, int32 [NC], the count of each
+    cell's leading valid slots (a cell's j walk stops at its first empty
+    slot).  Thread t takes slot ``order[t]``, so the lanes of a warp share
+    a cell and walk the same candidates; no list here can overflow:
+    ``order`` has a place for every slot.  Nine torch ops."""
     cap, NC = valid.shape
     v = valid.bool()
-    lead = v.to(torch.int32).cumprod(0).sum(0, dtype=torch.int32)
+    lead = v.cumprod(0).sum(0, dtype=torch.int32)
     by_cell = v.t().reshape(-1)  # flat c * cap + slot
-    flat = torch.arange(cap * NC, device=v.device)
-    slot_of = (flat % cap) * NC + flat // cap
-    # each valid slot's rank among the valid ones; the rest to a spill place
-    dest = torch.where(by_cell, torch.cumsum(by_cell, 0) - 1, cap * NC)
+    slot_of = torch.arange(cap * NC, dtype=torch.int32,
+                           device=v.device).view(cap, NC).t().reshape(-1)
+    # the valid slots to places 1.. by rank, the rest to the spill place 0
+    rank = torch.where(by_cell, torch.cumsum(by_cell, 0), 0)
     order = torch.full((cap * NC + 1,), -1, dtype=torch.int32, device=v.device)
-    order.scatter_(0, dest, slot_of.to(torch.int32))
-    return order[:-1], lead
+    order.scatter_(0, rank, slot_of)
+    return order[1:], lead
+
+
+# the last (valid, its _version, walk_index(valid)) of walk_index_of
+_walk_cache: list = [None, None, None]
+
+
+def walk_index_of(valid: torch.Tensor) -> tuple:
+    """``walk_index(valid)``, kept while ``valid`` is the same tensor and
+    unchanged: a state's validity changes only at a rebin, which makes a
+    new tensor, so K2 and K3 build the index once a rebin, not once a call.
+    The cache holds the tensor itself, so its identity cannot be taken by
+    another, and its ``_version``, which an in-place edit bumps."""
+    cached, version, index = _walk_cache
+    if cached is not valid or version != valid._version:
+        index = walk_index(valid)
+        _walk_cache[:] = [valid, valid._version, index]
+    return index
 
 
 def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
@@ -513,7 +565,8 @@ pass_a_3d.launches = 0  # K3 launches in this process
 def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg,
                       noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K2 on CUDA (the plain loop on
-    CPU): K3's physics (``pass_a_3d``) on a 2D grid, periodic in x and y."""
+    CPU): K3's physics and walk (``pass_a_3d``) on a 2D grid, periodic in x
+    and y."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
     result = _mech_launch(pass_a_2d_rowloop, geom.ncells[:2], pf, params, geom,

@@ -1,5 +1,6 @@
 """The rest of the grouped 2D pass-A kernel in the PyTorch port: K1's full
-body and K4 (the pre-shifted copies), against the JAX package.
+body and K4 (the window staged in shared memory), against the JAX
+package.
 
 The cavity under the mechanics pair style (``models/lid_cavity.scene`` with
 ``pair_style="mechanics"``: the symmetric pressure, XSPH, the mechanics
@@ -11,8 +12,10 @@ holds them there), so here:
 - the scene of both packages' ``Scene``, bitwise, and the routes;
 - 40 steps of the mechanics cavity at f64, the port's plain path against
   the JAX package's jnp path;
-- K4's staging (``pair_cuda.preshift_views``) against ``shift_cells``,
-  bitwise, per offset, on walls, a periodic x axis and periodic x and y;
+- K4's window (a torch emulation of the cells each tile's block stages in
+  shared memory) against ``shift_cells``, bitwise, per offset, on walls, a
+  periodic x axis, periodic x and y, three-cell periodic axes and ragged
+  tiles; the tile ``pair_cuda.k4_tile`` picks fits a block;
 - what K1 and K4 serve (every configuration JAX's grouped kernel takes)
   and refuse (a periodic axis of two cells, a fifth species);
 - ``preshift_window`` changes no route but K1's, as in JAX.
@@ -35,8 +38,10 @@ from sph_bvf_tpu_torch.api import scene as tscene
 from sph_bvf_tpu_torch.core import fixes as tfixes
 from sph_bvf_tpu_torch.core import stepper as tstepper
 from sph_bvf_tpu_torch.core.integrate import IntegratorConfig
+from sph_bvf_tpu_torch.core.halo import wrap_axes
 from sph_bvf_tpu_torch.core.state import shift_cells
-from sph_bvf_tpu_torch.models import cell_polarization, fsi, lid_cavity3d
+from sph_bvf_tpu_torch.models import (cell_polarization, fsi, lid_cavity3d,
+                                      taylor_green2d)
 from sph_bvf_tpu_torch.models import lid_cavity as tlid
 from sph_bvf_tpu_torch.ops import pair as tpair
 from sph_bvf_tpu_torch.ops import pair_cuda
@@ -150,37 +155,95 @@ def test_mechanics_cavity_steps_match_jax():
 
 
 GRIDS = {
-    "cavity": lambda: tlid.scene(*_classes("torch"), N=16).build(device="cpu"),
+    "cavity": lambda: tlid.scene(*_classes("torch"), N=30).build(device="cpu"),
     "fsi nx=12": lambda: fsi.build(nx=12, device="cpu")[:3],
     "polarization nx=20": lambda: cell_polarization.build(nx=20, device="cpu")[:3],
+    # 3 x 3 cells, both axes periodic
+    "vortex N=9": lambda: taylor_green2d.build(9, device="cpu")[:3],
 }
 
 
-@pytest.mark.parametrize("grid, periodic", [
-    ("cavity", (False, False)), ("fsi nx=12", (True, False)),
-    ("polarization nx=20", (True, True))])
-def test_preshift_views_match_shift_cells(grid, periodic):
-    """K4's staging holds, per offset (ox, oy), the pack at the neighbour
-    cell exactly as the plain path's ``shift_cells`` gives it: bitwise, on
-    walls (zero rows past an edge), a periodic x axis and periodic x and y
-    (wrapped by index); the centre copy is the pack."""
+def _k4_window(PF, geom, tile, origin):
+    """The window a block of K4 stages for the tile ``tile`` = (tx, ty) at
+    the cell ``origin``, [F, cap, tx + 2, ty + 2], by the kernel's rule
+    (``window_cell`` in csrc/pass_a_2d_preshift.cu): window index g = origin
+    - 1 + position holds grid cell g, or on a periodic axis n - 1 at g = -1
+    and 0 at g = n; zeros past a walled edge and past the grid's end."""
+    F, cap, NC = PF.shape
+    nx, ny = geom.ncells[:2]
+    wrap = wrap_axes(geom)
+
+    def cells(o, size, n, periodic):
+        g = torch.arange(o - 1, o + size + 1)
+        if periodic:
+            g = torch.where(g == -1, n - 1, torch.where(g == n, 0, g))
+        return torch.where((g >= 0) & (g < n), g, -1)
+
+    gx = cells(origin[0], tile[0], nx, wrap[0])
+    gy = cells(origin[1], tile[1], ny, wrap[1])
+    grid = PF.reshape(F, cap, nx, ny)
+    win = torch.zeros((F, cap, len(gx), len(gy)), dtype=PF.dtype)
+    inx, iny = (gx >= 0).nonzero().reshape(-1), (gy >= 0).nonzero().reshape(-1)
+    win[:, :, inx[:, None], iny[None, :]] = grid[:, :, gx[inx][:, None],
+                                                 gy[iny][None, :]]
+    return win
+
+
+@pytest.mark.parametrize("grid, periodic, tile", [
+    ("cavity", (False, False), (4, 8)), ("fsi nx=12", (True, False), None),
+    ("polarization nx=20", (True, True), None),
+    ("polarization nx=20", (True, True), (2, 4)),
+    ("vortex N=9", (True, True), (4, 8))])
+def test_k4_window_matches_shift_cells(grid, periodic, tile):
+    """Every tile's window, read around each of the tile's cells inside the
+    grid at offset (ox, oy), holds the pack at the neighbour cell exactly
+    as the plain path's ``shift_cells`` gives it: bitwise, on walls (zero
+    rows past an edge), a periodic x axis, periodic x and y, three cells
+    per periodic axis under a tile wider than the grid, and ragged tiles
+    (the grids' cells are not multiples of the tile); the tile by default
+    is the one ``k4_tile`` picks for the full body's pack (the cavity's:
+    the tv body's 4 x 8)."""
     state, params, spec = GRIDS[grid]()
     g, cfg = spec.geom, spec.pair
-    assert tuple(g.periodic[:2]) == periodic and min(g.ncells[:2]) >= 3
+    nx, ny = g.ncells[:2]
+    assert tuple(g.periodic[:2]) == periodic and min(nx, ny) >= 3
     pf = tpair._per_particle(state, params, cfg)
     rows = pair_cuda.MECH_PF_ROWS + (("AS", "S") if cfg.elastic_present
                                      else ("ASd",))
     PF = pair_cuda._pack(pf, rows, g.cap, g.ncells_total)
-    views = pair_cuda.preshift_views(PF, g)
-    assert views.shape == (9,) + tuple(PF.shape)
-    for ox in (-1, 0, 1):
-        for oy in (-1, 0, 1):
-            want = shift_cells(PF, (ox, oy, 0), g)
-            assert torch.equal(views[3 * (ox + 1) + (oy + 1)], want), (ox, oy)
-    assert torch.equal(views[4], PF)
-    # every valid slot appears in each copy exactly when both axes wrap
-    valid = views[:, 0].sum(dim=(1, 2))
-    assert bool((valid == PF[0].sum()).all()) == all(periodic)
+    tile = tile or pair_cuda.k4_tile(PF.shape[0], g.cap, False)
+    assert nx % tile[0] or ny % tile[1]  # a ragged tile
+    shifted = {(ox, oy): shift_cells(PF, (ox, oy, 0), g).reshape(
+        PF.shape[:2] + (nx, ny)) for ox in (-1, 0, 1) for oy in (-1, 0, 1)}
+    for cx0 in range(0, nx, tile[0]):
+        for cy0 in range(0, ny, tile[1]):
+            win = _k4_window(PF, g, tile, (cx0, cy0))
+            for cx in range(cx0, min(cx0 + tile[0], nx)):
+                for cy in range(cy0, min(cy0 + tile[1], ny)):
+                    for (ox, oy), want in shifted.items():
+                        got = win[:, :, cx - cx0 + 1 + ox, cy - cy0 + 1 + oy]
+                        assert torch.equal(got, want[:, :, cx, cy]), (
+                            cx, cy, ox, oy)
+
+
+def test_k4_tile_fits_a_block():
+    """``k4_tile`` gives the flagship's and the mechanics cavity's packs
+    their body's tile, and every pack a K4 instantiation reads (up to 46
+    rows: the full body with AS, S, the filter row, four species and the
+    thermal rows) at every cap of the grouped shape (<= 24) a tile whose
+    window fits a block: at most 128 cells and ``K4_SHARED`` bytes."""
+    filt = ("rhoI",)
+    assert pair_cuda.k4_tile(len(pair_cuda.PF_ROWS + filt), 14, True) == \
+        pair_cuda.K4_TILE[True]
+    assert pair_cuda.k4_tile(len(pair_cuda.MECH_PF_ROWS) + 2, 14, False) == \
+        pair_cuda.K4_TILE[False]
+    for rows in range(1, 47):
+        for cap in range(1, 25):
+            for tv in (True, False):
+                tx, ty = pair_cuda.k4_tile(rows, cap, tv)
+                window = (tx + 2) * (ty + 2)
+                assert window <= 128
+                assert 4 * rows * cap * window <= pair_cuda.K4_SHARED
 
 
 def _configs():

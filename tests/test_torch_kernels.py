@@ -1326,7 +1326,7 @@ def test_k7_past_cap_64_matches_plain_walk_and_sort_on_card(cuda, case):
 
 
 # ---------------------------------------------------------------------------
-# the rest of K1 (its full body) and K4 (the pre-shifted copies)
+# the rest of K1 (its full body) and K4 (the window in shared memory)
 # ---------------------------------------------------------------------------
 
 
@@ -1531,3 +1531,197 @@ def test_k8_matches_plain_on_card(cuda, variant):
     assert torch.equal(got, rp.plain(variant, x, rp.BLOCKS, S))
     if variant == "mma":
         assert torch.equal(got, rp.probe_slice(x, rp.BLOCKS))
+
+
+# ---------------------------------------------------------------------------
+# K4's window in shared memory, K2 over K3's walk, the walk index kept
+# between rebins
+# ---------------------------------------------------------------------------
+
+
+def _crowded_validity(seed=3):
+    """A compacted [47, 61] validity, as a rebin leaves the FSI beam's cap
+    47, with cells of every occupancy from empty to full (a cell past 32
+    valid slots takes two warps of K2)."""
+    rng = np.random.default_rng(seed)
+    occ = rng.integers(0, 48, 61)
+    occ[:3] = (0, 33, 47)
+    return torch.as_tensor(np.arange(47)[:, None] < occ[None, :])
+
+
+@pytest.mark.parametrize("case", ["fsi", "polarization", "crowded"])
+def test_walk_index_on_rebinned_2d_states(case):
+    """K2's index on its own 2D states after a rebin (the FSI beam at
+    nx=24, polarization at nx=24, both periodic in x, polarization in y
+    too) and on a compacted validity with cells past 32 slots: ``order``
+    lists every valid slot once, cell by cell, then -1, and ``lead`` is
+    each cell's occupancy (the rebin leaves the slots compacted)."""
+    if case == "fsi":
+        valid = _fsi("cpu")[0].valid
+    elif case == "polarization":
+        valid = _polar("cpu", steps=5)[0].valid
+    else:
+        valid = _crowded_validity()
+    assert int(valid.sum(0).max()) > (32 if case == "crowded" else 9)
+    order, lead = pair_cuda.walk_index(valid)
+    want_order, want_lead = _walk_index_reference(valid.numpy())
+    assert order.tolist() == want_order and lead.tolist() == want_lead
+    assert torch.equal(lead.long(), valid.sum(0))
+
+
+def test_walk_index_is_kept_between_rebins():
+    """``walk_index_of`` returns the same tensors while a state's
+    validity is the same tensor and unedited (the steps between two
+    rebins keep it), and builds the index anew after a rebin (a new
+    tensor) and after an in-place edit of the validity (its version)."""
+    from sph_bvf_tpu_torch.core.stepper import step
+
+    state, params, spec = _fsi("cpu")
+    first = pair_cuda.walk_index_of(state.valid)
+    state = step(state, params, spec)
+    again = pair_cuda.walk_index_of(state.valid)
+    assert again[0] is first[0] and again[1] is first[1]
+    rebinned = TS.rebin(state, spec.geom)
+    assert rebinned.valid is not state.valid
+    after = pair_cuda.walk_index_of(rebinned.valid)
+    assert after[0] is not first[0]
+    for got, want in zip(after, pair_cuda.walk_index(rebinned.valid)):
+        assert torch.equal(got, want)
+    valid = rebinned.valid.clone()
+    kept = pair_cuda.walk_index_of(valid)
+    c = int(valid.sum(0).argmax())
+    valid[int(valid[:, c].sum()) - 1, c] = False  # the cell's last particle
+    edited = pair_cuda.walk_index_of(valid)
+    assert edited[0] is not kept[0]
+    assert int(edited[1][c]) == int(kept[1][c]) - 1
+    for got, want in zip(edited, pair_cuda.walk_index(valid)):
+        assert torch.equal(got, want)
+
+
+def test_kernel_tables_are_kept_until_params_change():
+    """``kernel_tables`` returns the same coefficient tables while the
+    params hold the same field values, unedited, and builds them anew
+    after a field is replaced or edited in place; each time they equal
+    the tables built from scratch (the species table too)."""
+    _, params, spec, _ = natural_convection.build(N=40, device="cpu")
+    cfg, dev = spec.pair, torch.device("cpu")
+    assert params.n_sdpd > 0
+
+    def fresh(p):
+        tabs = pair.coeff_tables(p, cfg)
+        return (pair_cuda._mech_tables(p, cfg, tabs),
+                pair_cuda._species_tables(p, cfg, tabs))
+
+    first = pair_cuda.kernel_tables(params, cfg, pair_cuda._mech_tables, dev)
+    again = pair_cuda.kernel_tables(params, cfg, pair_cuda._mech_tables, dev)
+    assert again[0] is first[0] and again[1] is first[1]
+    for got, want in zip(first, fresh(params)):
+        assert torch.equal(got, want)
+    tv = pair_cuda.kernel_tables(params, cfg, pair_cuda._tables, dev)
+    assert torch.equal(tv[0], pair_cuda._tables(params, cfg))
+    wider = dataclasses.replace(params, cut=params.cut * 1.1)
+    replaced = pair_cuda.kernel_tables(wider, cfg, pair_cuda._mech_tables, dev)
+    assert not torch.equal(replaced[0], first[0])
+    for got, want in zip(replaced, fresh(wider)):
+        assert torch.equal(got, want)
+    wider.cut.mul_(1.2)  # an in-place edit of a field
+    edited = pair_cuda.kernel_tables(wider, cfg, pair_cuda._mech_tables, dev)
+    assert edited[0] is not replaced[0]
+    for got, want in zip(edited, fresh(wider)):
+        assert torch.equal(got, want)
+
+
+K4_TILES = [(4, 8), (8, 8), (3, 5), (1, 1)]
+
+
+def _k4_case(case, device):
+    """A K1/K4 state: "flagship" the N=30 cavity (12 x 12 cells, walls,
+    the tv body), "vortex N=9" the 2D vortex on 3 x 3 cells (both axes
+    periodic, solid-free, the full body), "polarization" the nx=24 state
+    (6 x 6 periodic cells, cap 30, elastic, one species, the full body)."""
+    if case == "vortex N=9":
+        state, params, spec, _ = taylor_green2d.build(9, device=device)
+        state = run_chunk(setup(state, params, spec,
+                                dt=taylor_green2d.timestep(9)), params, spec, 3)
+        return state, params, spec
+    return _grouped_case(case, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", K4_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("case", ["flagship", "vortex N=9", "polarization"])
+def test_k4_matches_k1_bitwise_on_ragged_tiles_on_card(cuda, case, tile,
+                                                       monkeypatch):
+    """K4 with each tile as its first choice (every one but 1 x 1 ragged on
+    every grid here: the cells are not multiples of the tile; a window past
+    the block's shared memory falls back to a smaller tile) bitwise K1 on
+    the same inputs, every accumulator, on walls, three-cell periodic axes
+    and the elastic, species and periodic polarization state."""
+    monkeypatch.setattr(pair_cuda, "K4_TILE", {True: tile, False: tile})
+    state, params, spec = _k4_case(case, cuda)
+    geom = spec.geom
+    nx, ny = geom.ncells[:2]
+    assert tile == (1, 1) or nx % tile[0] or ny % tile[1]
+    for filt in (False, True):
+        cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+        pf = pair._per_particle(state, params, cfg)
+        noise = pair.noise_inputs(state)
+        got = pair_cuda.pass_a_2d_preshift(pf, params, geom, cfg, noise)
+        want = pair_cuda.pass_a_2d(pf, params, geom, cfg, noise)
+        torch.cuda.synchronize()
+        for name in pair.PASS_A_ACCS:
+            assert torch.equal(got[name], want[name]), (name, filt)
+        assert float(want["f"].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_k2_lists_flush_and_never_truncate_on_card(cuda):
+    """K2's per-lane lists of in-support candidates (K3's walk) are run and
+    emptied whenever one could not take another step, so none overflows:
+    with every support widened 5x (past the 9 cells' diagonal), every
+    candidate passes the test, and K2 still matches the plain 9-offset
+    loop field by field within 5e-6 of its max on the FSI beam (its elastic
+    terms live: S seeded)."""
+    state, params, spec = _fsi(cuda, seed_S=True)
+    wide = dataclasses.replace(params, cut=params.cut * 5.0)
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=True)
+    pf = pair._per_particle(state, wide, cfg)
+    ref = pair._pass_a_plain(pf, wide, spec.geom, cfg)
+    got = pair_cuda.pass_a_2d_rowloop(pf, wide, spec.geom, cfg)
+    torch.cuda.synchronize()
+    for name in K2_FIELDS:
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+def test_k2_vortex_matches_plain_on_card(cuda, filt):
+    """K2 on the 2D vortex at N=60 (solid-free, both axes periodic) after
+    10 steps with its positions jittered by up to a tenth of a spacing per
+    axis (seeded, as chip_smoke's main tgv2d holds K2: on whole lattice
+    patches ddv cancels to a small part of its terms, where K2 and the
+    plain f32 loop differ by their roundings) within 5e-6 of the plain
+    loop's max, field by field; phi, nw and dS exactly 0."""
+    N = 60
+    state, params, spec, _ = taylor_green2d.build(N, device=cuda)
+    state = run_chunk(setup(state, params, spec,
+                            dt=taylor_green2d.timestep(N)), params, spec, 10)
+    rng = np.random.default_rng(0)
+    dx = rng.uniform(-0.1, 0.1, tuple(state.x.shape)) * (taylor_green2d.L / N)
+    dx[2] = 0.0
+    state = dataclasses.replace(state, x=state.x + torch.as_tensor(
+        dx, dtype=state.x.dtype, device=cuda) * state.valid)
+    assert pair_cuda.route(spec.geom, spec.pair) is pair_cuda.pass_a_2d_rowloop
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+    pf = pair._per_particle(state, params, cfg)
+    ref = pair._pass_a_plain(pf, params, spec.geom, cfg)
+    got = pair_cuda.pass_a(pf, params, spec.geom, cfg)
+    torch.cuda.synchronize()
+    for name in (n for n in K2_FIELDS if filt or not n.startswith("rhoAux")):
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+    for name in ("phi", "nw", "dS"):
+        assert float(got[name].abs().max()) == 0.0, name

@@ -50,7 +50,7 @@ def main() -> int:
         for _ in range(20):
             pair_cuda.pass_a_2d(*args)
         torch.cuda.synchronize()
-    # K1's kernel: pa2d::*<Neighbour> (K4's reads j through Preshift)
+    # K1's kernel: pa2d::*<Neighbour> (K4's are preshift_*_kernel)
     hits = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and "Neighbour" in e.key]
