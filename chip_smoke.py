@@ -391,8 +391,8 @@ import sys
 import time
 from pathlib import Path
 
-KERNELS = ("pass_a_2d", "pass_a_2d_preshift", "pass_a_2d_rowloop", "pass_a_3d",
-           "rebin_move_2d", "rebin_move_2d_gated", "rebin_move_3d",
+# the kernels' libraries (K4, pair_cuda.pass_a_2d_preshift, launches K1's)
+KERNELS = ("pass_a_2d", "pass_a_2d_rowloop", "pass_a_3d", "rebin_move_2d", "rebin_move_2d_gated", "rebin_move_3d",
            "rotation_probe")
 CAVITY_N = (200, 1000)  # parity/main/speed size, large speed size
 FSI_NX = (60, 240)  # the reference's size, large speed size (~225k particles)
@@ -1695,15 +1695,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    print(f"[build] K4 (pass_a_2d_preshift, its own nvcc beside the others): "
-          f"{_build.build_seconds.get('pass_a_2d_preshift')!r} s")
     # every instantiation, as the runtime reports it (registers, local-memory
     # bytes: the spills, and in the thermal ones the stack frame of cosf's
-    # range reduction): K1, K4 and K3 with both bodies (the transport-
-    # velocity body "tv": (filter, species count, thermal); the full body of
-    # csrc/pass_a_mech.cuh: and elastic), K2 the full body
-    for wrapper in (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_preshift,
-                    pair_cuda.pass_a_2d_rowloop, pair_cuda.pass_a_3d):
+    # range reduction): K1 (and so K4) and K3 with both bodies (the
+    # transport-velocity body "tv": (filter, species count, thermal); the
+    # full body of csrc/pass_a_mech.cuh: and elastic), K2 the full body
+    for wrapper in (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_rowloop,
+                    pair_cuda.pass_a_3d):
         bodies = ((False,) if wrapper is pair_cuda.pass_a_2d_rowloop
                   else (True, False))
         attrs = {f"{'tv/' if tv else ''}{'filter' if filt else 'nofilter'}/"
@@ -1716,6 +1714,12 @@ def main() -> int:
                  for filt in (True, False)}
         print(f"[build] {wrapper.__name__} instantiations (registers per "
               f"thread, local bytes per thread): {attrs}")
+    print(f"[build] rebin_move_3d instantiations (slot lists in shared or "
+          f"global memory: registers per thread, local bytes per thread; "
+          f"{rebin_cuda.K7_CELLS} cells a block, shared up to cap "
+          f"{rebin_cuda.K7_LIST_BYTES // (4 * rebin_cuda.K7_CELLS)}): "
+          + str({"shared" if sh else "global": rebin_cuda.k7_attributes(sh)
+                 for sh in (True, False)}))
 
     # -- 3. K1 parity -------------------------------------------------------
     state, params, spec, _ = lid_cavity.build(N=CAVITY_N[0], device=dev)
@@ -2656,25 +2660,29 @@ def main() -> int:
 
     def k1_k4_timing(tag, state, params, geom, cfg, launches):
         """K1 and K4 per call on one state (CUDA events; the plain loop
-        once), their device ms per call (torch.profiler) and bounds (K4's
-        tile from ``pair_cuda.k4_tile``)."""
+        once), their device ms per call (torch.profiler) and bounds (their
+        tile from ``pair_cuda.k4_tile`` at the window's depth, the grid's
+        largest tail)."""
         cfg = dataclasses.replace(cfg, density_filter_accs=False)
         t = {}
-        for name, kernel, match in (("K1", pair_cuda.pass_a_2d, "Neighbour"),
+        # K1 and K4 launch one kernel (csrc/pass_a_2d.cuh), each timed in
+        # its own window
+        for name, kernel, match in (("K1", pair_cuda.pass_a_2d, "pa2d::window_"),
                                     ("K4", pair_cuda.pass_a_2d_preshift,
-                                     "preshift_")):
+                                     "pa2d::window_")):
             t[name] = pass_a_timing(kernel, state, params, geom, cfg, 10,
                                     plain_iters=1)
             pf = pair._per_particle(state, params, cfg)
             t[name]["device_ms"], _ = _kernel_device_ms(
                 torch, lambda: kernel(pf, params, geom, cfg), match, 10)
-        tile = pair_cuda.k4_tile(t["K4"]["pass_a_rows"], geom.cap,
+        depth = pair_cuda.tail_index(state.valid)[1]
+        tile = pair_cuda.k4_tile(t["K4"]["pass_a_rows"], depth,
                                  pair_cuda.tv_body(geom, cfg))
         for name in ("K1", "K4"):
             tt = t[name]
             print(f"[speed] {tag}: {name} {tt['pass_a']!r} ms per call as called "
-                  f"(CUDA events, packing included"
-                  f"{f'; tile {tile}' if name == 'K4' else ''}), launches on "
+                  f"(CUDA events, packing included; tile {tile}, window "
+                  f"{depth} of cap {geom.cap} slots deep), launches on "
                   f"its main path {launches[name]}, bound {tt['pass_a_bound']} "
                   f"({tt['pass_a_work']}), plain pass A {tt['pass_a_plain']!r} "
                   f"[{card}]")
@@ -3946,18 +3954,18 @@ def main() -> int:
     # half-steps add to a step
     targets += [(f"cavity N={N}",
                  lambda N=N, dt=dt: lid_cavity.build(N=N, dt=dt, device=dev), dt,
-                 (("K1", "Neighbour"), ("K5", "rebin_move_2d_kernel")))
+                 (("K1", "pa2d::window_"), ("K5", "rebin_move_2d_kernel")))
                 for N, dt in zip(CAVITY_N, (1e-4, 5e-6))]
     targets += [(f"natural convection N={N}",
                  lambda N=N: natural_convection.build(N=N, dt=CONV_DT[N],
                                                       device=dev), CONV_DT[N],
-                 (("K1 species", "Neighbour"),
+                 (("K1 species", "pa2d::window_"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
     # and with the noise on: the thermal rows add no device op to a step
     targets += [(f"natural convection N={N} with thermal=True",
                  lambda N=N: _with_noise(natural_convection.build(
                      N=N, dt=CONV_DT[N], device=dev)), CONV_DT[N],
-                 (("K1 species/thermal", "Neighbour"),
+                 (("K1 species/thermal", "pa2d::window_"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
     # the 3D FSI beam at nx=60 (released at once, so K3's elastic terms run
     # on a moving beam) and the vortex at N=100: K3's elastic and solid-free
@@ -4151,10 +4159,10 @@ def main() -> int:
         # launches of its parity and timing calls on the FSI states; timed
         # on the seeded one) and solid-free (launches and time from the
         # crowded-cell grid's 10-step run and its last state)
-        ("pass_a_2d_preshift", "csrc/pass_a_2d_preshift.cu",
+        ("pass_a_2d_preshift", "csrc/pass_a_2d.cu",
          "ops/pair_pallas.py:848", pre_launches["pass_a_2d_preshift"], k4_abs,
          t_pre["K4"], "pass_a"),
-        ("pass_a_2d_preshift (mechanics)", "csrc/pass_a_2d_preshift.cu",
+        ("pass_a_2d_preshift (mechanics)", "csrc/pass_a_2d.cu",
          "ops/pair_pallas.py:848", k4m_launches["pass_a_2d_preshift"], k1m_abs,
          t_mech["K4"],
          "pass_a"),

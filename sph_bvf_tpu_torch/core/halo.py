@@ -4,9 +4,9 @@ Only the geometry half of ``sph_bvf_tpu/core/halo.py`` is ported.  The CUDA
 kernels index neighbour cells directly, with a bounds mask on a wall axis
 and a wrap by index on a periodic one, so the padded halo buffers and ghost
 columns the TPU kernels stream through (``assemble_padded``,
-``assemble_tiled``, ``add_ghosts``) have no counterpart here: K4 stages
-each tile's 3x3 window of the 2D pack in shared memory
-(``csrc/pass_a_2d_preshift.cu``).
+``assemble_tiled``, ``add_ghosts``) have no counterpart here: K1 and K4
+stage each tile's 3x3 window of the 2D pack in shared memory
+(``csrc/window_2d.cuh``).
 """
 
 from __future__ import annotations

@@ -37,13 +37,43 @@ from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
 MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
 GATED_MAX_CAP = 64  # kMaxCap in csrc/rebin_move_2d_gated.cu (K6)
+# K7's target cells per block (kCells in csrc/rebin_move_3d.cu: 16 was the
+# fastest of 8, 16 and 32 over the main paths' launches on the H100,
+# PERF.md), and the most bytes of shared memory their slot lists, i32 [cap,
+# K7_CELLS], may take (within the 48 KB a block holds without opting in):
+# past it the lists go to an i32 [cap, NC] scratch in global memory
+# (``k7_list``)
+K7_CELLS = 16
+K7_LIST_BYTES = 40 * 1024
+
+
+def k7_list(cap: int) -> bool:
+    """Whether K7's slot lists at ``cap`` live in shared memory: while their
+    ``4 * cap * K7_CELLS`` bytes fit ``K7_LIST_BYTES`` (up to cap 640; the
+    3D FSI beam's at nx=60 is 296), else in the global scratch."""
+    return 4 * cap * K7_CELLS <= K7_LIST_BYTES
+
+
+def k7_attributes(shared: bool) -> tuple:
+    """(registers per thread, local-memory bytes per thread: its spills) of
+    K7's instantiation with its slot lists in shared memory (``shared``) or
+    in the global scratch, from ``cudaFuncGetAttributes``."""
+    lib = _build.load("rebin_move_3d")
+    fn = lib.rebin_move_3d_attributes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, fn(int(shared), ctypes.byref(regs),
+                         ctypes.byref(local)), "rebin_move_3d_attributes")
+    return regs.value, local.value
 
 
 def move_unsupported(geom: Geometry, kernel) -> list:
     """What keeps the move wrapper ``kernel`` from serving this grid.
 
-    K7 takes a 3D grid of any cap (its slot list is a scratch in global
-    memory); K5 a 2D grid of cap <= 16; K6 a 2D grid of 16 < cap <= 64.
+    K7 takes a 3D grid of any cap (its slot lists live in shared memory,
+    or past ``K7_LIST_BYTES`` in a scratch in global memory); K5 a 2D grid
+    of cap <= 16; K6 a 2D grid of 16 < cap <= 64.
     Each takes walls or periodic axes (x, y and, in 3D, z alike), and
     uniform or non-uniform x columns (``x_edges``) alike.  A periodic axis
     needs at least 3 cells (with 2, the same source cell would sit in a
@@ -251,19 +281,23 @@ def _wrap_2d(geom: Geometry) -> tuple:
 
 
 def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
-            xr: int, naxes: int, extra=(), scratch: bool = False):
+            xr: int, naxes: int, extra=(), lists: bool = None):
     """Launch ``wrapper``'s kernel (``csrc/<its name>.cu``) on the packs.
 
     Every move kernel's C entry point takes the four packs, their row
     counts and cap, the cell counts of the first ``naxes`` axes, the x row,
     those axes' f32 binning constants, then ``extra`` (``(ctypes type,
     value)`` pairs), the x columns' fine-bin bounds (``_column_bounds``),
-    with ``scratch`` an i32 [cap, NC] scratch (K7's slot list), and the
-    stream.  Returns (outF, outI) of the input shapes."""
+    with ``lists`` = ``k7_list(cap)`` K7's slot lists' scratch (null for
+    lists in shared memory, else an i32 [cap, NC] one), and the stream.
+    Returns (outF, outI) of the input shapes."""
     _check_packs(PF, PI, geom, wrapper)
     outf, outi = torch.empty_like(PF), torch.empty_like(PI)
-    lists = (torch.empty(PI.shape[1:], dtype=torch.int32, device=PI.device)
-             if scratch else None)
+    tail = ()
+    if lists is not None:
+        scratch = (None if lists else torch.empty(
+            PI.shape[1:], dtype=torch.int32, device=PI.device))
+        tail = (None if scratch is None else scratch.data_ptr(),)
     xb, inv_q, n_fine = _column_bounds(geom, PF.device)
     name = wrapper.__name__
     lib = _build.load(name)
@@ -272,12 +306,12 @@ def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + naxes)
                    + [ctypes.c_float] * (2 * naxes) + [t for t, _ in extra]
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * (2 if scratch else 1))
+                   + [ctypes.c_void_p] * (len(tail) + 1))
     code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
               PF.shape[0], PI.shape[0], geom.cap, *geom.ncells[:naxes], xr,
               *_bin_constants(geom, naxes), *(v for _, v in extra),
               None if xb is None else xb.data_ptr(), inv_q, n_fine,
-              *((lists.data_ptr(),) if scratch else ()),
+              *tail,
               _build.current_stream(PF.device))
     _build.check(lib, code, name)
     wrapper.launches += 1
@@ -311,12 +345,14 @@ rebin_move_2d_gated.launches = 0  # K6 launches in this process
 def rebin_move_3d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
                   xr: int):
     """K7 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
-    walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
+    walk on a CPU tensor; its slot lists where ``k7_list`` puts them.
+    Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
         return rebin_move_plain(PF, PI, geom, xr)
     return _launch(rebin_move_3d, PF, PI, geom, xr, 3,
                    ((ctypes.c_int, wrap_bits(geom)),
-                    (ctypes.c_float, _x_span(geom))), scratch=True)
+                    (ctypes.c_float, _x_span(geom))),
+                   lists=k7_list(geom.cap))
 
 
 rebin_move_3d.launches = 0  # K7 launches in this process

@@ -1,8 +1,7 @@
 // The full pass-A pair body shared by K2 (csrc/pass_a_2d_rowloop.cu), K3
-// (csrc/pass_a_3d.cu), K1 (csrc/pass_a_2d.cuh) and K4
-// (csrc/pass_a_2d_preshift.cu): the packed-row
-// layout, the i-side values a thread loads once, and the accumulation of one
-// (i, j) pair.
+// (csrc/pass_a_3d.cu) and K1 (csrc/pass_a_2d.cuh, which K4 launches too):
+// the packed-row layout, the i-side values a thread loads once, and the
+// accumulation of one (i, j) pair.
 //
 // It is ops/pair.py `_pass_a_offset` (with `_pass_a_dS`) for one pair under
 // every configuration the JAX package's pass-A kernels serve:

@@ -1,5 +1,5 @@
 // The transport-velocity pass-A pair term, the leaner body of K1, K4 and K3
-// (csrc/pass_a_2d.cuh, csrc/pass_a_2d_preshift.cu, csrc/pass_a_3d.cu): the
+// (csrc/pass_a_2d.cuh, K4 launching K1's, csrc/pass_a_3d.cu): the
 // packed-row layout, the i-side values a thread loads once, and the
 // accumulation of one (i, j) pair.  Its species flux (`add_species_flux`,
 // the species table and kMaxSpecies), its thermal noise (`Noise`,

@@ -1,40 +1,54 @@
-// K7 — 3D locality rebin move (any cap; walls or periodic axes), one thread
-// per target cell, walking source slots only up to the window's occupancy.
+// K7 — 3D locality rebin move (any cap; walls or periodic axes), a warp per
+// target cell ranking its matches, a block per run of target cells copying.
 //
-// Replaces sph_bvf_tpu/core/rebin_pallas.py `_move_call_tiled3d` (the TPU
-// kernel on the (x-plane, yz-block) grid with 27 staged offsets and
-// window-occupancy trip counts).  Between rebins a particle moves at most one
-// cell (the drift contract that rebin's drift check enforces), so the
-// particles that belong in cell c are the matching candidates among the slots
-// of its 27 stencil cells.  The thread walks them slot-major, then by
-// ascending source flat index after the periodic wraps — the order of the
-// sort rebin's stable (cell, old flat slot) key, so the slot assignment is
-// bit-identical to sph_bvf_tpu_torch/core/state.py `rebin` with
-// use_kernel=False on wall and periodic grids alike — recomputes each
-// candidate's cell from its f32 position exactly as `cell_index_of` does
-// (round-to-nearest subtract and multiply, never fused, with the same f32 lo
-// and 1/cell_size; clamped on a wall axis, a floored modulo on a periodic
-// one), and keeps the first cap matches.  A match of rank >= cap, or a
+// Replaces sph_bvf_tpu/core/rebin_pallas.py `_move_call_tiled3d`
+// (rebin_pallas.py:441; the TPU kernel on the (x-plane, yz-block) grid
+// with 27 staged offsets and window-occupancy trip counts).  Between
+// rebins a particle moves at most one cell (the drift contract that
+// rebin's drift check enforces), so the particles that belong in cell c
+// are the matching candidates among the slots of its 27 stencil cells.  A
+// warp walks them slot-major, then by ascending source flat index after
+// the periodic wraps — the order of the sort rebin's stable (cell, old
+// flat slot) key, so the slot assignment is bit-identical to
+// sph_bvf_tpu_torch/core/state.py `rebin` with use_kernel=False on wall
+// and periodic grids alike — recomputes each candidate's cell from its f32
+// position exactly as `cell_index_of` does (round-to-nearest subtract and
+// multiply, never fused, with the same f32 lo and 1/cell_size; clamped on
+// a wall axis, a floored modulo on a periodic one), and keeps the first
+// cap matches.  A match of rank >= cap, or a
 // particle that moved beyond one ring, is dropped; the caller counts the loss
 // as overflow.  The plain PyTorch version is
 // sph_bvf_tpu_torch/core/rebin_cuda.py `rebin_move_plain`.
 //
 // What bounds it on an H100: the bytes of the packs (about 40 f32 and 6 i32
-// rows of cap * NC slots, read once and written once), 0.6 GB at the 1.19M
-// particle cavity.  The candidate checks are the other cost: the cavity's
-// cells hold 27 of 38 slots, so a full walk is 27 x 38 = 1,026 checks per
-// cell of which 27 x 27 are occupied.  Design: every rebin compacts each
-// cell's valid slots to 0..occ-1, so the window's occupancy is the first slot
-// at which all 27 source cells are empty — the walk stops there, exactly (the
-// GPU form of the TPU kernel's trip count, with no prepass).  Phase 1 records
-// the source slot of each output slot in a list; phase 2 copies row by row,
-// output slot by output slot, so neighbouring threads write neighbouring
-// addresses.  The list is a caller-provided i32 [cap, NC] scratch in global
-// memory (entry (s, c) at s * NC + c, so neighbouring threads' entries are
-// neighbours too), not a thread-local array, whose size would be fixed at
-// compile time: the TPU kernel has no cap limit but VMEM, and the 3D FSI
-// beam's finer lattice needs cap 119-296.
-//
+// rows of cap * NC slots, read once and written once: 0.6 GB at the 1.19M
+// particle cavity) and the candidate checks, ~27 x the occupancy of a
+// window per target cell (the vortex N=100: ~34 slot rows x 27 cells).
+// One thread per target cell would be bound by latency and occupancy
+// instead (7 warps an SM at the vortex N=100, 25 blocks for 132 SMs at the
+// 3D FSI beam nx=60, each candidate's loads walked serially, (ff + fi) x
+// cap serial copies per cell).  Design:
+// - phase 1, a warp per target cell: lanes 0-26 take one source cell each
+//   and sort the window by rank (each lane counts the smaller flat
+//   indices); the warp then walks the candidates in the sort's order,
+//   slot-major, 32 a step, one per lane, binning each with
+//   csrc/rebin_move.cuh; __ballot_sync and __popc of the lower lanes give
+//   each match its rank, the first cap matches are kept, and the walk stops
+//   after the first slot row in which no source cell holds a valid slot
+//   (every rebin compacts each cell's valid slots to 0..occ-1, so that row
+//   ends every source cell: the GPU form of the TPU kernel's trip count,
+//   with no prepass);
+// - a block takes kCells = 16 consecutive target cells (flat index, z
+//   minor; 16 was the fastest of 8, 16 and 32 over the main paths' launches
+//   on the H100, PERF.md), its warps one cell after another, and holds their
+//   slot lists, i32 [cap, kCells], in shared memory, or, for a cap whose lists do not fit
+//   (core/rebin_cuda.py `k7_list`), in a caller-provided i32 [cap, NC]
+//   scratch in global memory (entry (s, c) at s * NC + c);
+// - phase 2, the block copies: a thread takes (output slot, cell), the cell
+//   minor, so that neighbouring threads write neighbouring addresses of
+//   every row of [F, cap, NC]; a slot past its cell's match count is
+//   written as zeros without reading anything.
+
 // Non-uniform x columns (Geometry.x_edges, load balancing; replaces the TPU
 // kernel's `edges` variant, rebin_pallas.py:487-492, 595-600, 641, whose
 // per-plane column bounds are scalars): a candidate lies in plane cx when its
@@ -50,7 +64,7 @@
 // runtime bit per axis (`wrap`), as K6's wrapx / wrapy.  A source cell
 // wraps by index, a candidate's bin on that axis is the floored modulo of
 // its f32 bin (the position is already wrapped into the box by `wrap_pbc`),
-// and the 27 source cells are sorted by flat index after the wrap, so the
+// and the 27 source cells are ranked by flat index after the wrap, so the
 // walk keeps the sort rebin's order.  Every wrapping axis has at least 3
 // cells, so no source cell sits in a window twice.  The TPU kernel may order
 // a cell's slots differently on a periodic grid (rebin_pallas.py:28-31); the
@@ -59,6 +73,8 @@
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
 // x at f32 rows xr, xr+1, xr+2; outputs of the same shapes.  Flat cell
 // c = (cx * ny + cy) * nz + cz.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -70,101 +86,187 @@ using rebin::bin;
 using rebin::in_column;
 using rebin::wrap_cell;
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 8, kThreads = 32 * kWarps;
+// target cells a block (core/rebin_cuda.py K7_CELLS)
+constexpr int kCells = 16;
+constexpr unsigned kFull = 0xffffffffu;
 
+// What phase 1 of one target cell reads: the packs' valid row and x rows,
+// the grid, the binning constants (csrc/rebin_move.cuh) and the x columns.
+struct Walk {
+  const int* pi;
+  const float *px, *py, *pz;
+  int cap, nx, ny, nz, nc, wrap;
+  float lo0, lo1, lo2, inv0, inv1, inv2, xspan;
+  const int* xb;
+  float inv_q;
+  int n_fine;
+};
+
+// Phase 1 of target cell c, by the 32 lanes of a warp together: the source
+// slot of output slot r goes to lst[r * stride] for r < cap; returns the
+// count of matches (overflow included).  srcs: this warp's 32 ints of
+// shared memory.
+__device__ __forceinline__ int rank_matches(const Walk& W, int c, int* srcs,
+                                            int* lst, int stride) {
+  const int lane = threadIdx.x & 31;
+  const int cz = c % W.nz, cxy = c / W.nz;
+  const int cy = cxy % W.ny, cx = cxy / W.ny;
+  const bool wx = W.wrap & 1, wy = W.wrap & 2, wz = W.wrap & 4;
+  // lane o < 27: the source cell at offset (o / 9 - 1, o / 3 % 3 - 1,
+  // o % 3 - 1) after the wraps, INT_MAX off the grid
+  int v = INT_MAX;
+  if (lane < 27) {
+    int sx = cx + lane / 9 - 1, sy = cy + (lane / 3) % 3 - 1,
+        sz = cz + lane % 3 - 1;
+    bool on = true;
+    if (wx) sx = wrap_cell(sx, W.nx); else on = on && sx >= 0 && sx < W.nx;
+    if (wy) sy = wrap_cell(sy, W.ny); else on = on && sy >= 0 && sy < W.ny;
+    if (wz) sz = wrap_cell(sz, W.nz); else on = on && sz >= 0 && sz < W.nz;
+    if (on) v = (sx * W.ny + sy) * W.nz + sz;
+  }
+  // the window in ascending flat index: each lane's rank among the lanes
+  // (no source cell is on the grid twice: a wrapping axis has >= 3 cells;
+  // the off-grid ties go by lane)
+  int rank = 0;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int u = __shfl_sync(kFull, v, q);
+    rank += u < v || (u == v && q < lane);
+  }
+  __syncwarp();
+  srcs[rank] = v;
+  const int ns = __popc(__ballot_sync(kFull, v != INT_MAX));
+  __syncwarp();
+
+  const int xb0 = W.xb ? __ldg(W.xb + cx) : 0;
+  const int xb1 = W.xb ? __ldg(W.xb + cx + 1) : 0;
+  const unsigned lower = (1u << lane) - 1u;
+  const int total = W.cap * ns;  // the candidates: cap slot rows of ns cells
+  int n = 0;
+  bool carried = false;  // a valid slot in the row this step continues
+  for (int base = 0; base < total; base += 32) {
+    // candidate t = slot s of the q-th source cell
+    const int t = base + lane;
+    bool valid = false, match = false;
+    int k = 0;
+    if (t < total) {
+      const int s = t / ns, q = t - s * ns;
+      k = s * W.nc + srcs[q];
+      const float x = __ldg(W.px + k), y = __ldg(W.py + k),
+                  z = __ldg(W.pz + k);
+      valid = __ldg(W.pi + k) != 0;  // row 0: valid
+      match = valid &&
+              (W.ny > 1 ? bin(y, W.lo1, W.inv1, W.ny, wy) : 0) == cy &&
+              (W.nz > 1 ? bin(z, W.lo2, W.inv2, W.nz, wz) : 0) == cz &&
+              in_column(x, cx, W.nx, W.lo0, W.inv0, wx, W.xspan, W.xb, xb0,
+                        xb1, W.inv_q, W.n_fine);
+    }
+    const unsigned any_valid = __ballot_sync(kFull, valid);
+    // the first slot row this step ends with no valid slot: lanes past it
+    // are not walked (compacted slots: that row ends every source cell)
+    int end = 32;
+    for (int s = base / ns; s * ns < base + 32 && s < W.cap; ++s) {
+      const int lo = max(s * ns - base, 0), hi = min((s + 1) * ns - base, 32);
+      const unsigned in_row =
+          (hi == 32 ? kFull : (1u << hi) - 1u) & ~((1u << lo) - 1u);
+      const bool occupied =
+          (any_valid & in_row) != 0 || (s * ns < base && carried);
+      if ((s + 1) * ns > base + 32) {  // the row goes on in the next step
+        carried = occupied;
+        break;
+      }
+      carried = false;
+      if (!occupied) {
+        end = hi;
+        break;
+      }
+    }
+    const bool kept = match && lane < end;
+    const unsigned matches = __ballot_sync(kFull, kept);
+    if (kept) {
+      const int r = n + __popc(matches & lower);
+      if (r < W.cap) lst[r * stride] = k;
+    }
+    n += __popc(matches);
+    if (end < 32) break;
+  }
+  return n;
+}
+
+// kCells target cells from blockIdx.x * kCells; SHARED_LIST: their slot
+// lists in dynamic shared memory, i32 [cap, kCells], else in `list`, i32
+// [cap, NC] in global memory.
+template <bool SHARED_LIST>
 __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
-    float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
-    int nx, int ny, int nz, int xr, float lo0, float lo1, float lo2,
-    float inv0, float inv1, float inv2, int wrap, float xspan,
-    const int* __restrict__ xb, float inv_q, int n_fine,
-    int* __restrict__ list) {
-  const int nc = nx * ny * nz;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nc) return;
-  const long long m = (long long)cap * nc;
-  const int cz = c % nz, cxy = c / nz;
-  const int cy = cxy % ny, cx = cxy / ny;
-  const int xb0 = xb ? __ldg(xb + cx) : 0, xb1 = xb ? __ldg(xb + cx + 1) : 0;
-  const float* px = pf + (long long)xr * m;
-  const float* py = px + m;
-  const float* pz = py + m;
+    float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, Walk W,
+    int xr, int* __restrict__ list) {
+  extern __shared__ int list_s[];
+  __shared__ int srcs[kWarps][32];
+  __shared__ int kept[kCells];
+  const long long m = (long long)W.cap * W.nc;
+  const int c0 = blockIdx.x * kCells;
+  const int cells = min(kCells, W.nc - c0);
+  int* lst = SHARED_LIST ? list_s : list + c0;
+  const int stride = SHARED_LIST ? kCells : W.nc;
+  W.px = pf + (long long)xr * m;
+  W.py = W.px + m;
+  W.pz = W.py + m;
 
-  // the window's source cells, in ascending flat index after the wraps
-  const bool wx = wrap & 1, wy = wrap & 2, wz = wrap & 4;
-  int src[27];
-  int ns = 0;
-  for (int ox = -1; ox <= 1; ++ox) {
-    int sx = cx + ox;
-    if (wx) {
-      sx = wrap_cell(sx, nx);
-    } else if (sx < 0 || sx >= nx) {
-      continue;
-    }
-    for (int oy = -1; oy <= 1; ++oy) {
-      int sy = cy + oy;
-      if (wy) {
-        sy = wrap_cell(sy, ny);
-      } else if (sy < 0 || sy >= ny) {
-        continue;
-      }
-      for (int oz = -1; oz <= 1; ++oz) {
-        int sz = cz + oz;
-        if (wz) {
-          sz = wrap_cell(sz, nz);
-        } else if (sz < 0 || sz >= nz) {
-          continue;
-        }
-        const int v = (sx * ny + sy) * nz + sz;
-        int q = ns++;
-        for (; q > 0 && src[q - 1] > v; --q) src[q] = src[q - 1];
-        src[q] = v;
-      }
-    }
+  const int warp = threadIdx.x / 32;
+  for (int cell = warp; cell < cells; cell += kWarps) {
+    const int n = rank_matches(W, c0 + cell, srcs[warp], lst + cell, stride);
+    if (threadIdx.x % 32 == 0) kept[cell] = min(n, W.cap);
   }
+  __syncthreads();
 
-  // list[r * nc + c]: the source slot of output slot r of this cell
-  int n = 0;
-  for (int s = 0; s < cap; ++s) {
-    bool occupied = false;
-    for (int q = 0; q < ns; ++q) {
-      const int k = s * nc + src[q];
-      if (__ldg(pi + k) == 0) continue;  // row 0: valid
-      occupied = true;
-      const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, wy) : 0;
-      const int bz = nz > 1 ? bin(__ldg(pz + k), lo2, inv2, nz, wz) : 0;
-      if (by != cy || bz != cz ||
-          !in_column(__ldg(px + k), cx, nx, lo0, inv0, wx, xspan, xb, xb0, xb1,
-                     inv_q, n_fine))
-        continue;
-      if (n < cap) list[(long long)n * nc + c] = k;
-      ++n;
+  // phase 2: output slot s of cell c0 + cell, every row
+  for (int it = threadIdx.x; it < W.cap * kCells; it += kThreads) {
+    const int s = it / kCells, cell = it % kCells;
+    if (cell >= cells) continue;
+    const long long o = (long long)s * W.nc + c0 + cell;
+    if (s < kept[cell]) {
+      const long long k = lst[s * stride + cell];
+#pragma unroll 4
+      for (int r = 0; r < ff; ++r)
+        outf[(long long)r * m + o] = __ldg(pf + (long long)r * m + k);
+#pragma unroll 4
+      for (int r = 0; r < fi; ++r)
+        outi[(long long)r * m + o] = __ldg(pi + (long long)r * m + k);
+    } else {
+#pragma unroll 4
+      for (int r = 0; r < ff; ++r) outf[(long long)r * m + o] = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < fi; ++r) outi[(long long)r * m + o] = 0;
     }
-    // compacted slots: an all-empty slot row ends every source cell
-    if (!occupied) break;
   }
-  const int kept = n < cap ? n : cap;
-  const int* lc = list + c;
-  for (int r = 0; r < ff; ++r) {
-    const float* in = pf + (long long)r * m;
-    float* o = outf + (long long)r * m + c;
-    for (int s = 0; s < cap; ++s)
-      o[(long long)s * nc] = s < kept ? __ldg(in + lc[(long long)s * nc]) : 0.f;
-  }
-  for (int r = 0; r < fi; ++r) {
-    const int* in = pi + (long long)r * m;
-    int* o = outi + (long long)r * m + c;
-    for (int s = 0; s < cap; ++s)
-      o[(long long)s * nc] = s < kept ? __ldg(in + lc[(long long)s * nc]) : 0;
-  }
+}
+
+template <bool SHARED_LIST>
+int run(unsigned blocks, int shared, cudaStream_t stream, const float* pf,
+        const int* pi, float* outf, int* outi, int ff, int fi, const Walk& W,
+        int xr, int* list) {
+  auto kernel = rebin_move_3d_kernel<SHARED_LIST>;
+  // the default is 48 KB less the kernel's static shared memory
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && shared > attr.maxDynamicSharedSizeBytes)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kThreads, shared, stream>>>(pf, pi, outf, outi, ff, fi, W,
+                                               xr, list);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // wrap: bit a set when axis a is periodic with more than one cell; xspan:
-// the x edges' span (read only with xb and a periodic x); list: i32 scratch
-// of cap * nx * ny * nz entries (its contents are not read before this call
-// writes them)
+// the x edges' span (read only with xb and a periodic x); list: nullptr for
+// the slot lists in shared memory (cap * kCells i32 of it), else i32
+// scratch of cap * nx * ny * nz entries (its contents are not read before
+// this call writes them)
 extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int nz, int xr, float lo0, float lo1, float lo2,
@@ -174,12 +276,30 @@ extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
   if (((wrap & 1) && nx < 3) || ((wrap & 2) && ny < 3) || ((wrap & 4) && nz < 3))
     return (int)cudaErrorInvalidValue;
   const int nc = nx * ny * nz;
-  if (nc == 0) return 0;
-  const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
-  rebin_move_3d_kernel<<<blocks, kThreads, 0, stream>>>(
-      pf, pi, outf, outi, ff, fi, cap, nx, ny, nz, xr, lo0, lo1, lo2, inv0,
-      inv1, inv2, wrap, xspan, xb, inv_q, n_fine, list);
-  return (int)cudaGetLastError();
+  if (nc == 0 || cap == 0) return 0;
+  const Walk W{pi, nullptr, nullptr, nullptr, cap, nx, ny, nz, nc, wrap,
+               lo0, lo1, lo2, inv0, inv1, inv2, xspan, xb, inv_q, n_fine};
+  const unsigned blocks = (unsigned)((nc + kCells - 1) / kCells);
+  if (list)
+    return run<false>(blocks, 0, stream, pf, pi, outf, outi, ff, fi, W, xr,
+                      list);
+  return run<true>(blocks, (int)(sizeof(int) * (long long)cap * kCells),
+                   stream, pf, pi, outf, outi, ff, fi, W, xr, nullptr);
+}
+
+// registers per thread and local-memory (spill) bytes per thread of the
+// instantiation with the slot lists in shared memory (shared) or global
+extern "C" int rebin_move_3d_attributes(int shared, int* regs,
+                                        int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      shared ? cudaFuncGetAttributes(&attr, rebin_move_3d_kernel<true>)
+             : cudaFuncGetAttributes(&attr, rebin_move_3d_kernel<false>);
+  if (err == cudaSuccess) {
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+  }
+  return (int)err;
 }
 
 extern "C" const char* sph_cuda_error_string(int code) {

@@ -3,8 +3,9 @@
 //
 // Replaces tools/mxu_rotation_probe.py `_call` (the Pallas probe over
 // `_k_slice`, `_k_mxu` and `_k_base`).  The question is the staging of the
-// pre-shifted pass A (K4, csrc/pass_a_2d_preshift.cu): is a shift cheaper
-// as shifted loads, or as a product with a 0/1 matrix on the matrix units?
+// pre-shifted pass A (K4, which launches csrc/pass_a_2d.cu): is a shift
+// cheaper as shifted loads, or as a product with a 0/1 matrix on the
+// matrix units?
 // Each of the g output blocks reads the same window x (f32 [R, W], W = BLK +
 // 2H) and writes out[:, b*BLK:(b+1)*BLK] (f32 [R, BLK*g]):
 //

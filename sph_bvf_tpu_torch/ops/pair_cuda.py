@@ -1,18 +1,19 @@
 """The pass-A pair kernels, their wrappers and the route between them.
 
 K1 (``csrc/pass_a_2d.cu``) ports the grouped kernel of
-``sph_bvf_tpu/ops/pair_pallas.py``, K4 (``csrc/pass_a_2d_preshift.cu``) its
+``sph_bvf_tpu/ops/pair_pallas.py``, K4 (which launches K1's library) its
 pre-shifted variant, K2 (``csrc/pass_a_2d_rowloop.cu``) its rowloop kernel
 and K3 (``csrc/pass_a_3d.cu``) its tiled 3D kernel.  ``pass_a`` makes JAX's
 shape choice (``pair_pallas._pass_a_tiled3d`` for every 3D grid,
 ``pair_pallas._default_rowloop`` in 2D): 3D grids go to K3; 2D grids with a
 mixed lattice (``base_occ == 0``) or a crowded cell (``cap > 24``) go to
 K2, the rest to K1, or to K4 when ``PairConfig.preshift_window`` is set
-(``pair_pallas.py:1596``; the flag changes no other route).  K1 and K4 run
-the same pair bodies over the same j order and differ only in where they
-read j: K1 at the neighbour cell of the pack (``csrc/pass_a_2d.cuh``), K4
-from the 3x3 window of a tile of cells that each block stages in shared
-memory (``k4_tile``), bitwise the same sums.  K2 and K3 share one
+(``pair_pallas.py:1596``; the flag changes no other route).  K1 and K4
+launch one kernel (``csrc/pass_a_2d.cuh``): each block stages the 3x3
+window of a tile of cells (``k4_tile``) in shared memory, each cell only
+to its tail (``tail_index``, which ``tail_index_of`` keeps from one rebin
+to the next), and walks each neighbour cell to its tail; K4 is K1's
+result, bitwise.  K2 and K3 share one
 neighbour walk (``csrc/walk.cuh``: a warp's lanes on one cell, over
 ``walk_index``, which ``walk_index_of`` keeps from one rebin to the next;
 the support test apart from the body).  Every pass-A kernel
@@ -291,52 +292,64 @@ def _finish(result: dict, out_device, cap: int, NC: int) -> dict:
     return result
 
 
-# K4's tile of cells per block, (along x, along y), by body (``tv_body``:
-# True, the transport-velocity pair; False, the full body), then the
-# smaller tiles it falls back to, in order, where a window of that tile
-# would not fit a block's shared memory (many rows at a large cap).  A
-# window holds (tx + 2)(ty + 2) cells x the pack's rows x cap f32; it may
-# hold at most K4_SHARED bytes and 128 cells (one per thread of a block).
-# The tiles are the fastest of six on the H100 (tools/torch_pass_a3d_timing.py
-# ``tiles``, PERF.md): the tv body's 4 x 8 window of 20 rows at cap 14
-# (67 KB) lets 3 blocks share an SM; the full body holds more registers
-# and rows, and its 4 x 4 window (46 KB) lets 4.
-K4_TILE = {True: (4, 8), False: (4, 4)}
+# K1's and K4's tile of cells per block, (along x, along y), by body
+# (``tv_body``: True, the transport-velocity pair; False, the full body),
+# then the smaller tiles it falls back to, in order, where a window of that
+# tile would not fit a block's shared memory (many rows at a deep window).
+# A window holds (tx + 2)(ty + 2) cells x the pack's rows x its depth (the
+# grid's largest tail, ``tail_index``) f32; it may hold at most K4_SHARED
+# bytes (``win2d::kMaxShared``: the 232,448 bytes of shared memory a block
+# may hold on the H100, less the kernel's 528 static bytes) and 128 cells
+# (one per thread of a block).  4 x 8 is the fastest
+# of seven tiles on the H100 for both bodies (tools/torch_pass_a3d_timing.py
+# ``tiles``, PERF.md): a warp's lanes are one slot row of the tile's 32
+# cells.
+K4_TILE = {True: (4, 8), False: (4, 8)}
 K4_FALLBACK = ((4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
-K4_SHARED = 232_448
+K4_SHARED = 232_448 - 528
 
 
-def k4_tile(rows: int, cap: int, tv: bool) -> tuple:
-    """K4's tile (cells along x, along y) for a pack of ``rows`` rows at
-    ``cap``: ``K4_TILE[tv]``, or the first of ``K4_FALLBACK`` whose window
-    fits ``K4_SHARED`` bytes."""
+def k4_tile(rows: int, depth: int, tv: bool) -> tuple:
+    """K1's and K4's tile (cells along x, along y) for a pack of ``rows``
+    rows and a window ``depth`` slots deep: ``K4_TILE[tv]``, or the first
+    of ``K4_FALLBACK`` whose window fits ``K4_SHARED`` bytes."""
     for tx, ty in (K4_TILE[tv],) + K4_FALLBACK:
-        if 4 * rows * cap * (tx + 2) * (ty + 2) <= K4_SHARED:
+        if 4 * rows * depth * (tx + 2) * (ty + 2) <= K4_SHARED:
             return tx, ty
-    raise ValueError(f"no K4 window of {rows} rows at cap {cap} fits "
+    raise ValueError(f"no K4 window of {rows} rows {depth} slots deep fits "
                      f"{K4_SHARED} bytes")
+
+
+def _library(wrapper) -> str:
+    """The library (``csrc/<name>.cu``) and C entry point ``wrapper``
+    launches: its own name, but K1's for K4."""
+    return "pass_a_2d" if wrapper is pass_a_2d_preshift else wrapper.__name__
 
 
 def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
             noise, rows, table, accs, args) -> dict:
-    """Pack ``rows`` of ``pf``, launch ``wrapper``'s kernel (``csrc/<its
-    name>.cu``) over the grid ``dims`` and unpack the accumulators
-    ``accs``.  The C entry point takes the pack, the coefficient table
+    """Pack ``rows`` of ``pf``, launch ``wrapper``'s kernel
+    (``csrc/<name>.cu``, ``_library``) over the grid ``dims`` and unpack
+    the accumulators ``accs``.  The C entry point takes the pack, the coefficient table
     (``table(params, cfg, tabs)``), the species table, the output, the type
     count, the species count, the advection switch, cap, ``dims``, then
     ``args`` (``(ctypes type, value)`` pairs), the noise's arguments and the
-    stream.  K4 takes, first of ``args``, the pack's row count and its tile
-    (``k4_tile``); K2 and K3, first of ``args``, their thread and walk
-    index (``walk_index_of``)."""
+    stream.  K1 and K4 take, first of ``args``, each cell's tail and the
+    window's depth (``tail_index_of``), the pack's row count and the tile
+    (``k4_tile``); K2 and K3, first of ``args``, their thread and walk index
+    (``walk_index_of``)."""
     _check_launch(pf, params, geom, cfg, wrapper, noise)
-    name = wrapper.__name__
+    name = _library(wrapper)
     cap, NC = pf["rho"].shape
     ns = params.n_sdpd
     PF = _pack(pf, rows + (("C",) if ns else ())
                + (THERMAL_ROWS if cfg.thermal else ()), cap, NC)
-    if wrapper is pass_a_2d_preshift:
-        tile = k4_tile(PF.shape[0], cap, table is _tables)
-        args = [(ctypes.c_int, n) for n in (PF.shape[0],) + tile] + list(args)
+    if wrapper in (pass_a_2d, pass_a_2d_preshift):
+        tails, depth = tail_index_of(pf["valid"])
+        tile = k4_tile(PF.shape[0], depth, table is _tables)
+        args = ([(ctypes.c_void_p, tails.data_ptr())]
+                + [(ctypes.c_int, n) for n in (PF.shape[0],) + tile + (depth,)]
+                + list(args))
     if wrapper in (pass_a_3d, pass_a_2d_rowloop):
         order, lead = walk_index_of(pf["valid"])
         args = [(ctypes.c_void_p, order.data_ptr()),
@@ -421,8 +434,8 @@ def kernel_attributes(wrapper, filt: bool, ns: int, elastic: bool = False,
     ``pass_a_2d_preshift``, ``pass_a_2d_rowloop`` or ``pass_a_3d``) for
     ``filt``, ``elastic``, ``ns`` species and ``thermal`` (K1, K4 and K3:
     their transport-velocity body with ``tv``), from
-    ``cudaFuncGetAttributes``."""
-    name = wrapper.__name__
+    ``cudaFuncGetAttributes``; K4's are K1's."""
+    name = _library(wrapper)
     switches = (int(filt), int(elastic))
     if wrapper is not pass_a_2d_rowloop:
         switches = (0 if tv else 1,) + switches
@@ -441,7 +454,9 @@ def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict
     """Pass A accumulators from ``pf`` through K1 on CUDA (the plain loop on
     CPU) on a 2D grid: every pair configuration (as ``pass_a_3d``), walls or
     periodic x and y of at least 3 cells, with up to ``MAX_SPECIES``
-    continuum species, with or without the thermal noise."""
+    continuum species, with or without the thermal noise; each block reads
+    j from the 3x3 window of its tile (``k4_tile``) staged in shared
+    memory, each cell to its tail (``tail_index_of``)."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
     result = _two_body_launch(pass_a_2d, geom.ncells[:2], pf, params, geom,
@@ -456,9 +471,9 @@ pass_a_2d.launches = 0  # K1 launches in this process
 def pass_a_2d_preshift(pf: dict, params: Params, geom: Geometry, cfg,
                        noise=None) -> dict:
     """Pass A accumulators from ``pf`` through K4 on CUDA (the plain loop on
-    CPU): K1's sums, bitwise, with j read from the 3x3 window of a tile of
-    cells (``k4_tile``) that each block stages once in shared memory.
-    ``route`` sends K1's grids here under ``preshift_window``."""
+    CPU): the entry point of K1's library (``_library``) with K1's tile, so
+    K1's sums, bitwise; this wrapper counts its own launches.  ``route``
+    sends K1's grids here under ``preshift_window``."""
     if not pf["x"].is_cuda:
         return pair._pass_a_plain(pf, params, geom, cfg, noise)
     result = _two_body_launch(pass_a_2d_preshift, geom.ncells[:2], pf, params,
@@ -507,21 +522,43 @@ def walk_index(valid: torch.Tensor) -> tuple:
     return order[1:], lead
 
 
-# the last (valid, its _version, walk_index(valid)) of walk_index_of
-_walk_cache: list = [None, None, None]
+def tail_index(valid: torch.Tensor) -> tuple:
+    """K1's and K4's tails from the [cap, NC] validity: ``tails``, int32
+    [NC], one past each cell's last valid slot (0 for an empty cell), so a
+    cell's j walk stops there on any layout, compacted or not; and their
+    largest, the depth of every window (a host int: one readback)."""
+    cap = valid.shape[0]
+    slots = torch.arange(1, cap + 1, dtype=torch.int32, device=valid.device)
+    tails = (valid.bool() * slots[:, None]).amax(0).to(torch.int32)
+    return tails, int(tails.max()) if tails.numel() else 0
+
+
+# index function -> (valid, its _version, function(valid)), the last of each
+_index_cache: dict = {}
+
+
+def _kept_index(build, valid: torch.Tensor) -> tuple:
+    """``build(valid)``, kept while ``valid`` is the same tensor and
+    unchanged: a state's validity changes only at a rebin, which makes a
+    new tensor, so an index is built once a rebin, not once a call.  The
+    cache holds the tensor itself, so its identity cannot be taken by
+    another, and its ``_version``, which an in-place edit bumps."""
+    hit = _index_cache.get(build)
+    if hit is None or hit[0] is not valid or hit[1] != valid._version:
+        hit = _index_cache[build] = (valid, valid._version, build(valid))
+    return hit[2]
 
 
 def walk_index_of(valid: torch.Tensor) -> tuple:
-    """``walk_index(valid)``, kept while ``valid`` is the same tensor and
-    unchanged: a state's validity changes only at a rebin, which makes a
-    new tensor, so K2 and K3 build the index once a rebin, not once a call.
-    The cache holds the tensor itself, so its identity cannot be taken by
-    another, and its ``_version``, which an in-place edit bumps."""
-    cached, version, index = _walk_cache
-    if cached is not valid or version != valid._version:
-        index = walk_index(valid)
-        _walk_cache[:] = [valid, valid._version, index]
-    return index
+    """``walk_index(valid)``, built once a rebin (``_kept_index``): K2's
+    and K3's."""
+    return _kept_index(walk_index, valid)
+
+
+def tail_index_of(valid: torch.Tensor) -> tuple:
+    """``tail_index(valid)``, built once a rebin (``_kept_index``): K1's
+    and K4's, whose window depth is its one host readback a rebin."""
+    return _kept_index(tail_index, valid)
 
 
 def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:

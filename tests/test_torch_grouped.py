@@ -12,10 +12,11 @@ holds them there), so here:
 - the scene of both packages' ``Scene``, bitwise, and the routes;
 - 40 steps of the mechanics cavity at f64, the port's plain path against
   the JAX package's jnp path;
-- K4's window (a torch emulation of the cells each tile's block stages in
-  shared memory) against ``shift_cells``, bitwise, per offset, on walls, a
-  periodic x axis, periodic x and y, three-cell periodic axes and ragged
-  tiles; the tile ``pair_cuda.k4_tile`` picks fits a block;
+- K1's and K4's window (a torch emulation of the cells each tile's block
+  stages in shared memory, each to its tail) against ``shift_cells``,
+  bitwise, per offset, on walls, a periodic x axis, periodic x and y,
+  three-cell periodic axes, ragged tiles and cells with holes below their
+  tails; the tile ``pair_cuda.k4_tile`` picks fits a block;
 - what K1 and K4 serve (every configuration JAX's grouped kernel takes)
   and refuse (a periodic axis of two cells, a fifth species);
 - ``preshift_window`` changes no route but K1's, as in JAX.
@@ -163,12 +164,16 @@ GRIDS = {
 }
 
 
-def _k4_window(PF, geom, tile, origin):
-    """The window a block of K4 stages for the tile ``tile`` = (tx, ty) at
-    the cell ``origin``, [F, cap, tx + 2, ty + 2], by the kernel's rule
-    (``window_cell`` in csrc/pass_a_2d_preshift.cu): window index g = origin
-    - 1 + position holds grid cell g, or on a periodic axis n - 1 at g = -1
-    and 0 at g = n; zeros past a walled edge and past the grid's end."""
+def _k4_window(PF, tails, geom, tile, origin):
+    """The window a block of K1 and K4 stages for the tile ``tile`` = (tx,
+    ty) at the cell ``origin`` (``stage`` in csrc/window_2d.cuh), with the
+    tail of each window cell: window index g = origin - 1 + position holds
+    grid cell g, or on a periodic axis n - 1 at g = -1 and 0 at g = n; a
+    zero cell (tail 0) past a walled edge and past the grid's end.  The
+    window is BT slots deep, BT the largest of its tails, and a cell's slots
+    at or past its tail hold zeros here (the kernel leaves them unstaged:
+    no walk reads them).  Returns ([F, BT, tx + 2, ty + 2], [tx + 2, ty +
+    2])."""
     F, cap, NC = PF.shape
     nx, ny = geom.ncells[:2]
     wrap = wrap_axes(geom)
@@ -181,12 +186,14 @@ def _k4_window(PF, geom, tile, origin):
 
     gx = cells(origin[0], tile[0], nx, wrap[0])
     gy = cells(origin[1], tile[1], ny, wrap[1])
-    grid = PF.reshape(F, cap, nx, ny)
-    win = torch.zeros((F, cap, len(gx), len(gy)), dtype=PF.dtype)
-    inx, iny = (gx >= 0).nonzero().reshape(-1), (gy >= 0).nonzero().reshape(-1)
-    win[:, :, inx[:, None], iny[None, :]] = grid[:, :, gx[inx][:, None],
-                                                 gy[iny][None, :]]
-    return win
+    on = (gx[:, None] >= 0) & (gy[None, :] >= 0)
+    flat = torch.clamp(gx, min=0)[:, None] * ny + torch.clamp(gy, min=0)[None, :]
+    tail = torch.where(on, tails[flat], 0)
+    depth = int(tail.max())
+    slots = torch.arange(depth)[:, None, None]
+    win = torch.where(slots < tail, PF[:, :depth, flat.reshape(-1)].reshape(
+        F, depth, *flat.shape), torch.zeros((), dtype=PF.dtype))
+    return win, tail
 
 
 @pytest.mark.parametrize("grid, periodic, tile", [
@@ -195,15 +202,21 @@ def _k4_window(PF, geom, tile, origin):
     ("polarization nx=20", (True, True), (2, 4)),
     ("vortex N=9", (True, True), (4, 8))])
 def test_k4_window_matches_shift_cells(grid, periodic, tile):
-    """Every tile's window, read around each of the tile's cells inside the
-    grid at offset (ox, oy), holds the pack at the neighbour cell exactly
-    as the plain path's ``shift_cells`` gives it: bitwise, on walls (zero
-    rows past an edge), a periodic x axis, periodic x and y, three cells
-    per periodic axis under a tile wider than the grid, and ragged tiles
-    (the grids' cells are not multiples of the tile); the tile by default
-    is the one ``k4_tile`` picks for the full body's pack (the cavity's:
-    the tv body's 4 x 8)."""
+    """Every tile's window (``_k4_window``), read around each of the tile's
+    cells inside the grid at offset (ox, oy), holds the pack at the
+    neighbour cell exactly as the plain path's ``shift_cells`` gives it,
+    up to that cell's tail, and the neighbour holds no valid slot past its
+    tail: so a walk to the tail reads every valid j.  Bitwise, on walls
+    (zero cells past an edge), a periodic x axis, periodic x and y, three
+    cells per periodic axis under a tile wider than the grid, ragged tiles
+    (the grids' cells are not multiples of the tile) and cells with holes
+    below their tails (a seeded fifth of the valid slots emptied); the
+    tile by default is the one ``k4_tile`` picks for the full body's pack
+    (the cavity's: the tv body's 4 x 8)."""
     state, params, spec = GRIDS[grid]()
+    rng = np.random.default_rng(1)
+    drop = torch.as_tensor(rng.uniform(size=tuple(state.valid.shape)) < 0.2)
+    state = dataclasses.replace(state, valid=state.valid & ~drop)
     g, cfg = spec.geom, spec.pair
     nx, ny = g.ncells[:2]
     assert tuple(g.periodic[:2]) == periodic and min(nx, ny) >= 3
@@ -211,19 +224,25 @@ def test_k4_window_matches_shift_cells(grid, periodic, tile):
     rows = pair_cuda.MECH_PF_ROWS + (("AS", "S") if cfg.elastic_present
                                      else ("ASd",))
     PF = pair_cuda._pack(pf, rows, g.cap, g.ncells_total)
-    tile = tile or pair_cuda.k4_tile(PF.shape[0], g.cap, False)
+    tails, depth = pair_cuda.tail_index(state.valid)
+    assert not torch.equal(tails.long(), state.valid.sum(0))
+    tile = tile or pair_cuda.k4_tile(PF.shape[0], depth, False)
     assert nx % tile[0] or ny % tile[1]  # a ragged tile
     shifted = {(ox, oy): shift_cells(PF, (ox, oy, 0), g).reshape(
         PF.shape[:2] + (nx, ny)) for ox in (-1, 0, 1) for oy in (-1, 0, 1)}
     for cx0 in range(0, nx, tile[0]):
         for cy0 in range(0, ny, tile[1]):
-            win = _k4_window(PF, g, tile, (cx0, cy0))
+            win, tail = _k4_window(PF, tails, g, tile, (cx0, cy0))
+            assert win.shape[1] <= depth
             for cx in range(cx0, min(cx0 + tile[0], nx)):
                 for cy in range(cy0, min(cy0 + tile[1], ny)):
                     for (ox, oy), want in shifted.items():
-                        got = win[:, :, cx - cx0 + 1 + ox, cy - cy0 + 1 + oy]
-                        assert torch.equal(got, want[:, :, cx, cy]), (
+                        wx, wy = cx - cx0 + 1 + ox, cy - cy0 + 1 + oy
+                        t = int(tail[wx, wy])
+                        got = win[:, :t, wx, wy]
+                        assert torch.equal(got, want[:, :t, cx, cy]), (
                             cx, cy, ox, oy)
+                        assert not bool(want[0, t:, cx, cy].any())
 
 
 def test_k4_tile_fits_a_block():
@@ -231,7 +250,8 @@ def test_k4_tile_fits_a_block():
     their body's tile, and every pack a K4 instantiation reads (up to 46
     rows: the full body with AS, S, the filter row, four species and the
     thermal rows) at every cap of the grouped shape (<= 24) a tile whose
-    window fits a block: at most 128 cells and ``K4_SHARED`` bytes."""
+    window fits a block: at most 128 cells and ``K4_SHARED`` bytes (a
+    window is at most cap slots deep: the grid's largest tail)."""
     filt = ("rhoI",)
     assert pair_cuda.k4_tile(len(pair_cuda.PF_ROWS + filt), 14, True) == \
         pair_cuda.K4_TILE[True]

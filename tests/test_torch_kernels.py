@@ -1385,8 +1385,7 @@ def test_k1_branches_and_k4_match_on_card(cuda, filt, case):
     """K1 with each branch of the grouped kernel against the plain loop on
     the same CUDA tensors, each field within 5e-6 of its max (the full
     body's dS, ddx and Q included), and K4 on the same inputs bitwise K1:
-    the same template, offsets, j order and body, j read from the 9
-    pre-shifted copies."""
+    K4's entry point launches K1's kernel with K1's tile."""
     state, params, spec = _grouped_case(case, cuda)
     geom = spec.geom
     cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
@@ -1654,10 +1653,10 @@ def test_k4_matches_k1_bitwise_on_ragged_tiles_on_card(cuda, case, tile,
                                                        monkeypatch):
     """K4 with each tile as its first choice (every one but 1 x 1 ragged on
     every grid here: the cells are not multiples of the tile; a window past
-    the block's shared memory falls back to a smaller tile) bitwise K1 on
-    the same inputs, every accumulator, on walls, three-cell periodic axes
-    and the elastic, species and periodic polarization state."""
-    monkeypatch.setattr(pair_cuda, "K4_TILE", {True: tile, False: tile})
+    the block's shared memory falls back to a smaller tile) bitwise K1 with
+    its own tile on the same inputs, every accumulator, on walls,
+    three-cell periodic axes and the elastic, species and periodic
+    polarization state: the tile changes no term and no order."""
     state, params, spec = _k4_case(case, cuda)
     geom = spec.geom
     nx, ny = geom.ncells[:2]
@@ -1666,12 +1665,147 @@ def test_k4_matches_k1_bitwise_on_ragged_tiles_on_card(cuda, case, tile,
         cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
         pf = pair._per_particle(state, params, cfg)
         noise = pair.noise_inputs(state)
-        got = pair_cuda.pass_a_2d_preshift(pf, params, geom, cfg, noise)
         want = pair_cuda.pass_a_2d(pf, params, geom, cfg, noise)
+        with monkeypatch.context() as m:
+            m.setattr(pair_cuda, "K4_TILE", {True: tile, False: tile})
+            got = pair_cuda.pass_a_2d_preshift(pf, params, geom, cfg, noise)
         torch.cuda.synchronize()
         for name in pair.PASS_A_ACCS:
             assert torch.equal(got[name], want[name]), (name, filt)
         assert float(want["f"].abs().max()) > 0
+
+
+def _with_holes(state, seed=1):
+    """``state`` with a seeded fifth of its valid slots emptied (the slot
+    left as it was, its valid flag off), so cells hold invalid slots below
+    their last valid one."""
+    rng = np.random.default_rng(seed)
+    drop = torch.as_tensor(rng.uniform(size=tuple(state.valid.shape)) < 0.2,
+                           device=state.valid.device)
+    return dataclasses.replace(state, valid=state.valid & ~drop)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flagship", "mechanics", "polarization"])
+def test_k1_walks_to_the_tail_on_a_grid_with_holes_on_card(cuda, case):
+    """K1 on a grid whose cells hold invalid slots below their tails
+    (``_with_holes``) within 5e-6 of the plain loop's max, field by field,
+    and K4 on the same inputs bitwise K1."""
+    state, params, spec = _grouped_case(case, cuda)
+    state = _with_holes(state)
+    tails, depth = pair_cuda.tail_index(state.valid)
+    assert not torch.equal(tails.long(), state.valid.sum(0))
+    for filt in (False, True):
+        cfg = dataclasses.replace(spec.pair, density_filter_accs=filt)
+        pf = pair._per_particle(state, params, cfg)
+        noise = pair.noise_inputs(state)
+        ref = pair._pass_a_plain(pf, params, spec.geom, cfg, noise)
+        got = pair_cuda.pass_a_2d(pf, params, spec.geom, cfg, noise)
+        pre = pair_cuda.pass_a_2d_preshift(pf, params, spec.geom, cfg, noise)
+        torch.cuda.synchronize()
+        names = K2_FIELDS + (("Q",) if params.n_sdpd else ())
+        for name in (n for n in names if filt or not n.startswith("rhoAux")):
+            scale = max(float(ref[name].abs().max()), 1e-30)
+            err = float((got[name] - ref[name]).abs().max())
+            assert err <= 5e-6 * scale, (name, err / scale)
+        for name in pair.PASS_A_ACCS:
+            assert torch.equal(pre[name], got[name]), name
+
+
+@pytest.mark.gpu
+def test_k1_window_just_under_48_kb_launches_on_card(cuda, monkeypatch):
+    """K1 and K4 whose window's dynamic shared memory lies between the
+    kernel's default (48 KB less its static shared memory) and 48 KB, where
+    a launch fails unless the kernel is allowed more first: the flagship
+    N=30 state cut to 8 slots deep (every slot from 8 emptied), its 19 rows
+    in a 6 x 8 tile's 80-cell window, 48,640 bytes.  K1 within 5e-6 of the
+    plain loop's max, K4 bitwise K1."""
+    state, params, spec = _grouped_case("flagship", cuda)
+    slot = torch.arange(state.valid.shape[0], device=cuda)[:, None]
+    state = dataclasses.replace(state, valid=state.valid & (slot < 8))
+    assert pair_cuda.tail_index(state.valid)[1] == 8
+    monkeypatch.setattr(pair_cuda, "K4_TILE", {True: (6, 8), False: (6, 8)})
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
+    pf = pair._per_particle(state, params, cfg)
+    cap, NC = state.valid.shape
+    rows = pair_cuda._pack(pf, pair_cuda.PF_ROWS, cap, NC).shape[0]
+    assert 48 * 1024 - 1024 < 4 * rows * 8 * (6 + 2) * (8 + 2) <= 48 * 1024
+    ref = pair._pass_a_plain(pf, params, spec.geom, cfg)
+    got = pair_cuda.pass_a_2d(pf, params, spec.geom, cfg)
+    pre = pair_cuda.pass_a_2d_preshift(pf, params, spec.geom, cfg)
+    torch.cuda.synchronize()
+    for name in (n for n in K1_FIELDS if not n.startswith("rhoAux")):
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+    for name in pair.PASS_A_ACCS:
+        assert torch.equal(pre[name], got[name]), name
+
+
+@pytest.mark.gpu
+def test_k1_window_at_the_shared_memory_ceiling_launches_on_card(
+        cuda, monkeypatch):
+    """K1 and K4 whose window's dynamic shared memory lies within 80 bytes
+    of ``K4_SHARED``, the 227 KB a block may hold less the kernel's static
+    shared memory: the fsi state's 40 rows (the full body with the filter
+    row) cut to 23 slots deep (every slot from 23 emptied) in a 7 x 5
+    tile's 63-cell window, 231,840 bytes.  With the static bytes the block
+    holds at most the H100's 232,448, so the launch takes the tile; K1
+    within 5e-6 of the plain loop's max, K4 bitwise K1."""
+    state, params, spec = _grouped_case("fsi", cuda)
+    slot = torch.arange(state.valid.shape[0], device=cuda)[:, None]
+    state = dataclasses.replace(state, valid=state.valid & (slot < 23))
+    assert pair_cuda.tail_index(state.valid)[1] == 23
+    monkeypatch.setattr(pair_cuda, "K4_TILE", {True: (7, 5), False: (7, 5)})
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=True)
+    pf = pair._per_particle(state, params, cfg)
+    noise = pair.noise_inputs(state)
+    cap, NC = state.valid.shape
+    rows = pair_cuda._pack(pf, pair_cuda.MECH_PF_ROWS + ("AS", "S", "rhoI"),
+                           cap, NC).shape[0]
+    assert rows == 40
+    window = 4 * rows * 23 * (7 + 2) * (5 + 2)
+    assert pair_cuda.K4_SHARED - 80 <= window <= pair_cuda.K4_SHARED
+    assert pair_cuda.k4_tile(rows, 23, False) == (7, 5)
+    ref = pair._pass_a_plain(pf, params, spec.geom, cfg, noise)
+    got = pair_cuda.pass_a_2d(pf, params, spec.geom, cfg, noise)
+    pre = pair_cuda.pass_a_2d_preshift(pf, params, spec.geom, cfg, noise)
+    torch.cuda.synchronize()
+    for name in K2_FIELDS:
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        err = float((got[name] - ref[name]).abs().max())
+        assert err <= 5e-6 * scale, (name, err / scale)
+    for name in pair.PASS_A_ACCS:
+        assert torch.equal(pre[name], got[name]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lists", ["shared", "global"])
+@pytest.mark.parametrize("case", ["vortex cap 86", "fsi3d cap 119"])
+def test_k7_lists_in_shared_and_global_memory_on_card(cuda, case, lists,
+                                                      monkeypatch):
+    """K7 with its slot lists in shared memory and, past a lowered
+    ``K7_LIST_BYTES``, in the global scratch (the grids' cell counts are no
+    multiple of the 16 target cells a block: the last block is cut short at
+    the grid's end), after a seeded drift of up to 0.9 cells: the kernel ==
+    the plain walk == the sort rebin, every leaf bitwise, one launch."""
+    from sph_bvf_tpu_torch.models import taylor_green3d
+
+    if case.startswith("vortex"):
+        state, params, spec, _ = taylor_green3d.build(12, device=cuda)
+    else:
+        state, params, spec, _ = fsi.build_spanwise(12, device=cuda)
+    geom = spec.geom
+    assert geom.ncells_total % rebin_cuda.K7_CELLS
+    monkeypatch.setattr(rebin_cuda, "K7_LIST_BYTES", 4 * geom.cap
+                        * rebin_cuda.K7_CELLS - (lists == "global"))
+    assert rebin_cuda.k7_list(geom.cap) == (lists == "shared")
+    rng = np.random.default_rng(5)
+    d = rng.uniform(-0.9, 0.9, tuple(state.x.shape)) * np.asarray(
+        geom.cell_size)[:, None, None]
+    state = dataclasses.replace(state, x=state.x + torch.as_tensor(
+        d, dtype=state.x.dtype, device=cuda) * state.valid)
+    _move_parity_on_card(rebin_cuda.rebin_move_3d, state, geom)
 
 
 @pytest.mark.gpu

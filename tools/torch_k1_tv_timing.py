@@ -50,10 +50,11 @@ def main() -> int:
         for _ in range(20):
             pair_cuda.pass_a_2d(*args)
         torch.cuda.synchronize()
-    # K1's kernel: pa2d::*<Neighbour> (K4's are preshift_*_kernel)
+    # K1's kernel: pa2d::*<Neighbour> in trees that read j from the pack,
+    # pa2d::window_* in those that stage a window
     hits = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and "Neighbour" in e.key]
+            and ("Neighbour" in e.key or "pa2d::window_" in e.key)]
     device_ms = (sum(e.self_device_time_total for e in hits)
                  / sum(e.count for e in hits) / 1e3)
     print(label, "K1 tv N=1000 step 100: as called ms",

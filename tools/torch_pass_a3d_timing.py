@@ -41,10 +41,10 @@ of five rebin periods; the K1/K4 states once through each kernel).
 and the blob), which route to the transport-velocity body: that body as
 routed beside the full body (``pair_cuda._mech_launch``), in turns, with
 each one's largest field error against the plain loop.  ``tiles`` times
-K4 on the flagship and mechanics states with each tile of ``TILES`` as its
-first choice (``pair_cuda.K4_TILE``).  Two checkouts timed in turns on one
-card (parent / change / change / parent), the other tree unpacked under
-build/parent:
+K1 on the flagship and mechanics states with each tile of ``TILES`` as its
+first choice (``pair_cuda.K4_TILE``, K1's and K4's).  Two checkouts timed
+in turns on one card (parent / change / change / parent), the other tree
+unpacked under build/parent:
 
     python3 tools/torch_pass_a3d_timing.py save build/passa
     (cd build/parent && python3 ../../tools/torch_pass_a3d_timing.py time ../passa parent)
@@ -76,12 +76,15 @@ from sph_bvf_tpu_torch.ops import pair, pair_cuda  # noqa: E402
 CALLS, PROFILED = 20, 10
 K1, K4, K2, K3 = ("pass_a_2d", "pass_a_2d_preshift", "pass_a_2d_rowloop",
                   "pass_a_3d")
-# what each kernel's device-side names hold (K4's: "Preshift" in trees that
-# staged 9 copies, "preshift_" since it stages a window in shared memory)
-DEVICE_NAMES = {K1: ("Neighbour",), K4: ("Preshift", "preshift_"),
+# what each kernel's device-side names hold (K1's: "Neighbour" in trees that
+# read j from the pack, "pa2d::window_" since it stages a window, which K4
+# launches too; K4's: "Preshift" in trees that staged 9 copies, "preshift_"
+# in those that staged every slot of a window)
+DEVICE_NAMES = {K1: ("Neighbour", "pa2d::window_"),
+                K4: ("Preshift", "preshift_", "pa2d::window_"),
                 K2: ("pass_a_2d_rowloop",), K3: ("pass_a_3d",)}
-# K4's tiles for ``tiles``: (cells along x, along y)
-TILES = ((4, 8), (8, 4), (4, 4), (8, 8), (2, 16), (2, 8))
+# K1's tiles for ``tiles``: (cells along x, along y)
+TILES = ((4, 8), (8, 4), (4, 4), (8, 8), (2, 16), (2, 8), (4, 16))
 GROUPED_N, GROUPED_DT = 1000, 5e-3 / 1000  # chip_smoke.py's grouped paths
 
 
@@ -323,21 +326,28 @@ def bodies(root: str):
                   f"against the plain loop {err:.3g}", flush=True)
 
 
-def tiles(root: str):
+def _grouped_states(root: str):
+    """(name, state, params, geometry, cfg with the filter off, tv) of the
+    flagship and the mechanics cavity."""
     for name in ("2D flagship N=1000 step 1000", "2D mechanics N=1000 step 1000"):
         state, params, spec = _loaded(root, name, _cases()[name][0])
         cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
+        yield name, state, params, spec.geom, cfg, pair_cuda.tv_body(spec.geom, cfg)
+        del state
+
+
+def tiles(root: str):
+    for name, state, params, geom, cfg, tv in _grouped_states(root):
         pf = pair._per_particle(state, params, cfg)
-        tv = pair_cuda.tv_body(spec.geom, cfg)
 
         def call():
-            return pair_cuda.pass_a_2d_preshift(pf, params, spec.geom, cfg)
+            return pair_cuda.pass_a_2d(pf, params, geom, cfg)
 
         for tile in TILES:
             pair_cuda.K4_TILE[tv] = tile
             print(f"tiles | {name} | body {'tv' if tv else 'full'} | tile "
                   f"{tile} | as called ms {_ms(call, CALLS)!r} | device ms "
-                  f"{_device_ms(call, PROFILED, DEVICE_NAMES[K4])!r} | sha256 "
+                  f"{_device_ms(call, PROFILED, DEVICE_NAMES[K1])!r} | sha256 "
                   f"{_digest(call())}", flush=True)
 
 
