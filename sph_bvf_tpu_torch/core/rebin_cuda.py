@@ -1,13 +1,15 @@
-"""The locality rebin moves and their wrappers: K5
-(``csrc/rebin_move_2d.cu``), K6 (``csrc/rebin_move_2d_gated.cu``) and K7
-(``csrc/rebin_move_3d.cu``).
+"""The locality rebin moves and their wrappers: K5 and K6
+(``csrc/rebin_move_2d.cu``, one kernel) and K7 (``csrc/rebin_move_3d.cu``).
 
 Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the 2D static branch
 (cap <= 16), K6 for the 2D gated branch (16 < cap <= 64), K7 for the 3D
 tiled kernel (any cap); each with walls or periodic axes (of at least 3
 cells; x, y and, in 3D, z alike) and with uniform or non-uniform x columns
 (``Geometry.x_edges``, the load-balance lever).  The three share their
-binning and wrap (``csrc/rebin_move.cuh``).  Between rebins a particle
+binning, wrap and walk (``csrc/rebin_move.cuh``: a warp per target cell
+ranks its matches, a block of target cells copies from their slot lists in
+shared memory); K5 and K6 launch it on a plane, from one library, each
+counting its own launches (``_library``).  Between rebins a particle
 moves at most one cell (the drift contract ``core/state.rebin`` checks), so
 the particles that belong in cell c are the matching candidates among the
 slots of its 3^dim stencil cells.  Walking them slot-major, then by the
@@ -35,8 +37,8 @@ from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
                                          wrap_axes, wrap_bits, wrap_x, wrap_y)
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
-MAX_CAP = 16  # kMaxCap in csrc/rebin_move_2d.cu (K5)
-GATED_MAX_CAP = 64  # kMaxCap in csrc/rebin_move_2d_gated.cu (K6)
+MAX_CAP = 16  # K5's, the JAX package's static branch's
+GATED_MAX_CAP = 64  # K6's: kMaxCap in csrc/rebin_move_2d.cu
 # K7's target cells per block (kCells in csrc/rebin_move_3d.cu: 16 was the
 # fastest of 8, 16 and 32 over the main paths' launches on the H100,
 # PERF.md), and the most bytes of shared memory their slot lists, i32 [cap,
@@ -68,12 +70,32 @@ def k7_attributes(shared: bool) -> tuple:
     return regs.value, local.value
 
 
+MOVE_2D_ATTRIBUTES = ("registers", "local_bytes", "cells", "rows")
+
+
+def move_2d_attributes(lib=None) -> dict:
+    """The 2D move's kernel (K5's and K6's; of ``lib`` if given, else of the
+    package's build), from ``cudaFuncGetAttributes`` and its build:
+    registers per thread, local-memory bytes per thread (its spills and
+    stack), target cells a block and the rows a thread of its copy loads
+    before it stores them."""
+    lib = lib or _build.load("rebin_move_2d")
+    fn = lib.rebin_move_2d_attributes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * len(MOVE_2D_ATTRIBUTES)
+    out = [ctypes.c_int(0) for _ in MOVE_2D_ATTRIBUTES]
+    _build.check(lib, fn(*(ctypes.byref(v) for v in out)),
+                 "rebin_move_2d_attributes")
+    return dict(zip(MOVE_2D_ATTRIBUTES, (v.value for v in out)))
+
+
 def move_unsupported(geom: Geometry, kernel) -> list:
     """What keeps the move wrapper ``kernel`` from serving this grid.
 
     K7 takes a 3D grid of any cap (its slot lists live in shared memory,
     or past ``K7_LIST_BYTES`` in a scratch in global memory); K5 a 2D grid
-    of cap <= 16; K6 a 2D grid of 16 < cap <= 64.
+    of cap <= 16; K6 a 2D grid of 16 < cap <= 64 (one kernel, whose slot
+    lists live in shared memory).
     Each takes walls or periodic axes (x, y and, in 3D, z alike), and
     uniform or non-uniform x columns (``x_edges``) alike.  A periodic axis
     needs at least 3 cells (with 2, the same source cell would sit in a
@@ -275,14 +297,22 @@ def _x_span(geom: Geometry) -> float:
 
 
 def _wrap_2d(geom: Geometry) -> tuple:
-    """The periodic arguments of K5 and K6: wrapx, wrapy and the x span."""
+    """The periodic arguments of the 2D move: wrapx, wrapy and the x span."""
     return ((ctypes.c_int, int(wrap_x(geom))), (ctypes.c_int, int(wrap_y(geom))),
             (ctypes.c_float, _x_span(geom)))
 
 
+def _library(wrapper) -> str:
+    """The library (``csrc/<name>.cu``) and C entry point ``wrapper``
+    launches: its own name, but K5's for K6."""
+    return ("rebin_move_2d" if wrapper is rebin_move_2d_gated
+            else wrapper.__name__)
+
+
 def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
             xr: int, naxes: int, extra=(), lists: bool = None):
-    """Launch ``wrapper``'s kernel (``csrc/<its name>.cu``) on the packs.
+    """Launch ``wrapper``'s kernel (``csrc/<name>.cu``, ``_library``) on the
+    packs and count the launch on ``wrapper``.
 
     Every move kernel's C entry point takes the four packs, their row
     counts and cap, the cell counts of the first ``naxes`` axes, the x row,
@@ -299,7 +329,7 @@ def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
             PI.shape[1:], dtype=torch.int32, device=PI.device))
         tail = (None if scratch is None else scratch.data_ptr(),)
     xb, inv_q, n_fine = _column_bounds(geom, PF.device)
-    name = wrapper.__name__
+    name = _library(wrapper)
     lib = _build.load(name)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
@@ -332,8 +362,9 @@ rebin_move_2d.launches = 0  # K5 launches in this process
 
 def rebin_move_2d_gated(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
                         xr: int):
-    """K6 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
-    walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
+    """K6 on packed matrices: the CUDA kernel on a CUDA tensor (K5's, from
+    K5's library: ``_library``; this wrapper counts its own launches), the
+    plain walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
     if not PF.is_cuda:
         return rebin_move_plain(PF, PI, geom, xr)
     return _launch(rebin_move_2d_gated, PF, PI, geom, xr, 2, _wrap_2d(geom))

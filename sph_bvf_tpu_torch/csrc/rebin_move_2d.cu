@@ -1,52 +1,49 @@
-// K5 — 2D locality rebin move, one thread per target cell.
+// K5 and K6 — 2D locality rebin move (K5: cap <= 16, K6: 16 < cap <= 64;
+// walls or periodic axes, uniform or non-uniform x columns), K7's walk on a
+// plane: a warp per target cell ranking its matches, a block per run of
+// target cells copying.
 //
-// Replaces sph_bvf_tpu/core/rebin_pallas.py `_move_call`, static branch (the
-// cap <= 16 TPU kernel of the flagship's rebin).  Between rebins a particle
-// moves at most one cell (the drift contract that rebin's drift check
-// enforces), so the particles that belong in cell c are the matching
-// candidates among the slots of its 3x3 stencil cells.  The thread walks
-// them slot-major (s_old = 0..cap-1), then by ascending flat offset — the
-// order of the sort rebin's stable (cell, old flat slot) key, so the slot
-// assignment is bit-identical to sph_bvf_tpu_torch/core/state.py `rebin`
-// with use_kernel=False — recomputes each candidate's cell from its f32
-// position exactly as `cell_index_of` does (round-to-nearest subtract and
-// multiply, never fused, with the same f32 lo and 1/cell_size), and keeps
-// the first cap matches.  A match of rank >= cap, or a particle that moved
-// beyond one ring, is dropped; the caller counts the loss as overflow.  The
-// plain PyTorch version is sph_bvf_tpu_torch/core/rebin_cuda.py
+// Replaces sph_bvf_tpu/core/rebin_pallas.py `_move_call`: its static branch
+// (rebin_pallas.py:370-376, the cap <= 16 TPU kernel of the flagship's
+// rebin; K5) and its gated branch (:346-369, the cap > 16 kernel with 8-row
+// slot tiles and window-occupancy trip counts; K6), each with the `edges`
+// variant (:176-199, 328-333) and on periodic grids (:90-92: the wrapped
+// halo on x, the ghost columns on y, :239-253, 305-321).  Between rebins a
+// particle moves at most one cell (the drift contract that rebin's drift
+// check enforces), so the particles that belong in cell c are the matching
+// candidates among the slots of its 3x3 stencil cells.  A warp walks them
+// slot-major, then by ascending source flat index after the periodic wraps
+// — the order of the sort rebin's stable (cell, old flat slot) key, so the
+// slot assignment is bit-identical to sph_bvf_tpu_torch/core/state.py
+// `rebin` with use_kernel=False — recomputes each candidate's cell from its
+// f32 position exactly as `cell_index_of` does (csrc/rebin_move.cuh: the
+// binning, the floored modulo on a periodic axis, the x columns with x
+// wrapped by the edges' span xspan on a periodic x), and keeps the first
+// cap matches.  A match of rank >= cap, or a particle that moved beyond one
+// ring, is dropped; the caller counts the loss as overflow.  The plain
+// PyTorch version is sph_bvf_tpu_torch/core/rebin_cuda.py
 // `rebin_move_plain`.
 //
-// What bounds it on an H100: HBM traffic — each packed row is read about
-// once (the 3x3 windows of neighbouring threads overlap in L1/L2) and
-// written once, 43 rows x cap x NC x 4 bytes each way on the flagship; the
-// walk itself reads only the valid and two position rows.  Design: phase 1
-// walks the candidates and records the source slot of each output slot in a
-// cap-long list; phase 2 copies row by row, output slot by output slot, so
-// neighbouring threads write neighbouring addresses.
-//
-// Non-uniform x columns (Geometry.x_edges, load balancing; replaces the same
-// TPU kernel's `edges` variant, rebin_pallas.py:176-199, 328-333): each
-// candidate's fine bin against its target column's bounds (`in_column`,
-// rebin_move.cuh).
-//
-// Periodic axes (replaces the same TPU kernel on a grid with a periodic
-// axis, rebin_pallas.py:90-92: its wrapped halo on x, assemble_padded, and
-// its ghost columns on y with the target binned by the floored modulo,
-// :305-321): two runtime bits, wrapx and wrapy, select the periodic
-// instantiation, which follows K6 (rebin_move_2d_gated.cu) and bins through
-// the same rebin_move.cuh.  A source cell wraps by index, and the 9 source
-// cells are sorted by flat index after the wrap, so the walk keeps the
-// sort rebin's order; a candidate's bin on a periodic axis is the floored
-// modulo of its f32 bin, and with x_edges x wraps by the edges' span xspan,
-// not by hi - lo.  Every wrapping axis has at least 3 cells (the wrapper
-// refuses 2), so no source cell sits in a window twice.  The TPU kernel may order
-// a cell's slots differently on a periodic grid (rebin_pallas.py:28-31);
-// this one keeps the sort's order.  The wall instantiation (kPeriodic
-// false) is the walk it always was.
+// What bounds it on an H100: the bytes of the packs (about 40 f32 and 6 i32
+// rows of cap * NC slots, every output slot written once and every valid
+// one read once: 0.45 GB at the 1M-particle flagship cavity).  One thread
+// per target cell, as this move was first ported, is bound by latency
+// instead: each candidate's loads walked serially, (ff + fi) x cap serial
+// copies per cell, its slot list in local memory, and on the small grids
+// users run (4,800 cells at the cavity N=200, 1,000 at the FSI beam nx=60)
+// too few threads for 132 SMs.  Design: K7's (csrc/rebin_move.cuh
+// `rank_matches` and `move_cells`) with PLANE set — the window is the 9
+// cells of the plane, ranked by lanes 0-8, and the candidates bin on x and y
+// only — a block of kCells consecutive target cells holding their slot
+// lists in shared memory (cap <= 64: 8 KB at most), the walk stopping after
+// the first slot row in which no source cell holds a valid slot (every
+// rebin compacts each cell's valid slots to 0..occ-1, so that row ends
+// every source cell), and each thread of the copy loading kRows rows of its
+// source slot before it stores them (kRows loads in flight a thread).
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
-// x at f32 rows xr, xr+1; outputs of the same shapes.  Flat cell
-// c = cx * ny + cy; the grid has one cell along z.
+// x at f32 rows xr, xr+1 (and z at xr+2, unread); outputs of the same
+// shapes.  Flat cell c = cx * ny + cy; the grid has one cell along z.
 
 #include <cuda_runtime.h>
 
@@ -54,98 +51,26 @@
 
 namespace {
 
-using rebin::bin;
-using rebin::in_column;
-using rebin::wrap_cell;
+using rebin::Walk;
 
-constexpr int kMaxCap = 16;
-constexpr int kThreads = 128;
+constexpr int kMaxCap = 64;
+constexpr int kWarps = 8, kThreads = 32 * kWarps;
+// target cells a block, rows a thread of the copy loads before it stores
+// them (csrc/rebin_move.cuh `move_cells`) and blocks an SM holds at once
+// (at 6, 40 registers a thread; at 8, 32, the walk spills): the fastest of
+// tools/torch_move_timing.py --cells over the 2D main paths on the H100
+// (PERF.md)
+constexpr int kCells = 32, kRows = 8, kBlocks = 6;
 
-template <bool kPeriodic>
-__global__ void __launch_bounds__(kThreads) rebin_move_2d_kernel(
+__global__ void __launch_bounds__(kThreads, kBlocks) rebin_move_2d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
-    float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, int cap,
-    int nx, int ny, int xr, float lo0, float lo1, float inv0, float inv1,
-    int wrapx, int wrapy, float xspan, const int* __restrict__ xb, float inv_q,
-    int n_fine) {
-  const int nc = nx * ny;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nc) return;
-  const long long m = (long long)cap * nc;
-  const int cx = c / ny, cy = c - cx * ny;
-  const int xb0 = xb ? __ldg(xb + cx) : 0, xb1 = xb ? __ldg(xb + cx + 1) : 0;
-  const float* px = pf + (long long)xr * m;
-  const float* py = px + m;
-
-  long long src[kMaxCap];
-  int n = 0;
-  if (!kPeriodic) {
-    for (int s = 0; s < cap; ++s) {
-      for (int ox = -1; ox <= 1; ++ox) {
-        const int cxs = cx + ox;
-        if (cxs < 0 || cxs >= nx) continue;
-        for (int oy = -1; oy <= 1; ++oy) {
-          const int cys = cy + oy;
-          if (cys < 0 || cys >= ny) continue;
-          const long long k = (long long)s * nc + cxs * ny + cys;
-          if (__ldg(pi + k) == 0) continue;  // row 0: valid
-          const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, false) : 0;
-          if (by != cy || !in_column(__ldg(px + k), cx, nx, lo0, inv0, false,
-                                     0.f, xb, xb0, xb1, inv_q, n_fine))
-            continue;
-          if (n < cap) src[n] = k;
-          ++n;
-        }
-      }
-    }
-  } else {
-    // the window's source cells, in ascending flat index after both wraps
-    int cell[9];
-    int ns = 0;
-    for (int ox = -1; ox <= 1; ++ox) {
-      int cxs = cx + ox;
-      if (wrapx) {
-        cxs = wrap_cell(cxs, nx);
-      } else if (cxs < 0 || cxs >= nx) {
-        continue;
-      }
-      for (int oy = -1; oy <= 1; ++oy) {
-        int cys = cy + oy;
-        if (wrapy) {
-          cys = wrap_cell(cys, ny);
-        } else if (cys < 0 || cys >= ny) {
-          continue;
-        }
-        const int v = cxs * ny + cys;
-        int q = ns++;
-        for (; q > 0 && cell[q - 1] > v; --q) cell[q] = cell[q - 1];
-        cell[q] = v;
-      }
-    }
-    for (int s = 0; s < cap; ++s) {
-      for (int q = 0; q < ns; ++q) {
-        const long long k = (long long)s * nc + cell[q];
-        if (__ldg(pi + k) == 0) continue;  // row 0: valid
-        const int by = ny > 1 ? bin(__ldg(py + k), lo1, inv1, ny, wrapy) : 0;
-        if (by != cy || !in_column(__ldg(px + k), cx, nx, lo0, inv0, wrapx,
-                                   xspan, xb, xb0, xb1, inv_q, n_fine))
-          continue;
-        if (n < cap) src[n] = k;
-        ++n;
-      }
-    }
-  }
-  const int kept = n < cap ? n : cap;
-  for (int r = 0; r < ff; ++r) {
-    const float* in = pf + (long long)r * m;
-    float* o = outf + (long long)r * m + c;
-    for (int s = 0; s < cap; ++s) o[(long long)s * nc] = s < kept ? __ldg(in + src[s]) : 0.f;
-  }
-  for (int r = 0; r < fi; ++r) {
-    const int* in = pi + (long long)r * m;
-    int* o = outi + (long long)r * m + c;
-    for (int s = 0; s < cap; ++s) o[(long long)s * nc] = s < kept ? __ldg(in + src[s]) : 0;
-  }
+    float* __restrict__ outf, int* __restrict__ outi, int ff, int fi,
+    Walk W, int xr) {
+  extern __shared__ int list_s[];
+  __shared__ int srcs[kWarps][32];
+  __shared__ int kept[kCells];
+  rebin::move_cells<true, true, kCells, kWarps, kRows>(
+      pf, pi, outf, outi, ff, fi, W, xr, nullptr, list_s, srcs, kept);
 }
 
 }  // namespace
@@ -161,18 +86,31 @@ extern "C" int rebin_move_2d(const float* pf, const int* pi, float* outf,
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
   if ((wrapx && nx < 3) || (wrapy && ny < 3)) return (int)cudaErrorInvalidValue;
   const int nc = nx * ny;
-  if (nc == 0) return 0;
-  const unsigned blocks = (unsigned)((nc + kThreads - 1) / kThreads);
-  if (wrapx || wrapy) {
-    rebin_move_2d_kernel<true><<<blocks, kThreads, 0, stream>>>(
-        pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1,
-        wrapx, wrapy, xspan, xb, inv_q, n_fine);
-  } else {
-    rebin_move_2d_kernel<false><<<blocks, kThreads, 0, stream>>>(
-        pf, pi, outf, outi, ff, fi, cap, nx, ny, xr, lo0, lo1, inv0, inv1,
-        0, 0, 0.f, xb, inv_q, n_fine);
-  }
+  if (nc == 0 || cap == 0) return 0;
+  const Walk W{pi, nullptr, nullptr, nullptr, cap, nx, ny, 1, nc,
+               (wrapx ? 1 : 0) | (wrapy ? 2 : 0), lo0, lo1, 0.f, inv0, inv1,
+               0.f, xspan, xb, inv_q, n_fine};
+  const unsigned blocks = (unsigned)((nc + kCells - 1) / kCells);
+  // the slot lists, i32 [cap, kCells]: 8 KB at most, within the default
+  rebin_move_2d_kernel<<<blocks, kThreads, sizeof(int) * cap * kCells,
+                         stream>>>(pf, pi, outf, outi, ff, fi, W, xr);
   return (int)cudaGetLastError();
+}
+
+// registers per thread and local-memory (spill) bytes per thread of the
+// kernel, its target cells a block and the rows a thread of its copy loads
+// before it stores them
+extern "C" int rebin_move_2d_attributes(int* regs, int* local_bytes,
+                                        int* cells, int* rows) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, rebin_move_2d_kernel);
+  if (err == cudaSuccess) {
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
+    *cells = kCells;
+    *rows = kRows;
+  }
+  return (int)err;
 }
 
 extern "C" const char* sph_cuda_error_string(int code) {

@@ -27,7 +27,8 @@
 // One thread per target cell would be bound by latency and occupancy
 // instead (7 warps an SM at the vortex N=100, 25 blocks for 132 SMs at the
 // 3D FSI beam nx=60, each candidate's loads walked serially, (ff + fi) x
-// cap serial copies per cell).  Design:
+// cap serial copies per cell).  Design (csrc/rebin_move.cuh `rank_matches`
+// and `move_cells`, which K5 and K6 run on a plane, rebin_move_2d.cu):
 // - phase 1, a warp per target cell: lanes 0-26 take one source cell each
 //   and sort the window by rank (each lane counts the smaller flat
 //   indices); the warp then walks the candidates in the sort's order,
@@ -46,14 +47,16 @@
 //   scratch in global memory (entry (s, c) at s * NC + c);
 // - phase 2, the block copies: a thread takes (output slot, cell), the cell
 //   minor, so that neighbouring threads write neighbouring addresses of
-//   every row of [F, cap, NC]; a slot past its cell's match count is
-//   written as zeros without reading anything.
+//   every row of [F, cap, NC], one row after another (K5's and K6's
+//   batches of rows in flight slowed these 3D moves by up to 6%, PERF.md);
+//   a slot past its cell's match count is written as zeros without
+//   reading anything.
 
 // Non-uniform x columns (Geometry.x_edges, load balancing; replaces the TPU
 // kernel's `edges` variant, rebin_pallas.py:487-492, 595-600, 641, whose
 // per-plane column bounds are scalars): a candidate lies in plane cx when its
 // fine bin lies in the plane's bounds [xb[cx], xb[cx+1]) (`in_column`,
-// rebin_move.cuh, K5's and K6's test).  On a periodic grid x wraps by the
+// rebin_move.cuh).  On a periodic grid x wraps by the
 // edges' own span xspan before the fine bin, as `cell_index_of` does (the
 // TPU kernel skips x's uniform bin under `edges`, :582, and tests the fine
 // bin against the plane's bounds, :595-600); y and z bin as without edges.
@@ -61,7 +64,7 @@
 //
 // Periodic axes (replaces the TPU kernel's periodic binning,
 // rebin_pallas.py:573-600, and its wrapped halo planes and ghost columns): a
-// runtime bit per axis (`wrap`), as K6's wrapx / wrapy.  A source cell
+// runtime bit per axis (`wrap`), as on a plane.  A source cell
 // wraps by index, a candidate's bin on that axis is the floored modulo of
 // its f32 bin (the position is already wrapped into the box by `wrap_pbc`),
 // and the 27 source cells are ranked by flat index after the wrap, so the
@@ -74,129 +77,21 @@
 // x at f32 rows xr, xr+1, xr+2; outputs of the same shapes.  Flat cell
 // c = (cx * ny + cy) * nz + cz.
 
-#include <climits>
-
 #include <cuda_runtime.h>
 
 #include "rebin_move.cuh"
 
 namespace {
 
-using rebin::bin;
-using rebin::in_column;
-using rebin::wrap_cell;
+using rebin::Walk;
 
 constexpr int kWarps = 8, kThreads = 32 * kWarps;
 // target cells a block (core/rebin_cuda.py K7_CELLS)
 constexpr int kCells = 16;
-constexpr unsigned kFull = 0xffffffffu;
 
-// What phase 1 of one target cell reads: the packs' valid row and x rows,
-// the grid, the binning constants (csrc/rebin_move.cuh) and the x columns.
-struct Walk {
-  const int* pi;
-  const float *px, *py, *pz;
-  int cap, nx, ny, nz, nc, wrap;
-  float lo0, lo1, lo2, inv0, inv1, inv2, xspan;
-  const int* xb;
-  float inv_q;
-  int n_fine;
-};
-
-// Phase 1 of target cell c, by the 32 lanes of a warp together: the source
-// slot of output slot r goes to lst[r * stride] for r < cap; returns the
-// count of matches (overflow included).  srcs: this warp's 32 ints of
-// shared memory.
-__device__ __forceinline__ int rank_matches(const Walk& W, int c, int* srcs,
-                                            int* lst, int stride) {
-  const int lane = threadIdx.x & 31;
-  const int cz = c % W.nz, cxy = c / W.nz;
-  const int cy = cxy % W.ny, cx = cxy / W.ny;
-  const bool wx = W.wrap & 1, wy = W.wrap & 2, wz = W.wrap & 4;
-  // lane o < 27: the source cell at offset (o / 9 - 1, o / 3 % 3 - 1,
-  // o % 3 - 1) after the wraps, INT_MAX off the grid
-  int v = INT_MAX;
-  if (lane < 27) {
-    int sx = cx + lane / 9 - 1, sy = cy + (lane / 3) % 3 - 1,
-        sz = cz + lane % 3 - 1;
-    bool on = true;
-    if (wx) sx = wrap_cell(sx, W.nx); else on = on && sx >= 0 && sx < W.nx;
-    if (wy) sy = wrap_cell(sy, W.ny); else on = on && sy >= 0 && sy < W.ny;
-    if (wz) sz = wrap_cell(sz, W.nz); else on = on && sz >= 0 && sz < W.nz;
-    if (on) v = (sx * W.ny + sy) * W.nz + sz;
-  }
-  // the window in ascending flat index: each lane's rank among the lanes
-  // (no source cell is on the grid twice: a wrapping axis has >= 3 cells;
-  // the off-grid ties go by lane)
-  int rank = 0;
-#pragma unroll
-  for (int q = 0; q < 32; ++q) {
-    const int u = __shfl_sync(kFull, v, q);
-    rank += u < v || (u == v && q < lane);
-  }
-  __syncwarp();
-  srcs[rank] = v;
-  const int ns = __popc(__ballot_sync(kFull, v != INT_MAX));
-  __syncwarp();
-
-  const int xb0 = W.xb ? __ldg(W.xb + cx) : 0;
-  const int xb1 = W.xb ? __ldg(W.xb + cx + 1) : 0;
-  const unsigned lower = (1u << lane) - 1u;
-  const int total = W.cap * ns;  // the candidates: cap slot rows of ns cells
-  int n = 0;
-  bool carried = false;  // a valid slot in the row this step continues
-  for (int base = 0; base < total; base += 32) {
-    // candidate t = slot s of the q-th source cell
-    const int t = base + lane;
-    bool valid = false, match = false;
-    int k = 0;
-    if (t < total) {
-      const int s = t / ns, q = t - s * ns;
-      k = s * W.nc + srcs[q];
-      const float x = __ldg(W.px + k), y = __ldg(W.py + k),
-                  z = __ldg(W.pz + k);
-      valid = __ldg(W.pi + k) != 0;  // row 0: valid
-      match = valid &&
-              (W.ny > 1 ? bin(y, W.lo1, W.inv1, W.ny, wy) : 0) == cy &&
-              (W.nz > 1 ? bin(z, W.lo2, W.inv2, W.nz, wz) : 0) == cz &&
-              in_column(x, cx, W.nx, W.lo0, W.inv0, wx, W.xspan, W.xb, xb0,
-                        xb1, W.inv_q, W.n_fine);
-    }
-    const unsigned any_valid = __ballot_sync(kFull, valid);
-    // the first slot row this step ends with no valid slot: lanes past it
-    // are not walked (compacted slots: that row ends every source cell)
-    int end = 32;
-    for (int s = base / ns; s * ns < base + 32 && s < W.cap; ++s) {
-      const int lo = max(s * ns - base, 0), hi = min((s + 1) * ns - base, 32);
-      const unsigned in_row =
-          (hi == 32 ? kFull : (1u << hi) - 1u) & ~((1u << lo) - 1u);
-      const bool occupied =
-          (any_valid & in_row) != 0 || (s * ns < base && carried);
-      if ((s + 1) * ns > base + 32) {  // the row goes on in the next step
-        carried = occupied;
-        break;
-      }
-      carried = false;
-      if (!occupied) {
-        end = hi;
-        break;
-      }
-    }
-    const bool kept = match && lane < end;
-    const unsigned matches = __ballot_sync(kFull, kept);
-    if (kept) {
-      const int r = n + __popc(matches & lower);
-      if (r < W.cap) lst[r * stride] = k;
-    }
-    n += __popc(matches);
-    if (end < 32) break;
-  }
-  return n;
-}
-
-// kCells target cells from blockIdx.x * kCells; SHARED_LIST: their slot
-// lists in dynamic shared memory, i32 [cap, kCells], else in `list`, i32
-// [cap, NC] in global memory.
+// kCells target cells from blockIdx.x * kCells (csrc/rebin_move.cuh
+// `move_cells`); SHARED_LIST: their slot lists in dynamic shared memory, i32
+// [cap, kCells], else in `list`, i32 [cap, NC] in global memory.
 template <bool SHARED_LIST>
 __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
@@ -205,42 +100,8 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
   extern __shared__ int list_s[];
   __shared__ int srcs[kWarps][32];
   __shared__ int kept[kCells];
-  const long long m = (long long)W.cap * W.nc;
-  const int c0 = blockIdx.x * kCells;
-  const int cells = min(kCells, W.nc - c0);
-  int* lst = SHARED_LIST ? list_s : list + c0;
-  const int stride = SHARED_LIST ? kCells : W.nc;
-  W.px = pf + (long long)xr * m;
-  W.py = W.px + m;
-  W.pz = W.py + m;
-
-  const int warp = threadIdx.x / 32;
-  for (int cell = warp; cell < cells; cell += kWarps) {
-    const int n = rank_matches(W, c0 + cell, srcs[warp], lst + cell, stride);
-    if (threadIdx.x % 32 == 0) kept[cell] = min(n, W.cap);
-  }
-  __syncthreads();
-
-  // phase 2: output slot s of cell c0 + cell, every row
-  for (int it = threadIdx.x; it < W.cap * kCells; it += kThreads) {
-    const int s = it / kCells, cell = it % kCells;
-    if (cell >= cells) continue;
-    const long long o = (long long)s * W.nc + c0 + cell;
-    if (s < kept[cell]) {
-      const long long k = lst[s * stride + cell];
-#pragma unroll 4
-      for (int r = 0; r < ff; ++r)
-        outf[(long long)r * m + o] = __ldg(pf + (long long)r * m + k);
-#pragma unroll 4
-      for (int r = 0; r < fi; ++r)
-        outi[(long long)r * m + o] = __ldg(pi + (long long)r * m + k);
-    } else {
-#pragma unroll 4
-      for (int r = 0; r < ff; ++r) outf[(long long)r * m + o] = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < fi; ++r) outi[(long long)r * m + o] = 0;
-    }
-  }
+  rebin::move_cells<SHARED_LIST, false, kCells, kWarps, 0>(
+      pf, pi, outf, outi, ff, fi, W, xr, list, list_s, srcs, kept);
 }
 
 template <bool SHARED_LIST>

@@ -108,27 +108,29 @@ def seam_hairs(x, valid, geom, seed=9):
 
 
 def seam_drift(x, valid, geom, seed=3):
-    """Positions ``x`` [3, cap, NC] (numpy, binned in the 3D ``geom``) with
-    every valid particle moved by a seeded step of up to 0.9 of the
-    narrowest cell per axis, outward along z in the first and last z
-    layer, and a seeded half of the first and last x column's particles
-    put past the x seam by up to 0.9 of the narrowest column (into the
-    column across it: a wide end column's particles may sit far from its
-    edge), as f32: on a grid periodic in x and z particles cross both
-    seams and stay unwrapped, as between two rebins (asserted)."""
+    """Positions ``x`` [3, cap, NC] (numpy, binned in ``geom``) with every
+    valid particle moved by a seeded step of up to 0.9 of the narrowest
+    cell per axis, outward along z in the first and last z layer (on a 2D
+    grid, one z cell, not along z), and a seeded half of the first and
+    last x column's particles put past the x seam by up to 0.9 of the
+    narrowest column (into the column across it: a wide end column's
+    particles may sit far from its edge), as f32: on a grid periodic in x
+    (and in 3D z) particles cross the seams and stay unwrapped, as between
+    two rebins (asserted)."""
     rng = np.random.default_rng(seed)
     d = rng.uniform(-0.9, 0.9, x.shape) * np.asarray(geom.cell_size)[:, None, None]
     nx, ny, nz = geom.ncells
     c = np.broadcast_to(np.arange(geom.ncells_total), valid.shape)
     cx, cz = c // (ny * nz), c % nz
-    d[2] = np.where(cz == 0, -np.abs(d[2]),
-                    np.where(cz == nz - 1, np.abs(d[2]), d[2]))
+    plane = nz == 1
+    d[2] = 0.0 if plane else np.where(
+        cz == 0, -np.abs(d[2]), np.where(cz == nz - 1, np.abs(d[2]), d[2]))
     x = (x + np.where(valid, d, 0.0)).astype(np.float32)
     past = np.abs(d[0]) * (rng.uniform(size=valid.shape) < 0.5)
     x[0] = np.where(cx == 0, np.where(past > 0, geom.lo[0] - past, x[0]),
                     np.where((cx == nx - 1) & (past > 0), geom.hi[0] + past,
                              x[0])).astype(np.float32)
-    for ax in (0, 2):
+    for ax in (0,) if plane else (0, 2):
         assert int((valid & (x[ax] < geom.lo[ax])).sum()) > 0
         assert int((valid & (x[ax] >= geom.hi[ax])).sum()) > 0
     return x

@@ -25,7 +25,7 @@ import torch
 
 from sph_bvf_tpu_torch.core import rebin_cuda
 from sph_bvf_tpu_torch.core import state as TS
-from sph_bvf_tpu_torch.core.stepper import run_chunk, setup
+from sph_bvf_tpu_torch.core.stepper import _rebin_drop, run_chunk, setup
 from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
                                       lid_cavity, lid_cavity3d,
                                       natural_convection, taylor_green2d)
@@ -1492,6 +1492,46 @@ def test_k5_periodic_matches_plain_walk_and_sort_on_card(cuda, edges):
                   seam_hairs(x, valid, geom)):
         _move_parity_on_card(rebin_cuda.rebin_move_2d, dataclasses.replace(
             state, x=torch.as_tensor(moved, device=cuda)), geom)
+
+
+@pytest.mark.gpu
+def test_2d_move_keeps_its_lists_out_of_local_memory_on_card(cuda):
+    """The 2D move's kernel (K5's and K6's, ``csrc/rebin_move_2d.cu``) keeps
+    its slot lists and window in shared memory: the runtime reports 0 bytes
+    of local memory a thread (no stack frame, no spill)."""
+    attrs = rebin_cuda.move_2d_attributes()
+    assert attrs["local_bytes"] == 0, attrs
+    assert 0 < attrs["registers"] <= 255, attrs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k5 cavity", "k6 fsi"])
+def test_2d_rebin_counts_its_own_wrapper_on_card(cuda, case):
+    """A rebin of a 2D state on the card launches the move its grid routes
+    to once, counted on that wrapper (K5's or K6's, which share one
+    kernel) and on no other launch counter, and equals the sort rebin,
+    every leaf bitwise."""
+    if case == "k5 cavity":
+        state, params, spec = _cavity(30, cuda, steps=9)
+        want = rebin_cuda.rebin_move_2d
+    else:
+        state, params, spec = _fsi(cuda)
+        state = run_chunk(state, params, spec, 3)
+        want = rebin_cuda.rebin_move_2d_gated
+    geom = spec.geom
+    assert rebin_cuda.move_route(geom) is want
+    counters = (pair_cuda.pass_a_2d, pair_cuda.pass_a_2d_preshift,
+                pair_cuda.pass_a_2d_rowloop, pair_cuda.pass_a_3d,
+                rebin_cuda.rebin_move_2d, rebin_cuda.rebin_move_2d_gated,
+                rebin_cuda.rebin_move_3d)
+    before = [c.launches for c in counters]
+    got = TS.rebin(state, geom, drop=_rebin_drop(spec))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        int(c is want) for c in counters]
+    ref = TS.rebin(state, geom, drop=_rebin_drop(spec), use_kernel=False)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
 
 
 @pytest.mark.gpu

@@ -7,7 +7,8 @@ matches with a warp, 32 candidates a step, and keeps its slot lists in
 shared memory or, past ``rebin_cuda.K7_LIST_BYTES``, in a global scratch
 (``rebin_cuda.k7_list``).  These tests hold the tails against a brute
 force, the cache against its rule, the list's route against the cap, and
-a numpy emulation of K7's warp walk (lane by lane, ballot by ballot)
+a numpy emulation of K7's warp walk (lane by lane, ballot by ballot;
+``tests/warp_walk.py``, which ``test_torch_moves2d.py`` runs on a plane)
 against the plain walk and the sort rebin.  No JAX; the kernels themselves
 are held on the card by the ``gpu`` tests of ``test_torch_kernels.py``.
 """
@@ -23,13 +24,11 @@ import torch
 from sph_bvf_tpu_torch import _build
 from sph_bvf_tpu_torch.core import rebin_cuda
 from sph_bvf_tpu_torch.core import state as TS
-from sph_bvf_tpu_torch.core.halo import wrap_axes
 from sph_bvf_tpu_torch.models import (cell_polarization, drift_blob, fsi,
                                       lid_cavity, lid_cavity3d, taylor_green3d)
 from sph_bvf_tpu_torch.ops import pair_cuda
 from synthetic_edges import seam_drift
-
-INT_MAX = 2**31 - 1
+from warp_walk import warp_walk
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -182,83 +181,6 @@ def test_k7_keeps_its_lists_in_shared_memory_up_to_the_limit(monkeypatch):
         assert (calls[-1][-2] is None) == shared
 
 
-def _k7_warp_walk(PF, PI, geom, xr):
-    """K7 in numpy, as its warps and blocks run it: per target cell, lanes
-    0-26 take the source cells (INT_MAX off the grid), rank them (ties by
-    lane) into ``srcs``; the warp takes 32 candidates a step (candidate t =
-    slot t // ns of source cell srcs[t % ns]), finds the first slot row the
-    step ends with no valid slot (a row's earlier part carried from the
-    step before), ranks the matches before it by the popcount of the lower
-    lanes' ballot, keeps ranks below cap; then each output slot copies its
-    source's rows, zeros past the match count."""
-    F, cap, NC = PF.shape
-    nx, ny, nz = geom.ncells
-    wrap = wrap_axes(geom)
-    valid = (PI[0].reshape(-1) != 0).numpy()
-    newcell = TS.cell_index_of(PF[xr:xr + 3].reshape(3, -1), geom).numpy()
-    lanes = np.arange(32)
-    lower = [(1 << lane) - 1 for lane in lanes]
-    src = np.full((cap, NC), -1, np.int64)
-    for c in range(NC):
-        cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
-        v = np.full(32, INT_MAX, np.int64)
-        for o in range(27):
-            s = [cx + o // 9 - 1, cy + (o // 3) % 3 - 1, cz + o % 3 - 1]
-            on = True
-            for ax, n in enumerate((nx, ny, nz)):
-                if wrap[ax]:
-                    s[ax] %= n
-                else:
-                    on = on and 0 <= s[ax] < n
-            if on:
-                v[o] = (s[0] * ny + s[1]) * nz + s[2]
-        rank = ((v[None, :] < v[:, None])
-                | ((v[None, :] == v[:, None]) & (lanes[None, :] < lanes[:, None]))
-                ).sum(1)
-        srcs = np.empty(32, np.int64)
-        srcs[rank] = v
-        ns = int((v != INT_MAX).sum())
-        total, n, carried = cap * ns, 0, False
-        for base in range(0, total, 32):
-            t = base + lanes
-            live = t < total
-            s, q = t // ns, t % ns
-            k = np.where(live, s * NC + srcs[np.minimum(q, 31)], 0)
-            ok = live & valid[k]
-            match = ok & (newcell[k] == c)
-            ballot = sum(1 << int(lane) for lane in lanes[ok])
-            end = 32
-            row = base // ns
-            while row * ns < base + 32 and row < cap:
-                lo, hi = max(row * ns - base, 0), min((row + 1) * ns - base, 32)
-                in_row = ((1 << hi) - 1) & ~((1 << lo) - 1)
-                occupied = bool(ballot & in_row) or (row * ns < base and carried)
-                if (row + 1) * ns > base + 32:
-                    carried = occupied
-                    break
-                carried = False
-                if not occupied:
-                    end = hi
-                    break
-                row += 1
-            kept = match & (lanes < end)
-            matches = sum(1 << int(lane) for lane in lanes[kept])
-            for lane in lanes[kept]:
-                r = n + bin(matches & lower[lane]).count("1")
-                if r < cap:
-                    src[r, c] = k[lane]
-            n += int(kept.sum())
-            if end < 32:
-                break
-    got = src >= 0
-    take = np.clip(src, 0, None).reshape(-1)
-    g = torch.as_tensor(got.reshape(-1))
-    outf = torch.where(g, PF.reshape(F, -1)[:, take], torch.zeros((), dtype=PF.dtype))
-    outi = torch.where(g, PI.reshape(PI.shape[0], -1)[:, take],
-                       torch.zeros((), dtype=PI.dtype))
-    return outf.reshape(PF.shape), outi.reshape(PI.shape)
-
-
 def _move_state(case):
     """A 3D state between two rebins, every valid particle moved by a
     seeded step of up to 0.9 cells an axis (``seam_drift`` across the x
@@ -290,7 +212,7 @@ def _move_state(case):
 @pytest.mark.parametrize("case", ["walls", "periodic", "x_edges periodic",
                                   "cap 86"])
 def test_k7_warp_walk_matches_plain_walk_and_sort(case, monkeypatch):
-    """The emulation of K7's warp walk (``_k7_warp_walk``) on the packs of
+    """The emulation of K7's warp walk (``warp_walk.warp_walk``) on the packs of
     drifted 3D states equals the plain walk (``rebin_move_plain``), every
     row bitwise, and a rebin through it equals the sort rebin, every leaf
     bitwise, the overflow and drift counts included."""
@@ -303,12 +225,12 @@ def test_k7_warp_walk_matches_plain_walk_and_sort(case, monkeypatch):
     PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap,
                                                geom.ncells_total)
     xr = rebin_cuda._x_row(fmeta)
-    ef, ei = _k7_warp_walk(PF, PI, geom, xr)
+    ef, ei = warp_walk(PF, PI, geom, xr)
     wf, wi = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
     assert torch.equal(ef, wf) and torch.equal(ei, wi)
 
     def emulated(PF, PI, geom, xr):
-        return _k7_warp_walk(PF, PI, geom, xr)
+        return warp_walk(PF, PI, geom, xr)
 
     emulated.launches = 0
     monkeypatch.setattr(rebin_cuda, "rebin_move_3d", emulated)
