@@ -288,12 +288,12 @@ each:
              the sort; main tgv2d vs JAX: N=60, 100 steps, E/E0, max|v| and
              mean density in 2% bands around the JAX package's own run;
              main blob3d: drift_blob.build(8, balance, inrun, nz_cells=3)
-             -> setup -> simulate(1000, balance_log=log) (1,324,800
-             particles; K3 1001, K7 201 = every in-place rebin, the re-cuts
-             sort rebins, nothing else), overflow and drift 0, at least one
-             accepted re-cut improving its metric, max|v| 2, K7 against the
-             plain walk and the sort on the step-1000 state, and x, v and
-             rho tag by tag within BLOB3D_TOL of the uniform-grid run of the
+             -> setup -> simulate(500, balance_log=log) (1,324,800
+             particles; K3 501, K7 101 = every in-place rebin, the re-cuts
+             sort rebins, nothing else), overflow and drift 0, at least
+             one accepted re-cut improving its metric, max|v| 2, K7 against
+             the plain walk and the sort on the step-500 state, and x, v
+             and rho tag by tag within BLOB3D_TOL of the uniform-grid run of the
              same blob; main blob3d vs JAX: s=1, 20 steps, max|v|, mean
              density and mean x in 1e-5 bands around the JAX package's run;
              main fsi3d vs JAX: nx=12, 20 steps released at step 10, max|v|,
@@ -306,8 +306,34 @@ each:
              balanced blob (110 steps, its re-cut at step 100 included), the
              N=40 convection (x, v, rho and C) and
              the nx=40 polarization (x, v, rho, C and S) and the N=40
-             visible-noise cavity (100 steps) on the card agree with the
+             visible-noise cavity (20 steps) on the card agree with the
              same runs through the plain path on the CPU;
+   ssa     — the stochastic species, the four other integrators and the
+             front end (``_ssa_paths``; each phase prints its seconds):
+             main lmp ssa: ``examples/lid_cavity_ssa.lmp`` at N=200 through
+             ``__main__.main`` for 1,000 steps (VTK frames every 500, a
+             ``-log`` file): overflow and drift 0, particles conserved, the
+             fluid's max|rho-1| <= 0.05 and |mean-1| <= 0.002, slots
+             compacted, the molecule total within 5 binomial standard
+             deviations of total0 e^-kt, K1 1,001, K5 101 and Qd-pass 1,001
+             launches; K5 ssa: K5 against the plain walk and the sort rebin,
+             bitwise, on that state (the Cd row in its i32 pack); speed lmp
+             ssa: the script at N=1000 for 50 steps, particle-steps/s and
+             the Qd pass's device ms a step beside K1's; main ssa golden:
+             the SSA golden scenario (``tools/ssa_golden.py``'s text, 100
+             steps, f32) through ``python -m sph_bvf_tpu_torch`` as a
+             process of its own on the card against the port's CPU run:
+             each total within 2 of CD0 (NXP/2) NXP, v exactly 0, Cd
+             different on <= 1% of the particles, the 20 x-bin totals of
+             card and CPU within 1% of total0/20 of each other; main
+             integrators: the script at N=50 under ``ssa_tsdpd/bvf``,
+             ``bvf/artificialStress`` and ``bvf/zhang`` (pass B on) through
+             the card-vs-CPU comparison above, 20 steps, and
+             ``ssa_tsdpd/stationary`` on the golden crystal (x and v
+             bitwise unchanged); ensemble: 4 replicas of the golden
+             scenario, 20 steps, replica 0 bitwise the single run with key
+             [0, seed0], the replicas' Cd pairwise different, each total
+             within 2;
 10. speed  — particle-steps/s from the set-up state of the cavity at N=200
              and N=1000, of natural convection at N=200 and N=1000 (1,012,036
              particles, dt 2e-5; K1 with its species rows beside K1 on the
@@ -316,7 +342,7 @@ each:
              cavity at N=40 and N=100, of cell polarization at nx=100 and
              nx=1000 (1,030,980 particles, dt 1e-11) and of the balanced and
              the uniform blob at s=10 and
-             s=20 (its 1000-step main path, twice), of the spanwise cavity at
+             s=20 (500 steps of its main path), of the spanwise cavity at
              N=40 and N=100, of the 3D FSI beam at nx=30 and nx=60 (frozen;
              at nx=60 the plain pass A timed over pieces of target cells) and of the Taylor-Green
              vortex at N=20 and N=100, of the 2D vortex at N=1000 and of
@@ -452,14 +478,14 @@ POLAR_PARTICLES = 10_292
 SMALL = {"cavity": 50, "fsi": 24, "cavity3d": 8, "blob": 1,
          "convection": 40, "polarization": 40, "thermal": 40,
          "spanwise": 12}  # card vs CPU
-# (the visible-noise cavity's CPU run is the script's longest phase, ~1 s
-# a step on the host: 100 steps keep the whole script under ten minutes)
+# (the visible-noise cavity's CPU run is the script's longest, ~0.3-1 s a
+# step on the host: 20 steps keep the whole script inside its time)
 SMALL_STEPS = {"cavity": 20, "fsi": 20, "cavity3d": 20, "blob": 110,
-               "convection": 20, "polarization": 20, "thermal": 100,
-               "spanwise": 20}
+               "convection": 20, "polarization": 20, "thermal": 20,
+               "spanwise": 20, "integrators": 20}
 MAIN_STEPS = {"cavity": 1000, "fsi": 1000, "cavity3d": 500, "blob": 1000,
               "convection": 1000, "polarization": 1000, "fsi3d": 1000,
-              "tgv": 1000, "tgv2d": 1000, "blob3d": 1000}
+              "tgv": 1000, "tgv2d": 1000, "blob3d": 500}
 PARITY_STEPS = {"cavity": 100, "fsi": 300, "cavity3d": 100, "blob": 100,
                 "convection": 200, "polarization": 200, "tgv": 100}
 # K2 on the seeded polarization state: (label, ampl_damp, g0_chem_coupling,
@@ -612,12 +638,12 @@ SPEED_STEPS = {"cavity": {200: (200, 20), 1000: (50, 5)},
                "spanwise": {40: (100, 10), 100: (50, 3)},
                "fsi3d": {30: (100, 10), 60: (100, 3)},
                "tgv": {20: (100, 10), 100: (50, 3)},
-               "blob": {10: (1000, 5), 20: (1000, 3)},
+               "blob": {10: (500, 5), 20: (500, 3)},
                "tgv2d": {1000: (50, 3)},
                "blob3d": {8: (50, 3)}}
 # timed runs of simulate per size, each from the same set-up state (the
-# blob's: its 1000-step main path without the build, twice)
-SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 2,
+# blob's: 500 steps of its main path without the build)
+SPEED_REPEATS = {"cavity": 1, "fsi": 1, "cavity3d": 1, "blob": 1,
                  "convection": 1, "polarization": 1, "spanwise": 1,
                  "fsi3d": 1, "tgv": 1, "tgv2d": 1, "blob3d": 1}
 # FSI rebin period: the model's 100 at nx=60; at nx=240 the cells are 4x
@@ -742,6 +768,26 @@ BLOB3D_JAX = {
 # tensor-core rate, the mma variant's bound
 PROBE_REPEATS = 50
 PEAK_TF32 = 495e12
+
+# the stochastic species, the four integrators and the LAMMPS-script front
+# end: the lid-driven cavity with one SSA species
+# (examples/lid_cavity_ssa.lmp, the flagship's particles) at its main size
+# and its speed size, each size's dt (the flagship's) and steps; the
+# integrator paths' size and steps (card_vs_cpu's)
+LMP_SSA_SCRIPT = Path(__file__).resolve().parent / "examples" / "lid_cavity_ssa.lmp"
+LMP_SSA_N = (200, 1000)
+LMP_SSA_DT = {200: 1e-4, 1000: 5e-6}
+LMP_SSA_STEPS = {200: 1000, 1000: 50}
+LMP_SSA_EVERY = 500  # its VTK frames
+INTEG_N = 50
+INTEG_STEPS = SMALL_STEPS["integrators"]
+INTEG_FIXES = ("ssa_tsdpd/bvf", "ssa_tsdpd/bvf/artificialStress",
+               "ssa_tsdpd/bvf/zhang")
+# the SSA golden scenario of tools/ssa_golden.py (a fixed-solid crystal of
+# NXP x NXP particles, CD0 molecules on its left half), its steps on the
+# card and on the CPU, its x bins; the ensemble's replicas, steps and seed
+GOLDEN_NXP, GOLDEN_CD0, GOLDEN_STEPS, GOLDEN_BINS = 40, 50, 100, 20
+ENSEMBLE_R, ENSEMBLE_STEPS, ENSEMBLE_SEED0 = 4, 20, 5
 
 
 def _k4_bitwise(torch, pair, pair_cuda, state, params, geom, cfg0, tag):
@@ -1445,10 +1491,10 @@ def _current_geom(geom, log):
     return cuts[-1] if cuts else geom
 
 
-def _per_call_ms(torch, fn, iters):
-    """Mean ms per call of ``fn`` over ``iters`` calls after two warm-up
-    calls, by CUDA events."""
-    for _ in range(2):
+def _per_call_ms(torch, fn, iters, warmup=2):
+    """Mean ms per call of ``fn`` over ``iters`` calls after ``warmup``
+    warm-up calls, by CUDA events."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -1596,6 +1642,353 @@ def _pass_a_rows(pair_cuda, pf, geom, cfg, kernel):
             sum(n for _, n in accs) + ns)
 
 
+def _golden_lmp(steps, every, integrator="ssa_tsdpd/bvf/transportVelocity"):
+    """``tools/ssa_golden.scenario_lmp``'s script, its dump in the output
+    directory with the velocity added, under ``integrator``."""
+    L, rho0, c0, kappa, dt = 1.0e-3, 1000.0, 0.1, 5.0e-7, 1e-5
+    delta = L / GOLDEN_NXP
+    h = 2.6 * delta
+    mass = rho0 * L * L / (GOLDEN_NXP * GOLDEN_NXP)
+    return f"""
+dimension          2
+units              si
+atom_style         ssa_tsdpd/atomic 0 1 0
+boundary           f f p
+newton             off
+region             box block 0 {L} 0 {L} {-delta/2} {delta/2} units box
+create_box         1 box
+lattice            sq {delta} origin 0.5 0.5 0.0
+create_atoms       1 region box
+mass               1 {mass}
+set                group all ssa_tsdpd/rho {rho0}
+set                group all ssa_tsdpd/e 0.
+set                group all ssa_tsdpd/solid_tag 1 fixed
+region             left block 0 {L/2} 0 {L} {-delta/2} {delta/2} units box
+group              leftg region left
+set                group leftg ssa_tsdpd/Cd 0 {GOLDEN_CD0}
+pair_style         ssa_tsdpd/bvf/transportVelocity
+pair_coeff         1 1 {rho0} {c0} 1e-3 {h} {h} 0 {kappa}
+fix                integration all {integrator}
+compute            cd all ssa_tsdpd/Cd/atom 0
+dump               dmp all custom {every} ssa_*.txt id x y vx vy c_cd
+timestep           {dt}
+run                {steps}
+"""
+
+
+def _read_dump(path):
+    """A ``dump custom`` file's columns by name, rows sorted by id."""
+    import numpy as np
+
+    lines = Path(path).read_text().splitlines()
+    n = int(lines[lines.index("ITEM: NUMBER OF ATOMS") + 1])
+    head = next(i for i, l in enumerate(lines) if l.startswith("ITEM: ATOMS"))
+    cols = lines[head].split()[2:]
+    data = np.loadtxt(lines[head + 1: head + 1 + n], ndmin=2)
+    data = data[np.argsort(data[:, cols.index("id")], kind="stable")]
+    return {c: data[:, k] for k, c in enumerate(cols)}
+
+
+def _compacted(state) -> bool:
+    """Is every cell's set of valid slots a prefix of its slot rows (what
+    K5's row stop rests on)?"""
+    v = state.valid
+    return not bool((v[1:] & ~v[:-1]).any())
+
+
+def _ssa_paths(torch, dev, card, kind, counters, card_vs_cpu):
+    """The stochastic species, the four remaining integrators and the
+    LAMMPS-script front end on the card: [main lmp ssa] (N=200 through
+    ``__main__.main``), [K5 ssa], [speed lmp ssa] (N=1000), [main ssa
+    golden], [main integrators], [ensemble].  Each phase prints its
+    seconds."""
+    import os
+
+    import numpy as np
+
+    from sph_bvf_tpu_torch import __main__ as entry
+    from sph_bvf_tpu_torch.api import lmp
+    from sph_bvf_tpu_torch.core import rebin_cuda
+    from sph_bvf_tpu_torch.core import state as S
+    from sph_bvf_tpu_torch.core.stepper import (_rebin_drop, run_chunk, setup,
+                                                simulate)
+    from sph_bvf_tpu_torch.io import vtk
+    from sph_bvf_tpu_torch.ops import pair, pair_cuda
+    from sph_bvf_tpu_torch.parallel import ensemble
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_ssa"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    script = LMP_SSA_SCRIPT.read_text()
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+        pair._pass_a_qd.calls = 0
+
+    def launches():
+        out = {k: c.launches for k, c in counters.items() if c.launches}
+        out["qd_pass"] = pair._pass_a_qd.calls
+        return out
+
+    def molecules(state):
+        return int(torch.where(state.valid, state.Cd, 0).sum())
+
+    # -- [main lmp ssa]: the script at N=200 through the entry point --------
+    t_phase = time.perf_counter()
+    N = LMP_SSA_N[0]
+    steps, dt = LMP_SSA_STEPS[N], LMP_SSA_DT[N]
+    out_dir = work / "cavity"
+    log = out_dir / "log.cavity_ssa"
+    argv = ["-in", str(LMP_SSA_SCRIPT), "-var", "N", str(N), "-var", "dt",
+            repr(dt), "-var", "nsteps", str(steps), "-var", "every",
+            str(LMP_SSA_EVERY), "-log", str(log), "--out", str(out_dir),
+            "--device", str(dev)]
+    result = {}
+    reset()
+    t0 = time.perf_counter()
+    if entry.main(argv, result=result) != 0:
+        raise AssertionError("[main lmp ssa] the entry point failed")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    run_launches = launches()
+    state, params, spec = result["state"], result["params"], result["spec"]
+    frames = [out_dir / f"cavity_ssa_{s}.vtk"
+              for s in range(0, steps + 1, LMP_SSA_EVERY)]
+    _, f0 = vtk.read_vtk(str(frames[0]))
+    n0, total0 = len(f0["id"]), int(f0["c_cd"].sum())
+    (rx,) = spec.ssa.reactions
+    p = math.exp(-rx.k_rate * steps * dt)
+    expect, sd = total0 * p, math.sqrt(total0 * p * (1.0 - p))
+    total = molecules(state)
+    fluid = state.valid & (state.solid_tag == 0)
+    rho_dev = float((state.rho[fluid] - 1.0).abs().max())
+    rho_mean = float(state.rho[fluid].mean())
+    vmax = float(torch.sqrt((state.v * state.v).sum(0))[state.valid].max())
+    thermo_rows = [l for l in log.read_text().splitlines()
+                   if l.startswith("step")]
+    want = {"pass_a_2d": steps + 1, "rebin_move_2d": steps // spec.rebin_every + 1,
+            "qd_pass": steps + 1}
+    checks = {
+        "finite": all(bool(torch.isfinite(getattr(state, n)).all())
+                      for n in ("x", "v", "vest", "rho")),
+        "overflow 0": int(state.overflow) == 0,
+        "drift_violation 0": int(state.drift_violation) == 0,
+        "particles conserved": int(state.n_valid) == n0,
+        "step": int(state.step) == steps,
+        "max|v| <= 1.1": vmax <= 1.1,
+        "fluid max|rho-1| <= 0.05": rho_dev <= 0.05,
+        "fluid |mean rho-1| <= 0.002": abs(rho_mean - 1.0) <= 0.002,
+        "slots compacted": _compacted(state),
+        "molecules within 5 sd": abs(total - expect) <= 5.0 * sd,
+        "frames": all(f.exists() for f in frames),
+        "thermo rows": len(thermo_rows) == steps // 100 + 1,
+        "launches": run_launches == want,
+    }
+    detail = (f"{n0} particles, max|v| {vmax!r}, fluid max|rho-1| {rho_dev!r}, "
+              f"fluid mean rho {rho_mean!r}; molecules {total0} -> {total} "
+              f"(total0 e^-kt {expect!r}, 5 binomial sd {5 * sd!r}); "
+              f"launches {run_launches} (expected {want})")
+    if not all(checks.values()):
+        raise AssertionError(f"[main lmp ssa] invariants failed: {checks}; "
+                             f"{detail}")
+    # steady state: 100 more steps of the run's state, timed alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    simulate(state, params, spec, 100)
+    torch.cuda.synchronize()
+    steady = n0 * 100 / (time.perf_counter() - t0)
+    print(f"[main lmp ssa] python -m sph_bvf_tpu_torch -in "
+          f"examples/lid_cavity_ssa.lmp -var N {N} ({steps} steps, VTK frames "
+          f"every {LMP_SSA_EVERY}, -log) in {secs!r} s: {detail}; "
+          f"{n0 * steps / secs!r} particle-steps/s end to end (build, output "
+          f"and checks included), {steady!r} over 100 more steps "
+          f"[{card}] (phase {time.perf_counter() - t_phase!r} s)")
+
+    # -- [K5 ssa]: the move with the Cd row, 10 steps after a rebin ---------
+    t_phase = time.perf_counter()
+    what, k5_abs = _move_parity(torch, S, rebin_cuda, rebin_cuda.rebin_move_2d,
+                                state, spec.geom, _rebin_drop(spec), "K5 ssa")
+    print(f"[K5 ssa] rebin move kernel == plain walk == sort rebin, bitwise, "
+          f"on the [main lmp ssa] state at step {int(state.step)} (its last "
+          f"rebin at step {int(state.step) - spec.rebin_every}; {what}, the "
+          f"Cd row among the i32 rows) (phase "
+          f"{time.perf_counter() - t_phase!r} s)")
+    del state, result
+
+    # -- [speed lmp ssa]: the script at N=1000 ------------------------------
+    t_phase = time.perf_counter()
+    N = LMP_SSA_N[1]
+    steps, dt = LMP_SSA_STEPS[N], LMP_SSA_DT[N]
+    model = lmp.parse_script(script, overrides={"N": N, "dt": dt,
+                                                "nsteps": steps})
+    state, params, spec = model.build(device=dev)
+    n0 = int(state.n_valid)
+    state = setup(state, params, spec, dt=dt)
+    simulate(_clone(torch, state), params, spec, spec.rebin_every)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = simulate(state, params, spec, steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not (int(state.overflow) == 0 and int(state.n_valid) == n0
+            and bool(torch.isfinite(state.v).all()) and _compacted(state)):
+        raise AssertionError("[speed lmp ssa] the N=1000 run lost particles, "
+                             "left its slots uncompacted or went non-finite")
+    cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
+    pf = pair._per_particle(state, params, cfg)
+    noise = pair.noise_inputs(state)
+    k1_ms, _ = _kernel_device_ms(
+        torch, lambda: pair_cuda.pass_a_2d(pf, params, spec.geom, cfg, noise),
+        "pa2d::window_", 5)
+    # every kernel the Qd pass launches ("" matches every name): ms per
+    # kernel and kernels over 3 calls
+    qd_per_kernel, qd_count = _kernel_device_ms(
+        torch, lambda: pair._pass_a_qd(pf, params, spec.geom, cfg, noise), "", 3)
+    qd_ms, qd_kernels = qd_per_kernel * qd_count / 3, qd_count / 3
+    qd_call = _per_call_ms(
+        torch, lambda: pair._pass_a_qd(pf, params, spec.geom, cfg, noise), 3)
+    mu = float(pair.compute_ssa_mu_max(state, params, spec.geom, spec.pair))
+    print(f"[speed lmp ssa] examples/lid_cavity_ssa.lmp -var N {N} -var dt "
+          f"{dt!r}: {n0} particles, cap {spec.geom.cap}, {steps} steps from "
+          f"the set-up state in {secs!r} s = {n0 * steps / secs!r} "
+          f"particle-steps/s; device ms a step: the Qd pass {qd_ms!r} "
+          f"({qd_kernels!r} kernels; {qd_call!r} ms as called, CUDA events) "
+          f"beside K1's {k1_ms!r} (torch.profiler); max hop mean {mu!r} "
+          f"[{card}] (phase {time.perf_counter() - t_phase!r} s)")
+    del state, pf
+
+    # -- [main ssa golden]: the entry point as a process of its own on the
+    # card, beside the port's CPU run of the same script
+    t_phase = time.perf_counter()
+    golden = work / "golden.lmp"
+    golden.write_text(_golden_lmp(GOLDEN_STEPS, GOLDEN_STEPS))
+    card_dir, cpu_dir = work / "golden_card", work / "golden_cpu"
+    # the card's process and the CPU run side by side, the CPU run on one
+    # core fewer than the host's
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sph_bvf_tpu_torch", "-in", str(golden),
+         "--out", str(card_dir), "--device", str(dev)], cwd=str(root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 1))
+    t0 = time.perf_counter()
+    try:
+        lmp.parse_script(golden.read_text()).run(
+            out_dir=str(cpu_dir), thermo=False, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        out, err = proc.communicate(timeout=600)
+        card_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or f"on {kind}" not in out:
+        raise AssertionError(f"[main ssa golden] the entry point's process "
+                             f"failed (rc {proc.returncode}): {out[-2000:]} "
+                             f"{err[-2000:]}")
+    a = _read_dump(card_dir / f"ssa_{GOLDEN_STEPS}.txt")
+    b = _read_dump(cpu_dir / f"ssa_{GOLDEN_STEPS}.txt")
+    total0 = GOLDEN_CD0 * (GOLDEN_NXP // 2) * GOLDEN_NXP
+    differ = int((a["c_cd"] != b["c_cd"]).sum())
+    edges = np.linspace(0.0, 1.0e-3, GOLDEN_BINS + 1)
+    bins = [np.histogram(d["x"], edges, weights=d["c_cd"])[0] for d in (a, b)]
+    bin_gap = float(np.abs(bins[0] - bins[1]).max())
+    checks = {
+        "ids equal": bool((a["id"] == b["id"]).all()),
+        "card total within 2": abs(int(a["c_cd"].sum()) - total0) <= 2,
+        "cpu total within 2": abs(int(b["c_cd"].sum()) - total0) <= 2,
+        "v exactly 0": not (a["vx"].any() or a["vy"].any()),
+        "Cd differs on <= 1%": differ <= 0.01 * len(a["id"]),
+        "x bins within 1% of total0/bins": bin_gap <= 0.01 * total0 / GOLDEN_BINS,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[main ssa golden] {checks}: {differ} "
+                             f"particles' Cd differ, bins {bins}")
+    print(f"[main ssa golden] python -m sph_bvf_tpu_torch -in golden.lmp (a "
+          f"process of its own: '{out.strip().splitlines()[-1]}', "
+          f"{card_s!r} s to its end) vs the port's CPU run ({cpu_s!r} s), "
+          f"{GOLDEN_STEPS} steps, f32: totals "
+          f"{int(a['c_cd'].sum())} / {int(b['c_cd'].sum())} (total0 {total0}),"
+          f" Cd differs on {differ} of {len(a['id'])} particles, x-bin totals "
+          f"(card) {bins[0].astype(int).tolist()}, largest card-CPU bin gap "
+          f"{bin_gap!r} (bound {0.01 * total0 / GOLDEN_BINS!r}), v 0 "
+          f"(phase {time.perf_counter() - t_phase!r} s)")
+
+    # -- [main integrators]: bvf, artificialStress and zhang on the cavity
+    # script (pass B on), card against CPU; stationary on the crystal
+    t_phase = time.perf_counter()
+    fix_line = "integration all ssa_tsdpd/bvf/transportVelocity"
+    k1 = {}
+    for fix in INTEG_FIXES:
+        text = script.replace(fix_line, f"integration all {fix}")
+        build = (lambda d, t=text: (*lmp.parse_script(
+            t, overrides={"N": INTEG_N}).build(device=d), None))
+        reset()
+        s = card_vs_cpu(f"cavity N={INTEG_N} (SSA species) "
+                        f"with fix {fix}", "integrators", build, 1e-4,
+                        ("x", "v", "rho"))
+        k1[fix] = counters["pass_a_2d"].launches
+        if not (k1[fix] == INTEG_STEPS + 1 and float(s.vws.abs().max()) > 0):
+            raise AssertionError(f"[main integrators] {fix}: K1 launches "
+                                 f"{k1[fix]}, max|vws| {float(s.vws.abs().max())}")
+    golden_st = lmp.parse_script(_golden_lmp(
+        INTEG_STEPS, INTEG_STEPS, integrator="ssa_tsdpd/stationary"))
+    state, params, spec = golden_st.build(device=dev)
+    state = setup(state, params, spec, dt=golden_st.dt)
+    before = S.gather_particles(state, spec.geom, ("x", "v", "Cd"))
+    state = simulate(state, params, spec, INTEG_STEPS)
+    after = S.gather_particles(state, spec.geom, ("x", "v", "Cd"))
+    if not (np.array_equal(before["x"], after["x"])
+            and np.array_equal(before["v"], after["v"])
+            and not np.array_equal(before["Cd"], after["Cd"])):
+        raise AssertionError("[main integrators] stationary moved the crystal "
+                             "or froze its molecules")
+    print(f"[main integrators] K1 launches on the card runs {k1} (pass B on, "
+          f"vws nonzero); fix ssa_tsdpd/stationary on the golden crystal, "
+          f"{INTEG_STEPS} steps: x and v bitwise unchanged, Cd moved "
+          f"(phase {time.perf_counter() - t_phase!r} s)")
+
+    # -- [ensemble]: replicas of the golden scenario ------------------------
+    t_phase = time.perf_counter()
+    model = lmp.parse_script(_golden_lmp(ENSEMBLE_STEPS, ENSEMBLE_STEPS))
+    state, params, spec = model.build(device=dev)
+    state = setup(state, params, spec, dt=model.dt)
+    total0 = molecules(state)
+    stacked = ensemble.stack_replicas(state, ENSEMBLE_R, ENSEMBLE_SEED0)
+    single = dataclasses.replace(state, key=torch.tensor(
+        [0, ENSEMBLE_SEED0], dtype=torch.int64, device=dev))
+    freq = spec.integ.freq_filter
+    reset()
+    for done in range(0, ENSEMBLE_STEPS, spec.rebin_every):
+        phase = (int(state.step) + done) % freq
+        stacked = ensemble.run_chunk_ensemble(stacked, params, spec,
+                                              spec.rebin_every, phase)
+    ens_launches = launches()
+    for done in range(0, ENSEMBLE_STEPS, spec.rebin_every):
+        phase = (int(state.step) + done) % freq
+        single = run_chunk(single, params, spec, spec.rebin_every, phase)
+    reps = [ensemble.replica(stacked, r) for r in range(ENSEMBLE_R)]
+    same = all(torch.equal(getattr(reps[0], f.name), getattr(single, f.name))
+               for f in dataclasses.fields(single))
+    distinct = all(not torch.equal(reps[i].Cd, reps[j].Cd)
+                   for i in range(ENSEMBLE_R) for j in range(i))
+    totals = [molecules(r) for r in reps]
+    if not (same and distinct and all(abs(t - total0) <= 2 for t in totals)):
+        raise AssertionError(f"[ensemble] replica 0 == single run {same}, "
+                             f"replicas distinct {distinct}, totals {totals} "
+                             f"(total0 {total0})")
+    print(f"[ensemble] {ENSEMBLE_R} replicas of the golden scenario, "
+          f"{ENSEMBLE_STEPS} steps (seed0 {ENSEMBLE_SEED0}): replica 0 "
+          f"bitwise the single run with key [0, {ENSEMBLE_SEED0}], the "
+          f"replicas' Cd pairwise different, totals {totals} (total0 "
+          f"{total0}); launches {ens_launches} [{card}] (phase "
+          f"{time.perf_counter() - t_phase!r} s)")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1666,10 +2059,12 @@ def main() -> int:
         return {
             "pass_a": _per_call_ms(
                 torch, lambda: pass_a(pf, params, geom, cfg, noise), iters),
+            # no warm-up call where the plain pass is timed once (up to 13
+            # s a call on the 3D grids)
             "pass_a_plain": _per_call_ms(
                 torch, lambda: pair._pass_a_plain(pf, params, geom, cfg, noise,
                                                   cells_per_piece=piece),
-                plain_iters or iters),
+                plain_iters or iters, warmup=0 if plain_iters == 1 else 2),
             "pass_a_bound": _bound(nbytes, flops, int_ops),
             "pass_a_rows": rows_in,
             "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
@@ -2006,7 +2401,8 @@ def main() -> int:
                 # K3 with species is timed on the first case: one species
                 t_k3s = t_k3s or pass_a_timing(
                     pair_cuda.pass_a_3d, s3, p3, geom,
-                    dataclasses.replace(spec.pair, density_filter_accs=False), 10)
+                    dataclasses.replace(spec.pair, density_filter_accs=False), 10,
+                    plain_iters=1)
             print(f"[K7 species] 3D rebin move kernel with C rows == plain walk "
                   f"== sort rebin, bitwise (lid_cavity3d N={N}, 10 steps of "
                   f"simulate with each case's species, K3 launched "
@@ -2029,7 +2425,8 @@ def main() -> int:
             k3t_launches = pair_cuda.pass_a_3d.launches
             t_k3t = pass_a_timing(
                 pair_cuda.pass_a_3d, st, params, geom,
-                dataclasses.replace(spec_t.pair, density_filter_accs=False), 10)
+                dataclasses.replace(spec_t.pair, density_filter_accs=False), 10,
+                plain_iters=1)
             print(f"[K3 thermal] 3D pass A kernel with the thermal rows == "
                   f"plain, every field (lid_cavity3d N={N}, both filter "
                   f"variants); per case the worst field's max|diff|/max|ref| at "
@@ -2195,7 +2592,8 @@ def main() -> int:
     k3f_launches = pair_cuda.pass_a_3d.launches
     t_k3f = pass_a_timing(
         pair_cuda.pass_a_3d, s_, p_, geom,
-        dataclasses.replace(spec.pair, density_filter_accs=False), 10)
+        dataclasses.replace(spec.pair, density_filter_accs=False), 10,
+        plain_iters=1)
     print(f"[K3 fsi] 3D pass A kernel, fsi pair style with species == plain, "
           f"every field, dS and Q (3D FSI beam nx={nf} with pair_style fsi, "
           f"cap {geom.cap}, step {int(state.step)}, beam S, v, rho and C "
@@ -3661,6 +4059,7 @@ def main() -> int:
               f"max|diff|/max|cpu| {rel} (bounds {bounds}; tags equal; re-cuts "
               f"at steps {[c[0] for c in recuts['cpu'] if c[1]]} on both, "
               f"same edges)")
+        return s  # the card's state
 
     card_vs_cpu(f"cavity N={SMALL['cavity']}", "cavity",
                 lambda d: lid_cavity.build(N=SMALL["cavity"], device=d), 1e-4,
@@ -3692,6 +4091,10 @@ def main() -> int:
                 f"{VISIBLE_KBE!r})", "thermal",
                 lambda d: _visible_cavity(SMALL["thermal"], d), 1e-4,
                 ("x", "v", "rho"))
+
+    # the stochastic species, the four remaining integrators and the
+    # LAMMPS-script front end
+    _ssa_paths(torch, dev, card, kind, counters, card_vs_cpu)
 
     # -- 10. speed ----------------------------------------------------------
     def speed(label, path, size, state, params, spec, pass_a, move,
@@ -3964,15 +4367,19 @@ def main() -> int:
                  lambda N=N, dt=dt: lid_cavity.build(N=N, dt=dt, device=dev), dt,
                  (("K1", "pa2d::window_"), ("K5", "rebin_move_2d_kernel")))
                 for N, dt in zip(CAVITY_N, (1e-4, 5e-6))]
+    # (rebinning every 10 steps, not the model's 50, so that a profiled
+    # chunk stays short)
     targets += [(f"natural convection N={N}",
                  lambda N=N: natural_convection.build(N=N, dt=CONV_DT[N],
+                                                      rebin_every=10,
                                                       device=dev), CONV_DT[N],
                  (("K1 species", "pa2d::window_"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
     # and with the noise on: the thermal rows add no device op to a step
     targets += [(f"natural convection N={N} with thermal=True",
                  lambda N=N: _with_noise(natural_convection.build(
-                     N=N, dt=CONV_DT[N], device=dev)), CONV_DT[N],
+                     N=N, dt=CONV_DT[N], rebin_every=10, device=dev)),
+                 CONV_DT[N],
                  (("K1 species/thermal", "pa2d::window_"),
                   ("K5", "rebin_move_2d_kernel"))) for N in CONV_N]
     # the 3D FSI beam at nx=60 (released at once, so K3's elastic terms run

@@ -8,14 +8,22 @@ tensors ``[3, 3, cap, NC]``), so a reader finds each counterpart by path and
 the tests hold the two against each other on identical inputs
 (``bridge.py`` carries state across as numpy arrays).
 
-This package imports ``torch`` and never ``jax``.  Branches that the ported
-slices (the 2D lid-driven cavity, ``models/lid_cavity.py``, the FSI beam in
-a periodic channel, ``models/fsi.py``, the 3D lid-driven cavity,
-``models/lid_cavity3d.py``, the load-balanced drifting blob,
-``models/drift_blob.py``, and natural convection with its continuum
-species, ``models/natural_convection.py``) do not run raise
-``NotImplementedError``; they never fall back to other code.  Entry points build on the card (``cuda``)
-unless the caller names another device.
+This package imports ``torch`` and never ``jax``.  It runs every model of
+the JAX package and every path they take: the 2D lid-driven cavity
+(``models/lid_cavity.py``, also under the mechanics pair style), the FSI
+beam in a periodic channel (``models/fsi.py``), natural convection with
+its continuum species (``models/natural_convection.py``), cell
+polarization (``models/cell_polarization.py``), the 3D lid-driven and
+spanwise-periodic cavities (``models/lid_cavity3d.py``), the 3D FSI beam
+and the 2D and 3D Taylor-Green vortices, the load-balanced drifting blob
+in 2D and 3D (``models/drift_blob.py``), the SDPD thermal noise, the
+stochastic (SSA) species (``core/ssa.py``), all seven integrators with the
+weighted-solid pass B, output and restart (``io/``), LAMMPS-style input
+scripts (``api/lmp.py``, ``python -m sph_bvf_tpu_torch -in X.lmp``) and
+replica ensembles (``parallel/ensemble.py``).  What it lacks, multi-device
+meshes (``spec.mesh``), raises ``NotImplementedError``; nothing falls
+back to other code.  Entry points build on the card (``cuda``) unless the
+caller names another device.
 
 Kernels (``csrc/*.cu``) are compiled by ``_build.py`` with ``nvcc`` at first
 use.  Each kernel wrapper launches its kernel on a CUDA tensor and runs the

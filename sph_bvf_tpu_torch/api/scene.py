@@ -16,8 +16,7 @@ the simulation box; region containment is inclusive like Region::match.
 
 Load balancing: ``balance`` cuts non-uniform x columns at build,
 ``fix_balance`` attaches the in-run re-cut (``parallel/balance.py``).
-
-Not ported yet: SSA configs (``Scene.ssa``).
+Stochastic species: ``ssa`` attaches their reactions (``core/ssa.py``).
 """
 
 from __future__ import annotations
@@ -300,6 +299,7 @@ class Scene:
         self._coeff = {}
         self._integ: Optional[IntegratorConfig] = None
         self._fixes: List[object] = []
+        self._ssa_cfg = None
         self._dt = None
         self.rebin_every = 10
         self.cap: Optional[int] = None
@@ -494,6 +494,11 @@ class Scene:
 
     def fix(self, obj):
         self._fixes.append(obj)
+        return self
+
+    def ssa(self, cfg):
+        """The stochastic species' reactions (``core/ssa.SsaConfig``)."""
+        self._ssa_cfg = cfg
         return self
 
     def timestep(self, dt: float):
@@ -730,6 +735,7 @@ class Scene:
             pair=pair_cfg,
             integ=integ,
             fixes=tuple(self._fixes),
+            ssa=self._ssa_cfg,
             rebin_every=self.rebin_every,
             balance=self._balance_fix,
         )

@@ -21,6 +21,7 @@ import torch
 
 from sph_bvf_tpu_torch.core import fixes as fixes_mod
 from sph_bvf_tpu_torch.core.integrate import IntegratorConfig
+from sph_bvf_tpu_torch.core.ssa import SsaConfig, SsaReaction
 from sph_bvf_tpu_torch.core.state import Geometry, Params, State, resolve_device
 from sph_bvf_tpu_torch.core.stepper import ModelSpec
 from sph_bvf_tpu_torch.ops.pair import PairConfig
@@ -83,10 +84,21 @@ def _plain(cls, obj):
     return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
 
 
+def _ssa(cfg, config_cls, reaction_cls):
+    """An ``SsaConfig`` of ``config_cls`` with its reactions rebuilt as
+    ``reaction_cls`` (None stays None)."""
+    if cfg is None:
+        return None
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(config_cls)}
+    fields["reactions"] = tuple(_plain(reaction_cls, rx) for rx in cfg.reactions)
+    return config_cls(**fields)
+
+
 def spec_to_port(spec) -> ModelSpec:
-    """A port ModelSpec from a JAX ModelSpec, its geometry's ``x_edges`` and
-    its ``BalanceFix`` included.  Raises for a fix, a mesh or SSA that the
-    port does not have yet."""
+    """A port ModelSpec from a JAX ModelSpec, its geometry's ``x_edges``, its
+    ``BalanceFix`` and its ``SsaConfig`` included.  Raises for a fix or a
+    mesh that the port does not have yet."""
     fixes = []
     for fx in spec.fixes:
         cls = _FIXES.get(type(fx).__name__)
@@ -94,14 +106,14 @@ def spec_to_port(spec) -> ModelSpec:
             raise NotImplementedError(
                 f"fix {type(fx).__name__} is ported in a later PR")
         fixes.append(_plain(cls, fx))
-    for what in ("ssa", "mesh"):
-        if getattr(spec, what) is not None:
-            raise NotImplementedError(f"spec.{what} is ported in a later PR")
+    if spec.mesh is not None:
+        raise NotImplementedError("spec.mesh is ported in a later PR")
     return ModelSpec(
         geom=_plain(Geometry, spec.geom),
         pair=_plain(PairConfig, spec.pair),
         integ=_plain(IntegratorConfig, spec.integ),
         fixes=tuple(fixes),
+        ssa=_ssa(spec.ssa, SsaConfig, SsaReaction),
         rebin_every=spec.rebin_every,
         balance=None if spec.balance is None else _plain(BalanceFix, spec.balance),
     )
@@ -109,13 +121,16 @@ def spec_to_port(spec) -> ModelSpec:
 
 def spec_from_port(spec: ModelSpec, classes: Mapping[str, type]):
     """A JAX ModelSpec from a port one; ``classes`` maps the names
-    ModelSpec, Geometry, PairConfig, IntegratorConfig, BalanceFix (when the
-    spec has one) and each fix's class name to the JAX package's classes."""
+    ModelSpec, Geometry, PairConfig, IntegratorConfig, BalanceFix and
+    SsaConfig and SsaReaction (when the spec has them) and each fix's class
+    name to the JAX package's classes."""
     return classes["ModelSpec"](
         geom=_plain(classes["Geometry"], spec.geom),
         pair=_plain(classes["PairConfig"], spec.pair),
         integ=_plain(classes["IntegratorConfig"], spec.integ),
         fixes=tuple(_plain(classes[type(fx).__name__], fx) for fx in spec.fixes),
+        ssa=(None if spec.ssa is None else
+             _ssa(spec.ssa, classes["SsaConfig"], classes["SsaReaction"])),
         rebin_every=spec.rebin_every,
         balance=(None if spec.balance is None
                  else _plain(classes["BalanceFix"], spec.balance)),

@@ -16,9 +16,11 @@ variant without the Shepard accumulators).
 boundary every ``balance.every`` steps it may re-cut the x columns and
 rebin the state into the new geometry with the sort rebin.  A callback that
 raises ``utils.thermo.StopSimulation`` (``Halt``) ends the run at that
-chunk, as fix halt does.
+chunk, as fix halt does.  With SSA species (``spec.ssa``) the reactions
+run after ``final_integrate`` and ``simulate`` warns once when the largest
+per-pair hop mean leaves the tau-leap's regime.
 
-Not ported yet (raise when set): multi-device meshes and SSA species.
+Not ported yet (raises when set): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ from sph_bvf_tpu_torch.core.state import (
     rebin,
     rebin_droppable,
 )
-from sph_bvf_tpu_torch.ops.pair import PairConfig, compute_forces
+from sph_bvf_tpu_torch.core.ssa import ssa_step
+from sph_bvf_tpu_torch.ops.pair import PairConfig, compute_forces, compute_ssa_mu_max
 from sph_bvf_tpu_torch.utils.thermo import StopSimulation
 
 
@@ -62,10 +65,9 @@ class ModelSpec:
 
 
 def _check_ported(spec: ModelSpec):
-    for what, present in (("SSA species (spec.ssa)", spec.ssa),
-                          ("multi-device runs (spec.mesh)", spec.mesh)):
-        if present is not None:
-            raise NotImplementedError(f"{what} is ported in a later PR")
+    if spec.mesh is not None:
+        raise NotImplementedError(
+            "multi-device runs (spec.mesh) are ported in a later PR")
 
 
 def step(state: State, params: Params, spec: ModelSpec) -> State:
@@ -76,6 +78,8 @@ def step(state: State, params: Params, spec: ModelSpec) -> State:
     state = compute_forces(state, params, spec.geom, spec.pair)
     state = fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.POST_FORCE)
     state = final_integrate(state, params, spec.integ)
+    if spec.ssa is not None:
+        state = ssa_step(state, params, spec.geom, spec.ssa)
     state = fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.END_OF_STEP)
     return state
 
@@ -157,6 +161,8 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
     if cb_every % chunk:
         raise ValueError("callback_every must be a multiple of rebin_every")
 
+    warned_mu = [False]
+
     def check(state):
         overflow = int(state.overflow)
         if overflow:
@@ -170,6 +176,18 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
                 f"rebins — pair coverage may have been violated; lower "
                 f"rebin_every or raise Scene.margin_frac"
             )
+        # the tau-leap's regime: the SSA diffusion truncates each pair's
+        # Poisson draw, valid only for per-pair means << 1
+        if params.n_ssa > 0 and not warned_mu[0]:
+            mu = float(compute_ssa_mu_max(state, params, spec.geom, spec.pair))
+            if mu > 0.3:
+                warned_mu[0] = True
+                print(
+                    f"[ssa] WARNING: max per-pair hop mean {mu:.3g} > 0.3 — "
+                    f"the tau-leap truncation (poisson_terms="
+                    f"{spec.pair.ssa_poisson_terms}) clips the hop-count "
+                    f"tail; reduce dt or kappaSSA for exact-SSA statistics"
+                )
 
     bal = spec.balance
     next_bal = bal.every if bal is not None else None

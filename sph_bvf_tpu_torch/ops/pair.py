@@ -11,19 +11,25 @@ CUDA tensor, the stencil loop below (``_pass_a_plain``, over 3^dim offsets) on a
 CPU tensor.  The loop is also the reference the kernels are checked against
 on the card.
 
-Ported: the transport-velocity pair style with the Sun-2018 pressure
-switch (the flagship lid-driven cavity), the mechanics pair style (the FSI
-beam) and the fsi pair style (cell polarization: mechanics plus the density
-diffusion ``ampl_damp`` and the species-softened shear modulus
-``g0_chem_coupling``): the symmetric pressure force, XSPH, BVF walls of fixed solids,
-free solids with the Pereira artificial viscosity, elastic solids (the
-9-component artificial stress, the deviatoric solid force and the Jaumann
-stress rate), periodic axes, with and without the Shepard-filter
-accumulators, and continuum species transport (the tSDPD flux ``Q`` of
-``C``, with its own support ``cutc`` and the transport-velocity advection
-correction) and the SDPD thermal noise (``thermal``: the pair-symmetric
-random force of counter-based draws, ``ops/rand.py``).  Every other branch
-raises ``NotImplementedError`` (see ``_unported``).
+Ported: every branch of the JAX module.  The transport-velocity pair
+style with the Sun-2018 pressure switch (the flagship lid-driven cavity),
+the mechanics pair style (the FSI beam) and the fsi pair style (cell
+polarization: mechanics plus the density diffusion ``ampl_damp`` and the
+species-softened shear modulus ``g0_chem_coupling``): the symmetric
+pressure force, XSPH, BVF walls of fixed solids, free solids with the
+Pereira artificial viscosity, elastic solids (the 9-component artificial
+stress, the deviatoric solid force and the Jaumann stress rate), periodic
+axes, with and without the Shepard-filter accumulators, continuum species
+transport (the tSDPD flux ``Q`` of ``C``, with its own support ``cutc``
+and the transport-velocity advection correction), the SDPD thermal noise
+(``thermal``: the pair-symmetric random force of counter-based draws,
+``ops/rand.py``), the stochastic species' hop balance ``Qd`` (SSA,
+``core/ssa.py``) and the weighted-solid pass B (``vws``/``aws``, sweep 3).
+
+SSA on the card takes the JAX package's kernel split: the pass-A kernel
+computes the mechanics and ``_pass_a_qd``, a stencil loop of torch ops,
+draws Qd with the counter streams of ``_qd_hops``; on the CPU the plain
+pass draws them inline.  Pass B is torch ops on both devices.
 """
 
 from __future__ import annotations
@@ -101,24 +107,6 @@ class PairConfig:
         )
 
 
-def _unported(params: Params, cfg: PairConfig) -> list:
-    """The pair branches this configuration needs that the port lacks."""
-    return [what for what, needed in (
-        ("weighted-solid pass B (weighted_solid)",
-         cfg.solids_present and cfg.weighted_solid),
-        ("SSA species (n_ssa > 0)", params.n_ssa > 0),
-    ) if needed]
-
-
-def check_ported(params: Params, cfg: PairConfig):
-    missing = _unported(params, cfg)
-    if missing:
-        raise NotImplementedError(
-            "pair physics not ported yet (ported in a later PR): "
-            + ", ".join(missing)
-        )
-
-
 # ---------------------------------------------------------------------------
 # per-particle precomputation
 # ---------------------------------------------------------------------------
@@ -161,10 +149,9 @@ def _per_particle(state: State, params: Params, cfg: PairConfig):
         stress = dict(ASd=tensile(-p_for_as))
     return dict(
         valid=state.valid, x=state.x, v=state.v, vest=state.vest,
-        rho=state.rho, rhoI=state.rhoI, e=state.e, C=state.C, S=state.S,
-        tag=state.tag, ptype=t,
-        solid=solid,
-        fluid=~solid, m=m, B=B, c0=params.c0[t], G0=G0, P=P,
+        rho=state.rho, rhoI=state.rhoI, e=state.e, C=state.C, Cd=state.Cd,
+        S=state.S, tag=state.tag, ptype=t,
+        solid=solid, fluid=~solid, fixed=state.fixed_tag == 1, m=m, B=B, c0=params.c0[t], G0=G0, P=P,
         P_rho2=P_rho2, inv_rho=inv_rho, m_rho=m_rho, V2=V2, **stress,
     )
 
@@ -263,6 +250,9 @@ def lookup_pair_coeffs(ti, tj, params: Params, cfg: PairConfig):
     if params.n_sdpd > 0:
         # [Ns, ci, cj, NC]: the species diffusivity of each pair's types
         out["kap"] = params.kappa.movedim(-1, 0).reshape(params.n_sdpd, -1)[:, tp]
+    if params.n_ssa > 0:
+        # [Nssa, ci, cj, NC]: kappaSSA of each pair's types
+        out["kss"] = params.kappa_ssa.movedim(-1, 0).reshape(params.n_ssa, -1)[:, tp]
     return out
 
 
@@ -456,8 +446,11 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
         acc["phi"] += torch.sum(fs * Vj2 * wfBvf, dim=RED)
         acc["nw"] += torch.sum((fs * wfd * Vj2)[None] * dx, dim=RED)
 
-    # species transport, Tartakovsky 2007; its own support cutc
-    if params.n_sdpd > 0:
+    # species transport, Tartakovsky 2007; its own support cutc.  The "Qd"
+    # key: the plain pass draws the SSA hops inline; the kernels carry no
+    # Qd, and ``_pass_a_qd`` draws them after the kernel
+    want_qd = params.n_ssa > 0 and "Qd" in acc
+    if params.n_sdpd > 0 or want_qd:
         hc = coeffs["hc"]
         wfd_c = lucy_wfd_ih(r, coeffs["inv_hc"], dim) * mask
         dQc_base = (
@@ -468,6 +461,7 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
             * wfd_c
             / (rsq + 0.01 * hc * hc)
         )
+    if params.n_sdpd > 0:
         dQ = coeffs["kap"] * (I["C"] - J["C"]) * dQc_base[None]
         if cfg.species_advection:
             # advection correction (transport velocity only):
@@ -478,7 +472,93 @@ def _pass_a_offset(I, J, coeffs, params: Params, cfg: PairConfig, notself,
                 I["C"] * corr_ip[None] + J["C"] * corr_jp[None]
             )
         acc["Q"] += torch.sum(dQ, dim=RED)
+
+    # stochastic diffusion hops (core/ssa.py)
+    if want_qd:
+        acc["Qd"] += torch.sum(
+            _qd_hops(I, J, coeffs, params, cfg, dt, step, seed, dQc_base),
+            dim=RED).to(torch.int32)
     return acc
+
+
+def _qd_hops(I, J, coeffs, params: Params, cfg: PairConfig, dt, step, seed,
+             dQc_base):
+    """Per-offset stochastic hop balance [n_ssa, ci, cj, NC] (int32), the
+    counter-based tau-leap of the reference's D-matrix fill and serial
+    Gillespie (pair...transport_velocity.cpp:739-809); the caller reduces
+    over cj.  Shared by the plain pass and ``_pass_a_qd``, so both draw the
+    same streams."""
+    from sph_bvf_tpu_torch.core.ssa import pair_hop_counts
+
+    fdt = dQc_base.dtype
+    lam = coeffs["kss"] * (-dQc_base)[None] * dt  # per-molecule hop rate
+    sp = torch.arange(params.n_ssa, dtype=torch.int64,
+                      device=dQc_base.device).reshape(
+        (params.n_ssa,) + (1,) * dQc_base.ndim)
+    seed_w = (cfg.rng_seed & 0xFFFFFFFF) ^ seed
+    n_out = pair_hop_counts(lam * I["Cd"].to(fdt), seed_w, step,
+                            I["tag"], J["tag"], sp, cfg.ssa_poisson_terms)
+    n_in = pair_hop_counts(lam * J["Cd"].to(fdt), seed_w, step,
+                           J["tag"], I["tag"], sp, cfg.ssa_poisson_terms)
+    return n_in - n_out
+
+
+def _dqc_base(I, J, coeffs, cfg: PairConfig, pbc, notself):
+    """(dQc_base, the pair mask) of one offset: the species-transport
+    pair factor 2 m_harm (1/rho_i + 1/rho_j) r^2 W'_c / (r^2 + 0.01 hc^2)
+    over the support cutc."""
+    dx = _pair_delta(I["x"], J["x"], pbc)
+    rsq = _dot3(dx, dx)
+    r = torch.sqrt(rsq)
+    mask = (I["valid"] & J["valid"] & notself).to(dx.dtype)
+    wfd_c = lucy_wfd_ih(r, coeffs["inv_hc"], cfg.dim) * mask
+    hc = coeffs["hc"]
+    return (2.0 * coeffs["m_harm"] * (I["inv_rho"] + J["inv_rho"]) * rsq
+            * wfd_c / (rsq + 0.01 * hc * hc))
+
+
+def _pass_a_qd(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
+               noise, max_pair_slots: int = 1 << 25) -> torch.Tensor:
+    """Qd [n_ssa, cap, NC] (int32) alone: the SSA hop draws in torch ops,
+    run after a pass-A kernel computed the mechanics (the JAX package's
+    kernel split, ``ops/pair.py:1050-1057`` there).  The stencil's offsets
+    are laid side by side along the candidate axis, so one pass of ops
+    draws them all, over target cells in pieces of at most
+    ``max_pair_slots`` pairs.  Each pair's draw is the plain pass's and
+    the sums are of integers, so Qd is bitwise the plain pass's.
+    ``noise``: the state's (dt, step, key).  ``_pass_a_qd.calls`` counts
+    its calls."""
+    cap, NC = pf["rho"].shape
+    dev = pf["x"].device
+    dt, step, key = noise
+    seed = rand.seed_word(key)
+    offsets = geom.stencil_offsets()
+    pbc = _pbc(geom)
+    # the zero offset's self pairs, side by side with the other offsets'
+    notself = torch.cat([
+        ~torch.eye(cap, dtype=torch.bool, device=dev) if off == (0, 0, 0)
+        else torch.ones((cap, cap), dtype=torch.bool, device=dev)
+        for off in offsets], dim=1)[:, :, None]
+    J_all = {k: torch.cat([shift_cells(pf[k], off, geom) for off in offsets],
+                          dim=-2)
+             for k in _QD_FIELDS}
+    piece = max(1, max_pair_slots // (cap * cap * len(offsets)))
+    qd = torch.empty((params.n_ssa, cap, NC), dtype=torch.int32, device=dev)
+    for c in range(0, NC, piece):
+        sl = slice(c, min(c + piece, NC))
+        I = {k: _bc(pf[k][..., sl], "i") for k in _QD_FIELDS}
+        J = {k: _bc(v[..., sl], "j") for k, v in J_all.items()}
+        coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
+        dQc_base = _dqc_base(I, J, coeffs, cfg, pbc, notself)
+        qd[..., sl] = torch.sum(
+            _qd_hops(I, J, coeffs, params, cfg, dt, step, seed, dQc_base),
+            dim=-2).to(torch.int32)
+    _pass_a_qd.calls += 1
+    return qd
+
+
+_pass_a_qd.calls = 0  # Qd passes in this process
+_QD_FIELDS = ("x", "valid", "ptype", "inv_rho", "Cd", "tag")
 
 
 def _thermal_force(I, J, dx, r, h, wfd, params: Params, cfg: PairConfig, dt,
@@ -535,6 +615,8 @@ def _pass_a_j_fields(params: Params, cfg: PairConfig):
         fields.append("C")
     if cfg.thermal:
         fields.append("tag")
+    if params.n_ssa > 0:
+        fields += [f for f in ("Cd", "tag") if f not in fields]
     return fields
 
 
@@ -555,9 +637,10 @@ def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
     """Pass A as a loop over the stencil offsets: the plain version of the
     K1, K2 and K3 kernels.  Returns every ``PASS_A_ACCS`` entry ([cap, NC]
     scalars, [3, cap, NC] vectors, [3, 3, cap, NC] dS, [Ns, cap, NC] Q);
-    accumulators the configuration skips stay 0.  ``noise``: the state's
-    (dt, step, key), read by the thermal noise only; ``virial`` adds the
-    ``vir`` accumulator (``compute_pair_virial``).  ``cells_per_piece``:
+    accumulators the configuration skips stay 0; with SSA species also Qd
+    [n_ssa, cap, NC] (int32), drawn inline.  ``noise``: the state's (dt,
+    step, key), read by the thermal noise and the SSA hops; ``virial`` adds
+    the ``vir`` accumulator (``compute_pair_virial``).  ``cells_per_piece``:
     evaluate each offset's [cap, cap, NC] pair blocks over that many target
     cells at a time (every cell's sums are its own, so the pieces change
     only the memory the blocks take); all NC at once by default."""
@@ -573,14 +656,16 @@ def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
            for name in PASS_A_ACCS}
     if virial:
         acc["vir"] = torch.zeros((cap, NC), dtype=fdt, device=dev)
+    if params.n_ssa > 0:
+        acc["Qd"] = torch.zeros((params.n_ssa, cap, NC), dtype=torch.int32,
+                                device=dev)
     dt = step = seed = None
-    if cfg.thermal:
+    if cfg.thermal or params.n_ssa > 0:
         if noise is None:
-            raise ValueError("thermal noise needs the state's (dt, step, key)")
+            raise ValueError("the thermal noise and the SSA hops need the "
+                             "state's (dt, step, key)")
         dt, step, key = noise
-        # the per-run seed word: the key's first and last words xor-ed
-        key = key.reshape(-1)
-        seed = (key[0] ^ key[-1]) & 0xFFFFFFFF
+        seed = rand.seed_word(key)
     ja_fields = _pass_a_j_fields(params, cfg)
     for off in geom.stencil_offsets():
         shifted = {k: shift_cells(pf[k], off, geom) for k in ja_fields}
@@ -602,6 +687,82 @@ def noise_inputs(state: State) -> tuple:
     return state.dt, state.step, state.key
 
 
+def compute_ssa_mu_max(state: State, params: Params, geom: Geometry,
+                       cfg: PairConfig) -> torch.Tensor:
+    """Max per-directed-pair hop mean mu = kappaSSA * (-dQc_base) * Cd * dt
+    (a 0-dim tensor).  The tau-leap diffusion truncates each pair's Poisson
+    at ``cfg.ssa_poisson_terms`` and is statistically exact only for mu << 1;
+    ``core/stepper.simulate`` reads this at check cadence and warns."""
+    if params.n_ssa == 0:
+        return torch.zeros((), dtype=state.x.dtype, device=state.x.device)
+    fdt = state.x.dtype
+    pf = _per_particle(state, params, cfg)
+    not_diag = ~torch.eye(geom.cap, dtype=torch.bool,
+                          device=state.x.device)[:, :, None]
+    pbc = _pbc(geom)
+    need = ("valid", "x", "inv_rho", "ptype")
+    I = {k: _bc(pf[k], "i") for k in need + ("Cd",)}
+    mu_max = torch.zeros((), dtype=fdt, device=state.x.device)
+    for off in geom.stencil_offsets():
+        J = {k: _bc(shift_cells(pf[k], off, geom), "j") for k in need}
+        notself = not_diag if off == (0, 0, 0) else True
+        coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
+        dQc_base = _dqc_base(I, J, coeffs, cfg, pbc, notself)
+        mu = coeffs["kss"] * (-dQc_base)[None] * state.dt * torch.clamp_min(
+            I["Cd"].to(fdt), 0.0)
+        mu_max = torch.maximum(mu_max, torch.max(mu))
+    return mu_max
+
+
+# ---------------------------------------------------------------------------
+# pass B: sweep 3 (weighted solid velocity/acceleration near fluids)
+# ---------------------------------------------------------------------------
+
+
+def _pass_b_offset(I, J, coeffs, cfg: PairConfig, params: Params, notself,
+                   acc, pbc=()):
+    """Accumulate one stencil offset's kernel-weighted solid velocity and
+    acceleration (reference sweep 3) into ``acc``."""
+    fdt = I["x"].dtype
+    RED = -2
+    dx = _pair_delta(I["x"], J["x"], pbc)
+    r = torch.sqrt(_dot3(dx, dx))
+    mask = (I["valid"] & J["valid"] & notself).to(fdt)
+    wfBvf = lucy_w_ih(r, coeffs["inv_h"], cfg.dim) * mask
+
+    sel = I["fluid"] & J["solid"]
+    if cfg.weighted_solid_skip_fixed:
+        sel = sel & ~J["fixed"]
+    w = sel.to(fdt) * wfBvf * J["V2"]
+    acc["vws"] += torch.sum(w[None] * J["vest"], dim=RED)
+    acc["aws"] += torch.sum(w[None] * J["fom"], dim=RED)  # f/m, hoisted
+    return acc
+
+
+_PASS_B_J_FIELDS = "valid x vest ptype solid fluid fixed V2 fom".split()
+
+
+def _pass_b(pf: dict, f, params: Params, geom: Geometry, cfg: PairConfig):
+    """Pass B over the stencil offsets, torch ops on either device: vws and
+    aws [3, cap, NC] from the per-particle dict and pass A's force ``f``."""
+    cap, NC = pf["rho"].shape
+    fdt, dev = pf["x"].dtype, pf["x"].device
+    pf_b = {k: pf[k] for k in _PASS_B_J_FIELDS if k != "fom"}
+    pf_b["fom"] = f / pf["m"][None]  # f/m once per particle
+    I = {k: _bc(v, "i") for k, v in pf_b.items()}
+    not_diag = ~torch.eye(cap, dtype=torch.bool, device=dev)[:, :, None]
+    pbc = _pbc(geom)
+    acc = {k: torch.zeros((3, cap, NC), dtype=fdt, device=dev)
+           for k in ("vws", "aws")}
+    for off in geom.stencil_offsets():
+        J = {k: _bc(shift_cells(pf_b[k], off, geom), "j")
+             for k in _PASS_B_J_FIELDS}
+        notself = not_diag if off == (0, 0, 0) else True
+        coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
+        _pass_b_offset(I, J, coeffs, cfg, params, notself, acc, pbc=pbc)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
@@ -615,20 +776,32 @@ def compute_forces(
     (force_clear + Pair::compute).
 
     Pass A goes through ``pair_cuda.pass_a``: the K1, K4, K2 or K3 kernel on a
-    CUDA tensor, ``_pass_a_plain`` on a CPU tensor.
+    CUDA tensor, ``_pass_a_plain`` on a CPU tensor.  With SSA species the
+    kernel's Qd comes from ``_pass_a_qd``; the plain pass draws it inline.
+    Pass B (``vws``/``aws``) follows where ``cfg.weighted_solid`` asks for it.
     """
     if mesh is not None:
         raise NotImplementedError("multi-device pair passes are ported in a later PR")
-    check_ported(params, cfg)
     from sph_bvf_tpu_torch.ops.pair_cuda import pass_a
 
     NC, cap = geom.ncells_total, geom.cap
     fdt, dev = state.x.dtype, state.x.device
     pf = _per_particle(state, params, cfg)
-    acc = pass_a(pf, params, geom, cfg, noise_inputs(state))
+    noise = noise_inputs(state)
+    acc = pass_a(pf, params, geom, cfg, noise)
+    if params.n_ssa > 0 and "Qd" not in acc:
+        acc["Qd"] = _pass_a_qd(pf, params, geom, cfg, noise)
 
     def zeros(*lead, dtype=fdt):
         return torch.zeros(lead + (cap, NC), dtype=dtype, device=dev)
+
+    # pass B needs the fresh forces.  vws/aws are read only by the bvf,
+    # artificial_stress and zhang integrators' moving-wall reflections, so
+    # it runs only where the configuration asks for it
+    if cfg.solids_present and cfg.weighted_solid:
+        acc_b = _pass_b(pf, acc["f"], params, geom, cfg)
+    else:
+        acc_b = dict(vws=zeros(3), aws=zeros(3))
 
     one = torch.ones((), dtype=fdt, device=dev)
     return dataclasses.replace(
@@ -637,15 +810,15 @@ def compute_forces(
         drho=acc["drho"],
         de=acc["de"],
         Q=acc["Q"],
-        Qd=zeros(params.n_ssa, dtype=torch.int32),
+        Qd=acc["Qd"] if params.n_ssa > 0 else zeros(0, dtype=torch.int32),
         ddv=acc["ddv"],
         ddx=acc["ddx"],
         dS=acc["dS"],
         phi=acc["phi"],
         num_den=torch.where(state.valid, acc["num_den"], one),
         nw=acc["nw"],
-        vws=zeros(3),
-        aws=zeros(3),
+        vws=acc_b["vws"],
+        aws=acc_b["aws"],
         rhoAux1=acc["rhoAux1"],
         rhoAux2=torch.where(state.valid, acc["rhoAux2"], one),
         Pnew=pf["P"] if cfg.store_pnew else state.Pnew,

@@ -209,7 +209,6 @@ def _check_launch(pf: dict, params: Params, geom: Geometry, cfg, kernel,
                   noise=None):
     """Raise unless the wrapper ``kernel`` can take these fields (and, for
     the thermal noise, the state's (dt, step, key) ``noise``)."""
-    pair.check_ported(params, cfg)
     missing = kernel_unsupported(geom, cfg, kernel, params.n_sdpd)
     if missing:
         raise NotImplementedError(

@@ -71,6 +71,13 @@ def normal(*words) -> torch.Tensor:
     return r * torch.cos(_TWO_PI_F32 * u2)
 
 
+def seed_word(key) -> torch.Tensor:
+    """The per-run seed word of the counter draws: the key's first and last
+    words (the JAX package's uint32 key words) xor-ed, in [0, 2^32)."""
+    key = key.reshape(-1) & _MASK
+    return key[0] ^ key[-1]
+
+
 def pair_symmetric_normal(seed, step, tag_a, tag_b, salt) -> torch.Tensor:
     """Normal deviate identical under (a, b) <-> (b, a) exchange."""
     tag_a, tag_b = torch.as_tensor(tag_a), torch.as_tensor(tag_b)

@@ -156,24 +156,27 @@ def test_compute_forces_matches_bruteforce(filt):
 
 
 def test_unported_branches_raise():
-    """Branches outside the ported slices raise instead of running other
-    code: the weighted-solid pass B and SSA species everywhere.  Density
-    diffusion (ported on the plain path and in every pass-A kernel) passes
-    K1's launch check; so does the thermal noise (ported), and a kernel
-    launch refuses it without the state's dt, step and key."""
+    """What the port still lacks raises instead of running other code: a
+    multi-device mesh.  The weighted-solid pass B and SSA species (ported)
+    run; density diffusion (ported on the plain path and in every pass-A
+    kernel) passes K1's launch check; so does the thermal noise (ported),
+    and a kernel launch refuses it without the state's dt, step and key."""
     s, p, jspec = _perturbed_cavity(np.float32)
     tspec = bridge.spec_to_port(jspec)
     st = bridge.state_to_port(s, device="cpu")
     params = bridge.params_to_port(_jax(JParams, p), device="cpu")
-    with pytest.raises(NotImplementedError, match="pass B"):
-        tpair.compute_forces(st, params, tspec.geom,
-                             dataclasses.replace(tspec.pair, weighted_solid=True))
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        tpair.compute_forces(st, params, tspec.geom, tspec.pair, mesh=object())
+    out = tpair.compute_forces(st, params, tspec.geom,
+                               dataclasses.replace(tspec.pair, weighted_solid=True))
+    assert float(out.vws.abs().max()) > 0
     ssa = dataclasses.replace(params, kappa_ssa=torch.ones(
         tuple(params.kappa.shape[:2]) + (1,), dtype=params.kappa.dtype))
-    with pytest.raises(NotImplementedError, match="SSA"):
-        tpair.compute_forces(st, ssa, tspec.geom, tspec.pair)
+    st_ssa = dataclasses.replace(st, Cd=torch.zeros((1,) + tuple(st.rho.shape),
+                                                    dtype=torch.int32))
+    assert tpair.compute_forces(st_ssa, ssa, tspec.geom, tspec.pair).Qd.shape == \
+        st_ssa.Cd.shape
     thermal = dataclasses.replace(tspec.pair, thermal=True)
-    tpair.check_ported(params, thermal)
     from sph_bvf_tpu_torch.ops import pair_cuda
 
     with pytest.raises(ValueError, match="dt, step, key"):

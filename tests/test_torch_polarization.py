@@ -441,7 +441,6 @@ def test_polarization_routes_to_k2_and_k6():
     assert pair_cuda.route(spec.geom, spec.pair) is pair_cuda.pass_a_2d_rowloop
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair,
                                         n_sdpd=params.n_sdpd) == []
-    assert tpair._unported(params, spec.pair) == []
     assert rebin_cuda.move_route(spec.geom) is rebin_cuda.rebin_move_2d_gated
 
 
