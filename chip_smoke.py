@@ -386,10 +386,31 @@ each:
              pass-A and move kernels' device time per call; it fails if
              the profiler records no pass-A activity on the card; and K1's
              and K4's device time per call over 10 calls each on the states
-             their speed rows time.
+             their speed rows time;
+12. mesh   — the port over an x-slab mesh of 2 ranks sharing the card
+             (``parallel/launch.spawn``, gloo, the halos staged through
+             host memory: NCCL refuses two ranks on one device): the
+             flagship cavity N=1000 (K1, K5; 100 steps), the doubly
+             periodic 2D vortex N=210 (K2, K5 periodic; 100 steps), the 3D
+             vortex N=20 (K3, K7; 50 steps) and the balanced drifting blob
+             s=1 with its in-run re-cuts (K2 solid-free, K6 with x_edges,
+             the sort route under the mesh; 210 steps), each x-slab cut
+             from a scene with x cells a multiple of 2 and held to the
+             same scene's single-device run on the card: the slots and x,
+             v and rho by tag bitwise on walls, within 5e-6 * max
+             elsewhere, the re-cuts the same, overflow and drift 0; each
+             rank's slab kernels on its final state against their plain
+             versions on the same ghosted slab (pass A within 5e-6 * max,
+             on a jittered copy for the vortices; the moves bitwise),
+             timed (as called, device ms, bound) beside the unsharded
+             kernel on the single-device state; the launches per rank, the
+             halo's bytes and host ms a step and both runs'
+             particle-steps/s (two ranks on one card: no measure of
+             scaling) (``_mesh_phase``; ``tools/torch_mesh_phase.py`` runs
+             it alone).
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (thirty-three entries: the
+second-to-last line is ``{"kernels": [...]}`` (forty-one entries: the
 six kernels of PRs 1-3, then K2's solid-free and K5's, K6's and K7's
 x_edges variants, K1 and K3 with species, K2 and K6 on the polarization
 path, K1, K2 and K3 with their thermal rows, K3 and K7 with periodic axes,
@@ -399,8 +420,9 @@ mechanics cavity, K1 elastic/periodic (its launches those of its parity
 and timing calls: no main path routes such a grid to it) and K1
 solid-free as their own entries, then K5 periodic, K7 with x_edges on a
 periodic grid and K8's three variants, with torch.matmul(x.expand(g, R,
-W), S), mma's g products in one call, as the mma variant's library time),
-the last
+W), S), mma's g products in one call, as the mma variant's library time;
+then the slab kernels of the four mesh legs, their launches summed over
+the ranks), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -788,6 +810,33 @@ INTEG_FIXES = ("ssa_tsdpd/bvf", "ssa_tsdpd/bvf/artificialStress",
 # card and on the CPU, its x bins; the ensemble's replicas, steps and seed
 GOLDEN_NXP, GOLDEN_CD0, GOLDEN_STEPS, GOLDEN_BINS = 40, 50, 100, 20
 ENSEMBLE_R, ENSEMBLE_STEPS, ENSEMBLE_SEED0 = 4, 20, 5
+# [mesh]: the port over an x-slab mesh of MESH_RANKS ranks on the one card
+# (gloo, the halos staged through host memory; parallel/launch.spawn), each
+# leg (scene, size, steps) held against the same scene's single-device run:
+# the flagship at its full width (K1, K5), the doubly periodic 2D vortex
+# (K2, K5 periodic: at N=210 its 70 x cells are even and its cap 14), the
+# 3D vortex (K3, K7) and the balanced drifting blob with its in-run re-cut
+# (K2 solid-free, K6 with x_edges, the sort route)
+MESH_RANKS = 2
+MESH_LEGS = {"flagship": ("cavity", 1000, 100), "vortex2d": ("tgv2d", 210, 100),
+             "vortex3d": ("tgv3d", 20, 50), "blob": ("blob", 1, 210)}
+MESH_DT = {"cavity": 5e-6}  # the flagship's at N=1000, as in [speed]
+MESH_ITERS = 10  # timed calls of each slab kernel
+# the kernels' names in torch.profiler, by wrapper
+DEVICE_MATCH = {"pass_a_2d": "pa2d::window_",
+                "pass_a_2d_rowloop": "pass_a_2d_rowloop_kernel",
+                "pass_a_3d": "pass_a_3d_",
+                "rebin_move_2d": "rebin_move_2d_kernel",
+                "rebin_move_2d_gated": "rebin_move_2d_kernel",
+                "rebin_move_3d": "rebin_move_3d_kernel"}
+SOURCES = {"pass_a_2d": ("csrc/pass_a_2d.cu", "ops/pair_pallas.py:308"),
+           "pass_a_2d_rowloop": ("csrc/pass_a_2d_rowloop.cu",
+                                 "ops/pair_pallas.py:527"),
+           "pass_a_3d": ("csrc/pass_a_3d.cu", "ops/pair_pallas.py:1106"),
+           "rebin_move_2d": ("csrc/rebin_move_2d.cu", "core/rebin_pallas.py:202"),
+           "rebin_move_2d_gated": ("csrc/rebin_move_2d.cu",
+                                   "core/rebin_pallas.py:346"),
+           "rebin_move_3d": ("csrc/rebin_move_3d.cu", "core/rebin_pallas.py:441")}
 
 
 def _k4_bitwise(torch, pair, pair_cuda, state, params, geom, cfg0, tag):
@@ -869,7 +918,9 @@ def _kernel_device_ms(torch, fn, match, iters):
     ``iters`` calls of ``fn`` under torch.profiler (after a warm-up call),
     and their count.  A window whose device records the profiler lost
     (it has dropped a whole window's on the H100 host, and part of one:
-    PERF.md) is profiled again, at most twice."""
+    PERF.md) is profiled again, at most twice; if all three lost them,
+    the calls are timed with CUDA events instead (ms per call as called,
+    launches included) and the count is None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -887,8 +938,11 @@ def _kernel_device_ms(torch, fn, match, iters):
         if count:
             return (sum(e.self_device_time_total for e in hits) / count / 1e3,
                     count)
-    raise AssertionError(f"torch.profiler recorded no {match} kernel in 3 "
-                         f"windows of {iters} calls")
+    ms = _per_call_ms(torch, fn, iters)
+    print(f"[profile] torch.profiler recorded no {match or 'device'} kernel "
+          f"in 3 windows of {iters} calls: {ms!r} ms a call by CUDA events, "
+          f"as called", flush=True)
+    return ms, None
 
 
 def _nvidia_smi(query: str) -> str:
@@ -1839,14 +1893,15 @@ def _ssa_paths(torch, dev, card, kind, counters, card_vs_cpu):
     cfg = dataclasses.replace(spec.pair, density_filter_accs=False)
     pf = pair._per_particle(state, params, cfg)
     noise = pair.noise_inputs(state)
-    k1_ms, _ = _kernel_device_ms(
+    k1_ms, k1_n = _kernel_device_ms(
         torch, lambda: pair_cuda.pass_a_2d(pf, params, spec.geom, cfg, noise),
         "pa2d::window_", 5)
     # every kernel the Qd pass launches ("" matches every name): ms per
     # kernel and kernels over 3 calls
     qd_per_kernel, qd_count = _kernel_device_ms(
         torch, lambda: pair._pass_a_qd(pf, params, spec.geom, cfg, noise), "", 3)
-    qd_ms, qd_kernels = qd_per_kernel * qd_count / 3, qd_count / 3
+    qd_ms, qd_kernels = ((qd_per_kernel * qd_count / 3, qd_count / 3)
+                         if qd_count else (qd_per_kernel, "not measured"))
     qd_call = _per_call_ms(
         torch, lambda: pair._pass_a_qd(pf, params, spec.geom, cfg, noise), 3)
     mu = float(pair.compute_ssa_mu_max(state, params, spec.geom, spec.pair))
@@ -1855,7 +1910,9 @@ def _ssa_paths(torch, dev, card, kind, counters, card_vs_cpu):
           f"the set-up state in {secs!r} s = {n0 * steps / secs!r} "
           f"particle-steps/s; device ms a step: the Qd pass {qd_ms!r} "
           f"({qd_kernels!r} kernels; {qd_call!r} ms as called, CUDA events) "
-          f"beside K1's {k1_ms!r} (torch.profiler); max hop mean {mu!r} "
+          f"beside K1's {k1_ms!r} "
+          f"({'torch.profiler' if k1_n else 'CUDA events, as called'}); "
+          f"max hop mean {mu!r} "
           f"[{card}] (phase {time.perf_counter() - t_phase!r} s)")
     del state, pf
 
@@ -1989,6 +2046,409 @@ def _ssa_paths(torch, dev, card, kind, counters, card_vs_cpu):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def _mesh_build(kind, size, device):
+    """(state, params, spec, dt, spacing) of a [mesh] leg, its x cells a
+    multiple of MESH_RANKS: the same scene for the mesh and the
+    single-device run; ``spacing``, the vortices' lattice spacing (their
+    slab kernels are checked on a jittered copy: on a near-perfect lattice
+    ddv cancels below the kernels' gate, ROADMAP's traps), else None."""
+    from sph_bvf_tpu_torch.api.scene import Region, Scene
+    from sph_bvf_tpu_torch.models import (drift_blob, lid_cavity,
+                                          taylor_green2d, taylor_green3d)
+
+    if kind == "cavity":
+        state, params, spec, _ = lid_cavity.build(
+            N=size, dt=MESH_DT[kind], ncx_multiple_of=MESH_RANKS, device=device)
+        return state, params, spec, MESH_DT[kind], None
+    if kind == "blob":
+        state, params, spec, _ = drift_blob.build(s=size, balance=True,
+                                                  inrun=True, device=device)
+        return state, params, spec, drift_blob.timestep(size), None
+    mod = taylor_green2d if kind == "tgv2d" else taylor_green3d
+    sc = mod.scene(Scene, Region, N=size)
+    sc.ncx_multiple_of = MESH_RANKS
+    state, params, spec = sc.build(device=device)
+    return (mod.taylor_green_velocity(state), params, spec, mod.timestep(size),
+            mod.L / size)
+
+
+def _mesh_counters(pair_cuda, rebin_cuda):
+    return {name: getattr(mod, name) for mod, names in (
+        (pair_cuda, ("pass_a_2d", "pass_a_2d_preshift", "pass_a_2d_rowloop",
+                     "pass_a_3d")),
+        (rebin_cuda, ("rebin_move_2d", "rebin_move_2d_gated",
+                      "rebin_move_3d"))) for name in names}
+
+
+def _slab_work(torch, S, pair, valid, x, slab, h):
+    """(valid candidates, pairs inside h) of pass A on the slab's own
+    cells, from the ghosted slab's validity and positions."""
+    width = slab.strides[0]
+    own = slice(width, valid.shape[-1] - width)
+    not_diag = ~torch.eye(slab.cap, dtype=torch.bool, device=x.device)[:, :, None]
+    pbc = pair._pbc(slab)
+    cand = inside = 0
+    for off in slab.stencil_offsets():
+        vj = S.shift_cells(valid, off, slab)[..., own]
+        xj = S.shift_cells(x, off, slab)[..., own]
+        both = valid[:, None, own] & vj[None, :, :]
+        if off == (0, 0, 0):
+            both = both & not_diag
+        d = pair._pair_delta(x[:, :, None, own], xj[:, None, :, :], pbc)
+        cand += int(both.sum())
+        inside += int((both & ((d * d).sum(0) < h * h)).sum())
+    return cand, inside
+
+
+def _slab_check(state, params, spec, geom, mesh, spacing=None):
+    """This rank's slab kernels on its final state against their plain
+    versions on the same ghosted slab: pass A (the wrapper the grid routes
+    to) within TOL * max|plain| a field, the move bitwise; with
+    ``spacing``, on a copy whose positions moved by a seeded step of up to
+    a tenth of it along each axis of the grid.  Rank 0 also
+    times both (ms as called, the plain version's, device ms from
+    torch.profiler) and computes their bounds from these inputs, the other
+    rank waiting."""
+    import torch
+    import torch.distributed as dist
+
+    from sph_bvf_tpu_torch.core import halo, rebin_cuda
+    from sph_bvf_tpu_torch.core import state as S
+    from sph_bvf_tpu_torch.core.stepper import _rebin_drop
+    from sph_bvf_tpu_torch.ops import pair, pair_cuda
+    from sph_bvf_tpu_torch.parallel import mesh as M
+
+    cfg = spec.pair
+    slab = M.slab_of(geom, mesh)
+    width, periodic = M.plane_cells(geom), halo.wrap_x(geom)
+    if spacing:
+        jittered = _jitter(torch, state, spacing, 7 + mesh.rank).x
+        state = dataclasses.replace(state, x=torch.cat(
+            [jittered[:geom.dim], state.x[geom.dim:]]))
+    pf = pair._per_particle(state, params, cfg)
+    names = list(pf)
+    pf_gh = dict(zip(names, halo.ghost_slabs([pf[k] for k in names], width,
+                                              mesh, periodic)))
+    noise = pair.noise_inputs(state)
+    kernel = pair_cuda.route(slab, cfg)
+    got = kernel(pf_gh, params, slab, cfg, noise)
+    piece = max(1, PLAIN_PAIR_BLOCK // (geom.cap * geom.cap))
+
+    def plain():
+        return pair._pass_a_plain(pf_gh, params, slab, cfg, noise,
+                                  cells_per_piece=piece)
+
+    ref = plain()
+    rel, err = {}, 0.0
+    for k in ("f", "drho", "num_den", "phi", "nw", "ddv", "de"):
+        d = float((got[k] - ref[k]).abs().max())
+        rel[k] = d / max(float(ref[k].abs().max()), 1e-30)
+        err = max(err, d)
+    fields = {k: v for k, v in S.particle_fields(state).items()
+              if k not in _rebin_drop(spec)}
+    fields["x"] = S.wrap_pbc(fields["x"], geom)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, geom.cap,
+                                               state.valid.shape[-1])
+    xr = rebin_cuda._x_row(fmeta)
+    PFg, PIg = halo.ghost_slabs([PF, PI], width, mesh, periodic)
+    move = rebin_cuda.move_route(geom)
+    mf, mi = move(PFg, PIg, geom, xr, slab)
+    qf, qi = rebin_cuda.rebin_move_plain(PFg, PIg, geom, xr, slab)
+    res = {"pass_a": kernel.__name__, "move": move.__name__, "rel": rel,
+           "pass_a_err": err, "move_equal": bool(torch.equal(mf, qf)
+                                                 and torch.equal(mi, qi)),
+           "move_err": float((mf - qf).abs().max())}
+    if mesh.rank == 0:
+        slots_gh, slots = geom.cap * PFg.shape[-1], geom.cap * PF.shape[-1]
+        n_gh = int(pf_gh["valid"].sum())
+        rows_in, rows_out = _pass_a_rows(pair_cuda, pf_gh, slab, cfg,
+                                         kernel.__name__)
+        cand, inside = _slab_work(torch, S, pair, pf_gh["valid"], pf_gh["x"],
+                                  slab, params.max_cut)
+        rows = PF.shape[0] + PI.shape[0]
+        call = lambda: kernel(pf_gh, params, slab, cfg, noise)
+        call_move = lambda: move(PFg, PIg, geom, xr, slab)
+        res.update(
+            pass_a_ms=_per_call_ms(torch, call, MESH_ITERS),
+            pass_a_plain_ms=_per_call_ms(torch, plain, 1, warmup=0),
+            pass_a_device_ms=_kernel_device_ms(
+                torch, call, DEVICE_MATCH[kernel.__name__], MESH_ITERS)[0],
+            pass_a_bound=_bound(4 * (slots_gh + n_gh * (rows_in - 1)
+                                     + slots * rows_out),
+                                FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside),
+            move_ms=_per_call_ms(torch, call_move, MESH_ITERS),
+            move_plain_ms=_per_call_ms(
+                torch, lambda: rebin_cuda.rebin_move_plain(PFg, PIg, geom, xr,
+                                                           slab), 1, warmup=0),
+            move_device_ms=_kernel_device_ms(
+                torch, call_move, DEVICE_MATCH[move.__name__], MESH_ITERS)[0],
+            move_bound=_bound(4 * (slots_gh + n_gh * (rows - 1) + slots * rows),
+                              0))
+    dist.barrier()
+    return res
+
+
+def _mesh_rank(rank, out, legs, device=None):
+    """One rank of the [mesh] phase: each leg built whole, cut to this
+    rank's slab and run through ``stepper.simulate`` over the mesh (the
+    launch counters zeroed just before it and read just after), then its
+    slab kernels held to their plain versions.  Writes ``<leg>_<rank>.json``
+    (launches, seconds, the halo's bytes and host seconds, the slab checks)
+    and, from rank 0, ``<leg>.npz`` (every particle by tag) and
+    ``<leg>_log.json`` (the re-cuts).  ``device``: the ranks' (default
+    ``cuda:(rank % count)``, the one card for both)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sph_bvf_tpu_torch.core import rebin_cuda, stepper
+    from sph_bvf_tpu_torch.ops import pair_cuda
+    from sph_bvf_tpu_torch.parallel import mesh as M
+
+    out = Path(out)
+    counters = _mesh_counters(pair_cuda, rebin_cuda)
+    mesh = M.make_mesh(device=device)
+    for name, (kind, size, steps) in legs.items():
+        state, params, spec, dt, spacing = _mesh_build(kind, size, mesh.device)
+        n_total = int(state.n_valid)
+        state = M.shard_state(state, mesh, spec.geom)
+        params = M.replicate(params, mesh)
+        spec = dataclasses.replace(spec, mesh=mesh)
+        state = stepper.setup(state, params, spec, dt=dt)
+        log = []
+        for c in counters.values():
+            c.launches = 0
+        mesh.stats.clear()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        state = stepper.simulate(state, params, spec, steps, balance_log=log)
+        torch.cuda.synchronize()
+        dist.barrier()
+        seconds = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        stats = dict(mesh.stats)
+        geom = _current_geom(spec.geom, log)
+        got = M.gather_particles(state, geom, mesh, ("x", "v", "rho"))
+        got["slot_tag"] = M.gather_state(state, mesh, ("tag",)).tag.cpu().numpy()
+        rec = dict(rank=rank, launches=launches, seconds=seconds,
+                   n_total=n_total, n_after=M.global_n_valid(state, mesh),
+                   steps=steps, halo=stats, overflow=int(state.overflow),
+                   drift=int(state.drift_violation),
+                   slab=M.slab_of(geom, mesh).ncells,
+                   check=_slab_check(state, params, spec, geom, mesh, spacing))
+        (out / f"{name}_{rank}.json").write_text(json.dumps(rec))
+        if rank == 0:
+            np.savez(out / f"{name}.npz", **got)
+            (out / f"{name}_log.json").write_text(json.dumps(
+                [_log_entry(e) for e in log]))
+        del state, got
+        torch.cuda.empty_cache()
+
+
+def _log_entry(entry):
+    """A ``balance_log`` entry as plain JSON (its geometry as a dict)."""
+    e = dict(entry)
+    if e.get("geom") is not None:
+        e["geom"] = json.loads(json.dumps(dataclasses.asdict(e["geom"])))
+    return e
+
+
+def _mesh_phase(torch, dev, card):
+    """[mesh]: each of MESH_LEGS run on the card with no mesh, then by
+    MESH_RANKS ranks of this host on the same card over gloo
+    (``_mesh_rank``), and held to each other: the slots and x, v and rho
+    by tag bitwise on walls (the flagship), within TOL * max elsewhere,
+    the blob's re-cuts the same, overflow and drift 0 on both; each slab
+    kernel within TOL * max of its plain version (pass A) or bitwise (the
+    moves); every leg's kernels launched on every rank.  Prints the
+    launches per rank, the halo's bytes and host ms a step and the
+    particle-steps/s of both runs, and returns the slab kernels' entries
+    of the ``kernels`` line."""
+    import numpy as np
+
+    from sph_bvf_tpu_torch.core import rebin_cuda
+    from sph_bvf_tpu_torch.core import state as S
+    from sph_bvf_tpu_torch.core.stepper import _rebin_drop, setup, simulate
+    from sph_bvf_tpu_torch.ops import pair, pair_cuda
+    from sph_bvf_tpu_torch.parallel import launch
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    single = {}
+    for name, (kind, size, steps) in MESH_LEGS.items():
+        state, params, spec, dt, _ = _mesh_build(kind, size, dev)
+        state = setup(state, params, spec, dt=dt)
+        log = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = simulate(state, params, spec, steps, balance_log=log)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        geom = _current_geom(spec.geom, log)
+        move = rebin_cuda.move_route(geom)
+        t_move = _move_timing(torch, S, rebin_cuda, move, state, geom,
+                              _rebin_drop(spec), MESH_ITERS)
+        pa = pair_cuda.route(geom, spec.pair)
+        t_pa = _pass_a_timing(pa, state, params, geom, spec.pair, MESH_ITERS,
+                             piece=max(1, PLAIN_PAIR_BLOCK // geom.cap ** 2),
+                             plain_iters=1)
+        pf = pair._per_particle(state, params, spec.pair)
+        noise = pair.noise_inputs(state)
+        single[name] = dict(
+            got=S.gather_particles(state, geom, ("x", "v", "rho")),
+            slot_tag=state.tag.cpu().numpy(), log=[_log_entry(e) for e in log],
+            seconds=secs, n=int(state.n_valid), overflow=int(state.overflow),
+            drift=int(state.drift_violation), pass_a=t_pa, move=t_move,
+            pass_a_device=_kernel_device_ms(
+                torch, lambda: pa(pf, params, geom, spec.pair, noise),
+                DEVICE_MATCH[pa.__name__], MESH_ITERS)[0])
+        PF, PI, xr = _packed(S, rebin_cuda, state, geom, _rebin_drop(spec))
+        single[name]["move_device"] = _kernel_device_ms(
+            torch, lambda: move(PF, PI, geom, xr), DEVICE_MATCH[move.__name__],
+            MESH_ITERS)[0]
+        del state, pf, PF, PI
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    import chip_smoke  # the ranks import this module by name
+
+    launch.spawn(chip_smoke._mesh_rank, MESH_RANKS, "gloo", timeout=600,
+                 args=(str(out), MESH_LEGS, None if dev.type == "cuda" else str(dev)))
+    print(f"[mesh] {MESH_RANKS} ranks on one card (gloo, halos staged through "
+          f"host memory: NCCL refuses two ranks on one device), every leg: "
+          f"{time.perf_counter() - t0!r} s, their start included")
+    rows = []
+    for name, (kind, size, steps) in MESH_LEGS.items():
+        one = single[name]
+        recs = [json.loads((out / f"{name}_{r}.json").read_text())
+                for r in range(MESH_RANKS)]
+        got = dict(np.load(out / f"{name}.npz"))
+        tlog = json.loads((out / f"{name}_log.json").read_text())
+        walls = kind == "cavity"
+        ref = one["got"]
+        if not np.array_equal(got["tag"], ref["tag"]):
+            raise AssertionError(f"[mesh] {name}: the ranks hold other "
+                                 f"particles than the single-device run")
+        slots_equal = bool(np.array_equal(got["slot_tag"], one["slot_tag"]))
+        diffs = {k: float(np.abs(got[k] - ref[k]).max()) /
+                 max(float(np.abs(ref[k]).max()), 1e-30) for k in ("x", "v", "rho")}
+        bad = []
+        if walls and not (slots_equal and all(np.array_equal(got[k], ref[k])
+                                              for k in ("x", "v", "rho"))):
+            bad.append(f"not bitwise on walls (slots {slots_equal}, {diffs})")
+        if not walls and max(diffs.values()) > TOL:
+            bad.append(f"fields past {TOL} of max: {diffs}")
+        if tlog != one["log"]:
+            bad.append(f"re-cuts {tlog} against {one['log']}")
+        if kind == "blob" and not any(e["geom"] for e in tlog):
+            bad.append("no accepted re-cut")
+        for r in recs:
+            c = r["check"]
+            if r["overflow"] or r["drift"] or one["overflow"] or one["drift"]:
+                bad.append(f"overflow/drift {r['overflow']}/{r['drift']} "
+                           f"(single {one['overflow']}/{one['drift']})")
+            if max(c["rel"].values()) > TOL or not c["move_equal"]:
+                bad.append(f"rank {r['rank']} slab kernels: {c['pass_a']} "
+                           f"{c['rel']}, {c['move']} bitwise {c['move_equal']}")
+            for k in (c["pass_a"], c["move"]):
+                if not r["launches"].get(k):
+                    bad.append(f"rank {r['rank']} launched no {k}")
+        if bad:
+            raise AssertionError(f"[mesh] {name}: " + "; ".join(bad))
+        r0, c0 = recs[0], recs[0]["check"]
+        halo = r0["halo"]
+        n = r0["n_total"]
+        print(f"[mesh] {name} ({kind} {size}, {n} particles, {steps} steps, "
+              f"ghosted slabs of {r0['slab']} cells): launches "
+              + "; ".join(f"rank {r['rank']} {r['launches']}" for r in recs)
+              + f"; vs the single-device run: slots equal {slots_equal}, "
+              f"max|diff|/max x {diffs['x']!r} v {diffs['v']!r} rho "
+              f"{diffs['rho']!r}, overflow 0, drift 0, particles {n} -> "
+              f"{r0['n_after']}"
+              + (f", re-cuts at {[e['step'] for e in tlog if e['geom']]}"
+                 if kind == "blob" else "")
+              + f"; halo {halo.get('bytes', 0) / max(halo.get('exchanges', 1), 1)!r}"
+              f" bytes an exchange, {halo.get('exchanges', 0) / steps!r} "
+              f"exchanges and {1e3 * halo.get('seconds', 0.0) / steps!r} host "
+              f"ms a step (rank 0); particle-steps/s {n * steps / r0['seconds']!r}"
+              f" on {MESH_RANKS} ranks against {n * steps / one['seconds']!r} "
+              f"on one (two ranks share one card here: no measure of scaling)"
+              f" [{card}]")
+        for op, kernel in (("pass_a", c0["pass_a"]), ("move", c0["move"])):
+            t1 = one[op]
+            print(f"[mesh] {name} {kernel} on a slab: {c0[f'{op}_ms']!r} ms as "
+                  f"called, device {c0[f'{op}_device_ms']!r} ms, bound "
+                  f"{c0[f'{op}_bound']}, plain {c0[f'{op}_plain_ms']!r} ms; "
+                  f"unsharded {t1[op]!r} ms as called, device "
+                  f"{one[f'{op}_device']!r} ms, bound {t1[f'{op}_bound']}, plain "
+                  f"{t1[f'{op}_plain']!r} ms [{card}]")
+            src, tpu = SOURCES[kernel]
+            rows.append({
+                "name": f"{kernel} (slab, {name})", "route": "cuda",
+                "source": f"sph_bvf_tpu_torch/{src}", "replaces": f"sph_bvf_tpu/{tpu}",
+                "launches": sum(r["launches"][kernel] for r in recs),
+                "max_abs_err": max(r["check"]["pass_a_err" if op == "pass_a"
+                                              else "move_err"] for r in recs),
+                "ms": c0[f"{op}_ms"], "plain_ms": c0[f"{op}_plain_ms"],
+                "bound_ms": c0[f"{op}_bound"][0], "bound_by": c0[f"{op}_bound"][1],
+                "library_ms": None})
+    shutil.rmtree(out, ignore_errors=True)
+    return rows
+
+
+def _pass_a_timing(pass_a, state, params, geom, cfg, iters, piece=None,
+                   plain_iters=None):
+    """Per-call ms of the wrapper ``pass_a`` and of the plain loop (over
+    ``piece`` target cells at a time, all at once by default; over
+    ``plain_iters`` calls, ``iters`` by default) on this
+    state, and pass A's bound from these inputs at
+    the state's occupancy: the packed rows in and out, the valid
+    candidates, the pairs inside the support h (with the thermal noise,
+    their hash and Box-Muller too) and, with species, those inside
+    cutc.  K4's bound is K1's: its 9 staged copies of the pack are its
+    own way of computing the function, not bytes the function needs."""
+    import torch
+
+    from sph_bvf_tpu_torch.core import state as S
+    from sph_bvf_tpu_torch.ops import pair, pair_cuda
+
+    pf = pair._per_particle(state, params, cfg)
+    noise = pair.noise_inputs(state)
+    n, slots = int(state.n_valid), geom.cap * geom.ncells_total
+    rows_in, rows_out = _pass_a_rows(pair_cuda, pf, geom, cfg,
+                                     pass_a.__name__)
+    nbytes = _packed_bytes(slots, n, rows_in, rows_out)
+    cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
+    flops = FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside
+    int_ops = 0
+    if cfg.thermal:
+        flops += FLOPS_THERMAL_PAIR[geom.dim] * inside
+        int_ops = INT_OPS_THERMAL_PAIR[geom.dim] * inside
+    ns = params.n_sdpd
+    inside_c = 0
+    if ns:
+        _, inside_c = _pass_a_work(torch, S, pair, state, geom,
+                                   float(params.cutc.max()))
+        flops += (FLOPS_SPECIES_PAIR + FLOPS_PER_SPECIES * ns) * inside_c
+    return {
+        "pass_a": _per_call_ms(
+            torch, lambda: pass_a(pf, params, geom, cfg, noise), iters),
+        # no warm-up call where the plain pass is timed once (up to 13
+        # s a call on the 3D grids)
+        "pass_a_plain": _per_call_ms(
+            torch, lambda: pair._pass_a_plain(pf, params, geom, cfg, noise,
+                                              cells_per_piece=piece),
+            plain_iters or iters, warmup=0 if plain_iters == 1 else 2),
+        "pass_a_bound": _bound(nbytes, flops, int_ops),
+        "pass_a_rows": rows_in,
+        "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
+                        f"{inside} pairs inside the support"
+                        + (f", {inside_c} inside cutc with {ns} species"
+                           if ns else "")),
+    }
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2026,52 +2486,6 @@ def main() -> int:
                 "rebin_move_3d": rebin_cuda.rebin_move_3d,
                 "probe_slice": rp.probe_slice, "probe_mma": rp.probe_mma,
                 "probe_base": rp.probe_base}
-
-    def pass_a_timing(pass_a, state, params, geom, cfg, iters, piece=None,
-                      plain_iters=None):
-        """Per-call ms of the wrapper ``pass_a`` and of the plain loop (over
-        ``piece`` target cells at a time, all at once by default; over
-        ``plain_iters`` calls, ``iters`` by default) on this
-        state, and pass A's bound from these inputs at
-        the state's occupancy: the packed rows in and out, the valid
-        candidates, the pairs inside the support h (with the thermal noise,
-        their hash and Box-Muller too) and, with species, those inside
-        cutc.  K4's bound is K1's: its 9 staged copies of the pack are its
-        own way of computing the function, not bytes the function needs."""
-        pf = pair._per_particle(state, params, cfg)
-        noise = pair.noise_inputs(state)
-        n, slots = int(state.n_valid), geom.cap * geom.ncells_total
-        rows_in, rows_out = _pass_a_rows(pair_cuda, pf, geom, cfg,
-                                         pass_a.__name__)
-        nbytes = _packed_bytes(slots, n, rows_in, rows_out)
-        cand, inside = _pass_a_work(torch, S, pair, state, geom, params.max_cut)
-        flops = FLOPS_CANDIDATE * cand + FLOPS_PAIR * inside
-        int_ops = 0
-        if cfg.thermal:
-            flops += FLOPS_THERMAL_PAIR[geom.dim] * inside
-            int_ops = INT_OPS_THERMAL_PAIR[geom.dim] * inside
-        ns = params.n_sdpd
-        inside_c = 0
-        if ns:
-            _, inside_c = _pass_a_work(torch, S, pair, state, geom,
-                                       float(params.cutc.max()))
-            flops += (FLOPS_SPECIES_PAIR + FLOPS_PER_SPECIES * ns) * inside_c
-        return {
-            "pass_a": _per_call_ms(
-                torch, lambda: pass_a(pf, params, geom, cfg, noise), iters),
-            # no warm-up call where the plain pass is timed once (up to 13
-            # s a call on the 3D grids)
-            "pass_a_plain": _per_call_ms(
-                torch, lambda: pair._pass_a_plain(pf, params, geom, cfg, noise,
-                                                  cells_per_piece=piece),
-                plain_iters or iters, warmup=0 if plain_iters == 1 else 2),
-            "pass_a_bound": _bound(nbytes, flops, int_ops),
-            "pass_a_rows": rows_in,
-            "pass_a_work": (f"{rows_in} + {rows_out} rows, {cand} candidates, "
-                            f"{inside} pairs inside the support"
-                            + (f", {inside_c} inside cutc with {ns} species"
-                               if ns else "")),
-        }
 
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -2304,7 +2718,7 @@ def main() -> int:
         k1f_err[f"fsi nx={FSI_NX[0]} {label}"] = (max(err.values()), live)
         k1f_abs = max(k1f_abs, err_abs)
     cfg_nf = dataclasses.replace(spec.pair, density_filter_accs=False)
-    t_k1f = pass_a_timing(pair_cuda.pass_a_2d, seeded, params, geom, cfg_nf, 10)
+    t_k1f = _pass_a_timing(pair_cuda.pass_a_2d, seeded, params, geom, cfg_nf, 10)
     k1f_launches = pair_cuda.pass_a_2d.launches
     pf_nf = pair._per_particle(seeded, params, cfg_nf)
     k2_ms = _per_call_ms(torch, lambda: pair_cuda.pass_a_2d_rowloop(
@@ -2399,7 +2813,7 @@ def main() -> int:
                     _rebin_drop(spec), f"K7 species {label}")
                 k7s_what.append(f"{label}: {what}")
                 # K3 with species is timed on the first case: one species
-                t_k3s = t_k3s or pass_a_timing(
+                t_k3s = t_k3s or _pass_a_timing(
                     pair_cuda.pass_a_3d, s3, p3, geom,
                     dataclasses.replace(spec.pair, density_filter_accs=False), 10,
                     plain_iters=1)
@@ -2423,7 +2837,7 @@ def main() -> int:
                 c.launches = 0
             st = simulate(_noisy(torch, state), params, spec_t, 10)
             k3t_launches = pair_cuda.pass_a_3d.launches
-            t_k3t = pass_a_timing(
+            t_k3t = _pass_a_timing(
                 pair_cuda.pass_a_3d, st, params, geom,
                 dataclasses.replace(spec_t.pair, density_filter_accs=False), 10,
                 plain_iters=1)
@@ -2590,7 +3004,7 @@ def main() -> int:
         c.launches = 0
     s_ = simulate(s_, p_, spec, 10)
     k3f_launches = pair_cuda.pass_a_3d.launches
-    t_k3f = pass_a_timing(
+    t_k3f = _pass_a_timing(
         pair_cuda.pass_a_3d, s_, p_, geom,
         dataclasses.replace(spec.pair, density_filter_accs=False), 10,
         plain_iters=1)
@@ -2807,7 +3221,7 @@ def main() -> int:
     if k1sf_launches != {"pass_a_2d": 11, "rebin_move_2d": 2}:
         raise AssertionError(f"crowded-cell run: launch counts {k1sf_launches}")
     # K1 solid-free timed on the state its launches come from
-    t_k1sf = pass_a_timing(pair_cuda.pass_a_2d, cs, cp, cgeom,
+    t_k1sf = _pass_a_timing(pair_cuda.pass_a_2d, cs, cp, cgeom,
                            dataclasses.replace(ccfg, density_filter_accs=False),
                            10)
     print(f"[K1 full body] on the polarization state (fsi style, ampl_damp, "
@@ -2835,7 +3249,7 @@ def main() -> int:
         c.launches = 0
     st = simulate(_noisy(torch, state), params, spec_t, 10)
     k2t_launches = pair_cuda.pass_a_2d_rowloop.launches
-    t_k2t = pass_a_timing(
+    t_k2t = _pass_a_timing(
         pair_cuda.pass_a_2d_rowloop, st, params, geom,
         dataclasses.replace(spec_t.pair, density_filter_accs=False), 10)
     print(f"[K2 thermal] rowloop pass A kernel with the thermal rows == plain, "
@@ -3076,7 +3490,7 @@ def main() -> int:
         for name, kernel, match in (("K1", pair_cuda.pass_a_2d, "pa2d::window_"),
                                     ("K4", pair_cuda.pass_a_2d_preshift,
                                      "pa2d::window_")):
-            t[name] = pass_a_timing(kernel, state, params, geom, cfg, 10,
+            t[name] = _pass_a_timing(kernel, state, params, geom, cfg, 10,
                                     plain_iters=1)
             pf = pair._per_particle(state, params, cfg)
             t[name]["device_ms"], _ = _kernel_device_ms(
@@ -3480,9 +3894,10 @@ def main() -> int:
 
     real_rebin = stepper_mod.rebin
 
-    def counted_rebin(state, geom, drop=(), use_kernel=True, drift_check=True):
+    def counted_rebin(state, geom, drop=(), use_kernel=True, drift_check=True,
+                      mesh=None):
         rebins.append(use_kernel and drift_check and rebin_cuda.move_supported(geom))
-        return real_rebin(state, geom, drop, use_kernel, drift_check)
+        return real_rebin(state, geom, drop, use_kernel, drift_check, mesh)
 
     stepper_mod.rebin = counted_rebin
     try:
@@ -4126,7 +4541,7 @@ def main() -> int:
         # the plain pass A takes 0.2-13 s a call on a 3D grid: one timed
         # call there (after the two warm-up calls) keeps the phase well
         # inside the script's time limit
-        t.update(pass_a_timing(pass_a, state, params, geom, cfg, iters,
+        t.update(_pass_a_timing(pass_a, state, params, geom, cfg, iters,
                                plain_piece, 1 if geom.dim == 3 else None))
         t.update({
             "rebin_kernel": _per_call_ms(
@@ -4628,6 +5043,8 @@ def main() -> int:
          "library_ms": probe_out["matmul_ms"] if v == "mma" else None}
         for v in rp.VARIANTS
     ]
+    # -- [mesh]: the port over x-slab ranks on the one card ----------------
+    kernels += _mesh_phase(torch, dev, card)
     print(f"[time] {time.perf_counter() - t_start!r} s from the first build "
           f"to here [{card}]")
     print(json.dumps({"kernels": kernels}))

@@ -19,11 +19,19 @@ and the 2D and 3D Taylor-Green vortices, the load-balanced drifting blob
 in 2D and 3D (``models/drift_blob.py``), the SDPD thermal noise, the
 stochastic (SSA) species (``core/ssa.py``), all seven integrators with the
 weighted-solid pass B, output and restart (``io/``), LAMMPS-style input
-scripts (``api/lmp.py``, ``python -m sph_bvf_tpu_torch -in X.lmp``) and
-replica ensembles (``parallel/ensemble.py``).  What it lacks, multi-device
-meshes (``spec.mesh``), raises ``NotImplementedError``; nothing falls
-back to other code.  Entry points build on the card (``cuda``) unless the
-caller names another device.
+scripts (``api/lmp.py``, ``python -m sph_bvf_tpu_torch -in X.lmp``),
+replica ensembles (``parallel/ensemble.py``) and multi-device runs: an
+x-slab mesh of ``torch.distributed`` ranks, one process and one device
+each (``parallel/mesh.py``, ``parallel/launch.py``; ``spec.mesh``), whose
+pass A and rebin move run the same kernels on each rank's slab with one
+halo plane exchanged each side (``core/halo.exchange_slabs``), and whose
+thermo rows are the whole grid's (``utils/thermo``, ``mesh=``).  What a
+mesh still lacks raises ``NotImplementedError`` (the SSA hop draws and
+pass B; ``ops/pair.mesh_unsupported``), as does anything else not ported;
+an output that would read one rank's slab as the grid raises
+(``core/state.check_whole``);
+nothing falls back to other code.  Entry points build on the card
+(``cuda``) unless the caller names another device.
 
 Kernels (``csrc/*.cu``) are compiled by ``_build.py`` with ``nvcc`` at first
 use.  Each kernel wrapper launches its kernel on a CUDA tensor and runs the

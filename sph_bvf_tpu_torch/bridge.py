@@ -95,10 +95,12 @@ def _ssa(cfg, config_cls, reaction_cls):
     return config_cls(**fields)
 
 
-def spec_to_port(spec) -> ModelSpec:
+def spec_to_port(spec, mesh=None) -> ModelSpec:
     """A port ModelSpec from a JAX ModelSpec, its geometry's ``x_edges``, its
-    ``BalanceFix`` and its ``SsaConfig`` included.  Raises for a fix or a
-    mesh that the port does not have yet."""
+    ``BalanceFix`` and its ``SsaConfig`` included.  A JAX mesh cannot cross:
+    the port's spec runs over ``mesh``, the caller's
+    ``parallel/mesh.Mesh`` (None: one device).  Raises for a fix the port
+    does not have."""
     fixes = []
     for fx in spec.fixes:
         cls = _FIXES.get(type(fx).__name__)
@@ -106,8 +108,6 @@ def spec_to_port(spec) -> ModelSpec:
             raise NotImplementedError(
                 f"fix {type(fx).__name__} is ported in a later PR")
         fixes.append(_plain(cls, fx))
-    if spec.mesh is not None:
-        raise NotImplementedError("spec.mesh is ported in a later PR")
     return ModelSpec(
         geom=_plain(Geometry, spec.geom),
         pair=_plain(PairConfig, spec.pair),
@@ -115,6 +115,7 @@ def spec_to_port(spec) -> ModelSpec:
         fixes=tuple(fixes),
         ssa=_ssa(spec.ssa, SsaConfig, SsaReaction),
         rebin_every=spec.rebin_every,
+        mesh=mesh,
         balance=None if spec.balance is None else _plain(BalanceFix, spec.balance),
     )
 

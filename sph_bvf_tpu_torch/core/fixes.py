@@ -10,6 +10,11 @@ Every fix of the JAX package is here: ``SetForce`` (the lid cavities),
 convection), ``ChemRxnMassAction`` and ``DtAdaptive``.  Step gates
 (``state.step > after_step``) compare on the device: no fix reads a value
 back to the host.
+
+``mesh`` (``parallel/mesh.Mesh``, the x-slab mesh of a sharded run; None on
+one device): a fix reads only its own rank's slab, and a value reduced over
+particles (``DtAdaptive``'s largest speed) is reduced over every rank, so
+every rank keeps the same value.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Tuple
 import torch
 
 from sph_bvf_tpu_torch.core.state import Params, State
+from sph_bvf_tpu_torch.parallel.mesh import all_reduce
 
 # stages
 POST_INTEGRATE = "post_integrate"
@@ -76,7 +82,7 @@ class Forcing:
         if self.shape not in ("circle", "rectangle"):
             raise ValueError(f"forcing shape {self.shape!r}")
 
-    def apply(self, state: State, params: Params) -> State:
+    def apply(self, state: State, params: Params, mesh=None) -> State:
         sel = (
             _in_group(state, self.groupbit)
             & _region_mask(state, self.shape, self.center, self.length,
@@ -113,7 +119,7 @@ class Buoyancy:
 
     stage = POST_FORCE
 
-    def apply(self, state: State, params: Params) -> State:
+    def apply(self, state: State, params: Params, mesh=None) -> State:
         sel = _in_group(state, self.groupbit) & state.valid
         m = params.mass[state.ptype.long()]
         if self.mode == "boussinesq":
@@ -139,7 +145,7 @@ class ChemRxnMassAction:
 
     stage = POST_FORCE
 
-    def apply(self, state: State, params: Params) -> State:
+    def apply(self, state: State, params: Params, mesh=None) -> State:
         sel = _in_group(state, self.groupbit) & state.valid
         flux = torch.full_like(state.rho, self.k_rate)
         for r in self.reactants:
@@ -167,7 +173,7 @@ class SetForce:
 
     stage = POST_FORCE
 
-    def apply(self, state: State, params: Params) -> State:
+    def apply(self, state: State, params: Params, mesh=None) -> State:
         sel = _in_group(state, self.groupbit)
         comps = [
             state.f[d] if val is None else torch.where(sel, float(val), state.f[d])
@@ -222,7 +228,7 @@ class Buffer:
             phi = 0.5 * (1.0 - torch.tanh(8.0 - 16.0 * phi))  # tanh (:173)
         return torch.where(inside, phi, 0.0)
 
-    def apply(self, state: State, params: Params) -> State:
+    def apply(self, state: State, params: Params, mesh=None) -> State:
         sel = _in_group(state, self.groupbit) & (state.step > self.after_step)
         phi = torch.where(sel, self._ramp(state), 0.0)
         if self.field == "tsdpd":
@@ -254,17 +260,21 @@ class DtAdaptive:
 
     stage = END_OF_STEP
 
-    def apply(self, state: State, params: Params) -> State:
+    def apply(self, state: State, params: Params, mesh=None) -> State:
         vsq = torch.sum(state.v * state.v, dim=0)
         vsq = torch.where(state.valid & _in_group(state, self.groupbit), vsq, 0.0)
-        vmax = torch.sqrt(torch.max(vsq))
+        vsq_max = torch.max(vsq)
+        if mesh is not None:
+            vsq_max = all_reduce(vsq_max, mesh, "max")
+        vmax = torch.sqrt(vsq_max)
         dt = self.cfl * self.dx_ave / torch.clamp_min(vmax, 1e-30)
         dt = torch.clamp(dt, self.tmin, self.tmax)
         return dataclasses.replace(state, dt=dt.to(state.dt.dtype))
 
 
-def apply_stage(state: State, params: Params, fixes, stage: str) -> State:
+def apply_stage(state: State, params: Params, fixes, stage: str,
+                mesh=None) -> State:
     for fx in fixes:
         if fx.stage == stage:
-            state = fx.apply(state, params)
+            state = fx.apply(state, params, mesh)
     return state

@@ -22,6 +22,14 @@ launches the kernel the grid routes to on a CUDA tensor or runs
 ``rebin_move_plain`` (the same ordered walk in vectorized PyTorch) on a
 CPU tensor, and unpacks.  A CUDA call no kernel serves raises; it never
 falls back.
+
+Under a mesh (``parallel/mesh.py``) the packs of a rank's x-slab get one
+halo plane on each side (``core/halo.ghost_slabs``) and the same kernels
+move them (``slab``: ``halo.SlabGeometry``): the targets are the slab's own
+cells, the sources the ghosted slab, every bin is taken on the global grid
+against a global cell id, and each window's source cells are ranked by
+their global flat index, so the slots are bitwise the single grid's.  A
+particle bound for the neighbour's slab is taken there, from its halo.
 """
 
 from __future__ import annotations
@@ -33,8 +41,9 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
-                                         wrap_axes, wrap_bits, wrap_x, wrap_y)
+from sph_bvf_tpu_torch.core.halo import (SlabGeometry, ghost_slabs, grid_3d,
+                                         narrow_wrap_axes, wrap_axes, wrap_bits,
+                                         wrap_x, wrap_y)
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
 MAX_CAP = 16  # K5's, the JAX package's static branch's
@@ -183,73 +192,89 @@ def _x_row(fmeta) -> int:
     raise KeyError("x")
 
 
-def _walk_sources(geom: Geometry, device):
-    """The candidate source cells of every target cell, [3^dim, NC] each:
-    the source cell's flat index (0 where off the grid) and whether it is
-    on the grid, ordered per target by ascending flat index after the
-    periodic wraps (off-grid candidates last)."""
+def _walk_sources(geom: Geometry, device, slab: SlabGeometry = None):
+    """The candidate source cells of every target cell, [3^dim, nt] each:
+    the source cell's index in the packs (0 where off the grid) and whether
+    it is on the grid, ordered per target by ascending global flat index
+    after the periodic wraps (off-grid candidates last); and the targets'
+    global flat indices [nt].  The targets are every cell of ``geom``, or
+    with ``slab`` the slab's own cells, whose sources lie in the ghosted
+    slab (one halo plane each side)."""
     nx, ny, nz = geom.ncells
     NC = geom.ncells_total
-    c = torch.arange(NC, dtype=torch.int64, device=device)
+    x0, planes = (0, nx) if slab is None else (slab.x0, slab.ncells[0] - 2)
+    c = torch.arange(x0 * ny * nz, (x0 + planes) * ny * nz, dtype=torch.int64,
+                     device=device)
     cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
     wx, wy, wz = wrap_axes(geom)
-    srcs, ons = [], []
+    keys, addrs, ons = [], [], []
     for ox, oy, oz in geom.stencil_offsets():
         sx, sy, sz = cx + ox, cy + oy, cz + oz
+        # the source's plane in the packs: on a slab, its halo plane for a
+        # step past the slab's ends, before any wrap
+        lx = sx if slab is None else sx - x0 + 1
         if wx:
             sx = sx % nx
+            lx = lx % nx if slab is None else lx
         if wy:
             sy = sy % ny
         if wz:
             sz = sz % nz
-        srcs.append((sx * ny + sy) * nz + sz)
+        keys.append((sx * ny + sy) * nz + sz)
+        addrs.append((lx * ny + sy) * nz + sz)
         ons.append((sx >= 0) & (sx < nx) & (sy >= 0) & (sy < ny)
                    & (sz >= 0) & (sz < nz))
     on_grid = torch.stack(ons)
-    key, order = torch.sort(torch.where(on_grid, torch.stack(srcs), NC),
-                            dim=0, stable=True)
+    _, order = torch.sort(torch.where(on_grid, torch.stack(keys), NC),
+                          dim=0, stable=True)
     on_grid = torch.gather(on_grid, 0, order)
-    return torch.where(on_grid, key, 0), on_grid
+    src = torch.gather(torch.stack(addrs), 0, order)
+    return torch.where(on_grid, src, 0), on_grid, c
 
 
 def rebin_move_plain(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
-                     xr: int):
+                     xr: int, slab: SlabGeometry = None):
     """The K5/K6/K7 walk in vectorized PyTorch: the kernels' plain version.
 
     For every target cell the candidates are taken slot-major, then by
-    ascending source-cell flat index after the periodic wrap; a candidate
-    matches when it is valid, its source cell lies on the grid and
-    ``cell_index_of`` of its position is the target.  The first ``cap``
-    matches fill output slots 0.. in order.
+    ascending source-cell global flat index after the periodic wrap; a
+    candidate matches when it is valid, its source cell lies on the grid
+    and ``cell_index_of`` of its position (on the global grid ``geom``) is
+    the target.  The first ``cap`` matches fill output slots 0.. in order.
+    With ``slab`` the packs hold the ghosted slab and the outputs its own
+    cells, [rows, cap, NC of the slab].
     """
-    _, cap, NC = PF.shape
+    _, cap, NC_in = PF.shape
     dev = PF.device
-    c = torch.arange(NC, dtype=torch.int64, device=dev)
-    src_cell, on_grid = _walk_sources(geom, dev)
-    # flat source slot of every candidate, slot-major: [cap, 3^dim, NC]
+    src_cell, on_grid, c = _walk_sources(geom, dev, slab)
+    nt = c.shape[0]
+    # flat source slot of every candidate, slot-major: [cap, 3^dim, nt]
     slots = torch.arange(cap, dtype=torch.int64, device=dev)[:, None, None]
-    k = (slots * NC + src_cell[None]).reshape(cap * src_cell.shape[0], NC)
+    k = (slots * NC_in + src_cell[None]).reshape(cap * src_cell.shape[0], nt)
     valid = PI[0].reshape(-1) != 0
     newcell = cell_index_of(PF[xr: xr + 3].reshape(3, -1), geom).to(torch.int64)
     match = (on_grid.repeat(cap, 1) & valid[k] & (newcell[k] == c[None]))
     rank = torch.cumsum(match.to(torch.int64), dim=0) - 1
     keep = match & (rank < cap)
-    # output slot (rank, c) takes candidate k; one spare slot for the rest
-    M = cap * NC
-    dest = torch.where(keep, rank * NC + c[None], M)
+    # output slot (rank, target) takes candidate k; one spare slot for the
+    # rest
+    M = cap * nt
+    dest = torch.where(keep, rank * nt + torch.arange(nt, device=dev)[None], M)
     src = torch.full((M + 1,), -1, dtype=torch.int64, device=dev)
     src.scatter_(0, dest.reshape(-1), k.reshape(-1))
     src = src[:M]
     got = src >= 0
     src = torch.clamp(src, min=0)
-    outf = torch.where(got, PF.reshape(PF.shape[0], M)[:, src],
+    outf = torch.where(got, PF.reshape(PF.shape[0], cap * NC_in)[:, src],
                        torch.zeros((), dtype=PF.dtype, device=dev))
-    outi = torch.where(got, PI.reshape(PI.shape[0], M)[:, src],
+    outi = torch.where(got, PI.reshape(PI.shape[0], cap * NC_in)[:, src],
                        torch.zeros((), dtype=PI.dtype, device=dev))
-    return outf.reshape(PF.shape), outi.reshape(PI.shape)
+    return (outf.reshape(PF.shape[0], cap, nt),
+            outi.reshape(PI.shape[0], cap, nt))
 
 
-def _check_packs(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry, wrapper):
+def _check_packs(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry, wrapper,
+                 slab: SlabGeometry = None):
     missing = move_unsupported(geom, wrapper)
     if missing:
         raise NotImplementedError(
@@ -260,9 +285,10 @@ def _check_packs(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry, wrapper):
         raise TypeError(f"rebin move kernel takes f32/i32 packs, got "
                         f"{PF.dtype}/{PI.dtype}")
     _, cap, NC = PF.shape
-    if (cap, NC) != (geom.cap, geom.ncells_total) or PI.shape[1:] != PF.shape[1:]:
+    grid = slab or geom
+    if (cap, NC) != (geom.cap, grid.ncells_total) or PI.shape[1:] != PF.shape[1:]:
         raise ValueError(f"packs {tuple(PF.shape)}/{tuple(PI.shape)} do not "
-                         f"match the geometry [{geom.cap}, {geom.ncells_total}]")
+                         f"match the geometry [{geom.cap}, {grid.ncells_total}]")
     if not (PF.is_contiguous() and PI.is_contiguous()) or PI.device != PF.device:
         raise ValueError("rebin move kernel packs must be contiguous on one device")
     if cap * NC >= 2**31:
@@ -302,6 +328,18 @@ def _wrap_2d(geom: Geometry) -> tuple:
             (ctypes.c_float, _x_span(geom)))
 
 
+def _slab_args(geom: Geometry, slab: SlabGeometry = None) -> tuple:
+    """The move kernels' slab arguments (csrc/rebin_move.cuh): the global
+    plane of the packs' plane 0, the global plane count, whether the global
+    x is periodic, the first target cell and the target count."""
+    nx = geom.ncells[0]
+    if slab is None:
+        return 0, nx, int(wrap_x(geom)), 0, geom.ncells_total
+    plane = geom.ncells[1] * geom.ncells[2]
+    return (slab.x0 - 1, nx, int(wrap_x(geom)), plane,
+            (slab.ncells[0] - 2) * plane)
+
+
 def _library(wrapper) -> str:
     """The library (``csrc/<name>.cu``) and C entry point ``wrapper``
     launches: its own name, but K5's for K6."""
@@ -310,7 +348,8 @@ def _library(wrapper) -> str:
 
 
 def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
-            xr: int, naxes: int, extra=(), lists: bool = None):
+            xr: int, naxes: int, extra=(), lists: bool = None,
+            slab: SlabGeometry = None):
     """Launch ``wrapper``'s kernel (``csrc/<name>.cu``, ``_library``) on the
     packs and count the launch on ``wrapper``.
 
@@ -318,11 +357,17 @@ def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     counts and cap, the cell counts of the first ``naxes`` axes, the x row,
     those axes' f32 binning constants, then ``extra`` (``(ctypes type,
     value)`` pairs), the x columns' fine-bin bounds (``_column_bounds``),
-    with ``lists`` = ``k7_list(cap)`` K7's slot lists' scratch (null for
-    lists in shared memory, else an i32 [cap, NC] one), and the stream.
-    Returns (outF, outI) of the input shapes."""
-    _check_packs(PF, PI, geom, wrapper)
-    outf, outi = torch.empty_like(PF), torch.empty_like(PI)
+    the slab's arguments (``_slab_args``), with ``lists`` =
+    ``k7_list(cap)`` K7's slot lists' scratch (null for lists in shared
+    memory, else an i32 [cap, NC] one), and the stream.  The cell counts
+    are the packs' grid's: the ghosted slab's with ``slab``.  Returns
+    (outF, outI), [rows, cap, the target cells]."""
+    _check_packs(PF, PI, geom, wrapper, slab)
+    sa = _slab_args(geom, slab)
+    outf = torch.empty((PF.shape[0], geom.cap, sa[-1]), dtype=PF.dtype,
+                       device=PF.device)
+    outi = torch.empty((PI.shape[0], geom.cap, sa[-1]), dtype=PI.dtype,
+                       device=PI.device)
     tail = ()
     if lists is not None:
         scratch = (None if lists else torch.empty(
@@ -336,11 +381,13 @@ def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + naxes)
                    + [ctypes.c_float] * (2 * naxes) + [t for t, _ in extra]
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_int] * len(sa)
                    + [ctypes.c_void_p] * (len(tail) + 1))
     code = fn(PF.data_ptr(), PI.data_ptr(), outf.data_ptr(), outi.data_ptr(),
-              PF.shape[0], PI.shape[0], geom.cap, *geom.ncells[:naxes], xr,
+              PF.shape[0], PI.shape[0], geom.cap,
+              *(slab or geom).ncells[:naxes], xr,
               *_bin_constants(geom, naxes), *(v for _, v in extra),
-              None if xb is None else xb.data_ptr(), inv_q, n_fine,
+              None if xb is None else xb.data_ptr(), inv_q, n_fine, *sa,
               *tail,
               _build.current_stream(PF.device))
     _build.check(lib, code, name)
@@ -349,54 +396,72 @@ def _launch(wrapper, PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
 
 
 def rebin_move_2d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
-                  xr: int):
-    """K5 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
-    walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
+                  xr: int, slab: SlabGeometry = None):
+    """K5 on packed matrices (of the ghosted ``slab`` when given): the CUDA
+    kernel on a CUDA tensor, the plain walk on a CPU tensor.  Returns
+    (outF, outI), [rows, cap, the grid's or the slab's cells]."""
     if not PF.is_cuda:
-        return rebin_move_plain(PF, PI, geom, xr)
-    return _launch(rebin_move_2d, PF, PI, geom, xr, 2, _wrap_2d(geom))
+        return rebin_move_plain(PF, PI, geom, xr, slab)
+    return _launch(rebin_move_2d, PF, PI, geom, xr, 2, _wrap_2d(geom),
+                   slab=slab)
 
 
 rebin_move_2d.launches = 0  # K5 launches in this process
 
 
 def rebin_move_2d_gated(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
-                        xr: int):
-    """K6 on packed matrices: the CUDA kernel on a CUDA tensor (K5's, from
-    K5's library: ``_library``; this wrapper counts its own launches), the
-    plain walk on a CPU tensor.  Returns (outF, outI) of the input shapes."""
+                        xr: int, slab: SlabGeometry = None):
+    """K6 on packed matrices (of the ghosted ``slab`` when given): the CUDA
+    kernel on a CUDA tensor (K5's, from K5's library: ``_library``; this
+    wrapper counts its own launches), the plain walk on a CPU tensor.
+    Returns (outF, outI) as ``rebin_move_2d``."""
     if not PF.is_cuda:
-        return rebin_move_plain(PF, PI, geom, xr)
-    return _launch(rebin_move_2d_gated, PF, PI, geom, xr, 2, _wrap_2d(geom))
+        return rebin_move_plain(PF, PI, geom, xr, slab)
+    return _launch(rebin_move_2d_gated, PF, PI, geom, xr, 2, _wrap_2d(geom),
+                   slab=slab)
 
 
 rebin_move_2d_gated.launches = 0  # K6 launches in this process
 
 
 def rebin_move_3d(PF: torch.Tensor, PI: torch.Tensor, geom: Geometry,
-                  xr: int):
-    """K7 on packed matrices: the CUDA kernel on a CUDA tensor, the plain
-    walk on a CPU tensor; its slot lists where ``k7_list`` puts them.
-    Returns (outF, outI) of the input shapes."""
+                  xr: int, slab: SlabGeometry = None):
+    """K7 on packed matrices (of the ghosted ``slab`` when given): the CUDA
+    kernel on a CUDA tensor, the plain walk on a CPU tensor; its slot lists
+    where ``k7_list`` puts them.  Returns (outF, outI) as
+    ``rebin_move_2d``."""
     if not PF.is_cuda:
-        return rebin_move_plain(PF, PI, geom, xr)
+        return rebin_move_plain(PF, PI, geom, xr, slab)
     return _launch(rebin_move_3d, PF, PI, geom, xr, 3,
                    ((ctypes.c_int, wrap_bits(geom)),
                     (ctypes.c_float, _x_span(geom))),
-                   lists=k7_list(geom.cap))
+                   lists=k7_list(geom.cap), slab=slab)
 
 
 rebin_move_3d.launches = 0  # K7 launches in this process
 
 
-def move(fields: Dict[str, torch.Tensor], geom: Geometry) -> Dict[str, torch.Tensor]:
+def move(fields: Dict[str, torch.Tensor], geom: Geometry,
+         mesh=None) -> Dict[str, torch.Tensor]:
     """Move every particle leaf to its new cell slot; returns the new dict.
 
     ``fields`` must already be position-wrapped and hold ``x`` and
     ``valid``.  Particles landing in a full cell (rank >= cap) or outside
-    the one-cell ring come back invalid; the caller counts them.
+    the one-cell ring come back invalid; the caller counts them.  Under
+    ``mesh`` (``parallel/mesh.Mesh``) ``fields`` are this rank's slab:
+    its packs get their halo planes, and the particles bound for a
+    neighbour's slab leave it (the neighbour takes them).
     """
-    NC, cap = geom.ncells_total, geom.cap
+    cap = geom.cap
+    NC = fields["valid"].shape[-1]
     PF, PI, fmeta, imeta = _pack_fields(fields, cap, NC)
-    outf, outi = move_route(geom)(PF, PI, geom, _x_row(fmeta))
+    slab = None
+    if mesh is not None:
+        from sph_bvf_tpu_torch.parallel.mesh import plane_cells, slab_of
+
+        slab = slab_of(geom, mesh)
+        PF, PI = ghost_slabs([PF, PI], plane_cells(geom), mesh, wrap_x(geom))
+    kernel = move_route(geom)
+    outf, outi = (kernel(PF, PI, geom, _x_row(fmeta)) if slab is None
+                  else kernel(PF, PI, geom, _x_row(fmeta), slab))
     return _unpack_fields(outf, outi, fmeta, imeta, fields, cap, NC)

@@ -422,8 +422,9 @@ def _flat_slots(a):
     return a.reshape(a.shape[:-2] + (a.shape[-2] * a.shape[-1],))
 
 
-def _drift_count(fields, geom: Geometry):
+def _drift_count(fields, geom: Geometry, x0: int = 0):
     """Valid particles farther than drift_budget outside their assigned cell.
+    ``x0``: the global x plane of the fields' first cell (a mesh's slab).
 
     On a periodic axis of more than one cell the position's image nearest
     its cell is measured.  ``wrap_pbc`` can return hi itself (a position a
@@ -433,9 +434,10 @@ def _drift_count(fields, geom: Geometry):
     JAX package's count measures the raw position and counts it as a drift
     past the whole box (``sph_bvf_tpu/core/state.py`` ``rebin``); any other
     position has the same count in both."""
-    NC = geom.ncells_total
     x = fields["x"]  # [3, cap, NC]
-    cell_ids = torch.arange(NC, dtype=torch.int32, device=x.device)
+    first = x0 * geom.strides[0]
+    cell_ids = torch.arange(first, first + x.shape[-1], dtype=torch.int32,
+                            device=x.device)
     excess = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
     for ax in range(geom.dim):
         coord = (cell_ids // geom.strides[ax]) % geom.ncells[ax]
@@ -458,7 +460,8 @@ def _drift_count(fields, geom: Geometry):
 
 
 def rebin(state: State, geom: Geometry, drop: tuple = (),
-          use_kernel: bool = True, drift_check: bool = True) -> State:
+          use_kernel: bool = True, drift_check: bool = True,
+          mesh=None) -> State:
     """Re-scatter every particle into the cell slot owned by its position.
 
     Deterministic: rows are ordered by (cell, current flat slot).  Particles
@@ -476,16 +479,26 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
     the global sort runs.
 
     ``drop``: leaf names (see ``rebin_droppable``) to zero instead of move.
-    """
-    NC, cap = geom.ncells_total, geom.cap
-    M = NC * cap
 
+    ``mesh`` (``parallel/mesh.Mesh``): ``state`` is this rank's x-slab of
+    ``geom``.  The move runs on the slab with its halo planes
+    (``rebin_cuda.move``); the sort gathers every rank's particles, sorts
+    them as one grid and keeps this rank's slab.  The overflow and drift
+    counts are sums over the ranks, the same on every rank.
+    """
+    reduce = _reducer(mesh)
     fields = particle_fields(state)
     zeroed = {n: torch.zeros_like(fields.pop(n)) for n in drop}
 
     drift_violation = state.drift_violation
     if geom.drift_budget > 0 and drift_check:
-        drift_violation = drift_violation + _drift_count(fields, geom)
+        x0 = 0
+        if mesh is not None:
+            from sph_bvf_tpu_torch.parallel.mesh import slab_of
+
+            x0 = slab_of(geom, mesh).x0
+        drift_violation = drift_violation + reduce(
+            _drift_count(fields, geom, x0))
 
     fields["x"] = wrap_pbc(fields["x"], geom)
 
@@ -494,10 +507,13 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
 
         if move_supported(geom):
             n_before = torch.sum(fields["valid"].to(torch.int32))
-            new_fields = move(fields, geom)
+            new_fields = move(fields, geom, mesh)
             # every particle not re-placed (cell over capacity, or a move
-            # beyond the one-cell ring) is a loss
-            lost = n_before - torch.sum(new_fields["valid"].to(torch.int32))
+            # beyond the one-cell ring) is a loss; under a mesh the
+            # particles that crossed to a neighbour's slab are counted
+            # there, so the loss is the sum over the ranks
+            lost = reduce(n_before - torch.sum(
+                new_fields["valid"].to(torch.int32)))
             new_state = dataclasses.replace(
                 state, overflow=state.overflow + lost,
                 drift_violation=drift_violation, **new_fields, **zeroed,
@@ -515,7 +531,46 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
                 f"in a later PR: {move_refusal(geom)}"
             )
 
-    dev = state.x.device
+    if mesh is not None:
+        from sph_bvf_tpu_torch.parallel.mesh import all_gather
+
+        NC_loc = fields["valid"].shape[-1]
+        names = list(fields)
+        fields = dict(zip(names, all_gather(fields.values(), mesh)))
+        new_fields, dropped = _sort_move(fields, geom, state.x.dtype)
+        lo = mesh.rank * NC_loc
+        new_fields = {k: v[..., lo:lo + NC_loc].contiguous()
+                      for k, v in new_fields.items()}
+    else:
+        new_fields, dropped = _sort_move(fields, geom, state.x.dtype)
+    new_state = dataclasses.replace(
+        state,
+        overflow=state.overflow + dropped,
+        drift_violation=drift_violation,
+        **new_fields,
+        **zeroed,
+    )
+    # empty slots must hold neutral denominators
+    return _neutralize_invalid(new_state)
+
+
+def _reducer(mesh):
+    """A sum over the mesh's ranks (``parallel/mesh.all_reduce``), or the
+    identity without a mesh."""
+    if mesh is None:
+        return lambda t: t
+    from sph_bvf_tpu_torch.parallel.mesh import all_reduce
+
+    return lambda t: all_reduce(t, mesh)
+
+
+def _sort_move(fields: dict, geom: Geometry, fdt) -> tuple:
+    """The global sort of every particle leaf in ``fields`` (wrapped
+    positions) into ``geom``'s slots: (the new leaves, the count dropped
+    past cap)."""
+    NC, cap = geom.ncells_total, geom.cap
+    M = NC * cap
+    dev = fields["x"].device
     valid = _flat_slots(fields["valid"])
     cell = torch.where(valid, _flat_slots(cell_index_of(fields["x"], geom)),
                        torch.tensor(NC, dtype=torch.int32, device=dev))
@@ -539,7 +594,6 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
     src = torch.clamp(src, max=M - 1)
 
     # pack all leaves into two dtype-homogeneous matrices, move, unpack
-    fdt = state.x.dtype
     packs = {fdt: [], torch.int32: []}
     meta = []  # (name, kind, nrows, lead-shape, dtype)
     for name, a in fields.items():
@@ -563,16 +617,7 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
         rows[kind] = r + nrows
         block = moved[kind][r: r + nrows]
         new_fields[name] = block.to(dtype).reshape(lead + (cap, NC))
-
-    new_state = dataclasses.replace(
-        state,
-        overflow=state.overflow + dropped,
-        drift_violation=drift_violation,
-        **new_fields,
-        **zeroed,
-    )
-    # empty slots must hold neutral denominators
-    return _neutralize_invalid(new_state)
+    return new_fields, dropped
 
 
 def _neutralize_invalid(state: State) -> State:
@@ -677,9 +722,23 @@ def scatter_by_tag(state: State, **host_arrays) -> State:
     return dataclasses.replace(state, **repl)
 
 
+def check_whole(state: State, geom: Geometry, what: str) -> None:
+    """Raise unless ``state`` holds every cell of ``geom``: a mesh's slab
+    must be gathered first (``parallel/mesh.gather_particles``,
+    ``gather_state``), or ``what`` would see one rank's particles only."""
+    NC = state.valid.shape[-1]
+    if NC != geom.ncells_total:
+        raise ValueError(
+            f"{what} of a state of {NC} cells on a grid of "
+            f"{geom.ncells_total}: a mesh's slab is gathered over the mesh "
+            f"first (parallel/mesh.gather_state)")
+
+
 def gather_particles(state: State, geom: Geometry, fields=("x", "v", "rho")):
     """Host-side: extract valid particles sorted by tag -> dict of np arrays
-    (component-trailing, [n, comps...])."""
+    (component-trailing, [n, comps...]).  ``state`` holds the whole grid
+    (``check_whole``)."""
+    check_whole(state, geom, "gather_particles")
     valid = state.valid.reshape(-1).cpu().numpy()
     tags = state.tag.reshape(-1).cpu().numpy()[valid]
     order = np.argsort(tags, kind="stable")

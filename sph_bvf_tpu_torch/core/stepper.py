@@ -20,7 +20,15 @@ chunk, as fix halt does.  With SSA species (``spec.ssa``) the reactions
 run after ``final_integrate`` and ``simulate`` warns once when the largest
 per-pair hop mean leaves the tau-leap's regime.
 
-Not ported yet (raises when set): multi-device meshes.
+``spec.mesh`` (``parallel/mesh.Mesh``) runs the same loop on every rank of
+an x-slab mesh, each rank on its own slab of the state
+(``mesh.shard_state``): the rebin and pass A exchange one halo plane with
+the neighbours, and every value the host decides on (the overflow and
+drift counts, a re-cut's acceptance, a halt, ``DtAdaptive``'s dt, a
+thermo row) is reduced over the ranks, so they all take the same branch;
+``simulate`` refuses a ``ThermoLogger`` or ``Halt`` whose ``mesh`` is not
+``spec.mesh``.  Under a mesh the SSA hops and pass B raise
+(``ops/pair.mesh_unsupported``).
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ from sph_bvf_tpu_torch.core.state import (
 )
 from sph_bvf_tpu_torch.core.ssa import ssa_step
 from sph_bvf_tpu_torch.ops.pair import PairConfig, compute_forces, compute_ssa_mu_max
-from sph_bvf_tpu_torch.utils.thermo import StopSimulation
+from sph_bvf_tpu_torch.parallel.mesh import all_reduce
+from sph_bvf_tpu_torch.utils.thermo import Halt, StopSimulation, ThermoLogger
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,27 +69,23 @@ class ModelSpec:
     ssa: Optional[Any] = None
     rebin_every: int = 10
     mesh: Optional[Any] = None
-    mesh_axis: str = "x"
     balance: Optional[Any] = None
-
-
-def _check_ported(spec: ModelSpec):
-    if spec.mesh is not None:
-        raise NotImplementedError(
-            "multi-device runs (spec.mesh) are ported in a later PR")
 
 
 def step(state: State, params: Params, spec: ModelSpec) -> State:
     """One full Verlet step."""
     state = dataclasses.replace(state, step=state.step + 1)
     state = initial_integrate(state, params, spec.integ)
-    state = fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.POST_INTEGRATE)
-    state = compute_forces(state, params, spec.geom, spec.pair)
-    state = fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.POST_FORCE)
+    state = fixes_mod.apply_stage(state, params, spec.fixes,
+                                  fixes_mod.POST_INTEGRATE, spec.mesh)
+    state = compute_forces(state, params, spec.geom, spec.pair, spec.mesh)
+    state = fixes_mod.apply_stage(state, params, spec.fixes,
+                                  fixes_mod.POST_FORCE, spec.mesh)
     state = final_integrate(state, params, spec.integ)
     if spec.ssa is not None:
         state = ssa_step(state, params, spec.geom, spec.ssa)
-    state = fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.END_OF_STEP)
+    state = fixes_mod.apply_stage(state, params, spec.fixes,
+                                  fixes_mod.END_OF_STEP, spec.mesh)
     return state
 
 
@@ -90,13 +95,13 @@ def _rebin_drop(spec: ModelSpec) -> tuple:
 
 def setup(state: State, params: Params, spec: ModelSpec, dt: float) -> State:
     """Verlet::setup: bin, vest=v, initial force eval, post_force fixes."""
-    _check_ported(spec)
     state = dataclasses.replace(
         state, dt=torch.tensor(dt, dtype=state.x.dtype, device=state.x.device))
-    state = rebin(state, spec.geom, drop=_rebin_drop(spec))
+    state = rebin(state, spec.geom, drop=_rebin_drop(spec), mesh=spec.mesh)
     state = setup_pre_force(state)
-    state = compute_forces(state, params, spec.geom, spec.pair)
-    return fixes_mod.apply_stage(state, params, spec.fixes, fixes_mod.POST_FORCE)
+    state = compute_forces(state, params, spec.geom, spec.pair, spec.mesh)
+    return fixes_mod.apply_stage(state, params, spec.fixes,
+                                 fixes_mod.POST_FORCE, spec.mesh)
 
 
 def run_chunk(state: State, params: Params, spec: ModelSpec, n: int,
@@ -105,8 +110,7 @@ def run_chunk(state: State, params: Params, spec: ModelSpec, n: int,
     modulo ``integ.freq_filter``; when given (and the integrator consumes
     the Shepard filter) only the steps on the filter cadence accumulate
     rhoAux1/rhoAux2.  ``None`` accumulates every step."""
-    _check_ported(spec)
-    state = rebin(state, spec.geom, drop=_rebin_drop(spec))
+    state = rebin(state, spec.geom, drop=_rebin_drop(spec), mesh=spec.mesh)
     return scan_steps(state, params, spec, n, phase)
 
 
@@ -134,6 +138,21 @@ def scan_steps(state: State, params: Params, spec: ModelSpec, n: int,
     return state
 
 
+def _halted(callback, state: State, mesh) -> bool:
+    """Run ``callback(state)``; whether it (on any rank of ``mesh``) raised
+    ``StopSimulation``, whose message is printed where it was raised."""
+    stop = 0
+    try:
+        callback(state)
+    except StopSimulation as e:
+        print(f"[halt] {e}")
+        stop = 1
+    if mesh is not None:
+        flag = torch.tensor(stop, device=mesh.device)
+        stop = int(all_reduce(flag, mesh, "max"))
+    return bool(stop)
+
+
 def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
              callback=None, callback_every: Optional[int] = None,
              balance_log: Optional[list] = None):
@@ -154,8 +173,15 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
     ``balance_log`` gets a dict per accepted re-cut (``step``, ``geom`` and
     the before/after metrics) and per refusal that gives a ``reason``
     (``geom`` None).
+
+    Under ``spec.mesh`` every rank calls this on its slab; the counters it
+    checks are sums over the ranks, the re-cut reads every rank's particles
+    and a ``StopSimulation`` on any rank ends the run on all of them.
     """
-    _check_ported(spec)
+    if (isinstance(callback, (Halt, ThermoLogger))
+            and callback.mesh is not spec.mesh):
+        raise ValueError(f"{type(callback).__name__}(mesh=...) must be the "
+                         "run's spec.mesh, or its rows are one slab's")
     chunk = spec.rebin_every
     cb_every = callback_every or chunk
     if cb_every % chunk:
@@ -201,10 +227,11 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
             next_bal += bal.every
             from sph_bvf_tpu_torch.parallel.balance import rebalance
 
-            new_geom, info = rebalance(state, spec.geom, bal)
+            new_geom, info = rebalance(state, spec.geom, bal, spec.mesh)
             if new_geom is not None:
                 trial = rebin(state, new_geom, drop=_rebin_drop(spec),
-                              use_kernel=False, drift_check=False)
+                              use_kernel=False, drift_check=False,
+                              mesh=spec.mesh)
                 if int(trial.overflow) == int(state.overflow):
                     state = trial
                     spec = dataclasses.replace(spec, geom=new_geom)
@@ -228,10 +255,7 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
         state = run_chunk(state, params, spec, n, phase=phase)
         done += n
         if callback is not None and (done % cb_every == 0 or done >= nsteps):
-            try:
-                callback(state)
-            except StopSimulation as e:
-                print(f"[halt] {e}")
+            if _halted(callback, state, spec.mesh):
                 check(state)
                 return state
         # the counter readback costs a host round trip; amortize over chunks

@@ -23,6 +23,22 @@
 // position once more by the edges' own span xspan = edge[nx] - edge0 (lo0
 // + the floored mod of x - lo0), which `in_column` repeats with the same
 // f32 rounding.  xb == nullptr means uniform columns.
+//
+// An x-slab of a mesh (parallel/mesh.py): the packs hold the slab's planes
+// with one halo plane on each side, the grid the kernel indexes is that
+// ghosted slab (nx planes, plane 0 being global plane x0), and the targets
+// are the slab's own cells, t0 .. t0 + nt - 1 (the output holds nt cells).
+// Binning stays global: a candidate's x bin is taken on the global grid of
+// gnx planes (a periodic one when `gwrapx`), against the target's global
+// plane; and the window ranks its source cells by their global flat index,
+// so that the candidates keep the single grid's order (the halo plane left
+// of rank 0 on a ring is global plane gnx - 1, last in that order).  The
+// walk and the copy take that form when instantiated with SLAB; without
+// it (one device: x0 = 0, gnx = nx, gwrapx = the x wrap, t0 = 0, nt = nc)
+// they compile as before the mesh, so a one-device move pays nothing for
+// it: the slab form alone on one device gives the same slots but costs
+// 0.4-0.7% of the 2D moves' device time and 4.8% of the 3D cavity's
+// (H100, tools/torch_move_timing.py, PERF.md).
 
 #pragma once
 
@@ -84,6 +100,8 @@ struct Walk {
   const int* xb;
   float inv_q;
   int n_fine;
+  // the slab: x0, gnx, the global x wrap, the targets t0 .. t0 + nt - 1
+  int x0, gnx, gwrapx, t0, nt;
 };
 
 // Phase 1 of target cell c, by the 32 lanes of a warp together: the source
@@ -96,29 +114,39 @@ struct Walk {
 // multiply-high, the row stop without a loop); in 3D the same trims raised
 // K7's registers and slowed its 3D vortex (PERF.md), so K7 walks as
 // before.
-template <bool PLANE>
+template <bool PLANE, bool SLAB>
 __device__ __forceinline__ int rank_matches(const Walk& W, int c, int* srcs,
                                             int* lst, int stride) {
   constexpr int kWindow = PLANE ? 9 : 27;
   const int lane = threadIdx.x & 31;
   const int cz = PLANE ? 0 : c % W.nz, cxy = PLANE ? c : c / W.nz;
   const int cy = cxy % W.ny, cx = cxy / W.ny;
+  const int gcx = SLAB ? cx + W.x0 : cx;  // the target's global plane
   const bool wx = W.wrap & 1, wy = W.wrap & 2, wz = W.wrap & 4;
   // lane o < kWindow: the source cell at offset (o / 9 - 1, o / 3 % 3 - 1,
-  // o % 3 - 1), on a plane (o / 3 - 1, o % 3 - 1, 0), after the wraps,
-  // INT_MAX off the grid
-  int v = INT_MAX;
+  // o % 3 - 1), on a plane (o / 3 - 1, o % 3 - 1, 0), after the wraps: its
+  // global flat index v, INT_MAX off the global grid, and its index a in
+  // the packs
+  int v = INT_MAX, a = 0;
   if (lane < kWindow) {
-    int sx = cx + (PLANE ? lane / 3 : lane / 9) - 1,
+    const int ox = (PLANE ? lane / 3 : lane / 9) - 1;
+    int sx = cx + ox, gx = gcx + ox,
         sy = cy + (PLANE ? lane : lane / 3) % 3 - 1,
         sz = PLANE ? 0 : cz + lane % 3 - 1;
     bool on = true;
     if (wx) sx = wrap_cell(sx, W.nx); else on = on && sx >= 0 && sx < W.nx;
+    if (SLAB) {
+      if (W.gwrapx) gx = wrap_cell(gx, W.gnx);
+      else on = on && gx >= 0 && gx < W.gnx;
+    }
     if (wy) sy = wrap_cell(sy, W.ny); else on = on && sy >= 0 && sy < W.ny;
     if (!PLANE) {
       if (wz) sz = wrap_cell(sz, W.nz); else on = on && sz >= 0 && sz < W.nz;
     }
-    if (on) v = PLANE ? sx * W.ny + sy : (sx * W.ny + sy) * W.nz + sz;
+    if (on) {
+      a = PLANE ? sx * W.ny + sy : (sx * W.ny + sy) * W.nz + sz;
+      v = !SLAB ? a : PLANE ? gx * W.ny + sy : (gx * W.ny + sy) * W.nz + sz;
+    }
   }
   // the window in ascending flat index: each lane's rank among the lanes
   // (no source cell is on the grid twice: a wrapping axis has >= 3 cells;
@@ -131,12 +159,12 @@ __device__ __forceinline__ int rank_matches(const Walk& W, int c, int* srcs,
     rank += u < v || (u == v && q < lane);
   }
   __syncwarp();
-  if (!PLANE || lane < kWindow) srcs[rank] = v;
+  if (!PLANE || lane < kWindow) srcs[rank] = a;
   const int ns = __popc(__ballot_sync(kFull, v != INT_MAX));
   __syncwarp();
 
-  const int xb0 = W.xb ? __ldg(W.xb + cx) : 0;
-  const int xb1 = W.xb ? __ldg(W.xb + cx + 1) : 0;
+  const int xb0 = W.xb ? __ldg(W.xb + gcx) : 0;
+  const int xb1 = W.xb ? __ldg(W.xb + gcx + 1) : 0;
   const unsigned lower = (1u << lane) - 1u;
   const int total = W.cap * ns;  // the candidates: cap slot rows of ns cells
   // candidate t = slot t / ns of the (t % ns)-th source cell; on a plane
@@ -166,8 +194,9 @@ __device__ __forceinline__ int rank_matches(const Walk& W, int c, int* srcs,
               (W.ny > 1 ? bin<PLANE>(y, W.lo1, W.inv1, W.ny, wy) : 0) == cy &&
               (PLANE ||
                (W.nz > 1 ? bin(z, W.lo2, W.inv2, W.nz, wz) : 0) == cz) &&
-              in_column<PLANE>(x, cx, W.nx, W.lo0, W.inv0, wx, W.xspan, W.xb,
-                               xb0, xb1, W.inv_q, W.n_fine);
+              in_column<PLANE>(x, gcx, SLAB ? W.gnx : W.nx, W.lo0, W.inv0,
+                               SLAB ? W.gwrapx != 0 : wx, W.xspan, W.xb, xb0,
+                               xb1, W.inv_q, W.n_fine);
     }
     const unsigned any_valid = __ballot_sync(kFull, valid);
     // the first slot row this step ends with no valid slot: lanes past it
@@ -218,24 +247,26 @@ __device__ __forceinline__ int rank_matches(const Walk& W, int c, int* srcs,
 }
 
 // A thread's copy of `rows` rows of its source slot (in, the first row's
-// word; rows m words apart) to its output slot (out, likewise), ROWS loads
-// in flight: each batch of ROWS rows is loaded before it is stored.
+// word; rows m words apart) to its output slot (out; rows mo words apart),
+// ROWS loads in flight: each batch of ROWS rows is loaded before it is
+// stored.
 template <int ROWS>
 __device__ __forceinline__ void copy_rows(const unsigned* __restrict__ in,
                                           unsigned* __restrict__ out, int rows,
-                                          long long m) {
-  for (int r0 = 0; r0 < rows; r0 += ROWS, in += ROWS * m, out += ROWS * m) {
+                                          long long m, long long mo) {
+  for (int r0 = 0; r0 < rows; r0 += ROWS, in += ROWS * m, out += ROWS * mo) {
     unsigned v[ROWS];
 #pragma unroll
     for (int b = 0; b < ROWS; ++b)
       if (r0 + b < rows) v[b] = __ldg(in + b * m);
 #pragma unroll
     for (int b = 0; b < ROWS; ++b)
-      if (r0 + b < rows) out[b * m] = v[b];
+      if (r0 + b < rows) out[b * mo] = v[b];
   }
 }
 
-// One block's move of CELLS target cells from blockIdx.x * CELLS, by WARPS
+// One block's move of CELLS target cells from t0 + blockIdx.x * CELLS (of
+// the outputs' nt cells: output cell c - t0), by WARPS
 // warps: phase 1, each warp ranks one cell after another (`rank_matches`)
 // into their slot lists, in shared memory (SHARED_LIST: list_s, i32 [cap,
 // CELLS]) or in `list` (i32 [cap, NC] in global memory); phase 2, the block
@@ -247,14 +278,16 @@ __device__ __forceinline__ void copy_rows(const unsigned* __restrict__ in,
 // slower; H100, PERF.md); a slot past its cell's match count is
 // written as zeros without reading anything.  srcs: WARPS x 32 ints, kept:
 // CELLS ints of shared memory.
-template <bool SHARED_LIST, bool PLANE, int CELLS, int WARPS, int ROWS>
+template <bool SHARED_LIST, bool PLANE, bool SLAB, int CELLS, int WARPS,
+          int ROWS>
 __device__ __forceinline__ void move_cells(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, Walk W,
     int xr, int* __restrict__ list, int* list_s, int (*srcs)[32], int* kept) {
-  const long long m = (long long)W.cap * W.nc;
-  const int c0 = blockIdx.x * CELLS;
-  const int cells = min(CELLS, W.nc - c0);
+  const int t0 = SLAB ? W.t0 : 0, nt = SLAB ? W.nt : W.nc;
+  const long long m = (long long)W.cap * W.nc, mo = (long long)W.cap * nt;
+  const int c0 = t0 + blockIdx.x * CELLS;
+  const int cells = min(CELLS, t0 + nt - c0);
   int* lst = SHARED_LIST ? list_s : list + c0;
   const int stride = SHARED_LIST ? CELLS : W.nc;
   W.px = pf + (long long)xr * m;
@@ -264,7 +297,8 @@ __device__ __forceinline__ void move_cells(
   const int warp = threadIdx.x / 32;
   for (int cell = warp; cell < cells; cell += WARPS) {
     const int n =
-        rank_matches<PLANE>(W, c0 + cell, srcs[warp], lst + cell, stride);
+        rank_matches<PLANE, SLAB>(W, c0 + cell, srcs[warp], lst + cell,
+                                  stride);
     if (threadIdx.x % 32 == 0) kept[cell] = min(n, W.cap);
   }
   __syncthreads();
@@ -273,27 +307,27 @@ __device__ __forceinline__ void move_cells(
   for (int it = threadIdx.x; it < W.cap * CELLS; it += 32 * WARPS) {
     const int s = it / CELLS, cell = it % CELLS;
     if (cell >= cells) continue;
-    const long long o = (long long)s * W.nc + c0 + cell;
+    const long long o = (long long)s * nt + c0 - t0 + cell;
     if (s < kept[cell]) {
       const long long k = lst[s * stride + cell];
       if constexpr (ROWS > 0) {
         copy_rows<ROWS>(reinterpret_cast<const unsigned*>(pf) + k,
-                        reinterpret_cast<unsigned*>(outf) + o, ff, m);
+                        reinterpret_cast<unsigned*>(outf) + o, ff, m, mo);
         copy_rows<ROWS>(reinterpret_cast<const unsigned*>(pi) + k,
-                        reinterpret_cast<unsigned*>(outi) + o, fi, m);
+                        reinterpret_cast<unsigned*>(outi) + o, fi, m, mo);
       } else {
 #pragma unroll 4
         for (int r = 0; r < ff; ++r)
-          outf[(long long)r * m + o] = __ldg(pf + (long long)r * m + k);
+          outf[(long long)r * mo + o] = __ldg(pf + (long long)r * m + k);
 #pragma unroll 4
         for (int r = 0; r < fi; ++r)
-          outi[(long long)r * m + o] = __ldg(pi + (long long)r * m + k);
+          outi[(long long)r * mo + o] = __ldg(pi + (long long)r * m + k);
       }
     } else {
 #pragma unroll 4
-      for (int r = 0; r < ff; ++r) outf[(long long)r * m + o] = 0.f;
+      for (int r = 0; r < ff; ++r) outf[(long long)r * mo + o] = 0.f;
 #pragma unroll 4
-      for (int r = 0; r < fi; ++r) outi[(long long)r * m + o] = 0;
+      for (int r = 0; r < fi; ++r) outi[(long long)r * mo + o] = 0;
     }
   }
 }

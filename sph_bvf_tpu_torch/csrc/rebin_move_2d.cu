@@ -42,8 +42,10 @@
 // source slot before it stores them (kRows loads in flight a thread).
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
-// x at f32 rows xr, xr+1 (and z at xr+2, unread); outputs of the same
-// shapes.  Flat cell c = cx * ny + cy; the grid has one cell along z.
+// x at f32 rows xr, xr+1 (and z at xr+2, unread); outputs [ff, cap, nt] and
+// [fi, cap, nt] (on one device nt = NC; on a slab the slab's cells, its
+// halo planes left out).  Flat cell c = cx * ny + cy; the grid has one
+// cell along z.
 
 #include <cuda_runtime.h>
 
@@ -62,6 +64,8 @@ constexpr int kWarps = 8, kThreads = 32 * kWarps;
 // (PERF.md)
 constexpr int kCells = 32, kRows = 8, kBlocks = 6;
 
+// SLAB: the move of a mesh's slab (csrc/rebin_move.cuh)
+template <bool SLAB>
 __global__ void __launch_bounds__(kThreads, kBlocks) rebin_move_2d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi,
@@ -69,41 +73,53 @@ __global__ void __launch_bounds__(kThreads, kBlocks) rebin_move_2d_kernel(
   extern __shared__ int list_s[];
   __shared__ int srcs[kWarps][32];
   __shared__ int kept[kCells];
-  rebin::move_cells<true, true, kCells, kWarps, kRows>(
+  rebin::move_cells<true, true, SLAB, kCells, kWarps, kRows>(
       pf, pi, outf, outi, ff, fi, W, xr, nullptr, list_s, srcs, kept);
 }
 
 }  // namespace
 
-// wrapx / wrapy: x / y periodic with more than one cell; xspan: the x
-// edges' span (read only with xb and wrapx)
+// wrapx / wrapy: x / y periodic with more than one cell (x: wrapping by
+// index); xspan: the x edges' span (read only with xb and a periodic x);
+// x0, gnx, gwrapx: the global plane of plane 0, the global plane count and
+// whether the global x is periodic; t0, nt: the target cells, the outputs'
+// nt cells (csrc/rebin_move.cuh: on one device 0, nx, wrapx, 0, nx * ny)
 extern "C" int rebin_move_2d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int xr, float lo0, float lo1, float inv0,
                              float inv1, int wrapx, int wrapy, float xspan,
-                             const int* xb, float inv_q, int n_fine,
+                             const int* xb, float inv_q, int n_fine, int x0,
+                             int gnx, int gwrapx, int t0, int nt,
                              cudaStream_t stream) {
   if (cap > kMaxCap) return (int)cudaErrorInvalidValue;
-  if ((wrapx && nx < 3) || (wrapy && ny < 3)) return (int)cudaErrorInvalidValue;
+  if ((wrapx && nx < 3) || (wrapy && ny < 3) || (gwrapx && gnx < 3))
+    return (int)cudaErrorInvalidValue;
   const int nc = nx * ny;
-  if (nc == 0 || cap == 0) return 0;
+  if (t0 < 0 || nt < 0 || t0 + nt > nc) return (int)cudaErrorInvalidValue;
+  if (nt == 0 || cap == 0) return 0;
   const Walk W{pi, nullptr, nullptr, nullptr, cap, nx, ny, 1, nc,
                (wrapx ? 1 : 0) | (wrapy ? 2 : 0), lo0, lo1, 0.f, inv0, inv1,
-               0.f, xspan, xb, inv_q, n_fine};
-  const unsigned blocks = (unsigned)((nc + kCells - 1) / kCells);
+               0.f, xspan, xb, inv_q, n_fine, x0, gnx, gwrapx, t0, nt};
+  const unsigned blocks = (unsigned)((nt + kCells - 1) / kCells);
   // the slot lists, i32 [cap, kCells]: 8 KB at most, within the default
-  rebin_move_2d_kernel<<<blocks, kThreads, sizeof(int) * cap * kCells,
-                         stream>>>(pf, pi, outf, outi, ff, fi, W, xr);
+  const size_t shared = sizeof(int) * cap * kCells;
+  if (x0 == 0 && gnx == nx && gwrapx == wrapx && t0 == 0 && nt == nc)
+    rebin_move_2d_kernel<false><<<blocks, kThreads, shared, stream>>>(
+        pf, pi, outf, outi, ff, fi, W, xr);
+  else
+    rebin_move_2d_kernel<true><<<blocks, kThreads, shared, stream>>>(
+        pf, pi, outf, outi, ff, fi, W, xr);
   return (int)cudaGetLastError();
 }
 
 // registers per thread and local-memory (spill) bytes per thread of the
-// kernel, its target cells a block and the rows a thread of its copy loads
-// before it stores them
+// kernel (its one-device instantiation), its target cells a block and the
+// rows a thread of its copy loads before it stores them
 extern "C" int rebin_move_2d_attributes(int* regs, int* local_bytes,
                                         int* cells, int* rows) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, rebin_move_2d_kernel);
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, rebin_move_2d_kernel<false>);
   if (err == cudaSuccess) {
     *regs = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;

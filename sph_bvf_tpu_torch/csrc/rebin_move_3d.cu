@@ -74,7 +74,8 @@
 // cells' contents are the same.
 //
 // Layouts: pf f32 [ff, cap, NC], pi i32 [fi, cap, NC] with row 0 = valid,
-// x at f32 rows xr, xr+1, xr+2; outputs of the same shapes.  Flat cell
+// x at f32 rows xr, xr+1, xr+2; outputs [ff, cap, nt] and [fi, cap, nt]
+// (on one device nt = NC; on a slab the slab's cells).  Flat cell
 // c = (cx * ny + cy) * nz + cz.
 
 #include <cuda_runtime.h>
@@ -91,8 +92,9 @@ constexpr int kCells = 16;
 
 // kCells target cells from blockIdx.x * kCells (csrc/rebin_move.cuh
 // `move_cells`); SHARED_LIST: their slot lists in dynamic shared memory, i32
-// [cap, kCells], else in `list`, i32 [cap, NC] in global memory.
-template <bool SHARED_LIST>
+// [cap, kCells], else in `list`, i32 [cap, NC] in global memory; SLAB: the
+// move of a mesh's slab.
+template <bool SHARED_LIST, bool SLAB>
 __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
     const float* __restrict__ pf, const int* __restrict__ pi,
     float* __restrict__ outf, int* __restrict__ outi, int ff, int fi, Walk W,
@@ -100,15 +102,15 @@ __global__ void __launch_bounds__(kThreads) rebin_move_3d_kernel(
   extern __shared__ int list_s[];
   __shared__ int srcs[kWarps][32];
   __shared__ int kept[kCells];
-  rebin::move_cells<SHARED_LIST, false, kCells, kWarps, 0>(
+  rebin::move_cells<SHARED_LIST, false, SLAB, kCells, kWarps, 0>(
       pf, pi, outf, outi, ff, fi, W, xr, list, list_s, srcs, kept);
 }
 
-template <bool SHARED_LIST>
+template <bool SHARED_LIST, bool SLAB>
 int run(unsigned blocks, int shared, cudaStream_t stream, const float* pf,
         const int* pi, float* outf, int* outi, int ff, int fi, const Walk& W,
         int xr, int* list) {
-  auto kernel = rebin_move_3d_kernel<SHARED_LIST>;
+  auto kernel = rebin_move_3d_kernel<SHARED_LIST, SLAB>;
   // the default is 48 KB less the kernel's static shared memory
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
@@ -123,39 +125,51 @@ int run(unsigned blocks, int shared, cudaStream_t stream, const float* pf,
 
 }  // namespace
 
-// wrap: bit a set when axis a is periodic with more than one cell; xspan:
-// the x edges' span (read only with xb and a periodic x); list: nullptr for
-// the slot lists in shared memory (cap * kCells i32 of it), else i32
-// scratch of cap * nx * ny * nz entries (its contents are not read before
-// this call writes them)
+// wrap: bit a set when axis a is periodic with more than one cell (x:
+// wrapping by index); xspan: the x edges' span (read only with xb and a
+// periodic x); x0, gnx, gwrapx, t0, nt: the slab, as rebin_move_2d.cu's
+// (on one device 0, nx, wrap & 1, 0, nx * ny * nz); list: nullptr for the
+// slot lists in shared memory (cap * kCells i32 of it), else i32 scratch
+// of cap * nx * ny * nz entries (its contents are not read before this
+// call writes them)
 extern "C" int rebin_move_3d(const float* pf, const int* pi, float* outf,
                              int* outi, int ff, int fi, int cap, int nx, int ny,
                              int nz, int xr, float lo0, float lo1, float lo2,
                              float inv0, float inv1, float inv2, int wrap,
                              float xspan, const int* xb, float inv_q,
-                             int n_fine, int* list, cudaStream_t stream) {
-  if (((wrap & 1) && nx < 3) || ((wrap & 2) && ny < 3) || ((wrap & 4) && nz < 3))
+                             int n_fine, int x0, int gnx, int gwrapx, int t0,
+                             int nt, int* list, cudaStream_t stream) {
+  if (((wrap & 1) && nx < 3) || ((wrap & 2) && ny < 3) ||
+      ((wrap & 4) && nz < 3) || (gwrapx && gnx < 3))
     return (int)cudaErrorInvalidValue;
   const int nc = nx * ny * nz;
-  if (nc == 0 || cap == 0) return 0;
+  if (t0 < 0 || nt < 0 || t0 + nt > nc) return (int)cudaErrorInvalidValue;
+  if (nt == 0 || cap == 0) return 0;
   const Walk W{pi, nullptr, nullptr, nullptr, cap, nx, ny, nz, nc, wrap,
-               lo0, lo1, lo2, inv0, inv1, inv2, xspan, xb, inv_q, n_fine};
-  const unsigned blocks = (unsigned)((nc + kCells - 1) / kCells);
-  if (list)
-    return run<false>(blocks, 0, stream, pf, pi, outf, outi, ff, fi, W, xr,
-                      list);
-  return run<true>(blocks, (int)(sizeof(int) * (long long)cap * kCells),
-                   stream, pf, pi, outf, outi, ff, fi, W, xr, nullptr);
+               lo0, lo1, lo2, inv0, inv1, inv2, xspan, xb, inv_q, n_fine,
+               x0, gnx, gwrapx, t0, nt};
+  const unsigned blocks = (unsigned)((nt + kCells - 1) / kCells);
+  const int shared = (int)(sizeof(int) * (long long)cap * kCells);
+  if (x0 == 0 && gnx == nx && gwrapx == (wrap & 1) && t0 == 0 && nt == nc)
+    return list ? run<false, false>(blocks, 0, stream, pf, pi, outf, outi, ff,
+                                    fi, W, xr, list)
+                : run<true, false>(blocks, shared, stream, pf, pi, outf, outi,
+                                   ff, fi, W, xr, nullptr);
+  return list ? run<false, true>(blocks, 0, stream, pf, pi, outf, outi, ff, fi,
+                                 W, xr, list)
+              : run<true, true>(blocks, shared, stream, pf, pi, outf, outi, ff,
+                                fi, W, xr, nullptr);
 }
 
 // registers per thread and local-memory (spill) bytes per thread of the
-// instantiation with the slot lists in shared memory (shared) or global
+// one-device instantiation with the slot lists in shared memory (shared) or
+// global
 extern "C" int rebin_move_3d_attributes(int shared, int* regs,
                                         int* local_bytes) {
   cudaFuncAttributes attr;
   const cudaError_t err =
-      shared ? cudaFuncGetAttributes(&attr, rebin_move_3d_kernel<true>)
-             : cudaFuncGetAttributes(&attr, rebin_move_3d_kernel<false>);
+      shared ? cudaFuncGetAttributes(&attr, rebin_move_3d_kernel<true, false>)
+             : cudaFuncGetAttributes(&attr, rebin_move_3d_kernel<false, false>);
   if (err == cudaSuccess) {
     *regs = attr.numRegs;
     *local_bytes = (int)attr.localSizeBytes;

@@ -25,7 +25,7 @@ import json
 import numpy as np
 import torch
 
-from sph_bvf_tpu_torch.core.state import Geometry, State, resolve_device
+from sph_bvf_tpu_torch.core.state import Geometry, State, check_whole, resolve_device
 
 _FORMAT_VERSION = 1
 
@@ -55,7 +55,9 @@ def _to_host(name: str, a: torch.Tensor) -> np.ndarray:
 
 
 def save(path: str, state: State, geom: Geometry) -> None:
-    """Write the full state (incl. step, dt, RNG key) to ``path`` (.npz)."""
+    """Write the full state (incl. step, dt, RNG key) to ``path`` (.npz);
+    ``state`` holds the whole grid (``core/state.check_whole``)."""
+    check_whole(state, geom, "checkpoint.save")
     arrays = {
         f.name: _to_host(f.name, getattr(state, f.name))
         for f in dataclasses.fields(state)

@@ -38,10 +38,12 @@ import dataclasses
 
 import torch
 
+from sph_bvf_tpu_torch.core.halo import SlabGeometry, ghost_slabs, wrap_x
 from sph_bvf_tpu_torch.core.state import Geometry, Params, State, shift_cells
 from sph_bvf_tpu_torch.ops import rand
 from sph_bvf_tpu_torch.ops.eos import tait_pressure
 from sph_bvf_tpu_torch.ops.kernels import ipow, lucy_w, lucy_w_ih, lucy_wfd_ih
+from sph_bvf_tpu_torch.parallel.mesh import plane_cells, slab_of
 
 TRANSPORT_VELOCITY = "transport_velocity"
 MECHANICS = "mechanics"
@@ -643,9 +645,17 @@ def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
     the ``vir`` accumulator (``compute_pair_virial``).  ``cells_per_piece``:
     evaluate each offset's [cap, cap, NC] pair blocks over that many target
     cells at a time (every cell's sums are its own, so the pieces change
-    only the memory the blocks take); all NC at once by default."""
-    cap, NC = pf["rho"].shape
+    only the memory the blocks take); all NC at once by default.
+
+    On a mesh's slab (``geom`` a ``halo.SlabGeometry``, ``pf`` the ghosted
+    slab's) the targets are the slab's own cells, whose sums it returns,
+    [..., cap, NC of the slab]: the pair blocks are those of the same cells
+    on one device, so a one-rank mesh sums bitwise as no mesh does."""
+    cap, NC_in = pf["rho"].shape
     fdt, dev = pf["x"].dtype, pf["x"].device
+    first = geom.strides[0] if isinstance(geom, SlabGeometry) else 0
+    NC = NC_in - 2 * first
+    targets = slice(first, first + NC)
     piece = NC if cells_per_piece is None else max(1, int(cells_per_piece))
     pieces = [slice(c, min(c + piece, NC)) for c in range(0, NC, piece)]
     # self-pair exclusion for the zero offset ([cap, cap, 1])
@@ -667,8 +677,11 @@ def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
         dt, step, key = noise
         seed = rand.seed_word(key)
     ja_fields = _pass_a_j_fields(params, cfg)
+    pf_in = pf
+    pf = {k: v[..., targets] for k, v in pf.items()} if first else pf
     for off in geom.stencil_offsets():
-        shifted = {k: shift_cells(pf[k], off, geom) for k in ja_fields}
+        shifted = {k: shift_cells(pf_in[k], off, geom)[..., targets]
+                   for k in ja_fields}
         notself = not_diag if off == (0, 0, 0) else True
         for sl in pieces:
             I = {k: _bc(v[..., sl], "i") for k, v in pf.items()}
@@ -770,7 +783,7 @@ def _pass_b(pf: dict, f, params: Params, geom: Geometry, cfg: PairConfig):
 
 def compute_forces(
     state: State, params: Params, geom: Geometry, cfg: PairConfig,
-    mesh=None, mesh_axis: str = "x",
+    mesh=None,
 ) -> State:
     """Full force evaluation; returns the state with all accumulators replaced
     (force_clear + Pair::compute).
@@ -779,16 +792,23 @@ def compute_forces(
     CUDA tensor, ``_pass_a_plain`` on a CPU tensor.  With SSA species the
     kernel's Qd comes from ``_pass_a_qd``; the plain pass draws it inline.
     Pass B (``vws``/``aws``) follows where ``cfg.weighted_solid`` asks for it.
+
+    ``mesh`` (``parallel/mesh.Mesh``): ``state`` is this rank's x-slab of
+    ``geom``.  The per-particle fields get one halo plane on each side (one
+    exchange, ``halo.ghost_slabs``), pass A runs on that ghosted slab
+    (``halo.SlabGeometry``) and its sums are trimmed back to the slab.  The
+    SSA hops and pass B under a mesh are not ported yet and raise.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device pair passes are ported in a later PR")
     from sph_bvf_tpu_torch.ops.pair_cuda import pass_a
 
-    NC, cap = geom.ncells_total, geom.cap
+    NC, cap = state.valid.shape[-1], geom.cap
     fdt, dev = state.x.dtype, state.x.device
     pf = _per_particle(state, params, cfg)
     noise = noise_inputs(state)
-    acc = pass_a(pf, params, geom, cfg, noise)
+    if mesh is None:
+        acc = pass_a(pf, params, geom, cfg, noise)
+    else:
+        acc = _pass_a_slab(pf, params, geom, cfg, noise, mesh)
     if params.n_ssa > 0 and "Qd" not in acc:
         acc["Qd"] = _pass_a_qd(pf, params, geom, cfg, noise)
 
@@ -825,8 +845,47 @@ def compute_forces(
     )
 
 
+def mesh_unsupported(params: Params, cfg: PairConfig) -> list:
+    """What a mesh does not run yet for this configuration: the SSA hop
+    draws (Qd) and pass B, which the JAX package reaches under a mesh only
+    through GSPMD, with no test of its own."""
+    return [what for what, bad in (
+        ("the SSA hop draws (Qd)", params.n_ssa > 0),
+        ("pass B (weighted_solid)", cfg.solids_present and cfg.weighted_solid),
+    ) if bad]
+
+
+def _pass_a_slab(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
+                 noise, mesh) -> dict:
+    """Pass A of this rank's slab: ``pf`` with its halo planes, pass A on
+    the ghosted slab through ``pair_cuda.pass_a`` (the kernel the global
+    grid routes to), which returns the sums of the slab's own cells.  The
+    thermal noise is keyed by the pair's tags, so it is the same on every
+    rank."""
+    from sph_bvf_tpu_torch.ops.pair_cuda import pass_a
+
+    missing = mesh_unsupported(params, cfg)
+    if missing:
+        raise NotImplementedError(
+            "under a mesh, " + " and ".join(missing)
+            + " are ported in a later PR")
+    pf_gh, slab = _ghosted(pf, geom, mesh)
+    return pass_a(pf_gh, params, slab, cfg, noise)
+
+
+def _ghosted(pf: dict, geom: Geometry, mesh):
+    """``pf`` of this rank's slab with one halo plane on each side (one
+    exchange, ``halo.ghost_slabs``), and the ghosted slab's geometry
+    (which raises for a grid the mesh cannot cut, before any exchange)."""
+    slab = slab_of(geom, mesh)
+    names = list(pf)
+    pf_gh = ghost_slabs([pf[k] for k in names], plane_cells(geom), mesh,
+                        wrap_x(geom))
+    return dict(zip(names, pf_gh)), slab
+
+
 def compute_pair_virial(state: State, params: Params, geom: Geometry,
-                        cfg: PairConfig) -> torch.Tensor:
+                        cfg: PairConfig, mesh=None) -> torch.Tensor:
     """Per-particle pairwise virial sum_j r_ij . f_ij as [cap, NC], 0 on
     empty slots.
 
@@ -834,7 +893,14 @@ def compute_pair_virial(state: State, params: Params, geom: Geometry,
     P = (sum m v^2 + 0.5 sum_i vir_i) / (dim V).  It runs the plain stencil
     loop on whatever device the state is on, at thermo cadence only, as the
     JAX package runs its jnp loop: no kernel carries the extra accumulator.
+    Under ``mesh`` (``state`` this rank's slab) the loop runs on the
+    ghosted slab, as pass A does, and gives the slab's own particles'.
     """
     pf = _per_particle(state, params, cfg)
-    acc = _pass_a_plain(pf, params, geom, cfg, noise_inputs(state), virial=True)
+    if mesh is None:
+        args = (pf, params, geom)
+    else:
+        pf_gh, slab = _ghosted(pf, geom, mesh)
+        args = (pf_gh, params, slab)
+    acc = _pass_a_plain(*args, cfg, noise_inputs(state), virial=True)
     return torch.where(state.valid, acc["vir"], 0.0)

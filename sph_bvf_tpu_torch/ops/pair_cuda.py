@@ -34,6 +34,11 @@ On a CUDA tensor each wrapper launches its kernel; the plain PyTorch loop
 (``ops/pair._pass_a_plain``) runs only on a CPU tensor.  A CUDA call the
 routed kernel cannot serve raises and names what is missing; it never
 falls back.
+
+On a mesh's slab (``geom`` a ``core/halo.SlabGeometry``, ``pf`` the
+ghosted slab's fields) each wrapper runs its kernel, unchanged, over the
+ghosted slab and returns the sums of the slab's own cells; the route and
+the body are those of the whole grid.
 """
 
 from __future__ import annotations
@@ -46,8 +51,9 @@ import numpy as np
 import torch
 
 from sph_bvf_tpu_torch import _build
-from sph_bvf_tpu_torch.core.halo import (grid_3d, narrow_wrap_axes,
-                                         periodic_multicell, wrap_bits)
+from sph_bvf_tpu_torch.core.halo import (SlabGeometry, grid_3d,
+                                         narrow_wrap_axes, periodic_multicell,
+                                         wrap_bits)
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
 from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
@@ -369,7 +375,10 @@ def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
               *(v for _, v in args), *_noise_args(params, cfg, noise),
               _build.current_stream(PF.device))
     _build.check(lib, code, name)
-    return _finish(_unpack(out, accs), PF.device, cap, NC)
+    # on a slab (halo.SlabGeometry), the sums of its own cells
+    first = geom.strides[0] if isinstance(geom, SlabGeometry) else 0
+    out = out[..., first:NC - first]
+    return _finish(_unpack(out, accs), PF.device, cap, NC - 2 * first)
 
 
 def _tv_launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,

@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from sph_bvf_tpu_torch.parallel.mesh import gather_state
+
 
 def slab_counts(valid: torch.Tensor, geom, n_shards: int) -> torch.Tensor:
     """Per-slab particle counts for equal-column-count x-slabs of the grid.
@@ -102,7 +104,7 @@ class BalanceFix:
     occ_frac: float = 0.85
 
 
-def rebalance(state, geom, fix: BalanceFix):
+def rebalance(state, geom, fix: BalanceFix, mesh=None):
     """Propose re-cut x_edges for the current particle distribution.
 
     Returns ``(new_geom | None, info)`` exactly as the JAX package does:
@@ -110,7 +112,13 @@ def rebalance(state, geom, fix: BalanceFix):
     (unknown cutoff, nx not divisible) or when the best new edge set does
     not improve the firing metric by ``fix.min_gain``.  The caller rebins
     into ``new_geom`` with ``rebin(..., use_kernel=False,
-    drift_check=False)`` and keeps the old geometry if that overflows."""
+    drift_check=False)`` and keeps the old geometry if that overflows.
+
+    ``mesh`` (``parallel/mesh.Mesh``): ``state`` is this rank's slab; the
+    counts and positions are read from every rank's (``mesh.gather_state``,
+    one collective), so every rank proposes the same cut."""
+    if mesh is not None:
+        state = gather_state(state, mesh, ("valid", "x"))
     ns = fix.n_shards
     f = imbalance(slab_counts(state.valid, geom, ns))
     occ_now = int(torch.max(torch.sum(state.valid.to(torch.int32), dim=0)))

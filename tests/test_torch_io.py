@@ -98,12 +98,34 @@ EXT = {"vtk": ".vtk", "vtp": ".vtp", "vtu": ".vtu", "pvtp": ".pvtp",
        "pvtu": ".pvtu"}
 
 
+def _private_jax_native(tmp_path, monkeypatch):
+    """Point the JAX package's native writer at a library compiled here,
+    into this test's own directory, and forget any earlier load (restored
+    afterwards).  Its loader compiles in place under a fixed name, which
+    parallel test workers share: a worker may load another's half-written
+    library and then fall back to the Python writer for good.  Its own
+    loader, on a private copy of its source, cannot race."""
+    src = os.path.join(os.path.dirname(jvtk.__file__), "native", "vtkio.cpp")
+    native = tmp_path / "jax_native"
+    native.mkdir()
+    (native / "vtkio.cpp").write_bytes(_read(src))
+    monkeypatch.setattr(jvtk, "_NATIVE_DIR", str(native))
+    monkeypatch.setattr(jvtk, "_native_lib", None)
+    monkeypatch.setattr(jvtk, "_native_tried", False)
+
+
 @pytest.mark.parametrize("kind", list(WRITES))
-def test_writer_bytes_match_jax(tmp_path, kind):
+def test_writer_bytes_match_jax(tmp_path, monkeypatch, kind):
     """Each writer, port vs JAX package, on the same seeded arrays: the
-    files (and a collection's piece) equal byte for byte."""
+    files (and a collection's piece) equal byte for byte.  The native
+    cases take both packages' native writers (their ASCII differs from the
+    Python writers' in its float formatting)."""
     pts, pd = _sample()
     ext = EXT[kind.split("_")[0]]
+    if "native" in kind:
+        _private_jax_native(tmp_path, monkeypatch)
+        assert jvtk._load_native() is not None
+        assert tvtk._load_native() is not None
     names = []
     for pkg, mod in (("jax", jvtk), ("torch", tvtk)):
         os.makedirs(tmp_path / pkg)

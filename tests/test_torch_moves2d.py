@@ -221,7 +221,9 @@ def test_k5_and_k6_launch_the_2d_move_and_count_their_own(wrapper,
     """K5 and K6 launch the entry point ``rebin_move_2d`` of the one 2D
     library (``rebin_cuda._library``), with the packs, cap, the grid's x and
     y, the x row, the binning constants, the wrap bits and span, the x
-    columns and the stream (21 arguments); each launch counts on the
+    columns, the slab's five (one device: x0 0, the global nx and x wrap,
+    the targets 0 and NC) and the stream (26 arguments); each launch
+    counts on the
     wrapper that made it and on no other (through a stub library)."""
     loaded, calls = [], []
 
@@ -248,8 +250,10 @@ def test_k5_and_k6_launch_the_2d_move_and_count_their_own(wrapper,
     rebin_cuda._launch(kernel, PF, PI, geom, xr, 2, rebin_cuda._wrap_2d(geom))
     assert loaded == ["rebin_move_2d"]
     args = calls[-1]
-    assert len(args) == 21
+    assert len(args) == 26
     assert args[6:10] == (geom.cap, geom.ncells[0], geom.ncells[1], xr)
     assert args[14:16] == (int(geom.periodic[0]), int(geom.periodic[1]))
+    assert args[20:25] == (0, geom.ncells[0], int(geom.periodic[0]), 0,
+                           geom.ncells_total)
     assert [c.launches - b for c, b in zip(counters, before)] == [
         int(c is kernel) for c in counters]

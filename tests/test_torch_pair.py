@@ -156,24 +156,48 @@ def test_compute_forces_matches_bruteforce(filt):
 
 
 def test_unported_branches_raise():
-    """What the port still lacks raises instead of running other code: a
-    multi-device mesh.  The weighted-solid pass B and SSA species (ported)
-    run; density diffusion (ported on the plain path and in every pass-A
-    kernel) passes K1's launch check; so does the thermal noise (ported),
-    and a kernel launch refuses it without the state's dt, step and key."""
+    """What the port still lacks raises instead of running other code.
+    Under a mesh (checked before any exchange, so a mesh of no process
+    group serves): the SSA hop draws (Qd) and the weighted-solid pass B
+    raise NotImplementedError; an nx that is not a multiple of the ranks
+    and a slab of fewer than 2 planes raise ValueError.  With no mesh, pass
+    B and SSA species (ported) run; density diffusion (ported on the plain
+    path and in every pass-A kernel) passes K1's launch check; so does the
+    thermal noise (ported), and a kernel launch refuses it without the
+    state's dt, step and key."""
+    from sph_bvf_tpu_torch.parallel.mesh import Mesh
+
     s, p, jspec = _perturbed_cavity(np.float32)
     tspec = bridge.spec_to_port(jspec)
     st = bridge.state_to_port(s, device="cpu")
     params = bridge.params_to_port(_jax(JParams, p), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tpair.compute_forces(st, params, tspec.geom, tspec.pair, mesh=object())
-    out = tpair.compute_forces(st, params, tspec.geom,
-                               dataclasses.replace(tspec.pair, weighted_solid=True))
-    assert float(out.vws.abs().max()) > 0
+    nx = tspec.geom.ncells[0]
+
+    def mesh(n):
+        return Mesh(group=None, backend="gloo", rank=0, size=n,
+                    device=torch.device("cpu"), ranks=tuple(range(n)))
+
     ssa = dataclasses.replace(params, kappa_ssa=torch.ones(
         tuple(params.kappa.shape[:2]) + (1,), dtype=params.kappa.dtype))
     st_ssa = dataclasses.replace(st, Cd=torch.zeros((1,) + tuple(st.rho.shape),
                                                     dtype=torch.int32))
+    two = 2 if nx % 2 == 0 else 1
+    with pytest.raises(NotImplementedError, match="SSA hop draws.*later PR"):
+        tpair.compute_forces(st_ssa, ssa, tspec.geom, tspec.pair, mesh=mesh(two))
+    with pytest.raises(NotImplementedError, match="pass B.*later PR"):
+        tpair.compute_forces(st, params, tspec.geom,
+                             dataclasses.replace(tspec.pair, weighted_solid=True),
+                             mesh=mesh(two))
+    odd = next(n for n in range(2, nx + 1) if nx % n)
+    with pytest.raises(ValueError, match="not a multiple"):
+        tpair.compute_forces(st, params, tspec.geom, tspec.pair, mesh=mesh(odd))
+    with pytest.raises(ValueError, match="at least 2 planes"):
+        tpair.compute_forces(st, params, tspec.geom, tspec.pair, mesh=mesh(nx))
+    with pytest.raises(ValueError, match="at least 2 planes"):
+        TS.rebin(st, tspec.geom, mesh=mesh(nx))
+    out = tpair.compute_forces(st, params, tspec.geom,
+                               dataclasses.replace(tspec.pair, weighted_solid=True))
+    assert float(out.vws.abs().max()) > 0
     assert tpair.compute_forces(st_ssa, ssa, tspec.geom, tspec.pair).Qd.shape == \
         st_ssa.Cd.shape
     thermal = dataclasses.replace(tspec.pair, thermal=True)

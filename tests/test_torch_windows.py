@@ -175,8 +175,10 @@ def test_k7_keeps_its_lists_in_shared_memory_up_to_the_limit(monkeypatch):
         rebin_cuda._launch(rebin_cuda.rebin_move_3d, PF, PI, geom, xr, 3,
                            ((ctypes.c_int, 7), (ctypes.c_float, 0.0)),
                            lists=rebin_cuda.k7_list(geom.cap))
-        # csrc/rebin_move_3d.cu's 24 arguments: ..., n_fine, list, stream
-        assert len(calls[-1]) == 24
+        # csrc/rebin_move_3d.cu's 29 arguments: ..., n_fine, the slab's
+        # five (one device: 0, nx, the x wrap, 0, NC), list, stream
+        assert len(calls[-1]) == 29
+        assert calls[-1][-7:-2] == (0, geom.ncells[0], 1, 0, geom.ncells_total)
         assert isinstance(calls[-1][-3], int)
         assert (calls[-1][-2] is None) == shared
 

@@ -21,27 +21,40 @@ FULL = (1 << 32) - 1
 LANES = np.arange(32)
 
 
-def _window(c, geom, wrap, plane):
-    """Lane o's source cell of target cell ``c`` (INT_MAX off the grid):
-    offset (o // 9 - 1, o // 3 % 3 - 1, o % 3 - 1) for o < 27 in 3D, on a
-    plane (o // 3 - 1, o % 3 - 1, 0) for o < 9."""
-    nx, ny, nz = geom.ncells
+def _window(c, geom, wrap, plane, slab=None):
+    """Lane o's source cell of target cell ``c`` of the packs' grid (the
+    ghosted ``slab`` when given): its global flat index (INT_MAX off the
+    global grid) and its index in the packs; offset (o // 9 - 1, o // 3 %
+    3 - 1, o % 3 - 1) for o < 27 in 3D, on a plane (o // 3 - 1, o % 3 - 1,
+    0) for o < 9."""
+    grid = slab or geom
+    nx, ny, nz = grid.ncells
+    gnx = geom.ncells[0]
+    x0 = slab.x0 - 1 if slab is not None else 0
+    local_wrap = wrap_axes(grid)
     cx, cy, cz = c // (ny * nz), (c // nz) % ny, c % nz
     v = np.full(32, INT_MAX, np.int64)
+    a = np.zeros(32, np.int64)
     for o in range(9 if plane else 27):
         if plane:
             s = [cx + o // 3 - 1, cy + o % 3 - 1, cz]
         else:
             s = [cx + o // 9 - 1, cy + (o // 3) % 3 - 1, cz + o % 3 - 1]
+        g = s[0] + x0
         on = True
         for ax, n in enumerate((nx, ny, nz)):
-            if wrap[ax]:
+            if local_wrap[ax]:
                 s[ax] %= n
             else:
                 on = on and 0 <= s[ax] < n
+        if wrap[0]:
+            g %= gnx
+        else:
+            on = on and 0 <= g < gnx
         if on:
-            v[o] = (s[0] * ny + s[1]) * nz + s[2]
-    return v
+            v[o] = (g * ny + s[1]) * nz + s[2]
+            a[o] = (s[0] * ny + s[1]) * nz + s[2]
+    return v, a
 
 
 def slot_of(t, ns):
@@ -140,33 +153,39 @@ def plane_cells(PF, geom, xr):
     return cx * ny + cy
 
 
-def warp_walk(PF, PI, geom, xr):
+def warp_walk(PF, PI, geom, xr, slab=None):
     """The move as its warps and blocks run it: per target cell, the window's
     lanes (0-26 in 3D; 0-8 on a 2D grid, one z plane) take the source cells
-    (INT_MAX off the grid), rank them (ties by lane) into ``srcs`` (on a
-    plane only the window's lanes rank and write); the warp takes 32
+    (INT_MAX off the grid), rank them by global flat index (ties by lane)
+    and write their indices in the packs into ``srcs`` (on a plane only the
+    window's lanes rank and write); the warp takes 32
     candidates a step (candidate t = slot t / ns of source cell srcs[t %
     ns]), finds the first slot row the step ends with no valid slot (a
     row's earlier part carried from the step before), ranks the matches
     before it by the popcount of the lower lanes' ballot, keeps ranks below
     cap; then each output slot copies its source's rows, zeros past the
-    match count."""
+    match count.  With ``slab`` (``halo.SlabGeometry``) the packs hold the
+    ghosted slab, the targets are the slab's cells and the outputs theirs,
+    as the kernels' slab arguments make them (``rebin_cuda._slab_args``)."""
     F, cap, NC = PF.shape
     plane = not grid_3d(geom)
     wrap = wrap_axes(geom)
+    _, _, _, t0, nt = rebin_cuda._slab_args(geom, slab)
+    # a cell of the packs' grid plus this is its global flat index
+    to_global = 0 if slab is None else (slab.x0 - 1) * geom.strides[0]
     valid = (PI[0].reshape(-1) != 0).numpy()
     newcell = (plane_cells(PF, geom, xr) if plane else TS.cell_index_of(
         PF[xr:xr + 3].reshape(3, -1), geom).numpy())
     window = 9 if plane else 32
     lower = [(1 << lane) - 1 for lane in LANES]
-    src = np.full((cap, NC), -1, np.int64)
-    for c in range(NC):
-        v = _window(c, geom, wrap, plane)
+    src = np.full((cap, nt), -1, np.int64)
+    for c in range(t0, t0 + nt):
+        v, a = _window(c, geom, wrap, plane, slab)
         rank = ((v[None, :window] < v[:, None])
                 | ((v[None, :window] == v[:, None])
                    & (LANES[None, :window] < LANES[:, None]))).sum(1)
         srcs = np.full(32, -1, np.int64)
-        srcs[rank[:window]] = v[:window]
+        srcs[rank[:window]] = a[:window]
         ns = int((v != INT_MAX).sum())
         total, n, carried = cap * ns, 0, False
         for base in range(0, total, 32):
@@ -176,7 +195,7 @@ def warp_walk(PF, PI, geom, xr):
             q = t - s * ns
             k = np.where(live, s * NC + srcs[np.minimum(q, 31)], 0)
             ok = live & valid[k]
-            match = ok & (newcell[k] == c)
+            match = ok & (newcell[k] == c + to_global)
             any_valid = sum(1 << int(lane) for lane in LANES[ok])
             if plane:
                 end, carried = plane_row_stop(any_valid, q, live, ns, carried)
@@ -187,7 +206,7 @@ def warp_walk(PF, PI, geom, xr):
             for lane in LANES[kept]:
                 r = n + bin(matches & lower[lane]).count("1")
                 if r < cap:
-                    src[r, c] = k[lane]
+                    src[r, c - t0] = k[lane]
             n += int(kept.sum())
             if end < 32:
                 break
@@ -197,4 +216,4 @@ def warp_walk(PF, PI, geom, xr):
     outf = torch.where(g, PF.reshape(F, -1)[:, take], torch.zeros((), dtype=PF.dtype))
     outi = torch.where(g, PI.reshape(PI.shape[0], -1)[:, take],
                        torch.zeros((), dtype=PI.dtype))
-    return outf.reshape(PF.shape), outi.reshape(PI.shape)
+    return outf.reshape(F, cap, nt), outi.reshape(PI.shape[0], cap, nt)

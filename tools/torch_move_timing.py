@@ -82,7 +82,8 @@ DIAGNOSTICS = {
     "walk only": (("if (s < kept[cell]) {", "if (s < 0 * kept[cell]) {"),),
     "copy only": ((
         """    const int n =
-        rank_matches<PLANE>(W, c0 + cell, srcs[warp], lst + cell, stride);""",
+        rank_matches<PLANE, SLAB>(W, c0 + cell, srcs[warp], lst + cell,
+                                  stride);""",
         """    for (int r = threadIdx.x % 32; r < W.cap; r += 32)
       lst[cell + r * stride] = r * W.nc + c0 + cell;
     const int n = W.cap;"""),)}
