@@ -96,6 +96,11 @@ each:
              polarization with the noise (K2's launches and its timing);
 6. K6      — the rebin-move kernel at cap 47 against the plain walk and the
              sort rebin on that state 50 steps after its rebin: bitwise;
+   K6 large cap — the same past cap 64 on seeded periodic grids of cap 96
+             (128 x 128 cells, slot lists within the default 48 KB a
+             block) and cap 400 (64 x 64 cells, opted in past it), about
+             0.9M particles each, moved by up to 0.45 cells an axis:
+             bitwise, timed (as called, device ms, bound, plain walk);
 7. K3      — the 3D pass-A kernel against the plain 27-offset loop on
              lid_cavity3d.build(N) after setup and 100 steps, N=40 and the
              main path's N=100, both filter variants: max|diff| <= 5e-6 *
@@ -406,11 +411,25 @@ each:
              kernel on the single-device state; the launches per rank, the
              halo's bytes and host ms a step and both runs'
              particle-steps/s (two ranks on one card: no measure of
-             scaling) (``_mesh_phase``; ``tools/torch_mesh_phase.py`` runs
-             it alone).
+             scaling); then the SSA cavity of
+             examples/lid_cavity_ssa.lmp at N=1000 (336 x cells, slabs of
+             168 planes, dt 5e-6, 20 steps) as written ("ssa": the hops
+             on each slab and the reactions; a Restart on the mesh at step
+             10 and a frame at step 20, a second mesh run resumed from the
+             step-10 file) and under fix ssa_tsdpd/bvf/zhang ("zhang":
+             pass B and its second exchange), each held to the same
+             script's single-device run: the slots, Cd, Qd, x, v and rho
+             bitwise, vws and aws bitwise or within 5e-6 * max, the
+             molecule totals equal, the restart file every array the
+             single device's, the resumed run bitwise, the frame byte for
+             byte, launches a rank K1 20, K5 2 and the Qd pass 20, with
+             the Qd pass's device ms on a slab beside the unsharded one
+             and the halo host ms a step, pass B's exchange apart
+             (``_mesh_phase``; ``tools/torch_mesh_phase.py`` runs it
+             alone).
 
 Every number is printed beside the card's name and power limit.  The
-second-to-last line is ``{"kernels": [...]}`` (forty-one entries: the
+second-to-last line is ``{"kernels": [...]}`` (the
 six kernels of PRs 1-3, then K2's solid-free and K5's, K6's and K7's
 x_edges variants, K1 and K3 with species, K2 and K6 on the polarization
 path, K1, K2 and K3 with their thermal rows, K3 and K7 with periodic axes,
@@ -421,8 +440,10 @@ and timing calls: no main path routes such a grid to it) and K1
 solid-free as their own entries, then K5 periodic, K7 with x_edges on a
 periodic grid and K8's three variants, with torch.matmul(x.expand(g, R,
 W), S), mma's g products in one call, as the mma variant's library time;
-then the slab kernels of the four mesh legs, their launches summed over
-the ranks), the last
+then the slab kernels of the six mesh legs, their launches summed over
+the ranks; K6 past cap 64 at caps 96 and 400 after K6 on the polarization
+path, their launches the rebins of their phase: forty-seven entries in
+all), the last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result; so does a machine without a card, or a
 directory without the package.
@@ -795,8 +816,10 @@ PEAK_TF32 = 495e12
 # end: the lid-driven cavity with one SSA species
 # (examples/lid_cavity_ssa.lmp, the flagship's particles) at its main size
 # and its speed size, each size's dt (the flagship's) and steps; the
-# integrator paths' size and steps (card_vs_cpu's)
+# integrator paths' size and steps (card_vs_cpu's); the script's
+# integrator line, which those paths replace
 LMP_SSA_SCRIPT = Path(__file__).resolve().parent / "examples" / "lid_cavity_ssa.lmp"
+LMP_SSA_FIX = "integration all ssa_tsdpd/bvf/transportVelocity"
 LMP_SSA_N = (200, 1000)
 LMP_SSA_DT = {200: 1e-4, 1000: 5e-6}
 LMP_SSA_STEPS = {200: 1000, 1000: 50}
@@ -816,12 +839,27 @@ ENSEMBLE_R, ENSEMBLE_STEPS, ENSEMBLE_SEED0 = 4, 20, 5
 # the flagship at its full width (K1, K5), the doubly periodic 2D vortex
 # (K2, K5 periodic: at N=210 its 70 x cells are even and its cap 14), the
 # 3D vortex (K3, K7) and the balanced drifting blob with its in-run re-cut
-# (K2 solid-free, K6 with x_edges, the sort route)
+# (K2 solid-free, K6 with x_edges, the sort route); then the SSA cavity
+# of examples/lid_cavity_ssa.lmp at N=1000 as written ("ssa": the hops and
+# the reactions on each slab, a Restart on the mesh at step MESH_RESTART,
+# read back by a resumed mesh run, and a frame of MESH_FRAME at the last
+# step) and under the zhang integrator ("zhang": pass B and its exchange)
+# K6 past cap 64: (cap, cells a side) of its seeded grids, about 0.9M
+# particles each (_crowded_grid_2d): cap 96's slot lists take 12 KB a
+# block, cap 400's 50 KB (past the default 48 KB: the kernel opts in)
+K6_LARGE = ((96, 128), (400, 64))
 MESH_RANKS = 2
 MESH_LEGS = {"flagship": ("cavity", 1000, 100), "vortex2d": ("tgv2d", 210, 100),
-             "vortex3d": ("tgv3d", 20, 50), "blob": ("blob", 1, 210)}
-MESH_DT = {"cavity": 5e-6}  # the flagship's at N=1000, as in [speed]
+             "vortex3d": ("tgv3d", 20, 50), "blob": ("blob", 1, 210),
+             "ssa": ("ssa", 1000, 20), "zhang": ("zhang", 1000, 20)}
+# the flagship's dt at N=1000, as in [speed] and [speed lmp ssa]
+MESH_DT = {"cavity": 5e-6, "ssa": 5e-6, "zhang": 5e-6}
 MESH_ITERS = 10  # timed calls of each slab kernel
+MESH_RESTART = 10
+MESH_FRAME = ("v", "rho", "Cd")
+# the SSA legs' fields held to the single-device run: bitwise, but vws and
+# aws (pass B's torch sums), bitwise or within TOL * max
+MESH_SSA_FIELDS = ("Cd", "Qd", "vws", "aws")
 # the kernels' names in torch.profiler, by wrapper
 DEVICE_MATCH = {"pass_a_2d": "pa2d::window_",
                 "pass_a_2d_rowloop": "pass_a_2d_rowloop_kernel",
@@ -1491,6 +1529,68 @@ def _move_parity(torch, S, rebin_cuda, kernel, state, geom, drop, tag):
             f"{int(by_kernel.overflow)}"), float((kf - wf).abs().max())
 
 
+def _k6_large_cap(torch, S, rebin_cuda, dev, card):
+    """[K6 large cap]: K6 past cap 64 on the seeded grids of K6_LARGE, one
+    whose slot lists fit the default 48 KB a block and one past it (opted
+    in): a rebin through the entry point (its launches), the kernel
+    against the plain walk and the sort rebin, bitwise, and its timing.
+    Returns {cap: the timing dict with its launches and max|diff|}."""
+    k6_large = {}
+    for cap, side in K6_LARGE:
+        state, geom = _crowded_grid_2d(torch, S, cap, side, dev)
+        before = rebin_cuda.rebin_move_2d_gated.launches
+        S.rebin(state, geom, use_kernel=True)
+        launches = rebin_cuda.rebin_move_2d_gated.launches - before
+        what, err = _move_parity(torch, S, rebin_cuda,
+                                 rebin_cuda.rebin_move_2d_gated, state, geom,
+                                 (), f"K6 cap {cap}")
+        t = _move_timing(torch, S, rebin_cuda, rebin_cuda.rebin_move_2d_gated,
+                         state, geom, (), MESH_ITERS)
+        PF, PI, xr = _packed(S, rebin_cuda, state, geom, ())
+        t["move_device"] = _kernel_device_ms(
+            torch, lambda: rebin_cuda.rebin_move_2d_gated(PF, PI, geom, xr),
+            DEVICE_MATCH["rebin_move_2d_gated"], MESH_ITERS)[0]
+        shared = 4 * cap * rebin_cuda.K6_CELLS
+        opted = shared + rebin_cuda.K6_STATIC > rebin_cuda.DEFAULT_SHARED
+        k6_large[cap] = dict(t, launches=launches, err=err)
+        print(f"[K6 large cap] cap {cap} ({side} x {side} periodic cells, slot "
+              f"lists {shared} bytes a block, "
+              f"{'opted in past' if opted else 'within'} the default 48 KB; "
+              f"max occupancy {int(state.valid.sum(0).max())}): kernel == "
+              f"plain walk == sort rebin, bitwise ({what}); {t['move']!r} ms "
+              f"as called, device {t['move_device']!r} ms, bound "
+              f"{t['move_bound']}, plain walk {t['move_plain']!r} ms; "
+              f"launches {launches} (the rebin) [{card}]")
+        del state, PF, PI
+    return k6_large
+
+
+def _crowded_grid_2d(torch, S, cap, side, dev):
+    """(state, geom) of ``side`` x ``side`` periodic 2D cells of ``cap``
+    slots, 0.55 * cap particles a cell at seeded uniform positions (f32,
+    none past cap at these sizes), then each moved by a seeded step of up
+    to 0.45 of a cell an axis (past the drift budget, which the rebin
+    counts, so that many cross a cell face): a rebin's input past K5's and
+    K6's former caps."""
+    import numpy as np
+
+    geom = S.Geometry.build(dim=2, lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 0.1),
+                            cutoff=0.96 / side, cap=cap, margin=0.039 / side,
+                            periodic=(True, True, True))
+    assert geom.ncells[:2] == (side, side), geom.ncells
+    rng = np.random.default_rng(cap)
+    n = int(0.55 * cap * side * side)
+    x = rng.uniform(0.0, 1.0, size=(n, 2))
+    state = S.state_from_particles(geom, x, np.zeros(n, np.int64), device=dev)
+    if int(state.overflow):
+        raise AssertionError(f"[K6 large cap] cap {cap}: {int(state.overflow)} "
+                             f"particles past cap at the seeded binning")
+    d = rng.uniform(-0.45, 0.45, size=tuple(state.x.shape)) / side
+    d[2] = 0.0
+    d = torch.as_tensor(d, dtype=state.x.dtype, device=dev)
+    return dataclasses.replace(state, x=state.x + d * state.valid), geom
+
+
 def _synthetic_edges(geom, pattern=(7, 9)):
     """``geom`` with x columns of alternating widths 7/8 and 9/8 of a cell
     on the cell/8 quantum (``tests/test_halo_kernels.py``'s construction),
@@ -1977,10 +2077,9 @@ def _ssa_paths(torch, dev, card, kind, counters, card_vs_cpu):
     # -- [main integrators]: bvf, artificialStress and zhang on the cavity
     # script (pass B on), card against CPU; stationary on the crystal
     t_phase = time.perf_counter()
-    fix_line = "integration all ssa_tsdpd/bvf/transportVelocity"
     k1 = {}
     for fix in INTEG_FIXES:
-        text = script.replace(fix_line, f"integration all {fix}")
+        text = script.replace(LMP_SSA_FIX, f"integration all {fix}")
         build = (lambda d, t=text: (*lmp.parse_script(
             t, overrides={"N": INTEG_N}).build(device=d), None))
         reset()
@@ -2049,7 +2148,8 @@ def _ssa_paths(torch, dev, card, kind, counters, card_vs_cpu):
 def _mesh_build(kind, size, device):
     """(state, params, spec, dt, spacing) of a [mesh] leg, its x cells a
     multiple of MESH_RANKS: the same scene for the mesh and the
-    single-device run; ``spacing``, the vortices' lattice spacing (their
+    single-device run (the SSA legs: examples/lid_cavity_ssa.lmp's, "zhang"
+    under fix ssa_tsdpd/bvf/zhang); ``spacing``, the vortices' lattice spacing (their
     slab kernels are checked on a jittered copy: on a near-perfect lattice
     ddv cancels below the kernels' gate, ROADMAP's traps), else None."""
     from sph_bvf_tpu_torch.api.scene import Region, Scene
@@ -2059,6 +2159,16 @@ def _mesh_build(kind, size, device):
     if kind == "cavity":
         state, params, spec, _ = lid_cavity.build(
             N=size, dt=MESH_DT[kind], ncx_multiple_of=MESH_RANKS, device=device)
+        return state, params, spec, MESH_DT[kind], None
+    if kind in ("ssa", "zhang"):
+        from sph_bvf_tpu_torch.api import lmp
+
+        text = LMP_SSA_SCRIPT.read_text()
+        if kind == "zhang":
+            text = text.replace(LMP_SSA_FIX, "integration all ssa_tsdpd/bvf/zhang")
+        model = lmp.parse_script(text, overrides={"N": size, "dt": MESH_DT[kind]})
+        model.scene.ncx_multiple_of = MESH_RANKS
+        state, params, spec = model.build(device=device)
         return state, params, spec, MESH_DT[kind], None
     if kind == "blob":
         state, params, spec, _ = drift_blob.build(s=size, balance=True,
@@ -2158,6 +2268,10 @@ def _slab_check(state, params, spec, geom, mesh, spacing=None):
            "pass_a_err": err, "move_equal": bool(torch.equal(mf, qf)
                                                  and torch.equal(mi, qi)),
            "move_err": float((mf - qf).abs().max())}
+    if params.n_ssa:
+        # the card's Qd pass on the ghosted slab: the plain pass's draws
+        qd = pair._pass_a_qd(pf_gh, params, slab, cfg, noise)
+        res["qd_equal"] = bool(torch.equal(qd, ref["Qd"]))
     if mesh.rank == 0:
         slots_gh, slots = geom.cap * PFg.shape[-1], geom.cap * PF.shape[-1]
         n_gh = int(pf_gh["valid"].sum())
@@ -2184,15 +2298,72 @@ def _slab_check(state, params, spec, geom, mesh, spacing=None):
                 torch, call_move, DEVICE_MATCH[move.__name__], MESH_ITERS)[0],
             move_bound=_bound(4 * (slots_gh + n_gh * (rows - 1) + slots * rows),
                               0))
+        if params.n_ssa:
+            res["qd_device_ms"] = _qd_device_ms(
+                torch, lambda: pair._pass_a_qd(pf_gh, params, slab, cfg, noise))
     dist.barrier()
     return res
+
+
+def _qd_device_ms(torch, fn):
+    """Device ms of one call of the Qd pass ``fn``: every kernel it
+    launches ("" matches every name), over 3 calls (by CUDA events, as
+    called, where torch.profiler lost the records)."""
+    per_kernel, count = _kernel_device_ms(torch, fn, "", 3)
+    return per_kernel * count / 3 if count else per_kernel
+
+
+def _mesh_outputs(tag, steps, geom, out, mesh=None):
+    """The SSA leg's outputs as a ``simulate`` callback (every MESH_RESTART
+    steps): a ``Restart`` file at step MESH_RESTART
+    (``out/<tag>_<step>.npz``) and a frame of MESH_FRAME at step ``steps``
+    (``out/<tag>.vtk``), by the mesh (rank 0 writing) or by one device;
+    and a list whose item sums their host seconds."""
+    from sph_bvf_tpu_torch.io import checkpoint, vtk
+
+    restart = checkpoint.Restart(MESH_RESTART, str(out / f"{tag}_{{step}}.npz"),
+                                 geom, mesh)
+    io = [0.0]
+
+    def callback(state):
+        t0 = time.perf_counter()
+        step = int(state.step)
+        if step == MESH_RESTART:
+            restart(state)
+        if step == steps:
+            vtk.dump_state(str(out / f"{tag}.vtk"), state, geom, MESH_FRAME,
+                           mesh=mesh)
+        io[0] += time.perf_counter() - t0
+
+    return callback, io
+
+
+def _mesh_resume(state, params, spec, geom, path, steps, mesh):
+    """Every rank's resume from the ``Restart`` file ``path``: ``load``,
+    ``shard_state`` and the rest of the run's ``steps``; the count of the
+    leaves that differ from the uninterrupted run's ``state`` on any
+    rank."""
+    import torch
+
+    from sph_bvf_tpu_torch.core import stepper
+    from sph_bvf_tpu_torch.io import checkpoint
+    from sph_bvf_tpu_torch.parallel import mesh as M
+
+    back = M.shard_state(checkpoint.load(str(path), geom, device=mesh.device),
+                         mesh, geom)
+    back = stepper.simulate(back, params, spec, steps - int(back.step))
+    bad = sum(not torch.equal(getattr(state, f.name), getattr(back, f.name))
+              for f in dataclasses.fields(state))
+    return int(M.all_reduce(torch.tensor(bad, device=mesh.device), mesh))
 
 
 def _mesh_rank(rank, out, legs, device=None):
     """One rank of the [mesh] phase: each leg built whole, cut to this
     rank's slab and run through ``stepper.simulate`` over the mesh (the
-    launch counters zeroed just before it and read just after), then its
-    slab kernels held to their plain versions.  Writes ``<leg>_<rank>.json``
+    launch counters zeroed just before it and read just after; the "ssa"
+    leg writing its restart file and frame, ``_mesh_outputs``, then
+    resumed from the file, ``_mesh_resume``), then its slab kernels held
+    to their plain versions.  Writes ``<leg>_<rank>.json``
     (launches, seconds, the halo's bytes and host seconds, the slab checks)
     and, from rank 0, ``<leg>.npz`` (every particle by tag) and
     ``<leg>_log.json`` (the re-cuts).  ``device``: the ranks' (default
@@ -2202,7 +2373,7 @@ def _mesh_rank(rank, out, legs, device=None):
     import torch.distributed as dist
 
     from sph_bvf_tpu_torch.core import rebin_cuda, stepper
-    from sph_bvf_tpu_torch.ops import pair_cuda
+    from sph_bvf_tpu_torch.ops import pair, pair_cuda
     from sph_bvf_tpu_torch.parallel import mesh as M
 
     out = Path(out)
@@ -2216,27 +2387,39 @@ def _mesh_rank(rank, out, legs, device=None):
         spec = dataclasses.replace(spec, mesh=mesh)
         state = stepper.setup(state, params, spec, dt=dt)
         log = []
+        callback, io = ((None, [0.0]) if kind != "ssa" else
+                        _mesh_outputs(f"{name}_mesh", steps, spec.geom, out, mesh))
         for c in counters.values():
             c.launches = 0
+        pair._pass_a_qd.calls = 0
         mesh.stats.clear()
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
-        state = stepper.simulate(state, params, spec, steps, balance_log=log)
+        state = stepper.simulate(state, params, spec, steps, balance_log=log,
+                                 callback=callback,
+                                 callback_every=MESH_RESTART if callback else None)
         torch.cuda.synchronize()
         dist.barrier()
-        seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0 - io[0]
         launches = {k: c.launches for k, c in counters.items() if c.launches}
+        if params.n_ssa:
+            launches["qd_pass"] = pair._pass_a_qd.calls
         stats = dict(mesh.stats)
         geom = _current_geom(spec.geom, log)
-        got = M.gather_particles(state, geom, mesh, ("x", "v", "rho"))
+        fields = ("x", "v", "rho") + (MESH_SSA_FIELDS if params.n_ssa else ())
+        got = M.gather_particles(state, geom, mesh, fields)
         got["slot_tag"] = M.gather_state(state, mesh, ("tag",)).tag.cpu().numpy()
-        rec = dict(rank=rank, launches=launches, seconds=seconds,
+        rec = dict(rank=rank, launches=launches, seconds=seconds, io=io[0],
                    n_total=n_total, n_after=M.global_n_valid(state, mesh),
                    steps=steps, halo=stats, overflow=int(state.overflow),
                    drift=int(state.drift_violation),
                    slab=M.slab_of(geom, mesh).ncells,
                    check=_slab_check(state, params, spec, geom, mesh, spacing))
+        if kind == "ssa":
+            rec["resume_differ"] = _mesh_resume(
+                state, params, spec, geom,
+                out / f"{name}_mesh_{MESH_RESTART}.npz", steps, mesh)
         (out / f"{name}_{rank}.json").write_text(json.dumps(rec))
         if rank == 0:
             np.savez(out / f"{name}.npz", **got)
@@ -2258,13 +2441,15 @@ def _mesh_phase(torch, dev, card):
     """[mesh]: each of MESH_LEGS run on the card with no mesh, then by
     MESH_RANKS ranks of this host on the same card over gloo
     (``_mesh_rank``), and held to each other: the slots and x, v and rho
-    by tag bitwise on walls (the flagship), within TOL * max elsewhere,
-    the blob's re-cuts the same, overflow and drift 0 on both; each slab
-    kernel within TOL * max of its plain version (pass A) or bitwise (the
-    moves); every leg's kernels launched on every rank.  Prints the
-    launches per rank, the halo's bytes and host ms a step and the
-    particle-steps/s of both runs, and returns the slab kernels' entries
-    of the ``kernels`` line."""
+    by tag bitwise on walls (the flagship and the SSA legs), within TOL *
+    max elsewhere, the blob's re-cuts the same, overflow and drift 0 on
+    both; each slab kernel within TOL * max of its plain version (pass A)
+    or bitwise (the moves); every leg's kernels launched on every rank;
+    the SSA legs' checks of ``_mesh_ssa_checks``.  Prints the launches
+    per rank, the halo's bytes and host ms a step and the particle-steps/s
+    of both runs (the SSA legs' outputs' time left out of both), and for
+    the SSA legs the Qd pass's device ms and pass B's exchange apart;
+    returns the slab kernels' entries of the ``kernels`` line."""
     import numpy as np
 
     from sph_bvf_tpu_torch.core import rebin_cuda
@@ -2281,11 +2466,15 @@ def _mesh_phase(torch, dev, card):
         state, params, spec, dt, _ = _mesh_build(kind, size, dev)
         state = setup(state, params, spec, dt=dt)
         log = []
+        callback, io = ((None, [0.0]) if kind != "ssa" else
+                        _mesh_outputs(f"{name}_single", steps, spec.geom, out))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = simulate(state, params, spec, steps, balance_log=log)
+        state = simulate(state, params, spec, steps, balance_log=log,
+                         callback=callback,
+                         callback_every=MESH_RESTART if callback else None)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        secs = time.perf_counter() - t0 - io[0]
         geom = _current_geom(spec.geom, log)
         move = rebin_cuda.move_route(geom)
         t_move = _move_timing(torch, S, rebin_cuda, move, state, geom,
@@ -2296,8 +2485,10 @@ def _mesh_phase(torch, dev, card):
                              plain_iters=1)
         pf = pair._per_particle(state, params, spec.pair)
         noise = pair.noise_inputs(state)
+        fields = ("x", "v", "rho") + (MESH_SSA_FIELDS if params.n_ssa else ())
         single[name] = dict(
-            got=S.gather_particles(state, geom, ("x", "v", "rho")),
+            got=S.gather_particles(state, geom, fields), io=io[0],
+            chunk=spec.rebin_every,
             slot_tag=state.tag.cpu().numpy(), log=[_log_entry(e) for e in log],
             seconds=secs, n=int(state.n_valid), overflow=int(state.overflow),
             drift=int(state.drift_violation), pass_a=t_pa, move=t_move,
@@ -2308,6 +2499,9 @@ def _mesh_phase(torch, dev, card):
         single[name]["move_device"] = _kernel_device_ms(
             torch, lambda: move(PF, PI, geom, xr), DEVICE_MATCH[move.__name__],
             MESH_ITERS)[0]
+        if params.n_ssa:
+            single[name]["qd_device"] = _qd_device_ms(
+                torch, lambda: pair._pass_a_qd(pf, params, geom, spec.pair, noise))
         del state, pf, PF, PI
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2325,7 +2519,7 @@ def _mesh_phase(torch, dev, card):
                 for r in range(MESH_RANKS)]
         got = dict(np.load(out / f"{name}.npz"))
         tlog = json.loads((out / f"{name}_log.json").read_text())
-        walls = kind == "cavity"
+        walls = kind in ("cavity", "ssa", "zhang")
         ref = one["got"]
         if not np.array_equal(got["tag"], ref["tag"]):
             raise AssertionError(f"[mesh] {name}: the ranks hold other "
@@ -2354,6 +2548,12 @@ def _mesh_phase(torch, dev, card):
             for k in (c["pass_a"], c["move"]):
                 if not r["launches"].get(k):
                     bad.append(f"rank {r['rank']} launched no {k}")
+        ssa_note = ""
+        if kind in ("ssa", "zhang"):
+            bad_ssa, ssa_note = _mesh_ssa_checks(name, kind, steps,
+                                                 one["chunk"], got, ref, recs,
+                                                 out)
+            bad += bad_ssa
         if bad:
             raise AssertionError(f"[mesh] {name}: " + "; ".join(bad))
         r0, c0 = recs[0], recs[0]["check"]
@@ -2374,7 +2574,21 @@ def _mesh_phase(torch, dev, card):
               f"ms a step (rank 0); particle-steps/s {n * steps / r0['seconds']!r}"
               f" on {MESH_RANKS} ranks against {n * steps / one['seconds']!r} "
               f"on one (two ranks share one card here: no measure of scaling)"
-              f" [{card}]")
+              f"{ssa_note} [{card}]")
+        if kind in ("ssa", "zhang"):
+            pb = halo.get("pass_b", {})
+            print(f"[mesh] {name} the Qd pass: {c0['qd_device_ms']!r} device "
+                  f"ms a call on rank 0's slab beside {one['qd_device']!r} "
+                  f"unsharded; halo host ms a step (rank 0): pass A's and the "
+                  f"move's exchanges "
+                  f"{1e3 * (halo.get('seconds', 0.0) - pb.get('seconds', 0.0)) / steps!r}"
+                  f", pass B's {1e3 * pb.get('seconds', 0.0) / steps!r} "
+                  f"({pb.get('exchanges', 0)} exchanges of "
+                  f"{pb.get('bytes', 0) / max(pb.get('exchanges', 1), 1)!r} "
+                  f"bytes); outputs {r0['io']!r} s on the mesh, "
+                  f"{one['io']!r} s on one device; rank 0's slab K1 against "
+                  f"its plain pass, max|diff|/max|plain| by field {c0['rel']} "
+                  f"[{card}]")
         for op, kernel in (("pass_a", c0["pass_a"]), ("move", c0["move"])):
             t1 = one[op]
             print(f"[mesh] {name} {kernel} on a slab: {c0[f'{op}_ms']!r} ms as "
@@ -2395,6 +2609,63 @@ def _mesh_phase(torch, dev, card):
                 "library_ms": None})
     shutil.rmtree(out, ignore_errors=True)
     return rows
+
+
+def _mesh_ssa_checks(name, kind, steps, chunk, got, ref, recs, out):
+    """The SSA legs' checks beside the walled legs': Cd and Qd by tag
+    bitwise the single-device run's, vws and aws bitwise or within TOL *
+    max (the note says which), the molecule totals equal, the launches a
+    rank K1 ``steps``, K5 one a ``chunk`` and the Qd pass ``steps``, the
+    Qd pass on each slab the plain pass's draws; the "ssa" leg's restart
+    file every array the single-device file's, its resumed run every leaf
+    the uninterrupted run's and its frame the single-device frame, byte
+    for byte.  Returns (what failed, a note for the leg's line)."""
+    import numpy as np
+
+    bad = [f"{k} not bitwise" for k in ("Cd", "Qd")
+           if not np.array_equal(got[k], ref[k])]
+    pass_b = {}
+    for k in ("vws", "aws"):
+        d = float(np.abs(got[k] - ref[k]).max())
+        scale = max(float(np.abs(ref[k]).max()), 1e-30)
+        pass_b[k] = "bitwise" if d == 0 else f"within {d / scale!r} of max"
+        if d > TOL * scale:
+            bad.append(f"{k} {d / scale!r} of max past {TOL}")
+    if (kind == "zhang") != (float(np.abs(ref["vws"]).max()) > 0):
+        bad.append("vws nonzero but under zhang (pass B)")
+    totals = int(got["Cd"].sum()), int(ref["Cd"].sum())
+    if totals[0] != totals[1]:
+        bad.append(f"molecules {totals[0]} against {totals[1]}")
+    want = {"pass_a_2d": steps, "rebin_move_2d": steps // chunk,
+            "qd_pass": steps}
+    for r in recs:
+        if r["launches"] != want:
+            bad.append(f"rank {r['rank']} launches {r['launches']}, not {want}")
+        if not r["check"]["qd_equal"]:
+            bad.append(f"rank {r['rank']}'s Qd pass on its slab != the plain "
+                       f"pass's draws")
+    note = (f"; Cd and Qd bitwise, vws {pass_b['vws']}, aws {pass_b['aws']}, "
+            f"molecules {totals[0]} (one device {totals[1]}), the Qd pass on "
+            f"each slab the plain pass's draws")
+    if kind == "ssa":
+        a = np.load(out / f"{name}_mesh_{MESH_RESTART}.npz")
+        b = np.load(out / f"{name}_single_{MESH_RESTART}.npz")
+        if sorted(a.files) != sorted(b.files) or not all(
+                np.array_equal(a[k], b[k]) for k in b.files):
+            bad.append(f"the step-{MESH_RESTART} restart file differs from "
+                       f"the single device's")
+        if any(r["resume_differ"] for r in recs):
+            bad.append(f"the resumed run differs from the uninterrupted one "
+                       f"in {recs[0]['resume_differ']} leaves")
+        frame = (out / f"{name}_mesh.vtk").read_bytes()
+        if frame != (out / f"{name}_single.vtk").read_bytes():
+            bad.append("the mesh's frame differs from the single device's")
+        note += (f"; the step-{MESH_RESTART} Restart file ({len(b.files)} "
+                 f"arrays) bitwise the single device's, the run resumed from "
+                 f"it on the mesh bitwise the uninterrupted one, the step-"
+                 f"{steps} frame ({len(frame)} bytes) byte for byte the "
+                 f"single device's")
+    return bad, note
 
 
 def _pass_a_timing(pass_a, state, params, geom, cfg, iters, piece=None,
@@ -2761,6 +3032,7 @@ def main() -> int:
     print(f"[K6] gated rebin move kernel == plain walk == sort rebin, bitwise "
           f"(fsi nx={FSI_NX[0]}, periodic x, cap {geom.cap}, {what})")
     del state
+    k6_large = _k6_large_cap(torch, S, rebin_cuda, dev, card)
 
     # -- 7, 8. K3 and K7 parity at N=40 and the main path's N=100 -----------
     # (the kernels' max|diff| reported is the last size's: the main path's)
@@ -4953,6 +5225,12 @@ def main() -> int:
         ("rebin_move_2d_gated (periodic y)", "csrc/rebin_move_2d.cu",
          "core/rebin_pallas.py:346", polar_launches["rebin_move_2d_gated"],
          k6p_abs, t_polar[POLAR_NX[0]], "move"),
+        # K6 past cap 64 on its seeded grids (no model's main path has a 2D
+        # cap past 64): its launches the phase's rebins through the entry
+        # point
+        *((f"rebin_move_2d_gated (cap {cap})", "csrc/rebin_move_2d.cu",
+           "core/rebin_pallas.py:346", t["launches"], t["err"], t, "move")
+          for cap, t in k6_large.items()),
         # the thermal rows: K1 on the thermal convection's main path at
         # N=200, K2 on the polarization at nx=100 and K3 on the 3D cavity at
         # N=40, each with its launches from a 10-step run with the noise

@@ -25,11 +25,11 @@ x-slab mesh of ``torch.distributed`` ranks, one process and one device
 each (``parallel/mesh.py``, ``parallel/launch.py``; ``spec.mesh``), whose
 pass A and rebin move run the same kernels on each rank's slab with one
 halo plane exchanged each side (``core/halo.exchange_slabs``), and whose
-thermo rows are the whole grid's (``utils/thermo``, ``mesh=``).  What a
-mesh still lacks raises ``NotImplementedError`` (the SSA hop draws and
-pass B; ``ops/pair.mesh_unsupported``), as does anything else not ported;
-an output that would read one rank's slab as the grid raises
-(``core/state.check_whole``);
+thermo rows are the whole grid's (``utils/thermo``, ``mesh=``), as are
+its checkpoints, frames and computes (``checkpoint.save``, ``Restart``,
+``dump_state`` and ``gather_compute`` with ``mesh=``).  An output given
+one rank's slab without ``mesh=`` raises (``core/state.check_whole``), as
+does anything not ported;
 nothing falls back to other code.  Entry points build on the card
 (``cuda``) unless the caller names another device.
 

@@ -17,7 +17,8 @@ compute_ssa_tsdpd_*_atom.cpp):
     ssa_tsdpd/numberDensity   -> num_den (BVF Eq. 2 denominator)
 
 Each compute returns a tensor on the state's device in cell-slot layout
-[cap, NC]; ``gather_compute`` gives tag-sorted host numpy (the dump path).
+[cap, NC]; ``gather_compute`` gives tag-sorted host numpy (the dump path),
+under an x-slab mesh (``mesh=``) the whole grid's on every rank.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import dataclasses
 
 import numpy as np
 
-from sph_bvf_tpu_torch.core.state import State, gather_particles
+from sph_bvf_tpu_torch.core.state import State
 
 
 def rho_atom(state: State):
@@ -97,8 +98,12 @@ def compute(state: State, name: str, *idx):
     return fn(state, *idx)
 
 
-def gather_compute(state: State, geom, name: str, *idx) -> np.ndarray:
-    """Tag-sorted host values of a compute (the dump/diagnostic path)."""
+def gather_compute(state: State, geom, name: str, *idx, mesh=None) -> np.ndarray:
+    """Tag-sorted host values of a compute (the dump/diagnostic path).
+    ``mesh`` (``parallel/mesh.Mesh``): ``state`` is this rank's slab, and
+    every rank of the mesh calls this and gets the whole grid's values."""
+    from sph_bvf_tpu_torch.parallel.mesh import gather_particles
+
     val = compute(state, name, *idx)
     tmp = dataclasses.replace(state, Pnew=val)  # any scalar slot works
-    return gather_particles(tmp, geom, fields=("Pnew",))["Pnew"]
+    return gather_particles(tmp, geom, mesh, fields=("Pnew",))["Pnew"]

@@ -155,13 +155,14 @@ def _from_wire(buf: torch.Tensor, likes: Sequence[torch.Tensor]) -> list:
     return out
 
 
-def _edges(tensors, width: int, mesh, periodic: bool):
+def _edges(tensors, width: int, mesh, periodic: bool, label=None):
     """(left halos, right halos) of ``tensors``: each the left neighbour's
     last ``width`` lanes and the right neighbour's first, in one send each
     way (``dist.batch_isend_irecv``: blocking sends around a ring would
     deadlock).  A chain's ends get zeros; one rank gets its own far edges
-    on a ring and zeros on walls.  Counts the bytes it sends and its host
-    time in ``mesh.stats``."""
+    on a ring and zeros on walls.  Counts its exchanges, the bytes it sends
+    and its host time in ``mesh.stats``, and with ``label`` also in
+    ``mesh.stats[label]``, a dict of the same counts."""
     t0 = time.perf_counter()
     last = [t[..., -width:] for t in tensors]
     first = [t[..., :width] for t in tensors]
@@ -195,12 +196,14 @@ def _edges(tensors, width: int, mesh, periodic: bool):
             else [torch.zeros_like(t) for t in last])
     right = (_from_wire(recv_r, first) if has_right
              else [torch.zeros_like(t) for t in first])
-    stats = mesh.stats
-    stats["exchanges"] = stats.get("exchanges", 0) + 1
-    stats["bytes"] = stats.get("bytes", 0) + (
-        (send_r.numel() if has_right else 0)
-        + (send_l.numel() if has_left else 0))
-    stats["seconds"] = stats.get("seconds", 0.0) + time.perf_counter() - t0
+    sent = ((send_r.numel() if has_right else 0)
+            + (send_l.numel() if has_left else 0))
+    seconds = time.perf_counter() - t0
+    for stats in ((mesh.stats,) if label is None
+                  else (mesh.stats, mesh.stats.setdefault(label, {}))):
+        stats["exchanges"] = stats.get("exchanges", 0) + 1
+        stats["bytes"] = stats.get("bytes", 0) + sent
+        stats["seconds"] = stats.get("seconds", 0.0) + seconds
     return left, right
 
 
@@ -218,9 +221,10 @@ def exchange_slabs(M: torch.Tensor, width: int, mesh,
 
 
 def ghost_slabs(tensors: Sequence[torch.Tensor], width: int, mesh,
-                periodic: bool) -> List[torch.Tensor]:
+                periodic: bool, label=None) -> List[torch.Tensor]:
     """Every tensor [..., NC_loc] with its halos, [..., width + NC_loc +
-    width]: one exchange for them all, whatever their dtypes."""
-    left, right = _edges(list(tensors), width, mesh, periodic)
+    width]: one exchange for them all, whatever their dtypes (``label``:
+    ``_edges``')."""
+    left, right = _edges(list(tensors), width, mesh, periodic, label)
     return [torch.cat([a, t, b], dim=-1)
             for a, t, b in zip(left, tensors, right)]

@@ -2,7 +2,9 @@
 (``csrc/rebin_move_2d.cu``, one kernel) and K7 (``csrc/rebin_move_3d.cu``).
 
 Ports of ``sph_bvf_tpu/core/rebin_pallas.py``: K5 for the 2D static branch
-(cap <= 16), K6 for the 2D gated branch (16 < cap <= 64), K7 for the 3D
+(cap <= 16), K6 for the 2D gated branch (16 < cap <= ``GATED_MAX_CAP``,
+1807: its slot lists' shared memory; a 2D grid past it takes the sort
+rebin, as the JAX package's grid past its VMEM budget), K7 for the 3D
 tiled kernel (any cap); each with walls or periodic axes (of at least 3
 cells; x, y and, in 3D, z alike) and with uniform or non-uniform x columns
 (``Geometry.x_edges``, the load-balance lever).  The three share their
@@ -47,7 +49,14 @@ from sph_bvf_tpu_torch.core.halo import (SlabGeometry, ghost_slabs, grid_3d,
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
 
 MAX_CAP = 16  # K5's, the JAX package's static branch's
-GATED_MAX_CAP = 64  # K6's: kMaxCap in csrc/rebin_move_2d.cu
+# K6's: kMaxCap in csrc/rebin_move_2d.cu, the largest cap whose slot lists,
+# i32 [cap, K6_CELLS], fit beside the kernel's K6_STATIC bytes of static
+# shared memory in the 232,448 bytes an H100 block may opt in to (past
+# DEFAULT_SHARED, 48 KB, the kernel opts in)
+K6_CELLS = 32
+K6_STATIC = 4 * (8 * 32 + K6_CELLS)
+DEFAULT_SHARED = 48 * 1024
+GATED_MAX_CAP = (232448 - K6_STATIC) // (4 * K6_CELLS)
 # K7's target cells per block (kCells in csrc/rebin_move_3d.cu: 16 was the
 # fastest of 8, 16 and 32 over the main paths' launches on the H100,
 # PERF.md), and the most bytes of shared memory their slot lists, i32 [cap,
@@ -103,8 +112,9 @@ def move_unsupported(geom: Geometry, kernel) -> list:
 
     K7 takes a 3D grid of any cap (its slot lists live in shared memory,
     or past ``K7_LIST_BYTES`` in a scratch in global memory); K5 a 2D grid
-    of cap <= 16; K6 a 2D grid of 16 < cap <= 64 (one kernel, whose slot
-    lists live in shared memory).
+    of cap <= 16; K6 a 2D grid of 16 < cap <= ``GATED_MAX_CAP`` (one
+    kernel, whose slot lists live in shared memory; ``sort_route`` takes
+    a larger cap).
     Each takes walls or periodic axes (x, y and, in 3D, z alike), and
     uniform or non-uniform x columns (``x_edges``) alike.  A periodic axis
     needs at least 3 cells (with 2, the same source cell would sit in a
@@ -140,6 +150,16 @@ def move_route(geom: Geometry):
 def move_supported(geom: Geometry) -> bool:
     """Does a locality-walk kernel serve this grid (see ``move_route``)?"""
     return move_route(geom) is not None
+
+
+def sort_route(geom: Geometry) -> bool:
+    """Does this grid's rebin on the card take the sort: a 2D grid whose
+    cap passes K6's shared memory (``GATED_MAX_CAP``), as the JAX
+    package's gated move routes a grid past its VMEM budget to the sort
+    (``rebin_pallas.py:103-112``).  Chosen from the geometry alone, before
+    any launch."""
+    return (not grid_3d(geom) and geom.cap > GATED_MAX_CAP
+            and not narrow_wrap_axes(geom))
 
 
 def move_refusal(geom: Geometry) -> str:

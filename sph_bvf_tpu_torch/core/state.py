@@ -472,6 +472,8 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
     tensor) — identical slot assignments to the sort below whenever every
     particle stayed within one cell ring.  ``False`` runs the global sort,
     which also places particles from arbitrary slots: the initial binning.
+    On the card a 2D grid whose cap passes K6's shared memory takes the
+    sort too (``rebin_cuda.sort_route``), chosen from the geometry.
 
     ``drift_check=False``: a cross-geometry rebin (an in-run re-cut of the
     x columns).  The slots still hold the old geometry's cells, so neither
@@ -497,8 +499,9 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
             from sph_bvf_tpu_torch.parallel.mesh import slab_of
 
             x0 = slab_of(geom, mesh).x0
+        # the counters stay i32 (the JAX package's, and its checkpoints')
         drift_violation = drift_violation + reduce(
-            _drift_count(fields, geom, x0))
+            _drift_count(fields, geom, x0)).to(drift_violation.dtype)
 
     fields["x"] = wrap_pbc(fields["x"], geom)
 
@@ -515,15 +518,15 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
             lost = reduce(n_before - torch.sum(
                 new_fields["valid"].to(torch.int32)))
             new_state = dataclasses.replace(
-                state, overflow=state.overflow + lost,
+                state, overflow=state.overflow + lost.to(state.overflow.dtype),
                 drift_violation=drift_violation, **new_fields, **zeroed,
             )
             return _neutralize_invalid(new_state)
-        if state.x.is_cuda:
-            from sph_bvf_tpu_torch.core.rebin_cuda import move_refusal
+        from sph_bvf_tpu_torch.core.rebin_cuda import move_refusal, sort_route
 
-            # what is left: a 2D grid past cap 64 (K6's limit) and a
-            # periodic axis of 2 cells
+        if state.x.is_cuda and not sort_route(geom):
+            # what is left: a periodic axis of 2 cells (a 2D grid past
+            # K6's shared memory takes the sort below)
             raise NotImplementedError(
                 f"rebin move for this grid (dim={geom.dim}, cap={geom.cap}, "
                 f"ncells={geom.ncells}, periodic={geom.periodic}, x_edges "

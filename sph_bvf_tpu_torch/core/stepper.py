@@ -27,8 +27,10 @@ the neighbours, and every value the host decides on (the overflow and
 drift counts, a re-cut's acceptance, a halt, ``DtAdaptive``'s dt, a
 thermo row) is reduced over the ranks, so they all take the same branch;
 ``simulate`` refuses a ``ThermoLogger`` or ``Halt`` whose ``mesh`` is not
-``spec.mesh``.  Under a mesh the SSA hops and pass B raise
-(``ops/pair.mesh_unsupported``).
+``spec.mesh``.  The SSA hops are drawn on each rank's ghosted slab, pass B
+exchanges f/m once more, and the reactions run on the slab unchanged
+(per particle, keyed by tag); the tau-leap check's largest hop mean is the
+whole grid's on every rank.
 """
 
 from __future__ import annotations
@@ -205,7 +207,8 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
         # the tau-leap's regime: the SSA diffusion truncates each pair's
         # Poisson draw, valid only for per-pair means << 1
         if params.n_ssa > 0 and not warned_mu[0]:
-            mu = float(compute_ssa_mu_max(state, params, spec.geom, spec.pair))
+            mu = float(compute_ssa_mu_max(state, params, spec.geom, spec.pair,
+                                          spec.mesh))
             if mu > 0.3:
                 warned_mu[0] = True
                 print(

@@ -1,4 +1,4 @@
-// K5 and K6 — 2D locality rebin move (K5: cap <= 16, K6: 16 < cap <= 64;
+// K5 and K6 — 2D locality rebin move (K5: cap <= 16, K6: 16 < cap <= 1807;
 // walls or periodic axes, uniform or non-uniform x columns), K7's walk on a
 // plane: a warp per target cell ranking its matches, a block per run of
 // target cells copying.
@@ -55,7 +55,6 @@ namespace {
 
 using rebin::Walk;
 
-constexpr int kMaxCap = 64;
 constexpr int kWarps = 8, kThreads = 32 * kWarps;
 // target cells a block, rows a thread of the copy loads before it stores
 // them (csrc/rebin_move.cuh `move_cells`) and blocks an SM holds at once
@@ -63,6 +62,13 @@ constexpr int kWarps = 8, kThreads = 32 * kWarps;
 // tools/torch_move_timing.py --cells over the 2D main paths on the H100
 // (PERF.md)
 constexpr int kCells = 32, kRows = 8, kBlocks = 6;
+// the kernel's static shared memory (srcs, kept), and the largest cap whose
+// slot lists, i32 [cap, kCells] of dynamic shared memory, fit beside it in
+// the 232,448 bytes an H100 block may opt in to (core/rebin_cuda.py
+// GATED_MAX_CAP mirrors it: a 2D grid of a larger cap takes the sort)
+constexpr int kStaticShared = (kWarps * 32 + kCells) * (int)sizeof(int);
+constexpr int kMaxCap =
+    (232448 - kStaticShared) / ((int)sizeof(int) * kCells);
 
 // SLAB: the move of a mesh's slab (csrc/rebin_move.cuh)
 template <bool SLAB>
@@ -75,6 +81,18 @@ __global__ void __launch_bounds__(kThreads, kBlocks) rebin_move_2d_kernel(
   __shared__ int kept[kCells];
   rebin::move_cells<true, true, SLAB, kCells, kWarps, kRows>(
       pf, pi, outf, outi, ff, fi, W, xr, nullptr, list_s, srcs, kept);
+}
+
+// Allow `kernel` `shared` bytes of dynamic shared memory where they pass
+// its current limit (by default 48 KB less its static shared memory).
+template <typename K>
+cudaError_t allow_shared(K* kernel, size_t shared) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess && shared > (size_t)attr.maxDynamicSharedSizeBytes)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  return err;
 }
 
 }  // namespace
@@ -101,14 +119,19 @@ extern "C" int rebin_move_2d(const float* pf, const int* pi, float* outf,
                (wrapx ? 1 : 0) | (wrapy ? 2 : 0), lo0, lo1, 0.f, inv0, inv1,
                0.f, xspan, xb, inv_q, n_fine, x0, gnx, gwrapx, t0, nt};
   const unsigned blocks = (unsigned)((nt + kCells - 1) / kCells);
-  // the slot lists, i32 [cap, kCells]: 8 KB at most, within the default
+  // the slot lists, i32 [cap, kCells]: within the default 48 KB a block up
+  // to cap 375, opted in past it
   const size_t shared = sizeof(int) * cap * kCells;
-  if (x0 == 0 && gnx == nx && gwrapx == wrapx && t0 == 0 && nt == nc)
-    rebin_move_2d_kernel<false><<<blocks, kThreads, shared, stream>>>(
-        pf, pi, outf, outi, ff, fi, W, xr);
-  else
-    rebin_move_2d_kernel<true><<<blocks, kThreads, shared, stream>>>(
-        pf, pi, outf, outi, ff, fi, W, xr);
+  const bool whole =
+      x0 == 0 && gnx == nx && gwrapx == wrapx && t0 == 0 && nt == nc;
+  auto* kernel =
+      whole ? rebin_move_2d_kernel<false> : rebin_move_2d_kernel<true>;
+  if (shared + kStaticShared > 48 * 1024) {
+    const cudaError_t err = allow_shared(kernel, shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<blocks, kThreads, shared, stream>>>(pf, pi, outf, outi, ff, fi, W,
+                                               xr);
   return (int)cudaGetLastError();
 }
 

@@ -400,12 +400,23 @@ def read_vtk(path: str):
 
 
 def dump_state(path: str, state, geom, fields: Sequence[str] = ("v", "rho", "phi"),
-               binary: bool = False):
-    """Dump valid particles sorted by tag, DumpVTK-style field names."""
-    from sph_bvf_tpu_torch.core.state import gather_particles
+               binary: bool = False, mesh=None):
+    """Dump valid particles sorted by tag, DumpVTK-style field names.
+    ``mesh`` (``parallel/mesh.Mesh``): ``state`` is this rank's slab; every
+    rank of the mesh calls this, the whole grid is gathered, rank 0 writes
+    the frame a single device would and every rank returns once it is
+    written."""
+    from sph_bvf_tpu_torch.parallel.mesh import barrier, gather_particles
 
     need = set(fields) | {"x", "ptype"}
-    out = gather_particles(state, geom, fields=sorted(need))
+    out = gather_particles(state, geom, mesh, fields=sorted(need))
+    if mesh is None or mesh.rank == 0:
+        _write_frame(path, out, fields, binary)
+    barrier(mesh)
+
+
+def _write_frame(path, out, fields, binary):
+    """``dump_state``'s frame of the gathered particles ``out``."""
     pd = {"id": out["tag"].astype(np.int32),
           "type": (out["ptype"] + 1).astype(np.int32)}
     for name in fields:

@@ -528,10 +528,14 @@ def _pass_a_qd(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
     draws them all, over target cells in pieces of at most
     ``max_pair_slots`` pairs.  Each pair's draw is the plain pass's and
     the sums are of integers, so Qd is bitwise the plain pass's.
-    ``noise``: the state's (dt, step, key).  ``_pass_a_qd.calls`` counts
-    its calls."""
-    cap, NC = pf["rho"].shape
+    ``noise``: the state's (dt, step, key).  On a mesh's slab (``geom`` a
+    ``halo.SlabGeometry``, ``pf`` the ghosted slab's) the targets are the
+    slab's own cells, as in ``_pass_a_plain``; the draws are keyed by the
+    pair's tags, so they are the unsharded pass's.  ``_pass_a_qd.calls``
+    counts its calls."""
+    cap, NC_in = pf["rho"].shape
     dev = pf["x"].device
+    first, NC = _own_cells(geom, NC_in)
     dt, step, key = noise
     seed = rand.seed_word(key)
     offsets = geom.stencil_offsets()
@@ -548,8 +552,9 @@ def _pass_a_qd(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
     qd = torch.empty((params.n_ssa, cap, NC), dtype=torch.int32, device=dev)
     for c in range(0, NC, piece):
         sl = slice(c, min(c + piece, NC))
-        I = {k: _bc(pf[k][..., sl], "i") for k in _QD_FIELDS}
-        J = {k: _bc(v[..., sl], "j") for k, v in J_all.items()}
+        src = slice(first + sl.start, first + sl.stop)
+        I = {k: _bc(pf[k][..., src], "i") for k in _QD_FIELDS}
+        J = {k: _bc(v[..., src], "j") for k, v in J_all.items()}
         coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
         dQc_base = _dqc_base(I, J, coeffs, cfg, pbc, notself)
         qd[..., sl] = torch.sum(
@@ -557,6 +562,14 @@ def _pass_a_qd(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
             dim=-2).to(torch.int32)
     _pass_a_qd.calls += 1
     return qd
+
+
+def _own_cells(geom: Geometry, NC_in: int) -> tuple:
+    """(first, count) of the target cells among ``NC_in`` cells: all of
+    them, or on a mesh's ghosted slab (``halo.SlabGeometry``) the slab's
+    own, between its halo planes."""
+    first = geom.strides[0] if isinstance(geom, SlabGeometry) else 0
+    return first, NC_in - 2 * first
 
 
 _pass_a_qd.calls = 0  # Qd passes in this process
@@ -653,8 +666,7 @@ def _pass_a_plain(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
     on one device, so a one-rank mesh sums bitwise as no mesh does."""
     cap, NC_in = pf["rho"].shape
     fdt, dev = pf["x"].dtype, pf["x"].device
-    first = geom.strides[0] if isinstance(geom, SlabGeometry) else 0
-    NC = NC_in - 2 * first
+    first, NC = _own_cells(geom, NC_in)
     targets = slice(first, first + NC)
     piece = NC if cells_per_piece is None else max(1, int(cells_per_piece))
     pieces = [slice(c, min(c + piece, NC)) for c in range(0, NC, piece)]
@@ -701,28 +713,50 @@ def noise_inputs(state: State) -> tuple:
 
 
 def compute_ssa_mu_max(state: State, params: Params, geom: Geometry,
-                       cfg: PairConfig) -> torch.Tensor:
+                       cfg: PairConfig, mesh=None) -> torch.Tensor:
     """Max per-directed-pair hop mean mu = kappaSSA * (-dQc_base) * Cd * dt
     (a 0-dim tensor).  The tau-leap diffusion truncates each pair's Poisson
     at ``cfg.ssa_poisson_terms`` and is statistically exact only for mu << 1;
-    ``core/stepper.simulate`` reads this at check cadence and warns."""
+    ``core/stepper.simulate`` reads this at check cadence and warns.
+
+    ``mesh``: ``state`` is this rank's x-slab of ``geom``; the fields the
+    hops read get their halo planes (one exchange), the slab's own pairs
+    are measured on the ghosted slab and the max is taken over the ranks,
+    so every rank returns the whole grid's."""
     if params.n_ssa == 0:
         return torch.zeros((), dtype=state.x.dtype, device=state.x.device)
-    fdt = state.x.dtype
     pf = _per_particle(state, params, cfg)
-    not_diag = ~torch.eye(geom.cap, dtype=torch.bool,
-                          device=state.x.device)[:, :, None]
+    pf = {k: pf[k] for k in _MU_FIELDS}
+    if mesh is None:
+        return _mu_max(pf, params, geom, cfg, state.dt)
+    from sph_bvf_tpu_torch.parallel.mesh import all_reduce
+
+    pf, slab = _ghosted(pf, geom, mesh)
+    return all_reduce(_mu_max(pf, params, slab, cfg, state.dt), mesh, "max")
+
+
+_MU_FIELDS = ("valid", "x", "inv_rho", "ptype", "Cd")
+
+
+def _mu_max(pf: dict, params: Params, geom: Geometry, cfg: PairConfig, dt):
+    """``compute_ssa_mu_max`` of the per-particle fields ``pf``
+    (``_MU_FIELDS``): the largest hop mean of the target cells' pairs
+    (on a ghosted slab, its own cells', as in ``_pass_a_plain``)."""
+    x = pf["x"]
+    first, NC = _own_cells(geom, x.shape[-1])
+    own = slice(first, first + NC)
+    not_diag = ~torch.eye(geom.cap, dtype=torch.bool, device=x.device)[:, :, None]
     pbc = _pbc(geom)
-    need = ("valid", "x", "inv_rho", "ptype")
-    I = {k: _bc(pf[k], "i") for k in need + ("Cd",)}
-    mu_max = torch.zeros((), dtype=fdt, device=state.x.device)
+    need = _MU_FIELDS[:-1]
+    I = {k: _bc(pf[k][..., own], "i") for k in _MU_FIELDS}
+    mu_max = torch.zeros((), dtype=x.dtype, device=x.device)
     for off in geom.stencil_offsets():
-        J = {k: _bc(shift_cells(pf[k], off, geom), "j") for k in need}
+        J = {k: _bc(shift_cells(pf[k], off, geom)[..., own], "j") for k in need}
         notself = not_diag if off == (0, 0, 0) else True
         coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
         dQc_base = _dqc_base(I, J, coeffs, cfg, pbc, notself)
-        mu = coeffs["kss"] * (-dQc_base)[None] * state.dt * torch.clamp_min(
-            I["Cd"].to(fdt), 0.0)
+        mu = coeffs["kss"] * (-dQc_base)[None] * dt * torch.clamp_min(
+            I["Cd"].to(x.dtype), 0.0)
         mu_max = torch.maximum(mu_max, torch.max(mu))
     return mu_max
 
@@ -755,20 +789,25 @@ def _pass_b_offset(I, J, coeffs, cfg: PairConfig, params: Params, notself,
 _PASS_B_J_FIELDS = "valid x vest ptype solid fluid fixed V2 fom".split()
 
 
-def _pass_b(pf: dict, f, params: Params, geom: Geometry, cfg: PairConfig):
+def _pass_b(pf: dict, fom, params: Params, geom: Geometry, cfg: PairConfig):
     """Pass B over the stencil offsets, torch ops on either device: vws and
-    aws [3, cap, NC] from the per-particle dict and pass A's force ``f``."""
-    cap, NC = pf["rho"].shape
+    aws [3, cap, NC] from the per-particle dict and ``fom``, pass A's force
+    over the mass, f/m [3, cap, NC].  On a mesh's slab (``geom`` a
+    ``halo.SlabGeometry``; ``pf`` and ``fom`` the ghosted slab's) the
+    targets are the slab's own cells, as in ``_pass_a_plain``."""
+    cap, NC_in = pf["rho"].shape
     fdt, dev = pf["x"].dtype, pf["x"].device
+    first, NC = _own_cells(geom, NC_in)
+    own = slice(first, first + NC)
     pf_b = {k: pf[k] for k in _PASS_B_J_FIELDS if k != "fom"}
-    pf_b["fom"] = f / pf["m"][None]  # f/m once per particle
-    I = {k: _bc(v, "i") for k, v in pf_b.items()}
+    pf_b["fom"] = fom
+    I = {k: _bc(v[..., own], "i") for k, v in pf_b.items()}
     not_diag = ~torch.eye(cap, dtype=torch.bool, device=dev)[:, :, None]
     pbc = _pbc(geom)
     acc = {k: torch.zeros((3, cap, NC), dtype=fdt, device=dev)
            for k in ("vws", "aws")}
     for off in geom.stencil_offsets():
-        J = {k: _bc(shift_cells(pf_b[k], off, geom), "j")
+        J = {k: _bc(shift_cells(pf_b[k], off, geom)[..., own], "j")
              for k in _PASS_B_J_FIELDS}
         notself = not_diag if off == (0, 0, 0) else True
         coeffs = lookup_pair_coeffs(I["ptype"], J["ptype"], params, cfg)
@@ -795,9 +834,10 @@ def compute_forces(
 
     ``mesh`` (``parallel/mesh.Mesh``): ``state`` is this rank's x-slab of
     ``geom``.  The per-particle fields get one halo plane on each side (one
-    exchange, ``halo.ghost_slabs``), pass A runs on that ghosted slab
-    (``halo.SlabGeometry``) and its sums are trimmed back to the slab.  The
-    SSA hops and pass B under a mesh are not ported yet and raise.
+    exchange, ``halo.ghost_slabs``); pass A and the SSA hops run on that
+    ghosted slab (``halo.SlabGeometry``) and give the slab's own cells'
+    sums.  Pass B reads f/m of the halo particles, which only the
+    neighbour's pass A gives: it costs a second exchange, of those 3 rows.
     """
     from sph_bvf_tpu_torch.ops.pair_cuda import pass_a
 
@@ -805,12 +845,10 @@ def compute_forces(
     fdt, dev = state.x.dtype, state.x.device
     pf = _per_particle(state, params, cfg)
     noise = noise_inputs(state)
-    if mesh is None:
-        acc = pass_a(pf, params, geom, cfg, noise)
-    else:
-        acc = _pass_a_slab(pf, params, geom, cfg, noise, mesh)
-    if params.n_ssa > 0 and "Qd" not in acc:
-        acc["Qd"] = _pass_a_qd(pf, params, geom, cfg, noise)
+    # the fields and grid pass A reads: this rank's slab with its halos
+    # under a mesh (``_ghosted`` raises for a grid the mesh cannot cut)
+    pf_a, geom_a = (pf, geom) if mesh is None else _ghosted(pf, geom, mesh)
+    acc = pass_a(pf_a, params, geom_a, cfg, noise)
 
     def zeros(*lead, dtype=fdt):
         return torch.zeros(lead + (cap, NC), dtype=dtype, device=dev)
@@ -819,9 +857,17 @@ def compute_forces(
     # artificial_stress and zhang integrators' moving-wall reflections, so
     # it runs only where the configuration asks for it
     if cfg.solids_present and cfg.weighted_solid:
-        acc_b = _pass_b(pf, acc["f"], params, geom, cfg)
+        fom = acc["f"] / pf["m"][None]  # f/m once per particle
+        if mesh is not None:
+            (fom,) = ghost_slabs([fom], plane_cells(geom), mesh, wrap_x(geom),
+                                 label="pass_b")
+        acc_b = _pass_b(pf_a, fom, params, geom_a, cfg)
     else:
         acc_b = dict(vws=zeros(3), aws=zeros(3))
+    # the SSA hops after pass B, which does not read them: under a mesh its
+    # exchange then waits for pass A alone, not for the hops as well
+    if params.n_ssa > 0 and "Qd" not in acc:
+        acc["Qd"] = _pass_a_qd(pf_a, params, geom_a, cfg, noise)
 
     one = torch.ones((), dtype=fdt, device=dev)
     return dataclasses.replace(
@@ -843,34 +889,6 @@ def compute_forces(
         rhoAux2=torch.where(state.valid, acc["rhoAux2"], one),
         Pnew=pf["P"] if cfg.store_pnew else state.Pnew,
     )
-
-
-def mesh_unsupported(params: Params, cfg: PairConfig) -> list:
-    """What a mesh does not run yet for this configuration: the SSA hop
-    draws (Qd) and pass B, which the JAX package reaches under a mesh only
-    through GSPMD, with no test of its own."""
-    return [what for what, bad in (
-        ("the SSA hop draws (Qd)", params.n_ssa > 0),
-        ("pass B (weighted_solid)", cfg.solids_present and cfg.weighted_solid),
-    ) if bad]
-
-
-def _pass_a_slab(pf: dict, params: Params, geom: Geometry, cfg: PairConfig,
-                 noise, mesh) -> dict:
-    """Pass A of this rank's slab: ``pf`` with its halo planes, pass A on
-    the ghosted slab through ``pair_cuda.pass_a`` (the kernel the global
-    grid routes to), which returns the sums of the slab's own cells.  The
-    thermal noise is keyed by the pair's tags, so it is the same on every
-    rank."""
-    from sph_bvf_tpu_torch.ops.pair_cuda import pass_a
-
-    missing = mesh_unsupported(params, cfg)
-    if missing:
-        raise NotImplementedError(
-            "under a mesh, " + " and ".join(missing)
-            + " are ported in a later PR")
-    pf_gh, slab = _ghosted(pf, geom, mesh)
-    return pass_a(pf_gh, params, slab, cfg, noise)
 
 
 def _ghosted(pf: dict, geom: Geometry, mesh):

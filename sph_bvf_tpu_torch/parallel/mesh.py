@@ -27,11 +27,19 @@ gloo on the CPU and where ranks share one GPU (NCCL refuses two ranks on
 one device).  Under gloo a slab on the card goes through host memory,
 explicitly (``halo._stage``, which refuses a host tensor under NCCL).
 
-Still refused under a mesh (``NotImplementedError``, ``ops/pair.py``): the
-SSA hop draws (Qd) and pass B; and ``nx`` that is not a multiple of the
-ranks, or a slab of fewer than 2 planes (``ValueError``); and an output
-that would read a slab as the whole grid (``gather_particles``,
-``checkpoint.save``, a dump: ``core/state.check_whole``, ``ValueError``).
+Pass B (``vws``/``aws``) reads f/m of the halo particles, which only the
+neighbour's pass A gives, so it exchanges those 3 rows once more
+(``ops/pair.compute_forces``).  The outputs gather the whole grid over the
+mesh (``gather_state``) and rank 0 writes the file, the other ranks
+waiting at a ``barrier``: ``io/checkpoint.save``, ``Restart``,
+``io/vtk.dump_state`` and ``core/computes.gather_compute``, each with
+``mesh=``.  A resume is every rank's ``checkpoint.load``, then
+``shard_state``.
+
+Refused (``ValueError``): ``nx`` that is not a multiple of the ranks, or a
+slab of fewer than 2 planes; and an output given a slab without ``mesh=``
+(``gather_particles``, ``checkpoint.save``, a dump, a compute:
+``core/state.check_whole``).
 """
 
 from __future__ import annotations
@@ -214,6 +222,13 @@ def gather_particles(state: State, geom: Geometry, mesh: Optional[Mesh] = None,
     if mesh is not None:
         state = gather_state(state, mesh, ("valid", "tag") + tuple(fields))
     return _gather_local(state, geom, fields)
+
+
+def barrier(mesh: Optional[Mesh]) -> None:
+    """Wait for every rank of the mesh (none without one): after rank 0
+    wrote a file, so that no rank reads it before it is whole."""
+    if mesh is not None and mesh.size > 1:
+        dist.barrier(group=mesh.group)
 
 
 def global_n_valid(state: State, mesh: Optional[Mesh]) -> int:

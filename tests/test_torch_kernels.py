@@ -4,7 +4,8 @@ K7 rebin move), with K2's solid-free variant, the non-uniform x-column
 rows (C in, the flux Q out), K2's fsi pair style and K2 and K6 on a doubly
 periodic grid (cell polarization), the thermal rows of K1, K2 and K3
 (the SDPD random force), K3's mechanics, fsi and solid-free paths
-with K7 past cap 64 (the 3D FSI beam and the Taylor-Green vortex), K5 on
+with K7 past cap 64 (the 3D FSI beam and the Taylor-Green vortex), K6 past
+cap 64 (seeded 2D grids of caps 96 and 400), K5 on
 periodic grids (the 2D Taylor-Green vortex), K7 with x_edges on a periodic
 grid (the 3D drifting blob) and K8, the window-rotation probe.
 
@@ -364,9 +365,9 @@ def test_kernels_serve_the_flagship_grid():
     serve; a crowded grid (cap 17..64) moves through K6; a grid with more
     than one cell along z takes K3 and K7, periodic axes of at least 3
     cells included; a periodic grid of cap <= 16 moves through K5 (K1
-    serves its pass A); a cap above 64 has no 2D move kernel, and a 3D
-    grid periodic along an axis of two cells has no kernel (it raises on a
-    CUDA tensor)."""
+    serves its pass A); cap 65 moves through K6, and a cap past K6's
+    shared memory takes the sort; a 3D grid periodic along an axis of two
+    cells has no kernel (it raises on a CUDA tensor)."""
     state, params, spec, _ = lid_cavity.build(N=50, device="cpu")
     assert not pair_cuda.uses_rowloop(spec.geom)
     assert pair_cuda.kernel_unsupported(spec.geom, spec.pair) == []
@@ -376,8 +377,12 @@ def test_kernels_serve_the_flagship_grid():
     assert pair_cuda.kernel_unsupported(periodic, spec.pair) == []
     crowded = dataclasses.replace(spec.geom, cap=rebin_cuda.MAX_CAP + 1)
     assert rebin_cuda.move_route(crowded) is rebin_cuda.rebin_move_2d_gated
+    cap65 = dataclasses.replace(spec.geom, cap=65)
+    assert rebin_cuda.move_route(cap65) is rebin_cuda.rebin_move_2d_gated
+    assert not rebin_cuda.sort_route(cap65)
     big_cap = dataclasses.replace(spec.geom, cap=rebin_cuda.GATED_MAX_CAP + 1)
     assert not rebin_cuda.move_supported(big_cap)
+    assert rebin_cuda.sort_route(big_cap)
     flat3d = dataclasses.replace(spec.geom, dim=3, ncells=(19, 19, 4),
                                  periodic=(False, False, False))
     cfg3d = dataclasses.replace(spec.pair, dim=3)
@@ -1323,6 +1328,43 @@ def test_k7_past_cap_64_matches_plain_walk_and_sort_on_card(cuda, case):
     for f in dataclasses.fields(ref):
         assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
     assert int(got.valid.sum(0).max()) > 64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap, side", [(96, 32), (400, 16)])
+def test_k6_past_cap_64_matches_plain_walk_and_sort_on_card(cuda, cap, side):
+    """K6 past cap 64 on seeded periodic 2D grids of cells fuller than 64
+    (cap 96: its slot lists within the default 48 KB a block; cap 400:
+    past it, opted in), each particle moved by up to 0.45 cells an axis:
+    the kernel == the plain walk == the sort rebin, every leaf bitwise,
+    and the rebin launches K6."""
+    geom = TS.Geometry.build(dim=2, lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 0.1),
+                             cutoff=0.96 / side, cap=cap, margin=0.039 / side,
+                             periodic=(True, True, True))
+    assert geom.ncells[:2] == (side, side)
+    assert rebin_cuda.move_route(geom) is rebin_cuda.rebin_move_2d_gated
+    rng = np.random.default_rng(cap)
+    n = int(0.55 * cap * side * side)
+    state = TS.state_from_particles(geom, rng.uniform(0.0, 1.0, (n, 2)),
+                                    np.zeros(n, np.int64), device=cuda)
+    d = rng.uniform(-0.45, 0.45, tuple(state.x.shape)) / side
+    d[2] = 0.0
+    state = dataclasses.replace(state, x=state.x + torch.as_tensor(
+        d, dtype=state.x.dtype, device=cuda) * state.valid)
+    assert int(state.overflow) == 0 and int(state.valid.sum(0).max()) > 64
+    fields = TS.particle_fields(state)
+    fields["x"] = TS.wrap_pbc(fields["x"], geom)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, cap, geom.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    kf, ki = rebin_cuda.rebin_move_2d_gated(PF, PI, geom, xr)
+    pf_, pi_ = rebin_cuda.rebin_move_plain(PF, PI, geom, xr)
+    assert torch.equal(kf, pf_) and torch.equal(ki, pi_)
+    before = rebin_cuda.rebin_move_2d_gated.launches
+    got = TS.rebin(state, geom, use_kernel=True)
+    assert rebin_cuda.rebin_move_2d_gated.launches == before + 1
+    ref = TS.rebin(state, geom, use_kernel=False)
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
 
 
 # ---------------------------------------------------------------------------

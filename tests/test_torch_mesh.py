@@ -27,7 +27,10 @@ then compare:
 9. the thermo row at 2 ranks, with the virial press, and the rows a
    ``Halt`` and a ``ThermoLogger`` on the mesh read, against JAX's
    ``thermo_row`` of the whole state, rtol 1e-9; and, with no ranks, the
-   outputs that refuse a slab.
+   outputs that refuse a slab without ``mesh=``.
+
+``tests/test_torch_mesh_ssa.py`` holds the stochastic species, pass B and
+the outputs (checkpoint, restart, frame, computes) on the mesh.
 """
 
 import concurrent.futures
@@ -56,11 +59,13 @@ from sph_bvf_tpu.models import lid_cavity as jlid
 from sph_bvf_tpu.ops import pair as jpair
 from sph_bvf_tpu.utils import thermo as jthermo
 from sph_bvf_tpu_torch import bridge
+from sph_bvf_tpu_torch.core import computes as tcomputes
 from sph_bvf_tpu_torch.core import halo as thalo
 from sph_bvf_tpu_torch.core import rebin_cuda
 from sph_bvf_tpu_torch.core import state as TS
 from sph_bvf_tpu_torch.core import stepper as tstepper
 from sph_bvf_tpu_torch.io import checkpoint as tcheckpoint
+from sph_bvf_tpu_torch.io import vtk as tvtk
 from sph_bvf_tpu_torch.models import fsi as tfsi
 from sph_bvf_tpu_torch.models import lid_cavity as tlid
 from sph_bvf_tpu_torch.models import lid_cavity3d as tlid3
@@ -462,10 +467,11 @@ def test_thermo_row_two_ranks_matches_jax(ranks, refs, case):
 
 def test_slab_outputs_refuse_without_the_mesh(tmp_path):
     """A slab reaches no output that would read one rank's particles as the
-    whole grid's: ``gather_particles`` and ``checkpoint.save`` of a slab
-    raise, as does ``simulate`` under a mesh with a ``ThermoLogger`` or
-    ``Halt`` of no mesh; the slabs are cut along x only, and NCCL refuses
-    a host tensor."""
+    whole grid's: ``gather_particles``, ``checkpoint.save``, ``Restart``,
+    ``dump_state`` and ``gather_compute`` of a slab without ``mesh=``
+    raise and write nothing, as does ``simulate`` under a mesh with a
+    ``ThermoLogger`` or ``Halt`` of no mesh; the slabs are cut along x
+    only, and NCCL refuses a host tensor."""
     s, p, spec = R.cavity(tlid, device="cpu")
     mesh = tmesh.Mesh(group=None, backend="gloo", rank=0, size=2,
                       device=torch.device("cpu"), ranks=(0, 1))
@@ -475,6 +481,13 @@ def test_slab_outputs_refuse_without_the_mesh(tmp_path):
         TS.gather_particles(slab, spec.geom)
     with pytest.raises(ValueError, match="slab"):
         tcheckpoint.save(str(tmp_path / "c.npz"), slab, spec.geom)
+    with pytest.raises(ValueError, match="slab"):
+        tcheckpoint.Restart(1, str(tmp_path / "r{step}.npz"), spec.geom)(slab)
+    with pytest.raises(ValueError, match="slab"):
+        tvtk.dump_state(str(tmp_path / "f.vtk"), slab, spec.geom)
+    with pytest.raises(ValueError, match="slab"):
+        tcomputes.gather_compute(slab, spec.geom, "rho")
+    assert not list(tmp_path.iterdir())
     mspec = dataclasses.replace(spec, mesh=mesh)
     for cb in (tthermo.ThermoLogger(p), tthermo.Halt(lambda row: True, p)):
         with pytest.raises(ValueError, match="spec.mesh"):

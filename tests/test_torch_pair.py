@@ -158,10 +158,11 @@ def test_compute_forces_matches_bruteforce(filt):
 def test_unported_branches_raise():
     """What the port still lacks raises instead of running other code.
     Under a mesh (checked before any exchange, so a mesh of no process
-    group serves): the SSA hop draws (Qd) and the weighted-solid pass B
-    raise NotImplementedError; an nx that is not a multiple of the ranks
-    and a slab of fewer than 2 planes raise ValueError.  With no mesh, pass
-    B and SSA species (ported) run; density diffusion (ported on the plain
+    group serves): an nx that is not a multiple of the ranks and a slab of
+    fewer than 2 planes raise ValueError; the SSA hop draws (Qd) and the
+    weighted-solid pass B (ported under a mesh too) run on a one-rank
+    mesh, which exchanges nothing, and equal the run with no mesh.  With
+    no mesh, pass B and SSA species (ported) run; density diffusion (ported on the plain
     path and in every pass-A kernel) passes K1's launch check; so does the
     thermal noise (ported), and a kernel launch refuses it without the
     state's dt, step and key."""
@@ -181,13 +182,11 @@ def test_unported_branches_raise():
         tuple(params.kappa.shape[:2]) + (1,), dtype=params.kappa.dtype))
     st_ssa = dataclasses.replace(st, Cd=torch.zeros((1,) + tuple(st.rho.shape),
                                                     dtype=torch.int32))
-    two = 2 if nx % 2 == 0 else 1
-    with pytest.raises(NotImplementedError, match="SSA hop draws.*later PR"):
-        tpair.compute_forces(st_ssa, ssa, tspec.geom, tspec.pair, mesh=mesh(two))
-    with pytest.raises(NotImplementedError, match="pass B.*later PR"):
-        tpair.compute_forces(st, params, tspec.geom,
-                             dataclasses.replace(tspec.pair, weighted_solid=True),
-                             mesh=mesh(two))
+    weighted = dataclasses.replace(tspec.pair, weighted_solid=True)
+    one = tpair.compute_forces(st_ssa, ssa, tspec.geom, weighted, mesh=mesh(1))
+    plain = tpair.compute_forces(st_ssa, ssa, tspec.geom, weighted)
+    for name in ("Qd", "vws", "aws", "f"):
+        assert torch.equal(getattr(one, name), getattr(plain, name)), name
     odd = next(n for n in range(2, nx + 1) if nx % n)
     with pytest.raises(ValueError, match="not a multiple"):
         tpair.compute_forces(st, params, tspec.geom, tspec.pair, mesh=mesh(odd))

@@ -99,6 +99,52 @@ def test_plain_walk_matches_sort_on_n200_grid(drop):
         assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), f.name
 
 
+@pytest.mark.parametrize("cap, periodic", [
+    (96, (False, False, True)),  # K6's lists within the default 48 KB
+    (400, (True, True, True)),  # past it: the opt-in shared memory
+])
+def test_k6_walk_past_cap_64_matches_jax_sort(cap, periodic):
+    """K6 past cap 64: on a seeded 2D state of 4 x 4 cells holding more
+    than 64 particles each, each moved by up to 0.45 of a cell an axis
+    (many across a cell face, past the drift budget), the plain walk
+    (what ``rebin`` runs through K6's wrapper on a CPU tensor) gives JAX's
+    sort rebin, every leaf bitwise, and equals the numpy emulation of the
+    kernels' warp walk (``tests/warp_walk.py``) on the same packs."""
+    from warp_walk import warp_walk
+
+    jg, tg = _geom_pair(dim=2, lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 0.1),
+                        cutoff=0.22, cap=cap, margin=0.02, periodic=periodic)
+    assert tg.ncells[:2] == (4, 4)
+    assert rebin_cuda.move_route(tg) is rebin_cuda.rebin_move_2d_gated
+    assert not rebin_cuda.sort_route(tg)
+    rng = np.random.default_rng(cap)
+    n = int(0.7 * cap * 16)
+    x = rng.uniform(0.0, 1.0, size=(n, 2))
+    ptype = rng.integers(0, 2, size=n)
+    js = JS.state_from_particles(jg, x, ptype, dtype=jnp.float32)
+    ts = TS.state_from_particles(tg, x, ptype, dtype=torch.float32, device="cpu")
+    assert int(ts.overflow) == 0 and int(ts.valid.sum(0).max()) > 64
+    d = (rng.uniform(-0.45, 0.45, size=tuple(ts.x.shape))
+         * tg.cell_size[0]).astype(np.float32)
+    d[2] = 0.0
+    js = dataclasses.replace(js, x=js.x + jnp.where(js.valid, d, 0.0))
+    ts = dataclasses.replace(ts, x=ts.x + torch.where(ts.valid, torch.from_numpy(d), 0.0))
+    before = rebin_cuda.rebin_move_2d_gated.launches
+    tr = TS.rebin(ts, tg, use_kernel=True)
+    assert rebin_cuda.rebin_move_2d_gated.launches == before  # the plain walk
+    jr = JS.rebin(js, jg, use_pallas=False)
+    _assert_same(jr, tr)
+    assert int(tr.overflow) == 0 and int(tr.valid.sum(0).max()) > 64
+    assert int(tr.drift_violation) > 0  # the moves passed the budget
+    fields = TS.particle_fields(ts)
+    fields["x"] = TS.wrap_pbc(fields["x"], tg)
+    PF, PI, fmeta, _ = rebin_cuda._pack_fields(fields, cap, tg.ncells_total)
+    xr = rebin_cuda._x_row(fmeta)
+    plain_f, plain_i = rebin_cuda.rebin_move_plain(PF, PI, tg, xr)
+    emu_f, emu_i = warp_walk(PF, PI, tg, xr)
+    assert torch.equal(emu_f, plain_f) and torch.equal(emu_i, plain_i)
+
+
 def test_overflow_count_matches():
     """An over-full cell: JAX's sort, the port's sort and the port's plain
     walk all drop and count the same particles."""

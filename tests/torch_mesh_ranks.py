@@ -12,6 +12,14 @@ the test compares them with the JAX package's runs of the same inputs.
 The inputs are built from seeds here and in the test alike (the scene
 builders of both packages give bitwise the same states): ``cavity``,
 ``fsi_beam`` and ``drift_blob`` take the package's modules.
+
+``ssa_legs(rank, out)`` runs in a group of 2 ranks for
+``tests/test_torch_mesh_ssa.py``: the lid-driven cavity with a stochastic
+species (``examples/lid_cavity_ssa.lmp`` at N=``SSA_N``, ``ssa_model``),
+as written and under the zhang integrator (pass B): the forces with Qd and
+vws/aws, the largest hop mean and the computes on the slabs; two chunks
+with a ``Restart`` on the mesh, a frame of the mesh and a resume from the
+step-10 file.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -30,6 +39,35 @@ KB = 1e-4  # the thermal leg's kB
 FIX = dict(every=50, threshold=1.5, min_budget=2.5e-3, occ_frac=0.8)
 BLOB_STEPS = 105  # the re-cut at step 100 (occupancy) and 5 steps after
 DT_FIX = dict(groupbit=1, cfl=0.25, dx_ave=0.02, tmin=1e-8, tmax=1e-2)
+
+
+# the SSA legs: examples/lid_cavity_ssa.lmp at N=SSA_N (8 x 8 cells once
+# its x cells are a multiple of 2), as written ("ssa") and under the zhang
+# integrator ("zhang": pass B), with kappaSSA SSA_KSS (the script's 2e-3
+# draws no hop at this size: the largest hop mean is 8e-4; at 0.5 it is
+# 0.21); SSA_STEPS steps, a restart file every SSA_EVERY (the chunk)
+SSA_SCRIPT = Path(__file__).resolve().parent.parent / "examples" / "lid_cavity_ssa.lmp"
+SSA_N, SSA_KSS, SSA_STEPS, SSA_EVERY = 16, 0.5, 20, 10
+SSA_CASES = {"ssa": None, "zhang": "ssa_tsdpd/bvf/zhang"}
+SSA_FIELDS = ("v", "rho", "Cd")  # the frame's
+# the computes held to JAX's: (name, indices)
+SSA_COMPUTES = (("rho", ()), ("Cd", (0,)), ("number_density", ()),
+                ("stress", (0, 1)), ("phi", ()))
+
+
+def ssa_model(lmp, case):
+    """``examples/lid_cavity_ssa.lmp`` at N=SSA_N and kappaSSA SSA_KSS
+    parsed by package module ``lmp``, under the case's integrator, its x
+    cells a multiple of 2."""
+    text = SSA_SCRIPT.read_text()
+    fix = SSA_CASES[case]
+    if fix is not None:
+        text = text.replace("integration all ssa_tsdpd/bvf/transportVelocity",
+                            f"integration all {fix}")
+        assert fix in text
+    model = lmp.parse_script(text, overrides={"N": SSA_N, "kss": SSA_KSS})
+    model.scene.ncx_multiple_of = 2
+    return model
 
 
 def exchange_input() -> np.ndarray:
@@ -321,6 +359,89 @@ def _leg_one_rank(mesh1, out):
             res[f"{name}_plain_{k}"] = runs[0][k]
             res[f"{name}_mesh_{k}"] = runs[1][k]
     _save(out, "one_rank", **res)
+
+
+def _leg_ssa_forces(mesh, out):
+    """compute_forces, the largest hop mean and the computes of 2 slabs of
+    the perturbed SSA cavity, as written and under zhang."""
+    from sph_bvf_tpu_torch import bridge
+    from sph_bvf_tpu_torch.api import lmp
+    from sph_bvf_tpu_torch.core import computes
+    from sph_bvf_tpu_torch.ops import pair
+
+    for case in SSA_CASES:
+        s, p, spec = ssa_model(lmp, case).build(device="cpu")
+        st, pa = _port(perturbed(f64(bridge.state_from_port(s)), 3),
+                       f64(bridge.to_numpy(p)), spec, mesh)
+        got = pair.compute_forces(st, pa, spec.geom, spec.pair, mesh)
+        mu = pair.compute_ssa_mu_max(st, pa, spec.geom, spec.pair, mesh)
+        res = {f"compute_{name}{''.join(map(str, idx))}":
+               computes.gather_compute(got, spec.geom, name, *idx, mesh=mesh)
+               for name, idx in SSA_COMPUTES}
+        whole = _whole(got, mesh)
+        if mesh.rank == 0:
+            _save(out, f"ssa_forces_{case}", mu=mu.numpy(), **res, **{
+                k: whole[k] for k in ("Qd", "vws", "aws", "f", "tag", "valid")})
+
+
+def _leg_ssa_runs(mesh, out):
+    """setup and SSA_STEPS steps of each case at 2 ranks with a
+    ``Restart`` on the mesh every SSA_EVERY steps (and, from rank 0, a
+    single-device ``save`` of the gathered state beside it); a frame of the
+    final state by the mesh and by one device; every rank's resume from
+    the step-SSA_EVERY file to SSA_STEPS."""
+    from sph_bvf_tpu_torch import bridge
+    from sph_bvf_tpu_torch.api import lmp
+    from sph_bvf_tpu_torch.core import stepper
+    from sph_bvf_tpu_torch.io import checkpoint, vtk
+    from sph_bvf_tpu_torch.parallel import mesh as M
+
+    out = Path(out)
+    for case in SSA_CASES:
+        model = ssa_model(lmp, case)
+        s, p, spec = model.build(device="cpu")
+        st, pa = _port(f64(bridge.state_from_port(s)), f64(bridge.to_numpy(p)),
+                       spec, mesh)
+        geom = spec.geom
+        spec = dataclasses.replace(spec, mesh=mesh)
+        restart = checkpoint.Restart(
+            SSA_EVERY, str(out / f"ckpt_{case}_{{step}}.npz"), geom, mesh)
+
+        def callback(state):
+            restart(state)
+            whole = M.gather_state(state, mesh)
+            if mesh.rank == 0:
+                checkpoint.save(str(out / f"single_{case}_{int(state.step)}.npz"),
+                                whole, geom)
+
+        st = stepper.simulate(stepper.setup(st, pa, spec, dt=model.dt), pa,
+                              spec, SSA_STEPS, callback=callback)
+        vtk.dump_state(str(out / f"frame_mesh_{case}.vtk"), st, geom,
+                       SSA_FIELDS, mesh=mesh)
+        whole = M.gather_state(st, mesh)
+        if mesh.rank == 0:
+            vtk.dump_state(str(out / f"frame_single_{case}.vtk"), whole, geom,
+                           SSA_FIELDS)
+        run = bridge.state_from_port(whole)
+        back = checkpoint.load(str(out / f"ckpt_{case}_{SSA_EVERY}.npz"), geom,
+                               device="cpu")
+        back = stepper.simulate(M.shard_state(back, mesh, geom), pa, spec,
+                                SSA_STEPS - SSA_EVERY)
+        resumed = _whole(back, mesh)
+        if mesh.rank == 0:
+            _save(str(out), f"ssa_run_{case}", **run)
+            _save(str(out), f"ssa_resumed_{case}", **resumed)
+
+
+def ssa_legs(rank, out):
+    """The legs of ``tests/test_torch_mesh_ssa.py`` (the module
+    docstring), on 2 ranks."""
+    from sph_bvf_tpu_torch.parallel import mesh as M
+
+    torch.set_num_threads(1)
+    mesh = M.make_mesh(device="cpu")
+    _leg_ssa_forces(mesh, out)
+    _leg_ssa_runs(mesh, out)
 
 
 def legs(rank, out):

@@ -4,9 +4,10 @@
 by ``MESH_RANKS`` ranks sharing the card over gloo, held to each other,
 with the slab kernels' checks and times.
 
-    python3 tools/torch_mesh_phase.py      # from the repository root
+    python3 tools/torch_mesh_phase.py [LEG ...]   # from the repository root
 
-It builds only the kernels the legs launch (K1, K2, K3, K5 and K6, K7).
+LEG names legs of ``MESH_LEGS`` to run (default: every one).  It builds
+only the kernels the legs launch (K1, K2, K3, K5 and K6, K7).
 """
 
 import concurrent.futures
@@ -34,6 +35,14 @@ def main() -> int:
         for f in [pool.submit(_build.load, n) for n in names]:
             f.result()
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    legs = sys.argv[1:]
+    unknown = [leg for leg in legs if leg not in C.MESH_LEGS]
+    if unknown:
+        print(f"torch_mesh_phase: no leg {unknown}; the legs are "
+              f"{list(C.MESH_LEGS)}", file=sys.stderr)
+        return 2
+    if legs:
+        C.MESH_LEGS = {leg: C.MESH_LEGS[leg] for leg in legs}
     card = C._nvidia_smi("name,power.limit")
     t0 = time.perf_counter()
     rows = C._mesh_phase(torch, torch.device("cuda"), card)
