@@ -426,7 +426,21 @@ each:
              the Qd pass's device ms on a slab beside the unsharded one
              and the halo host ms a step, pass B's exchange apart
              (``_mesh_phase``; ``tools/torch_mesh_phase.py`` runs it
-             alone).
+             alone);
+13. long runs — the three long-run tools of ``tools/`` through their own
+             entry points, at short horizons: ``torch_ghia_benchmark.run``
+             (the cavity N=50, Re100, 5,000 steps; K1, K5), each of the
+             seven centerline u values within 0.005 of the JAX package's
+             own run of the same scene (``GHIA_JAX``, from
+             ``tests/jax_ghia_run.py``); ``torch_nusselt.run_to_steady``
+             (convection N=40, both legs, 200 steps each; K1 with the
+             species rows, K5) with a finite, positive Qdot; and
+             ``torch_fsi_release.run`` (the FSI channel nx=24, 100 steps,
+             the beam released at step 50; K2, K6) with finite snapshots;
+             each with overflow and drift 0, its particles conserved and
+             its launches exactly its steps + 1 and chunks + 1
+             (``_long_runs_phase``; ``tools/torch_long_runs_phase.py``
+             runs it alone).
 
 Every number is printed beside the card's name and power limit.  The
 second-to-last line is ``{"kernels": [...]}`` (the
@@ -860,6 +874,22 @@ MESH_FRAME = ("v", "rho", "Cd")
 # the SSA legs' fields held to the single-device run: bitwise, but vws and
 # aws (pass B's torch sums), bitwise or within TOL * max
 MESH_SSA_FIELDS = ("Cd", "Qd", "vws", "aws")
+# [long runs]: (N, steps) of the Ghia cavity at Re100 and GHIA_JAX, the
+# JAX package's seven centerline u values after those steps, from
+# `JAX_PLATFORMS=cpu python3 tests/jax_ghia_run.py 50 5000 100` (JAX 0.9.0
+# on the CPU, f32, its jnp path); each held within GHIA_JAX_TOL
+LONG_GHIA = (50, 5000)
+GHIA_JAX = (0.6240245478425747, -0.00882690012790111, -0.10329810812544693,
+            -0.06059935257741655, -0.034706889456486735,
+            -0.02315258991782143, -0.015335935801757135)
+GHIA_JAX_TOL = 0.005
+# Nusselt: (N, steps a leg, steps between checks); the model rebins every
+# 50 steps
+LONG_NUSSELT = (40, 200, 100)
+NUSSELT_REBIN = 50
+# FSI release: (nx, steps, snapshot every, release step); the model rebins
+# every 100 steps, so each snapshot interval is one chunk
+LONG_FSI = (24, 100, 50, 50)
 # the kernels' names in torch.profiler, by wrapper
 DEVICE_MATCH = {"pass_a_2d": "pa2d::window_",
                 "pass_a_2d_rowloop": "pass_a_2d_rowloop_kernel",
@@ -2609,6 +2639,92 @@ def _mesh_phase(torch, dev, card):
                 "library_ms": None})
     shutil.rmtree(out, ignore_errors=True)
     return rows
+
+
+def _long_runs_phase(torch, dev, card, counters):
+    """[long runs]: ``tools/torch_ghia_benchmark.run``,
+    ``tools/torch_nusselt.run_to_steady`` (both legs) and
+    ``tools/torch_fsi_release.run`` on the card at LONG_GHIA, LONG_NUSSELT
+    and LONG_FSI, each with the counters set to 0 just before it and read
+    just after; raises on any miss."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    ghia = _load_tool("torch_ghia_benchmark")
+    nusselt = _load_tool("torch_nusselt")
+    release = _load_tool("torch_fsi_release")
+
+    def counted(run, want):
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        out = run()
+        seconds = time.perf_counter() - t
+        launches = {k: c.launches for k, c in counters.items() if c.launches}
+        if launches != want:
+            raise AssertionError(f"[long runs] launch counts {launches}, "
+                                 f"expected {want}")
+        return out, launches, seconds
+
+    def quiet(_line):
+        pass
+
+    N, steps = LONG_GHIA
+    g, launches, seconds = counted(
+        lambda: ghia.run(N=N, Re=100, steps=steps, profile_every=steps,
+                         device=dev, log=quiet),
+        {"pass_a_2d": steps + 1, "rebin_move_2d": steps // ghia.CHUNK + 1})
+    diff = np.abs(np.array(g["u"]) - np.array(GHIA_JAX))
+    if not (diff.max() <= GHIA_JAX_TOL and g["overflow"] == 0
+            and g["drift"] == 0 and g["particles"][0] == g["particles"][1]):
+        raise AssertionError(f"[long runs] ghia N={N}: {g}; |u - JAX| {diff}")
+    print(f"[long runs] ghia N={N} Re100, {g['steps']} steps through "
+          f"tools/torch_ghia_benchmark.run: u {g['u']} vs the JAX package's "
+          f"{list(GHIA_JAX)}: max|diff| {float(diff.max())!r} (bound "
+          f"{GHIA_JAX_TOL}); max|u - Ghia| {g['max_diff']!r} (the flow still "
+          f"developing at t=0.5); overflow 0, drift 0, particles "
+          f"{g['particles'][1]} kept; launches {launches}; {seconds!r} s, "
+          f"{g['particle_steps_per_s']!r} particle-steps/s [{card}]",
+          flush=True)
+
+    N, steps, every = LONG_NUSSELT
+    legs = {}
+    for name, buoyancy in (("cond", False), ("conv", True)):
+        (q, done, steady), launches, seconds = counted(
+            lambda: nusselt.run_to_steady(N, 1e4, buoyancy, steps, every,
+                                          2e-3, device=dev, log=quiet),
+            {"pass_a_2d": steps + 1,
+             "rebin_move_2d": steps // NUSSELT_REBIN + 1})
+        if not (math.isfinite(q) and q > 0 and done == steps):
+            raise AssertionError(f"[long runs] nusselt {name}: Qdot {q!r} "
+                                 f"after {done} steps (steady {steady})")
+        legs[name] = (q, launches, seconds)
+    print(f"[long runs] nusselt N={N} Ra 1e4, {steps} steps a leg through "
+          f"tools/torch_nusselt.run_to_steady (overflow 0 at every check): "
+          + "; ".join(f"{k} Qdot {q!r}, launches {n}, {t!r} s"
+                      for k, (q, n, t) in legs.items())
+          + f"; Qdot_conv / Qdot_cond {legs['conv'][0] / legs['cond'][0]!r} "
+          f"[{card}]", flush=True)
+
+    nx, steps, every, release_at = LONG_FSI
+    f, launches, seconds = counted(
+        lambda: release.run(nx=nx, steps=steps, every=every,
+                            tdamp_solid=release_at, device=dev, log=quiet),
+        {"pass_a_2d_rowloop": steps + 1,
+         "rebin_move_2d_gated": steps // every + 1})
+    tips = list(f["tip_x"].values())
+    if not (f["overflow"] == 0 and f["drift"] == 0 and f["finite"]
+            and f["particles"][0] == f["particles"][1]
+            and all(math.isfinite(t) for t in tips)):
+        raise AssertionError(f"[long runs] fsi release nx={nx}: {f}")
+    print(f"[long runs] fsi release nx={nx} (cap {f['cap']}), {f['steps']} "
+          f"steps through tools/torch_fsi_release.run, released at step "
+          f"{release_at}: tip x {f['tip_x']} over {f['tip_particles']} "
+          f"particles, snapshots finite, overflow 0, drift 0, particles "
+          f"{f['particles'][1]} kept; launches {launches}; {seconds!r} s "
+          f"[{card}]", flush=True)
+    print(f"[long runs] {time.perf_counter() - t_phase!r} s for the phase "
+          f"[{card}]", flush=True)
 
 
 def _mesh_ssa_checks(name, kind, steps, chunk, got, ref, recs, out):
@@ -5321,6 +5437,8 @@ def main() -> int:
          "library_ms": probe_out["matmul_ms"] if v == "mma" else None}
         for v in rp.VARIANTS
     ]
+    # -- [long runs]: the long-run tools at short horizons ------------------
+    _long_runs_phase(torch, dev, card, counters)
     # -- [mesh]: the port over x-slab ranks on the one card ----------------
     kernels += _mesh_phase(torch, dev, card)
     print(f"[time] {time.perf_counter() - t_start!r} s from the first build "
