@@ -24,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from sph_bvf_tpu_torch.utils import profiler
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sph_bvf_tpu_torch"
 # -Xptxas=-v: ptxas reports each kernel's registers, shared memory and spills
@@ -57,9 +59,15 @@ def nvcc_version() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
+    """Compile ``csrc/<name>.cu`` if its library is missing, then load it
+    (the span ``load.<name>``, host time, recorded in every mode)."""
     if name in _loaded:
         return _loaded[name]
+    with profiler.once(f"load.{name}"):
+        return _load(name)
+
+
+def _load(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(

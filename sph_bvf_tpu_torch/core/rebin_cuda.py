@@ -47,6 +47,7 @@ from sph_bvf_tpu_torch.core.halo import (SlabGeometry, ghost_slabs, grid_3d,
                                          narrow_wrap_axes, wrap_axes, wrap_bits,
                                          wrap_x, wrap_y)
 from sph_bvf_tpu_torch.core.state import Geometry, cell_index_of, x_columns
+from sph_bvf_tpu_torch.utils.profiler import span
 
 MAX_CAP = 16  # K5's, the JAX package's static branch's
 # K6's: kMaxCap in csrc/rebin_move_2d.cu, the largest cap whose slot lists,
@@ -482,6 +483,7 @@ def move(fields: Dict[str, torch.Tensor], geom: Geometry,
         slab = slab_of(geom, mesh)
         PF, PI = ghost_slabs([PF, PI], plane_cells(geom), mesh, wrap_x(geom))
     kernel = move_route(geom)
-    outf, outi = (kernel(PF, PI, geom, _x_row(fmeta)) if slab is None
-                  else kernel(PF, PI, geom, _x_row(fmeta), slab))
+    with span("rebin.move", PF):
+        outf, outi = (kernel(PF, PI, geom, _x_row(fmeta)) if slab is None
+                      else kernel(PF, PI, geom, _x_row(fmeta), slab))
     return _unpack_fields(outf, outi, fmeta, imeta, fields, cap, NC)

@@ -29,6 +29,7 @@ import torch
 
 from sph_bvf_tpu_torch.core.state import GROUP_ALL, Geometry, Params, State
 from sph_bvf_tpu_torch.ops import rand
+from sph_bvf_tpu_torch.utils.profiler import sync
 
 _MASK = 0xFFFFFFFF
 
@@ -102,7 +103,9 @@ def _propensities(Cd, volume, groupmask, cfg: SsaConfig, dtype):
 
 
 def _stoich_table(cfg: SsaConfig, n_species: int, device=None):
-    """[R, n_species] int32: each channel's change of every count."""
+    """[R, n_species] int32: each channel's change of every count.  Its
+    copy to the card waits for the stream (a pageable host-to-device
+    copy): ``host_sync.stoich_table``."""
     st = np.zeros((len(cfg.reactions), n_species), np.int32)
     for r, rx in enumerate(cfg.reactions):
         if len(rx.reactants) == 2 and rx.reactants[0] == rx.reactants[1]:
@@ -112,7 +115,8 @@ def _stoich_table(cfg: SsaConfig, n_species: int, device=None):
                 st[r, s] -= 1
         for s in rx.products:
             st[r, s] += 1
-    return torch.as_tensor(st, device=device)
+    with sync("stoich_table"):
+        return torch.as_tensor(st, device=device)
 
 
 def ssa_reactions(state: State, params: Params, cfg: SsaConfig) -> State:

@@ -29,6 +29,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from sph_bvf_tpu_torch.utils.profiler import span, sync
+
 # Group bit 0 is the "all" group, like LAMMPS group.cpp.
 GROUP_ALL = 1
 
@@ -375,13 +377,16 @@ def cell_index_of(x, geom: Geometry):
 
 
 def wrap_pbc(x, geom: Geometry):
-    """Wrap positions into the box on periodic axes (reference domain->pbc)."""
+    """Wrap positions into the box on periodic axes (reference domain->pbc).
+    The box length's copy to the card waits for the stream (a pageable
+    host-to-device copy): ``host_sync.wrap_pbc``."""
     comps = []
     for ax in range(3):
         if geom.periodic[ax]:
             lo, hi = geom.lo[ax], geom.hi[ax]
-            comps.append(lo + _mod(x[ax] - lo, torch.tensor(
-                hi - lo, dtype=x.dtype, device=x.device)))
+            with sync("wrap_pbc"):
+                length = torch.tensor(hi - lo, dtype=x.dtype, device=x.device)
+            comps.append(lo + _mod(x[ax] - lo, length))
         else:
             comps.append(x[ax])
     return torch.stack(comps, dim=0)
@@ -487,7 +492,15 @@ def rebin(state: State, geom: Geometry, drop: tuple = (),
     (``rebin_cuda.move``); the sort gathers every rank's particles, sorts
     them as one grid and keeps this rank's slab.  The overflow and drift
     counts are sums over the ranks, the same on every rank.
+
+    Spans: ``rebin``, with ``rebin.move`` (in ``rebin_cuda.move``) inside.
     """
+    with span("rebin", state.x):
+        return _rebin(state, geom, drop, use_kernel, drift_check, mesh)
+
+
+def _rebin(state: State, geom: Geometry, drop: tuple, use_kernel: bool,
+           drift_check: bool, mesh) -> State:
     reduce = _reducer(mesh)
     fields = particle_fields(state)
     zeroed = {n: torch.zeros_like(fields.pop(n)) for n in drop}

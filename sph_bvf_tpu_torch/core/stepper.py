@@ -57,6 +57,8 @@ from sph_bvf_tpu_torch.core.state import (
 from sph_bvf_tpu_torch.core.ssa import ssa_step
 from sph_bvf_tpu_torch.ops.pair import PairConfig, compute_forces, compute_ssa_mu_max
 from sph_bvf_tpu_torch.parallel.mesh import all_reduce
+from sph_bvf_tpu_torch.utils import profiler
+from sph_bvf_tpu_torch.utils.profiler import span
 from sph_bvf_tpu_torch.utils.thermo import Halt, StopSimulation, ThermoLogger
 
 
@@ -74,21 +76,32 @@ class ModelSpec:
     balance: Optional[Any] = None
 
 
+def _fixes(state: State, params: Params, spec: ModelSpec, stage: str) -> State:
+    """The fixes of ``stage``, under the span ``fixes.<stage>`` (none for a
+    stage with no fix)."""
+    if not any(fx.stage == stage for fx in spec.fixes):
+        return state
+    with span(f"fixes.{stage}", state.x):
+        return fixes_mod.apply_stage(state, params, spec.fixes, stage,
+                                     spec.mesh)
+
+
 def step(state: State, params: Params, spec: ModelSpec) -> State:
-    """One full Verlet step."""
-    state = dataclasses.replace(state, step=state.step + 1)
-    state = initial_integrate(state, params, spec.integ)
-    state = fixes_mod.apply_stage(state, params, spec.fixes,
-                                  fixes_mod.POST_INTEGRATE, spec.mesh)
-    state = compute_forces(state, params, spec.geom, spec.pair, spec.mesh)
-    state = fixes_mod.apply_stage(state, params, spec.fixes,
-                                  fixes_mod.POST_FORCE, spec.mesh)
-    state = final_integrate(state, params, spec.integ)
-    if spec.ssa is not None:
-        state = ssa_step(state, params, spec.geom, spec.ssa)
-    state = fixes_mod.apply_stage(state, params, spec.fixes,
-                                  fixes_mod.END_OF_STEP, spec.mesh)
-    return state
+    """One full Verlet step (the span ``step``, a span per stage)."""
+    profiler.count("steps")
+    with span("step", state.x):
+        state = dataclasses.replace(state, step=state.step + 1)
+        with span("integrate.initial", state.x):
+            state = initial_integrate(state, params, spec.integ)
+        state = _fixes(state, params, spec, fixes_mod.POST_INTEGRATE)
+        state = compute_forces(state, params, spec.geom, spec.pair, spec.mesh)
+        state = _fixes(state, params, spec, fixes_mod.POST_FORCE)
+        with span("integrate.final", state.x):
+            state = final_integrate(state, params, spec.integ)
+        if spec.ssa is not None:
+            with span("reactions", state.x):
+                state = ssa_step(state, params, spec.geom, spec.ssa)
+        return _fixes(state, params, spec, fixes_mod.END_OF_STEP)
 
 
 def _rebin_drop(spec: ModelSpec) -> tuple:
@@ -96,14 +109,17 @@ def _rebin_drop(spec: ModelSpec) -> tuple:
 
 
 def setup(state: State, params: Params, spec: ModelSpec, dt: float) -> State:
-    """Verlet::setup: bin, vest=v, initial force eval, post_force fixes."""
-    state = dataclasses.replace(
-        state, dt=torch.tensor(dt, dtype=state.x.dtype, device=state.x.device))
-    state = rebin(state, spec.geom, drop=_rebin_drop(spec), mesh=spec.mesh)
-    state = setup_pre_force(state)
-    state = compute_forces(state, params, spec.geom, spec.pair, spec.mesh)
-    return fixes_mod.apply_stage(state, params, spec.fixes,
-                                 fixes_mod.POST_FORCE, spec.mesh)
+    """Verlet::setup: bin, vest=v, initial force eval, post_force fixes
+    (the span ``setup``, whose host time is recorded in every mode)."""
+    with profiler.once("setup"):
+        state = dataclasses.replace(
+            state,
+            dt=torch.tensor(dt, dtype=state.x.dtype, device=state.x.device))
+        state = rebin(state, spec.geom, drop=_rebin_drop(spec),
+                      mesh=spec.mesh)
+        state = setup_pre_force(state)
+        state = compute_forces(state, params, spec.geom, spec.pair, spec.mesh)
+        return _fixes(state, params, spec, fixes_mod.POST_FORCE)
 
 
 def run_chunk(state: State, params: Params, spec: ModelSpec, n: int,
@@ -113,7 +129,9 @@ def run_chunk(state: State, params: Params, spec: ModelSpec, n: int,
     the Shepard filter) only the steps on the filter cadence accumulate
     rhoAux1/rhoAux2.  ``None`` accumulates every step."""
     state = rebin(state, spec.geom, drop=_rebin_drop(spec), mesh=spec.mesh)
-    return scan_steps(state, params, spec, n, phase)
+    state = scan_steps(state, params, spec, n, phase)
+    profiler.count("chunks")
+    return state
 
 
 def scan_steps(state: State, params: Params, spec: ModelSpec, n: int,
@@ -151,10 +169,12 @@ def _halted(callback, state: State, mesh) -> bool:
         stop = 1
     if mesh is not None:
         flag = torch.tensor(stop, device=mesh.device)
-        stop = int(all_reduce(flag, mesh, "max"))
+        with profiler.sync("halted"):
+            stop = int(all_reduce(flag, mesh, "max"))
     return bool(stop)
 
 
+@profiler.scoped
 def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
              callback=None, callback_every: Optional[int] = None,
              balance_log: Optional[list] = None):
@@ -179,6 +199,13 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
     Under ``spec.mesh`` every rank calls this on its slab; the counters it
     checks are sums over the ranks, the re-cut reads every rank's particles
     and a ``StopSimulation`` on any rank ends the run on all of them.
+
+    Each chunk boundary is one for the span recorder
+    (``utils/profiler.chunk_boundary``: a ``torch.profiler`` session seen
+    there arms it until this call returns); the callback and the counter
+    readback run under the spans ``callback`` and ``check``, and every
+    host readback goes through ``profiler.sync`` (``host_sync.check.*``
+    every 10 chunks, ``host_sync.final.*`` when the call ends).
     """
     if (isinstance(callback, (Halt, ThermoLogger))
             and callback.mesh is not spec.mesh):
@@ -191,13 +218,19 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
 
     warned_mu = [False]
 
-    def check(state):
-        overflow = int(state.overflow)
+    def check(state, final: bool):
+        with span("check", state.x):
+            _check(state, "final." if final else "check.")
+
+    def _check(state, site):
+        with profiler.sync(site + "overflow"):
+            overflow = int(state.overflow)
         if overflow:
             raise RuntimeError(
                 f"{overflow} particles exceeded cell capacity (lost atoms)"
             )
-        drift = int(state.drift_violation)
+        with profiler.sync(site + "drift"):
+            drift = int(state.drift_violation)
         if drift:
             raise RuntimeError(
                 f"{drift} particles drifted past the cell margin between "
@@ -207,8 +240,10 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
         # the tau-leap's regime: the SSA diffusion truncates each pair's
         # Poisson draw, valid only for per-pair means << 1
         if params.n_ssa > 0 and not warned_mu[0]:
-            mu = float(compute_ssa_mu_max(state, params, spec.geom, spec.pair,
-                                          spec.mesh))
+            mu = compute_ssa_mu_max(state, params, spec.geom, spec.pair,
+                                    spec.mesh)
+            with profiler.sync(site + "mu_max"):
+                mu = float(mu)
             if mu > 0.3:
                 warned_mu[0] = True
                 print(
@@ -223,9 +258,11 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
 
     # absolute step offset (nonzero on a resume): the filter phase follows
     # state.step, not the local step count
-    step0 = int(state.step)
+    with profiler.sync("simulate.step0"):
+        step0 = int(state.step)
     done = 0
     while done < nsteps:
+        profiler.chunk_boundary()
         if bal is not None and done >= next_bal:
             next_bal += bal.every
             from sph_bvf_tpu_torch.parallel.balance import rebalance
@@ -258,11 +295,13 @@ def simulate(state: State, params: Params, spec: ModelSpec, nsteps: int,
         state = run_chunk(state, params, spec, n, phase=phase)
         done += n
         if callback is not None and (done % cb_every == 0 or done >= nsteps):
-            if _halted(callback, state, spec.mesh):
-                check(state)
+            with span("callback", state.x):
+                halted = _halted(callback, state, spec.mesh)
+            if halted:
+                check(state, final=True)
                 return state
         # the counter readback costs a host round trip; amortize over chunks
         # but always check at the end so nothing slips through
         if done % (10 * chunk) == 0 or done >= nsteps:
-            check(state)
+            check(state, final=done >= nsteps)
     return state

@@ -44,6 +44,7 @@ from sph_bvf_tpu_torch.ops import rand
 from sph_bvf_tpu_torch.ops.eos import tait_pressure
 from sph_bvf_tpu_torch.ops.kernels import ipow, lucy_w, lucy_w_ih, lucy_wfd_ih
 from sph_bvf_tpu_torch.parallel.mesh import plane_cells, slab_of
+from sph_bvf_tpu_torch.utils.profiler import span
 
 TRANSPORT_VELOCITY = "transport_velocity"
 MECHANICS = "mechanics"
@@ -838,7 +839,16 @@ def compute_forces(
     ghosted slab (``halo.SlabGeometry``) and give the slab's own cells'
     sums.  Pass B reads f/m of the halo particles, which only the
     neighbour's pass A gives: it costs a second exchange, of those 3 rows.
+
+    Spans: ``forces`` around it all, with ``pass_a.kernel`` (in
+    ``pair_cuda``), ``pass_b`` and ``qd`` inside.
     """
+    with span("forces", state.x):
+        return _compute_forces(state, params, geom, cfg, mesh)
+
+
+def _compute_forces(state: State, params: Params, geom: Geometry,
+                    cfg: PairConfig, mesh) -> State:
     from sph_bvf_tpu_torch.ops.pair_cuda import pass_a
 
     NC, cap = state.valid.shape[-1], geom.cap
@@ -857,17 +867,19 @@ def compute_forces(
     # artificial_stress and zhang integrators' moving-wall reflections, so
     # it runs only where the configuration asks for it
     if cfg.solids_present and cfg.weighted_solid:
-        fom = acc["f"] / pf["m"][None]  # f/m once per particle
-        if mesh is not None:
-            (fom,) = ghost_slabs([fom], plane_cells(geom), mesh, wrap_x(geom),
-                                 label="pass_b")
-        acc_b = _pass_b(pf_a, fom, params, geom_a, cfg)
+        with span("pass_b", state.x):
+            fom = acc["f"] / pf["m"][None]  # f/m once per particle
+            if mesh is not None:
+                (fom,) = ghost_slabs([fom], plane_cells(geom), mesh,
+                                     wrap_x(geom), label="pass_b")
+            acc_b = _pass_b(pf_a, fom, params, geom_a, cfg)
     else:
         acc_b = dict(vws=zeros(3), aws=zeros(3))
     # the SSA hops after pass B, which does not read them: under a mesh its
     # exchange then waits for pass A alone, not for the hops as well
     if params.n_ssa > 0 and "Qd" not in acc:
-        acc["Qd"] = _pass_a_qd(pf_a, params, geom_a, cfg, noise)
+        with span("qd", state.x):
+            acc["Qd"] = _pass_a_qd(pf_a, params, geom_a, cfg, noise)
 
     one = torch.ones((), dtype=fdt, device=dev)
     return dataclasses.replace(

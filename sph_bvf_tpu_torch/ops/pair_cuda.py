@@ -57,6 +57,7 @@ from sph_bvf_tpu_torch.core.halo import (SlabGeometry, grid_3d,
 from sph_bvf_tpu_torch.core.state import Geometry, Params
 from sph_bvf_tpu_torch.ops import pair
 from sph_bvf_tpu_torch.ops.kernels import lucy_w_coef, lucy_wfd_coef
+from sph_bvf_tpu_torch.utils import profiler
 
 # K1's, K4's and K3's transport-velocity packed field rows, in the order
 # csrc/pass_a_tv.cuh reads them (R_* there); rhoI is staged only when the
@@ -283,6 +284,13 @@ def pass_a(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict:
     return route(geom, cfg)(pf, params, geom, cfg, noise)
 
 
+def _plain(pf: dict, params: Params, geom: Geometry, cfg, noise) -> dict:
+    """The plain loop in a wrapper's place on a CPU tensor, under the
+    kernel's span."""
+    with profiler.span("pass_a.kernel", pf["x"]):
+        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+
+
 def _finish(result: dict, out_device, cap: int, NC: int) -> dict:
     """``result`` with zeros for every pass-A accumulator the kernel did not
     write (Q without species, the filter rows, ddx and dS): views of one
@@ -369,11 +377,13 @@ def _launch(wrapper, dims, pf: dict, params: Params, geom: Geometry, cfg,
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (4 + len(dims))
                    + [t for t, _ in args] + _NOISE_ARGTYPES + [ctypes.c_void_p])
-    code = fn(PF.data_ptr(), tab.data_ptr(),
-              None if stab is None else stab.data_ptr(), out.data_ptr(),
-              params.ntypes, ns, int(bool(cfg.species_advection)), cap, *dims,
-              *(v for _, v in args), *_noise_args(params, cfg, noise),
-              _build.current_stream(PF.device))
+    with profiler.span("pass_a.kernel", PF):
+        code = fn(PF.data_ptr(), tab.data_ptr(),
+                  None if stab is None else stab.data_ptr(), out.data_ptr(),
+                  params.ntypes, ns, int(bool(cfg.species_advection)), cap,
+                  *dims, *(v for _, v in args),
+                  *_noise_args(params, cfg, noise),
+                  _build.current_stream(PF.device))
     _build.check(lib, code, name)
     # on a slab (halo.SlabGeometry), the sums of its own cells
     first = geom.strides[0] if isinstance(geom, SlabGeometry) else 0
@@ -466,7 +476,7 @@ def pass_a_2d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict
     j from the 3x3 window of its tile (``k4_tile``) staged in shared
     memory, each cell to its tail (``tail_index_of``)."""
     if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+        return _plain(pf, params, geom, cfg, noise)
     result = _two_body_launch(pass_a_2d, geom.ncells[:2], pf, params, geom,
                               cfg, noise)
     pass_a_2d.launches += 1
@@ -483,7 +493,7 @@ def pass_a_2d_preshift(pf: dict, params: Params, geom: Geometry, cfg,
     K1's sums, bitwise; this wrapper counts its own launches.  ``route``
     sends K1's grids here under ``preshift_window``."""
     if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+        return _plain(pf, params, geom, cfg, noise)
     result = _two_body_launch(pass_a_2d_preshift, geom.ncells[:2], pf, params,
                               geom, cfg, noise)
     pass_a_2d_preshift.launches += 1
@@ -538,7 +548,10 @@ def tail_index(valid: torch.Tensor) -> tuple:
     cap = valid.shape[0]
     slots = torch.arange(1, cap + 1, dtype=torch.int32, device=valid.device)
     tails = (valid.bool() * slots[:, None]).amax(0).to(torch.int32)
-    return tails, int(tails.max()) if tails.numel() else 0
+    if not tails.numel():
+        return tails, 0
+    with profiler.sync("tail_depth"):
+        return tails, int(tails.max())
 
 
 # index function -> (valid, its _version, function(valid)), the last of each
@@ -580,7 +593,7 @@ def pass_a_3d(pf: dict, params: Params, geom: Geometry, cfg, noise=None) -> dict
     serves (``tv_body``: the 3D cavities and the solid-free scenes) run
     that leaner body, the rest the full one."""
     if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+        return _plain(pf, params, geom, cfg, noise)
     result = _two_body_launch(pass_a_3d, geom.ncells, pf, params, geom, cfg,
                               noise)
     pass_a_3d.launches += 1
@@ -613,7 +626,7 @@ def pass_a_2d_rowloop(pf: dict, params: Params, geom: Geometry, cfg,
     CPU): K3's physics and walk (``pass_a_3d``) on a 2D grid, periodic in x
     and y."""
     if not pf["x"].is_cuda:
-        return pair._pass_a_plain(pf, params, geom, cfg, noise)
+        return _plain(pf, params, geom, cfg, noise)
     result = _mech_launch(pass_a_2d_rowloop, geom.ncells[:2], pf, params, geom,
                           cfg, noise)
     pass_a_2d_rowloop.launches += 1
